@@ -1,0 +1,59 @@
+"""The PyTorch port imports neither JAX nor the JAX package.
+
+The GPU machine has torch, numpy, scipy and einops, but no jax, flax,
+ml_dtypes, PIL or sklearn. A child interpreter whose import system refuses
+those (and ``jpdvt_mt_ntnu_tpu``) imports every module of the port and
+``chip_smoke`` (without running its ``main``). Output goes to a file, not a
+pipe, so a chatty child cannot block.
+"""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import jpdvt_mt_ntnu_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "jaxlib", "flax", "ml_dtypes", "PIL", "sklearn", "jpdvt_mt_ntnu_tpu")
+
+CHILD = r"""
+import importlib, sys
+BLOCKED = {blocked!r}
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"import of {{name}} refused")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+for mod in {modules!r}:
+    importlib.import_module(mod)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+print("imported", len({modules!r}), "modules")
+"""
+
+
+def _port_modules():
+    pkg = jpdvt_mt_ntnu_tpu_torch
+    names = [pkg.__name__]
+    for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        names.append(info.name)
+    return names
+
+
+def test_port_and_chip_smoke_import_without_jax(tmp_path):
+    modules = _port_modules() + ["chip_smoke"]
+    assert len(modules) >= 20
+    out = tmp_path / "child.log"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    with open(out, "w") as f:
+        proc = subprocess.run(
+            [sys.executable, "-c", CHILD.format(blocked=BLOCKED, modules=modules)],
+            cwd=REPO, stdout=f, stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL,
+            env=env, timeout=300)
+    log = out.read_text()
+    assert proc.returncode == 0, log
+    assert f"imported {len(modules)} modules" in log
