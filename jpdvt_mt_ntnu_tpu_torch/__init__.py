@@ -1,13 +1,16 @@
 """PyTorch/CUDA port of ``jpdvt_mt_ntnu_tpu`` for NVIDIA Hopper (H100).
 
 The JAX package beside this one is the reference; each module here mirrors
-its counterpart's path (``core/``, ``models/``, ``ops/``, ``eval/``,
+its counterpart's path (``core/``, ``models/``, ``ops/``, ``eval/``, ``train/``,
 ``utils/``, ``data/``, ``tools/``). This package imports ``torch`` and
 ``numpy`` only. Entry points run on the card unless the caller passes
 ``device="cpu"``; with no card they raise rather than fall back.
 
 Ported so far: the puzzle solve (``eval.solver.PuzzleSolver``) with the
 DiT, the faithful/fast/iterative samplers, greedy assignment, the weight
-loader for committed artifacts, the synthetic ``waves`` puzzles, and the
-whole-row attention kernel (``ops/csrc/attention.cu``).
+loader for committed artifacts, the synthetic ``waves`` puzzles;
+single-card training (``train/``: loss, AdamW + EMA, checkpoints,
+validation, the ``run_train`` CLI); and the whole-row attention kernels,
+forward (``ops/csrc/attention.cu``) and backward
+(``ops/csrc/attention_bwd.cu``).
 """

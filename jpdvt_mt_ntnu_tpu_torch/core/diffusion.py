@@ -1,7 +1,8 @@
 """DDPM over per-token positional codes, conditioned on scrambled images.
 
 Counterpart of ``jpdvt_mt_ntnu_tpu/core/diffusion.py`` (the reference's
-``image_model/diffusion/gaussian_diffusion.py``), sampling side. The model
+``image_model/diffusion/gaussian_diffusion.py``): the samplers and the
+jigsaw training loss (:meth:`Diffusion.training_losses`). The model
 protocol is the same: ``model_fn(condition, t_original, code) ->
 (image_out, code_out)``, with the respacing remap to original-chain
 timesteps done here.
@@ -30,6 +31,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..ops import jigsaw
 from ..utils.device import default_device
 from .schedules import DiffusionSchedule, make_schedule
 
@@ -37,20 +39,29 @@ ModelFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
                    tuple[torch.Tensor, torch.Tensor]]
 
 _TABLES = ("posterior_mean_coef1", "posterior_mean_coef2", "posterior_variance",
-           "posterior_log_variance_clipped")
+           "posterior_log_variance_clipped", "large_variance", "large_log_variance",
+           "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod",
+           "sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod")
+MEAN_TYPES = ("start_x", "epsilon")
+VAR_TYPES = ("fixed_small", "fixed_large")
 
 
 @dataclasses.dataclass
 class Diffusion:
-    """A (possibly respaced) Gaussian diffusion over positional codes, with
-    the reference's sampling choices: the model predicts x0 (START_X) and
-    the variance is FIXED_SMALL. The float32 tables of ``schedule`` are
-    copied to ``device`` once."""
+    """A (possibly respaced) Gaussian diffusion over positional codes. The
+    reference's choices are the defaults: the model predicts x0
+    (``start_x``) and the variance is ``fixed_small``; ``epsilon`` and
+    ``fixed_large`` are the JAX package's other options. The float32 tables
+    of ``schedule`` are copied to ``device`` once."""
 
     schedule: DiffusionSchedule
     device: torch.device | str | None = None
+    mean_type: str = "start_x"
+    var_type: str = "fixed_small"
 
     def __post_init__(self):
+        if self.mean_type not in MEAN_TYPES or self.var_type not in VAR_TYPES:
+            raise ValueError(f"unknown mean/var type {self.mean_type!r}/{self.var_type!r}")
         self.device = default_device(self.device)
         s = self.schedule
         self.tables = {name: torch.as_tensor(getattr(s, name), device=self.device)
@@ -68,6 +79,21 @@ class Diffusion:
         """Spaced index -> original-chain index for the model's embedding."""
         return self.timestep_map[t]
 
+    def q_sample(self, x_start, t, noise):
+        """Sample q(x_t | x_0) (gaussian_diffusion.py:217-232)."""
+        nd = x_start.ndim
+        return (self._extract("sqrt_alphas_cumprod", t, nd) * x_start
+                + self._extract("sqrt_one_minus_alphas_cumprod", t, nd) * noise)
+
+    def _pred_xstart(self, model_out, x, t, clip_denoised: bool):
+        if self.mean_type == "start_x":
+            pred = model_out
+        else:
+            nd = x.ndim
+            pred = (self._extract("sqrt_recip_alphas_cumprod", t, nd) * x
+                    - self._extract("sqrt_recipm1_alphas_cumprod", t, nd) * model_out)
+        return pred.clamp(-1.0, 1.0) if clip_denoised else pred
+
     def q_posterior_mean_variance(self, x_start, x_t, t):
         """q(x_{t-1} | x_t, x_0) (gaussian_diffusion.py:234-254)."""
         nd = x_t.ndim
@@ -78,13 +104,16 @@ class Diffusion:
 
     def p_mean_variance(self, model_fn: ModelFn, condition, x, t,
                         clip_denoised: bool = True):
-        """p(x_{t-1} | x_t) for the code stream: the model's CODE output is
-        the x0-prediction (gaussian_diffusion.py:281); the variance is
-        FIXED_SMALL, as the reference forces it (:288)."""
+        """p(x_{t-1} | x_t) for the code stream: the model's CODE output
+        (gaussian_diffusion.py:281) read by ``mean_type``; the variance by
+        ``var_type``, as the JAX package's ``p_mean_variance``."""
         _, code_out = model_fn(condition, self.to_original_t(t), x)
-        pred_xstart = code_out.clamp(-1.0, 1.0) if clip_denoised else code_out
+        pred_xstart = self._pred_xstart(code_out, x, t, clip_denoised)
         mean, variance, log_variance = self.q_posterior_mean_variance(
             pred_xstart, x, t)
+        if self.var_type == "fixed_large":
+            variance = self._extract("large_variance", t, x.ndim)
+            log_variance = self._extract("large_log_variance", t, x.ndim)
         return mean, variance, log_variance, pred_xstart
 
     def p_sample(self, model_fn: ModelFn, condition, x, t, noise,
@@ -123,17 +152,90 @@ class Diffusion:
         the model's x0-prediction from the original noise (one model call)."""
         t = torch.zeros((noise.shape[0],), dtype=torch.long, device=noise.device)
         _, code_out = model_fn(condition, self.to_original_t(t), noise)
-        pred = code_out.clamp(-1.0, 1.0) if clip_denoised else code_out
+        pred = self._pred_xstart(code_out, noise, t, clip_denoised)
         return self.q_posterior_mean_variance(pred, noise, t)[0]
+
+    def training_losses(self, model_fn: ModelFn, x_start, t, piece_code, *,
+                        block_size: int, patch_size: int, add_mask: bool = False,
+                        grid_size: int = 3, shared_perm: bool = True,
+                        generator: torch.Generator | None = None,
+                        _inject: dict | None = None) -> dict:
+        """Jigsaw diffusion training loss (gaussian_diffusion.py:736-843,
+        JAX ``core/diffusion.py:218-295``).
+
+        x_start: (B, H, W, C) clean images, NHWC, in [-1, 1]; t: (B,) spaced
+        timestep indices; piece_code: (P, code_dim) canonical grid code.
+        ``shared_perm`` draws one permutation for the batch, as the
+        reference does. Parity quirks kept: masks are drawn on the
+        UNPERMUTED piece layout and not permuted with the pieces; visible
+        regions of the model input are CLEAN pixels, masked holes NOISED
+        ones. Random draws (permutation, masks, image noise, code noise, in
+        that order) come from ``generator``; ``_inject`` may supply any of
+        ``indices``, ``piece_mask``, ``noise_x``, ``noise_c`` instead, which
+        is how the tests feed this and the JAX package the same draws.
+
+        Returns {"loss", "code_mse", "img_mse"} (each (B,)), "indices" and
+        "piece_mask"."""
+        b = x_start.shape[0]
+        grid = grid_size
+        p = grid * grid
+        sub = block_size // patch_size
+        dev = x_start.device
+        inj = _inject or {}
+        indices = inj.get("indices")
+        if indices is None:
+            indices = jigsaw.random_permutations(b, p, shared=shared_perm,
+                                                 generator=generator, device=dev)
+        indices = torch.as_tensor(indices, device=dev, dtype=torch.long)
+        piece_mask = inj.get("piece_mask")
+        if piece_mask is None:
+            piece_mask = (jigsaw.random_piece_masks(b, grid, generator=generator,
+                                                    device=dev)
+                          if add_mask else torch.ones((b, p), device=dev))
+        piece_mask = torch.as_tensor(piece_mask, device=dev, dtype=torch.float32)
+        x_shuf = jigsaw.scramble(x_start, indices, grid)
+        masks = jigsaw.piece_mask_to_image(piece_mask, grid, block_size,
+                                           x_start.shape[-1]).to(x_start.dtype)
+        code_tok = jigsaw.piece_code_to_tokens(piece_code[indices], grid, sub)
+
+        def draw(name, like):
+            z = inj.get(name)
+            if z is None:
+                return torch.randn(like.shape, generator=generator, device=dev,
+                                   dtype=like.dtype)
+            return torch.as_tensor(z, device=dev, dtype=like.dtype)
+
+        noise_x = draw("noise_x", x_shuf)
+        noise_c = draw("noise_c", code_tok)
+        x_t = self.q_sample(x_shuf, t, noise_x)
+        code_t = self.q_sample(code_tok, t, noise_c)
+        x_t = x_t * (1 - masks) + masks * x_shuf
+
+        img_out, code_out = model_fn(x_t, self.to_original_t(t), code_t)
+        if self.mean_type == "start_x":
+            target_c, target_x = code_tok, x_shuf
+        else:
+            target_c, target_x = noise_c, noise_x
+
+        def mean_flat(v):
+            return v.reshape(b, -1).mean(dim=-1)
+
+        code_mse = mean_flat((target_c - code_out) ** 2)
+        img_mse = mean_flat((target_x - img_out) ** 2 * (1 - masks))
+        loss = code_mse + img_mse if add_mask else code_mse
+        return {"loss": loss, "code_mse": code_mse, "img_mse": img_mse,
+                "indices": indices, "piece_mask": piece_mask}
 
 
 def create_diffusion(timestep_respacing: str | None = "",
                      noise_schedule: str = "linear",
+                     predict_xstart: bool = True, sigma_small: bool = True,
                      diffusion_steps: int = 1000, *,
                      device: torch.device | str | None = None) -> Diffusion:
     """The reference defaults (diffusion/__init__.py:10-46): linear betas,
-    1000 base steps, START_X, FIXED_SMALL; tables on ``device`` (default:
-    the card). The JAX package's epsilon and FIXED_LARGE variants serve
-    training configurations and wait for the training port."""
+    1000 base steps, START_X (``predict_xstart``), FIXED_SMALL
+    (``sigma_small``); tables on ``device`` (default: the card)."""
     schedule = make_schedule(timestep_respacing, noise_schedule, diffusion_steps)
-    return Diffusion(schedule=schedule, device=device)
+    return Diffusion(schedule=schedule, device=device,
+                     mean_type="start_x" if predict_xstart else "epsilon",
+                     var_type="fixed_small" if sigma_small else "fixed_large")

@@ -1,1 +1,2 @@
+from .loader import Loader  # noqa: F401
 from .synthetic import SyntheticPuzzles  # noqa: F401

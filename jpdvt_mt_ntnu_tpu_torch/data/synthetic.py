@@ -6,11 +6,28 @@ image with random orientation, frequency and phase. A single piece carries
 no absolute-position signal; the placement is recoverable only from the
 pieces together. Item ``i`` of ``seed`` draws its parameters from
 ``default_rng(seed * 1000003 + i)``, so items equal the JAX package's.
+:meth:`SyntheticPuzzles.device_batch` builds the fields on the card from
+those host-drawn parameters, for any index (the never-repeating training
+stream of ``data.device_stream``).
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+import torch
+
+from ..utils.device import default_device
+
+_TWO_PI = float(2 * np.float32(np.pi))
+
+
+@functools.lru_cache(maxsize=4)
+def _unit_grid(s: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(yy, xx) of ``np.mgrid[0:s, 0:s].astype(np.float32) / s`` on ``device``."""
+    a = torch.arange(s, dtype=torch.float32, device=device) / s
+    return a[:, None].expand(s, s), a[None, :].expand(s, s)
 
 
 class SyntheticPuzzles:
@@ -42,6 +59,26 @@ class SyntheticPuzzles:
     def batch(self, count: int | None = None) -> np.ndarray:
         """The first ``count`` items (all by default), stacked (B, s, s, 3)."""
         return np.stack([self[i] for i in range(self.n if count is None else count)])
+
+    def device_batch(self, indices, device: str | torch.device | None = None
+                     ) -> torch.Tensor:
+        """Items ``indices`` (any non-negative ints, not bounded by ``n``) as
+        a (B, s, s, 3) bfloat16 batch built on ``device`` (default: the
+        card): the counterpart of the JAX package's ``device_batcher``
+        (``data/datasets.py:324-354``). Only the per-item parameter draws
+        run on the host; the fields equal :meth:`__getitem__`'s to fp32
+        rounding before the cast."""
+        device = default_device(device)
+        params = [self._wave_params(int(i)) for i in indices]
+        th, f, ph, amp = (torch.from_numpy(np.stack([p[j] for p in params])).to(device)
+                          for j in range(4))
+        yy, xx = _unit_grid(self.image_size, device)
+        u = (torch.cos(th)[:, :, None, None] * xx
+             + torch.sin(th)[:, :, None, None] * yy)            # (B, K, s, s)
+        base = torch.sin(_TWO_PI * f[:, :, None, None] * u + ph[:, :, None, None])
+        img = (base[..., None] * amp[:, :, None, None, :]).sum(dim=1)  # (B, s, s, 3)
+        peak = img.abs().amax(dim=(1, 2, 3), keepdim=True)
+        return (img / (peak + 1e-6) * 0.9).clamp(-1.0, 1.0).to(torch.bfloat16)
 
     def _wave_params(self, i: int):
         """Per-image (theta, freq, phase, amp), padded to 3 components.

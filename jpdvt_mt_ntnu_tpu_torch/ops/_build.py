@@ -9,6 +9,7 @@ source is rebuilt and an unchanged one is loaded as it is.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -61,6 +62,12 @@ def build(name: str) -> Path:
                            f"{' '.join(cmd)}\n{log.read_text()}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
+
+
+def build_all(*names: str) -> list[Path]:
+    """:func:`build` each source, one ``nvcc`` per source, all started together."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return list(pool.map(build, names))
 
 
 @functools.cache

@@ -1,4 +1,4 @@
-"""Whole-row multi-head attention for the DiT (kernel K1).
+"""Whole-row multi-head attention for the DiT (kernels K1 and K2).
 
 Counterpart of ``jpdvt_mt_ntnu_tpu/ops/attention.py``: :func:`attention` is
 the wrapper of the CUDA kernel in ``csrc/attention.cu``, which replaces the
@@ -8,6 +8,13 @@ Pallas kernel ``_attn_kernel`` (reached there through
 ``_attention_xla``. Semantics as timm's: scale Dh^-1/2 applied to q, no
 mask, no dropout; scores and softmax in fp32, probabilities cast to the V
 type, the product accumulated in fp32, the output in the input type.
+
+:func:`attention_bwd` wraps K2 (``csrc/attention_bwd.cu``), which replaces
+the backward kernel ``_attn_bwd_kernel``; :func:`attention_bwd_reference`
+is its plain version. :func:`fused_qkv_attention` is differentiable: with
+grad on, a ``torch.autograd.Function`` runs K1 forward and K2 backward,
+saving only the fused qkv, as the JAX package's custom VJP saves only
+q, k, v (``:120-136``).
 
 On a CUDA tensor the wrapper launches the kernel or raises; it takes the
 plain version only for tensors on the CPU. The DiT's attention on the card
@@ -38,6 +45,30 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor,
     return o.to(q.dtype)
 
 
+def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor):
+    """Plain PyTorch version of K2: (dq, dk, dv) of :func:`attention` for
+    the output gradient ``do``, all (B, H, N, Dh).
+
+    Mirrors ``_attn_bwd_kernel`` step by step, with its rounding points
+    (not torch autograd of :func:`attention_reference`, which rounds
+    elsewhere in bf16): q * scale rounded to the input type; P in fp32;
+    dV = round(P)^T dO; dP = dO V^T; dS = P (dP - rowsum(dP P)) with the
+    fp32 P, then rounded to the q type; dQ = dS K * scale; dK = dS^T
+    (q * scale). Products in fp32, outputs in the input type."""
+    scale = q.shape[-1] ** -0.5
+    qs = (q * scale).float()
+    p = torch.softmax(torch.matmul(qs, k.float().transpose(-1, -2)), dim=-1)
+    dof = do.float()
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), dof)
+    dp = torch.matmul(dof, v.float().transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dsc = ds.to(q.dtype).float()
+    dq = torch.matmul(dsc, k.float()) * scale
+    dk = torch.matmul(dsc.transpose(-1, -2), qs)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 @functools.cache
 def _kernel():
     lib = _build.load("attention")
@@ -54,11 +85,27 @@ def _kernel():
 
 
 @functools.cache
+def _bwd_kernel():
+    lib = _build.load("attention_bwd")
+    fn = lib.k2_attention_bwd
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.k2_attention_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.k2_attention_bwd_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+@functools.cache
 def _max_smem(device_index: int) -> int:
     return _kernel().k1_attention_max_smem(device_index)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           smem_bytes=None) -> None:
+    """Raise on q, k, v that the kernels cannot take. ``smem_bytes(n,
+    elem)`` is the kernel's shared memory per block (default: K1's)."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"attention kernel needs q, k, v on one CUDA device; "
                          f"got {q.device}, {k.device}, {v.device}")
@@ -78,7 +125,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             t.data_ptr() % (2 * elem) for t in (q, k, v)):
         raise ValueError("the head dim must be contiguous, with even strides "
                          "and pair-aligned pointers")
-    need = _kernel().k1_attention_smem_bytes(q.shape[2], elem)
+    need = (smem_bytes or _kernel().k1_attention_smem_bytes)(q.shape[2], elem)
     have = _max_smem(q.device.index if q.device.index is not None
                      else torch.cuda.current_device())
     if need > have:
@@ -110,10 +157,74 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
 attention.launches = 0
 
 
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, out) -> tuple:
+    """K2: writes (dq, dk, dv) of :func:`attention` for the output gradient
+    ``do`` into ``out`` and returns it.
+
+    q, k, v share (B, H, N, 64) strides; ``do`` has its own; ``out`` is
+    three (B, H, N, 64) views sharing one set of strides (in the train step,
+    slots of the fused-qkv gradient buffer). Each launch adds one to
+    ``attention_bwd.launches``."""
+    if all(t.device.type == "cpu" for t in (q, k, v, do)):
+        for dst, src in zip(out, attention_bwd_reference(q, k, v, do)):
+            dst.copy_(src)
+        return out
+    dq, dk, dv = out
+    _check(q, k, v, _bwd_kernel().k2_attention_bwd_smem_bytes)
+    for t in (do, dq, dk, dv):
+        if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
+            raise ValueError(f"dO and the outputs must match q's device, dtype and "
+                             f"shape; got {t.device}, {t.dtype}, {tuple(t.shape)}")
+        if t.stride(-1) != 1 or any(s % 2 for s in t.stride()[:3]) or (
+                t.data_ptr() % (2 * t.element_size())):
+            raise ValueError("the head dim must be contiguous, with even strides "
+                             "and pair-aligned pointers")
+    if dk.stride() != dq.stride() or dv.stride() != dq.stride():
+        raise ValueError("dq, dk and dv must share strides")
+    b, h, n, d = q.shape
+    err = _bwd_kernel().k2_attention_bwd(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *q.stride()[:3], *do.stride()[:3], *dq.stride()[:3], b, h, n,
+        d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"attention backward kernel launch failed: cudaError {err}")
+    attention_bwd.launches += 1
+    return out
+
+
+attention_bwd.launches = 0
+
+
 def _heads(qkv: torch.Tensor, num_heads: int):
     b, n, f = qkv.shape
     d = f // (3 * num_heads)
     return qkv.reshape(b, n, 3, num_heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+class _FusedQKVAttention(torch.autograd.Function):
+    """K1 forward, K2 backward; saves only ``qkv``."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+        ctx.save_for_backward(qkv)
+        ctx.num_heads = num_heads
+        b, n, _ = qkv.shape
+        return attention(*_heads(qkv, num_heads)).transpose(1, 2).reshape(b, n, -1)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (qkv,) = ctx.saved_tensors
+        h = ctx.num_heads
+        b, n, f = qkv.shape
+        d = f // (3 * h)
+        grad = grad.to(qkv.dtype).contiguous()
+        dqkv = torch.empty((b, n, f), dtype=qkv.dtype, device=qkv.device)
+        # dq, dk, dv land in the [q|k|v][head][dim] slots of one buffer.
+        attention_bwd(*_heads(qkv, h), grad.view(b, n, h, d).transpose(1, 2),
+                      out=_heads(dqkv, h))
+        return dqkv, None
 
 
 def fused_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -121,13 +232,18 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
     qkv: (B, N, 3*H*Dh) in timm's [q|k|v][head][dim] feature order ->
     (B, N, H*Dh). q, k and v are strided views of ``qkv``; on the card the
-    kernel reads them in place and writes the (B, N, H*Dh) layout."""
+    kernel reads them in place and writes the (B, N, H*Dh) layout. With
+    grad on and ``qkv`` requiring it, the result's backward is K2; under
+    ``no_grad``/``inference_mode`` K1 is called directly."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _FusedQKVAttention.apply(qkv, num_heads)
     b, n, _ = qkv.shape
     return attention(*_heads(qkv, num_heads)).transpose(1, 2).reshape(b, n, -1)
 
 
 def fused_qkv_attention_reference(qkv: torch.Tensor,
                                   num_heads: int) -> torch.Tensor:
-    """Plain version of :func:`fused_qkv_attention` (``fused_qkv_attention_xla``)."""
+    """Plain version of :func:`fused_qkv_attention` (``fused_qkv_attention_xla``),
+    differentiated by torch autograd."""
     b, n, _ = qkv.shape
     return attention_reference(*_heads(qkv, num_heads)).transpose(1, 2).reshape(b, n, -1)

@@ -53,8 +53,56 @@ def tokens_to_piece_code(tokens: torch.Tensor, grid: int, sub: int) -> torch.Ten
     return t.reshape(*lead, grid * grid, sub * sub, d).mean(dim=-2)
 
 
-def random_permutations(batch: int, n: int, *, generator: torch.Generator | None = None,
+def piece_code_to_tokens(code: torch.Tensor, grid: int, sub: int) -> torch.Tensor:
+    """(..., P, d) per-piece codes -> (..., N, d) per-token codes in the
+    token raster order (p1 h1 p2 w1), each piece covering ``sub*sub``
+    tokens (reference gaussian_diffusion.py:783-790)."""
+    *lead, p, d = code.shape
+    if p != grid * grid:
+        raise ValueError(f"{p} piece codes for a {grid}x{grid} grid")
+    c = code.reshape(*lead, grid, grid, 1, 1, d).expand(
+        *lead, grid, grid, sub, sub, d)
+    c = c.movedim(-3, -4)  # (..., p1, h1, p2, w1, d)
+    return c.reshape(*lead, (grid * sub) ** 2, d)
+
+
+def random_permutations(batch: int, n: int, *, shared: bool = False,
+                        generator: torch.Generator | None = None,
                         device: torch.device | str = "cpu") -> torch.Tensor:
-    """(B, P) independent random permutations."""
+    """(B, P) random permutations: independent per sample, or one shared by
+    the batch (``shared``, the reference's training draw,
+    gaussian_diffusion.py:756)."""
+    if shared:
+        perm = torch.argsort(torch.rand((n,), generator=generator, device=device))
+        return perm.expand(batch, n)
     keys = torch.rand((batch, n), generator=generator, device=device)
     return torch.argsort(keys, dim=-1)
+
+
+def random_piece_masks(batch: int, grid: int, *,
+                       generator: torch.Generator | None = None,
+                       device: torch.device | str = "cpu") -> torch.Tensor:
+    """(B, P) float piece visibility, 1 = visible: each sample hides
+    ``r ~ Uniform{0..grid-1}`` distinct pieces chosen uniformly
+    (reference gaussian_diffusion.py:763-767)."""
+    p = grid * grid
+    r = torch.randint(0, grid, (batch,), generator=generator, device=device)
+    scores = torch.rand((batch, p), generator=generator, device=device)
+    ranks = torch.argsort(torch.argsort(scores, dim=-1), dim=-1)
+    return (ranks >= r[:, None]).float()
+
+
+def piece_mask_to_image(mask: torch.Tensor, grid: int, piece_px: int,
+                        channels: int = 3) -> torch.Tensor:
+    """(B, P) piece mask -> (B, H, W, C) pixel mask."""
+    b, p = mask.shape
+    m = mask.reshape(b, p, 1, 1, 1).expand(b, p, piece_px, piece_px, channels)
+    return from_pieces(m, grid)
+
+
+def inner_crop_pieces(x: torch.Tensor, grid: int, crop: int) -> torch.Tensor:
+    """Centre-crop each grid piece to ``crop`` px and reassemble (the
+    ImageNet ``--crop`` gap augmentation, train_JPDVT.py:345-349)."""
+    p = to_pieces(x, grid)
+    off = (p.shape[2] - crop) // 2
+    return from_pieces(p[:, :, off:off + crop, off:off + crop, :], grid)

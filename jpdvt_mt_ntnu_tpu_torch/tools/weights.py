@@ -8,6 +8,8 @@ arrays, or the flat ``params/block_0/attn/qkv/kernel`` keys) to the port's
 ``state_dict``: ``block_{i}`` -> ``blocks.{i}``, ``kernel`` (in, out) ->
 ``weight`` (out, in), ``bias`` -> ``bias``. Keys under ``*__bf16`` hold
 bfloat16 bit patterns as uint16; they are widened to float32 bit for bit.
+:func:`load_jax_train_state` carries a whole JAX ``TrainState`` (params,
+EMA and the AdamW moments) into the port's train state.
 """
 
 from __future__ import annotations
@@ -123,3 +125,27 @@ def load_artifact(path: str, *, device: str | torch.device | None = None
     if unused:
         raise ValueError(f"{path}: parameters with no counterpart in the port: {unused}")
     return {k: torch.from_numpy(v).to(device).contiguous() for k, v in sd.items()}, step
+
+
+def _tree_to_tensors(tree: Mapping, what: str) -> dict[str, torch.Tensor]:
+    sd, unused = params_to_state_dict(tree)
+    if unused:
+        raise ValueError(f"{what}: entries with no counterpart in the port: {unused}")
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+            for k, v in sd.items()}
+
+
+def load_jax_train_state(state, *, step: int, params: Mapping,
+                         ema_params: Mapping, mu: Mapping, nu: Mapping,
+                         count: int):
+    """Carry a whole JAX ``TrainState`` into the port's ``train.TrainState``
+    in place: params, ``ema_params`` and optax's AdamW ``mu``/``nu``/
+    ``count`` (numpy trees of the JAX layout: Dense kernels (in, out)).
+    Raises on any entry that has no place, or any place left unfilled."""
+    sd = {"step": int(step),
+          "model": _tree_to_tensors(params, "params"),
+          "ema": _tree_to_tensors(ema_params, "ema_params"),
+          "opt": {"count": int(count), "mu": _tree_to_tensors(mu, "mu"),
+                  "nu": _tree_to_tensors(nu, "nu")}}
+    state.load_state_dict(sd)
+    return state

@@ -1,4 +1,4 @@
-"""Kernel K1 of the PyTorch port against the JAX package's attention.
+"""Kernels K1 and K2 of the PyTorch port against the JAX package's attention.
 
 The port's plain version (``attention_reference``, the path its wrapper
 takes for CPU tensors) is held against the Pallas kernel run in interpret
@@ -10,6 +10,15 @@ Tolerances: fp32 differs only by summation order and exp rounding, 1e-5
 absolute at |o| <= 3. bf16 rounds P and O to bf16 in both; a different
 exp or sum order can flip one rounding by one bf16 ulp (2^-8 relative),
 so 2e-2 absolute at |o| <= 3.
+
+K2's plain version (``attention_bwd_reference``) is held against the
+Pallas backward kernel in interpret mode (``_attention_pallas_bwd``),
+relative to each gradient's largest magnitude: fp32 1e-5 (summation
+order), bf16 2^-6 (the two round dS and the outputs at the same points; a
+summation order that flips one rounding moves a value by one bf16 ulp,
+2^-8 of its scale). The autograd wiring (K1 forward, K2 backward, dq/dk/dv
+written into one fused-qkv gradient) is held against torch autograd of the
+plain forward in fp32, 1e-5 of scale.
 """
 
 import jax.numpy as jnp
@@ -18,11 +27,12 @@ import pytest
 import torch
 
 from jpdvt_mt_ntnu_tpu.ops.attention import (
-    _attention_pallas_fwd_only, _attention_xla, fused_qkv_attention,
-    fused_qkv_attention_xla)
+    _attention_pallas_bwd, _attention_pallas_fwd_only, _attention_xla,
+    fused_qkv_attention, fused_qkv_attention_xla)
 from jpdvt_mt_ntnu_tpu_torch.ops import attention as port
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+BWD_TOL = {"float32": 1e-5, "bfloat16": 2 ** -6}
 SHAPES = [(2, 4, 16, 16), (1, 2, 144, 64), (2, 3, 37, 64)]
 
 
@@ -85,3 +95,62 @@ def test_wrapper_refuses_a_device_without_a_kernel():
     q = torch.empty((1, 2, 9, 64), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         port.attention(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [9, 77, 144])
+def test_k2_plain_matches_pallas_interpret(n, dtype):
+    rng = np.random.default_rng(n)
+    arrays = [rng.standard_normal((2, 2, n, 64)).astype(np.float32) for _ in range(4)]
+    mine = port.attention_bwd_reference(*(_torch(a, dtype) for a in arrays))
+    want = _attention_pallas_bwd(*(_jax(a, dtype) for a in arrays), interpret=True)
+    for name, m, w in zip(("dq", "dk", "dv"), mine, want):
+        assert m.dtype == getattr(torch, dtype)
+        w = _np(w)
+        np.testing.assert_allclose(_np(m), w, rtol=0,
+                                   atol=BWD_TOL[dtype] * np.abs(w).max(), err_msg=name)
+
+
+def test_k2_plain_is_not_autograd_of_the_plain_forward_in_bf16():
+    """The rounding points differ from torch autograd of attention_reference
+    (which is why K2 has its own plain version)."""
+    rng = np.random.default_rng(5)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((1, 2, 77, 64)).astype(
+        np.float32)).bfloat16() for _ in range(4))
+    qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
+    port.attention_reference(qa, ka, va).backward(do)
+    mine = port.attention_bwd_reference(q, k, v, do)
+    assert any(not torch.equal(m, a.grad) for m, a in zip(mine, (qa, ka, va)))
+
+
+def test_fused_qkv_autograd_wiring_matches_plain_autograd():
+    rng = np.random.default_rng(6)
+    qkv = torch.from_numpy(rng.standard_normal((2, 37, 3 * 3 * 64)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((2, 37, 3 * 64)).astype(np.float32))
+    a = qkv.clone().requires_grad_(True)
+    out = port.fused_qkv_attention(a, 3)
+    assert out.grad_fn is not None and "FusedQKVAttention" in type(out.grad_fn).__name__
+    out.backward(g)
+    b = qkv.clone().requires_grad_(True)
+    port.fused_qkv_attention_reference(b, 3).backward(g)
+    assert a.grad.shape == qkv.shape and a.grad.is_contiguous()
+    np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), rtol=0,
+                               atol=1e-5 * b.grad.abs().max().item())
+
+
+def test_no_grad_path_skips_the_autograd_function():
+    qkv = torch.zeros((1, 9, 3 * 2 * 64), requires_grad=True)
+    with torch.no_grad():
+        assert port.fused_qkv_attention(qkv, 2).grad_fn is None
+    with torch.inference_mode():
+        assert port.fused_qkv_attention(qkv.detach(), 2).grad_fn is None
+
+
+def test_cpu_backward_counts_no_launch():
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs((1, 2, 9, 64), seed=2) + _inputs((1, 2, 9, 64), seed=3)[:1])
+    before = port.attention_bwd.launches
+    out = tuple(torch.empty_like(q) for _ in range(3))
+    got = port.attention_bwd(q, k, v, do, out=out)
+    assert got is out and port.attention_bwd.launches == before
+    for m, w in zip(out, port.attention_bwd_reference(q, k, v, do)):
+        assert torch.equal(m, w)

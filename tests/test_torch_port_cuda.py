@@ -1,4 +1,5 @@
-"""Kernel K1 on the card against its plain version.
+"""Kernels K1 and K2 on the card against their plain versions, and the
+DiT's gradients through them against plain autograd.
 
 Skips without a CUDA card. This file imports no JAX, so it also runs on a
 GPU machine that has none; there ``tests/conftest.py`` (which imports JAX)
@@ -6,21 +7,34 @@ must be left out:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
-Tolerances as in ``chip_smoke.py``: bf16 2e-2 absolute (one bf16 ulp of an
-output of magnitude ~2 if exp or summation order flips a rounding), fp32
-1e-4 (summation order).
+Tolerances as in ``chip_smoke.py``: K1 bf16 2e-2 absolute (one bf16 ulp of
+an output of magnitude ~2 if exp or summation order flips a rounding),
+fp32 1e-4 (summation order). K2, relative to each gradient's largest
+magnitude: bf16 2^-6 (a summation order that flips the bf16 rounding of dS
+or of an output moves it by one ulp, 2^-8 of its scale), fp32 1e-5.
+The DiT's gradients with K1/K2 against plain autograd in fp32: 1e-4 of
+each gradient's largest magnitude (K2 rounds nothing in fp32; the two
+differ by summation order through twelve blocks).
 """
 
+import numpy as np
 import pytest
 import torch
 
+from jpdvt_mt_ntnu_tpu_torch.core.diffusion import create_diffusion
+from jpdvt_mt_ntnu_tpu_torch.models import create_model, dit
 from jpdvt_mt_ntnu_tpu_torch.ops import attention as port
+from jpdvt_mt_ntnu_tpu_torch.utils.pos_embed import grid_code
+
+K2_TOL = {torch.bfloat16: 2 ** -6, torch.float32: 1e-5}
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 is a CUDA kernel with no CPU mode")
+        pytest.skip("needs a CUDA card: K1 and K2 are CUDA kernels with no CPU mode")
 
 
 @pytest.mark.parametrize("b,n,dtype", [(16, 144, torch.bfloat16),
@@ -48,3 +62,85 @@ def test_k1_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     q = torch.zeros((1, 2, 4096, 64), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="shared memory"):
         port.attention(q, q, q)
+
+
+@pytest.mark.parametrize("b,n,dtype", [(32, 144, torch.bfloat16),
+                                       (3, 77, torch.bfloat16),
+                                       (2, 200, torch.bfloat16),
+                                       (2, 144, torch.float32)])
+def test_k2_cuda_kernel_matches_plain(cuda, b, n, dtype):
+    gen = torch.Generator("cuda").manual_seed(n + 1)
+    qkv = torch.randn((b, n, 3 * 12 * 64), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((b, n, 12 * 64), generator=gen, device="cuda").to(dtype)
+    heads = qkv.reshape(b, n, 3, 12, 64).permute(2, 0, 3, 1, 4).unbind(0)
+    dov = do.view(b, n, 12, 64).transpose(1, 2)
+    buf = torch.empty_like(qkv)
+    out = buf.view(b, n, 3, 12, 64).permute(2, 0, 3, 1, 4).unbind(0)
+    before = port.attention_bwd.launches
+    port.attention_bwd(*heads, dov, out=out)
+    torch.cuda.synchronize()
+    assert port.attention_bwd.launches == before + 1
+    for got, want in zip(out, port.attention_bwd_reference(*heads, dov)):
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= K2_TOL[dtype] * scale, (err, scale)
+
+
+def test_dit_gradients_through_k1_k2_match_plain_autograd(cuda):
+    """The check that fails when attention's backward drops the gradient
+    (an output written by a kernel outside autograd has no grad_fn)."""
+    model, cfg = create_model("JPDVT", 48, seed=0, depth=2, hidden_size=128,
+                              num_heads=2)
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.from_numpy(0.05 * rng.standard_normal(p.shape).astype(np.float32)))
+    diff = create_diffusion("")
+    x = torch.from_numpy(rng.uniform(-1, 1, (4, 48, 48, 3)).astype(np.float32)).cuda()
+    t = torch.tensor([0, 250, 500, 999], device="cuda")
+    code = torch.as_tensor(grid_code(8, 3), device="cuda")
+    inject = {"indices": np.stack([rng.permutation(9) for _ in range(4)]),
+              "noise_x": rng.standard_normal((4, 48, 48, 3)).astype(np.float32),
+              "noise_c": rng.standard_normal((4, 9, 8)).astype(np.float32)}
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        out = diff.training_losses(model, x, t, code, block_size=16, patch_size=16,
+                                   _inject=inject)
+        out["loss"].mean().backward()
+        return {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    launches = port.attention_bwd.launches
+    mine = grads()
+    assert port.attention_bwd.launches == launches + cfg.depth
+    kernel_route = dit.fused_qkv_attention
+    dit.fused_qkv_attention = port.fused_qkv_attention_reference
+    try:
+        plain = grads()
+    finally:
+        dit.fused_qkv_attention = kernel_route
+    assert mine["blocks.0.attn.qkv.weight"].abs().max() > 0
+    for k, want in plain.items():
+        scale = want.abs().max().item()
+        err = (mine[k] - want).abs().max().item()
+        assert err <= 1e-4 * scale + 1e-12, (k, err, scale)
+
+
+def test_k2_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    def call(n=9, do_dtype=torch.bfloat16, out_stride_mismatch=False):
+        qkv = torch.zeros((1, n, 3 * 2 * 64), device="cuda", dtype=torch.bfloat16)
+        heads = qkv.reshape(1, n, 3, 2, 64).permute(2, 0, 3, 1, 4).unbind(0)
+        do = torch.zeros((1, 2, n, 64), device="cuda", dtype=do_dtype)
+        out = [torch.empty_like(qkv).reshape(1, n, 3, 2, 64).permute(2, 0, 3, 1, 4)[i]
+               for i in range(3)]
+        if out_stride_mismatch:
+            out[2] = torch.empty((1, 2, n, 64), device="cuda", dtype=torch.bfloat16)
+        port.attention_bwd(*heads, do, out=out)
+
+    with pytest.raises(ValueError, match="dtype"):
+        call(do_dtype=torch.float32)
+    with pytest.raises(ValueError, match="share strides"):
+        call(out_stride_mismatch=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        call(n=206)
+    call(n=205)

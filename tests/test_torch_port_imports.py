@@ -1,8 +1,9 @@
 """The PyTorch port imports neither JAX nor the JAX package.
 
 The GPU machine has torch, numpy, scipy and einops, but no jax, flax,
-ml_dtypes, PIL or sklearn. A child interpreter whose import system refuses
-those (and ``jpdvt_mt_ntnu_tpu``) imports every module of the port and
+optax, orbax, ml_dtypes, PIL or sklearn. A child interpreter whose import
+system refuses those (and ``jpdvt_mt_ntnu_tpu``) imports every module of
+the port (the training modules included) and
 ``chip_smoke`` (without running its ``main``). Output goes to a file, not a
 pipe, so a chatty child cannot block.
 """
@@ -15,7 +16,8 @@ import sys
 import jpdvt_mt_ntnu_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "ml_dtypes", "PIL", "sklearn", "jpdvt_mt_ntnu_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "PIL", "sklearn",
+           "jpdvt_mt_ntnu_tpu")
 
 CHILD = r"""
 import importlib, sys
@@ -46,7 +48,8 @@ def _port_modules():
 
 def test_port_and_chip_smoke_import_without_jax(tmp_path):
     modules = _port_modules() + ["chip_smoke"]
-    assert len(modules) >= 20
+    assert len(modules) >= 30
+    assert "jpdvt_mt_ntnu_tpu_torch.train.run_train" in modules
     out = tmp_path / "child.log"
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     with open(out, "w") as f:
