@@ -10,7 +10,9 @@ Ported so far: the puzzle solve (``eval.solver.PuzzleSolver``) with the
 DiT, the faithful/fast/iterative samplers, greedy assignment, the weight
 loader for committed artifacts, the synthetic ``waves`` puzzles;
 single-card training (``train/``: loss, AdamW + EMA, checkpoints,
-validation, the ``run_train`` CLI); and the whole-row attention kernels,
-forward (``ops/csrc/attention.cu``) and backward
-(``ops/csrc/attention_bwd.cu``).
+validation, the ``run_train`` CLI) at the flagship's 3x3 geometry and the
+grid-20 one (320 px, 400 tokens); the whole-row attention kernels, forward
+(``ops/csrc/attention.cu``) and backward (``ops/csrc/attention_bwd.cu``),
+and the flash attention kernels, forward (``ops/csrc/flash_fwd.cu``) and
+backward (``ops/csrc/flash_bwd.cu``), routed by ``ops.attention.attention_route``.
 """

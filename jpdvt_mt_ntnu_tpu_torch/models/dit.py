@@ -5,8 +5,11 @@ Counterpart of ``jpdvt_mt_ntnu_tpu/models/dit.py`` (the reference's
 the JAX parameters carry over one to one (``tools/weights.py``):
 
 - the patch embed is a Linear over (row, col, channel)-ordered patches;
-- attention is timm's fused qkv (``[q|k|v][head][dim]``) through kernel K1
-  (``ops/attention.py``) on the card;
+- attention is timm's fused qkv (``[q|k|v][head][dim]``) on the route that
+  ``ops.attention.attention_route`` picks from ``attn_impl``, the sequence
+  length, the type and whether grad is on: the whole-row kernels K1/K2
+  (``ops/attention.py``) or the flash kernels K4-K6
+  (``ops/flash_attention.py``);
 - the MLP's GELU is the tanh approximation, LayerNorms have eps 1e-6, no
   affine, and compute their statistics in fp32 as Flax's do in bf16;
 - two heads: the unpatchified image and an 8-dim positional code per token,
@@ -26,7 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import fused_qkv_attention
+from ..ops.attention import attention_route, fused_qkv_attention
+from ..ops.flash_attention import fused_qkv_flash_attention
 from ..utils.device import default_device
 from ..utils.pos_embed import get_2d_sincos_pos_embed, timestep_embedding
 
@@ -43,6 +47,7 @@ class DiTConfig:
     code_dim: int = 8
     code_head_hidden: int = 64
     dtype: torch.dtype = torch.float32  # compute type
+    attn_impl: str | None = None  # None (auto), "pallas" (K1/K2) or "flash" (K4-K6)
 
     @property
     def tokens_per_side(self) -> int:
@@ -92,25 +97,34 @@ class Mlp(nn.Module):
 
 
 class Attention(nn.Module):
-    """timm-compatible MHA: fused qkv projection, K1, output projection."""
+    """timm-compatible MHA: fused qkv projection, attention on the route
+    :func:`attention_route` picks, output projection."""
 
-    def __init__(self, hidden_size: int, num_heads: int):
+    def __init__(self, hidden_size: int, num_heads: int, attn_impl: str | None = None):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_impl = attn_impl
         self.qkv = Linear(hidden_size, 3 * hidden_size)
         self.proj = Linear(hidden_size, hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.proj(fused_qkv_attention(self.qkv(x), self.num_heads))
+        qkv = self.qkv(x)
+        route = attention_route(
+            qkv.shape[1], qkv.dtype, torch.is_grad_enabled() and qkv.requires_grad,
+            self.attn_impl, head_dim=qkv.shape[2] // (3 * self.num_heads),
+            on_card=qkv.is_cuda)
+        attend = fused_qkv_flash_attention if route == "flash" else fused_qkv_attention
+        return self.proj(attend(qkv, self.num_heads))
 
 
 class DiTBlock(nn.Module):
     """Pre-LN transformer block with adaLN-Zero conditioning (models.py:101-122)."""
 
-    def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float):
+    def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float,
+                 attn_impl: str | None = None):
         super().__init__()
         self.adaLN_modulation = Linear(hidden_size, 6 * hidden_size)
-        self.attn = Attention(hidden_size, num_heads)
+        self.attn = Attention(hidden_size, num_heads, attn_impl)
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio))
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -167,7 +181,7 @@ class DiT(nn.Module):
         self.code_in = Linear(cfg.code_dim, cfg.hidden_size)
         self.t_embedder = TimestepEmbedder(cfg.hidden_size)
         self.blocks = nn.ModuleList(
-            DiTBlock(cfg.hidden_size, cfg.num_heads, cfg.mlp_ratio)
+            DiTBlock(cfg.hidden_size, cfg.num_heads, cfg.mlp_ratio, cfg.attn_impl)
             for _ in range(cfg.depth))
         self.final_layer = FinalLayer(cfg.hidden_size, cfg.patch_dim)
         self.code_out1 = Linear(cfg.patch_dim, cfg.code_head_hidden)
@@ -245,7 +259,8 @@ def create_model(name: str, input_size: int, *,
                  **overrides) -> tuple[DiT, DiTConfig]:
     """Build a registered configuration with float32 parameters on
     ``device`` (default: the card; raises without one), initialised from
-    ``seed``. ``overrides`` replace config fields, e.g. ``dtype=torch.bfloat16``."""
+    ``seed``. ``overrides`` replace config fields, e.g. ``dtype=torch.bfloat16``
+    or ``attn_impl="flash"``."""
     if name not in DIT_CONFIGS:
         raise KeyError(f"unknown model {name!r}; choose from {sorted(DIT_CONFIGS)}")
     device = default_device(device)

@@ -17,9 +17,12 @@ saving only the fused qkv, as the JAX package's custom VJP saves only
 q, k, v (``:120-136``).
 
 On a CUDA tensor the wrapper launches the kernel or raises; it takes the
-plain version only for tensors on the CPU. The DiT's attention on the card
-always goes through the kernel: the TPU package's routing by sequence
-length (``default_impl``) was a TPU measurement and is not carried over.
+plain version only for tensors on the CPU.
+
+:func:`attention_route` picks the DiT's route, the counterpart of
+``default_impl`` (``:168``), whose TPU thresholds do not carry over: the
+whole-row kernels where their shared memory fits (K1; K1 + K2 with grad
+on), the flash kernels K4-K6 (``ops/flash_attention.py``) beyond.
 """
 
 from __future__ import annotations
@@ -33,6 +36,58 @@ from . import _build
 
 HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Dynamic shared memory one block may opt into on Hopper (H100, H200), the
+# only target the kernels are built for (sm_90a).
+HOPPER_MAX_SMEM = 232448
+# model.attn_impl values the port runs: None (auto), "pallas" (the
+# whole-row kernels K1/K2, as the JAX name), "flash" (K4-K6).
+ATTN_IMPLS = (None, "pallas", "flash")
+
+
+def k1_smem_bytes(n: int, elem: int) -> int:
+    """K1's shared memory per block (``csrc/attention.cu`` ``smem_bytes``):
+    K and V rows of Dh + 2, a 32-row fp32 query tile and its fp32 score rows."""
+    return 2 * n * (HEAD_DIM + 2) * elem + 32 * (HEAD_DIM + 2) * 4 + 32 * (n + 1) * 4
+
+
+def k2_smem_bytes(n: int, elem: int) -> int:
+    """K2's shared memory per block (``csrc/attention_bwd.cu`` ``smem_bytes``):
+    K, V, fp32 dK/dV accumulators, the q and dO tiles, fp32 P and dP rows."""
+    row = HEAD_DIM + 2
+    return 2 * n * row * elem + 2 * n * row * 4 + 2 * 32 * row * 4 + 2 * 32 * (n + 1) * 4
+
+
+@functools.cache
+def attention_route(n: int, dtype: torch.dtype, grad: bool, attn_impl=None, *,
+                    head_dim: int = HEAD_DIM, on_card: bool = True) -> str:
+    """The DiT attention's route for N tokens: ``"whole_row"`` (K1, and K2
+    as its backward when ``grad``) or ``"flash"`` (K4, and K5 + K6).
+
+    ``attn_impl`` None takes the whole-row kernels where their shared
+    memory fits a Hopper block (bf16: N <= 571 without grad, <= 205 with
+    it; fp32: 341 and 164) and flash beyond; ``"pallas"`` insists on the
+    whole-row kernels and ``"flash"`` on the flash ones. The CPU takes the
+    same route through the plain versions, which hold no limit of Dh or
+    dtype; ``on_card`` adds the kernels' (Dh 64, fp32 or bf16). Raises
+    ``ValueError`` naming the reason where no kernel takes the geometry."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl={attn_impl!r} is not ported; the port runs "
+                         f"{ATTN_IMPLS}")
+    if on_card and (head_dim != HEAD_DIM or dtype not in _DTYPE_CODES):
+        raise ValueError(f"no attention kernel takes head dim {head_dim} in {dtype}; "
+                         f"the kernels take Dh == {HEAD_DIM}, float32 or bfloat16")
+    if attn_impl == "flash":
+        return "flash"
+    elem = torch.empty((), dtype=dtype).element_size()
+    need = max(k1_smem_bytes(n, elem), k2_smem_bytes(n, elem) if grad else 0)
+    if need <= HOPPER_MAX_SMEM:
+        return "whole_row"
+    if attn_impl == "pallas":
+        raise ValueError(f"attn_impl='pallas' at N={n} in {dtype}"
+                         f"{' with grad' if grad else ''}: the whole-row kernels "
+                         f"need {need} B of shared memory per block, more than "
+                         f"the {HOPPER_MAX_SMEM} B a Hopper block has")
+    return "flash"
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -133,6 +188,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"block; this device allows {have} B")
 
 
+def _check_like(q: torch.Tensor, *tensors: torch.Tensor) -> None:
+    """Raise unless each tensor (dO, O, the gradients) matches q's device,
+    dtype and shape, with a contiguous head dim, even strides and
+    pair-aligned pointers (its strides may differ from q's)."""
+    for t in tensors:
+        if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
+            raise ValueError(f"dO, O and the outputs must match q's device, dtype "
+                             f"and shape; got {t.device}, {t.dtype}, {tuple(t.shape)}")
+        if t.stride(-1) != 1 or any(s % 2 for s in t.stride()[:3]) or (
+                t.data_ptr() % (2 * t.element_size())):
+            raise ValueError("the head dim must be contiguous, with even strides "
+                             "and pair-aligned pointers")
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K1. q, k, v: (B, H, N, 64), any batch/head/token strides -> (B, H, N, 64).
 
@@ -172,14 +241,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     dq, dk, dv = out
     _check(q, k, v, _bwd_kernel().k2_attention_bwd_smem_bytes)
-    for t in (do, dq, dk, dv):
-        if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
-            raise ValueError(f"dO and the outputs must match q's device, dtype and "
-                             f"shape; got {t.device}, {t.dtype}, {tuple(t.shape)}")
-        if t.stride(-1) != 1 or any(s % 2 for s in t.stride()[:3]) or (
-                t.data_ptr() % (2 * t.element_size())):
-            raise ValueError("the head dim must be contiguous, with even strides "
-                             "and pair-aligned pointers")
+    _check_like(q, do, dq, dk, dv)
     if dk.stride() != dq.stride() or dv.stride() != dq.stride():
         raise ValueError("dq, dk and dv must share strides")
     b, h, n, d = q.shape

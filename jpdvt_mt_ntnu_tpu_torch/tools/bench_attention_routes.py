@@ -1,0 +1,86 @@
+"""The whole-row kernels against the flash kernels on the card, by sequence length.
+
+For each N and batch, bf16, H = 12, Dh = 64, q/k/v as strided views of a
+fused (B, N, 3*H*Dh) projection (the DiT's layout): microseconds per call
+by CUDA events of K1 against K4 (the no-grad forward), and of K1 + K2
+against K4 + K5 + K6 (forward and backward, the train step's attention).
+A route whose shared memory does not fit a block at that N is "n/a". The
+table ``ops.attention.attention_route`` applies is printed beside each
+row. Prints one JSON line per (N, batch).
+
+    python -m jpdvt_mt_ntnu_tpu_torch.tools.bench_attention_routes \\
+        [--n 144 205 324 400 576] [--batch 32 96]
+
+Needs a CUDA card; it fails without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from ..ops import attention as attn_ops
+from ..ops import flash_attention as flash_ops
+
+HEADS, HEAD_DIM = 12, 64
+
+
+def _us(fn, reps: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return 1e3 * start.elapsed_time(stop) / reps
+
+
+def bench(n: int, b: int, gen: torch.Generator) -> dict:
+    dtype = torch.bfloat16
+    shape = (b, n, 3, HEADS, HEAD_DIM)
+    qkv = torch.randn((b, n, 3 * HEADS * HEAD_DIM), generator=gen, device="cuda").to(dtype)
+    q, k, v = qkv.view(shape).permute(2, 0, 3, 1, 4).unbind(0)
+    do = torch.randn((b, n, HEADS * HEAD_DIM), generator=gen, device="cuda").to(dtype)
+    do = do.view(b, n, HEADS, HEAD_DIM).transpose(1, 2)
+    grads = torch.empty_like(qkv).view(shape).permute(2, 0, 3, 1, 4).unbind(0)
+    elem = qkv.element_size()
+    fits_k1 = attn_ops.k1_smem_bytes(n, elem) <= attn_ops.HOPPER_MAX_SMEM
+    fits_k2 = attn_ops.k2_smem_bytes(n, elem) <= attn_ops.HOPPER_MAX_SMEM
+    row = {"n": n, "batch": b, "dtype": "bfloat16",
+           "route_no_grad": attn_ops.attention_route(n, dtype, False),
+           "route_grad": attn_ops.attention_route(n, dtype, True)}
+    o, lse = flash_ops.flash_attention_fwd(q, k, v)
+    row["k4_us"] = _us(lambda: flash_ops.flash_attention_fwd(q, k, v))
+    row["k5_us"] = _us(lambda: flash_ops.flash_dq(q, k, v, o, lse, do, grads[0]))
+    row["k6_us"] = _us(lambda: flash_ops.flash_dkv(q, k, v, o, lse, do, *grads[1:]))
+    row["flash_fwd_bwd_us"] = row["k4_us"] + row["k5_us"] + row["k6_us"]
+    row["k1_us"] = _us(lambda: attn_ops.attention(q, k, v)) if fits_k1 else "n/a"
+    row["k2_us"] = (_us(lambda: attn_ops.attention_bwd(q, k, v, do, out=grads))
+                    if fits_k2 else "n/a")
+    row["whole_row_fwd_bwd_us"] = (row["k1_us"] + row["k2_us"] if fits_k1 and fits_k2
+                                   else "n/a")
+    return row
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--n", type=int, nargs="+", default=[144, 205, 324, 400, 576])
+    ap.add_argument("--batch", type=int, nargs="+", default=[32, 96])
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_attention_routes needs a CUDA card")
+    gen = torch.Generator("cuda").manual_seed(0)
+    for n in args.n:
+        for b in args.batch:
+            print(json.dumps({"device": torch.cuda.get_device_name(0), **bench(n, b, gen)}),
+                  flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

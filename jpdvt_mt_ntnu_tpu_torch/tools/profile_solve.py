@@ -24,6 +24,8 @@ import torch
 def _group(name: str) -> str:
     if "attention_fwd_kernel" in name:
         return "k1_attention"
+    if "flash_fwd_kernel" in name:
+        return "k4_flash_fwd"
     low = name.lower()
     if any(tag in low for tag in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
         return "gemm"

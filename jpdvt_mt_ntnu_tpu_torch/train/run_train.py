@@ -12,11 +12,14 @@ Counterpart of ``jpdvt_mt_ntnu_tpu/train/run_train.py``, with the same
 A fresh start, ``train.resume=<checkpoint dir>`` and ``train.warm_start=``
 (an artifact manifest/npz, or a checkpoint directory of this package) are
 supported. The run runs on the card; ``device=cpu`` (an argument without a
-section) runs it on the CPU instead. Not ported yet, and refused with
-``NotImplementedError`` where their keys are set: the mesh (data, tensor,
-FSDP, pipeline, expert and sequence parallelism, multi-host),
-``task.multi_grid``, ``data.device_cache``, datasets other than the
-synthetic ``waves``, MoE and int8 models, attention routes.
+section) runs it on the CPU instead. ``model.attn_impl`` takes None
+(auto), ``pallas`` (the whole-row kernels K1/K2) or ``flash`` (K4-K6). Not
+ported yet, and refused with ``NotImplementedError`` where their keys are
+set, before any weights load: the mesh (data, tensor, FSDP, pipeline,
+expert and sequence parallelism, multi-host), ``task.multi_grid``,
+``data.device_cache``, datasets other than the synthetic ``waves``, MoE and
+int8 models, the other attention routes, and any geometry that no
+attention kernel takes (``ops.attention.attention_route``).
 
 SIGTERM/SIGINT: the loop finishes its step, saves a checkpoint and exits
 with code 42 (``PREEMPTED_EXIT``) for a wrapper to relaunch with
@@ -37,7 +40,8 @@ import torch
 
 from ..core.diffusion import create_diffusion
 from ..data import Loader, SyntheticPuzzles
-from ..models import create_model
+from ..models import DIT_CONFIGS, create_model
+from ..ops.attention import ATTN_IMPLS, attention_route
 from ..tools.weights import load_artifact
 from ..utils.config import Config, apply_overrides
 from ..utils.device import default_device
@@ -46,14 +50,16 @@ from ..utils.pos_embed import grid_code
 from .checkpoint import CheckpointManager
 from .state import create_train_state, make_optimizer
 from .steps import TrainTask, make_train_step
-from .validate import Validator
+from .validate import Validator, jax_draws
 
 # Exit code signalling "preempted after a clean checkpoint".
 PREEMPTED_EXIT = 42
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for every set key the port cannot run."""
+def check_supported(cfg: Config, on_card: bool = True) -> None:
+    """Raise ``NotImplementedError`` for every set key the port cannot run,
+    and for a model whose attention no kernel takes (``on_card``: the
+    kernels' limits; the CPU's plain versions take any head dim)."""
     m, t, d, mesh = cfg.model, cfg.task, cfg.data, cfg.mesh
     refused = []
     if mesh.data not in (-1, 1) or any(getattr(mesh, k) != 1 for k in
@@ -74,8 +80,17 @@ def check_supported(cfg: Config) -> None:
         refused.append("synthetic cue regimes other than data.synthetic_cues=waves")
     if m.quant or m.moe_experts or m.moe_capacity:
         refused.append("model.quant / model.moe_*")
-    if m.attn_impl is not None:
-        refused.append("model.attn_impl (the DiT's attention always runs K1/K2)")
+    if m.attn_impl not in ATTN_IMPLS:
+        refused.append(f"model.attn_impl={m.attn_impl!r} (the port runs {ATTN_IMPLS})")
+    elif m.name in DIT_CONFIGS:
+        arch = {**DIT_CONFIGS[m.name], **m.overrides()}
+        dtype = torch.bfloat16 if m.compute_dtype == "bfloat16" else torch.float32
+        try:  # the train step's route; the no-grad validation then fits too
+            attention_route((m.image_size // arch["patch_size"]) ** 2, dtype, True,
+                            m.attn_impl, head_dim=arch["hidden_size"] // arch["num_heads"],
+                            on_card=on_card)
+        except ValueError as e:
+            refused.append(f"the attention of model.image_size={m.image_size}: {e}")
     if m.matmul_precision not in (None, "highest"):
         refused.append("model.matmul_precision other than 'highest'")
     if refused:
@@ -121,8 +136,9 @@ def _split_device(argv) -> tuple[list[str], str | None]:
 def main(argv=None, device: str | torch.device | None = None) -> int:
     argv, cli_device = _split_device(sys.argv[1:] if argv is None else argv)
     cfg = apply_overrides(Config(), argv)
-    check_supported(cfg)
-    device = default_device(device if device is not None else cli_device)
+    device = device if device is not None else cli_device
+    check_supported(cfg, on_card=torch.device(device or "cuda").type == "cuda")
+    device = default_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -141,7 +157,7 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
     size, grid = cfg.model.image_size, cfg.task.grid_size
     model, model_cfg = create_model(cfg.model.name, size, device=device,
                                     seed=cfg.train.global_seed, dtype=dtype,
-                                    **cfg.model.overrides())
+                                    attn_impl=cfg.model.attn_impl, **cfg.model.overrides())
     toks = size // model_cfg.patch_size
     if size % grid or toks % grid:
         raise SystemExit(f"task grid {grid} must divide image_size ({size}) and "
@@ -206,6 +222,21 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
         logger.info(f"Warm-started from {ws} [{src}] at step {ema_anchor} "
                     "(EMA reset to params, warmup re-armed)")
 
+    # train.epochs is a TOTAL budget from this run's anchor step, persisted
+    # in the exp dir beside the EMA warmup anchor, so that a resume
+    # recomputes the same target and keeps a warm start's EMA warmup.
+    anchor_path = os.path.join(exp_dir, "step_anchor.json")
+    if os.path.exists(anchor_path):
+        with open(anchor_path) as f:
+            anchors = json.load(f)
+        start_anchor = int(anchors["start_step"])
+        if cfg.train.resume:  # an anchor file from before the key reads as 0
+            ema_anchor = int(anchors.get("ema_anchor", 0))
+    else:
+        start_anchor = state.step
+        with open(anchor_path, "w") as f:
+            json.dump({"start_step": start_anchor, "ema_anchor": ema_anchor}, f)
+
     task = TrainTask(grid_size=grid, block_size=size // grid,
                      patch_size=model_cfg.patch_size, add_mask=cfg.task.add_mask,
                      shared_perm=cfg.task.shared_perm, ema_decay=cfg.train.ema_decay,
@@ -224,11 +255,13 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
     val_ds = SyntheticPuzzles(load_size, n=128, seed=7, cues="waves")
     loader = Loader(train_ds, d.global_batch_size, shuffle=True,
                     seed=cfg.train.global_seed, num_workers=d.num_workers)
+    # The JAX validator's own puzzles where they are committed (grid 3 at
+    # 192 px, grid 20 at 320 px), else the port's draws.
     validator = Validator(model_cfg, grid_size=grid,
                           sampling_steps=cfg.diffusion.sampling_steps,
                           sampler_mode=cfg.diffusion.sampler_mode,
                           crop_pieces=size // grid if cfg.task.crop else None,
-                          device=device)
+                          device=device, **jax_draws(grid, model_cfg.num_tokens))
 
     # Stream cursor in items: item index = step * batch, so a resumed run
     # continues the never-repeating stream where its checkpoint stopped.
@@ -246,17 +279,7 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
         for batch in loader:
             yield torch.from_numpy(batch).to(device, non_blocking=True)
 
-    # train.epochs is a TOTAL budget from this run's anchor step, persisted
-    # in the exp dir so that resumes recompute the same target.
     steps_per_epoch = max(1, len(loader))
-    anchor_path = os.path.join(exp_dir, "step_anchor.json")
-    if os.path.exists(anchor_path):
-        with open(anchor_path) as f:
-            start_anchor = int(json.load(f)["start_step"])
-    else:
-        start_anchor = state.step
-        with open(anchor_path, "w") as f:
-            json.dump({"start_step": start_anchor}, f)
     target_steps = start_anchor + cfg.train.epochs * steps_per_epoch
     logger.info(f"Training for {cfg.train.epochs} epochs, {steps_per_epoch} "
                 f"steps/epoch (anchor {start_anchor}, target step {target_steps})")

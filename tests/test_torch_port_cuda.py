@@ -1,5 +1,5 @@
-"""Kernels K1 and K2 on the card against their plain versions, and the
-DiT's gradients through them against plain autograd.
+"""Kernels K1, K2 and K4-K6 on the card against their plain versions, and
+the DiT's gradients through them against plain autograd.
 
 Skips without a CUDA card. This file imports no JAX, so it also runs on a
 GPU machine that has none; there ``tests/conftest.py`` (which imports JAX)
@@ -15,6 +15,12 @@ or of an output moves it by one ulp, 2^-8 of its scale), fp32 1e-5.
 The DiT's gradients with K1/K2 against plain autograd in fp32: 1e-4 of
 each gradient's largest magnitude (K2 rounds nothing in fp32; the two
 differ by summation order through twelve blocks).
+
+K4 against its plain version at the kernel's own key tile (``BLOCK_K``):
+as K1, 2e-2 absolute in bf16 (both round exp(S - m) per tile at the same
+points; exp or summation order can flip one rounding by one ulp), 1e-4 in
+fp32; the LSE 1e-4 absolute (fp32, summation order). K5 and K6 as K2. The
+DiT's gradients through K4-K6 as through K1/K2.
 """
 
 import numpy as np
@@ -24,6 +30,7 @@ import torch
 from jpdvt_mt_ntnu_tpu_torch.core.diffusion import create_diffusion
 from jpdvt_mt_ntnu_tpu_torch.models import create_model, dit
 from jpdvt_mt_ntnu_tpu_torch.ops import attention as port
+from jpdvt_mt_ntnu_tpu_torch.ops import flash_attention as flash
 from jpdvt_mt_ntnu_tpu_torch.utils.pos_embed import grid_code
 
 K2_TOL = {torch.bfloat16: 2 ** -6, torch.float32: 1e-5}
@@ -144,3 +151,104 @@ def test_k2_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         call(n=206)
     call(n=205)
+
+
+def _fused(b, n, dtype, gen, heads=12):
+    qkv = torch.randn((b, n, 3 * heads * 64), generator=gen, device="cuda").to(dtype)
+    return qkv.reshape(b, n, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+@pytest.mark.parametrize("b,n,dtype", [(4, 400, torch.bfloat16),
+                                       (3, 77, torch.bfloat16),
+                                       (2, 401, torch.bfloat16),
+                                       (2, 200, torch.float32)])
+def test_k4_cuda_kernel_matches_plain(cuda, b, n, dtype):
+    gen = torch.Generator("cuda").manual_seed(n + 2)
+    q, k, v = _fused(b, n, dtype, gen)
+    before = flash.flash_attention_fwd.launches
+    o, lse = flash.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert flash.flash_attention_fwd.launches == before + 1
+    ref_o, ref_lse = flash.flash_attention_fwd_reference(q, k, v, flash.BLOCK_K)
+    assert (o.float() - ref_o.float()).abs().max().item() <= (
+        2e-2 if dtype == torch.bfloat16 else 1e-4)
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("b,n,dtype", [(4, 400, torch.bfloat16),
+                                       (3, 77, torch.bfloat16),
+                                       (2, 401, torch.bfloat16),
+                                       (2, 200, torch.float32)])
+def test_k5_k6_cuda_kernels_match_plain(cuda, b, n, dtype):
+    gen = torch.Generator("cuda").manual_seed(n + 3)
+    q, k, v = _fused(b, n, dtype, gen)
+    o, lse = flash.flash_attention_fwd_reference(q, k, v, flash.BLOCK_K)
+    do = torch.randn((b, n, 12 * 64), generator=gen, device="cuda").to(dtype)
+    do = do.view(b, n, 12, 64).transpose(1, 2)
+    buf = torch.empty((b, n, 3 * 12 * 64), dtype=dtype, device="cuda")
+    out = buf.view(b, n, 3, 12, 64).permute(2, 0, 3, 1, 4).unbind(0)
+    before = (flash.flash_dq.launches, flash.flash_dkv.launches)
+    flash.flash_attention_bwd(q, k, v, o, lse, do, out=out)
+    torch.cuda.synchronize()
+    assert (flash.flash_dq.launches, flash.flash_dkv.launches) == (before[0] + 1,
+                                                                   before[1] + 1)
+    for got, want in zip(out, flash.flash_attention_bwd_reference(q, k, v, o, lse, do)):
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= K2_TOL[dtype] * scale, (err, scale)
+
+
+def test_flash_cuda_wrappers_refuse_what_the_kernels_cannot_take(cuda):
+    q = torch.zeros((1, 2, 9, 32), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Dh == 64"):
+        flash.flash_attention_fwd(q, q, q)
+    q = torch.zeros((1, 2, 9, 64), device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash.flash_attention_fwd(q, q, q)
+    q = torch.zeros((1, 2, 9, 64), device="cuda", dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 9), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="lse"):
+        flash.flash_attention_bwd(q, q, q, q, lse, q, out=(q.clone(), q.clone(), q.clone()))
+    long = torch.zeros((1, 2, 4096, 64), device="cuda", dtype=torch.bfloat16)
+    o, lse = flash.flash_attention_fwd(long, long, long)  # no length limit
+    assert o.shape == long.shape and lse.shape == (1, 2, 4096)
+
+
+def test_dit_gradients_through_k4_k5_k6_match_plain_autograd(cuda):
+    model, cfg = create_model("JPDVT", 96, seed=0, depth=2, hidden_size=128,
+                              num_heads=2, attn_impl="flash")
+    rng = np.random.default_rng(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.from_numpy(0.05 * rng.standard_normal(p.shape).astype(np.float32)))
+    diff = create_diffusion("")
+    x = torch.from_numpy(rng.uniform(-1, 1, (4, 96, 96, 3)).astype(np.float32)).cuda()
+    t = torch.tensor([0, 250, 500, 999], device="cuda")
+    code = torch.as_tensor(grid_code(8, 6), device="cuda")
+    inject = {"indices": np.stack([rng.permutation(36) for _ in range(4)]),
+              "noise_x": rng.standard_normal((4, 96, 96, 3)).astype(np.float32),
+              "noise_c": rng.standard_normal((4, 36, 8)).astype(np.float32)}
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        out = diff.training_losses(model, x, t, code, block_size=16, patch_size=16,
+                                   grid_size=6, _inject=inject)
+        out["loss"].mean().backward()
+        return {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    launches = (flash.flash_attention_fwd.launches, flash.flash_dq.launches,
+                flash.flash_dkv.launches)
+    mine = grads()
+    assert (flash.flash_attention_fwd.launches, flash.flash_dq.launches,
+            flash.flash_dkv.launches) == tuple(x + cfg.depth for x in launches)
+    kernel_route = dit.fused_qkv_flash_attention
+    dit.fused_qkv_flash_attention = port.fused_qkv_attention_reference
+    try:
+        plain = grads()
+    finally:
+        dit.fused_qkv_flash_attention = kernel_route
+    assert mine["blocks.0.attn.qkv.weight"].abs().max() > 0
+    for k, want in plain.items():
+        scale = want.abs().max().item()
+        err = (mine[k] - want).abs().max().item()
+        assert err <= 1e-4 * scale + 1e-12, (k, err, scale)

@@ -413,7 +413,8 @@ def test_run_train_budget_resume_and_device_stream(tmp_path, caplog):
     assert run_train.main(TINY + [f"train.exp_dir={exp}", "train.epochs=3",
                                   f"train.resume={exp}/checkpoints"]) == 0
     assert _last_step(exp) == 12
-    assert json.loads((exp / "step_anchor.json").read_text()) == {"start_step": 0}
+    assert json.loads((exp / "step_anchor.json").read_text()) == {"start_step": 0,
+                                                                  "ema_anchor": 0}
     rows = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
     loops = [r["summary"] for r in rows if "summary" in r]
     # Each run's summary counts the images of its own loop: 8, then 4 steps of 8.
@@ -445,7 +446,8 @@ def test_warm_start_resets_ema_and_rearms_warmup(tmp_path, source):
     else:
         assert run_train.main(args) == 0
     start = 0 if source == "npz" else 7
-    assert json.loads((exp / "step_anchor.json").read_text()) == {"start_step": start}
+    assert json.loads((exp / "step_anchor.json").read_text()) == {"start_step": start,
+                                                                  "ema_anchor": start}
     assert (f"at step {start} (EMA reset to params, warmup re-armed)"
             in (exp / "log.txt").read_text())
     sd = torch.load(exp / "checkpoints" / str(start + 4) / "state.pt", weights_only=True)
@@ -464,6 +466,41 @@ def test_run_train_refuses_what_is_not_ported():
                   ["model.attn_impl=xla"]):
         with pytest.raises(NotImplementedError):
             run_train.main(TINY + extra)
+
+
+def test_warm_started_run_resumed_equals_four_straight_steps(tmp_path):
+    """Warm start (step 7), 2 steps, resume, 2 steps == 4 straight steps,
+    bit for bit: the resume keeps the warm start's EMA warmup anchor."""
+    ws = _manifest(tmp_path, 7)
+    args = TINY + ["data.synthetic_n=16", "data.device_stream=true",
+                   "train.ema_warmup=true", "train.lr=0.01"]
+    straight = tmp_path / "straight"
+    assert run_train.main(args + [f"train.exp_dir={straight}", "train.epochs=2",
+                                  f"train.warm_start={ws}"]) == 0
+    split = tmp_path / "split"
+    assert run_train.main(args + [f"train.exp_dir={split}", "train.epochs=1",
+                                  f"train.warm_start={ws}"]) == 0
+    assert run_train.main(args + [f"train.exp_dir={split}", "train.epochs=2",
+                                  f"train.resume={split}/checkpoints"]) == 0
+    a, b = (torch.load(d / "checkpoints" / "11" / "state.pt", weights_only=True)
+            for d in (straight, split))
+    assert a["step"] == b["step"] == 11
+    for part in ("model", "ema"):
+        for k, w in a[part].items():
+            assert torch.equal(b[part][k], w), (part, k)
+    assert json.loads((split / "step_anchor.json").read_text()) == {"start_step": 7,
+                                                                  "ema_anchor": 7}
+
+
+def test_resume_reads_an_anchor_file_without_the_ema_key_as_zero(tmp_path):
+    exp = tmp_path / "exp"
+    assert run_train.main(TINY + [f"train.exp_dir={exp}", "train.epochs=1",
+                                  "train.ema_warmup=true"]) == 0
+    (exp / "step_anchor.json").write_text(json.dumps({"start_step": 0}))
+    assert run_train.main(TINY + [f"train.exp_dir={exp}", "train.epochs=2",
+                                  "train.ema_warmup=true",
+                                  f"train.resume={exp}/checkpoints"]) == 0
+    assert _last_step(exp) == 8
 
 
 def test_sigterm_checkpoints_and_exits_42(tmp_path):
