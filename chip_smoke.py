@@ -59,18 +59,45 @@ tokens), where the flash kernels K4-K6 carry training:
     template, the routes' launch counts, the K1 and flash routes' piece
     distances against each other, puzzles/s at batch 32.
 
+then the fused attention sublayer K3 and the evaluation path:
+
+13. hold K3 (``model.attn_impl="block"``: qkv projection, attention and
+    output projection in one call of two launches) against its plain
+    version with the weights of the artifact's first DiT block, in bf16 at
+    (B, N) = (32, 144), (32, 400), (16, 144), in fp32 at N = 144, and at
+    ragged N (77, 200, 401); time it beside its bound, its plain version,
+    the ``linear -> SDPA -> linear`` yardstick and the port's default route
+    (cuBLAS + K1 + cuBLAS);
+14. the eval path on ``waves3_r5_step10000`` through ``run_eval.main``:
+    1,024 synthetic waves puzzles at ``eval.seed=11``, batch 64, fast, bf16,
+    with the JAX harness's seed-11 draws and noise template
+    (``tests/golden``), on the default route and on ``block`` (12 K3
+    launches per microbatch solve and no K1; the routes' per-puzzle
+    agreement), ``eval.votes=4`` and ``eval.assignment=hungarian`` on
+    ``block``, a run cut at ``eval.limit=512`` and resumed (equal to the
+    uninterrupted journal), faithful-250 = fast bit for bit at 1.00 on the
+    16 export-smoke puzzles on ``block``, and puzzles/s: the harness's
+    (its wall time, journal included) on both routes, faithful-250 and
+    fast at batch 32 on ``block`` beside the default route, alternating.
+
 ``python3 chip_smoke.py --grid20-artifact`` (the copy must then hold
 ``waves20_hard_step32700`` in place of waves3) skips the phases that read
 the waves3 artifact (3, 4, 7, 8), warm-starts phase 11 from the artifact
 at step 32,700 (losses <= 1/10 of a fresh model's on the same batches and
 draws), solves the fixed set in phase 12 with the EMA model beside the
 unchanged artifact, and runs the ``run_train`` CLI at grid 20 (warm start,
-checkpoint, validation, resume).
+checkpoint, validation, resume); phase 14 is replaced by ``run_eval``
+on the grid-20 artifact (1,024 puzzles, seed 11, batch 64, fast, bf16) on
+the default route (K1 at N = 400) and on ``block`` (K3 at N = 400),
+greedy and ``eval.votes=4``, each held to the JAX package's TPU journals
+(``logs/waves20_hard_eval``: 0.9180 / 0.9938, and
+``logs/waves20_hard_votes_eval``: 0.9199 / 0.9936) within 0.012 puzzle
+and 0.002 patch accuracy, with the per-puzzle agreement printed.
 
 The last three lines are the ``kernels`` JSON (each kernel with the
 launches of its own path and its shape: K1 once for the solve and once for
-the train step, K2, K4, K5, K6), the card's name and power limit, and the
-device JSON.
+the train step, K2, K3 on the eval path, K4, K5, K6), the card's name and
+power limit, and the device JSON.
 """
 
 from __future__ import annotations
@@ -90,6 +117,7 @@ import torch.nn.functional as F
 
 from jpdvt_mt_ntnu_tpu_torch.core.diffusion import create_diffusion
 from jpdvt_mt_ntnu_tpu_torch.data import SyntheticPuzzles
+from jpdvt_mt_ntnu_tpu_torch.eval import run_eval
 from jpdvt_mt_ntnu_tpu_torch.eval.solver import PuzzleSolver
 from jpdvt_mt_ntnu_tpu_torch.models import create_model
 from jpdvt_mt_ntnu_tpu_torch.models import dit
@@ -108,6 +136,20 @@ NOISE_TEMPLATE = os.path.join(REPO, "tests", "golden", "jax_noise_seed0_1x144x8.
 ARTIFACT20 = os.path.join(REPO, "artifacts", "waves20_hard_step32700.manifest.json")
 NOISE_TEMPLATE20 = os.path.join(REPO, "tests", "golden", "jax_noise_seed0_1x400x8.npy")
 SIZE20, GRID20, TOKENS20 = 320, 20, 400
+EVAL_DRAWS = os.path.join(REPO, "tests", "golden", "jax_eval_draws_seed11_b64.npz")
+EVAL_NOISE = {n: os.path.join(REPO, "tests", "golden", f"jax_noise_seed11_1x{n}x8.npy")
+              for n in (144, 400)}
+EVAL_PIECES = {144: 9, 400: 400}  # grid 3 at 192 px, grid 20 at 320 px
+# The JAX package's 1,024-puzzle seed-11 evals of waves20_hard_step32700
+# (faithful-250 on a TPU: logs/waves20_hard_eval, logs/waves20_hard_votes_eval),
+# held to +-0.012 puzzle accuracy (about 12 of 1,024 borderline puzzles that
+# bf16 on another chip may flip) and +-0.002 patch accuracy.
+JAX_EVAL20 = {1: ("logs/waves20_hard_eval", 0.9180, 0.9938),
+              4: ("logs/waves20_hard_votes_eval", 0.9199, 0.9936)}
+EVAL_PUZZLE_TOL, EVAL_PATCH_TOL = 0.012, 0.002
+# Phase 14: the default and block routes' per-puzzle agreement on the
+# waves3 eval (bf16 on both, rounded at other points).
+ROUTE_AGREE = 0.97
 
 # H100 SXM published peaks (NVIDIA data sheet) for the bound.
 HBM_BYTES_PER_S = 3.35e12
@@ -360,6 +402,7 @@ def plain_attention():
 
 
 COUNTERS = {"k1": attn_ops.attention, "k2": attn_ops.attention_bwd,
+            "k3": attn_ops.fused_attention_block,
             "k4": flash_ops.flash_attention_fwd, "k5": flash_ops.flash_dq,
             "k6": flash_ops.flash_dkv}
 
@@ -664,7 +707,7 @@ def check_training20(sd, start: int) -> dict:
         log(f"  grid-20 train step {state.step}: loss {losses[-1]:.6f}, grad_norm "
             f"{metrics['grad_norm'].item():.4f}, launches {per_step[-1]}")
     launches = counts()
-    want = {"k1": 0, "k2": 0, "k4": cfg.depth, "k5": cfg.depth, "k6": cfg.depth}
+    want = {"k1": 0, "k2": 0, "k3": 0, "k4": cfg.depth, "k5": cfg.depth, "k6": cfg.depth}
     if any(ls != want for ls in per_step):
         raise AssertionError(f"launches per step {per_step}, expected {want}")
     if not all(np.isfinite(losses)):
@@ -875,6 +918,250 @@ def train_grid3(g3: dict, card: str) -> tuple:
     return launches_train
 
 
+def k3_bound_ms(b: int, n: int, dtype: torch.dtype, hidden: int = HEADS * HEAD_DIM
+                ) -> tuple[float, str]:
+    """Least time for K3's work: x read and the output written once, the
+    weights read once, against the products 2 B N D 4D + 4 B H N^2 Dh."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    t_bytes = (2 * b * n * hidden + 4 * hidden * hidden) * elem / HBM_BYTES_PER_S
+    t_ops = (2 * b * n * hidden * 4 * hidden
+             + 4 * b * HEADS * n * n * HEAD_DIM) / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def first_block(sd) -> tuple:
+    """The first DiT block's attention weights of a state dict, on the card."""
+    return tuple(sd[f"blocks.0.attn.{k}"].cuda() for k in
+                 ("qkv.weight", "qkv.bias", "proj.weight", "proj.bias"))
+
+
+def check_k3(b: int, n: int, dtype: torch.dtype, weights: tuple, gen: torch.Generator,
+             timed: bool) -> dict:
+    """K3 on one DiT block's weights, in ``dtype`` with the biases rounded
+    through it and kept fp32 (as the solver hands them over), against its
+    plain version; relative to the output's largest magnitude."""
+    wq, bq, wp, bp = (w.to(dtype) for w in weights)
+    ops = attn_ops.dense_to_block_weights(wq, bq.float(), wp, bp.float(), HEADS)
+    x = torch.randn((b, n, HEADS * HEAD_DIM), generator=gen, device="cuda").to(dtype)
+    out = attn_ops.fused_attention_block(x, *ops, HEADS)
+    torch.cuda.synchronize()
+    ref = attn_ops.fused_attention_block_plain(x, *ops, HEADS).float()
+    scale = ref.abs().max().item()
+    err = (out.float() - ref).abs().max().item()
+    if not err <= TOL[dtype] * scale:
+        raise AssertionError(f"K3 {(b, n)} {dtype}: max abs err {err} > {TOL[dtype]} x {scale}")
+    row = {"shape": [b, n, HEADS * HEAD_DIM], "dtype": str(dtype).split(".")[-1],
+           "max_abs_err": err, "scale": scale, "rel_tol": TOL[dtype]}
+    if timed:
+        def library():
+            qkv = F.linear(x, wq, bq).view(b, n, 3, HEADS, HEAD_DIM).permute(2, 0, 3, 1, 4)
+            o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])
+            return F.linear(o.transpose(1, 2).reshape(b, n, -1), wp, bp)
+
+        def default_route():
+            return F.linear(attn_ops.fused_qkv_attention(F.linear(x, wq, bq), HEADS), wp, bp)
+
+        row["ms"] = cuda_ms(lambda: attn_ops.fused_attention_block(x, *ops, HEADS), 20)
+        row["plain_ms"] = cuda_ms(
+            lambda: attn_ops.fused_attention_block_plain(x, *ops, HEADS), 5)
+        row["library_ms"] = cuda_ms(library, 50)
+        row["library_covers"] = "F.linear -> scaled_dot_product_attention -> F.linear"
+        row["default_route_ms"] = cuda_ms(default_route, 50)
+        row["bound_ms"], row["bound_by"] = k3_bound_ms(b, n, dtype)
+    log("K3 " + json.dumps(row))
+    return row
+
+
+def run_eval_cli(tmp: str, name: str, artifact: str, tokens: int, *extra: str,
+                 expect: int = 1024) -> dict:
+    """``run_eval.main`` on the 1,024 seed-11 waves puzzles at batch 64,
+    fast, bf16, with the JAX harness's draws and template, journaling into
+    ``tmp/name``: the journal (``expect`` rows), this run's kernel launches,
+    and the harness's wall time from its log."""
+    logs = os.path.join(tmp, name)
+    before = counts()
+    code = run_eval.main([
+        f"eval.checkpoint={artifact}", "data.dataset=synthetic", "data.synthetic_cues=waves",
+        "eval.seed=11", "eval.batch_size=64", "diffusion.sampler_mode=fast",
+        f"eval.jax_draws={EVAL_DRAWS}", f"eval.jax_noise={EVAL_NOISE[tokens]}",
+        f"eval.logs_dir={logs}", *extra])
+    launched = launched_since(before)
+    rows = journal_rows(os.path.join(logs, "inference_progress.csv"))
+    secs = [float(line.rsplit(":", 1)[1].strip().rstrip("s"))
+            for line in open(os.path.join(logs, "inference_log.txt"))
+            if "Total inference time:" in line][-1]
+    n = len(rows)
+    out = {"name": name, "exit": code, "n": n, "launches": launched,
+           "puzzle_acc": sum(r[0] for r in rows.values()) / max(n, 1),
+           "patch_acc": sum(r[1] for r in rows.values()) / max(n * EVAL_PIECES[tokens], 1),
+           "harness_s": secs, "puzzles_per_s": n / secs if secs else 0.0, "rows": rows}
+    log(f"  run_eval {name}: " + json.dumps({k: v for k, v in out.items() if k != "rows"}))
+    if code != 0 or n != expect:
+        raise AssertionError(f"run_eval {name}: exit {code}, {n} journal rows")
+    return out
+
+
+def journal_rows(path: str) -> dict:
+    """filename -> (puzzle_correct, patch_matches); raises on a repeated name."""
+    import csv
+
+    rows = {}
+    with open(path, newline="") as f:
+        for r in csv.DictReader(f):
+            if r["filename"] in rows:
+                raise AssertionError(f"{path}: {r['filename']} journaled twice")
+            rows[r["filename"]] = (int(r["puzzle_correct"]), int(r["patch_matches"]))
+    return rows
+
+
+def agreement(a: dict, b: dict) -> float:
+    """Share of puzzles whose puzzle_correct agrees between two journals."""
+    return sum(a[k][0] == b[k][0] for k in a) / len(a)
+
+
+def eval_grid3(card: str) -> dict:
+    """Phase 14: the eval path on the waves3 artifact, both routes."""
+    t0 = time.perf_counter()
+    per_mb = 12 * 2  # 12 blocks, two microbatches of 32 per batch of 64
+    with tempfile.TemporaryDirectory() as tmp:
+        default = run_eval_cli(tmp, "default", ARTIFACT, TOKENS)
+        zero_counts()
+        block = run_eval_cli(tmp, "block", ARTIFACT, TOKENS, "model.attn_impl=block")
+        eval_launches = counts()
+        want = {k: 0 for k in COUNTERS}
+        if default["launches"] != {**want, "k1": 16 * per_mb}:
+            raise AssertionError(f"default route launches {default['launches']}")
+        if eval_launches != {**want, "k3": 16 * per_mb}:
+            raise AssertionError(f"block route launches {eval_launches}, expected "
+                                 f"{16 * per_mb} K3 and no K1")
+        agree = agreement(default["rows"], block["rows"])
+        log(f"  routes agree on {agree:.4f} of the puzzles (limit {ROUTE_AGREE})")
+        if not agree >= ROUTE_AGREE:
+            raise AssertionError(f"the default and block routes agree on {agree}")
+        votes = run_eval_cli(tmp, "block_votes4", ARTIFACT, TOKENS, "model.attn_impl=block",
+                             "eval.votes=4")
+        hung = run_eval_cli(tmp, "block_hungarian", ARTIFACT, TOKENS,
+                            "model.attn_impl=block", "eval.assignment=hungarian")
+        if votes["launches"]["k3"] != 4 * 16 * per_mb or hung["launches"]["k3"] != 16 * per_mb:
+            raise AssertionError(f"votes / hungarian K3 launches {votes['launches']}, "
+                                 f"{hung['launches']}")
+        cut = run_eval_cli_resumed(tmp, block)
+    # Faithful-250 and fast of the 16 export-smoke puzzles on the block route.
+    sd, _ = load_artifact(ARTIFACT)
+    models = {}
+    for impl in (None, "block"):
+        model, cfg = create_model("JPDVT", 192, dtype=torch.bfloat16, attn_impl=impl)
+        model.load_state_dict(sd)
+        models[impl] = (model, cfg)
+    del sd
+    template = np.load(NOISE_TEMPLATE)
+    x16, perms16 = wave_puzzles(16, 123)
+    model, cfg = models["block"]
+    x_scr = jigsaw.scramble(torch.as_tensor(x16, device="cuda"),
+                            torch.as_tensor(perms16, device="cuda"), 3)
+    res = {}
+    for mode in ("fast", "faithful"):
+        solver = PuzzleSolver(model, cfg, create_diffusion("250"), grid_size=3, mode=mode,
+                              noise_template=template)
+        before = counts()
+        pred, dist = solver.solve_codes(x_scr)
+        launched = launched_since(before)
+        acc = float((pred.cpu().numpy() == perms16).all(axis=1).mean())
+        res[mode] = (pred, dist)
+        log(f"  block route {mode}: 16 export-smoke puzzles, puzzle acc {acc:.4f}, "
+            f"launches {launched}")
+        steps_ = 1 if mode == "fast" else STEPS
+        if launched != {**{k: 0 for k in COUNTERS}, "k3": cfg.depth * steps_} or acc != 1.0:
+            raise AssertionError(f"block route {mode}: launches {launched}, accuracy {acc}")
+    if not (torch.equal(res["fast"][0], res["faithful"][0])
+            and torch.equal(res["fast"][1], res["faithful"][1])):
+        raise AssertionError("block route: faithful-250 and fast differ")
+    log("  block route: faithful-250 equals fast bit for bit")
+    # Puzzles/s at batch 32, the routes alternating (default, block, block, default).
+    x32, perms32 = wave_puzzles(32, 7)
+    pps = {f"{impl or 'default'}_{mode}": [] for impl in (None, "block")
+           for mode in ("faithful", "fast")}
+    for mode, reps in (("faithful", 1), ("fast", 10)):
+        solvers = {impl: PuzzleSolver(*models[impl], create_diffusion("250"), grid_size=3,
+                                      mode=mode, noise_template=template)
+                   for impl in models}
+        for s_ in solvers.values():
+            s_.evaluate(x32[:2], perms32[:2])  # warm
+        for impl in (None, "block", "block", None):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(reps):
+                solvers[impl].evaluate(x32, perms32)
+            pps[f"{impl or 'default'}_{mode}"].append(32 * reps / (time.perf_counter() - t1))
+    row = {"default": {k: default[k] for k in ("puzzle_acc", "patch_acc", "harness_s",
+                                                "puzzles_per_s")},
+           "block": {k: block[k] for k in ("puzzle_acc", "patch_acc", "harness_s",
+                                            "puzzles_per_s")},
+           "block_votes4": {k: votes[k] for k in ("puzzle_acc", "patch_acc", "puzzles_per_s")},
+           "block_hungarian": {k: hung[k] for k in ("puzzle_acc", "patch_acc",
+                                                     "puzzles_per_s")},
+           "route_agreement": agree, "resume": cut, "eval_launches": eval_launches,
+           "puzzles_per_s_batch32_bf16": pps}
+    log(f"eval on {card}: " + json.dumps(row))
+    log(f"phase eval: {time.perf_counter() - t0:.2f} s")
+    return row
+
+
+def run_eval_cli_resumed(tmp: str, whole: dict) -> dict:
+    """``eval.limit=512``, then the rest in the same journal: the rows (and
+    so the totals) must equal the uninterrupted block-route run's."""
+    args = (ARTIFACT, TOKENS, "model.attn_impl=block")
+    run_eval_cli(tmp, "resumed", *args, "eval.limit=512", expect=512)
+    rest = run_eval_cli(tmp, "resumed", *args)
+    same = rest["rows"] == whole["rows"]
+    out = {"rows": rest["n"], "puzzle_acc": rest["puzzle_acc"], "patch_acc": rest["patch_acc"],
+           "equals_uninterrupted": same}
+    log("  resume: " + json.dumps(out))
+    if not same:
+        raise AssertionError(f"resume: {out}")
+    return out
+
+
+def eval_grid20(card: str) -> tuple[dict, dict]:
+    """``--grid20-artifact``: run_eval on waves20_hard_step32700 on both
+    routes, greedy and votes = 4, against the JAX package's TPU journals."""
+    t0 = time.perf_counter()
+    row, block_launches = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        for votes in (1, 4):
+            journal, want_puzzle, want_patch = JAX_EVAL20[votes]
+            theirs = journal_rows(os.path.join(REPO, journal, "inference_progress.csv"))
+            for impl in (None, "block"):
+                name = f"{impl or 'default'}_votes{votes}"
+                extra = [f"model.image_size={SIZE20}", f"task.grid_size={GRID20}",
+                         f"eval.votes={votes}"] + (["model.attn_impl=block"] if impl else [])
+                if impl and votes == 1:
+                    zero_counts()
+                res = run_eval_cli(tmp, name, ARTIFACT20, TOKENS20, *extra)
+                if impl and votes == 1:
+                    block_launches = counts()
+                kernel = "k3" if impl else "k1"
+                if res["launches"][kernel] != votes * 16 * 2 * 12:
+                    raise AssertionError(f"{name}: launches {res['launches']}")
+                agree = agreement(res["rows"], theirs)
+                d_puzzle = res["puzzle_acc"] - want_puzzle
+                d_patch = res["patch_acc"] - want_patch
+                row[name] = {k: res[k] for k in ("puzzle_acc", "patch_acc", "harness_s",
+                                                  "puzzles_per_s")}
+                row[name].update(jax_puzzle_acc=want_puzzle, jax_patch_acc=want_patch,
+                                 per_puzzle_agreement_with_jax=agree)
+                log(f"  {name}: puzzle {res['puzzle_acc']:.4f} (JAX {want_puzzle}, "
+                    f"{d_puzzle:+.4f}), patch {res['patch_acc']:.4f} (JAX {want_patch}, "
+                    f"{d_patch:+.4f}); per-puzzle agreement with the JAX journal {agree:.4f}")
+                if not (abs(d_puzzle) <= EVAL_PUZZLE_TOL and abs(d_patch) <= EVAL_PATCH_TOL):
+                    raise AssertionError(f"{name}: accuracy {res['puzzle_acc']} / "
+                                         f"{res['patch_acc']} outside +-{EVAL_PUZZLE_TOL} / "
+                                         f"+-{EVAL_PATCH_TOL} of {want_puzzle} / {want_patch}")
+    log(f"grid-20 eval on {card}: " + json.dumps(row))
+    log(f"phase grid-20 eval: {time.perf_counter() - t0:.2f} s")
+    return row, block_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--grid20-artifact", action="store_true",
@@ -893,9 +1180,11 @@ def main(argv=None) -> int:
 
     # 1. Build, one nvcc per source, all started together.
     t0 = time.perf_counter()
-    lib_paths = _build.build_all("attention", "attention_bwd", "flash_fwd", "flash_bwd")
+    lib_paths = _build.build_all("attention", "attention_bwd", "attention_block", "flash_fwd",
+                                 "flash_bwd", "assignment")
     attn_ops._kernel()
     attn_ops._bwd_kernel()
+    attn_ops._block_kernel()
     flash_ops._fwd_kernel()
     flash_ops._bwd_kernel()
     build_s = time.perf_counter() - t0
@@ -912,6 +1201,12 @@ def main(argv=None) -> int:
                     != attn_ops._bwd_kernel().k2_attention_bwd_smem_bytes(n, elem)):
                 raise AssertionError(f"the route table's shared memory at N={n}, "
                                      f"{elem} B differs from the kernels'")
+    for n in (9, 77, 144, 252, 253, 400, 401, 443, 444):
+        for elem in (2, 4):
+            if (attn_ops.k3_smem_bytes(n, elem)
+                    != attn_ops._block_kernel().k3_attention_block_smem_bytes(n, elem)):
+                raise AssertionError(f"the route table's K3 shared memory at N={n}, "
+                                     f"{elem} B differs from the kernel's")
 
     # 2. K1 against its plain version.
     t0 = time.perf_counter()
@@ -1014,6 +1309,32 @@ def main(argv=None) -> int:
                                              f"task.grid_size={GRID20}"])
         log(f"phase grid-20 run_train: {time.perf_counter() - t0:.2f} s")
 
+    # 13. K3 against its plain version, on the artifact's first DiT block.
+    t0 = time.perf_counter()
+    if args.grid20_artifact:
+        sd20, _ = load_artifact(ARTIFACT20)
+        weights = first_block(sd20)
+        del sd20
+    else:
+        weights = first_block(g3["sd"])
+    k3_rows = [check_k3(32, TOKENS, torch.bfloat16, weights, gen, timed=True),
+               check_k3(32, TOKENS20, torch.bfloat16, weights, gen, timed=True),
+               check_k3(16, TOKENS, torch.bfloat16, weights, gen, timed=True),
+               check_k3(4, TOKENS, torch.float32, weights, gen, timed=True),
+               check_k3(3, 77, torch.bfloat16, weights, gen, timed=False),
+               check_k3(2, 200, torch.bfloat16, weights, gen, timed=False),
+               check_k3(2, 401, torch.bfloat16, weights, gen, timed=False)]
+    log(f"phase k3: {time.perf_counter() - t0:.2f} s")
+
+    # 14. The eval path: waves3 on both routes, or waves20 against the JAX journals.
+    if args.grid20_artifact:
+        _, k3_launches = eval_grid20(card)
+        k3_timed = k3_rows[1]
+    else:
+        g3.pop("sd")
+        k3_launches = eval_grid3(card)["eval_launches"]
+        k3_timed = k3_rows[0]
+
     def kernel_row(name, source, replaces, launches, rows, timed):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "shape": timed["shape"],
@@ -1028,7 +1349,9 @@ def main(argv=None) -> int:
     flash_bwd = "jpdvt_mt_ntnu_tpu_torch/ops/csrc/flash_bwd.cu"
     # Each kernel with the launches of its own path's run and the errors of
     # its shapes: K1 for the solve (B=16) and the train step (B=96), K2 and
-    # K4-K6 for their train steps (B=96; N=144 and N=400).
+    # K4-K6 for their train steps (B=96; N=144 and N=400), K3 for the
+    # block route's eval (timed at B=32; N=144, or N=400 from the grid-20
+    # artifact).
     kernels = []
     if g3 is not None:
         kernels += [
@@ -1047,6 +1370,10 @@ def main(argv=None) -> int:
             sum(solve20[f"bf16_{m}"]["launches"]["k1"] for m in ("fast", "faithful")),
             k1_rows, k1_rows[-1]))
     kernels += [
+        kernel_row("k3_fused_attention_block",
+                   "jpdvt_mt_ntnu_tpu_torch/ops/csrc/attention_block.cu",
+                   "jpdvt_mt_ntnu_tpu/ops/attention.py:242", k3_launches["k3"], k3_rows,
+                   k3_timed),
         kernel_row("k4_flash_attention_fwd", *flash_fwd, launches_train20["k4"],
                    k4_rows, k4_rows[0]),
         kernel_row("k5_flash_attention_dq", flash_bwd,

@@ -17,6 +17,10 @@ Sampler modes of :meth:`Diffusion.p_sample_loop`:
   computation in one model call.
 - ``"iterative"``: the corrected ancestral chain (feeds the sample back).
 
+:meth:`Diffusion.ddim_sample_loop` is the JAX package's working DDIM
+sampler (``core/diffusion.py:188-216``); the solver's ``mode="ddim"`` runs
+it with eta 0, where it draws no noise.
+
 The per-step noise is drawn from a ``torch.Generator``, or passed in as
 ``step_noise`` (one (B, N, d) tensor per step), which is how the tests hold
 the iterative chain to the JAX package's: torch cannot reproduce JAX's
@@ -40,6 +44,7 @@ ModelFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
 
 _TABLES = ("posterior_mean_coef1", "posterior_mean_coef2", "posterior_variance",
            "posterior_log_variance_clipped", "large_variance", "large_log_variance",
+           "alphas_cumprod", "alphas_cumprod_prev", "log_one_minus_alphas_cumprod",
            "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod",
            "sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod")
 MEAN_TYPES = ("start_x", "epsilon")
@@ -78,6 +83,20 @@ class Diffusion:
     def to_original_t(self, t: torch.Tensor) -> torch.Tensor:
         """Spaced index -> original-chain index for the model's embedding."""
         return self.timestep_map[t]
+
+    def q_mean_variance(self, x_start, t):
+        """Mean, variance and log variance of q(x_t | x_0) (JAX
+        ``core/diffusion.py:56``)."""
+        nd = x_start.ndim
+        return (self._extract("sqrt_alphas_cumprod", t, nd) * x_start,
+                1.0 - self._extract("alphas_cumprod", t, nd),
+                self._extract("log_one_minus_alphas_cumprod", t, nd))
+
+    def _predict_eps_from_xstart(self, x_t, t, pred_xstart):
+        """The noise implied by an x0-prediction (JAX ``core/diffusion.py:88``)."""
+        nd = x_t.ndim
+        return ((self._extract("sqrt_recip_alphas_cumprod", t, nd) * x_t - pred_xstart)
+                / self._extract("sqrt_recipm1_alphas_cumprod", t, nd))
 
     def q_sample(self, x_start, t, noise):
         """Sample q(x_t | x_0) (gaussian_diffusion.py:217-232)."""
@@ -154,6 +173,35 @@ class Diffusion:
         _, code_out = model_fn(condition, self.to_original_t(t), noise)
         pred = self._pred_xstart(code_out, noise, t, clip_denoised)
         return self.q_posterior_mean_variance(pred, noise, t)[0]
+
+    def ddim_sample_loop(self, model_fn: ModelFn, condition, noise, *,
+                         eta: float = 0.0, clip_denoised: bool = False,
+                         generator: torch.Generator | None = None,
+                         step_noise: Sequence[torch.Tensor] | None = None):
+        """DDIM (Song et al., eq. 12; JAX ``core/diffusion.py:188-216``):
+        every step feeds the running sample back. The step noise is scaled
+        by sigma, which is 0 at ``eta`` 0; then none is drawn."""
+        b = noise.shape[0]
+        img = noise
+        for i, t_scalar in enumerate(range(self.num_timesteps - 1, -1, -1)):
+            t = torch.full((b,), t_scalar, dtype=torch.long, device=noise.device)
+            nd = img.ndim
+            _, code_out = model_fn(condition, self.to_original_t(t), img)
+            pred_xstart = self._pred_xstart(code_out, img, t, clip_denoised)
+            eps = self._predict_eps_from_xstart(img, t, pred_xstart)
+            a_bar = self._extract("alphas_cumprod", t, nd)
+            a_prev = self._extract("alphas_cumprod_prev", t, nd)
+            sigma = (eta * torch.sqrt((1 - a_prev) / (1 - a_bar))
+                     * torch.sqrt(1 - a_bar / a_prev))
+            mean = (pred_xstart * torch.sqrt(a_prev)
+                    + torch.sqrt(torch.clamp(1 - a_prev - sigma ** 2, min=0.0)) * eps)
+            if eta:
+                z = (step_noise[i] if step_noise is not None else torch.randn(
+                    img.shape, generator=generator, device=img.device, dtype=img.dtype))
+                nonzero = (t != 0).to(img.dtype).reshape(t.shape + (1,) * (nd - 1))
+                mean = mean + nonzero * sigma * z
+            img = mean
+        return img
 
     def training_losses(self, model_fn: ModelFn, x_start, t, piece_code, *,
                         block_size: int, patch_size: int, add_mask: bool = False,

@@ -8,7 +8,10 @@ pieces together. Item ``i`` of ``seed`` draws its parameters from
 ``default_rng(seed * 1000003 + i)``, so items equal the JAX package's.
 :meth:`SyntheticPuzzles.device_batch` builds the fields on the card from
 those host-drawn parameters, for any index (the never-repeating training
-stream of ``data.device_stream``).
+stream of ``data.device_stream``), and :meth:`device_generate_all` the
+whole set at once (the eval harness's synthesis). Items are named
+``synthetic_{i:06d}.png`` (``image_files``), as there, which keys the
+eval journal.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ class SyntheticPuzzles:
         self.seed = seed
         self.cues = cues
         self.hard_frac = float(hard_frac)
+        self.image_files = [f"synthetic_{i:06d}.png" for i in range(n)]
 
     def __len__(self) -> int:
         return self.n
@@ -79,6 +83,14 @@ class SyntheticPuzzles:
         img = (base[..., None] * amp[:, :, None, None, :]).sum(dim=1)  # (B, s, s, 3)
         peak = img.abs().amax(dim=(1, 2, 3), keepdim=True)
         return (img / (peak + 1e-6) * 0.9).clamp(-1.0, 1.0).to(torch.bfloat16)
+
+    def device_generate_all(self, device: str | torch.device | None = None,
+                            batch: int = 512) -> torch.Tensor:
+        """All ``n`` items as one (n, s, s, 3) bfloat16 tensor on ``device``
+        (default: the card), built in chunks of ``batch`` by
+        :meth:`device_batch` (``datasets.py:356-363``)."""
+        return torch.cat([self.device_batch(range(i, min(i + batch, self.n)), device)
+                          for i in range(0, self.n, batch)])
 
     def _wave_params(self, i: int):
         """Per-image (theta, freq, phase, amp), padded to 3 components.

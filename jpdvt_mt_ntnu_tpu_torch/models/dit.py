@@ -8,8 +8,10 @@ the JAX parameters carry over one to one (``tools/weights.py``):
 - attention is timm's fused qkv (``[q|k|v][head][dim]``) on the route that
   ``ops.attention.attention_route`` picks from ``attn_impl``, the sequence
   length, the type and whether grad is on: the whole-row kernels K1/K2
-  (``ops/attention.py``) or the flash kernels K4-K6
-  (``ops/flash_attention.py``);
+  (``ops/attention.py``), the flash kernels K4-K6
+  (``ops/flash_attention.py``), or with ``attn_impl="block"`` the whole
+  sublayer as K3 (``ops/attention.py:fused_attention_block``), its biases
+  in fp32 as in the JAX package (``models/dit.py:211-218``);
 - the MLP's GELU is the tanh approximation, LayerNorms have eps 1e-6, no
   affine, and compute their statistics in fp32 as Flax's do in bf16;
 - two heads: the unpatchified image and an 8-dim positional code per token,
@@ -29,7 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import attention_route, fused_qkv_attention
+from ..ops.attention import (attention_route, dense_to_block_weights,
+                             fused_attention_block, fused_qkv_attention)
 from ..ops.flash_attention import fused_qkv_flash_attention
 from ..utils.device import default_device
 from ..utils.pos_embed import get_2d_sincos_pos_embed, timestep_embedding
@@ -47,7 +50,7 @@ class DiTConfig:
     code_dim: int = 8
     code_head_hidden: int = 64
     dtype: torch.dtype = torch.float32  # compute type
-    attn_impl: str | None = None  # None (auto), "pallas" (K1/K2) or "flash" (K4-K6)
+    attn_impl: str | None = None  # None (auto), "pallas" (K1/K2), "flash" (K4-K6), "block" (K3)
 
     @property
     def tokens_per_side(self) -> int:
@@ -98,7 +101,8 @@ class Mlp(nn.Module):
 
 class Attention(nn.Module):
     """timm-compatible MHA: fused qkv projection, attention on the route
-    :func:`attention_route` picks, output projection."""
+    :func:`attention_route` picks, output projection; on the ``"block"``
+    route all three in one K3 call."""
 
     def __init__(self, hidden_size: int, num_heads: int, attn_impl: str | None = None):
         super().__init__()
@@ -108,13 +112,19 @@ class Attention(nn.Module):
         self.proj = Linear(hidden_size, hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        qkv = self.qkv(x)
+        grad = torch.is_grad_enabled() and (
+            x.requires_grad or self.qkv.weight.requires_grad or self.qkv.bias.requires_grad)
         route = attention_route(
-            qkv.shape[1], qkv.dtype, torch.is_grad_enabled() and qkv.requires_grad,
-            self.attn_impl, head_dim=qkv.shape[2] // (3 * self.num_heads),
-            on_card=qkv.is_cuda)
+            x.shape[1], x.dtype, grad, self.attn_impl,
+            head_dim=self.qkv.weight.shape[0] // (3 * self.num_heads), on_card=x.is_cuda)
+        if route == "block":
+            dt = x.dtype
+            weights = dense_to_block_weights(
+                self.qkv.weight.to(dt), self.qkv.bias.float(), self.proj.weight.to(dt),
+                self.proj.bias.float(), self.num_heads)
+            return fused_attention_block(x, *weights, self.num_heads)
         attend = fused_qkv_flash_attention if route == "flash" else fused_qkv_attention
-        return self.proj(attend(qkv, self.num_heads))
+        return self.proj(attend(self.qkv(x), self.num_heads))
 
 
 class DiTBlock(nn.Module):

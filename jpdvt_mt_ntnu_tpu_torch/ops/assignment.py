@@ -1,12 +1,17 @@
-"""Permutation recovery: Manhattan distances and greedy assignment.
+"""Permutation recovery: Manhattan distances, greedy and Hungarian assignment.
 
 Counterpart of ``jpdvt_mt_ntnu_tpu/ops/assignment.py`` (the reference's
-``inference.py:113-125,304-314``), batched over puzzles on the device.
+``inference.py:113-125,304-314``): distances and the greedy scan batched
+over puzzles on the device; the Hungarian method on the host, through the
+port's C++ solver (``ops/native.py``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from . import native
 
 _KNOCKOUT = 1e9
 
@@ -35,6 +40,14 @@ def greedy_permutation(dist: torch.Tensor) -> torch.Tensor:
     """dist (B, P, P) -> pred (B, P), the slot of each piece:
     ``argsort(order)`` as in inference.py:306."""
     return torch.argsort(greedy_assignment(dist), dim=-1)
+
+
+def hungarian_permutation(dist) -> np.ndarray:
+    """Optimal assignment on the host (``assignment.py:57-73``): dist
+    (..., P, P), a tensor on any device or an array -> pred (..., P) int64."""
+    if isinstance(dist, torch.Tensor):
+        dist = dist.detach().to("cpu", torch.float32).numpy()
+    return native.hungarian_permutation(dist).astype(np.int64)
 
 
 def permutation_metrics(pred: torch.Tensor, indices: torch.Tensor):

@@ -16,13 +16,24 @@ grad on, a ``torch.autograd.Function`` runs K1 forward and K2 backward,
 saving only the fused qkv, as the JAX package's custom VJP saves only
 q, k, v (``:120-136``).
 
+:func:`fused_attention_block` wraps K3 (``csrc/attention_block.cu``), the
+whole attention sublayer (qkv projection, attention, output projection),
+which replaces ``_attn_block_kernel`` (``:242``);
+:func:`fused_attention_block_plain` is its plain version with the
+kernel's rounding points, and :func:`dense_to_block_weights` lays the
+port's ``Linear`` weights out for it. Its backward is torch autograd of
+the plain version, as the JAX package's ``_fab_bwd`` (``:365-372``)
+differentiates ``fused_attention_block_xla``.
+
 On a CUDA tensor the wrapper launches the kernel or raises; it takes the
 plain version only for tensors on the CPU.
 
 :func:`attention_route` picks the DiT's route, the counterpart of
 ``default_impl`` (``:168``), whose TPU thresholds do not carry over: the
 whole-row kernels where their shared memory fits (K1; K1 + K2 with grad
-on), the flash kernels K4-K6 (``ops/flash_attention.py``) beyond.
+on), the flash kernels K4-K6 (``ops/flash_attention.py``) beyond, and K3
+only when ``attn_impl="block"`` asks for it (``default_impl`` never picks
+it either).
 """
 
 from __future__ import annotations
@@ -40,8 +51,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # only target the kernels are built for (sm_90a).
 HOPPER_MAX_SMEM = 232448
 # model.attn_impl values the port runs: None (auto), "pallas" (the
-# whole-row kernels K1/K2, as the JAX name), "flash" (K4-K6).
-ATTN_IMPLS = (None, "pallas", "flash")
+# whole-row kernels K1/K2, as the JAX name), "flash" (K4-K6), "block" (K3,
+# the whole sublayer; its backward is autograd of the plain version).
+ATTN_IMPLS = (None, "pallas", "flash", "block")
 
 
 def k1_smem_bytes(n: int, elem: int) -> int:
@@ -57,11 +69,23 @@ def k2_smem_bytes(n: int, elem: int) -> int:
     return 2 * n * row * elem + 2 * n * row * 4 + 2 * 32 * row * 4 + 2 * 32 * (n + 1) * 4
 
 
+def k3_smem_bytes(n: int, elem: int) -> int:
+    """K3's shared memory per block of its first launch
+    (``csrc/attention_block.cu`` ``smem_bytes``): q, k, v of one (item,
+    head) with rows of Dh + 2, rounded up to 16 B, then the larger of the
+    projection's staged chunks (48 x 33 and 32 x 192 fp32) and a 32-row
+    query tile's fp32 score rows."""
+    qkv = -(-3 * n * (HEAD_DIM + 2) * elem // 16) * 16
+    return qkv + max((48 * 33 + 32 * 3 * HEAD_DIM) * 4, 32 * (n + 1) * 4)
+
+
 @functools.cache
 def attention_route(n: int, dtype: torch.dtype, grad: bool, attn_impl=None, *,
                     head_dim: int = HEAD_DIM, on_card: bool = True) -> str:
     """The DiT attention's route for N tokens: ``"whole_row"`` (K1, and K2
-    as its backward when ``grad``) or ``"flash"`` (K4, and K5 + K6).
+    as its backward when ``grad``), ``"flash"`` (K4, and K5 + K6) or
+    ``"block"`` (K3, the whole sublayer, only when ``attn_impl`` is
+    ``"block"``; bf16 N <= 443, fp32 N <= 252 on the card).
 
     ``attn_impl`` None takes the whole-row kernels where their shared
     memory fits a Hopper block (bf16: N <= 571 without grad, <= 205 with
@@ -79,6 +103,13 @@ def attention_route(n: int, dtype: torch.dtype, grad: bool, attn_impl=None, *,
     if attn_impl == "flash":
         return "flash"
     elem = torch.empty((), dtype=dtype).element_size()
+    if attn_impl == "block":
+        if on_card and k3_smem_bytes(n, elem) > HOPPER_MAX_SMEM:
+            raise ValueError(f"attn_impl='block' at N={n} in {dtype}: K3 keeps one "
+                             f"(item, head)'s q, k, v in {k3_smem_bytes(n, elem)} B of "
+                             f"shared memory per block, more than the "
+                             f"{HOPPER_MAX_SMEM} B a Hopper block has")
+        return "block"
     need = max(k1_smem_bytes(n, elem), k2_smem_bytes(n, elem) if grad else 0)
     if need <= HOPPER_MAX_SMEM:
         return "whole_row"
@@ -309,3 +340,151 @@ def fused_qkv_attention_reference(qkv: torch.Tensor,
     differentiated by torch autograd."""
     b, n, _ = qkv.shape
     return attention_reference(*_heads(qkv, num_heads)).transpose(1, 2).reshape(b, n, -1)
+
+
+def dense_to_block_weights(qkv_weight: torch.Tensor, qkv_bias: torch.Tensor,
+                           proj_weight: torch.Tensor, proj_bias: torch.Tensor,
+                           num_heads: int):
+    """The port's ``Linear`` parameters (weight (out, in)) -> K3's layouts
+    (``ops/attention.py:376``): w_qkv (3H, D, Dh) with q rows 0..H-1, k rows
+    H..2H-1, v rows 2H..3H-1; b_qkv (3H, 1, Dh); w_proj (H, Dh, D); b_proj
+    (1, D). Types are kept as given."""
+    hidden = qkv_weight.shape[1]
+    d = qkv_weight.shape[0] // (3 * num_heads)
+    w_qkv = qkv_weight.t().reshape(hidden, 3 * num_heads, d).permute(1, 0, 2).contiguous()
+    b_qkv = qkv_bias.reshape(3 * num_heads, 1, d)
+    w_proj = proj_weight.t().reshape(num_heads, d, proj_weight.shape[0]).contiguous()
+    b_proj = proj_bias.reshape(1, -1)
+    return w_qkv, b_qkv, w_proj, b_proj
+
+
+def fused_attention_block_plain(x: torch.Tensor, w_qkv: torch.Tensor,
+                                b_qkv: torch.Tensor, w_proj: torch.Tensor,
+                                b_proj: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of K3 with ``_attn_block_kernel``'s rounding
+    points (T is ``x.dtype``): q = T(x Wq + bq) * Dh^-1/2 in T, k and v
+    alike unscaled, products in fp32 and the biases added in fp32; S = q k^T
+    and the softmax in fp32; o_h = T(T(P) v); out = T(sum_h o_h Wp_h + bp),
+    summed over the heads in order in fp32. x: (B, N, D) -> (B, N, D).
+    Differentiable by torch autograd."""
+    dt, h = x.dtype, num_heads
+    d = w_qkv.shape[-1]
+    xf = x.float()
+
+    def proj(i: int) -> torch.Tensor:  # (B, H, N, Dh)
+        y = torch.einsum("bnk,hkd->bhnd", xf, w_qkv[i * h:(i + 1) * h].float())
+        return (y + b_qkv[i * h:(i + 1) * h].float()[None]).to(dt)
+
+    q = proj(0) * d ** -0.5
+    k, v = proj(1), proj(2)
+    p = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)), dim=-1)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()).to(dt)
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(h):
+        acc = acc + torch.matmul(o[:, i].float(), w_proj[i].float())
+    return (acc + b_proj.float()).to(dt)
+
+
+@functools.cache
+def _block_kernel():
+    lib = _build.load("attention_block")
+    fn = lib.k3_attention_block
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.k3_attention_block_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.k3_attention_block_smem_bytes.restype = ctypes.c_size_t
+    lib.k3_attention_block_max_smem.argtypes = [ctypes.c_int]
+    lib.k3_attention_block_max_smem.restype = ctypes.c_int
+    return lib
+
+
+def _check_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int) -> None:
+    """Raise on operands that K3 cannot take."""
+    tensors = (x, w_qkv, b_qkv, w_proj, b_proj)
+    if any(t.device != x.device for t in tensors) or x.device.type != "cuda":
+        raise ValueError("K3 needs x and the weights on one CUDA device; got "
+                         f"{[str(t.device) for t in tensors]}")
+    if x.dtype not in _DTYPE_CODES or w_qkv.dtype != x.dtype or w_proj.dtype != x.dtype:
+        raise ValueError(f"K3 takes float32 or bfloat16 x and weights of one dtype; got "
+                         f"{x.dtype}, {w_qkv.dtype}, {w_proj.dtype}")
+    if b_qkv.dtype != torch.float32 or b_proj.dtype != torch.float32:
+        raise ValueError(f"K3 takes float32 biases; got {b_qkv.dtype}, {b_proj.dtype}")
+    if x.dim() != 3 or x.shape[1] < 1:
+        raise ValueError(f"K3 takes x of shape (B, N, D), N >= 1; got {tuple(x.shape)}")
+    b, n, hidden = x.shape
+    h, d = num_heads, HEAD_DIM
+    want = {"w_qkv": (3 * h, hidden, d), "b_qkv": (3 * h, 1, d),
+            "w_proj": (h, d, hidden), "b_proj": (1, hidden)}
+    for name, t in zip(want, tensors[1:]):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"K3 needs Dh == {HEAD_DIM}: {name} of shape "
+                             f"{tuple(t.shape)}, expected {want[name]}")
+    if hidden % 64:
+        raise ValueError(f"K3 needs a hidden size that is a multiple of 64; got {hidden}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("K3 takes contiguous x and weights")
+    need = _block_kernel().k3_attention_block_smem_bytes(n, x.element_size())
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    have = _block_kernel().k3_attention_block_max_smem(dev)
+    if need > have:
+        raise ValueError(f"K3 at N={n} needs {need} B of shared memory per block; "
+                         f"this device allows {have} B")
+
+
+def _launch_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int) -> torch.Tensor:
+    _check_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads)
+    b, n, hidden = x.shape
+    o = torch.empty((b, n, num_heads * HEAD_DIM), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    err = _block_kernel().k3_attention_block(
+        _DTYPE_CODES[x.dtype], x.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(),
+        w_proj.data_ptr(), b_proj.data_ptr(), o.data_ptr(), out.data_ptr(), b, n,
+        num_heads, hidden, HEAD_DIM ** -0.5,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"attention block kernel launch failed: cudaError {err}")
+    fused_attention_block.launches += 1
+    return out
+
+
+class _FusedAttentionBlock(torch.autograd.Function):
+    """K3 forward; backward by torch autograd of the plain version (the
+    JAX package's rule: its custom VJP differentiates the XLA reference)."""
+
+    @staticmethod
+    def forward(ctx, x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int):
+        ctx.save_for_backward(x, w_qkv, b_qkv, w_proj, b_proj)
+        ctx.num_heads = num_heads
+        return _launch_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = fused_attention_block_plain(*inputs, ctx.num_heads)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None)
+
+
+def fused_attention_block(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
+                          w_proj: torch.Tensor, b_proj: torch.Tensor,
+                          num_heads: int) -> torch.Tensor:
+    """K3: the whole attention sublayer. x (B, N, D) -> (B, N, D); weights in
+    :func:`dense_to_block_weights`' layouts, in x's type, biases float32.
+
+    On the card each call launches the pair of kernels once and adds one to
+    ``fused_attention_block.launches``; with grad on, the result's backward
+    is autograd of :func:`fused_attention_block_plain`. On the CPU it is
+    the plain version."""
+    tensors = (x, w_qkv, b_qkv, w_proj, b_proj)
+    if all(t.device.type == "cpu" for t in tensors):
+        return fused_attention_block_plain(x, w_qkv, b_qkv, w_proj, b_proj, num_heads)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _FusedAttentionBlock.apply(x, w_qkv, b_qkv, w_proj, b_proj, num_heads)
+    return _launch_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads)
+
+
+fused_attention_block.launches = 0

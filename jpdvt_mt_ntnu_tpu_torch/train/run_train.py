@@ -13,7 +13,8 @@ A fresh start, ``train.resume=<checkpoint dir>`` and ``train.warm_start=``
 (an artifact manifest/npz, or a checkpoint directory of this package) are
 supported. The run runs on the card; ``device=cpu`` (an argument without a
 section) runs it on the CPU instead. ``model.attn_impl`` takes None
-(auto), ``pallas`` (the whole-row kernels K1/K2) or ``flash`` (K4-K6). Not
+(auto), ``pallas`` (the whole-row kernels K1/K2) or ``flash`` (K4-K6);
+``block`` (K3) runs the eval path only and is refused here. Not
 ported yet, and refused with ``NotImplementedError`` where their keys are
 set, before any weights load: the mesh (data, tensor, FSDP, pipeline,
 expert and sequence parallelism, multi-host), ``task.multi_grid``,
@@ -80,7 +81,10 @@ def check_supported(cfg: Config, on_card: bool = True) -> None:
         refused.append("synthetic cue regimes other than data.synthetic_cues=waves")
     if m.quant or m.moe_experts or m.moe_capacity:
         refused.append("model.quant / model.moe_*")
-    if m.attn_impl not in ATTN_IMPLS:
+    if m.attn_impl == "block":
+        refused.append("model.attn_impl='block' for training (K3, the fused sublayer, "
+                       "runs the eval path; its training route is queued in ROADMAP.md)")
+    elif m.attn_impl not in ATTN_IMPLS:
         refused.append(f"model.attn_impl={m.attn_impl!r} (the port runs {ATTN_IMPLS})")
     elif m.name in DIT_CONFIGS:
         arch = {**DIT_CONFIGS[m.name], **m.overrides()}

@@ -181,6 +181,14 @@ class EvalConfig:
     results_dir: str = "eval_out"
     save_images: bool = False
     limit: int = 0                    # 0 = all
+    # A file of the JAX harness's draws (scrambles and votes' arrangements,
+    # one row per puzzle) to solve the JAX package's puzzles exactly; ""
+    # draws from torch generators. The port's key: torch cannot replay
+    # jax.random (tests/test_torch_port_eval.py writes and checks them).
+    jax_draws: str = ""
+    # The JAX solver's noise template for eval.seed (an .npy of
+    # jax.random.normal(key(seed), (1, N, 8))); "" draws one from torch.
+    jax_noise: str = ""
 
 
 @dataclasses.dataclass

@@ -1,8 +1,9 @@
 """Logging + metric journaling.
 
 The port's own copy of ``jpdvt_mt_ntnu_tpu/utils/logging.py`` (pure
-Python): the reference's rank-0-only training logger (train_JPDVT.py:61-76)
-and the metric sink. Scalar metrics always stream to a JSONL
+Python): the reference's stdout + file eval logger with a separate error
+log (image_model/inference.py:63-88), its rank-0-only training logger
+(train_JPDVT.py:61-76) and the metric sink. Scalar metrics always stream to a JSONL
 file; wandb is a lazy import reached only when asked for
 (``train.wandb=true``), never by default.
 """
@@ -15,6 +16,36 @@ import os
 import sys
 import time
 from typing import Optional
+
+
+def _reset(logger: logging.Logger) -> None:
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+        h.close()
+
+
+def setup_logging(logs_dir: str, name: str = "jpdvt",
+                  main_file: str = "inference_log.txt",
+                  error_file: str = "inference_errors.txt"):
+    """(stdout + file logger, error-only file logger) in ``logs_dir``."""
+    os.makedirs(logs_dir, exist_ok=True)
+    fmt = logging.Formatter("%(asctime)s [%(levelname)s] %(message)s")
+    logger = logging.getLogger(name)
+    logger.setLevel(logging.INFO)
+    _reset(logger)
+    fh = logging.FileHandler(os.path.join(logs_dir, main_file), mode="a")
+    fh.setFormatter(fmt)
+    sh = logging.StreamHandler(sys.stdout)
+    sh.setFormatter(fmt)
+    logger.addHandler(fh)
+    logger.addHandler(sh)
+    err = logging.getLogger(name + ".errors")
+    err.setLevel(logging.ERROR)
+    _reset(err)
+    eh = logging.FileHandler(os.path.join(logs_dir, error_file), mode="a")
+    eh.setFormatter(fmt)
+    err.addHandler(eh)
+    return logger, err
 
 
 def rank0_logger(is_main: bool, experiment_dir: Optional[str] = None,

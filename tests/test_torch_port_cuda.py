@@ -1,4 +1,4 @@
-"""Kernels K1, K2 and K4-K6 on the card against their plain versions, and
+"""Kernels K1-K6 on the card against their plain versions, and
 the DiT's gradients through them against plain autograd.
 
 Skips without a CUDA card. This file imports no JAX, so it also runs on a
@@ -252,3 +252,94 @@ def test_dit_gradients_through_k4_k5_k6_match_plain_autograd(cuda):
         scale = want.abs().max().item()
         err = (mine[k] - want).abs().max().item()
         assert err <= 1e-4 * scale + 1e-12, (k, err, scale)
+
+
+def _block_operands(b, n, dtype, gen, heads=12, hidden=768):
+    x = torch.randn((b, n, hidden), generator=gen, device="cuda").to(dtype)
+    w_qkv = (torch.randn((3 * heads, hidden, 64), generator=gen, device="cuda")
+             * hidden ** -0.5).to(dtype)
+    b_qkv = 0.1 * torch.randn((3 * heads, 1, 64), generator=gen, device="cuda")
+    w_proj = (torch.randn((heads, 64, hidden), generator=gen, device="cuda")
+              * (heads * 64) ** -0.5).to(dtype)
+    b_proj = 0.1 * torch.randn((1, hidden), generator=gen, device="cuda")
+    return x, w_qkv, b_qkv, w_proj, b_proj
+
+
+@pytest.mark.parametrize("b,n,dtype", [(4, 144, torch.bfloat16),
+                                       (2, 400, torch.bfloat16),
+                                       (3, 77, torch.bfloat16),
+                                       (2, 401, torch.bfloat16),
+                                       (2, 144, torch.float32),
+                                       (2, 200, torch.float32)])
+def test_k3_cuda_kernel_matches_plain(cuda, b, n, dtype):
+    gen = torch.Generator("cuda").manual_seed(n + 4)
+    ops = _block_operands(b, n, dtype, gen)
+    before = port.fused_attention_block.launches
+    out = port.fused_attention_block(*ops, 12)
+    torch.cuda.synchronize()
+    assert port.fused_attention_block.launches == before + 1
+    want = port.fused_attention_block_plain(*ops, 12).float()
+    scale = want.abs().max().item()
+    err = (out.float() - want).abs().max().item()
+    assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-5) * scale, (err, scale)
+    again = port.fused_attention_block(*ops, 12)
+    assert torch.equal(out, again)  # deterministic: no atomics
+
+
+def test_k3_gradient_is_autograd_of_the_plain_version(cuda):
+    gen = torch.Generator("cuda").manual_seed(5)
+    ops = [t.requires_grad_(True) for t in _block_operands(2, 77, torch.float32, gen,
+                                                           heads=2, hidden=128)]
+    g = torch.randn((2, 77, 128), generator=gen, device="cuda")
+    before = port.fused_attention_block.launches
+    mine = torch.autograd.grad(port.fused_attention_block(*ops, 2), ops, g)
+    assert port.fused_attention_block.launches == before + 1
+    want = torch.autograd.grad(port.fused_attention_block_plain(*ops, 2), ops, g)
+    for got, ref in zip(mine, want):
+        scale = ref.abs().max().item()
+        assert (got - ref).abs().max().item() <= 1e-5 * scale
+
+
+def test_k3_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    gen = torch.Generator("cuda").manual_seed(6)
+    ops = _block_operands(1, 253, torch.float32, gen, heads=2, hidden=128)
+    with pytest.raises(ValueError, match="shared memory"):
+        port.fused_attention_block(*ops, 2)
+    ops = _block_operands(1, 252, torch.float32, gen, heads=2, hidden=128)
+    port.fused_attention_block(*ops, 2)
+    x, w_qkv, b_qkv, w_proj, b_proj = _block_operands(1, 9, torch.bfloat16, gen, heads=2,
+                                                      hidden=128)
+    with pytest.raises(ValueError, match="float32 biases"):
+        port.fused_attention_block(x, w_qkv, b_qkv.bfloat16(), w_proj, b_proj, 2)
+    with pytest.raises(ValueError, match="Dh == 64"):
+        port.fused_attention_block(x, w_qkv[:, :, :32].contiguous(), b_qkv, w_proj, b_proj, 2)
+    for n, dtype in ((443, torch.bfloat16), (444, torch.bfloat16), (252, torch.float32),
+                     (253, torch.float32)):
+        elem = torch.empty((), dtype=dtype).element_size()
+        assert port.k3_smem_bytes(n, elem) == \
+            port._block_kernel().k3_attention_block_smem_bytes(n, elem)
+
+
+def test_dit_block_route_launches_k3_and_matches_the_default_route(cuda):
+    model, cfg = create_model("JPDVT", 96, seed=0, depth=2, hidden_size=128,
+                              num_heads=2, dtype=torch.bfloat16)
+    block, _ = create_model("JPDVT", 96, seed=0, depth=2, hidden_size=128,
+                            num_heads=2, dtype=torch.bfloat16, attn_impl="block")
+    rng = np.random.default_rng(2)
+    with torch.no_grad():
+        for p, q in zip(model.parameters(), block.parameters()):
+            w = torch.from_numpy(0.05 * rng.standard_normal(p.shape).astype(np.float32))
+            p.copy_(w)
+            q.copy_(w)
+    x = torch.from_numpy(rng.uniform(-1, 1, (4, 96, 96, 3)).astype(np.float32)).cuda()
+    t = torch.tensor([0, 250, 500, 999], device="cuda")
+    code = torch.from_numpy(rng.standard_normal((4, 36, 8)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        k1 = port.attention.launches
+        _, want = model(x, t, code)
+        launches = port.fused_attention_block.launches
+        _, got = block(x, t, code)
+    assert port.fused_attention_block.launches == launches + cfg.depth
+    assert port.attention.launches == k1 + cfg.depth
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 3e-2 * scale

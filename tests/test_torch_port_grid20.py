@@ -61,9 +61,10 @@ def test_route_refusals():
     assert attention_route(9, FP32, True, head_dim=16, on_card=False) == "whole_row"
     with pytest.raises(ValueError, match="float16"):
         attention_route(144, torch.float16, False)
-    for impl in ("xla", "block", "ring"):
+    for impl in ("xla", "block_interpret", "ring"):
         with pytest.raises(ValueError, match="not ported"):
             attention_route(144, BF16, False, impl)
+    assert attention_route(144, BF16, False, "block") == "block"  # K3, asked for
 
 
 def _cfg(*overrides):

@@ -3,7 +3,8 @@
 The GPU machine has torch, numpy, scipy and einops, but no jax, flax,
 optax, orbax, ml_dtypes, PIL or sklearn. A child interpreter whose import
 system refuses those (and ``jpdvt_mt_ntnu_tpu``) imports every module of
-the port (the training modules included) and
+the port (the training and eval modules included: the eval harness
+imports PIL only to decode or write PNG files) and
 ``chip_smoke`` (without running its ``main``). Output goes to a file, not a
 pipe, so a chatty child cannot block.
 """
@@ -49,7 +50,9 @@ def _port_modules():
 def test_port_and_chip_smoke_import_without_jax(tmp_path):
     modules = _port_modules() + ["chip_smoke"]
     assert len(modules) >= 30
-    assert "jpdvt_mt_ntnu_tpu_torch.train.run_train" in modules
+    for mod in ("train.run_train", "eval.run_eval", "eval.run_sample", "eval.harness",
+                "eval.journal", "eval.solver", "ops.native", "ops.attention"):
+        assert f"jpdvt_mt_ntnu_tpu_torch.{mod}" in modules
     out = tmp_path / "child.log"
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     with open(out, "w") as f:

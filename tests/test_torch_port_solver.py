@@ -178,7 +178,11 @@ def test_solver_checks_its_arguments(tiny):
     with pytest.raises(ValueError, match="noise template"):
         PuzzleSolver(model, cfg, diff, device="cpu", noise_template=np.zeros((1, 4, 8)))
     with pytest.raises(ValueError, match="sampler mode"):
-        PuzzleSolver(model, cfg, diff, device="cpu", mode="ddim")
+        PuzzleSolver(model, cfg, diff, device="cpu", mode="heun")
+    with pytest.raises(ValueError, match="assignment"):
+        PuzzleSolver(model, cfg, diff, device="cpu", assignment_method="auction")
+    with pytest.raises(ValueError, match="votes"):
+        PuzzleSolver(model, cfg, diff, device="cpu", votes=0)
     solver = PuzzleSolver(model, cfg, diff, device="cpu", microbatch=8, mode="fast")
     assert solver._resolve_microbatch(32) == 8 and solver._resolve_microbatch(30) == 0
     assert PuzzleSolver(model, cfg, diff, device="cpu")._resolve_microbatch(64) == 32
