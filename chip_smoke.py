@@ -7,8 +7,10 @@ card and ``nvcc``; it exits non-zero, printing no result, without them.
 Phases, each of which raises on failure:
 
 1. build the CUDA kernels, one ``nvcc`` per source started together
-   (``.cu`` -> ``.so`` -> ``ctypes``), and print the card's name and power
-   limit;
+   (``.cu`` -> ``.so`` -> ``ctypes``), print the card's name and power
+   limit, check that K3's bf16 kernels hold ``HMMA`` (tensor-core)
+   instructions in their SASS, and that the route table's shared-memory
+   sums are the kernels';
 2. hold kernel K1 (whole-row attention) against its plain PyTorch version
    on the card at the solve's shapes (B=16, 32), the train step's (B=96)
    and ragged ones, and time both beside one PyTorch call of the same
@@ -65,9 +67,9 @@ then the fused attention sublayer K3 and the evaluation path:
     output projection in one call of two launches) against its plain
     version with the weights of the artifact's first DiT block, in bf16 at
     (B, N) = (32, 144), (32, 400), (16, 144), in fp32 at N = 144, and at
-    ragged N (77, 200, 401); time it beside its bound, its plain version,
-    the ``linear -> SDPA -> linear`` yardstick and the port's default route
-    (cuBLAS + K1 + cuBLAS);
+    ragged N (77, 200, 401), two calls bit-equal; time it beside its bound,
+    its plain version, the ``linear -> SDPA -> linear`` yardstick and the
+    port's default route (cuBLAS + K1 + cuBLAS);
 14. the eval path on ``waves3_r5_step10000`` through ``run_eval.main``:
     1,024 synthetic waves puzzles at ``eval.seed=11``, batch 64, fast, bf16,
     with the JAX harness's seed-11 draws and noise template
@@ -204,6 +206,23 @@ def nvidia_smi() -> str:
                        timeout=60, check=True)
         out.seek(0)
         return out.read().strip().splitlines()[0]
+
+
+def sass_count(lib_path, opcode: str) -> dict:
+    """Instructions of ``opcode`` in each kernel of a built library's SASS
+    (``cuobjdump --dump-sass``), by mangled kernel name."""
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(lib_path)], capture_output=True,
+                          text=True, stdin=subprocess.DEVNULL, timeout=120,
+                          check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :")[1].strip()
+            counts[kernel] = 0
+        elif kernel and f" {opcode}" in line:
+            counts[kernel] += 1
+    return counts
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -942,8 +961,12 @@ def check_k3(b: int, n: int, dtype: torch.dtype, weights: tuple, gen: torch.Gene
     plain version; relative to the output's largest magnitude."""
     wq, bq, wp, bp = (w.to(dtype) for w in weights)
     ops = attn_ops.dense_to_block_weights(wq, bq.float(), wp, bp.float(), HEADS)
+    if dtype == torch.float32:  # the fp32 kernel reads contiguous weights: time no copy
+        ops = tuple(t.contiguous() for t in ops)
     x = torch.randn((b, n, HEADS * HEAD_DIM), generator=gen, device="cuda").to(dtype)
     out = attn_ops.fused_attention_block(x, *ops, HEADS)
+    if not torch.equal(out, attn_ops.fused_attention_block(x, *ops, HEADS)):
+        raise AssertionError(f"K3 {(b, n)} {dtype}: two calls on one input differ")
     torch.cuda.synchronize()
     ref = attn_ops.fused_attention_block_plain(x, *ops, HEADS).float()
     scale = ref.abs().max().item()
@@ -1193,6 +1216,12 @@ def main(argv=None) -> int:
         for line in lib_path.with_suffix(".log").read_text().splitlines():
             if any(w in line for w in ("registers", "Compiling entry", "spill")):
                 log(f"  ptxas: {line.strip()}")
+    # K3's bf16 kernels run on the tensor cores: HMMA in their SASS.
+    hmma = sass_count(lib_paths[2], "HMMA")
+    log(f"K3 SASS HMMA per kernel: {json.dumps(hmma)}")
+    for kernel in ("block_attention_mma_kernel", "out_proj_mma_kernel"):
+        if not sum(c for f, c in hmma.items() if kernel in f):
+            raise AssertionError(f"K3's {kernel} has no HMMA in its SASS")
     # The route table's shared-memory sums (ops/attention.py) are the kernels'.
     for n in (9, 144, 205, 206, 400, 571, 572):
         for elem in (2, 4):
@@ -1201,7 +1230,7 @@ def main(argv=None) -> int:
                     != attn_ops._bwd_kernel().k2_attention_bwd_smem_bytes(n, elem)):
                 raise AssertionError(f"the route table's shared memory at N={n}, "
                                      f"{elem} B differs from the kernels'")
-    for n in (9, 77, 144, 252, 253, 400, 401, 443, 444):
+    for n in (9, 77, 144, 252, 253, 400, 401, 416, 417):
         for elem in (2, 4):
             if (attn_ops.k3_smem_bytes(n, elem)
                     != attn_ops._block_kernel().k3_attention_block_smem_bytes(n, elem)):

@@ -118,6 +118,7 @@ class Attention(nn.Module):
             x.shape[1], x.dtype, grad, self.attn_impl,
             head_dim=self.qkv.weight.shape[0] // (3 * self.num_heads), on_card=x.is_cuda)
         if route == "block":
+            # Views of the parameters: K3 reads the Linear weights as they lie.
             dt = x.dtype
             weights = dense_to_block_weights(
                 self.qkv.weight.to(dt), self.qkv.bias.float(), self.proj.weight.to(dt),

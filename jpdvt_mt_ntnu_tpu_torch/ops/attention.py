@@ -20,10 +20,10 @@ q, k, v (``:120-136``).
 whole attention sublayer (qkv projection, attention, output projection),
 which replaces ``_attn_block_kernel`` (``:242``);
 :func:`fused_attention_block_plain` is its plain version with the
-kernel's rounding points, and :func:`dense_to_block_weights` lays the
-port's ``Linear`` weights out for it. Its backward is torch autograd of
-the plain version, as the JAX package's ``_fab_bwd`` (``:365-372``)
-differentiates ``fused_attention_block_xla``.
+kernel's rounding points, and :func:`dense_to_block_weights` views the
+port's ``Linear`` parameters in its shapes, with no copy. Its backward is
+torch autograd of the plain version, as the JAX package's ``_fab_bwd``
+(``:365-372``) differentiates ``fused_attention_block_xla``.
 
 On a CUDA tensor the wrapper launches the kernel or raises; it takes the
 plain version only for tensors on the CPU.
@@ -71,10 +71,15 @@ def k2_smem_bytes(n: int, elem: int) -> int:
 
 def k3_smem_bytes(n: int, elem: int) -> int:
     """K3's shared memory per block of its first launch
-    (``csrc/attention_block.cu`` ``smem_bytes``): q, k, v of one (item,
-    head) with rows of Dh + 2, rounded up to 16 B, then the larger of the
-    projection's staged chunks (48 x 33 and 32 x 192 fp32) and a 32-row
-    query tile's fp32 score rows."""
+    (``csrc/attention_block.cu`` ``smem_bytes``). bf16: q, k, v of one
+    (item, head), N padded to 16, with rows of Dh + 8, then the staged
+    chunks of x (144 rows) and of the head's q|k|v weights (192 rows), 64
+    wide in rows of 72. fp32: q, k, v with rows of Dh + 2, rounded up to
+    16 B, then the larger of the projection's staged chunks (48 x 33 and
+    32 x 192 fp32) and a 32-row query tile's fp32 score rows."""
+    if elem == 2:
+        row = (HEAD_DIM + 8) * elem
+        return 3 * -(-n // 16) * 16 * row + (144 + 3 * HEAD_DIM) * row
     qkv = -(-3 * n * (HEAD_DIM + 2) * elem // 16) * 16
     return qkv + max((48 * 33 + 32 * 3 * HEAD_DIM) * 4, 32 * (n + 1) * 4)
 
@@ -85,7 +90,7 @@ def attention_route(n: int, dtype: torch.dtype, grad: bool, attn_impl=None, *,
     """The DiT attention's route for N tokens: ``"whole_row"`` (K1, and K2
     as its backward when ``grad``), ``"flash"`` (K4, and K5 + K6) or
     ``"block"`` (K3, the whole sublayer, only when ``attn_impl`` is
-    ``"block"``; bf16 N <= 443, fp32 N <= 252 on the card).
+    ``"block"``; bf16 N <= 416, fp32 N <= 252 on the card).
 
     ``attn_impl`` None takes the whole-row kernels where their shared
     memory fits a Hopper block (bf16: N <= 571 without grad, <= 205 with
@@ -345,15 +350,17 @@ def fused_qkv_attention_reference(qkv: torch.Tensor,
 def dense_to_block_weights(qkv_weight: torch.Tensor, qkv_bias: torch.Tensor,
                            proj_weight: torch.Tensor, proj_bias: torch.Tensor,
                            num_heads: int):
-    """The port's ``Linear`` parameters (weight (out, in)) -> K3's layouts
+    """The port's ``Linear`` parameters (weight (out, in)) -> K3's shapes
     (``ops/attention.py:376``): w_qkv (3H, D, Dh) with q rows 0..H-1, k rows
     H..2H-1, v rows 2H..3H-1; b_qkv (3H, 1, Dh); w_proj (H, Dh, D); b_proj
-    (1, D). Types are kept as given."""
+    (1, D). All four are views of the parameters (nothing is copied): the
+    weights keep the ``Linear`` layout, the one K3's bf16 kernels read.
+    Types are kept as given."""
     hidden = qkv_weight.shape[1]
     d = qkv_weight.shape[0] // (3 * num_heads)
-    w_qkv = qkv_weight.t().reshape(hidden, 3 * num_heads, d).permute(1, 0, 2).contiguous()
+    w_qkv = qkv_weight.view(3 * num_heads, d, hidden).transpose(1, 2)
     b_qkv = qkv_bias.reshape(3 * num_heads, 1, d)
-    w_proj = proj_weight.t().reshape(num_heads, d, proj_weight.shape[0]).contiguous()
+    w_proj = proj_weight.t().view(num_heads, d, proj_weight.shape[0])
     b_proj = proj_bias.reshape(1, -1)
     return w_qkv, b_qkv, w_proj, b_proj
 
@@ -422,8 +429,10 @@ def _check_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int) -> None:
                              f"{tuple(t.shape)}, expected {want[name]}")
     if hidden % 64:
         raise ValueError(f"K3 needs a hidden size that is a multiple of 64; got {hidden}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("K3 takes contiguous x and weights")
+    if not all(t.is_contiguous() for t in (x, b_qkv, b_proj)):
+        raise ValueError("K3 takes contiguous x and biases")
+    if x.data_ptr() % 16:
+        raise ValueError("K3 takes x at a 16-byte aligned address")
     need = _block_kernel().k3_attention_block_smem_bytes(n, x.element_size())
     dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
     have = _block_kernel().k3_attention_block_max_smem(dev)
@@ -432,8 +441,27 @@ def _check_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int) -> None:
                          f"this device allows {have} B")
 
 
+def _weight_strides(w_qkv: torch.Tensor, w_proj: torch.Tensor) -> tuple:
+    """The weights' strides as K3 reads them: in bf16 the ``Linear``
+    layout (:func:`dense_to_block_weights`' views), in fp32 contiguous."""
+    n3, hidden, d = w_qkv.shape
+    if w_qkv.dtype == torch.bfloat16:
+        return (d * hidden, 1, hidden), (d, 1, n3 // 3 * d)
+    return (hidden * d, d, 1), (d * hidden, hidden, 1)
+
+
+def _as_laid_out(t: torch.Tensor, strides: tuple) -> torch.Tensor:
+    """``t`` if it has ``strides`` and a 16-byte aligned address, else a copy
+    laid out so (the DiT's bf16 views pass through as they are)."""
+    if t.stride() == strides and t.data_ptr() % 16 == 0:
+        return t
+    return torch.empty_strided(t.shape, strides, dtype=t.dtype, device=t.device).copy_(t)
+
+
 def _launch_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int) -> torch.Tensor:
     _check_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads)
+    qkv_strides, proj_strides = _weight_strides(w_qkv, w_proj)
+    w_qkv, w_proj = _as_laid_out(w_qkv, qkv_strides), _as_laid_out(w_proj, proj_strides)
     b, n, hidden = x.shape
     o = torch.empty((b, n, num_heads * HEAD_DIM), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
@@ -472,8 +500,10 @@ class _FusedAttentionBlock(torch.autograd.Function):
 def fused_attention_block(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
                           w_proj: torch.Tensor, b_proj: torch.Tensor,
                           num_heads: int) -> torch.Tensor:
-    """K3: the whole attention sublayer. x (B, N, D) -> (B, N, D); weights in
-    :func:`dense_to_block_weights`' layouts, in x's type, biases float32.
+    """K3: the whole attention sublayer. x (B, N, D) -> (B, N, D); weights of
+    :func:`dense_to_block_weights`' shapes, in x's type, any strides (the
+    kernel reads its own layout, :func:`_weight_strides`; others are
+    copied into it first), biases float32.
 
     On the card each call launches the pair of kernels once and adds one to
     ``fused_attention_block.launches``; with grad on, the result's backward

@@ -12,24 +12,59 @@
 //
 // Design. The TPU kernel keeps all of a program's weights (4.7 MB in bf16 at
 // D = 768, H = 12) in VMEM; a Hopper block has 227 KB of shared memory, and
-// the fp32 (N, D) accumulator alone is 442 KB at N = 144. So two launches:
-//   A.1, grid (H, B): one block per (head, item). It projects x onto that
-//     head's q, k and v by streaming 32-wide K-chunks of x and of the three
-//     weight slices through shared memory, 48 rows of x at a time (6 x 6
-//     fp32 accumulators a thread), and keeps q, k, v whole in shared memory
-//     (3 N (Dh + 2) elements: 55 KB at N = 144, 158 KB at N = 400 in bf16).
-//     Attention then runs as K1 does, on 32-row query tiles with whole fp32
-//     score rows (no online softmax, so P is normalised before it is
-//     rounded, as in the TPU kernel). o_h goes, in T, into a (B, N, H Dh)
-//     buffer: the layout K1's output has.
-//   A.2, grid (B N / 64, D / 64): out = o Wp + bp as one product over the
-//     H Dh inner dimension, which runs through the heads in order; each
-//     output element has one owning thread, so the sum over heads is
-//     deterministic (no atomics): faithful-250 and fast solves stay bit-equal.
-// The products are scalar fp32 FMAs from shared memory on register tiles, as
-// in K1; tensor cores (wmma / wgmma), TMA, and a cluster of H blocks that
-// reduces over heads in distributed shared memory (no bf16 o round trip)
-// are work for a later change.
+// the fp32 (N, D) accumulator alone is 442 KB at N = 144. So two launches,
+// A.1 one block per (head, item) and A.2 the output projection; o_h goes,
+// in T, through a (B, N, H Dh) buffer (the layout K1's output has).
+//
+// bf16 (the solve's type) runs on the tensor cores, mma.sync m16n8k16 with
+// fp32 accumulators, operands staged in shared memory as bf16 and loaded
+// with ldmatrix (rows of 64 + 8 elements, 144 B, so the eight rows of an
+// 8 x 8 matrix fall on distinct banks):
+//   A.1, grid (H, B), 12 warps. The projection computes q|k|v (N x 192) =
+//     x W_h^T in passes of 144 rows (N = 144 is one pass) over K-chunks of
+//     64, on 3 x 4 warp tiles of 48 x 48; each thread holds the next
+//     chunk's share in registers while the warps multiply this one. The
+//     weights are read as the port's Linear weights lie ((3 H Dh, D) rows,
+//     K contiguous: the .col B operand as it is), so no copy is made per
+//     call. q, k, v stay whole in shared memory (rows padded to a multiple
+//     of 16, zero beyond N). Attention: each warp takes its share of the
+//     16-row query tiles, two at once where there are more tiles than
+//     warps (sharing each k and v fragment); pass 1 runs S = q k^T through
+//     mma 32 keys at a time to each row's max and sum in fp32; pass 2
+//     computes S again, P = exp(S - max) (1 / sum) in fp32, rounds P to bf16
+//     in registers (the accumulator layout of two n-tiles is the A
+//     operand's) and adds P v, v read with ldmatrix.trans. P is normalised
+//     before it is rounded, as in the TPU kernel; whole fp32 score rows for
+//     12 warps would not fit beside q, k, v at N = 400, so S is computed
+//     twice (4% more FLOPs at N = 144, 10% at N = 400). exp is exp2 of one
+//     FFMA on the special-function unit (2 ulp), the sum's reciprocal one
+//     division per row: P moves by a few fp32 ulp, far below its bf16
+//     rounding.
+//   A.2, grid (B N / 128, D / 64), 8 warps: out = o Wp^T + bp, Wp the
+//     Linear weight ((D, H Dh) rows, K contiguous), K-chunks of one head
+//     in head order inside each warp's 32 x 32 accumulators: each output
+//     element has one owning accumulator (no atomics, no split-K), so two
+//     calls are bit-equal and faithful-250 and fast solves agree bit for
+//     bit.
+// Shared memory caps bf16 N at 416 (smem_bytes). What bounds it on the card
+// (tools/k3_variants.py): A.1's projection, by its traffic from L2 (each
+// of the H blocks of an item reads x, each of the B blocks of a head reads
+// W_h) and shared memory more than by its products; then the attention's
+// two passes at N = 400.
+//
+// fp32 (the tests' type; mma.sync takes fp32 only as TF32) keeps the
+// scalar design: A.1 streams 32-wide K-chunks of x and of the three weight
+// slices ((3H, D, Dh), contiguous) through shared memory in fp32, 48 rows
+// of x at a time (6 x 6 fp32 accumulators a thread), keeps q, k, v whole
+// with rows of Dh + 2, and runs attention as K1 does, on 32-row query
+// tiles with whole fp32 score rows; A.2 is a scalar product on 64 x 64
+// tiles over the heads in order. It is launched only for fp32.
+//
+// Not done: wgmma, TMA (multicast of W_h to the blocks of a head), and a
+// cluster of H blocks that reduces over heads in distributed shared memory
+// (no bf16 o round trip). A cp.async double buffer of 32-wide chunks (the
+// room two stages leave) was slower than the register prefetch of 64-wide
+// ones: one chunk in flight did not hide the copies' latency.
 //
 // Bound on an H100 SXM at the solve's B = 32, N = 144, D = 768, H = 12, Dh =
 // 64, bf16: the products are 2 B N D 4D + 4 B H N^2 Dh = 23.8 GFLOP, 24 us at
@@ -65,30 +100,20 @@ constexpr int kOM = 64;
 constexpr int kON = 64;
 constexpr int kOK = 32;
 
+// The scalar kernels below are templates of the element type T as they
+// were written; since the bf16 design moved to the tensor cores (namespace
+// tc) only T = float is instantiated.
 template <typename T> struct Pair;
 template <> struct Pair<float> { using type = float2; };
-template <> struct Pair<__nv_bfloat16> { using type = __nv_bfloat162; };
 
 __device__ __forceinline__ float2 to_float2(float2 v) { return v; }
-__device__ __forceinline__ float2 to_float2(__nv_bfloat162 v) {
-  return __bfloat1622float2(v);
-}
 
 // Round to T and back: the casts to the input type in the TPU kernel.
 __device__ __forceinline__ float round_as(float v, const float*) { return v; }
-__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 __device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -105,9 +130,481 @@ __host__ __device__ size_t qkv_bytes(int n, size_t elem) {
   return (3 * (size_t)n * kS * elem + 15) / 16 * 16;
 }
 
-// A.1's shared memory: q, k, v, then one area used first by the projection's
-// staged chunks and then by a query tile's fp32 score rows.
+// The bf16 design on the tensor cores (see the head of this file).
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kA1Threads = 384;  // A.1: 12 warps
+constexpr int kA1Warps = kA1Threads / 32;
+constexpr int kRow = kD + 8;   // row stride (elements) of q, k, v and A.2's chunks: 144 B
+// A.1, the projection: 144 rows of x by q|k|v (192 columns) over K-chunks
+// of 64; warp tiles of 48 rows x 48 columns (3 x 4 warps).
+constexpr int kPR = 144;
+constexpr int kKC = 64;
+constexpr int kCRow = kKC + 8; // row stride of the staged chunks: 144 B
+constexpr int kPC = 3 * kD;
+// A.1, attention: keys 32 at a time; a warp takes up to kQT (a template
+// parameter: 1 where the query tiles are no more than the warps, else 2)
+// 16-row query tiles at once.
+constexpr int kKB = 32;
+// A.2: 128 x 64 output tiles (warp tiles 32 x 32), K-chunks of one head.
+constexpr int kOM = 128;
+constexpr int kON = 64;
+constexpr int kWN = kON / 2;
+constexpr int kOK = kD;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 b16 matrices; lanes 8i..8i+7 give matrix i's row addresses.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16; d 16 x 8 fp32.
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// A operand (16 x 16) at rows r0.., columns k0.. of a [row][kStride] array.
+template <int kStride>
+__device__ __forceinline__ void load_a(unsigned (&a)[4], const bf16* base, int r0, int k0,
+                                       int lane) {
+  ldsm_x4(a, base + (r0 + lane % 16) * kStride + k0 + (lane / 16) * 8);
+}
+// B operands of two n-tiles (n0.., n0 + 8..) x k16, from B^T as
+// [n][kStride]: r[0], r[1] the first tile's, r[2], r[3] the second's.
+template <int kStride>
+__device__ __forceinline__ void load_b(unsigned (&r)[4], const bf16* base, int n0, int k0,
+                                       int lane) {
+  ldsm_x4(r, base + (n0 + lane % 8 + (lane / 16) * 8) * kStride + k0 + ((lane / 8) % 2) * 8);
+}
+
+// 16-byte pieces of a chunk, kC8 to a row, spread over kBlock threads.
+template <int kRows, int kC8, int kBlock>
+__host__ __device__ constexpr int per_thread() {
+  static_assert(kRows * kC8 % kBlock == 0, "the chunk must split evenly");
+  return kRows * kC8 / kBlock;
+}
+
+// q, k, v (rows padded to 16), then the projection's staged chunks.
+__host__ __device__ constexpr size_t qkv_bytes(int np) {
+  return 3 * (size_t)np * kRow * sizeof(bf16);
+}
+__host__ __device__ constexpr size_t smem_bytes(int n) {
+  return qkv_bytes((n + 15) / 16 * 16) + (size_t)(kPR + kPC) * kCRow * sizeof(bf16);
+}
+
+template <int kQT>
+__global__ void __launch_bounds__(kA1Threads)
+block_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
+                           const float* __restrict__ bqkv, bf16* __restrict__ o, int n,
+                           int heads, int hidden, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int np = (n + 15) / 16 * 16;
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // [np][kRow]
+  bf16* ks = qs + np * kRow;
+  bf16* vs = ks + np * kRow;
+  bf16* xs = vs + np * kRow;                 // [kPR][kCRow]
+  bf16* ws = xs + kPR * kCRow;               // [kPC][kCRow]: W_h rows, K contiguous
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t2 = 2 * (lane % 4);  // accumulator row, column pair
+  const int h = blockIdx.x;
+  const long long b = blockIdx.y;
+  const bf16* xg = x + b * n * hidden;
+  const int wr = warp / 4, wc = warp % 4;       // projection tile: 48 rows x 48 columns
+
+  // q|k|v (np x 192) = x W_h^T, kPR rows at a time, over K-chunks; step s
+  // is (row chunk s / nk, K-chunk s % nk). Each thread holds its share of
+  // the next step's chunks in registers while the warps multiply this one.
+  constexpr int kC8 = kKC / 8;
+  constexpr int kXU = per_thread<kPR, kC8, kA1Threads>();
+  constexpr int kWU = per_thread<kPC, kC8, kA1Threads>();
+  const int nk = hidden / kKC, steps = (np + kPR - 1) / kPR * nk;
+  uint4 xr[kXU], wreg[kWU];
+  auto fetch = [&](int step) {
+    const int r0 = step / nk * kPR, k0 = step % nk * kKC;
+#pragma unroll
+    for (int u = 0; u < kXU; ++u) {
+      const int i = tid + u * kA1Threads, r = i / kC8, c = i % kC8 * 8;
+      xr[u] = r0 + r < n ? *reinterpret_cast<const uint4*>(
+                               xg + (long long)(r0 + r) * hidden + k0 + c)
+                         : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < kWU; ++u) {
+      const int i = tid + u * kA1Threads, r = i / kC8, c = i % kC8 * 8;
+      const int which = r / kD, d = r % kD;  // 0 q, 1 k, 2 v
+      wreg[u] = *reinterpret_cast<const uint4*>(
+          wqkv + ((long long)(which * heads + h) * kD + d) * hidden + k0 + c);
+    }
+  };
+  fetch(0);
+  float acc[3][6][4];
+  for (int step = 0; step < steps; ++step) {
+    const int r0 = step / nk * kPR, k0 = step % nk * kKC;
+    if (k0 == 0) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+    __syncthreads();  // the previous chunk is consumed
+#pragma unroll
+    for (int u = 0; u < kXU; ++u) {
+      const int i = tid + u * kA1Threads;
+      *reinterpret_cast<uint4*>(xs + i / kC8 * kCRow + i % kC8 * 8) = xr[u];
+    }
+#pragma unroll
+    for (int u = 0; u < kWU; ++u) {
+      const int i = tid + u * kA1Threads;
+      *reinterpret_cast<uint4*>(ws + i / kC8 * kCRow + i % kC8 * 8) = wreg[u];
+    }
+    __syncthreads();
+    if (step + 1 < steps) fetch(step + 1);
+#pragma unroll
+    for (int kk = 0; kk < kKC; kk += 16) {
+      unsigned a[3][4];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)  // m-tiles past the padded rows: skipped, warp-uniform
+        if (r0 + wr * 48 + i * 16 < np) load_a<kCRow>(a[i], xs, wr * 48 + i * 16, kk, lane);
+#pragma unroll
+      for (int j = 0; j < 6; j += 2) {
+        unsigned wb[4];
+        load_b<kCRow>(wb, ws, wc * 48 + j * 8, kk, lane);
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          if (r0 + wr * 48 + i * 16 < np) {
+            mma(acc[i][j], a[i], wb[0], wb[1]);
+            mma(acc[i][j + 1], a[i], wb[2], wb[3]);
+          }
+      }
+    }
+    if (k0 + kKC < hidden) continue;
+    // The fp32 bias, then bf16; q scaled in bf16; zero rows past n.
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      const int col = wc * 48 + j * 8 + t2;
+      const int which = col / kD, d = col % kD;
+      const float* bias = bqkv + (which * heads + h) * kD + d;
+      bf16* dst = (which == 0 ? qs : which == 1 ? ks : vs) + d;
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = r0 + wr * 48 + i * 16 + g + half * 8;
+          if (r >= np) continue;
+          float y0 = bf16_round(acc[i][j][2 * half] + bias[0]);
+          float y1 = bf16_round(acc[i][j][2 * half + 1] + bias[1]);
+          if (which == 0) {
+            y0 = bf16_round(y0 * scale);
+            y1 = bf16_round(y1 * scale);
+          }
+          if (r >= n) y0 = y1 = 0.f;
+          *reinterpret_cast<__nv_bfloat162*>(dst + r * kRow) = __floats2bfloat162_rn(y0, y1);
+        }
+    }
+  }
+  __syncthreads();
+
+  // Attention: warp w takes the 16-row query tiles [w per, (w + 1) per),
+  // up to kQT at a time sharing each k and v fragment. In tile q this
+  // thread's rows are q0 + 16 q + g (accumulator elements 0, 1) and that + 8
+  // (elements 2, 3).
+  bf16* og = o + b * n * (long long)(heads * kD) + h * kD;
+  const int tiles = np / 16, per = (tiles + kA1Warps - 1) / kA1Warps;
+  const int t_end = min((warp + 1) * per, tiles);
+  for (int t0 = warp * per; t0 < t_end; t0 += kQT) {
+    const int q0 = 16 * t0, nq = min(kQT, t_end - t0);  // warp-uniform
+    unsigned qa[kQT][4][4];
+#pragma unroll
+    for (int q = 0; q < kQT; ++q)
+      if (q < nq)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) load_a<kRow>(qa[q][kk], qs, q0 + 16 * q, kk * 16, lane);
+
+    // S (tiles x kKB keys from j0) = q k^T, n-tile t holding keys j0 + 8 t..;
+    // 16-key groups at or past np are skipped (left at 0, masked below).
+    float s[kQT][kKB / 8][4];
+    auto scores = [&](int j0) {
+#pragma unroll
+      for (int q = 0; q < kQT; ++q)
+#pragma unroll
+        for (int t = 0; t < kKB / 8; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[q][t][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int u = 0; u < kKB / 16; ++u) {
+          if (j0 + 16 * u >= np) break;
+          unsigned kb[4];
+          load_b<kRow>(kb, ks, j0 + 16 * u, kk * 16, lane);
+#pragma unroll
+          for (int q = 0; q < kQT; ++q)
+            if (q < nq) {
+              mma(s[q][2 * u], qa[q][kk], kb[0], kb[1]);
+              mma(s[q][2 * u + 1], qa[q][kk], kb[2], kb[3]);
+            }
+        }
+    };
+
+    // exp(S - max) as exp2(S log2(e) - max log2(e)): one FFMA and the
+    // special-function unit's exp2 (2 ulp) in place of expf's sequence.
+    constexpr float kLog2e = 1.4426950408889634f;
+    // Pass 1: each row's max and sum of exp(S - max), in fp32.
+    float m[kQT][2], l[kQT][2];
+#pragma unroll
+    for (int q = 0; q < kQT; ++q)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) m[q][half] = -INFINITY, l[q][half] = 0.f;
+    for (int j0 = 0; j0 < np; j0 += kKB) {
+      scores(j0);
+#pragma unroll
+      for (int q = 0; q < kQT; ++q)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          if (q >= nq) continue;
+          float bm = -INFINITY;
+#pragma unroll
+          for (int t = 0; t < kKB / 8; ++t)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              float& v = s[q][t][2 * half + c];
+              if (j0 + kKB > n && j0 + t * 8 + t2 + c >= n) v = -INFINITY;
+              bm = fmaxf(bm, v);
+            }
+          bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 1));
+          bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 2));
+          const float mn = fmaxf(m[q][half], bm), ml = mn * kLog2e;
+          float sum = l[q][half] * exp2f(fmaf(m[q][half], kLog2e, -ml));
+#pragma unroll
+          for (int t = 0; t < kKB / 8; ++t)
+            sum += exp2f(fmaf(s[q][t][2 * half], kLog2e, -ml)) +
+                   exp2f(fmaf(s[q][t][2 * half + 1], kLog2e, -ml));
+          l[q][half] = sum;
+          m[q][half] = mn;
+        }
+    }
+    // 1 / sum: P = exp(S - max) (1 / sum) is within a few fp32 ulp of the
+    // quotient, and P is rounded to bf16 only after it. m becomes max log2(e).
+#pragma unroll
+    for (int q = 0; q < kQT; ++q)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float v = l[q][half];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        l[q][half] = 1.f / v;
+        m[q][half] *= kLog2e;
+      }
+
+    // Pass 2: P in fp32, rounded to bf16; o += P v.
+    float oacc[kQT][8][4];
+#pragma unroll
+    for (int q = 0; q < kQT; ++q)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oacc[q][j][e] = 0.f;
+    for (int j0 = 0; j0 < np; j0 += kKB) {
+      scores(j0);
+#pragma unroll
+      for (int u = 0; u < kKB / 16; ++u) {
+        if (j0 + 16 * u >= np) break;
+        unsigned pa[kQT][4];  // two accumulator n-tiles are one A operand (16 x 16 keys)
+#pragma unroll
+        for (int q = 0; q < kQT; ++q)
+#pragma unroll
+          for (int t = 0; t < 2; ++t)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              if (q >= nq) continue;
+              float p[2];
+#pragma unroll
+              for (int c = 0; c < 2; ++c)
+                p[c] = j0 + 16 * u + 8 * t + t2 + c < n
+                           ? exp2f(fmaf(s[q][2 * u + t][2 * half + c], kLog2e, -m[q][half])) *
+                                 l[q][half]
+                           : 0.f;
+              pa[q][2 * t + half] = pack(p[0], p[1]);
+            }
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) {
+          unsigned vb[4];  // v as [key][dim]: B (k = key, n = dim) through .trans
+          ldsm_x4_trans(vb, vs + (j0 + 16 * u + lane % 8 + ((lane / 8) % 2) * 8) * kRow +
+                                j * 8 + (lane / 16) * 8);
+#pragma unroll
+          for (int q = 0; q < kQT; ++q)
+            if (q < nq) {
+              mma(oacc[q][j], pa[q], vb[0], vb[1]);
+              mma(oacc[q][j + 1], pa[q], vb[2], vb[3]);
+            }
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kQT; ++q)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = q0 + 16 * q + g + half * 8;
+        if (q >= nq || r >= n) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(og + (long long)r * heads * kD + j * 8 + t2) =
+              __floats2bfloat162_rn(oacc[q][j][2 * half], oacc[q][j][2 * half + 1]);
+      }
+  }
+}
+
+// out (m x hidden) = o (m x inner) Wp^T + bp; Wp as [hidden][inner] rows.
+__global__ void __launch_bounds__(kThreads)
+out_proj_mma_kernel(const bf16* __restrict__ o, const bf16* __restrict__ wproj,
+                    const float* __restrict__ bproj, bf16* __restrict__ out, int m, int inner,
+                    int hidden) {
+  __shared__ __align__(16) bf16 os[kOM * kRow];
+  __shared__ __align__(16) bf16 ws[kON * kRow];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t2 = 2 * (lane % 4);
+  const int wr = warp / 2, wc = warp % 2;  // warp tile: 32 rows x kWN columns
+  const long long m0 = (long long)blockIdx.x * kOM;
+  const int n0 = blockIdx.y * kON;
+  float acc[2][kWN / 8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kWN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  // Inner index k = h * Dh + e runs through the heads in order; the next
+  // K-chunk waits in registers while this one is multiplied.
+  constexpr int kC8 = kOK / 8;
+  constexpr int kAU = per_thread<kOM, kC8, kThreads>(), kBU = per_thread<kON, kC8, kThreads>();
+  uint4 ar[kAU], br[kBU];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int u = 0; u < kAU; ++u) {
+      const int i = tid + u * kThreads, r = i / kC8, c = i % kC8 * 8;
+      ar[u] = m0 + r < m ? *reinterpret_cast<const uint4*>(o + (m0 + r) * inner + k0 + c)
+                         : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < kBU; ++u) {
+      const int i = tid + u * kThreads, r = i / kC8, c = i % kC8 * 8;
+      br[u] = *reinterpret_cast<const uint4*>(wproj + (long long)(n0 + r) * inner + k0 + c);
+    }
+  };
+  fetch(0);
+  for (int k0 = 0; k0 < inner; k0 += kOK) {
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kAU; ++u) {
+      const int i = tid + u * kThreads;
+      *reinterpret_cast<uint4*>(os + i / kC8 * kRow + i % kC8 * 8) = ar[u];
+    }
+#pragma unroll
+    for (int u = 0; u < kBU; ++u) {
+      const int i = tid + u * kThreads;
+      *reinterpret_cast<uint4*>(ws + i / kC8 * kRow + i % kC8 * 8) = br[u];
+    }
+    __syncthreads();
+    if (k0 + kOK < inner) fetch(k0 + kOK);
+#pragma unroll
+    for (int kk = 0; kk < kOK; kk += 16) {
+      unsigned a[2][4];
+      load_a<kRow>(a[0], os, wr * 32, kk, lane);
+      load_a<kRow>(a[1], os, wr * 32 + 16, kk, lane);
+#pragma unroll
+      for (int j = 0; j < kWN / 8; j += 2) {
+        unsigned wb[4];
+        load_b<kRow>(wb, ws, wc * kWN + j * 8, kk, lane);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma(acc[i][j], a[i], wb[0], wb[1]);
+          mma(acc[i][j + 1], a[i], wb[2], wb[3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kWN / 8; ++j) {
+    const int c = n0 + wc * kWN + j * 8 + t2;
+    const float b0 = bproj[c], b1 = bproj[c + 1];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long r = m0 + wr * 32 + i * 16 + g + half * 8;
+        if (r < m)
+          *reinterpret_cast<__nv_bfloat162*>(out + r * hidden + c) = __floats2bfloat162_rn(
+              acc[i][j][2 * half] + b0, acc[i][j][2 * half + 1] + b1);
+      }
+  }
+}
+
+template <int kQT>
+int launch_a1(const void* x, const void* wqkv, const void* bqkv, void* o, int b, int n,
+              int heads, int hidden, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes(n);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        block_attention_mma_kernel<kQT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  block_attention_mma_kernel<kQT><<<dim3(heads, b), kA1Threads, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<bf16*>(o), n, heads, hidden, scale);
+  return (int)cudaGetLastError();
+}
+
+// x (b, n, hidden); wqkv (3 heads kD, hidden) and wproj (hidden, heads kD),
+// the Linear weights as they lie.
+int launch(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
+           const void* bproj, void* o, void* out, int b, int n, int heads, int hidden,
+           float scale, cudaStream_t stream) {
+  const int err = (n + 15) / 16 <= kA1Warps
+                      ? launch_a1<1>(x, wqkv, bqkv, o, b, n, heads, hidden, scale, stream)
+                      : launch_a1<2>(x, wqkv, bqkv, o, b, n, heads, hidden, scale, stream);
+  if (err) return err;
+  const int m = b * n;
+  out_proj_mma_kernel<<<dim3((m + kOM - 1) / kOM, hidden / kON), kThreads, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(wproj),
+      static_cast<const float*>(bproj), static_cast<bf16*>(out), m, heads * kD, hidden);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// A.1's shared memory. bf16: tc::smem_bytes. fp32: q, k, v, then one area
+// used first by the projection's staged chunks and then by a query tile's
+// fp32 score rows.
 size_t smem_bytes(int n, size_t elem) {
+  if (elem == sizeof(__nv_bfloat16)) return tc::smem_bytes(n);
   const size_t proj = ((size_t)kPR * kXS + (size_t)kKC * kPC) * sizeof(float);
   const size_t scores = (size_t)kTQ * (n + 1) * sizeof(float);
   return qkv_bytes(n, elem) + (proj > scores ? proj : scores);
@@ -377,11 +874,13 @@ int k3_attention_block_max_smem(int device) {
   return bytes;
 }
 
-// x (b, n, hidden); wqkv (3 heads, hidden, kD); bqkv (3 heads, kD) fp32;
-// wproj (heads kD, hidden); bproj (hidden) fp32; o (b, n, heads kD) scratch;
-// out (b, n, hidden); all contiguous. hidden is a multiple of 64. dtype: 0 =
-// float32, 1 = bfloat16. Returns the cudaError_t of the launches (0 on
-// success).
+// x (b, n, hidden); bqkv (3 heads, kD) fp32; bproj (hidden) fp32; o (b, n,
+// heads kD) scratch; out (b, n, hidden); all contiguous. The weights: fp32,
+// wqkv (3 heads, hidden, kD) and wproj (heads kD, hidden), contiguous;
+// bf16, the Linear weights as they lie, wqkv (3 heads kD, hidden) and
+// wproj (hidden, heads kD) rows, with x and both 16-byte aligned. hidden is
+// a multiple of 64. dtype: 0 = float32, 1 = bfloat16. Returns the
+// cudaError_t of the launches (0 on success).
 int k3_attention_block(int dtype, const void* x, const void* wqkv,
                        const void* bqkv, const void* wproj, const void* bproj,
                        void* o, void* out, int b, int n, int heads, int hidden,
@@ -391,8 +890,8 @@ int k3_attention_block(int dtype, const void* x, const void* wqkv,
     return launch<float>(x, wqkv, bqkv, wproj, bproj, o, out, b, n, heads,
                          hidden, scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, wqkv, bqkv, wproj, bproj, o, out, b, n,
-                                 heads, hidden, scale, s);
+    return tc::launch(x, wqkv, bqkv, wproj, bproj, o, out, b, n, heads, hidden,
+                      scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,10 +3,10 @@
 Runs fast and faithful solves of the flagship (``JPDVT`` at 192 px, 3x3,
 bf16, weights random from a seed: the time does not depend on them) under
 ``torch.profiler`` and prints one JSON line: per mode, the wall time of a
-solve, the device time summed over its kernels by group (K1, K3, GEMM,
-other), the device's idle share, the kernel count, and the time of the
-parameter cast that the solver makes once and keeps. Counterpart of the
-JAX package's ``tools/profile_step.py``.
+solve, the device time summed over its kernels by group (K1, K3's two
+launches A.1 and A.2, K4, GEMM, other), the device's idle share, the
+kernel count, and the time of the parameter cast that the solver makes
+once and keeps. Counterpart of the JAX package's ``tools/profile_step.py``.
 
     python -m jpdvt_mt_ntnu_tpu_torch.tools.profile_solve [--batch 32] [--attn-impl block]
 
@@ -25,8 +25,10 @@ import torch
 def _group(name: str) -> str:
     if "attention_fwd_kernel" in name:
         return "k1_attention"
-    if "block_attention_kernel" in name or "out_proj_kernel" in name:
-        return "k3_attention_block"
+    if "block_attention" in name:  # K3's A.1 (block_attention_mma_kernel in bf16)
+        return "k3_a1_projection_attention"
+    if "out_proj" in name:  # K3's A.2 (out_proj_mma_kernel in bf16)
+        return "k3_a2_output_projection"
     if "flash_fwd_kernel" in name:
         return "k4_flash_fwd"
     low = name.lower()

@@ -21,6 +21,12 @@ as K1, 2e-2 absolute in bf16 (both round exp(S - m) per tile at the same
 points; exp or summation order can flip one rounding by one ulp), 1e-4 in
 fp32; the LSE 1e-4 absolute (fp32, summation order). K5 and K6 as K2. The
 DiT's gradients through K4-K6 as through K1/K2.
+
+K3 against its plain version, relative to the output's largest magnitude:
+bf16 2e-2 (both round q, k, v, P, o and the output at the same points;
+exp, the reciprocal of the row sum or summation order can flip one
+rounding by one bf16 ulp), fp32 1e-5 (summation order); two calls
+bit-equal, also with the weights as views of Linear weights.
 """
 
 import numpy as np
@@ -269,9 +275,14 @@ def _block_operands(b, n, dtype, gen, heads=12, hidden=768):
                                        (2, 400, torch.bfloat16),
                                        (3, 77, torch.bfloat16),
                                        (2, 401, torch.bfloat16),
+                                       (3, 17, torch.bfloat16),
+                                       (5, 17, torch.bfloat16),
+                                       (2, 416, torch.bfloat16),
                                        (2, 144, torch.float32),
                                        (2, 200, torch.float32)])
 def test_k3_cuda_kernel_matches_plain(cuda, b, n, dtype):
+    """N not a multiple of the 16-row tiles (17, 77, 401); B N not a
+    multiple of A.2's 128-row tile (85, 231, 802); the bf16 limit (416)."""
     gen = torch.Generator("cuda").manual_seed(n + 4)
     ops = _block_operands(b, n, dtype, gen)
     before = port.fused_attention_block.launches
@@ -284,6 +295,30 @@ def test_k3_cuda_kernel_matches_plain(cuda, b, n, dtype):
     assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-5) * scale, (err, scale)
     again = port.fused_attention_block(*ops, 12)
     assert torch.equal(out, again)  # deterministic: no atomics
+
+
+@pytest.mark.parametrize("b,n,dtype", [(2, 144, torch.bfloat16), (3, 77, torch.bfloat16),
+                                       (2, 77, torch.float32)])
+def test_k3_cuda_kernel_takes_the_linear_weights_as_views(cuda, b, n, dtype):
+    """The DiT's operands: dense_to_block_weights' views of (out, in) Linear
+    weights. The same result, bit for bit, as from contiguous copies of
+    them, and two calls bit-equal."""
+    gen = torch.Generator("cuda").manual_seed(n + 7)
+    x = torch.randn((b, n, 768), generator=gen, device="cuda").to(dtype)
+    wq = (torch.randn((3 * 768, 768), generator=gen, device="cuda") * 768 ** -0.5).to(dtype)
+    wp = (torch.randn((768, 768), generator=gen, device="cuda") * 768 ** -0.5).to(dtype)
+    bq = 0.1 * torch.randn(3 * 768, generator=gen, device="cuda")
+    bp = 0.1 * torch.randn(768, generator=gen, device="cuda")
+    views = port.dense_to_block_weights(wq, bq, wp, bp, 12)
+    assert views[0].data_ptr() == wq.data_ptr() and views[2].data_ptr() == wp.data_ptr()
+    copies = [t.contiguous() for t in views]
+    out = port.fused_attention_block(x, *views, 12)
+    assert torch.equal(out, port.fused_attention_block(x, *views, 12))
+    assert torch.equal(out, port.fused_attention_block(x, *copies, 12))
+    want = port.fused_attention_block_plain(x, *views, 12).float()
+    scale = want.abs().max().item()
+    err = (out.float() - want).abs().max().item()
+    assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-5) * scale, (err, scale)
 
 
 def test_k3_gradient_is_autograd_of_the_plain_version(cuda):
@@ -313,7 +348,10 @@ def test_k3_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
         port.fused_attention_block(x, w_qkv, b_qkv.bfloat16(), w_proj, b_proj, 2)
     with pytest.raises(ValueError, match="Dh == 64"):
         port.fused_attention_block(x, w_qkv[:, :, :32].contiguous(), b_qkv, w_proj, b_proj, 2)
-    for n, dtype in ((443, torch.bfloat16), (444, torch.bfloat16), (252, torch.float32),
+    ops = _block_operands(1, 417, torch.bfloat16, gen, heads=2, hidden=128)
+    with pytest.raises(ValueError, match="shared memory"):
+        port.fused_attention_block(*ops, 2)
+    for n, dtype in ((416, torch.bfloat16), (417, torch.bfloat16), (252, torch.float32),
                      (253, torch.float32)):
         elem = torch.empty((), dtype=dtype).element_size()
         assert port.k3_smem_bytes(n, elem) == \
