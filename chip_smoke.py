@@ -8,13 +8,14 @@ Phases, each of which raises on failure:
 
 1. build the CUDA kernels, one ``nvcc`` per source started together
    (``.cu`` -> ``.so`` -> ``ctypes``), print the card's name and power
-   limit, check that K3's bf16 kernels hold ``HMMA`` (tensor-core)
-   instructions in their SASS, and that the route table's shared-memory
-   sums are the kernels';
+   limit, check that K1's and K3's bf16 kernels hold ``HMMA``
+   (tensor-core) instructions in their SASS, and that the route table's
+   shared-memory sums are the kernels';
 2. hold kernel K1 (whole-row attention) against its plain PyTorch version
-   on the card at the solve's shapes (B=16, 32), the train step's (B=96)
-   and ragged ones, and time both beside one PyTorch call of the same
-   function (SDPA, a yardstick only);
+   on the card at the solve's shapes (B=16, 32 at N = 144 and 400), the
+   train step's (B=96) and ragged ones (N = 9, 77, 200), two calls
+   bit-equal at each, and time it beside its bound, the plain version and
+   one PyTorch call of the same function (SDPA, a yardstick only);
 3. the main path: load ``artifacts/waves3_r5_step10000`` through the
    port's loader, fast-solve and faithful-250-solve the 16 unseen wave
    puzzles of the artifact's export smoke with the JAX package's seed-0
@@ -268,8 +269,10 @@ def check_k1(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
     if not err <= TOL[dtype]:
         raise AssertionError(f"K1 {(b, HEADS, n, HEAD_DIM)} {dtype}: max abs err "
                              f"{err} > {TOL[dtype]}")
+    if not torch.equal(out, attn_ops.attention(q, k, v)):
+        raise AssertionError(f"K1 {(b, HEADS, n, HEAD_DIM)} {dtype}: two calls differ")
     row = {"shape": [b, HEADS, n, HEAD_DIM], "dtype": str(dtype).split(".")[-1],
-           "max_abs_err": err, "tol": TOL[dtype]}
+           "max_abs_err": err, "tol": TOL[dtype], "bit_equal": True}
     if timed:
         row["ms"] = cuda_ms(lambda: attn_ops.attention(q, k, v), 200)
         row["plain_ms"] = cuda_ms(lambda: attn_ops.attention_reference(q, k, v), 50)
@@ -1216,14 +1219,17 @@ def main(argv=None) -> int:
         for line in lib_path.with_suffix(".log").read_text().splitlines():
             if any(w in line for w in ("registers", "Compiling entry", "spill")):
                 log(f"  ptxas: {line.strip()}")
-    # K3's bf16 kernels run on the tensor cores: HMMA in their SASS.
-    hmma = sass_count(lib_paths[2], "HMMA")
-    log(f"K3 SASS HMMA per kernel: {json.dumps(hmma)}")
-    for kernel in ("block_attention_mma_kernel", "out_proj_mma_kernel"):
-        if not sum(c for f, c in hmma.items() if kernel in f):
-            raise AssertionError(f"K3's {kernel} has no HMMA in its SASS")
+    # K1's and K3's bf16 kernels run on the tensor cores: HMMA in their SASS.
+    for name, lib_path, bf16_kernels in (
+            ("K1", lib_paths[0], ("attention_fwd_mma_kernel",)),
+            ("K3", lib_paths[2], ("block_attention_mma_kernel", "out_proj_mma_kernel"))):
+        hmma = sass_count(lib_path, "HMMA")
+        log(f"{name} SASS HMMA per kernel: {json.dumps(hmma)}")
+        for kernel in bf16_kernels:
+            if not sum(c for f, c in hmma.items() if kernel in f):
+                raise AssertionError(f"{name}'s {kernel} has no HMMA in its SASS")
     # The route table's shared-memory sums (ops/attention.py) are the kernels'.
-    for n in (9, 144, 205, 206, 400, 571, 572):
+    for n in (9, 144, 164, 165, 205, 206, 341, 342, 400, 571, 572, 1024):
         for elem in (2, 4):
             if (attn_ops.k1_smem_bytes(n, elem) != attn_ops._kernel().k1_attention_smem_bytes(n, elem)
                     or attn_ops.k2_smem_bytes(n, elem)
@@ -1246,6 +1252,7 @@ def main(argv=None) -> int:
                check_k1(3, 77, torch.bfloat16, gen, timed=False),
                check_k1(2, 200, torch.bfloat16, gen, timed=False),
                check_k1(2, TOKENS, torch.float32, gen, timed=False),
+               check_k1(2, 9, torch.bfloat16, gen, timed=False),
                check_k1(32, TOKENS20, torch.bfloat16, gen, timed=True)]
     log(f"phase k1: {time.perf_counter() - t0:.2f} s")
 

@@ -57,8 +57,12 @@ ATTN_IMPLS = (None, "pallas", "flash", "block")
 
 
 def k1_smem_bytes(n: int, elem: int) -> int:
-    """K1's shared memory per block (``csrc/attention.cu`` ``smem_bytes``):
-    K and V rows of Dh + 2, a 32-row fp32 query tile and its fp32 score rows."""
+    """K1's shared memory per block (``csrc/attention.cu`` ``smem_bytes``).
+    bf16: two stages of 64-key chunks of K and V with rows of Dh + 8, the
+    same at every N. fp32: K and V whole with rows of Dh + 2, a 32-row fp32
+    query tile and its fp32 score rows."""
+    if elem == 2:
+        return 2 * 2 * 64 * (HEAD_DIM + 8) * elem
     return 2 * n * (HEAD_DIM + 2) * elem + 32 * (HEAD_DIM + 2) * 4 + 32 * (n + 1) * 4
 
 
@@ -93,8 +97,8 @@ def attention_route(n: int, dtype: torch.dtype, grad: bool, attn_impl=None, *,
     ``"block"``; bf16 N <= 416, fp32 N <= 252 on the card).
 
     ``attn_impl`` None takes the whole-row kernels where their shared
-    memory fits a Hopper block (bf16: N <= 571 without grad, <= 205 with
-    it; fp32: 341 and 164) and flash beyond; ``"pallas"`` insists on the
+    memory fits a Hopper block (bf16: every N without grad, N <= 205 with
+    it, where K2 sets the limit; fp32: 341 and 164) and flash beyond; ``"pallas"`` insists on the
     whole-row kernels and ``"flash"`` on the flash ones. The CPU takes the
     same route through the plain versions, which hold no limit of Dh or
     dtype; ``on_card`` adds the kernels' (Dh 64, fp32 or bf16). Raises

@@ -1,0 +1,243 @@
+"""Where a kernel's bf16 time goes: text variants of its source, timed side by side.
+
+``--kernel k3`` (the default) varies ``ops/csrc/attention_block.cu``,
+``--kernel k1`` ``ops/csrc/attention.cu``. Each variant is a list of
+``[old, new]`` substitutions applied to the source (for example
+``[["if (step + 1 < steps) fetch(step + 1);", ""]]`` drops K3's projection
+loads; ``[["int warps_for(int) { return 4; }", "int warps_for(int) {
+return 8; }"]]`` gives K1 blocks of 8 warps). Every variant and the
+unchanged source (``base``) is built with ``nvcc`` and the flags of
+``ops/_build.py`` into ``jpdvt_mt_ntnu_tpu_torch/_build/<kernel>_variants/``;
+the bf16 call (K3's launch pair, or K1 on strided views of a fused qkv, as
+the DiT calls it) is then timed by CUDA events at each (B, N), the
+variants alternating over rounds, on random inputs, with each output's
+largest difference from the plain version beside it (a variant that drops
+work is wrong by design). ``--ablations`` adds variants that each drop
+one part of the kernel (``ABLATIONS``). For K3, ``--clocks`` also builds ``base`` with
+``clock64`` stamps at A.1's start, after its projection and at its end,
+and prints the median cycles of each phase per block and the most blocks
+one SM ran.
+
+    python -m jpdvt_mt_ntnu_tpu_torch.tools.kernel_variants [--kernel k3|k1]
+        [--ablations] [--variants FILE.json] [--shapes 32x144,32x400]
+        [--rounds 3] [--clocks]
+
+Needs a CUDA card and ``nvcc``; it fails without them. Variants are a tool
+for finding a bottleneck, never a route: the port runs only the source.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import ctypes
+import json
+import subprocess
+
+import numpy as np
+import torch
+
+from ..ops import _build
+from ..ops import attention as attn_ops
+
+SOURCES = {"k3": "attention_block.cu", "k1": "attention.cu"}
+HEADS, HEAD_DIM = 12, 64
+# --ablations: each drops one part of the kernel (its output is then wrong).
+# K3: parts of A.1. K1 (bf16): the copies of K and V (the ring's cp.async),
+# pass 1's work (its copies stay), P and P V in pass 2 (S stays), every exp2.
+ABLATIONS = {
+    "k3": {
+        "no_attention": [["  for (int t0 = warp * per; t0 < t_end; t0 += kQT) {",
+                          "  for (int t0 = t_end; t0 < t_end; t0 += kQT) {"]],
+        "no_projection_mma": [["          if (r0 + wr * 48 + i * 16 < np) {\n            mma(",
+                               "          if (false) {\n            mma("]],
+        "no_projection_loads": [["    if (step + 1 < steps) fetch(step + 1);", ""]],
+        "no_projection_ldmatrix_mma": [
+            ["    for (int kk = 0; kk < kKC; kk += 16) {\n      unsigned a[3][4];",
+             "    for (int kk = 0; kk < 0; kk += 16) {\n      unsigned a[3][4];"]],
+    },
+    "k1": {
+        "no_loads": [["    cp_async16(dst, src);\n", ""]],
+        "no_pass1": [["    if (active && step < nc) {", "    if (false) {"],
+                     ["    } else if (active) {", "    } else if (active && step >= nc) {"]],
+        "no_pass2_p_pv": [["          mma(oacc[j], pa, vb[0], vb[1]);\n"
+                           "          mma(oacc[j + 1], pa, vb[2], vb[3]);\n", ""]],
+        "no_exp2": [["namespace {\n\nconstexpr int kD = 64;",
+                     "#define exp2f(x) (x)\nnamespace {\n\nconstexpr int kD = 64;"]],
+    },
+}
+# --clocks: (anchor in the source, text put before it); the last entry's text
+# is put after it. Each stamp is taken by every thread; thread 0 stores them.
+_CLOCKS = (
+    ("namespace tc {",
+     "__device__ long long g_k3_clocks[1 << 16];\n"),
+    ("  const int np = (n + 15) / 16 * 16;\n  bf16* qs",
+     "  const long long c0 = clock64();\n"),
+    ("  // Attention: warp w takes",
+     "  const long long c1 = clock64();\n"),
+)
+_CLOCKS_END = ("__floats2bfloat162_rn(oacc[q][j][2 * half], oacc[q][j][2 * half + 1]);\n"
+               "      }\n  }\n",
+               "  __syncthreads();\n  if (threadIdx.x == 0) {\n    unsigned sm;\n"
+               "    asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(sm));\n"
+               "    long long* p = g_k3_clocks + 4 * (blockIdx.y * gridDim.x + blockIdx.x);\n"
+               "    p[0] = c0; p[1] = c1; p[2] = clock64(); p[3] = sm;\n  }\n")
+_CLOCKS_EXPORT = ("\nextern \"C\" int k3_clocks(long long* host) {\n"
+                  "  return (int)cudaMemcpyFromSymbol(host, g_k3_clocks, sizeof(g_k3_clocks));\n}\n")
+
+
+def _substitute(src: str, subs) -> str:
+    for old, new in subs:
+        if old not in src:
+            raise ValueError(f"variant text not in the source: {old[:80]!r}")
+        src = src.replace(old, new, 1)
+    return src
+
+
+def _with_clocks(src: str) -> str:
+    src = _substitute(src, [(a, text + a) for a, text in _CLOCKS])
+    return _substitute(src, [(_CLOCKS_END[0], _CLOCKS_END[0] + _CLOCKS_END[1])]) + _CLOCKS_EXPORT
+
+
+def _build_all(kernel: str, sources: dict) -> dict:
+    """name -> source text; returns name -> ctypes library."""
+    out = _build.BUILD_DIR / f"{kernel}_variants"
+    out.mkdir(parents=True, exist_ok=True)
+
+    def build(name: str):
+        cu, so = out / f"{name}.cu", out / f"{name}.so"
+        cu.write_text(sources[name])
+        proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                              capture_output=True, text=True, stdin=subprocess.DEVNULL,
+                              timeout=_build.NVCC_TIMEOUT_S)
+        if proc.returncode:
+            raise RuntimeError(f"variant {name} failed to build:\n{proc.stdout}{proc.stderr}")
+        return name, ctypes.CDLL(str(so))
+
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        libs = dict(pool.map(build, sources))
+    for lib in libs.values():
+        if kernel == "k3":
+            lib.k3_attention_block.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                                               + [ctypes.c_int] * 4
+                                               + [ctypes.c_float, ctypes.c_void_p])
+        else:
+            lib.k1_attention_fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                                             + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3
+                                             + [ctypes.c_float, ctypes.c_void_p])
+    return libs
+
+
+def _k3_case(b: int, n: int, gen: torch.Generator, weights: tuple):
+    """(call(lib), output, plain output, reset()) for K3 at (b, n)."""
+    wq, bq, wp, bp, ops = weights
+    d = wq.shape[1]
+    x = torch.randn((b, n, d), generator=gen, device="cuda").bfloat16()
+    want = attn_ops.fused_attention_block_plain(x, *ops, HEADS).float()
+    o = torch.empty((b, n, d), dtype=torch.bfloat16, device="cuda")
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(lib):
+        err = lib.k3_attention_block(1, x.data_ptr(), wq.data_ptr(), bq.data_ptr(),
+                                     wp.data_ptr(), bp.data_ptr(), o.data_ptr(),
+                                     out.data_ptr(), b, n, HEADS, d, HEAD_DIM ** -0.5, stream)
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+
+    def reset():
+        o.zero_()  # a variant that skips a phase reads no earlier variant's o
+
+    return call, out, want, reset
+
+
+def _k1_case(b: int, n: int, gen: torch.Generator):
+    """(call(lib), output, plain output, reset()) for K1 at (b, n), on
+    strided views of a fused (B, N, 3*H*Dh) qkv."""
+    qkv = torch.randn((b, n, 3 * HEADS * HEAD_DIM), generator=gen, device="cuda").bfloat16()
+    q, k, v = qkv.view(b, n, 3, HEADS, HEAD_DIM).permute(2, 0, 3, 1, 4).unbind(0)
+    want = attn_ops.attention_reference(q, k, v).float()
+    out = torch.empty((b, n, HEADS, HEAD_DIM), dtype=torch.bfloat16,
+                      device="cuda").transpose(1, 2)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(lib):
+        err = lib.k1_attention_fwd(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                   *q.stride()[:3], *out.stride()[:3], b, HEADS, n,
+                                   HEAD_DIM ** -0.5, stream)
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+
+    return call, out, want, out.zero_
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=sorted(SOURCES), default="k3")
+    ap.add_argument("--variants", help="JSON file: {name: [[old, new], ...]}")
+    ap.add_argument("--shapes", default="32x144,32x400", help="B x N, comma-separated")
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--ablations", action="store_true", help="add the built-in ABLATIONS")
+    ap.add_argument("--clocks", action="store_true", help="per-block phase cycles (K3)")
+    args = ap.parse_args()
+    if args.kernel != "k3" and args.clocks:
+        raise SystemExit("--clocks takes K3's source only")
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_variants needs a CUDA card")
+    src = (_build.CSRC / SOURCES[args.kernel]).read_text()
+    variants = {"base": [], **(ABLATIONS[args.kernel] if args.ablations else {})}
+    if args.variants:
+        with open(args.variants) as f:
+            variants.update(json.load(f))
+    sources = {name: _substitute(src, subs) for name, subs in variants.items()}
+    if args.clocks:
+        sources["base_clocks"] = _with_clocks(src)
+    libs = _build_all(args.kernel, sources)
+    gen = torch.Generator("cuda").manual_seed(0)
+    if args.kernel == "k3":
+        d = HEADS * HEAD_DIM
+        wq = (torch.randn(3 * d, d, generator=gen, device="cuda") * d ** -0.5).bfloat16()
+        bq = 0.1 * torch.randn(3 * d, generator=gen, device="cuda")
+        wp = (torch.randn(d, d, generator=gen, device="cuda") * d ** -0.5).bfloat16()
+        bp = 0.1 * torch.randn(d, generator=gen, device="cuda")
+        weights = (wq, bq, wp, bp, attn_ops.dense_to_block_weights(wq, bq, wp, bp, HEADS))
+    result = {"device": torch.cuda.get_device_name(0), "kernel": args.kernel}
+    for shape in args.shapes.split(","):
+        b, n = (int(v) for v in shape.split("x"))
+        call, out, want, reset = (_k3_case(b, n, gen, weights) if args.kernel == "k3"
+                           else _k1_case(b, n, gen))
+        row = {name: {"us": []} for name in variants}
+        for rnd in range(args.rounds):
+            for name in variants:
+                reset()
+                call(libs[name])
+                start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                for _ in range(args.reps):
+                    call(libs[name])
+                stop.record()
+                torch.cuda.synchronize()
+                row[name]["us"].append(1e3 * start.elapsed_time(stop) / args.reps)
+                if rnd == 0:
+                    row[name]["max_abs_err"] = (out.float() - want).abs().max().item()
+        if args.clocks:
+            lib = libs["base_clocks"]
+            call(lib)
+            torch.cuda.synchronize()
+            buf = np.zeros(1 << 16, dtype=np.int64)
+            lib.k3_clocks.argtypes = [ctypes.c_void_p]
+            if lib.k3_clocks(buf.ctypes.data):
+                raise RuntimeError("reading the clocks failed")
+            c = buf[:4 * b * HEADS].reshape(-1, 4)
+            row["clocks"] = {"projection_cycles_median": float(np.median(c[:, 1] - c[:, 0])),
+                             "attention_cycles_median": float(np.median(c[:, 2] - c[:, 1])),
+                             "blocks_per_sm_max": int(np.bincount(c[:, 3]).max())}
+        result[f"{b}x{n}"] = row
+        print(json.dumps({shape: row}), flush=True)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -23,8 +23,8 @@ import torch
 
 
 def _group(name: str) -> str:
-    if "attention_fwd_kernel" in name:
-        return "k1_attention"
+    if "attention_fwd_kernel" in name or "attention_fwd_mma_kernel" in name:
+        return "k1_attention"  # attention_fwd_mma_kernel in bf16
     if "block_attention" in name:  # K3's A.1 (block_attention_mma_kernel in bf16)
         return "k3_a1_projection_attention"
     if "out_proj" in name:  # K3's A.2 (out_proj_mma_kernel in bf16)

@@ -9,7 +9,8 @@ must be left out:
 
 Tolerances as in ``chip_smoke.py``: K1 bf16 2e-2 absolute (one bf16 ulp of
 an output of magnitude ~2 if exp or summation order flips a rounding),
-fp32 1e-4 (summation order). K2, relative to each gradient's largest
+fp32 1e-4 (summation order); two calls bit-equal, and strided views of the
+fused qkv bit-equal to contiguous copies. K2, relative to each gradient's largest
 magnitude: bf16 2^-6 (a summation order that flips the bf16 rounding of dS
 or of an output moves it by one ulp, 2^-8 of its scale), fp32 1e-5.
 The DiT's gradients with K1/K2 against plain autograd in fp32: 1e-4 of
@@ -50,19 +51,54 @@ def cuda():
         pytest.skip("needs a CUDA card: K1 and K2 are CUDA kernels with no CPU mode")
 
 
+def _k1_views(b, n, dtype, gen, offset=0):
+    """q, k, v as the DiT hands them to K1: strided views of a fused (B, N,
+    3*H*Dh) qkv, starting ``offset`` elements into their buffer."""
+    f = 3 * 12 * 64
+    buf = torch.randn(offset + b * n * f, generator=gen, device="cuda").to(dtype)
+    qkv = buf[offset:].view(b, n, f)
+    return qkv.view(b, n, 3, 12, 64).permute(2, 0, 3, 1, 4).unbind(0)
+
+
 @pytest.mark.parametrize("b,n,dtype", [(16, 144, torch.bfloat16),
+                                       (32, 400, torch.bfloat16),
                                        (3, 77, torch.bfloat16),
+                                       (2, 9, torch.bfloat16),
                                        (2, 144, torch.float32)])
 def test_k1_cuda_kernel_matches_plain(cuda, b, n, dtype):
+    """N = 9 (the tiny fixture's grid) and 77 leave the last 64-key chunk
+    and the last query tile ragged; 400 is the grid-20 solve's."""
     gen = torch.Generator("cuda").manual_seed(n)
-    qkv = torch.randn((b, n, 3 * 12 * 64), generator=gen, device="cuda").to(dtype)
-    q, k, v = qkv.reshape(b, n, 3, 12, 64).permute(2, 0, 3, 1, 4).unbind(0)
+    q, k, v = _k1_views(b, n, dtype, gen)
     before = port.attention.launches
     out = port.attention(q, k, v)
     torch.cuda.synchronize()
     assert port.attention.launches == before + 1
     err = (out.float() - port.attention_reference(q, k, v).float()).abs().max().item()
     assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.parametrize("b,n,dtype", [(32, 144, torch.bfloat16), (32, 400, torch.bfloat16),
+                                       (2, 144, torch.float32)])
+def test_k1_cuda_kernel_is_bit_equal_across_calls(cuda, b, n, dtype):
+    """One owning accumulator per output, keys in a fixed order, no atomics."""
+    q, k, v = _k1_views(b, n, dtype, torch.Generator("cuda").manual_seed(n + 2))
+    out = port.attention(q, k, v)
+    assert torch.equal(out, port.attention(q, k, v))
+
+
+@pytest.mark.parametrize("b,n,dtype,offset", [(4, 144, torch.bfloat16, 0),
+                                              (3, 77, torch.bfloat16, 0),
+                                              (3, 77, torch.bfloat16, 2),
+                                              (2, 77, torch.float32, 0)])
+def test_k1_cuda_kernel_reads_strided_views_of_the_fused_qkv(cuda, b, n, dtype, offset):
+    """The same bits from strided views of the fused qkv as from contiguous
+    (B, H, N, Dh) copies. ``offset`` 2 puts the bf16 rows off 16-byte
+    alignment, where the kernel stages K and V without cp.async."""
+    q, k, v = _k1_views(b, n, dtype, torch.Generator("cuda").manual_seed(n + 3), offset)
+    assert q.stride()[:3] == (n * 3 * 12 * 64, 64, 3 * 12 * 64)
+    out = port.attention(q, k, v)
+    assert torch.equal(out, port.attention(q.contiguous(), k.contiguous(), v.contiguous()))
 
 
 def test_k1_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
@@ -72,9 +108,11 @@ def test_k1_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     q = torch.zeros((1, 2, 9, 64), device="cuda", dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         port.attention(q, q, q)
-    q = torch.zeros((1, 2, 4096, 64), device="cuda", dtype=torch.bfloat16)
+    q = torch.zeros((1, 2, 342, 64), device="cuda", dtype=torch.float32)
     with pytest.raises(ValueError, match="shared memory"):
-        port.attention(q, q, q)
+        port.attention(q, q, q)  # fp32 keeps whole score rows: N <= 341
+    for n, elem in ((9, 2), (4096, 2), (341, 4), (342, 4)):
+        assert port.k1_smem_bytes(n, elem) == port._kernel().k1_attention_smem_bytes(n, elem)
 
 
 @pytest.mark.parametrize("b,n,dtype", [(32, 144, torch.bfloat16),

@@ -30,7 +30,7 @@ from jpdvt_mt_ntnu_tpu_torch.data import SyntheticPuzzles
 from jpdvt_mt_ntnu_tpu_torch.eval.solver import PuzzleSolver
 from jpdvt_mt_ntnu_tpu_torch.models import DiT, DiTConfig, create_model, dit
 from jpdvt_mt_ntnu_tpu_torch.ops import jigsaw
-from jpdvt_mt_ntnu_tpu_torch.ops.attention import attention_route
+from jpdvt_mt_ntnu_tpu_torch.ops.attention import HOPPER_MAX_SMEM, attention_route, k1_smem_bytes
 from jpdvt_mt_ntnu_tpu_torch.tools import weights
 from jpdvt_mt_ntnu_tpu_torch.train import run_train
 from jpdvt_mt_ntnu_tpu_torch.utils.config import Config, apply_overrides
@@ -44,12 +44,24 @@ BF16, FP32 = torch.bfloat16, torch.float32
     (144, BF16, True, "whole_row"), (205, BF16, True, "whole_row"),
     (206, BF16, True, "flash"), (400, BF16, True, "flash"),
     (400, BF16, False, "whole_row"), (571, BF16, False, "whole_row"),
-    (572, BF16, False, "flash"), (164, FP32, True, "whole_row"),
-    (165, FP32, True, "flash"), (341, FP32, False, "whole_row"),
-    (400, FP32, False, "flash")])
+    (572, BF16, False, "whole_row"), (1024, BF16, False, "whole_row"),
+    (164, FP32, True, "whole_row"), (165, FP32, True, "flash"),
+    (341, FP32, False, "whole_row"), (400, FP32, False, "flash")])
 def test_auto_route_takes_the_whole_row_kernels_where_they_fit(n, dtype, grad, route):
+    """bf16 K1 streams K and V through a fixed ring, so it fits at every N
+    without grad; with grad K2 bounds the route (N <= 205)."""
     assert attention_route(n, dtype, grad) == route
     assert attention_route(n, dtype, grad, "flash") == "flash"
+
+
+@pytest.mark.parametrize("n", [9, 144, 400, 1024])
+def test_k1_smem_bytes_is_the_kernels_design(n):
+    """bf16: two stages of 64-key K and V chunks, rows of Dh + 8 (144 B),
+    the same at every N; fp32: the scalar kernel's K and V whole (rows of
+    Dh + 2), a 32-row fp32 query tile and its fp32 score rows."""
+    assert k1_smem_bytes(n, 2) == 2 * 2 * 64 * 72 * 2 == 36864
+    assert k1_smem_bytes(n, 4) == 2 * n * 66 * 4 + 32 * 66 * 4 + 32 * (n + 1) * 4
+    assert (k1_smem_bytes(n, 4) <= HOPPER_MAX_SMEM) == (n <= 341)
 
 
 def test_route_refusals():
