@@ -8,7 +8,7 @@ Phases, each of which raises on failure:
 
 1. build the CUDA kernels, one ``nvcc`` per source started together
    (``.cu`` -> ``.so`` -> ``ctypes``), print the card's name and power
-   limit, check that K1's and K3's bf16 kernels hold ``HMMA``
+   limit, check that the bf16 kernels of K1, K3, K5 and K6 hold ``HMMA``
    (tensor-core) instructions in their SASS, and that the route table's
    shared-memory sums are the kernels';
 2. hold kernel K1 (whole-row attention) against its plain PyTorch version
@@ -25,7 +25,9 @@ Phases, each of which raises on failure:
 4. faithful-250 and fast puzzles/s at batch 32;
 5. hold kernel K2 (the whole-row attention backward) against its plain
    version at the training path's shapes and ragged ones, and time it
-   beside its bound, the plain version and SDPA's backward (a yardstick);
+   beside its bound, the plain version and SDPA's backward (a yardstick:
+   the fastest of the flash, efficient and cuDNN backends that take the
+   shape, named beside it);
 6. gradients through attention: one ``training_losses`` backward of the
    full-width DiT in fp32 with random weights through K1/K2 against the
    same through the plain attention (torch autograd), every parameter;
@@ -45,9 +47,13 @@ tokens), where the flash kernels K4-K6 carry training:
 
 9. hold K4 (flash forward), K5 (dQ) and K6 (dK, dV) against their plain
    versions at the train step's shape (B=96, N=400, bf16), B=32 in bf16 and
-   fp32, ragged N (77, 200, 401) and a contiguous layout beside the fused
-   one, and time each beside its bound, its plain version and SDPA (its
-   forward for K4, its backward for K5 + K6, a yardstick only);
+   fp32, ragged N (77, 200, 401), one whole tile (N = 64) for K5 + K6, a
+   contiguous layout beside the fused one for K4 and, for K5 + K6, q/k/v
+   views whose rows are off 16-byte alignment (bit-equal to aligned
+   copies); K5 and K6 give the same bits in two calls at every shape; time
+   each beside its bound, its plain version and SDPA (its forward for K4,
+   its backward for K5 + K6 with the backend named, as for K2; a
+   yardstick only);
 10. gradients through the flash route: one fp32 ``training_losses``
     backward of the full-width DiT at 320 px, batch 4, random weights with
     open gates, through K4-K6 against plain autograd, every parameter;
@@ -253,10 +259,69 @@ def bound_ms(b: int, h: int, n: int, d: int, dtype: torch.dtype,
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def qkv_views(b: int, n: int, dtype: torch.dtype, gen: torch.Generator):
-    """q, k, v as the DiT hands them to K1: strided views of (B, N, 3*H*Dh)."""
-    qkv = torch.randn((b, n, 3 * HEADS * HEAD_DIM), generator=gen, device="cuda").to(dtype)
+def qkv_views(b: int, n: int, dtype: torch.dtype, gen: torch.Generator, offset: int = 0):
+    """q, k, v as the DiT hands them to K1: strided views of (B, N, 3*H*Dh),
+    ``offset`` elements into their buffer (2 puts bf16 rows off 16 bytes)."""
+    f = 3 * HEADS * HEAD_DIM
+    buf = torch.randn((offset + b * n * f,), generator=gen, device="cuda").to(dtype)
+    qkv = buf[offset:].view(b, n, f)
     return qkv.reshape(b, n, 3, HEADS, HEAD_DIM).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def fused_grads(b: int, n: int, dtype: torch.dtype):
+    """dq, dk, dv as the train step has them: slots of one (B, N, 3*H*Dh) buffer."""
+    buf = torch.empty((b, n, 3 * HEADS * HEAD_DIM), dtype=dtype, device="cuda")
+    return buf.view(b, n, 3, HEADS, HEAD_DIM).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def kernel_ms(fn, reps: int) -> float:
+    """Device milliseconds of the kernels one ``fn()`` launches, summed
+    (``torch.profiler``): unlike ``cuda_ms``, blind to gaps where the device
+    waits on the host between launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not us:
+        raise RuntimeError("the profiler recorded no device kernel")
+    return us / 1e3 / reps
+
+
+def sdpa_bwd_ms(q, k, v, do, reps: int) -> tuple:
+    """SDPA's forward and backward less its forward on the same q, k, v and
+    dO, under each backend that takes them (``sdpa_kernel``): (the fastest
+    one's ms by CUDA events, its name, every backend's ms or None where it
+    refused, and every backend's kernels' device ms by ``kernel_ms``). A
+    yardstick only: the port calls SDPA nowhere."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+    def fwd():
+        return F.scaled_dot_product_attention(*leaves)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), leaves, do)
+
+    times, device = {}, {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        name = backend.name.lower()
+        try:
+            with sdpa_kernel(backend):
+                times[name] = cuda_ms(fwd_bwd, reps) - cuda_ms(fwd, reps)
+                device[name] = kernel_ms(fwd_bwd, reps) - kernel_ms(fwd, reps)
+        except RuntimeError as err:
+            times[name] = device[name] = None
+            log(f"  SDPA {name} does not take {tuple(q.shape)} {q.dtype}: "
+                f"{str(err).strip().splitlines()[0]}")
+    ran = {name: ms for name, ms in times.items() if ms is not None}
+    best = min(ran, key=ran.get) if ran else None
+    return ran.get(best), best, times, device
 
 
 def check_k1(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
@@ -290,8 +355,7 @@ def check_k2(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
     q, k, v = qkv_views(b, n, dtype, gen)
     do = torch.randn((b, n, HEADS * HEAD_DIM), generator=gen, device="cuda").to(dtype)
     do = do.view(b, n, HEADS, HEAD_DIM).transpose(1, 2)
-    buf = torch.empty((b, n, 3 * HEADS * HEAD_DIM), dtype=dtype, device="cuda")
-    out = buf.view(b, n, 3, HEADS, HEAD_DIM).permute(2, 0, 3, 1, 4).unbind(0)
+    out = fused_grads(b, n, dtype)
     attn_ops.attention_bwd(q, k, v, do, out=out)
     torch.cuda.synchronize()
     errs = {}
@@ -309,15 +373,8 @@ def check_k2(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
     if timed:
         row["ms"] = cuda_ms(lambda: attn_ops.attention_bwd(q, k, v, do, out=out), 50)
         row["plain_ms"] = cuda_ms(lambda: attn_ops.attention_bwd_reference(q, k, v, do), 10)
-        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-
-        def sdpa_fwd():
-            return F.scaled_dot_product_attention(*leaves)
-
-        def sdpa_fwd_bwd():
-            torch.autograd.grad(sdpa_fwd(), leaves, do)
-
-        row["library_ms"] = cuda_ms(sdpa_fwd_bwd, 50) - cuda_ms(sdpa_fwd, 50)
+        (row["library_ms"], row["library_backend"], row["library_ms_by_backend"],
+         row["library_kernel_ms_by_backend"]) = sdpa_bwd_ms(q, k, v, do, 50)
         row["bound_ms"], row["bound_by"] = bound_ms(b, HEADS, n, HEAD_DIM, dtype,
                                                     tensors=7, products=5)
     log("K2 " + json.dumps(row))
@@ -357,19 +414,29 @@ def check_k4(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
 
 
 def check_k5_k6(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
-                timed: bool) -> tuple[dict, dict]:
-    """K5 and K6 as the train step calls them: q/k/v views of a fused qkv, O
-    and dO views of (B, N, H*Dh) buffers, dq/dk/dv written into one fused
-    gradient buffer; O and the LSE from the plain forward."""
-    q, k, v = qkv_views(b, n, dtype, gen)
+                timed: bool, offset: int = 0) -> tuple[dict, dict]:
+    """K5 and K6 as the train step calls them: q/k/v views of a fused qkv
+    (``offset`` elements into its buffer), O and dO views of (B, N, H*Dh)
+    buffers, dq/dk/dv written into one fused gradient buffer; O and the LSE
+    from the plain forward. Two calls give the same bits; with an offset,
+    so do aligned copies of q, k, v."""
+    q, k, v = qkv_views(b, n, dtype, gen, offset)
     o, lse = flash_ops.flash_attention_fwd_reference(q, k, v, flash_ops.BLOCK_K)
     o = o.transpose(1, 2).contiguous().transpose(1, 2)
     do = torch.randn((b, n, HEADS * HEAD_DIM), generator=gen, device="cuda").to(dtype)
     do = do.view(b, n, HEADS, HEAD_DIM).transpose(1, 2)
-    buf = torch.empty((b, n, 3 * HEADS * HEAD_DIM), dtype=dtype, device="cuda")
-    out = buf.view(b, n, 3, HEADS, HEAD_DIM).permute(2, 0, 3, 1, 4).unbind(0)
+    out = fused_grads(b, n, dtype)
     flash_ops.flash_attention_bwd(q, k, v, o, lse, do, out=out)
+    again = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, out=fused_grads(b, n, dtype))
     torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(out, again)):
+        raise AssertionError(f"K5/K6 {(b, HEADS, n, HEAD_DIM)} {dtype}: two calls differ")
+    if offset:
+        copies = flash_ops.flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                                               o, lse, do, out=fused_grads(b, n, dtype))
+        if not all(torch.equal(x, y) for x, y in zip(out, copies)):
+            raise AssertionError(f"K5/K6 {(b, HEADS, n, HEAD_DIM)} {dtype}: views off 16-byte "
+                                 f"alignment differ from aligned copies")
     errs = {}
     for name, got, want in zip(("dq", "dk", "dv"), out,
                                flash_ops.flash_attention_bwd_reference(q, k, v, o, lse, do)):
@@ -380,7 +447,8 @@ def check_k5_k6(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
                                  f"abs err {err} > {K2_TOL[dtype]} x {scale}")
         errs[name] = [err, scale]
     base = {"shape": [b, HEADS, n, HEAD_DIM], "dtype": str(dtype).split(".")[-1],
-            "rel_tol": K2_TOL[dtype]}
+            "rel_tol": K2_TOL[dtype], "bit_equal": True,
+            "q_offset_elements": offset, "q_aligned_16": q.data_ptr() % 16 == 0}
     k5 = {**base, "max_abs_err": errs["dq"][0], "err_and_scale": {"dq": errs["dq"]}}
     k6 = {**base, "max_abs_err": max(errs["dk"][0], errs["dv"][0]),
           "err_and_scale": {k: errs[k] for k in ("dk", "dv")}}
@@ -390,16 +458,11 @@ def check_k5_k6(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
         # The plain version computes dq, dk and dv in one pass; both rows carry it.
         k5["plain_ms"] = k6["plain_ms"] = cuda_ms(
             lambda: flash_ops.flash_attention_bwd_reference(q, k, v, o, lse, do), 3)
-        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-
-        def sdpa_fwd():
-            return F.scaled_dot_product_attention(*leaves)
-
-        def sdpa_fwd_bwd():
-            torch.autograd.grad(sdpa_fwd(), leaves, do)
-
         # SDPA's backward computes dq, dk and dv together: K5 + K6's work.
-        k5["library_ms"] = k6["library_ms"] = cuda_ms(sdpa_fwd_bwd, 20) - cuda_ms(sdpa_fwd, 20)
+        lib = sdpa_bwd_ms(q, k, v, do, 20)
+        for row in (k5, k6):
+            (row["library_ms"], row["library_backend"], row["library_ms_by_backend"],
+             row["library_kernel_ms_by_backend"]) = lib
         k5["library_covers"] = k6["library_covers"] = "dq, dk, dv (K5 + K6)"
         k5["bound_ms"], k5["bound_by"] = bound_ms(b, HEADS, n, HEAD_DIM, dtype,
                                                   tensors=6, products=3, lse=True)
@@ -1219,10 +1282,11 @@ def main(argv=None) -> int:
         for line in lib_path.with_suffix(".log").read_text().splitlines():
             if any(w in line for w in ("registers", "Compiling entry", "spill")):
                 log(f"  ptxas: {line.strip()}")
-    # K1's and K3's bf16 kernels run on the tensor cores: HMMA in their SASS.
+    # The bf16 kernels of K1, K3, K5 and K6 run on the tensor cores: HMMA in their SASS.
     for name, lib_path, bf16_kernels in (
             ("K1", lib_paths[0], ("attention_fwd_mma_kernel",)),
-            ("K3", lib_paths[2], ("block_attention_mma_kernel", "out_proj_mma_kernel"))):
+            ("K3", lib_paths[2], ("block_attention_mma_kernel", "out_proj_mma_kernel")),
+            ("K5/K6", lib_paths[4], ("flash_dq_mma_kernel", "flash_dkv_mma_kernel"))):
         hmma = sass_count(lib_path, "HMMA")
         log(f"{name} SASS HMMA per kernel: {json.dumps(hmma)}")
         for kernel in bf16_kernels:
@@ -1297,7 +1361,9 @@ def main(argv=None) -> int:
                 check_k5_k6(3, 77, torch.bfloat16, gen, timed=False),
                 check_k5_k6(2, 200, torch.bfloat16, gen, timed=False),
                 check_k5_k6(2, 401, torch.bfloat16, gen, timed=False),
-                check_k5_k6(2, 401, torch.float32, gen, timed=False)]
+                check_k5_k6(2, 401, torch.float32, gen, timed=False),
+                check_k5_k6(2, 64, torch.bfloat16, gen, timed=False),
+                check_k5_k6(3, 77, torch.bfloat16, gen, timed=False, offset=2)]
     log(f"phase k4-k6: {time.perf_counter() - t0:.2f} s")
 
     # 10. Gradients through the flash route at 320 px, grid 20.

@@ -10,25 +10,9 @@
 // to the input type. K5: dQ = sum over key tiles of (dS K) * scale. K6:
 // dV = sum over query tiles of round(P)^T dO with P rounded to the dO type,
 // dK = sum over query tiles of dS^T (q * scale). Every product accumulates
-// in fp32; the outputs are stored in the input type.
-//
-// Design. K5: one block per (batch, head, tile of 64 query rows), looping
-// over tiles of 64 key rows; the fp32 dQ tile lives in registers (4 x 4 per
-// thread). K6: one block per (batch, head, tile of 64 key rows), looping
-// over tiles of 64 query rows; the fp32 dK and dV tiles live in registers
-// (2 x 4 x 4 per thread). Each output element has one owning thread of one
-// block, so there are no atomics and the result is deterministic: a run
-// resumed from a checkpoint repeats the uninterrupted one bit for bit.
-// Shared memory holds one K and one V tile, the fp32 q and dO tiles, the
-// rows' LSE and delta, and the fp32 P and dS tiles: 68 KB (K5) and 85 KB
-// (K6) in bf16, whatever N is (K2 keeps whole rows and fp32 dK/dV and
-// stops at N = 205 in bf16). Ragged tiles are zero-filled; padded key
-// columns and padded query rows get P = 0, so they add exactly 0. The
-// kernels take element strides: q/k/v are read out of the saved fused
-// (B, N, 3*H*Dh) projection, O and dO out of (B, N, H*Dh) buffers, and
-// dq/dk/dv are written into one (B, N, 3, H, Dh) gradient buffer. The
-// products are scalar fp32 FMAs from shared memory, as in K1 and K2;
-// tensor cores are work for a later change.
+// in fp32; the outputs are stored in the input type. P uses the saved row
+// LSE, so nothing rounded depends on the tiling: a kernel may pick any
+// tile, and only the order of the fp32 sums differs from the Pallas one.
 //
 // Bound on an H100 SXM at the grid-20 train step, B = 96, H = 12, N = 400,
 // Dh = 64, bf16 (one (B, H, N, Dh) tensor is 59.0 MB, the LSE 1.8 MB):
@@ -36,51 +20,99 @@
 // 3.35 TB/s, against 6 * B * H * N^2 * Dh = 70.8 GFLOP, 72 us at 989
 // TFLOP/s bf16; K6 reads the same and writes dK and dV, 414.7 MB, 124 us,
 // against 8 * B * H * N^2 * Dh = 94.4 GFLOP, 95 us. Both are bound by the
-// memory traffic; the scalar FMAs keep them far above it. The train step
-// launches each once per DiT block: 12 + 12 launches per step.
+// memory traffic. The train step launches each once per DiT block: 12 +
+// 12 launches per step.
+//
+// bf16 (the train step's type) runs on the tensor cores (namespace tc):
+// mma.sync m16n8k16, bf16 in, fp32 accumulators, 4 warps a block, each
+// warp owning 16 rows of the block's 64. Streamed operands go through a
+// two-stage cp.async ring of 64-row chunks, rows of 64 + 8 elements (144
+// B, so the eight rows of an 8 x 8 ldmatrix fall on distinct banks).
+// - K6 (dK, dV): one block per (batch, head, 64 keys). Each warp loads its
+//   16 K and V rows once into mma A fragments. q, dO and O stream through
+//   the ring with each chunk's LSE; each chunk's delta = rowsum(dO * O) is
+//   taken from the ring, two threads a row. The warp works in the
+//   transposed form, so P and dS never leave registers: S^T = K q^T, P^T =
+//   exp(S^T - LSE), dP^T = V dO^T, dS^T = P^T (dP^T - delta) rounded to
+//   bf16; dV += round(P^T) dO and dK += dS^T q, the accumulators of two
+//   8-query n-tiles repacked as one 16 x 16 A operand, B from the ring by
+//   ldmatrix.trans. The ring takes q as it is; scale is 2^-3 for the only
+//   Dh the kernel takes (64), so q * scale is exact in bf16 and S = scale
+//   (K q^T), dK = scale (sum dS^T q) are the same fp32 numbers.
+// - K5 (dQ): one block per (batch, head, 64 queries), K1's structure. Each
+//   warp loads its 16 rows of q * scale (rounded to bf16) and of dO into A
+//   fragments once, with their LSE and delta (dO from the fragments, O
+//   read at the same places, summed over the quad). K and V stream through
+//   the ring: S = q K^T, dP = dO V^T (B by ldmatrix), P = exp(S - LSE) with
+//   keys past N masked to 0, dS = P (dP - delta) rounded to bf16 and
+//   repacked as A, dQ += dS K (B by ldmatrix.trans); dQ is multiplied by
+//   scale (2^-3, exact) once, at the store.
+// exp is exp2 of one FFMA on the special-function unit (2 ulp): P moves by
+// a few fp32 ulp, far below its bf16 rounding. Rows past N are zero in
+// shared memory and in the fragments (0 times a stale NaN would not be 0);
+// K6 gives query rows past N an LSE of +inf, so P = 0 there. Rows whose
+// source is not 16-byte aligned (pair-aligned views the wrappers admit)
+// are staged by 4-byte loads instead of cp.async. Each output element has
+// one owning accumulator and the chunks run in a fixed order (no atomics,
+// no split of a sum across blocks): two calls are bit-equal, and a train
+// run resumed from a checkpoint repeats the uninterrupted one.
+//
+// What the earlier scalar design (kept below for fp32) left, and what this
+// one does about it: every product was a scalar fp32 FMA from shared
+// memory (now mma.sync); q and dO were staged as fp32 and P and dS made a
+// round trip through shared memory as fp32 tiles between barriers (now
+// bf16 in the ring, P and dS in registers); 68 KB (K5) and 85 KB (K6) of
+// shared memory a block (now 36,864 B and 56,320 B). Not done: wgmma, TMA,
+// a persistent grid.
+//
+// fp32 (the tests' type; mma.sync takes fp32 only as TF32, which would
+// change its numbers) keeps the scalar design: K5 one block per (batch,
+// head, tile of 64 query rows), looping over tiles of 64 key rows, the
+// fp32 dQ tile in registers (4 x 4 per thread); K6 one block per (batch,
+// head, tile of 64 key rows), looping over tiles of 64 query rows, dK and
+// dV in registers (2 x 4 x 4 per thread). Shared memory holds one K and one
+// V tile, the q and dO tiles, the rows' LSE and delta, and the P and dS
+// tiles. Ragged tiles are zero-filled; padded key columns and padded query
+// rows get P = 0, so they add exactly 0.
+//
+// Both designs take element strides: q/k/v are read out of the saved fused
+// (B, N, 3*H*Dh) projection, O and dO out of (B, N, H*Dh) buffers, and
+// dq/dk/dv are written into one (B, N, 3, H, Dh) gradient buffer.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kD = 64;         // head dim; the Python wrapper checks it
+// The scalar fp32 kernels.
 constexpr int kBQ = 64;        // query rows per tile
 constexpr int kBK = 64;        // key rows per tile
 constexpr int kThreads = 256;  // 16 row groups x 16 column groups
 constexpr int kS = kD + 2;     // smem row stride of q, dO, K, V (elements)
 constexpr int kPS = kBK + 1;   // smem row stride of the P and dS tiles (floats)
 
+// The scalar kernels below are templates of the element type T as they
+// were written; since the bf16 design moved to the tensor cores (namespace
+// tc) only T = float is instantiated.
 template <typename T> struct Pair;
 template <> struct Pair<float> { using type = float2; };
-template <> struct Pair<__nv_bfloat16> { using type = __nv_bfloat162; };
 
 __device__ __forceinline__ float2 to_float2(float2 v) { return v; }
-__device__ __forceinline__ float2 to_float2(__nv_bfloat162 v) {
-  return __bfloat1622float2(v);
-}
 
 // Round to T and back: the casts to the input type in the TPU kernels.
 __device__ __forceinline__ float round_as(float v, const float*) { return v; }
-__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 __device__ __forceinline__ float2 zero_pair(const float*) {
   return make_float2(0.f, 0.f);
-}
-__device__ __forceinline__ __nv_bfloat162 zero_pair(const __nv_bfloat16*) {
-  return __floats2bfloat162_rn(0.f, 0.f);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -412,15 +444,497 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
+// The bf16 design on the tensor cores (see the head of this file).
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kRows = 64;             // rows of a chunk in the ring, and of a block's tile
+constexpr int kRow = kD + 8;          // smem row stride (elements): 144 B
+constexpr int kStage = kRows * kRow;  // elements of one chunk of one tensor
+constexpr int kC8 = kD / 8;           // 16-byte pieces of a row
+constexpr int kWarps = 4;             // 16 rows each
+constexpr int kBlock = 32 * kWarps;
+constexpr float kLog2e = 1.4426950408889634f;
+// K5: K and V, two stages each: 36,864 B at every N.
+constexpr size_t kDqSmemBytes = 4 * (size_t)kStage * sizeof(bf16);
+// K6: q, dO and O, two stages each, and each stage's LSE and delta (fp32):
+// 56,320 B at every N.
+constexpr size_t kDkvSmemBytes =
+    2 * (3 * (size_t)kStage * sizeof(bf16) + 2 * (size_t)kRows * sizeof(float));
+// Blocks an SM, by measurement on an H100 (PERF.md §6): 4 caps K5 at 128
+// registers and 3 caps K6 at 168, each with a few bytes of spill; the
+// spill-free 3 (149 registers) and 2 (209) were 10% and 7% slower.
+constexpr int kDqMinBlocks = 4;
+constexpr int kDkvMinBlocks = 3;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 b16 matrices; lanes 8i..8i+7 give matrix i's row addresses.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16; d 16 x 8 fp32.
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack(unsigned v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// B operands of two n-tiles (n0.., n0 + 8..) x k16, from B^T as
+// [n][kStride]: r[0], r[1] the first tile's, r[2], r[3] the second's.
+template <int kStride>
+__device__ __forceinline__ void load_b(unsigned (&r)[4], const bf16* base, int n0, int k0,
+                                       int lane) {
+  ldsm_x4(r, base + (n0 + lane % 8 + (lane / 16) * 8) * kStride + k0 + ((lane / 8) % 2) * 8);
+}
+
+// B operands of two n-tiles (columns j0.., j0 + 8..) x k16 (rows k0..) from
+// B as [k][kRow], through .trans: r[0], r[1] the first tile's, r[2], r[3]
+// the second's.
+__device__ __forceinline__ void load_b_trans(unsigned (&r)[4], const bf16* base, int k0,
+                                             int j0, int lane) {
+  ldsm_x4_trans(r, base + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * kRow + j0 + (lane / 16) * 8);
+}
+
+// The A operands (16 rows x 4 slices of 16 dims) of rows r0.. of a (N, Dh)
+// slice with row stride sn, times mul, rounded to bf16; zero rows past n.
+__device__ __forceinline__ void load_a(unsigned (&a)[4][4], const bf16* g, long long sn, int r0,
+                                       int n, float mul, int lane) {
+  const int gr = lane / 4, t2 = 2 * (lane % 4);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + gr + (e % 2) * 8, col = kk * 16 + t2 + (e / 2) * 8;
+      const float2 x = row < n ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                                     g + row * sn + col))
+                               : make_float2(0.f, 0.f);
+      a[kk][e] = pack(x.x * mul, x.y * mul);
+    }
+}
+
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most one committed group (the newest) is still in flight.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// One 16-byte piece of a row into shared memory: by cp.async where the
+// source is 16-byte aligned, else by four 4-byte loads; zeros past N.
+__device__ __forceinline__ void stage_piece(bf16* dst, const bf16* src, bool valid,
+                                            bool aligned) {
+  if (!valid) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  } else if (aligned) {
+    cp_async16(dst, src);
+  } else {
+    const unsigned* s = reinterpret_cast<const unsigned*>(src);
+    *reinterpret_cast<uint4*>(dst) = make_uint4(s[0], s[1], s[2], s[3]);
+  }
+}
+
+// Sum of the products of eight bf16 pairs' elements, in fp32.
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const unsigned x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = unpack(x[i]), w = unpack(y[i]);
+    s = fmaf(u.x, w.x, s);
+    s = fmaf(u.y, w.y, s);
+  }
+  return s;
+}
+
+// K5: dQ of 4 warps x 16 query rows; K and V stream through the ring.
+__global__ void __launch_bounds__(kBlock, kDqMinBlocks)
+flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ o,
+                    const bf16* __restrict__ dout, const float* __restrict__ lse,
+                    bf16* __restrict__ dq, Strides st, int h, int n, float scale,
+                    int aligned) {
+  constexpr int kPieces = kRows * kC8 / kBlock;  // a thread's pieces of one chunk of K (or V)
+  static_assert(kRows * kC8 % kBlock == 0, "a chunk must split evenly over the threads");
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);  // [2][kRows][kRow]
+  bf16* vs = ks + 2 * kStage;                // [2][kRows][kRow]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t2 = 2 * (lane % 4);  // accumulator row, column pair
+  const long long in_base = blockIdx.z * st.in_sb + blockIdx.y * st.in_sh;
+  const bf16* kg = k + in_base;
+  const bf16* vg = v + in_base;
+  const bf16* og = o + blockIdx.z * st.o_sb + blockIdx.y * st.o_sh;
+  const bf16* dog = dout + blockIdx.z * st.do_sb + blockIdx.y * st.do_sh;
+  const float* lg = lse + ((long long)blockIdx.z * h + blockIdx.y) * n;
+  // This warp's rows: q0 + g (accumulator elements 0, 1) and q0 + g + 8 (2, 3).
+  const int q0 = (blockIdx.x * kWarps + warp) * 16;
+  const bool active = q0 < n;  // warp-uniform; idle warps still stage K and V
+
+  // q * scale (rounded) and dO as A operands; each row's LSE log2(e) and
+  // delta = rowsum(dO * O), from this lane's dO pieces and O at the same
+  // places, summed over the quad.
+  unsigned qa[4][4], da[4][4];
+  load_a(qa, q + in_base, st.in_sn, q0, n, scale, lane);
+  load_a(da, dog, st.do_sn, q0, n, 1.f, lane);
+  float lse2[2], delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = q0 + g + (e % 2) * 8, col = kk * 16 + t2 + (e / 2) * 8;
+      if (row < n) {
+        const float2 d = unpack(da[kk][e]);
+        const float2 y = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(og + row * st.o_sn + col));
+        delta[e % 2] = fmaf(d.x, y.x, fmaf(d.y, y.y, delta[e % 2]));
+      }
+    }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    delta[half] += __shfl_xor_sync(0xffffffffu, delta[half], 1);
+    delta[half] += __shfl_xor_sync(0xffffffffu, delta[half], 2);
+    const int row = q0 + g + half * 8;
+    lse2[half] = row < n ? lg[row] * kLog2e : 0.f;
+  }
+
+  // Chunk c of K and V into stage c % 2 of the ring.
+  const int nc = (n + kRows - 1) / kRows;
+  auto issue = [&](int c) {
+    const int stg = c % 2;
+#pragma unroll
+    for (int u = 0; u < kPieces; ++u) {
+      const int i = tid + u * kBlock, r = i / kC8, col = i % kC8 * 8, key = c * kRows + r;
+      const long long off = (long long)min(key, n - 1) * st.in_sn + col;
+      stage_piece(ks + stg * kStage + r * kRow + col, kg + off, key < n, aligned);
+      stage_piece(vs + stg * kStage + r * kRow + col, vg + off, key < n, aligned);
+    }
+    cp_async_commit();
+  };
+
+  float acc[kD / 8][4];  // dQ / scale: n-tile j holds dims 8 j..
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  issue(0);
+  for (int c = 0; c < nc; ++c) {
+    if (c + 1 < nc) {
+      issue(c + 1);  // into the stage the previous chunk read
+    } else {
+      cp_async_commit();  // an empty group, so one wait fits every chunk
+    }
+    cp_async_wait_one();
+    __syncthreads();
+    const int j0 = c * kRows;
+    const int groups = min(kRows / 16, (n - j0 + 15) / 16);  // 16-key groups with a key < n
+    const bf16* kst = ks + c % 2 * kStage;
+    const bf16* vst = vs + c % 2 * kStage;
+    if (active) {
+#pragma unroll
+      for (int u = 0; u < kRows / 16; ++u) {
+        if (u >= groups) break;
+        // S and dP of 16 rows x 16 keys (two n-tiles each).
+        float s[2][4], dp[2][4];
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          unsigned b[4];
+          load_b<kRow>(b, kst, 16 * u, kk * 16, lane);
+          mma(s[0], qa[kk], b[0], b[1]);
+          mma(s[1], qa[kk], b[2], b[3]);
+          load_b<kRow>(b, vst, 16 * u, kk * 16, lane);
+          mma(dp[0], da[kk], b[0], b[1]);
+          mma(dp[1], da[kk], b[2], b[3]);
+        }
+        // dS = P (dP - delta), rounded; two n-tiles are one A operand.
+        unsigned dsa[4];
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float x[2];
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc) {
+              const float p = j0 + 16 * u + 8 * t + t2 + cc < n
+                                  ? exp2f(fmaf(s[t][2 * half + cc], kLog2e, -lse2[half]))
+                                  : 0.f;
+              x[cc] = p * (dp[t][2 * half + cc] - delta[half]);
+            }
+            dsa[2 * t + half] = pack(x[0], x[1]);
+          }
+        // dQ += dS K: K as [key][dim] is B (k = key, n = dim) through .trans.
+#pragma unroll
+        for (int j = 0; j < kD / 8; j += 2) {
+          unsigned b[4];
+          load_b_trans(b, kst, 16 * u, j * 8, lane);
+          mma(acc[j], dsa, b[0], b[1]);
+          mma(acc[j + 1], dsa, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // the next chunk's copies overwrite this stage
+  }
+
+  bf16* dqg = dq + blockIdx.z * st.out_sb + blockIdx.y * st.out_sh;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = q0 + g + half * 8;
+    if (r >= n) continue;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dqg + r * st.out_sn + j * 8 + t2) =
+          __floats2bfloat162_rn(acc[j][2 * half] * scale, acc[j][2 * half + 1] * scale);
+  }
+}
+
+// K6: dK and dV of 4 warps x 16 key rows; q, dO, O and the LSE stream
+// through the ring.
+__global__ void __launch_bounds__(kBlock, kDkvMinBlocks)
+flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ o,
+                     const bf16* __restrict__ dout, const float* __restrict__ lse,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, Strides st, int h, int n,
+                     float scale, int aligned) {
+  constexpr int kPieces = kRows * kC8 / kBlock;  // a thread's pieces of one chunk of q (dO, O)
+  static_assert(kRows * kC8 % kBlock == 0, "a chunk must split evenly over the threads");
+  static_assert(kBlock == 2 * kRows, "delta takes two threads a row");
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);               // [2][kRows][kRow]
+  bf16* dos = qs + 2 * kStage;                            // [2][kRows][kRow]
+  bf16* os = dos + 2 * kStage;                            // [2][kRows][kRow]
+  float* lse_s = reinterpret_cast<float*>(os + 2 * kStage);  // [2][kRows]
+  float* delta_s = lse_s + 2 * kRows;                     // [2][kRows]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t2 = 2 * (lane % 4);  // accumulator row (key), column pair
+  const long long in_base = blockIdx.z * st.in_sb + blockIdx.y * st.in_sh;
+  const bf16* qg = q + in_base;
+  const bf16* og = o + blockIdx.z * st.o_sb + blockIdx.y * st.o_sh;
+  const bf16* dog = dout + blockIdx.z * st.do_sb + blockIdx.y * st.do_sh;
+  const float* lg = lse + ((long long)blockIdx.z * h + blockIdx.y) * n;
+  // This warp's key rows: k0 + g (accumulator elements 0, 1) and k0 + g + 8 (2, 3).
+  const int k0 = (blockIdx.x * kWarps + warp) * 16;
+  const bool active = k0 < n;  // warp-uniform; idle warps still stage the ring
+
+  unsigned ka[4][4], va[4][4];
+  load_a(ka, k + in_base, st.in_sn, k0, n, 1.f, lane);
+  load_a(va, v + in_base, st.in_sn, k0, n, 1.f, lane);
+  const float sl2e = scale * kLog2e;  // S^T = scale (K q^T): exact, scale = 2^-3
+
+  // Chunk c of q, dO, O and the LSE into stage c % 2 of the ring.
+  const int nc = (n + kRows - 1) / kRows;
+  auto issue = [&](int c) {
+    const int stg = c % 2;
+#pragma unroll
+    for (int u = 0; u < kPieces; ++u) {
+      const int i = tid + u * kBlock, r = i / kC8, col = i % kC8 * 8, row = c * kRows + r;
+      const long long rr = min(row, n - 1);
+      const int at = stg * kStage + r * kRow + col;
+      stage_piece(qs + at, qg + rr * st.in_sn + col, row < n, aligned);
+      stage_piece(dos + at, dog + rr * st.do_sn + col, row < n, aligned);
+      stage_piece(os + at, og + rr * st.o_sn + col, row < n, aligned);
+    }
+    if (tid < kRows && c * kRows + tid < n)
+      cp_async4(lse_s + stg * kRows + tid, lg + c * kRows + tid);
+    cp_async_commit();
+  };
+
+  float dka[kD / 8][4], dva[kD / 8][4];  // dK / scale and dV: n-tile j holds dims 8 j..
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  issue(0);
+  for (int c = 0; c < nc; ++c) {
+    if (c + 1 < nc) {
+      issue(c + 1);  // into the stage the previous chunk read
+    } else {
+      cp_async_commit();  // an empty group, so one wait fits every chunk
+    }
+    cp_async_wait_one();
+    __syncthreads();
+    const int stg = c % 2, c0 = c * kRows;
+    const bf16* qst = qs + stg * kStage;
+    const bf16* dost = dos + stg * kStage;
+    float* ls = lse_s + stg * kRows;
+    float* dl = delta_s + stg * kRows;
+    {
+      // Each query row's delta = rowsum(dO * O) and LSE log2(e), +inf past
+      // n (P = 0 there): two threads a row.
+      const int r = tid / 2, d0 = tid % 2 * (kD / 2);
+      float part = 0.f;
+#pragma unroll
+      for (int p = 0; p < kD / 2; p += 8)
+        part += dot8(*reinterpret_cast<const uint4*>(dost + r * kRow + d0 + p),
+                     *reinterpret_cast<const uint4*>(os + stg * kStage + r * kRow + d0 + p));
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      if (tid % 2 == 0) {
+        dl[r] = part;
+      } else {
+        ls[r] = c0 + r < n ? ls[r] * kLog2e : INFINITY;
+      }
+    }
+    __syncthreads();
+    const int groups = min(kRows / 16, (n - c0 + 15) / 16);  // 16-query groups with a row < n
+    if (active) {
+#pragma unroll
+      for (int u = 0; u < kRows / 16; ++u) {
+        if (u >= groups) break;
+        // S^T and dP^T of 16 keys x 16 queries (two n-tiles each).
+        float s[2][4], dp[2][4];
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          unsigned b[4];
+          load_b<kRow>(b, qst, 16 * u, kk * 16, lane);
+          mma(s[0], ka[kk], b[0], b[1]);
+          mma(s[1], ka[kk], b[2], b[3]);
+          load_b<kRow>(b, dost, 16 * u, kk * 16, lane);
+          mma(dp[0], va[kk], b[0], b[1]);
+          mma(dp[1], va[kk], b[2], b[3]);
+        }
+        // P^T and dS^T = P^T (dP^T - delta), rounded; two n-tiles are one A
+        // operand (16 keys x 16 queries).
+        unsigned pa[4], dsa[4];
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int qi = 16 * u + 8 * t + t2;
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + qi);
+          const float2 de = *reinterpret_cast<const float2*>(dl + qi);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float p0 = exp2f(fmaf(s[t][2 * half], sl2e, -l2.x));
+            const float p1 = exp2f(fmaf(s[t][2 * half + 1], sl2e, -l2.y));
+            pa[2 * t + half] = pack(p0, p1);
+            dsa[2 * t + half] =
+                pack(p0 * (dp[t][2 * half] - de.x), p1 * (dp[t][2 * half + 1] - de.y));
+          }
+        }
+        // dV += round(P^T) dO, dK += dS^T q: dO and q as [query][dim] are B
+        // (k = query, n = dim) through .trans.
+#pragma unroll
+        for (int j = 0; j < kD / 8; j += 2) {
+          unsigned b[4];
+          load_b_trans(b, dost, 16 * u, j * 8, lane);
+          mma(dva[j], pa, b[0], b[1]);
+          mma(dva[j + 1], pa, b[2], b[3]);
+          load_b_trans(b, qst, 16 * u, j * 8, lane);
+          mma(dka[j], dsa, b[0], b[1]);
+          mma(dka[j + 1], dsa, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // the next chunk's copies overwrite this stage
+  }
+
+  const long long out_base = blockIdx.z * st.out_sb + blockIdx.y * st.out_sh;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = k0 + g + half * 8;
+    if (r >= n) continue;
+    bf16* kr = dk + out_base + r * st.out_sn;
+    bf16* vr = dv + out_base + r * st.out_sn;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(kr + j * 8 + t2) =
+          __floats2bfloat162_rn(dka[j][2 * half] * scale, dka[j][2 * half + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(vr + j * 8 + t2) =
+          __floats2bfloat162_rn(dva[j][2 * half], dva[j][2 * half + 1]);
+    }
+  }
+}
+
+// cp.async copies 16 bytes: the rows of q, k, v, O and dO must start on 16
+// bytes, else the ring is staged by 4-byte loads.
+bool aligned16(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const Strides& st) {
+  return (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+          reinterpret_cast<uintptr_t>(dout)) % 16 == 0 &&
+         (st.in_sb | st.in_sh | st.in_sn | st.o_sb | st.o_sh | st.o_sn | st.do_sb |
+          st.do_sh | st.do_sn) % 8 == 0;
+}
+
+int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
+              const float* lse, void* dq, const Strides& st, int b, int h, int n, float scale,
+              cudaStream_t stream) {
+  const dim3 grid((n + kRows - 1) / kRows, h, b);
+  flash_dq_mma_kernel<<<grid, kBlock, kDqSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
+      static_cast<bf16*>(dq), st, h, n, scale, aligned16(q, k, v, o, dout, st) ? 1 : 0);
+  return (int)cudaGetLastError();
+}
+
+int launch_dkv(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const float* lse, void* dk, void* dv, const Strides& st, int b, int h, int n,
+               float scale, cudaStream_t stream) {
+  if (const int err = set_smem(flash_dkv_mma_kernel, kDkvSmemBytes)) return err;
+  const dim3 grid((n + kRows - 1) / kRows, h, b);
+  flash_dkv_mma_kernel<<<grid, kBlock, kDkvSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), st, h, n, scale,
+      aligned16(q, k, v, o, dout, st) ? 1 : 0);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
 
 // Shared memory one block of K5 / K6 needs for the element size (any N).
+// bf16: the ring (tc::kDqSmemBytes, tc::kDkvSmemBytes); fp32: the scalar
+// kernels' tiles.
 size_t k5_flash_dq_smem_bytes(int elem_bytes) {
+  if (elem_bytes == (int)sizeof(__nv_bfloat16)) return tc::kDqSmemBytes;
   return dq_smem_bytes((size_t)elem_bytes);
 }
 size_t k6_flash_dkv_smem_bytes(int elem_bytes) {
+  if (elem_bytes == (int)sizeof(__nv_bfloat16)) return tc::kDkvSmemBytes;
   return dkv_smem_bytes((size_t)elem_bytes);
 }
 
@@ -441,7 +955,7 @@ int k5_flash_dq(int dtype, const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   if (dtype == 0) return launch_dq<float>(q, k, v, o, dout, l, dq, st, b, h, n, scale, s);
   if (dtype == 1)
-    return launch_dq<__nv_bfloat16>(q, k, v, o, dout, l, dq, st, b, h, n, scale, s);
+    return tc::launch_dq(q, k, v, o, dout, l, dq, st, b, h, n, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -460,7 +974,7 @@ int k6_flash_dkv(int dtype, const void* q, const void* k, const void* v,
   if (dtype == 0)
     return launch_dkv<float>(q, k, v, o, dout, l, dk, dv, st, b, h, n, scale, s);
   if (dtype == 1)
-    return launch_dkv<__nv_bfloat16>(q, k, v, o, dout, l, dk, dv, st, b, h, n, scale, s);
+    return tc::launch_dkv(q, k, v, o, dout, l, dk, dv, st, b, h, n, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -16,15 +16,16 @@
 // memory, the 64 x 64 accumulator in registers, 4 x 4 per thread). Shared
 // memory holds the fp32 query tile, one K and one V tile and the tile's
 // fp32 scores: 51 KB in bf16, 68 KB in fp32, whatever N is, so no sequence
-// length is refused (K1 stages whole rows and stops at N = 571 in bf16).
+// length is refused (K1's fp32 path stages whole rows and stops at N = 341;
+// its bf16 path streams K and V and has no limit of N).
 // The ragged last key tile is zero-filled and its columns set to -inf; the
 // ragged last query tile computes zero rows that are never stored. The
 // kernel takes element strides, so it reads q/k/v straight out of the
 // fused (B, N, 3*H*Dh) projection and writes O as (B, N, H*Dh); LSE is a
 // contiguous (B, H, N) fp32 tensor. Padded shared-memory rows (Dh + 2,
 // 64 + 1) keep column reads free of bank conflicts. The products are
-// scalar fp32 FMAs from shared memory, as in K1; tensor cores (mma /
-// wgmma) are work for a later change.
+// scalar fp32 FMAs from shared memory, as in K1's fp32 path; tensor cores
+// (mma / wgmma) are work for a later change.
 //
 // Bound on an H100 SXM at the grid-20 train step, B = 96, H = 12, N = 400,
 // Dh = 64, bf16: q, k, v read once, O written once and the LSE written

@@ -1,15 +1,16 @@
 """Where a kernel's bf16 time goes: text variants of its source, timed side by side.
 
 ``--kernel k3`` (the default) varies ``ops/csrc/attention_block.cu``,
-``--kernel k1`` ``ops/csrc/attention.cu``. Each variant is a list of
+``--kernel k1`` ``ops/csrc/attention.cu``, ``--kernel k5`` and ``--kernel
+k6`` ``ops/csrc/flash_bwd.cu`` (K5's dQ, K6's dK and dV). Each variant is a list of
 ``[old, new]`` substitutions applied to the source (for example
 ``[["if (step + 1 < steps) fetch(step + 1);", ""]]`` drops K3's projection
 loads; ``[["int warps_for(int) { return 4; }", "int warps_for(int) {
 return 8; }"]]`` gives K1 blocks of 8 warps). Every variant and the
 unchanged source (``base``) is built with ``nvcc`` and the flags of
 ``ops/_build.py`` into ``jpdvt_mt_ntnu_tpu_torch/_build/<kernel>_variants/``;
-the bf16 call (K3's launch pair, or K1 on strided views of a fused qkv, as
-the DiT calls it) is then timed by CUDA events at each (B, N), the
+the bf16 call (K3's launch pair; K1, K5 or K6 on strided views of a fused
+qkv, as the DiT calls them) is then timed by CUDA events at each (B, N), the
 variants alternating over rounds, on random inputs, with each output's
 largest difference from the plain version beside it (a variant that drops
 work is wrong by design). ``--ablations`` adds variants that each drop
@@ -18,7 +19,7 @@ one part of the kernel (``ABLATIONS``). For K3, ``--clocks`` also builds ``base`
 and prints the median cycles of each phase per block and the most blocks
 one SM ran.
 
-    python -m jpdvt_mt_ntnu_tpu_torch.tools.kernel_variants [--kernel k3|k1]
+    python -m jpdvt_mt_ntnu_tpu_torch.tools.kernel_variants [--kernel k3|k1|k5|k6]
         [--ablations] [--variants FILE.json] [--shapes 32x144,32x400]
         [--rounds 3] [--clocks]
 
@@ -39,12 +40,20 @@ import torch
 
 from ..ops import _build
 from ..ops import attention as attn_ops
+from ..ops import flash_attention as flash_ops
 
-SOURCES = {"k3": "attention_block.cu", "k1": "attention.cu"}
+SOURCES = {"k3": "attention_block.cu", "k1": "attention.cu", "k5": "flash_bwd.cu",
+           "k6": "flash_bwd.cu"}
 HEADS, HEAD_DIM = 12, 64
 # --ablations: each drops one part of the kernel (its output is then wrong).
 # K3: parts of A.1. K1 (bf16): the copies of K and V (the ring's cp.async),
 # pass 1's work (its copies stay), P and P V in pass 2 (S stays), every exp2.
+# K5, K6 (bf16): the ring's cp.async copies, every exp2, and one product each
+# (K5: dP = dO V^T or dQ += dS K; K6: dV += P^T dO or dK += dS^T q, or
+# delta's dot products).
+_NO_EXP2 = [["namespace {\n\nconstexpr int kD = 64;",
+             "#define exp2f(x) (x)\nnamespace {\n\nconstexpr int kD = 64;"]]
+_FLASH_BWD_COMMON = {"no_loads": [["    cp_async16(dst, src);\n", ""]], "no_exp2": _NO_EXP2}
 ABLATIONS = {
     "k3": {
         "no_attention": [["  for (int t0 = warp * per; t0 < t_end; t0 += kQT) {",
@@ -62,8 +71,23 @@ ABLATIONS = {
                      ["    } else if (active) {", "    } else if (active && step >= nc) {"]],
         "no_pass2_p_pv": [["          mma(oacc[j], pa, vb[0], vb[1]);\n"
                            "          mma(oacc[j + 1], pa, vb[2], vb[3]);\n", ""]],
-        "no_exp2": [["namespace {\n\nconstexpr int kD = 64;",
-                     "#define exp2f(x) (x)\nnamespace {\n\nconstexpr int kD = 64;"]],
+        "no_exp2": _NO_EXP2,
+    },
+    "k5": {
+        **_FLASH_BWD_COMMON,
+        "no_dp": [["          mma(dp[0], da[kk], b[0], b[1]);\n"
+                   "          mma(dp[1], da[kk], b[2], b[3]);\n", ""]],
+        "no_ds_k": [["          mma(acc[j], dsa, b[0], b[1]);\n"
+                     "          mma(acc[j + 1], dsa, b[2], b[3]);\n", ""]],
+    },
+    "k6": {
+        **_FLASH_BWD_COMMON,
+        "no_dv": [["          mma(dva[j], pa, b[0], b[1]);\n"
+                   "          mma(dva[j + 1], pa, b[2], b[3]);\n", ""]],
+        "no_dk": [["          mma(dka[j], dsa, b[0], b[1]);\n"
+                   "          mma(dka[j + 1], dsa, b[2], b[3]);\n", ""]],
+        "no_delta": [["      for (int p = 0; p < kD / 2; p += 8)",
+                      "      for (int p = 0; p < 0; p += 8)"]],
     },
 }
 # --clocks: (anchor in the source, text put before it); the last entry's text
@@ -110,6 +134,7 @@ def _build_all(kernel: str, sources: dict) -> dict:
         proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
                               capture_output=True, text=True, stdin=subprocess.DEVNULL,
                               timeout=_build.NVCC_TIMEOUT_S)
+        (out / f"{name}.log").write_text(proc.stdout + proc.stderr)  # ptxas -v: registers, spills
         if proc.returncode:
             raise RuntimeError(f"variant {name} failed to build:\n{proc.stdout}{proc.stderr}")
         return name, ctypes.CDLL(str(so))
@@ -121,15 +146,22 @@ def _build_all(kernel: str, sources: dict) -> dict:
             lib.k3_attention_block.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                                                + [ctypes.c_int] * 4
                                                + [ctypes.c_float, ctypes.c_void_p])
-        else:
+        elif kernel == "k1":
             lib.k1_attention_fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                                              + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3
                                              + [ctypes.c_float, ctypes.c_void_p])
+        else:
+            lib.k5_flash_dq.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                                        + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
+                                        + [ctypes.c_float, ctypes.c_void_p])
+            lib.k6_flash_dkv.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                                         + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
+                                         + [ctypes.c_float, ctypes.c_void_p])
     return libs
 
 
 def _k3_case(b: int, n: int, gen: torch.Generator, weights: tuple):
-    """(call(lib), output, plain output, reset()) for K3 at (b, n)."""
+    """(call(lib), outputs, plain outputs, reset()) for K3 at (b, n)."""
     wq, bq, wp, bp, ops = weights
     d = wq.shape[1]
     x = torch.randn((b, n, d), generator=gen, device="cuda").bfloat16()
@@ -148,11 +180,11 @@ def _k3_case(b: int, n: int, gen: torch.Generator, weights: tuple):
     def reset():
         o.zero_()  # a variant that skips a phase reads no earlier variant's o
 
-    return call, out, want, reset
+    return call, (out,), (want,), reset
 
 
 def _k1_case(b: int, n: int, gen: torch.Generator):
-    """(call(lib), output, plain output, reset()) for K1 at (b, n), on
+    """(call(lib), outputs, plain outputs, reset()) for K1 at (b, n), on
     strided views of a fused (B, N, 3*H*Dh) qkv."""
     qkv = torch.randn((b, n, 3 * HEADS * HEAD_DIM), generator=gen, device="cuda").bfloat16()
     q, k, v = qkv.view(b, n, 3, HEADS, HEAD_DIM).permute(2, 0, 3, 1, 4).unbind(0)
@@ -168,7 +200,39 @@ def _k1_case(b: int, n: int, gen: torch.Generator):
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
 
-    return call, out, want, out.zero_
+    return call, (out,), (want,), out.zero_
+
+
+def _flash_bwd_case(kernel: str, b: int, n: int, gen: torch.Generator):
+    """(call(lib), outputs, plain outputs, reset()) for K5 (dq) or K6 (dk,
+    dv) at (b, n), as the train step calls them: q, k, v strided views of a
+    fused qkv, O and dO views of (B, N, H*Dh) buffers, the gradients slots
+    of one fused buffer; O and the LSE from the plain forward."""
+    shape = (b, n, 3, HEADS, HEAD_DIM)
+    qkv = torch.randn((b, n, 3 * HEADS * HEAD_DIM), generator=gen, device="cuda").bfloat16()
+    q, k, v = qkv.view(shape).permute(2, 0, 3, 1, 4).unbind(0)
+    o, lse = flash_ops.flash_attention_fwd_reference(q, k, v, flash_ops.BLOCK_K)
+    o = o.transpose(1, 2).contiguous().transpose(1, 2)
+    do = torch.randn((b, n, HEADS * HEAD_DIM), generator=gen, device="cuda").bfloat16()
+    do = do.view(b, n, HEADS, HEAD_DIM).transpose(1, 2)
+    buf = torch.zeros_like(qkv)
+    dq, dk, dv = buf.view(shape).permute(2, 0, 3, 1, 4).unbind(0)
+    want = [t.float() for t in flash_ops.flash_attention_bwd_reference(q, k, v, o, lse, do)]
+    stream = torch.cuda.current_stream().cuda_stream
+    common = (*q.stride()[:3], *o.stride()[:3], *do.stride()[:3], *dq.stride()[:3], b, HEADS,
+              n, HEAD_DIM ** -0.5, stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr())
+
+    def call(lib):
+        err = (lib.k5_flash_dq(1, *ptrs, dq.data_ptr(), *common) if kernel == "k5" else
+               lib.k6_flash_dkv(1, *ptrs, dk.data_ptr(), dv.data_ptr(), *common))
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+
+    if kernel == "k5":
+        return call, (dq,), want[:1], buf.zero_
+    return call, (dk, dv), want[1:], buf.zero_
 
 
 def main() -> int:
@@ -205,8 +269,12 @@ def main() -> int:
     result = {"device": torch.cuda.get_device_name(0), "kernel": args.kernel}
     for shape in args.shapes.split(","):
         b, n = (int(v) for v in shape.split("x"))
-        call, out, want, reset = (_k3_case(b, n, gen, weights) if args.kernel == "k3"
-                           else _k1_case(b, n, gen))
+        if args.kernel == "k3":
+            call, outs, wants, reset = _k3_case(b, n, gen, weights)
+        elif args.kernel == "k1":
+            call, outs, wants, reset = _k1_case(b, n, gen)
+        else:
+            call, outs, wants, reset = _flash_bwd_case(args.kernel, b, n, gen)
         row = {name: {"us": []} for name in variants}
         for rnd in range(args.rounds):
             for name in variants:
@@ -220,7 +288,8 @@ def main() -> int:
                 torch.cuda.synchronize()
                 row[name]["us"].append(1e3 * start.elapsed_time(stop) / args.reps)
                 if rnd == 0:
-                    row[name]["max_abs_err"] = (out.float() - want).abs().max().item()
+                    row[name]["max_abs_err"] = max((out.float() - want).abs().max().item()
+                                                   for out, want in zip(outs, wants))
         if args.clocks:
             lib = libs["base_clocks"]
             call(lib)

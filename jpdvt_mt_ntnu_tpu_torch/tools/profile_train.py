@@ -30,9 +30,9 @@ from .profile_solve import _group as _solve_group
 def _group(name: str) -> str:
     if "attention_bwd_kernel" in name:
         return "k2_attention_bwd"
-    if "flash_dq_kernel" in name:
+    if "flash_dq_" in name:  # flash_dq_mma_kernel in bf16, flash_dq_kernel<float> in fp32
         return "k5_flash_dq"
-    if "flash_dkv_kernel" in name:
+    if "flash_dkv_" in name:  # flash_dkv_mma_kernel, flash_dkv_kernel<float>
         return "k6_flash_dkv"
     if "multi_tensor_apply" in name or "foreach" in name.lower():
         return "optimizer_foreach"

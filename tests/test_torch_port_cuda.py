@@ -20,7 +20,9 @@ differ by summation order through twelve blocks).
 K4 against its plain version at the kernel's own key tile (``BLOCK_K``):
 as K1, 2e-2 absolute in bf16 (both round exp(S - m) per tile at the same
 points; exp or summation order can flip one rounding by one ulp), 1e-4 in
-fp32; the LSE 1e-4 absolute (fp32, summation order). K5 and K6 as K2. The
+fp32; the LSE 1e-4 absolute (fp32, summation order). K5 and K6 as K2
+(they round dS and the outputs where the plain version does), two calls
+bit-equal, and views off 16-byte alignment bit-equal to aligned copies. The
 DiT's gradients through K4-K6 as through K1/K2.
 
 K3 against its plain version, relative to the output's largest magnitude:
@@ -222,8 +224,14 @@ def test_k4_cuda_kernel_matches_plain(cuda, b, n, dtype):
 @pytest.mark.parametrize("b,n,dtype", [(4, 400, torch.bfloat16),
                                        (3, 77, torch.bfloat16),
                                        (2, 401, torch.bfloat16),
-                                       (2, 200, torch.float32)])
+                                       (2, 200, torch.float32),
+                                       (2, 9, torch.bfloat16),
+                                       (2, 63, torch.bfloat16),
+                                       (2, 64, torch.bfloat16),
+                                       (2, 65, torch.bfloat16)])
 def test_k5_k6_cuda_kernels_match_plain(cuda, b, n, dtype):
+    """N = 9, 63, 65, 77 and 401 leave the last 64-row chunk and the last
+    64-row tile ragged; 64 is one whole tile; 400 the grid-20 step's."""
     gen = torch.Generator("cuda").manual_seed(n + 3)
     q, k, v = _fused(b, n, dtype, gen)
     o, lse = flash.flash_attention_fwd_reference(q, k, v, flash.BLOCK_K)
@@ -240,6 +248,51 @@ def test_k5_k6_cuda_kernels_match_plain(cuda, b, n, dtype):
         scale = want.float().abs().max().item()
         err = (got.float() - want.float()).abs().max().item()
         assert err <= K2_TOL[dtype] * scale, (err, scale)
+
+
+def _flash_bwd_inputs(b, n, dtype, gen, offset=0):
+    """q, k, v as strided views of a fused qkv ``offset`` elements into its
+    buffer, O and the LSE of the plain forward, dO as a view of a
+    (B, N, H*Dh) gradient."""
+    q, k, v = _k1_views(b, n, dtype, gen, offset)
+    o, lse = flash.flash_attention_fwd_reference(q, k, v, flash.BLOCK_K)
+    do = torch.randn((b, n, 12 * 64), generator=gen, device="cuda").to(dtype)
+    return q, k, v, o, lse, do.view(b, n, 12, 64).transpose(1, 2)
+
+
+def _fused_grads(b, n, dtype):
+    """dq, dk, dv as the slots of one fused (B, N, 3*H*Dh) gradient buffer."""
+    buf = torch.empty((b, n, 3 * 12 * 64), dtype=dtype, device="cuda")
+    return buf.view(b, n, 3, 12, 64).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+@pytest.mark.parametrize("b,n,dtype", [(4, 400, torch.bfloat16), (3, 77, torch.bfloat16),
+                                       (2, 200, torch.float32)])
+def test_k5_k6_cuda_kernels_are_bit_equal_across_calls(cuda, b, n, dtype):
+    """One owning accumulator per output, chunks in a fixed order, no
+    atomics: a resumed train run repeats the uninterrupted one."""
+    args = _flash_bwd_inputs(b, n, dtype, torch.Generator("cuda").manual_seed(n + 5))
+    first = flash.flash_attention_bwd(*args, out=_fused_grads(b, n, dtype))
+    second = flash.flash_attention_bwd(*args, out=_fused_grads(b, n, dtype))
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("b,n", [(3, 77), (2, 400)])
+def test_k5_k6_cuda_kernels_read_views_off_16_byte_alignment(cuda, b, n):
+    """q, k, v rows that do not start on 16 bytes (pair-aligned views the
+    wrappers admit) are staged without cp.async: the same bits as from
+    aligned copies, and within the tolerance of the plain version."""
+    q, k, v, o, lse, do = _flash_bwd_inputs(b, n, torch.bfloat16,
+                                            torch.Generator("cuda").manual_seed(n + 6), 2)
+    assert q.data_ptr() % 16 and q.stride()[:3] == (n * 3 * 12 * 64, 64, 3 * 12 * 64)
+    got = flash.flash_attention_bwd(q, k, v, o, lse, do, out=_fused_grads(b, n, q.dtype))
+    aligned = [t.contiguous() for t in (q, k, v)]
+    want = flash.flash_attention_bwd(*aligned, o, lse, do, out=_fused_grads(b, n, q.dtype))
+    for g, w, ref in zip(got, want, flash.flash_attention_bwd_reference(q, k, v, o, lse, do)):
+        assert torch.equal(g, w)
+        scale = ref.float().abs().max().item()
+        assert (g.float() - ref.float()).abs().max().item() <= K2_TOL[q.dtype] * scale
 
 
 def test_flash_cuda_wrappers_refuse_what_the_kernels_cannot_take(cuda):

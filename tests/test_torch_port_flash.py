@@ -91,13 +91,23 @@ def test_k4_plain_over_the_whole_row_matches_tiled_pallas(dtype):
     np.testing.assert_allclose(mine_lse.numpy(), np.asarray(lse), atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n", [9, 77, 144, 400])
-def test_k5_k6_plain_match_pallas_interpret(n, dtype):
+# The backward at the Pallas tiles (block_q, block_k) of the forward, and at
+# 16 x 16: its result does not depend on the tiling (P comes from the saved
+# row LSE, so nothing rounded does), which lets the CUDA kernels pick
+# their own tiles.
+_BWD_CASES = ([(n, dtype, (BLOCK_Q, BLOCK_K)) for n in (9, 77, 144, 400)
+               for dtype in ("float32", "bfloat16")]
+              + [(n, dtype, (16, 16)) for n in (77, 400) for dtype in ("float32", "bfloat16")])
+
+
+@pytest.mark.parametrize("n,dtype,tiles", _BWD_CASES, ids=[
+    f"{n}-{dtype}" + ("" if tiles == (BLOCK_Q, BLOCK_K) else f"-{tiles[0]}x{tiles[1]}")
+    for n, dtype, tiles in _BWD_CASES])
+def test_k5_k6_plain_match_pallas_interpret(n, dtype, tiles):
     q, k, v, do = _inputs(n, seed=n + 1)
     jq, jk, jv, jdo = (_jax(a, dtype) for a in (q, k, v, do))
-    o, lse, bk = _pallas_fwd(jq, jk, jv)
-    bq = _pick_block(n, BLOCK_Q, jq.dtype)
+    o, lse, _ = _pallas_fwd(jq, jk, jv)
+    bq, bk = (_pick_block(n, t, jq.dtype) for t in tiles)
     want = _flash_bwd(jq, jk, jv, o, lse[..., None], jdo, bq, bk, True)
     mine = port.flash_attention_bwd_reference(
         *(_torch(a, dtype) for a in (q, k, v)), _torch(_np(o), dtype),
@@ -167,3 +177,39 @@ def test_wrappers_refuse_a_device_without_a_kernel():
         port.flash_attention_fwd(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         port.flash_attention_bwd(q, q, q, q, lse, q, out=(q, q, q))
+
+
+@pytest.mark.parametrize("name,group", [
+    ("(anonymous namespace)::tc::flash_dq_mma_kernel(__nv_bfloat16 const*, __nv_bfloat16 "
+     "const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, float "
+     "const*, __nv_bfloat16*, (anonymous namespace)::Strides, int, int, float, int)",
+     "k5_flash_dq"),
+    ("void (anonymous namespace)::flash_dq_kernel<float>(float const*, float const*, float "
+     "const*, float const*, float const*, float const*, float*, (anonymous "
+     "namespace)::Strides, int, int, float)", "k5_flash_dq"),
+    ("(anonymous namespace)::tc::flash_dkv_mma_kernel(__nv_bfloat16 const*, __nv_bfloat16 "
+     "const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, float "
+     "const*, __nv_bfloat16*, __nv_bfloat16*, (anonymous namespace)::Strides, int, int, "
+     "float, int)", "k6_flash_dkv"),
+    ("void (anonymous namespace)::flash_dkv_kernel<float>(float const*, float const*, "
+     "float const*, float const*, float const*, float const*, float*, float*, (anonymous "
+     "namespace)::Strides, int, int, float)", "k6_flash_dkv"),
+    ("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16>(__nv_bfloat16 const*)",
+     "k4_flash_fwd"),
+])
+def test_profile_train_groups_the_flash_backward_kernels(name, group):
+    """The grid-20 step's breakdown files K5 and K6 by their kernels' names
+    (bf16 on the tensor cores, fp32 scalar), not under "other"."""
+    from jpdvt_mt_ntnu_tpu_torch.tools.profile_train import _group
+    assert _group(name) == group
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k3", "k5", "k6"])
+def test_kernel_variants_ablations_apply_to_their_sources(kernel):
+    """Each built-in ablation of ``tools/kernel_variants.py`` finds its text
+    in the kernel's source (the tool raises on the card otherwise)."""
+    from jpdvt_mt_ntnu_tpu_torch.ops import _build
+    from jpdvt_mt_ntnu_tpu_torch.tools import kernel_variants as kv
+    src = (_build.CSRC / kv.SOURCES[kernel]).read_text()
+    for subs in kv.ABLATIONS[kernel].values():
+        assert kv._substitute(src, subs) != src
