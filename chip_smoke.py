@@ -8,7 +8,7 @@ Phases, each of which raises on failure:
 
 1. build the CUDA kernels, one ``nvcc`` per source started together
    (``.cu`` -> ``.so`` -> ``ctypes``), print the card's name and power
-   limit, check that the bf16 kernels of K1, K3, K5 and K6 hold ``HMMA``
+   limit, check that the bf16 kernels of K1, K3, K4, K5 and K6 hold ``HMMA``
    (tensor-core) instructions in their SASS, and that the route table's
    shared-memory sums are the kernels';
 2. hold kernel K1 (whole-row attention) against its plain PyTorch version
@@ -47,12 +47,12 @@ tokens), where the flash kernels K4-K6 carry training:
 
 9. hold K4 (flash forward), K5 (dQ) and K6 (dK, dV) against their plain
    versions at the train step's shape (B=96, N=400, bf16), B=32 in bf16 and
-   fp32, ragged N (77, 200, 401), one whole tile (N = 64) for K5 + K6, a
-   contiguous layout beside the fused one for K4 and, for K5 + K6, q/k/v
-   views whose rows are off 16-byte alignment (bit-equal to aligned
-   copies); K5 and K6 give the same bits in two calls at every shape; time
-   each beside its bound, its plain version and SDPA (its forward for K4,
-   its backward for K5 + K6 with the backend named, as for K2; a
+   fp32, ragged N (77, 200, 401), one whole tile (N = 64), a contiguous
+   layout beside the fused one for K4, and q/k/v views whose rows are off
+   16-byte alignment (bit-equal to aligned copies); each gives the same
+   bits in two calls at every shape; time each beside its bound, its plain
+   version and SDPA (its forward for K4, its backward for K5 + K6, under
+   each backend that takes the shape, the fastest named, as for K2; a
    yardstick only);
 10. gradients through the flash route: one fp32 ``training_losses``
     backward of the full-width DiT at 320 px, batch 4, random weights with
@@ -292,13 +292,40 @@ def kernel_ms(fn, reps: int) -> float:
     return us / 1e3 / reps
 
 
+def sdpa_by_backend(q, measure) -> tuple:
+    """``measure()`` -> (ms by CUDA events, kernels' device ms by
+    ``kernel_ms``) of an SDPA call on ``q``'s shape under each backend that
+    takes it (``sdpa_kernel``): (the fastest one's ms by CUDA events, its
+    name, every backend's ms or None where it refused, and every backend's
+    device ms). A yardstick only: the port calls SDPA nowhere."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    times, device = {}, {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        name = backend.name.lower()
+        try:
+            with sdpa_kernel(backend):
+                times[name], device[name] = measure()
+        except RuntimeError as err:
+            times[name] = device[name] = None
+            log(f"  SDPA {name} does not take {tuple(q.shape)} {q.dtype}: "
+                f"{str(err).strip().splitlines()[0]}")
+    ran = {name: ms for name, ms in times.items() if ms is not None}
+    best = min(ran, key=ran.get) if ran else None
+    return ran.get(best), best, times, device
+
+
+def sdpa_fwd_ms(q, k, v, reps: int) -> tuple:
+    """SDPA's forward on q, k, v under each backend (``sdpa_by_backend``)."""
+    def fwd():
+        return F.scaled_dot_product_attention(q, k, v)
+
+    return sdpa_by_backend(q, lambda: (cuda_ms(fwd, reps), kernel_ms(fwd, reps)))
+
+
 def sdpa_bwd_ms(q, k, v, do, reps: int) -> tuple:
     """SDPA's forward and backward less its forward on the same q, k, v and
-    dO, under each backend that takes them (``sdpa_kernel``): (the fastest
-    one's ms by CUDA events, its name, every backend's ms or None where it
-    refused, and every backend's kernels' device ms by ``kernel_ms``). A
-    yardstick only: the port calls SDPA nowhere."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
+    dO under each backend (``sdpa_by_backend``)."""
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
 
     def fwd():
@@ -307,21 +334,8 @@ def sdpa_bwd_ms(q, k, v, do, reps: int) -> tuple:
     def fwd_bwd():
         torch.autograd.grad(fwd(), leaves, do)
 
-    times, device = {}, {}
-    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
-                    SDPBackend.CUDNN_ATTENTION):
-        name = backend.name.lower()
-        try:
-            with sdpa_kernel(backend):
-                times[name] = cuda_ms(fwd_bwd, reps) - cuda_ms(fwd, reps)
-                device[name] = kernel_ms(fwd_bwd, reps) - kernel_ms(fwd, reps)
-        except RuntimeError as err:
-            times[name] = device[name] = None
-            log(f"  SDPA {name} does not take {tuple(q.shape)} {q.dtype}: "
-                f"{str(err).strip().splitlines()[0]}")
-    ran = {name: ms for name, ms in times.items() if ms is not None}
-    best = min(ran, key=ran.get) if ran else None
-    return ran.get(best), best, times, device
+    return sdpa_by_backend(q, lambda: (cuda_ms(fwd_bwd, reps) - cuda_ms(fwd, reps),
+                                       kernel_ms(fwd_bwd, reps) - kernel_ms(fwd, reps)))
 
 
 def check_k1(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
@@ -382,16 +396,26 @@ def check_k2(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
 
 
 def check_k4(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
-             timed: bool, fused: bool = True) -> dict:
-    """K4 on q/k/v views of a fused qkv (or contiguous (B, H, N, Dh) tensors)
-    against its plain version at the kernel's key tile and over the whole row."""
+             timed: bool, fused: bool = True, offset: int = 0) -> dict:
+    """K4 on q/k/v views of a fused qkv (``offset`` elements into its
+    buffer; or contiguous (B, H, N, Dh) tensors) against its plain version
+    at the kernel's key tile and over the whole row. Two calls give the
+    same bits; with an offset, so do aligned copies of q, k, v."""
     if fused:
-        q, k, v = qkv_views(b, n, dtype, gen)
+        q, k, v = qkv_views(b, n, dtype, gen, offset)
     else:
         q, k, v = (torch.randn((b, HEADS, n, HEAD_DIM), generator=gen, device="cuda")
                    .to(dtype) for _ in range(3))
     o, lse = flash_ops.flash_attention_fwd(q, k, v)
+    o2, lse2 = flash_ops.flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"K4 {(b, HEADS, n, HEAD_DIM)} {dtype}: two calls differ")
+    if offset:
+        o2, lse2 = flash_ops.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous())
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"K4 {(b, HEADS, n, HEAD_DIM)} {dtype}: views off 16-byte "
+                                 f"alignment differ from aligned copies")
     ref_o, ref_lse = flash_ops.flash_attention_fwd_reference(q, k, v, flash_ops.BLOCK_K)
     row_o, _ = flash_ops.flash_attention_fwd_reference(q, k, v)
     err = (o.float() - ref_o.float()).abs().max().item()
@@ -402,12 +426,15 @@ def check_k4(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
                              f"(whole row {err_row}) > {TOL[dtype]} or LSE {err_lse}")
     row = {"shape": [b, HEADS, n, HEAD_DIM], "dtype": str(dtype).split(".")[-1],
            "layout": "fused qkv" if fused else "contiguous", "max_abs_err": err,
-           "err_vs_whole_row": err_row, "lse_err": err_lse, "tol": TOL[dtype]}
+           "err_vs_whole_row": err_row, "lse_err": err_lse, "tol": TOL[dtype],
+           "lse_tol": LSE_TOL, "bit_equal": True, "q_offset_elements": offset,
+           "q_aligned_16": q.data_ptr() % 16 == 0}
     if timed:
         row["ms"] = cuda_ms(lambda: flash_ops.flash_attention_fwd(q, k, v), 50)
         row["plain_ms"] = cuda_ms(lambda: flash_ops.flash_attention_fwd_reference(
             q, k, v, flash_ops.BLOCK_K), 5)
-        row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 50)
+        (row["library_ms"], row["library_backend"], row["library_ms_by_backend"],
+         row["library_kernel_ms_by_backend"]) = sdpa_fwd_ms(q, k, v, 50)
         row["bound_ms"], row["bound_by"] = bound_ms(b, HEADS, n, HEAD_DIM, dtype, lse=True)
     log("K4 " + json.dumps(row))
     return row
@@ -1282,10 +1309,11 @@ def main(argv=None) -> int:
         for line in lib_path.with_suffix(".log").read_text().splitlines():
             if any(w in line for w in ("registers", "Compiling entry", "spill")):
                 log(f"  ptxas: {line.strip()}")
-    # The bf16 kernels of K1, K3, K5 and K6 run on the tensor cores: HMMA in their SASS.
+    # The bf16 kernels of K1, K3, K4, K5 and K6 run on the tensor cores: HMMA in their SASS.
     for name, lib_path, bf16_kernels in (
             ("K1", lib_paths[0], ("attention_fwd_mma_kernel",)),
             ("K3", lib_paths[2], ("block_attention_mma_kernel", "out_proj_mma_kernel")),
+            ("K4", lib_paths[3], ("flash_fwd_mma_kernel",)),
             ("K5/K6", lib_paths[4], ("flash_dq_mma_kernel", "flash_dkv_mma_kernel"))):
         hmma = sass_count(lib_path, "HMMA")
         log(f"{name} SASS HMMA per kernel: {json.dumps(hmma)}")
@@ -1354,7 +1382,9 @@ def main(argv=None) -> int:
                check_k4(2, 200, torch.bfloat16, gen, timed=False),
                check_k4(2, 401, torch.bfloat16, gen, timed=False),
                check_k4(2, 401, torch.float32, gen, timed=False),
-               check_k4(2, TOKENS20, torch.bfloat16, gen, timed=False, fused=False)]
+               check_k4(2, 64, torch.bfloat16, gen, timed=False),
+               check_k4(2, TOKENS20, torch.bfloat16, gen, timed=False, fused=False),
+               check_k4(3, 77, torch.bfloat16, gen, timed=False, offset=2)]
     k56_rows = [check_k5_k6(TRAIN_BATCH, TOKENS20, torch.bfloat16, gen, timed=True),
                 check_k5_k6(32, TOKENS20, torch.bfloat16, gen, timed=True),
                 check_k5_k6(32, TOKENS20, torch.float32, gen, timed=True),

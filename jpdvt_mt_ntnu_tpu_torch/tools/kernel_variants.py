@@ -1,7 +1,8 @@
 """Where a kernel's bf16 time goes: text variants of its source, timed side by side.
 
 ``--kernel k3`` (the default) varies ``ops/csrc/attention_block.cu``,
-``--kernel k1`` ``ops/csrc/attention.cu``, ``--kernel k5`` and ``--kernel
+``--kernel k1`` ``ops/csrc/attention.cu``, ``--kernel k4``
+``ops/csrc/flash_fwd.cu`` (O and the LSE), ``--kernel k5`` and ``--kernel
 k6`` ``ops/csrc/flash_bwd.cu`` (K5's dQ, K6's dK and dV). Each variant is a list of
 ``[old, new]`` substitutions applied to the source (for example
 ``[["if (step + 1 < steps) fetch(step + 1);", ""]]`` drops K3's projection
@@ -9,8 +10,8 @@ loads; ``[["int warps_for(int) { return 4; }", "int warps_for(int) {
 return 8; }"]]`` gives K1 blocks of 8 warps). Every variant and the
 unchanged source (``base``) is built with ``nvcc`` and the flags of
 ``ops/_build.py`` into ``jpdvt_mt_ntnu_tpu_torch/_build/<kernel>_variants/``;
-the bf16 call (K3's launch pair; K1, K5 or K6 on strided views of a fused
-qkv, as the DiT calls them) is then timed by CUDA events at each (B, N), the
+the bf16 call (K3's launch pair; K1, K4, K5 or K6 on strided views of a
+fused qkv, as the DiT calls them) is then timed by CUDA events at each (B, N), the
 variants alternating over rounds, on random inputs, with each output's
 largest difference from the plain version beside it (a variant that drops
 work is wrong by design). ``--ablations`` adds variants that each drop
@@ -19,7 +20,7 @@ one part of the kernel (``ABLATIONS``). For K3, ``--clocks`` also builds ``base`
 and prints the median cycles of each phase per block and the most blocks
 one SM ran.
 
-    python -m jpdvt_mt_ntnu_tpu_torch.tools.kernel_variants [--kernel k3|k1|k5|k6]
+    python -m jpdvt_mt_ntnu_tpu_torch.tools.kernel_variants [--kernel k3|k1|k4|k5|k6]
         [--ablations] [--variants FILE.json] [--shapes 32x144,32x400]
         [--rounds 3] [--clocks]
 
@@ -42,18 +43,21 @@ from ..ops import _build
 from ..ops import attention as attn_ops
 from ..ops import flash_attention as flash_ops
 
-SOURCES = {"k3": "attention_block.cu", "k1": "attention.cu", "k5": "flash_bwd.cu",
-           "k6": "flash_bwd.cu"}
+SOURCES = {"k3": "attention_block.cu", "k1": "attention.cu", "k4": "flash_fwd.cu",
+           "k5": "flash_bwd.cu", "k6": "flash_bwd.cu"}
 HEADS, HEAD_DIM = 12, 64
 # --ablations: each drops one part of the kernel (its output is then wrong).
 # K3: parts of A.1. K1 (bf16): the copies of K and V (the ring's cp.async),
 # pass 1's work (its copies stay), P and P V in pass 2 (S stays), every exp2.
+# K4 (bf16): the ring's cp.async copies, every exp2, the round(E) V
+# product, the online rescale of the accumulator (acc *= alpha).
 # K5, K6 (bf16): the ring's cp.async copies, every exp2, and one product each
 # (K5: dP = dO V^T or dQ += dS K; K6: dV += P^T dO or dK += dS^T q, or
 # delta's dot products).
 _NO_EXP2 = [["namespace {\n\nconstexpr int kD = 64;",
              "#define exp2f(x) (x)\nnamespace {\n\nconstexpr int kD = 64;"]]
-_FLASH_BWD_COMMON = {"no_loads": [["    cp_async16(dst, src);\n", ""]], "no_exp2": _NO_EXP2}
+_NO_LOADS = [["    cp_async16(dst, src);\n", ""]]
+_FLASH_BWD_COMMON = {"no_loads": _NO_LOADS, "no_exp2": _NO_EXP2}
 ABLATIONS = {
     "k3": {
         "no_attention": [["  for (int t0 = warp * per; t0 < t_end; t0 += kQT) {",
@@ -66,12 +70,20 @@ ABLATIONS = {
              "    for (int kk = 0; kk < 0; kk += 16) {\n      unsigned a[3][4];"]],
     },
     "k1": {
-        "no_loads": [["    cp_async16(dst, src);\n", ""]],
+        "no_loads": _NO_LOADS,
         "no_pass1": [["    if (active && step < nc) {", "    if (false) {"],
                      ["    } else if (active) {", "    } else if (active && step >= nc) {"]],
         "no_pass2_p_pv": [["          mma(oacc[j], pa, vb[0], vb[1]);\n"
                            "          mma(oacc[j + 1], pa, vb[2], vb[3]);\n", ""]],
         "no_exp2": _NO_EXP2,
+    },
+    "k4": {
+        "no_loads": _NO_LOADS,
+        "no_exp2": _NO_EXP2,
+        "no_ev": [["          mma(oacc[j], pa, vb[0], vb[1]);\n"
+                   "          mma(oacc[j + 1], pa, vb[2], vb[3]);\n", ""]],
+        "no_rescale": [["          oacc[j][2 * half] *= alpha;\n"
+                        "          oacc[j][2 * half + 1] *= alpha;\n", ""]],
     },
     "k5": {
         **_FLASH_BWD_COMMON,
@@ -146,6 +158,10 @@ def _build_all(kernel: str, sources: dict) -> dict:
             lib.k3_attention_block.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                                                + [ctypes.c_int] * 4
                                                + [ctypes.c_float, ctypes.c_void_p])
+        elif kernel == "k4":
+            lib.k4_flash_fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                                         + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3
+                                         + [ctypes.c_float, ctypes.c_void_p])
         elif kernel == "k1":
             lib.k1_attention_fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                                              + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3
@@ -201,6 +217,33 @@ def _k1_case(b: int, n: int, gen: torch.Generator):
             raise RuntimeError(f"launch failed: cudaError {err}")
 
     return call, (out,), (want,), out.zero_
+
+
+def _flash_fwd_case(b: int, n: int, gen: torch.Generator):
+    """(call(lib), outputs, plain outputs, reset()) for K4 (O and the LSE) at
+    (b, n), on strided views of a fused (B, N, 3*H*Dh) qkv, O written as
+    (B, N, H*Dh), as the train step calls it."""
+    qkv = torch.randn((b, n, 3 * HEADS * HEAD_DIM), generator=gen, device="cuda").bfloat16()
+    q, k, v = qkv.view(b, n, 3, HEADS, HEAD_DIM).permute(2, 0, 3, 1, 4).unbind(0)
+    want = [t.float() for t in flash_ops.flash_attention_fwd_reference(q, k, v,
+                                                                       flash_ops.BLOCK_K)]
+    out = torch.empty((b, n, HEADS, HEAD_DIM), dtype=torch.bfloat16,
+                      device="cuda").transpose(1, 2)
+    lse = torch.empty((b, HEADS, n), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(lib):
+        err = lib.k4_flash_fwd(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                               lse.data_ptr(), *q.stride()[:3], *out.stride()[:3], b, HEADS,
+                               n, HEAD_DIM ** -0.5, stream)
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+
+    def reset():
+        out.zero_()
+        lse.zero_()
+
+    return call, (out, lse), want, reset
 
 
 def _flash_bwd_case(kernel: str, b: int, n: int, gen: torch.Generator):
@@ -273,6 +316,8 @@ def main() -> int:
             call, outs, wants, reset = _k3_case(b, n, gen, weights)
         elif args.kernel == "k1":
             call, outs, wants, reset = _k1_case(b, n, gen)
+        elif args.kernel == "k4":
+            call, outs, wants, reset = _flash_fwd_case(b, n, gen)
         else:
             call, outs, wants, reset = _flash_bwd_case(args.kernel, b, n, gen)
         row = {name: {"us": []} for name in variants}

@@ -29,7 +29,7 @@ def _group(name: str) -> str:
         return "k3_a1_projection_attention"
     if "out_proj" in name:  # K3's A.2 (out_proj_mma_kernel in bf16)
         return "k3_a2_output_projection"
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_" in name:  # flash_fwd_mma_kernel in bf16, flash_fwd_kernel<float> in fp32
         return "k4_flash_fwd"
     low = name.lower()
     if any(tag in low for tag in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):

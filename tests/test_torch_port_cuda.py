@@ -20,7 +20,8 @@ differ by summation order through twelve blocks).
 K4 against its plain version at the kernel's own key tile (``BLOCK_K``):
 as K1, 2e-2 absolute in bf16 (both round exp(S - m) per tile at the same
 points; exp or summation order can flip one rounding by one ulp), 1e-4 in
-fp32; the LSE 1e-4 absolute (fp32, summation order). K5 and K6 as K2
+fp32; the LSE 1e-4 absolute (fp32, summation order); two calls bit-equal,
+and views off 16-byte alignment bit-equal to aligned copies. K5 and K6 as K2
 (they round dS and the outputs where the plain version does), two calls
 bit-equal, and views off 16-byte alignment bit-equal to aligned copies. The
 DiT's gradients through K4-K6 as through K1/K2.
@@ -207,17 +208,53 @@ def _fused(b, n, dtype, gen, heads=12):
 @pytest.mark.parametrize("b,n,dtype", [(4, 400, torch.bfloat16),
                                        (3, 77, torch.bfloat16),
                                        (2, 401, torch.bfloat16),
-                                       (2, 200, torch.float32)])
+                                       (2, 200, torch.float32),
+                                       (2, 9, torch.bfloat16),
+                                       (2, 63, torch.bfloat16),
+                                       (2, 64, torch.bfloat16),
+                                       (2, 65, torch.bfloat16)])
 def test_k4_cuda_kernel_matches_plain(cuda, b, n, dtype):
+    """N = 9, 63, 65, 77 and 401 leave the last 64-key chunk and the last
+    64-query tile ragged; 64 is one whole tile; 400 the grid-20 step's. The
+    output also holds to the plain version over the whole row (the tiles
+    round exp(S - m) against the running max: within the same tolerance)."""
     gen = torch.Generator("cuda").manual_seed(n + 2)
     q, k, v = _fused(b, n, dtype, gen)
     before = flash.flash_attention_fwd.launches
     o, lse = flash.flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
     assert flash.flash_attention_fwd.launches == before + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     ref_o, ref_lse = flash.flash_attention_fwd_reference(q, k, v, flash.BLOCK_K)
-    assert (o.float() - ref_o.float()).abs().max().item() <= (
-        2e-2 if dtype == torch.bfloat16 else 1e-4)
+    assert (o.float() - ref_o.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    row_o, _ = flash.flash_attention_fwd_reference(q, k, v)
+    assert (o.float() - row_o.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("b,n,dtype", [(4, 400, torch.bfloat16), (3, 77, torch.bfloat16),
+                                       (2, 200, torch.float32)])
+def test_k4_cuda_kernel_is_bit_equal_across_calls(cuda, b, n, dtype):
+    """One owning accumulator per output, chunks in a fixed order, no
+    atomics: the train step's forward repeats itself bit for bit."""
+    q, k, v = _fused(b, n, dtype, torch.Generator("cuda").manual_seed(n + 7))
+    o1, lse1 = flash.flash_attention_fwd(q, k, v)
+    o2, lse2 = flash.flash_attention_fwd(q, k, v)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+
+
+@pytest.mark.parametrize("b,n", [(3, 77), (2, 400)])
+def test_k4_cuda_kernel_reads_views_off_16_byte_alignment(cuda, b, n):
+    """q, k, v rows that do not start on 16 bytes (pair-aligned views the
+    wrapper admits) are read without cp.async: the same bits as from
+    aligned copies, and within the tolerance of the plain version."""
+    q, k, v = _k1_views(b, n, torch.bfloat16, torch.Generator("cuda").manual_seed(n + 8), 2)
+    assert q.data_ptr() % 16 and q.stride()[:3] == (n * 3 * 12 * 64, 64, 3 * 12 * 64)
+    o, lse = flash.flash_attention_fwd(q, k, v)
+    o_al, lse_al = flash.flash_attention_fwd(*(t.contiguous() for t in (q, k, v)))
+    assert torch.equal(o, o_al) and torch.equal(lse, lse_al)
+    ref_o, ref_lse = flash.flash_attention_fwd_reference(q, k, v, flash.BLOCK_K)
+    assert (o.float() - ref_o.float()).abs().max().item() <= 2e-2
     assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 

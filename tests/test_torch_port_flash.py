@@ -6,7 +6,8 @@ The port's plain versions (``flash_attention_fwd_reference``,
 tensors) are held against the Pallas kernels run in interpret mode
 (``_flash_fwd`` / ``_flash_bwd`` with ``interpret=True``) on the same numpy
 inputs, with small tiles (block_q 64, block_k 128) so that several blocks
-and a ragged tail run. The CUDA kernels themselves run only on a card:
+and a ragged tail run, and the forward also at the CUDA kernel's own key
+tile (``BLOCK_K``, 64). The CUDA kernels themselves run only on a card:
 ``tests/test_torch_port_cuda.py``.
 
 Tolerances:
@@ -67,11 +68,23 @@ def _pallas_fwd(q, k, v, block_q=BLOCK_Q, block_k=BLOCK_K):
     return o, lse[..., 0], bk
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n", [9, 77, 144, 400])
-def test_k4_plain_matches_pallas_interpret(n, dtype):
+# The forward at the small Pallas tiles, and at the CUDA kernel's own key
+# tile (``port.BLOCK_K``): the tiling sets where exp(S - m) is rounded, so
+# this ties the Pallas kernel, at the tiling the card runs, to the plain
+# version that the card holds K4 against.
+_FWD_CASES = ([(n, dtype, BLOCK_K) for n in (9, 77, 144, 400)
+               for dtype in ("float32", "bfloat16")]
+              + [(n, dtype, port.BLOCK_K) for n in (77, 400)
+                 for dtype in ("float32", "bfloat16")])
+
+
+@pytest.mark.parametrize("n,dtype,block_k", _FWD_CASES, ids=[
+    f"{n}-{dtype}" + ("" if block_k == BLOCK_K else f"-bk{block_k}")
+    for n, dtype, block_k in _FWD_CASES])
+def test_k4_plain_matches_pallas_interpret(n, dtype, block_k):
     q, k, v = _inputs(n, seed=n, count=3)
-    o, lse, bk = _pallas_fwd(*(_jax(a, dtype) for a in (q, k, v)))
+    o, lse, bk = _pallas_fwd(*(_jax(a, dtype) for a in (q, k, v)), block_k=block_k)
+    assert bk == block_k or n <= block_k  # one tile when N fits in it
     mine_o, mine_lse = port.flash_attention_fwd_reference(
         *(_torch(a, dtype) for a in (q, k, v)), block_k=bk)
     assert mine_o.dtype == getattr(torch, dtype) and mine_lse.dtype == torch.float32
@@ -196,15 +209,21 @@ def test_wrappers_refuse_a_device_without_a_kernel():
      "namespace)::Strides, int, int, float)", "k6_flash_dkv"),
     ("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16>(__nv_bfloat16 const*)",
      "k4_flash_fwd"),
+    ("(anonymous namespace)::tc::flash_fwd_mma_kernel(__nv_bfloat16 const*, __nv_bfloat16 "
+     "const*, __nv_bfloat16 const*, __nv_bfloat16*, float*, long long, long long, long "
+     "long, long long, long long, long long, int, int, float, int)", "k4_flash_fwd"),
+    ("void (anonymous namespace)::flash_fwd_kernel<float>(float const*, float const*, "
+     "float const*, float*, float*, long long, long long, long long, long long, long "
+     "long, long long, int, int, float)", "k4_flash_fwd"),
 ])
 def test_profile_train_groups_the_flash_backward_kernels(name, group):
-    """The grid-20 step's breakdown files K5 and K6 by their kernels' names
-    (bf16 on the tensor cores, fp32 scalar), not under "other"."""
+    """The grid-20 step's breakdown files K4, K5 and K6 by their kernels'
+    names (bf16 on the tensor cores, fp32 scalar), not under "other"."""
     from jpdvt_mt_ntnu_tpu_torch.tools.profile_train import _group
     assert _group(name) == group
 
 
-@pytest.mark.parametrize("kernel", ["k1", "k3", "k5", "k6"])
+@pytest.mark.parametrize("kernel", ["k1", "k3", "k4", "k5", "k6"])
 def test_kernel_variants_ablations_apply_to_their_sources(kernel):
     """Each built-in ablation of ``tools/kernel_variants.py`` finds its text
     in the kernel's source (the tool raises on the card otherwise)."""
