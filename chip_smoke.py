@@ -8,7 +8,7 @@ Phases, each of which raises on failure:
 
 1. build the CUDA kernels, one ``nvcc`` per source started together
    (``.cu`` -> ``.so`` -> ``ctypes``), print the card's name and power
-   limit, check that the bf16 kernels of K1, K3, K4, K5 and K6 hold ``HMMA``
+   limit, check that the bf16 kernels of K1, K2, K3, K4, K5 and K6 hold ``HMMA``
    (tensor-core) instructions in their SASS, and that the route table's
    shared-memory sums are the kernels';
 2. hold kernel K1 (whole-row attention) against its plain PyTorch version
@@ -24,10 +24,12 @@ Phases, each of which raises on failure:
    that a solve on the plain attention gives the same permutations;
 4. faithful-250 and fast puzzles/s at batch 32;
 5. hold kernel K2 (the whole-row attention backward) against its plain
-   version at the training path's shapes and ragged ones, and time it
-   beside its bound, the plain version and SDPA's backward (a yardstick:
-   the fastest of the flash, efficient and cuDNN backends that take the
-   shape, named beside it);
+   version at the training path's shapes and ragged ones (N = 9, 64, 65,
+   77, 200, 205, 400), two calls bit-equal at each, q/k/v views off
+   16-byte alignment bit-equal to aligned copies, and time it (by CUDA
+   events and by its kernels' device time) beside its bound, the plain
+   version and SDPA's backward (a yardstick: the fastest of the flash,
+   efficient and cuDNN backends that take the shape, named beside it);
 6. gradients through attention: one ``training_losses`` backward of the
    full-width DiT in fp32 with random weights through K1/K2 against the
    same through the plain attention (torch autograd), every parameter;
@@ -363,15 +365,26 @@ def check_k1(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
 
 
 def check_k2(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
-             timed: bool) -> dict:
-    """K2 on q/k/v views of a fused qkv and dO of a (B, N, H*Dh) gradient,
-    writing into one fused gradient buffer, as the train step calls it."""
-    q, k, v = qkv_views(b, n, dtype, gen)
+             timed: bool, offset: int = 0) -> dict:
+    """K2 on q/k/v views of a fused qkv (``offset`` elements into its
+    buffer) and dO of a (B, N, H*Dh) gradient, writing into one fused
+    gradient buffer, as the train step calls it. Two calls give the same
+    bits; with an offset, so do aligned copies of q, k, v."""
+    q, k, v = qkv_views(b, n, dtype, gen, offset)
     do = torch.randn((b, n, HEADS * HEAD_DIM), generator=gen, device="cuda").to(dtype)
     do = do.view(b, n, HEADS, HEAD_DIM).transpose(1, 2)
     out = fused_grads(b, n, dtype)
     attn_ops.attention_bwd(q, k, v, do, out=out)
+    again = attn_ops.attention_bwd(q, k, v, do, out=fused_grads(b, n, dtype))
     torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(out, again)):
+        raise AssertionError(f"K2 {(b, HEADS, n, HEAD_DIM)} {dtype}: two calls differ")
+    if offset:
+        copies = attn_ops.attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), do,
+                                        out=fused_grads(b, n, dtype))
+        if not all(torch.equal(x, y) for x, y in zip(out, copies)):
+            raise AssertionError(f"K2 {(b, HEADS, n, HEAD_DIM)} {dtype}: views off 16-byte "
+                                 f"alignment differ from aligned copies")
     errs = {}
     for name, got, want in zip(("dq", "dk", "dv"), out,
                                attn_ops.attention_bwd_reference(q, k, v, do)):
@@ -383,9 +396,12 @@ def check_k2(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
         errs[name] = [err, scale]
     row = {"shape": [b, HEADS, n, HEAD_DIM], "dtype": str(dtype).split(".")[-1],
            "max_abs_err": max(e for e, _ in errs.values()), "err_and_scale": errs,
-           "rel_tol": K2_TOL[dtype]}
+           "rel_tol": K2_TOL[dtype], "bit_equal": True, "q_offset_elements": offset,
+           "q_aligned_16": q.data_ptr() % 16 == 0}
     if timed:
         row["ms"] = cuda_ms(lambda: attn_ops.attention_bwd(q, k, v, do, out=out), 50)
+        row["kernel_device_ms"] = kernel_ms(
+            lambda: attn_ops.attention_bwd(q, k, v, do, out=out), 20)
         row["plain_ms"] = cuda_ms(lambda: attn_ops.attention_bwd_reference(q, k, v, do), 10)
         (row["library_ms"], row["library_backend"], row["library_ms_by_backend"],
          row["library_kernel_ms_by_backend"]) = sdpa_bwd_ms(q, k, v, do, 50)
@@ -1309,9 +1325,10 @@ def main(argv=None) -> int:
         for line in lib_path.with_suffix(".log").read_text().splitlines():
             if any(w in line for w in ("registers", "Compiling entry", "spill")):
                 log(f"  ptxas: {line.strip()}")
-    # The bf16 kernels of K1, K3, K4, K5 and K6 run on the tensor cores: HMMA in their SASS.
+    # The bf16 kernels of K1-K6 run on the tensor cores: HMMA in their SASS.
     for name, lib_path, bf16_kernels in (
             ("K1", lib_paths[0], ("attention_fwd_mma_kernel",)),
+            ("K2", lib_paths[1], ("attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel")),
             ("K3", lib_paths[2], ("block_attention_mma_kernel", "out_proj_mma_kernel")),
             ("K4", lib_paths[3], ("flash_fwd_mma_kernel",)),
             ("K5/K6", lib_paths[4], ("flash_dq_mma_kernel", "flash_dkv_mma_kernel"))):
@@ -1362,7 +1379,11 @@ def main(argv=None) -> int:
                check_k2(32, TOKENS, torch.bfloat16, gen, timed=True),
                check_k2(3, 77, torch.bfloat16, gen, timed=False),
                check_k2(2, 200, torch.bfloat16, gen, timed=False),
-               check_k2(2, TOKENS, torch.float32, gen, timed=False)]
+               check_k2(2, TOKENS, torch.float32, gen, timed=False),
+               *(check_k2(2, n, torch.bfloat16, gen, timed=False)
+                 for n in (9, 64, 65, 205, TOKENS20)),
+               check_k2(3, 77, torch.bfloat16, gen, timed=False, offset=2),
+               check_k2(2, TOKENS, torch.bfloat16, gen, timed=False, offset=2)]
     log(f"phase k2: {time.perf_counter() - t0:.2f} s")
 
     # 6. Gradients through attention, K1/K2 against plain autograd.

@@ -31,7 +31,8 @@ plain version only for tensors on the CPU.
 :func:`attention_route` picks the DiT's route, the counterpart of
 ``default_impl`` (``:168``), whose TPU thresholds do not carry over: the
 whole-row kernels where their shared memory fits (K1; K1 + K2 with grad
-on), the flash kernels K4-K6 (``ops/flash_attention.py``) beyond, and K3
+on, in bf16 up to ``WHOLE_ROW_GRAD_MAX_N``), the flash kernels K4-K6
+(``ops/flash_attention.py``) beyond, and K3
 only when ``attn_impl="block"`` asks for it (``default_impl`` never picks
 it either).
 """
@@ -54,6 +55,13 @@ HOPPER_MAX_SMEM = 232448
 # whole-row kernels K1/K2, as the JAX name), "flash" (K4-K6), "block" (K3,
 # the whole sublayer; its backward is autograd of the plain version).
 ATTN_IMPLS = (None, "pallas", "flash", "block")
+# With grad, the default route takes the whole-row kernels (K1 + K2) in a
+# 2-byte type up to this N and the flash kernels beyond: the route the
+# train step ran while K2 kept fp32 dK and dV accumulators in shared
+# memory, which fit a Hopper block only up to N = 205. K2's bf16 kernels
+# now fit at every N; ROADMAP §2 re-decides the route from measurements
+# (tools/bench_attention_routes.py).
+WHOLE_ROW_GRAD_MAX_N = 205
 
 
 def k1_smem_bytes(n: int, elem: int) -> int:
@@ -67,8 +75,16 @@ def k1_smem_bytes(n: int, elem: int) -> int:
 
 
 def k2_smem_bytes(n: int, elem: int) -> int:
-    """K2's shared memory per block (``csrc/attention_bwd.cu`` ``smem_bytes``):
-    K, V, fp32 dK/dV accumulators, the q and dO tiles, fp32 P and dP rows."""
+    """K2's shared memory per block (``csrc/attention_bwd.cu``
+    ``k2_attention_bwd_smem_bytes``). bf16: the larger of its two kernels',
+    the same at every N: the row kernel's two stages of 64-key K and V
+    chunks with rows of Dh + 8 (36,864 B), the column kernel's two stages of
+    64-row q and dO chunks with each row's three fp32 statistics (38,400 B).
+    fp32: the scalar kernel's K, V, fp32 dK/dV accumulators, the q and dO
+    tiles, fp32 P and dP rows."""
+    if elem == 2:
+        stage = 64 * (HEAD_DIM + 8) * elem
+        return max(2 * 2 * stage, 2 * (2 * stage + 3 * 64 * 4))
     row = HEAD_DIM + 2
     return 2 * n * row * elem + 2 * n * row * 4 + 2 * 32 * row * 4 + 2 * 32 * (n + 1) * 4
 
@@ -97,9 +113,10 @@ def attention_route(n: int, dtype: torch.dtype, grad: bool, attn_impl=None, *,
     ``"block"``; bf16 N <= 416, fp32 N <= 252 on the card).
 
     ``attn_impl`` None takes the whole-row kernels where their shared
-    memory fits a Hopper block (bf16: every N without grad, N <= 205 with
-    it, where K2 sets the limit; fp32: 341 and 164) and flash beyond; ``"pallas"`` insists on the
-    whole-row kernels and ``"flash"`` on the flash ones. The CPU takes the
+    memory fits a Hopper block (bf16: every N; fp32: 341 without grad and
+    164 with it), with grad in bf16 up to ``WHOLE_ROW_GRAD_MAX_N`` (205),
+    and flash beyond; ``"pallas"`` insists on the whole-row kernels (bf16:
+    every N, with grad too) and ``"flash"`` on the flash ones. The CPU takes the
     same route through the plain versions, which hold no limit of Dh or
     dtype; ``on_card`` adds the kernels' (Dh 64, fp32 or bf16). Raises
     ``ValueError`` naming the reason where no kernel takes the geometry."""
@@ -120,14 +137,16 @@ def attention_route(n: int, dtype: torch.dtype, grad: bool, attn_impl=None, *,
                              f"{HOPPER_MAX_SMEM} B a Hopper block has")
         return "block"
     need = max(k1_smem_bytes(n, elem), k2_smem_bytes(n, elem) if grad else 0)
-    if need <= HOPPER_MAX_SMEM:
-        return "whole_row"
-    if attn_impl == "pallas":
-        raise ValueError(f"attn_impl='pallas' at N={n} in {dtype}"
-                         f"{' with grad' if grad else ''}: the whole-row kernels "
-                         f"need {need} B of shared memory per block, more than "
-                         f"the {HOPPER_MAX_SMEM} B a Hopper block has")
-    return "flash"
+    if need > HOPPER_MAX_SMEM:
+        if attn_impl == "pallas":
+            raise ValueError(f"attn_impl='pallas' at N={n} in {dtype}"
+                             f"{' with grad' if grad else ''}: the whole-row kernels "
+                             f"need {need} B of shared memory per block, more than "
+                             f"the {HOPPER_MAX_SMEM} B a Hopper block has")
+        return "flash"
+    if attn_impl is None and grad and elem == 2 and n > WHOLE_ROW_GRAD_MAX_N:
+        return "flash"
+    return "whole_row"
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -183,7 +202,7 @@ def _kernel():
 def _bwd_kernel():
     lib = _build.load("attention_bwd")
     fn = lib.k2_attention_bwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                    + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -273,7 +292,9 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q, k, v share (B, H, N, 64) strides; ``do`` has its own; ``out`` is
     three (B, H, N, 64) views sharing one set of strides (in the train step,
-    slots of the fused-qkv gradient buffer). Each launch adds one to
+    slots of the fused-qkv gradient buffer). In bf16 the call is two
+    kernels joined by a float32 (3, B, H, N) workspace of the rows'
+    softmax statistics, allocated here on q's device. Each call adds one to
     ``attention_bwd.launches``."""
     if all(t.device.type == "cpu" for t in (q, k, v, do)):
         for dst, src in zip(out, attention_bwd_reference(q, k, v, do)):
@@ -285,11 +306,16 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dk.stride() != dq.stride() or dv.stride() != dq.stride():
         raise ValueError("dq, dk and dv must share strides")
     b, h, n, d = q.shape
+    # The bf16 kernels' row statistics, alive until the launches are queued;
+    # the fp32 kernel takes none.
+    ws = (torch.empty((3, b, h, n), dtype=torch.float32, device=q.device)
+          if q.dtype == torch.bfloat16 else None)
     err = _bwd_kernel().k2_attention_bwd(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *q.stride()[:3], *do.stride()[:3], *dq.stride()[:3], b, h, n,
-        d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+        ws if ws is None else ws.data_ptr(), *q.stride()[:3], *do.stride()[:3],
+        *dq.stride()[:3], b, h, n, d ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"attention backward kernel launch failed: cudaError {err}")
     attention_bwd.launches += 1

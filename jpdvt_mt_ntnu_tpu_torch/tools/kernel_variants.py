@@ -1,27 +1,32 @@
 """Where a kernel's bf16 time goes: text variants of its source, timed side by side.
 
 ``--kernel k3`` (the default) varies ``ops/csrc/attention_block.cu``,
-``--kernel k1`` ``ops/csrc/attention.cu``, ``--kernel k4``
-``ops/csrc/flash_fwd.cu`` (O and the LSE), ``--kernel k5`` and ``--kernel
-k6`` ``ops/csrc/flash_bwd.cu`` (K5's dQ, K6's dK and dV). Each variant is a list of
-``[old, new]`` substitutions applied to the source (for example
+``--kernel k1`` ``ops/csrc/attention.cu``, ``--kernel k2``
+``ops/csrc/attention_bwd.cu`` (dq, dk and dv: its row and column kernels as
+one call), ``--kernel k4`` ``ops/csrc/flash_fwd.cu`` (O and the LSE),
+``--kernel k5`` and ``--kernel k6`` ``ops/csrc/flash_bwd.cu`` (K5's dQ,
+K6's dK and dV). Each variant is a list of ``[old, new]`` substitutions
+applied to the source, or ``[start, end, new]``, which replaces the text
+from ``start`` up to ``end`` (for example
 ``[["if (step + 1 < steps) fetch(step + 1);", ""]]`` drops K3's projection
 loads; ``[["int warps_for(int) { return 4; }", "int warps_for(int) {
 return 8; }"]]`` gives K1 blocks of 8 warps). Every variant and the
 unchanged source (``base``) is built with ``nvcc`` and the flags of
 ``ops/_build.py`` into ``jpdvt_mt_ntnu_tpu_torch/_build/<kernel>_variants/``;
-the bf16 call (K3's launch pair; K1, K4, K5 or K6 on strided views of a
-fused qkv, as the DiT calls them) is then timed by CUDA events at each (B, N), the
+the bf16 call (K3's launch pair; K1, K2, K4, K5 or K6 on strided views of
+a fused qkv, as the DiT calls them) is then timed by CUDA events at each (B, N), the
 variants alternating over rounds, on random inputs, with each output's
 largest difference from the plain version beside it (a variant that drops
 work is wrong by design). ``--ablations`` adds variants that each drop
-one part of the kernel (``ABLATIONS``). For K3, ``--clocks`` also builds ``base`` with
+one part of the kernel (``ABLATIONS``). ``--variants`` takes a JSON file
+of ``{name: substitutions}`` or names of the built-in design variants
+(``VARIANTS``, comma-separated). For K3, ``--clocks`` also builds ``base`` with
 ``clock64`` stamps at A.1's start, after its projection and at its end,
 and prints the median cycles of each phase per block and the most blocks
 one SM ran.
 
-    python -m jpdvt_mt_ntnu_tpu_torch.tools.kernel_variants [--kernel k3|k1|k4|k5|k6]
-        [--ablations] [--variants FILE.json] [--shapes 32x144,32x400]
+    python -m jpdvt_mt_ntnu_tpu_torch.tools.kernel_variants [--kernel k3|k1|k2|k4|k5|k6]
+        [--ablations] [--variants FILE.json|NAME,...] [--shapes 32x144,32x400]
         [--rounds 3] [--clocks]
 
 Needs a CUDA card and ``nvcc``; it fails without them. Variants are a tool
@@ -43,8 +48,8 @@ from ..ops import _build
 from ..ops import attention as attn_ops
 from ..ops import flash_attention as flash_ops
 
-SOURCES = {"k3": "attention_block.cu", "k1": "attention.cu", "k4": "flash_fwd.cu",
-           "k5": "flash_bwd.cu", "k6": "flash_bwd.cu"}
+SOURCES = {"k3": "attention_block.cu", "k1": "attention.cu", "k2": "attention_bwd.cu",
+           "k4": "flash_fwd.cu", "k5": "flash_bwd.cu", "k6": "flash_bwd.cu"}
 HEADS, HEAD_DIM = 12, 64
 # --ablations: each drops one part of the kernel (its output is then wrong).
 # K3: parts of A.1. K1 (bf16): the copies of K and V (the ring's cp.async),
@@ -53,7 +58,9 @@ HEADS, HEAD_DIM = 12, 64
 # product, the online rescale of the accumulator (acc *= alpha).
 # K5, K6 (bf16): the ring's cp.async copies, every exp2, and one product each
 # (K5: dP = dO V^T or dQ += dS K; K6: dV += P^T dO or dK += dS^T q, or
-# delta's dot products).
+# delta's dot products). K2 (bf16, both kernels): the rings' cp.async
+# copies, the row kernel's pass A (its work and its copies; delta = 0),
+# dQ += dS K, and the column kernel's dV += P^T dO or dK += dS^T q.
 _NO_EXP2 = [["namespace {\n\nconstexpr int kD = 64;",
              "#define exp2f(x) (x)\nnamespace {\n\nconstexpr int kD = 64;"]]
 _NO_LOADS = [["    cp_async16(dst, src);\n", ""]]
@@ -101,6 +108,163 @@ ABLATIONS = {
         "no_delta": [["      for (int p = 0; p < kD / 2; p += 8)",
                       "      for (int p = 0; p < 0; p += 8)"]],
     },
+    "k2": {
+        "no_loads": _NO_LOADS,
+        "no_pass_a": [["steps = 2 * nc;", "steps = nc;"],
+                      ["  for (int c = 0; c < nc; ++c) {\n    advance(c);",
+                       "  for (int c = 0; c < 0; ++c) {\n    advance(c);"],
+                      ["    advance(nc + c);", "    advance(c);"],
+                      ["    const bf16* kst = ks + (nc + c) % 2 * kStage;\n"
+                       "    const bf16* vst = vs + (nc + c) % 2 * kStage;",
+                       "    const bf16* kst = ks + c % 2 * kStage;\n"
+                       "    const bf16* vst = vs + c % 2 * kStage;"]],
+        "no_dq": [["          mma(acc[j], dsa, b[0], b[1]);\n"
+                   "          mma(acc[j + 1], dsa, b[2], b[3]);\n", ""]],
+        "no_dv": [["          mma(dva[j], pa, b[0], b[1]);\n"
+                   "          mma(dva[j + 1], pa, b[2], b[3]);\n", ""]],
+        "no_dk": [["          mma(dka[j], dsa, b[0], b[1]);\n"
+                   "          mma(dka[j + 1], dsa, b[2], b[3]);\n", ""]],
+    },
+}
+# K2's row kernel with three passes over K (and V): m and l from K alone,
+# then delta = sum P dP in the JAX order, then dQ.
+_K2_THREE_PASSES = """  // Pass 1: the row max m and l = sum exp(S - m), this thread's share.
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  issue(0);
+  for (int c = 0; c < nc; ++c) {
+    advance(c);
+    const int j0 = c * kRows;
+    const int groups = min(kRows / 16, (n - j0 + 15) / 16);
+    const bf16* kst = ks + c % 2 * kStage;
+    if (active) {
+      float s[kRows / 8][4];
+#pragma unroll
+      for (int j = 0; j < kRows / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int u = 0; u < kRows / 16; ++u)
+          if (u < groups) {
+            unsigned b[4];
+            load_b(b, kst, 16 * u, kk * 16, lane);
+            mma(s[2 * u], qa[kk], b[0], b[1]);
+            mma(s[2 * u + 1], qa[kk], b[2], b[3]);
+          }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float bm = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kRows / 8; ++j)
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            float& x = s[j][2 * half + cc];
+            if (j0 + kRows > n && j0 + j * 8 + t2 + cc >= n) x = -INFINITY;
+            bm = fmaxf(bm, x);
+          }
+        bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 1));
+        bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 2));
+        const float mn = fmaxf(m[half], bm), ml = mn * kLog2e;
+        float sum = l[half] * exp2f(fmaf(m[half], kLog2e, -ml));
+#pragma unroll
+        for (int j = 0; j < kRows / 8; ++j)
+          sum += exp2f(fmaf(s[j][2 * half], kLog2e, -ml)) +
+                 exp2f(fmaf(s[j][2 * half + 1], kLog2e, -ml));
+        l[half] = sum;
+        m[half] = mn;
+      }
+    }
+    __syncthreads();
+  }
+  const long long plane = (long long)gridDim.z * h * n;
+  float* wg = ws + ((long long)blockIdx.z * h + blockIdx.y) * n;
+  float m2[2], il[2], delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float sl = l[half];
+    sl += __shfl_xor_sync(0xffffffffu, sl, 1);
+    sl += __shfl_xor_sync(0xffffffffu, sl, 2);
+    m2[half] = m[half] * kLog2e;
+    il[half] = 1.f / sl;
+  }
+  // Pass 2: delta = sum P dP, P = exp(S - m) (1 / l).
+  for (int c = 0; c < nc; ++c) {
+    advance(nc + c);
+    const int j0 = c * kRows;
+    const int groups = min(kRows / 16, (n - j0 + 15) / 16);
+    const bf16* kst = ks + (nc + c) % 2 * kStage;
+    const bf16* vst = vs + (nc + c) % 2 * kStage;
+    if (active) {
+#pragma unroll
+      for (int u = 0; u < kRows / 16; ++u) {
+        if (u >= groups) break;
+        float s[2][4], dp[2][4];
+        products(kst, vst, u, s, dp);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = j0 + 16 * u + 8 * j + t2 + e % 2 < n
+                                ? exp2f(fmaf(s[j][e], kLog2e, -m2[e / 2])) * il[e / 2]
+                                : 0.f;
+            delta[e / 2] = fmaf(p, dp[j][e], delta[e / 2]);
+          }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    delta[half] += __shfl_xor_sync(0xffffffffu, delta[half], 1);
+    delta[half] += __shfl_xor_sync(0xffffffffu, delta[half], 2);
+    const int row = q0 + g + half * 8;
+    if (t2 == 0 && row < n) {
+      wg[row] = m2[half];
+      wg[plane + row] = il[half];
+      wg[2 * plane + row] = delta[half];
+    }
+  }
+
+"""
+# Built-in design variants (``--variants NAME,...``), each timed against
+# the source before it is adopted.
+VARIANTS = {
+    "k2": {
+        # Three passes over K in the row kernel (pass 1 stages K alone).
+        "three_pass": [
+            ["steps = 2 * nc;", "steps = 3 * nc;"],
+            ["    advance(nc + c);\n    const int j0 = c * kRows;\n"
+             "    const int groups = min(kRows / 16, (n - j0 + 15) / 16);\n"
+             "    const bf16* kst = ks + (nc + c) % 2 * kStage;\n"
+             "    const bf16* vst = vs + (nc + c) % 2 * kStage;",
+             "    advance(2 * nc + c);\n    const int j0 = c * kRows;\n"
+             "    const int groups = min(kRows / 16, (n - j0 + 15) / 16);\n"
+             "    const bf16* kst = ks + (2 * nc + c) % 2 * kStage;\n"
+             "    const bf16* vst = vs + (2 * nc + c) % 2 * kStage;"],
+            ["    stage_chunk<kRowBlock>(ks + stg * kStage, vs + stg * kStage, kg, vg, st.in_sn, "
+             "st.in_sn,\n                           step % nc * kRows, n, aligned);",
+             "    if (step >= nc) {\n"
+             "      stage_chunk<kRowBlock>(ks + stg * kStage, vs + stg * kStage, kg, vg, "
+             "st.in_sn, st.in_sn, step % nc * kRows, n, aligned);\n"
+             "    } else {\n"
+             "      for (int i = tid; i < kRows * kC8; i += kRowBlock) {\n"
+             "        const int r = i / kC8, col = i % kC8 * 8, row = step * kRows + r;\n"
+             "        stage_piece(ks + stg * kStage + r * kRow + col,\n"
+             "                    kg + (long long)min(row, n - 1) * st.in_sn + col, row < n, "
+             "aligned);\n"
+             "      }\n"
+             "    }"],
+            ["  // Pass A: the row max m;", "  // Pass B: dQ += dS K", _K2_THREE_PASSES]],
+        # 48-row tiles in the row kernel (3 warps; N = 144 is 3 tiles).
+        "rows48": [["constexpr int kRowWarps = 4;", "constexpr int kRowWarps = 3;"]],
+        "rows48_min5": [["constexpr int kRowWarps = 4;", "constexpr int kRowWarps = 3;"],
+                        ["constexpr int kRowMinBlocks = 4;", "constexpr int kRowMinBlocks = 5;"]],
+        # Launch bounds: blocks an SM (registers a thread).
+        "row_min3": [["constexpr int kRowMinBlocks = 4;", "constexpr int kRowMinBlocks = 3;"]],
+        "col_min2": [["constexpr int kColMinBlocks = 3;", "constexpr int kColMinBlocks = 2;"]],
+        "col_min4": [["constexpr int kColMinBlocks = 3;", "constexpr int kColMinBlocks = 4;"]],
+    },
 }
 # --clocks: (anchor in the source, text put before it); the last entry's text
 # is put after it. Each stamp is taken by every thread; thread 0 stores them.
@@ -123,10 +287,19 @@ _CLOCKS_EXPORT = ("\nextern \"C\" int k3_clocks(long long* host) {\n"
 
 
 def _substitute(src: str, subs) -> str:
-    for old, new in subs:
-        if old not in src:
-            raise ValueError(f"variant text not in the source: {old[:80]!r}")
-        src = src.replace(old, new, 1)
+    """Apply ``[old, new]`` (the first ``old``) and ``[start, end, new]``
+    (the text from the first ``start`` up to the next ``end``) in order."""
+    for sub in subs:
+        for text in sub[:-1]:
+            if text not in src:
+                raise ValueError(f"variant text not in the source: {text[:80]!r}")
+        if len(sub) == 2:
+            src = src.replace(sub[0], sub[1], 1)
+        else:
+            start, end, new = sub
+            i = src.index(start)
+            j = src.index(end, i)
+            src = src[:i] + new + src[j:]
     return src
 
 
@@ -165,6 +338,10 @@ def _build_all(kernel: str, sources: dict) -> dict:
         elif kernel == "k1":
             lib.k1_attention_fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                                              + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3
+                                             + [ctypes.c_float, ctypes.c_void_p])
+        elif kernel == "k2":
+            lib.k2_attention_bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                                             + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
                                              + [ctypes.c_float, ctypes.c_void_p])
         else:
             lib.k5_flash_dq.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
@@ -217,6 +394,36 @@ def _k1_case(b: int, n: int, gen: torch.Generator):
             raise RuntimeError(f"launch failed: cudaError {err}")
 
     return call, (out,), (want,), out.zero_
+
+
+def _k2_case(b: int, n: int, gen: torch.Generator):
+    """(call(lib), outputs, plain outputs, reset()) for K2 at (b, n), as the
+    train step calls it: q, k, v strided views of a fused qkv, dO a view of
+    a (B, N, H*Dh) gradient, dq, dk, dv slots of one fused buffer."""
+    shape = (b, n, 3, HEADS, HEAD_DIM)
+    qkv = torch.randn((b, n, 3 * HEADS * HEAD_DIM), generator=gen, device="cuda").bfloat16()
+    q, k, v = qkv.view(shape).permute(2, 0, 3, 1, 4).unbind(0)
+    do = torch.randn((b, n, HEADS * HEAD_DIM), generator=gen, device="cuda").bfloat16()
+    do = do.view(b, n, HEADS, HEAD_DIM).transpose(1, 2)
+    buf = torch.zeros_like(qkv)
+    out = buf.view(shape).permute(2, 0, 3, 1, 4).unbind(0)
+    ws = torch.empty((3, b, HEADS, n), device="cuda")
+    want = [t.float() for t in attn_ops.attention_bwd_reference(q, k, v, do)]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(lib):
+        err = lib.k2_attention_bwd(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                   *(t.data_ptr() for t in out), ws.data_ptr(),
+                                   *q.stride()[:3], *do.stride()[:3], *out[0].stride()[:3],
+                                   b, HEADS, n, HEAD_DIM ** -0.5, stream)
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+
+    def reset():
+        buf.zero_()
+        ws.zero_()
+
+    return call, out, want, reset
 
 
 def _flash_fwd_case(b: int, n: int, gen: torch.Generator):
@@ -281,7 +488,8 @@ def _flash_bwd_case(kernel: str, b: int, n: int, gen: torch.Generator):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=sorted(SOURCES), default="k3")
-    ap.add_argument("--variants", help="JSON file: {name: [[old, new], ...]}")
+    ap.add_argument("--variants", help="JSON file: {name: [[old, new], ...]}, or names "
+                                       "of VARIANTS[kernel], comma-separated")
     ap.add_argument("--shapes", default="32x144,32x400", help="B x N, comma-separated")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=20)
@@ -294,9 +502,12 @@ def main() -> int:
         raise SystemExit("kernel_variants needs a CUDA card")
     src = (_build.CSRC / SOURCES[args.kernel]).read_text()
     variants = {"base": [], **(ABLATIONS[args.kernel] if args.ablations else {})}
-    if args.variants:
+    if args.variants and args.variants.endswith(".json"):
         with open(args.variants) as f:
             variants.update(json.load(f))
+    elif args.variants:
+        variants.update({name: VARIANTS[args.kernel][name]
+                         for name in args.variants.split(",")})
     sources = {name: _substitute(src, subs) for name, subs in variants.items()}
     if args.clocks:
         sources["base_clocks"] = _with_clocks(src)
@@ -316,6 +527,8 @@ def main() -> int:
             call, outs, wants, reset = _k3_case(b, n, gen, weights)
         elif args.kernel == "k1":
             call, outs, wants, reset = _k1_case(b, n, gen)
+        elif args.kernel == "k2":
+            call, outs, wants, reset = _k2_case(b, n, gen)
         elif args.kernel == "k4":
             call, outs, wants, reset = _flash_fwd_case(b, n, gen)
         else:

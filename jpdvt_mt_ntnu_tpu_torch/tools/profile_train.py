@@ -28,7 +28,7 @@ from .profile_solve import _group as _solve_group
 
 
 def _group(name: str) -> str:
-    if "attention_bwd_kernel" in name:
+    if "attention_bwd_" in name:  # attention_bwd_{dq,dkv}_mma_kernel in bf16, _kernel<float>
         return "k2_attention_bwd"
     if "flash_dq_" in name:  # flash_dq_mma_kernel in bf16, flash_dq_kernel<float> in fp32
         return "k5_flash_dq"

@@ -12,7 +12,8 @@ an output of magnitude ~2 if exp or summation order flips a rounding),
 fp32 1e-4 (summation order); two calls bit-equal, and strided views of the
 fused qkv bit-equal to contiguous copies. K2, relative to each gradient's largest
 magnitude: bf16 2^-6 (a summation order that flips the bf16 rounding of dS
-or of an output moves it by one ulp, 2^-8 of its scale), fp32 1e-5.
+or of an output moves it by one ulp, 2^-8 of its scale), fp32 1e-5; two calls
+bit-equal, and views off 16-byte alignment bit-equal to aligned copies.
 The DiT's gradients with K1/K2 against plain autograd in fp32: 1e-4 of
 each gradient's largest magnitude (K2 rounds nothing in fp32; the two
 differ by summation order through twelve blocks).
@@ -121,8 +122,16 @@ def test_k1_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
 @pytest.mark.parametrize("b,n,dtype", [(32, 144, torch.bfloat16),
                                        (3, 77, torch.bfloat16),
                                        (2, 200, torch.bfloat16),
-                                       (2, 144, torch.float32)])
+                                       (2, 144, torch.float32),
+                                       (2, 9, torch.bfloat16),
+                                       (2, 64, torch.bfloat16),
+                                       (2, 65, torch.bfloat16),
+                                       (2, 205, torch.bfloat16),
+                                       (2, 400, torch.bfloat16)])
 def test_k2_cuda_kernel_matches_plain(cuda, b, n, dtype):
+    """N = 9, 65, 77, 144, 200 and 205 leave the last 64-row chunk and the
+    last 64-row tile ragged; 64 is one whole tile; 400 is past the old
+    shared-memory limit of 205."""
     gen = torch.Generator("cuda").manual_seed(n + 1)
     qkv = torch.randn((b, n, 3 * 12 * 64), generator=gen, device="cuda").to(dtype)
     do = torch.randn((b, n, 12 * 64), generator=gen, device="cuda").to(dtype)
@@ -138,6 +147,43 @@ def test_k2_cuda_kernel_matches_plain(cuda, b, n, dtype):
         scale = want.float().abs().max().item()
         err = (got.float() - want.float()).abs().max().item()
         assert err <= K2_TOL[dtype] * scale, (err, scale)
+
+
+def _k2_inputs(b, n, dtype, gen, offset=0):
+    """q, k, v as strided views of a fused qkv ``offset`` elements into its
+    buffer, dO as a view of a (B, N, H*Dh) gradient."""
+    q, k, v = _k1_views(b, n, dtype, gen, offset)
+    do = torch.randn((b, n, 12 * 64), generator=gen, device="cuda").to(dtype)
+    return q, k, v, do.view(b, n, 12, 64).transpose(1, 2)
+
+
+@pytest.mark.parametrize("b,n,dtype", [(32, 144, torch.bfloat16), (3, 77, torch.bfloat16),
+                                       (2, 400, torch.bfloat16), (2, 144, torch.float32)])
+def test_k2_cuda_kernel_is_bit_equal_across_calls(cuda, b, n, dtype):
+    """One owning accumulator per output, chunks in a fixed order, no
+    atomics: a resumed train run repeats the uninterrupted one."""
+    args = _k2_inputs(b, n, dtype, torch.Generator("cuda").manual_seed(n + 9))
+    first = port.attention_bwd(*args, out=_fused_grads(b, n, dtype))
+    second = port.attention_bwd(*args, out=_fused_grads(b, n, dtype))
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("b,n", [(3, 77), (2, 144), (2, 400)])
+def test_k2_cuda_kernel_reads_views_off_16_byte_alignment(cuda, b, n):
+    """q, k, v rows that do not start on 16 bytes (pair-aligned views the
+    wrapper admits) are staged without cp.async: the same bits as from
+    aligned copies, and within the tolerance of the plain version."""
+    q, k, v, do = _k2_inputs(b, n, torch.bfloat16, torch.Generator("cuda").manual_seed(n + 10),
+                             2)
+    assert q.data_ptr() % 16 and q.stride()[:3] == (n * 3 * 12 * 64, 64, 3 * 12 * 64)
+    got = port.attention_bwd(q, k, v, do, out=_fused_grads(b, n, q.dtype))
+    aligned = [t.contiguous() for t in (q, k, v)]
+    want = port.attention_bwd(*aligned, do, out=_fused_grads(b, n, q.dtype))
+    for g, w, ref in zip(got, want, port.attention_bwd_reference(q, k, v, do)):
+        assert torch.equal(g, w)
+        scale = ref.float().abs().max().item()
+        assert (g.float() - ref.float()).abs().max().item() <= K2_TOL[q.dtype] * scale
 
 
 def test_dit_gradients_through_k1_k2_match_plain_autograd(cuda):
@@ -181,14 +227,14 @@ def test_dit_gradients_through_k1_k2_match_plain_autograd(cuda):
 
 
 def test_k2_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
-    def call(n=9, do_dtype=torch.bfloat16, out_stride_mismatch=False):
-        qkv = torch.zeros((1, n, 3 * 2 * 64), device="cuda", dtype=torch.bfloat16)
+    def call(n=9, dtype=torch.bfloat16, do_dtype=None, out_stride_mismatch=False):
+        qkv = torch.zeros((1, n, 3 * 2 * 64), device="cuda", dtype=dtype)
         heads = qkv.reshape(1, n, 3, 2, 64).permute(2, 0, 3, 1, 4).unbind(0)
-        do = torch.zeros((1, 2, n, 64), device="cuda", dtype=do_dtype)
+        do = torch.zeros((1, 2, n, 64), device="cuda", dtype=do_dtype or dtype)
         out = [torch.empty_like(qkv).reshape(1, n, 3, 2, 64).permute(2, 0, 3, 1, 4)[i]
                for i in range(3)]
         if out_stride_mismatch:
-            out[2] = torch.empty((1, 2, n, 64), device="cuda", dtype=torch.bfloat16)
+            out[2] = torch.empty((1, 2, n, 64), device="cuda", dtype=dtype)
         port.attention_bwd(*heads, do, out=out)
 
     with pytest.raises(ValueError, match="dtype"):
@@ -196,8 +242,13 @@ def test_k2_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     with pytest.raises(ValueError, match="share strides"):
         call(out_stride_mismatch=True)
     with pytest.raises(ValueError, match="shared memory"):
-        call(n=206)
-    call(n=205)
+        call(n=165, dtype=torch.float32)  # fp32 keeps dK, dV in shared memory: N <= 164
+    call(n=164, dtype=torch.float32)
+    call(n=206)  # bf16 streams through fixed rings: no limit of N
+    call(n=400)
+    for n, elem in ((9, 2), (400, 2), (164, 4), (165, 4)):
+        assert port.k2_smem_bytes(n, elem) == \
+            port._bwd_kernel().k2_attention_bwd_smem_bytes(n, elem)
 
 
 def _fused(b, n, dtype, gen, heads=12):

@@ -215,20 +215,35 @@ def test_wrappers_refuse_a_device_without_a_kernel():
     ("void (anonymous namespace)::flash_fwd_kernel<float>(float const*, float const*, "
      "float const*, float*, float*, long long, long long, long long, long long, long "
      "long, long long, int, int, float)", "k4_flash_fwd"),
+    ("(anonymous namespace)::tc::attention_bwd_dq_mma_kernel(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, "
+     "float*, (anonymous namespace)::tc::Strides, int, int, float, int)", "k2_attention_bwd"),
+    ("(anonymous namespace)::tc::attention_bwd_dkv_mma_kernel(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, float const*, "
+     "__nv_bfloat16*, __nv_bfloat16*, (anonymous namespace)::tc::Strides, int, int, float, "
+     "int)", "k2_attention_bwd"),
+    ("void (anonymous namespace)::attention_bwd_kernel<float>(float const*, float const*, "
+     "float const*, float const*, float*, float*, float*, long long, long long, long long, "
+     "long long, long long, long long, long long, long long, long long, int, float)",
+     "k2_attention_bwd"),
+    ("(anonymous namespace)::tc::attention_fwd_mma_kernel(__nv_bfloat16 const*)",
+     "k1_attention"),
 ])
 def test_profile_train_groups_the_flash_backward_kernels(name, group):
-    """The grid-20 step's breakdown files K4, K5 and K6 by their kernels'
-    names (bf16 on the tensor cores, fp32 scalar), not under "other"."""
+    """The train steps' breakdowns file K2 (grid 3), K4, K5 and K6 (grid
+    20) by their kernels' names (bf16 on the tensor cores, fp32 scalar),
+    not under "other", and K1's forward apart from K2."""
     from jpdvt_mt_ntnu_tpu_torch.tools.profile_train import _group
     assert _group(name) == group
 
 
-@pytest.mark.parametrize("kernel", ["k1", "k3", "k4", "k5", "k6"])
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k4", "k5", "k6"])
 def test_kernel_variants_ablations_apply_to_their_sources(kernel):
-    """Each built-in ablation of ``tools/kernel_variants.py`` finds its text
-    in the kernel's source (the tool raises on the card otherwise)."""
+    """Each built-in ablation and design variant of
+    ``tools/kernel_variants.py`` finds its text in the kernel's source (the
+    tool raises on the card otherwise)."""
     from jpdvt_mt_ntnu_tpu_torch.ops import _build
     from jpdvt_mt_ntnu_tpu_torch.tools import kernel_variants as kv
     src = (_build.CSRC / kv.SOURCES[kernel]).read_text()
-    for subs in kv.ABLATIONS[kernel].values():
+    for subs in (*kv.ABLATIONS[kernel].values(), *kv.VARIANTS.get(kernel, {}).values()):
         assert kv._substitute(src, subs) != src

@@ -30,7 +30,8 @@ from jpdvt_mt_ntnu_tpu_torch.data import SyntheticPuzzles
 from jpdvt_mt_ntnu_tpu_torch.eval.solver import PuzzleSolver
 from jpdvt_mt_ntnu_tpu_torch.models import DiT, DiTConfig, create_model, dit
 from jpdvt_mt_ntnu_tpu_torch.ops import jigsaw
-from jpdvt_mt_ntnu_tpu_torch.ops.attention import HOPPER_MAX_SMEM, attention_route, k1_smem_bytes
+from jpdvt_mt_ntnu_tpu_torch.ops.attention import (HOPPER_MAX_SMEM, attention_route,
+                                                  k1_smem_bytes, k2_smem_bytes)
 from jpdvt_mt_ntnu_tpu_torch.tools import weights
 from jpdvt_mt_ntnu_tpu_torch.train import run_train
 from jpdvt_mt_ntnu_tpu_torch.utils.config import Config, apply_overrides
@@ -46,10 +47,13 @@ BF16, FP32 = torch.bfloat16, torch.float32
     (400, BF16, False, "whole_row"), (571, BF16, False, "whole_row"),
     (572, BF16, False, "whole_row"), (1024, BF16, False, "whole_row"),
     (164, FP32, True, "whole_row"), (165, FP32, True, "flash"),
-    (341, FP32, False, "whole_row"), (400, FP32, False, "flash")])
+    (341, FP32, False, "whole_row"), (400, FP32, False, "flash"),
+    (324, BF16, True, "flash"), (576, BF16, True, "flash")])
 def test_auto_route_takes_the_whole_row_kernels_where_they_fit(n, dtype, grad, route):
-    """bf16 K1 streams K and V through a fixed ring, so it fits at every N
-    without grad; with grad K2 bounds the route (N <= 205)."""
+    """bf16 K1 and K2 stream their operands through fixed rings, so they fit
+    at every N; with grad the default route keeps bf16 on them up to
+    ``WHOLE_ROW_GRAD_MAX_N`` (205) and on flash beyond. fp32 stops where
+    the scalar kernels' shared memory does."""
     assert attention_route(n, dtype, grad) == route
     assert attention_route(n, dtype, grad, "flash") == "flash"
 
@@ -64,9 +68,25 @@ def test_k1_smem_bytes_is_the_kernels_design(n):
     assert (k1_smem_bytes(n, 4) <= HOPPER_MAX_SMEM) == (n <= 341)
 
 
+@pytest.mark.parametrize("n", [9, 144, 205, 206, 400, 1024])
+def test_k2_smem_bytes_is_the_kernels_design(n):
+    """bf16: the larger of the row kernel's ring (two stages of 64-key K and
+    V chunks, rows of Dh + 8) and the column kernel's (two stages of 64-row
+    q and dO chunks and each row's three fp32 statistics), the same at every
+    N; fp32: the scalar kernel's K, V, fp32 dK/dV accumulators, 32-row q and
+    dO tiles and fp32 P/dP rows."""
+    assert k2_smem_bytes(n, 2) == max(2 * 2 * 64 * 72 * 2, 2 * (2 * 64 * 72 * 2 + 3 * 64 * 4))
+    assert k2_smem_bytes(n, 2) == 38400
+    assert k2_smem_bytes(n, 4) == (2 * n * 66 * 4 + 2 * n * 66 * 4 + 2 * 32 * 66 * 4
+                                   + 2 * 32 * (n + 1) * 4)
+    assert (k2_smem_bytes(n, 4) <= HOPPER_MAX_SMEM) == (n <= 164)
+
+
 def test_route_refusals():
     with pytest.raises(ValueError, match="shared memory"):
-        attention_route(400, BF16, True, "pallas")
+        attention_route(165, FP32, True, "pallas")
+    assert attention_route(164, FP32, True, "pallas") == "whole_row"
+    assert attention_route(400, BF16, True, "pallas") == "whole_row"
     assert attention_route(400, BF16, False, "pallas") == "whole_row"
     with pytest.raises(ValueError, match="head dim 16"):
         attention_route(9, FP32, True, head_dim=16)
@@ -93,10 +113,12 @@ def test_check_supported_refuses_attention_routes_by_name(impl):
 def test_check_supported_refuses_geometries_no_kernel_takes():
     for ok in ([], ["model.image_size=320"], ["model.image_size=320", "model.attn_impl=flash"],
                ["model.attn_impl=pallas"], ["model.compute_dtype=float32",
-                                           "model.image_size=320"]):
+                                           "model.image_size=320"],
+               ["model.image_size=320", "model.attn_impl=pallas"]):
         run_train.check_supported(_cfg(*ok))
     with pytest.raises(NotImplementedError, match="image_size=320.*pallas"):
-        run_train.check_supported(_cfg("model.image_size=320", "model.attn_impl=pallas"))
+        run_train.check_supported(_cfg("model.compute_dtype=float32", "model.image_size=320",
+                                       "model.attn_impl=pallas"))
     tiny = ("model.hidden_size=64", "model.num_heads=4")  # Dh 16
     with pytest.raises(NotImplementedError, match="head dim 16"):
         run_train.check_supported(_cfg(*tiny))
