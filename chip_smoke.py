@@ -93,7 +93,7 @@ then the fused attention sublayer K3 and the evaluation path:
 
 ``python3 chip_smoke.py --grid20-artifact`` (the copy must then hold
 ``waves20_hard_step32700`` in place of waves3) skips the phases that read
-the waves3 artifact (3, 4, 7, 8), warm-starts phase 11 from the artifact
+the waves3 artifact (3, 4, 7, 8, 15), warm-starts phase 11 from the artifact
 at step 32,700 (losses <= 1/10 of a fresh model's on the same batches and
 draws), solves the fixed set in phase 12 with the EMA model beside the
 unchanged artifact, and runs the ``run_train`` CLI at grid 20 (warm start,
@@ -105,9 +105,31 @@ greedy and ``eval.votes=4``, each held to the JAX package's TPU journals
 ``logs/waves20_hard_votes_eval``: 0.9199 / 0.9936) within 0.012 puzzle
 and 0.002 patch accuracy, with the per-puzzle agreement printed.
 
+then the service:
+
+15. the puzzle service (``serve/``) on the stdlib HTTP server on
+    127.0.0.1 over the waves3 artifact, bf16, faithful-250 by default,
+    micro-batched (5 ms window, batch 8), with an API key and the
+    ``edgematch`` plugin: its routes (the models list, 401, 404, 500 for
+    an unknown model), the 16 export-smoke puzzles sent as PNGs written
+    by the port, created and then solved from 16 concurrent clients in
+    faithful-250 and in fast (at least 15 of 16 each, each response
+    scored against its own puzzle, fewer batches than requests, 12 x 250
+    and 12 K1 launches a batch; two rounds each, the first paying the
+    solver's first call), K1 at the batches' shape, the committed
+    400 x 480 JPEG (where libjpeg was found at build time; else its 500)
+    and its PNG twin through ``/api/solve_puzzle`` and the decoder held to
+    PIL's ADM crop; an int8 service on the same artifact whose strict
+    start-up gate (32 puzzles, tolerance 0.02) passes, printed beside the
+    JAX package's TPU reading, and that solves the 16 in fast; the
+    ``quant_gate`` CLI (exit 0); request latency p50/p99 and requests/s,
+    int8 against bf16 puzzles/s at batch 32 (alternating), decode µs;
+    then the servers and the batchers' threads are stopped. Skipped under
+    ``--grid20-artifact``.
+
 The last three lines are the ``kernels`` JSON (each kernel with the
-launches of its own path and its shape: K1 once for the solve and once for
-the train step, K2, K3 on the eval path, K4, K5, K6), the card's name and
+launches of its own path and its shape: K1 for the solve, the train step
+and the service, K2, K3 on the eval path, K4, K5, K6), the card's name and
 power limit, and the device JSON.
 """
 
@@ -120,7 +142,10 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -132,9 +157,14 @@ from jpdvt_mt_ntnu_tpu_torch.eval import run_eval
 from jpdvt_mt_ntnu_tpu_torch.eval.solver import PuzzleSolver
 from jpdvt_mt_ntnu_tpu_torch.models import create_model
 from jpdvt_mt_ntnu_tpu_torch.models import dit
-from jpdvt_mt_ntnu_tpu_torch.ops import _build, jigsaw
+from jpdvt_mt_ntnu_tpu_torch.ops import _build, jigsaw, native
 from jpdvt_mt_ntnu_tpu_torch.ops import attention as attn_ops
 from jpdvt_mt_ntnu_tpu_torch.ops import flash_attention as flash_ops
+from jpdvt_mt_ntnu_tpu_torch.serve import app as serve_app
+from jpdvt_mt_ntnu_tpu_torch.serve import plugins as serve_plugins
+from jpdvt_mt_ntnu_tpu_torch.serve.gate import AccessGate
+from jpdvt_mt_ntnu_tpu_torch.serve.png import array_to_b64, encode_png
+from jpdvt_mt_ntnu_tpu_torch.serve.service import PuzzleService, ServiceConfig
 from jpdvt_mt_ntnu_tpu_torch.tools.weights import load_artifact
 from jpdvt_mt_ntnu_tpu_torch.train import (CheckpointManager, TrainTask,
                                            create_train_state, make_optimizer,
@@ -161,6 +191,20 @@ EVAL_PUZZLE_TOL, EVAL_PATCH_TOL = 0.012, 0.002
 # Phase 14: the default and block routes' per-puzzle agreement on the
 # waves3 eval (bf16 on both, rounded at other points).
 ROUTE_AGREE = 0.97
+
+# Phase 15: the service. The committed 400 x 480 waves JPEG, PIL's decode of
+# it as a PNG, and PIL's ADM crop of it (tests/test_torch_port_serve.py
+# writes them); the decoder is held within two 8-bit levels of that crop
+# (2/255 of the [0, 1] range, 4/255 in its [-1, 1] output) and to a mean
+# of 0.01, as tests/test_native.py holds the same C++ to PIL.
+SERVE_JPEG = os.path.join(REPO, "tests", "golden", "serve_waves_400x480.jpg")
+SERVE_PNG = os.path.join(REPO, "tests", "golden", "serve_waves_400x480.png")
+SERVE_ADM = os.path.join(REPO, "tests", "golden", "serve_waves_400x480_adm192.npy")
+ADM_TOL, ADM_MEAN_TOL = 2 * 2 / 255 + 1e-6, 0.01
+# The JAX package's int8 gate on this artifact (a TPU run): patch disagreement.
+TPU_QUANT_GATE = os.path.join(REPO, "logs", "quant_gate_r5", "gate.json")
+SERVE_KEY = "chip-smoke-key"
+SERVE_MIN_CORRECT = 15  # of the 16 puzzles per mode (phase 3 reads 16)
 
 # H100 SXM published peaks (NVIDIA data sheet) for the bound.
 HBM_BYTES_PER_S = 3.35e12
@@ -1294,10 +1338,299 @@ def eval_grid20(card: str) -> tuple[dict, dict]:
     return row, block_launches
 
 
+def http(url: str, data: bytes | None = None, headers: dict | None = None,
+         timeout: float = 600.0) -> tuple[int, dict]:
+    """(status, JSON body) of one request; HTTP errors return their status."""
+    req = urllib.request.Request(url, data=data, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def multipart(fields: dict) -> tuple[bytes, dict]:
+    b = "chipSmokeBoundary"
+    body = b""
+    for name, value in fields.items():
+        disp = f'form-data; name="{name}"' + ('; filename="image"' if name == "file" else "")
+        body += f"--{b}\r\nContent-Disposition: {disp}\r\n\r\n".encode() + value + b"\r\n"
+    return body + f"--{b}--\r\n".encode(), {
+        "Content-Type": f"multipart/form-data; boundary={b}", "X-API-Key": SERVE_KEY}
+
+
+def start_server(svc: PuzzleService):
+    """The stdlib server on 127.0.0.1 (a free port) in a thread -> (server, thread, url)."""
+    server = serve_app.make_server(svc, AccessGate(api_key=SERVE_KEY), "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def stop_server(server, thread, svc: PuzzleService) -> None:
+    server.shutdown()
+    server.server_close()
+    thread.join(30)
+    svc.shutdown()
+    alive = [t.name for t in [thread, *(b._thread for b in svc._batchers.values())]
+             if t is not None and t.is_alive()]
+    if alive:
+        raise AssertionError(f"threads still running after shutdown: {alive}")
+
+
+def solve_concurrently(url: str, created: list[dict], model_id: str) -> dict:
+    """POST /api/solve for every created puzzle from one client thread each,
+    all started together: the correct count (each response scored against
+    its own puzzle's indices), the misses, latency p50/p99 and requests/s."""
+    outs = [None] * len(created)
+
+    def call(i):
+        t0 = time.perf_counter()
+        outs[i] = (*http(f"{url}/api/solve", json.dumps(
+            {"image_data": created[i]["puzzle_image"], "indices": created[i]["indices"],
+             "model_id": model_id}).encode(), {"X-API-Key": SERVE_KEY}),
+            time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(len(created))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    misses = []
+    for i, (status, out, _) in enumerate(outs):
+        if status != 200:
+            raise AssertionError(f"/api/solve {model_id} #{i}: {status} {out}")
+        if out["predicted_order"] != created[i]["indices"] or not out["metrics"]["puzzle_correct"]:
+            misses.append({"puzzle": i, "indices": created[i]["indices"],
+                           "predicted": out["predicted_order"]})
+    lat = np.array([o[2] for o in outs]) * 1e3
+    row = {"mode": model_id, "correct": len(created) - len(misses), "n": len(created),
+           "misses": misses, "latency_p50_ms": float(np.percentile(lat, 50)),
+           "latency_p99_ms": float(np.percentile(lat, 99)),
+           "requests_per_s": len(created) / wall, "wall_s": wall}
+    if row["correct"] < SERVE_MIN_CORRECT:
+        raise AssertionError(f"/api/solve {model_id}: {row['correct']} of {len(created)} "
+                             f"solved, below {SERVE_MIN_CORRECT}; misses {misses}")
+    return row
+
+
+def abba_puzzles_per_s(solvers: dict, x, perms, rounds: int = 1) -> dict:
+    """puzzles/s of each named solver on one batch, in the order A B B A per
+    round (faithful once, fast ten times per turn)."""
+    names = list(solvers)
+    times = {n: [] for n in names}
+    for _ in range(rounds):
+        for name in (names[0], names[1], names[1], names[0]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solvers[name].evaluate(x, perms)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    return {n: [len(x) / t for t in ts] for n, ts in times.items()}
+
+
+def serve_grid3(card: str, gen: torch.Generator) -> dict:
+    """Phase 15: the service on the card, over the stdlib HTTP server."""
+    t_phase = time.perf_counter()
+    out = {}
+    # 2. The bf16 service: faithful-250 by default, fast on request.
+    zero_counts()
+    t0 = time.perf_counter()
+    serve_plugins.register_solver(serve_plugins.EdgeMatchSolver(3))
+    svc = PuzzleService(ServiceConfig(checkpoint=ARTIFACT, sampler_mode="faithful",
+                                      sampling_steps=STEPS, batch_window_ms=5.0,
+                                      batch_max=8, api_key=SERVE_KEY))
+    server, thread, url = start_server(svc)
+    out["startup_s"] = time.perf_counter() - t0
+    log(f"service: bf16, faithful-250, batch window 5 ms, batch max 8, on {url}; "
+        f"started in {out['startup_s']:.2f} s")
+    # 3. Routes.
+    status, models = http(f"{url}/api/models")
+    if status != 200 or [m["id"] for m in models] != ["default", "fast", "edgematch"]:
+        raise AssertionError(f"/api/models: {status} {models}")
+    status, body = http(f"{url}/api/solve", b"{}")
+    if status != 401:
+        raise AssertionError(f"/api/solve without the key: {status} {body}")
+    status, body = http(f"{url}/api/nope", b"{}", {"X-API-Key": SERVE_KEY})
+    if status != 404:
+        raise AssertionError(f"an unknown path: {status} {body}")
+    x16, _ = wave_puzzles(16, 123)
+    pngs = [encode_png(np.round((x + 1) * 127.5).clip(0, 255).astype(np.uint8)) for x in x16]
+    created = []
+    for i, data in enumerate(pngs):
+        status, c = http(f"{url}/api/create_puzzle", *multipart({"file": data,
+                                                                 "seed": str(i).encode()}))
+        if status != 200:
+            raise AssertionError(f"/api/create_puzzle #{i}: {status} {c}")
+        created.append(c)
+    status, body = http(f"{url}/api/solve", json.dumps(
+        {"image_data": created[0]["puzzle_image"], "model_id": "no-such-model"}).encode(),
+        {"X-API-Key": SERVE_KEY})
+    if status != 500 or "no-such-model" not in body["detail"]:
+        raise AssertionError(f"an unknown model_id: {status} {body}")
+    log("  routes: /api/models lists default, fast, edgematch; 401 without the key; "
+        "404 for an unknown path; 500 naming an unknown model_id")
+    # 4. The 16 puzzles from 16 concurrent clients, faithful-250 then fast.
+    launches = {}
+    for mode in ("default", "fast"):
+        batcher = svc._batchers["faithful" if mode == "default" else "fast"]
+        before = counts()
+        # Two rounds: the first pays the solver's first call (its bf16 copy).
+        out[mode] = [solve_concurrently(url, created, mode) for _ in range(2)]
+        launches[mode] = launched_since(before)["k1"]
+        log(f"  /api/solve {mode} on {card}, rounds 1 and 2: " + json.dumps(out[mode]))
+        log(f"    the {mode} batcher: {batcher.batches_run} batches for "
+            f"{batcher.items_run} requests")
+        per_batch = svc.model_cfg.depth * (STEPS if mode == "default" else 1)
+        if batcher.batches_run >= batcher.items_run or batcher.items_run != 32:
+            raise AssertionError(f"the {mode} batcher ran {batcher.batches_run} programs "
+                                 f"for {batcher.items_run} requests")
+        if launches[mode] != per_batch * batcher.batches_run:
+            raise AssertionError(f"K1 launched {launches[mode]} times for "
+                                 f"{batcher.batches_run} {mode} batches; expected "
+                                 f"{per_batch} per batch")
+    out["launches_k1"] = counts()["k1"]
+    log(f"  K1 launches: faithful {launches['default']}, fast {launches['fast']} "
+        f"({out['launches_k1']} in this phase's bf16 service)")
+    out["k1_row"] = check_k1(8, TOKENS, torch.bfloat16, gen, timed=True)
+    # 5. A JPEG (box halving) through /api/solve_puzzle, and its PNG twin.
+    want = np.load(SERVE_ADM)
+    with open(SERVE_JPEG, "rb") as f:
+        jpeg = f.read()
+    with open(SERVE_PNG, "rb") as f:
+        png_twin = f.read()
+    sources = {"png": png_twin, **({"jpeg": jpeg} if "jpeg" in native.formats() else {})}
+    for name, data in sources.items():
+        diff = np.abs(native.decode_center_crop(data, 192) - want)
+        log(f"  decode {name} 400x480 -> 192: max |diff| {diff.max() * 127.5:.3f} levels, "
+            f"mean {diff.mean() * 127.5:.4f} levels against PIL's ADM crop")
+        if diff.max() > ADM_TOL or diff.mean() > ADM_MEAN_TOL:
+            raise AssertionError(f"the {name} decode is off PIL's ADM crop")
+        status, body = http(f"{url}/api/solve_puzzle", *multipart({"file": data}))
+        if status != 200 or sorted(body["details"]["predicted_order"]) != list(range(9)):
+            raise AssertionError(f"/api/solve_puzzle {name}: {status}")
+    if "jpeg" not in native.formats():
+        status, body = http(f"{url}/api/solve_puzzle", *multipart({"file": jpeg}))
+        if status != 500 or "libjpeg" not in body["detail"]:
+            raise AssertionError(f"a JPEG without libjpeg: {status} {body}")
+        log(f"  JPEG without libjpeg on this machine: 500, {body['detail']!r}")
+    png192 = pngs[0]
+    out["host_us"] = {"decode_png_192": host_us(lambda: native.decode_center_crop(png192, 192)),
+                      "decode_png_400x480": host_us(
+                          lambda: native.decode_center_crop(png_twin, 192)),
+                      "encode_png_192": host_us(lambda: array_to_b64(x16[0]))}
+    if "jpeg" in native.formats():
+        out["host_us"]["decode_jpeg_400x480"] = host_us(
+            lambda: native.decode_center_crop(jpeg, 192))
+    log(f"  host µs: decode_center_crop and the response PNG: {json.dumps(out['host_us'])}")
+    # 6. The int8 service: its startup gate, the 16 puzzles in fast, the CLI.
+    zero_counts()
+    t0 = time.perf_counter()
+    qsvc = PuzzleService(ServiceConfig(checkpoint=ARTIFACT, sampler_mode="faithful",
+                                       sampling_steps=STEPS, batch_window_ms=5.0,
+                                       batch_max=8, api_key=SERVE_KEY, quant="int8",
+                                       quant_gate="strict", quant_gate_n=32,
+                                       quant_gate_tol=0.02))
+    qserver, qthread, qurl = start_server(qsvc)
+    out["int8_startup_s"] = time.perf_counter() - t0
+    with open(TPU_QUANT_GATE) as f:
+        tpu_gate = json.load(f)
+    out["int8_gate"] = qsvc.quant_gate_report
+    log(f"  int8 service started in {out['int8_startup_s']:.2f} s (its gate included); "
+        f"gate on {card}: {json.dumps(qsvc.quant_gate_report)}; the JAX package's TPU "
+        f"reading: patch disagreement {tpu_gate['patch_disagreement']}, puzzle "
+        f"{tpu_gate['puzzle_disagreement']}")
+    if not qsvc.quant_gate_report["passed"]:
+        raise AssertionError("the int8 start-up gate refused")
+    status, models = http(f"{qurl}/api/models")
+    if models[0].get("quant_gate") != qsvc.quant_gate_report:
+        raise AssertionError(f"/api/models of the int8 service: {models[0]}")
+    before = counts()
+    out["int8_fast"] = [solve_concurrently(qurl, created, "fast") for _ in range(2)]
+    log(f"  int8 /api/solve fast on {card}, rounds 1 and 2: " + json.dumps(out["int8_fast"])
+        + f"; K1 launches {launched_since(before)['k1']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_log = os.path.join(tmp, "quant_gate.log")
+        with open(cli_log, "w") as f:
+            proc = subprocess.run(
+                [sys.executable, "-m", "jpdvt_mt_ntnu_tpu_torch.serve.quant_gate",
+                 "--checkpoint", ARTIFACT, "--out", os.path.join(tmp, "gate.json")],
+                cwd=REPO, stdout=f, stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL,
+                timeout=600)
+        with open(os.path.join(tmp, "gate.json")) as f:
+            out["int8_gate_cli"] = json.load(f)
+        log(f"  quant_gate CLI: exit {proc.returncode}, {json.dumps(out['int8_gate_cli'])}")
+        if proc.returncode != 0:
+            raise AssertionError(f"the quant gate CLI exited {proc.returncode}:\n"
+                                 + open(cli_log).read()[-4000:])
+    # 7. int8 against bf16, puzzles/s at batch 32, alternating in one process.
+    x32, perms32 = wave_puzzles(32, 7)
+    diffusion = svc.solver.diffusion
+    for mode in ("faithful", "fast"):
+        solvers = {name: PuzzleSolver(s.model, s.model_cfg, diffusion, grid_size=3, mode=mode)
+                   for name, s in (("bf16", svc), ("int8", qsvc))}
+        for sv in solvers.values():
+            sv.evaluate(x32, perms32)  # warm: casts, int8 weights, workspaces
+        pps = abba_puzzles_per_s(solvers, x32, perms32, rounds=1 if mode == "faithful" else 10)
+        out[f"pps_{mode}"] = {n: float(np.mean(v)) for n, v in pps.items()}
+        out[f"pps_{mode}"]["int8_over_bf16"] = (out[f"pps_{mode}"]["int8"]
+                                                / out[f"pps_{mode}"]["bf16"])
+        log(f"  {mode} puzzles/s at batch 32 on {card}, ABBA: " + json.dumps(
+            {n: [round(p, 2) for p in v] for n, v in pps.items()}) + " -> "
+            + json.dumps(out[f"pps_{mode}"]))
+    out["int8_gemm"] = int8_gemm_us()
+    log(f"  int8 GEMM (torch._int_mm, w_q.t() of (out, in)) against bf16 F.linear, µs "
+        f"by CUDA events on {card}: " + json.dumps(out["int8_gemm"]))
+    # 8. Shutdown: servers, batchers, the plugin.
+    stop_server(server, thread, svc)
+    stop_server(qserver, qthread, qsvc)
+    serve_plugins.unregister_solver("edgematch")
+    lingering = [t.name for t in threading.enumerate()
+                 if t is not threading.main_thread() and not t.daemon]
+    if lingering:
+        raise AssertionError(f"non-daemon threads left: {lingering}")
+    log(f"phase serve: {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+def int8_gemm_us(reps: int = 50) -> dict:
+    """``torch._int_mm`` as ``ops.quant.int8_matmul`` calls it (the weight
+    as ``w_q.t()`` of an (out, in) tensor) beside a contiguous (in, out)
+    weight and bf16 ``F.linear``, at the DiT's projections for batches of 8
+    and 32 (rows = batch x 144); exactness against a float64 product."""
+    gen = torch.Generator("cuda").manual_seed(1)
+    rows = {}
+    for b in (8, 32):
+        for k, n in ((768, 2304), (768, 768), (768, 3072), (3072, 768)):
+            m = b * TOKENS
+            a = torch.randint(-127, 128, (m, k), device="cuda", dtype=torch.int8, generator=gen)
+            w = torch.randint(-127, 128, (n, k), device="cuda", dtype=torch.int8, generator=gen)
+            if not torch.equal(torch._int_mm(a, w.t()).double(), a.double() @ w.double().t()):
+                raise AssertionError(f"torch._int_mm inexact at {m}x{k}x{n}")
+            wt = w.t().contiguous()
+            ab, wb = a.to(torch.bfloat16), w.to(torch.bfloat16)
+            rows[f"{m}x{k}x{n}"] = {
+                "int_mm": cuda_ms(lambda: torch._int_mm(a, w.t()), reps) * 1e3,
+                "int_mm_contiguous": cuda_ms(lambda: torch._int_mm(a, wt), reps) * 1e3,
+                "bf16_linear": cuda_ms(lambda: F.linear(ab, wb), reps) * 1e3}
+    return {k: {n: round(v, 1) for n, v in r.items()} for k, r in rows.items()}
+
+
+def host_us(fn, reps: int = 20) -> float:
+    """Mean host microseconds of ``fn()`` (host code: no device work)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--grid20-artifact", action="store_true",
-                    help="skip the waves3 artifact's phases (3, 4, 7, 8) and start the "
+                    help="skip the waves3 artifact's phases (3, 4, 7, 8, 15) and start the "
                          "grid-20 phases from artifacts/waves20_hard_step32700")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1313,14 +1646,17 @@ def main(argv=None) -> int:
     # 1. Build, one nvcc per source, all started together.
     t0 = time.perf_counter()
     lib_paths = _build.build_all("attention", "attention_bwd", "attention_block", "flash_fwd",
-                                 "flash_bwd", "assignment")
+                                 "flash_bwd", "assignment", "decode")
     attn_ops._kernel()
     attn_ops._bwd_kernel()
     attn_ops._block_kernel()
     flash_ops._fwd_kernel()
     flash_ops._bwd_kernel()
     build_s = time.perf_counter() - t0
-    log(f"build: {build_s:.2f} s -> {[os.path.relpath(p, REPO) for p in lib_paths]}")
+    log(f"build: {build_s:.2f} s -> {[os.path.relpath(p, REPO) for p in lib_paths]}; "
+        f"per source {json.dumps({k: round(v, 2) for k, v in _build.BUILD_SECONDS.items()})}")
+    log(f"decode: built in {_build.BUILD_SECONDS.get('decode', 0.0):.2f} s, takes "
+        f"{native.formats()} (libjpeg found by g++: {_build.has_libjpeg()})")
     for lib_path in lib_paths:
         for line in lib_path.with_suffix(".log").read_text().splitlines():
             if any(w in line for w in ("registers", "Compiling entry", "spill")):
@@ -1367,7 +1703,7 @@ def main(argv=None) -> int:
 
     # 3-4. The waves3 artifact's solve and its throughput.
     if args.grid20_artifact:
-        log("--grid20-artifact: phases 3, 4, 7 and 8 (they read the waves3 artifact, "
+        log("--grid20-artifact: phases 3, 4, 7, 8 and 15 (they read the waves3 artifact, "
             "which this copy does not hold) are skipped")
         g3 = None
     else:
@@ -1488,6 +1824,9 @@ def main(argv=None) -> int:
         k3_launches = eval_grid3(card)["eval_launches"]
         k3_timed = k3_rows[0]
 
+    # 15. The service on the card: HTTP, the batcher, int8 and its gate, decode.
+    serve = None if args.grid20_artifact else serve_grid3(card, gen)
+
     def kernel_row(name, source, replaces, launches, rows, timed):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "shape": timed["shape"],
@@ -1501,7 +1840,8 @@ def main(argv=None) -> int:
                  "jpdvt_mt_ntnu_tpu/ops/flash_attention.py:58")
     flash_bwd = "jpdvt_mt_ntnu_tpu_torch/ops/csrc/flash_bwd.cu"
     # Each kernel with the launches of its own path's run and the errors of
-    # its shapes: K1 for the solve (B=16) and the train step (B=96), K2 and
+    # its shapes: K1 for the solve (B=16), the train step (B=96) and the
+    # service's bf16 batches (B=8, phase 15), K2 and
     # K4-K6 for their train steps (B=96; N=144 and N=400), K3 for the
     # block route's eval (timed at B=32; N=144, or N=400 from the grid-20
     # artifact).
@@ -1513,6 +1853,8 @@ def main(argv=None) -> int:
                         and r["shape"][2] != TOKENS20], k1_rows[0]),
             kernel_row("k1_whole_row_attention_fwd_train", *k1, launches_train[0],
                        [k1_rows[2]], k1_rows[2]),
+            kernel_row("k1_whole_row_attention_fwd_serve", *k1, serve["launches_k1"],
+                       [serve["k1_row"]], serve["k1_row"]),
             kernel_row("k2_whole_row_attention_bwd",
                        "jpdvt_mt_ntnu_tpu_torch/ops/csrc/attention_bwd.cu",
                        "jpdvt_mt_ntnu_tpu/ops/attention.py:44", launches_train[1],

@@ -14,5 +14,9 @@ validation, the ``run_train`` CLI) at the flagship's 3x3 geometry and the
 grid-20 one (320 px, 400 tokens); the whole-row attention kernels, forward
 (``ops/csrc/attention.cu``) and backward (``ops/csrc/attention_bwd.cu``),
 and the flash attention kernels, forward (``ops/csrc/flash_fwd.cu``) and
-backward (``ops/csrc/flash_bwd.cu``), routed by ``ops.attention.attention_route``.
+backward (``ops/csrc/flash_bwd.cu``), routed by ``ops.attention.attention_route``;
+the puzzle service (``serve/``: the stdlib HTTP server, the request gate,
+the micro-batcher, the ``edgematch`` plugin, the int8 start-up gate and
+its CLI), int8 (w8a8) DiT blocks (``ops/quant.py``), and image decode
+without PIL (``ops/csrc/decode.cpp``).
 """

@@ -12,9 +12,11 @@ Counterpart of ``jpdvt_mt_ntnu_tpu/eval/run_eval.py``, with the same
 flattened-params ``.npz`` or a checkpoint directory of this package
 (``eval.use_ema`` picks the EMA or the raw weights); empty means random
 weights. ``eval.assignment`` (greedy | hungarian), ``eval.votes``,
-``diffusion.sampler_mode`` (faithful | fast | iterative | ddim) and
+``diffusion.sampler_mode`` (faithful | fast | iterative | ddim),
 ``model.attn_impl`` (None | pallas | flash | block, the last putting the
-whole attention sublayer on kernel K3) are the solver's options.
+whole attention sublayer on kernel K3) and ``model.quant`` (int8 | int8:K,
+w8a8 products in the DiT's blocks, ``ops/quant.py``) are the solver's
+options.
 ``eval.jax_draws=<npz>`` and ``eval.jax_noise=<npy>`` solve the JAX
 package's puzzles exactly (its scrambles and noise template, which torch
 cannot draw). ``data.data_path=<dir>`` evaluates a folder of images (PIL
@@ -24,7 +26,7 @@ over its subdirectories with one journal each (inference_texrec.py).
 The run is on the card; ``device=cpu`` (an argument without a section)
 runs it on the CPU. Not ported yet, and refused by name before any weights
 load: the MET and TEXMET datasets, synthetic cue regimes other than
-``waves``, an Orbax checkpoint directory, int8 and MoE models, sequence
+``waves``, an Orbax checkpoint directory, MoE models, sequence
 parallelism, and any geometry no attention kernel takes.
 """
 
@@ -42,6 +44,7 @@ from ..core.diffusion import create_diffusion
 from ..data import SyntheticPuzzles
 from ..models import DIT_CONFIGS, create_model
 from ..ops.attention import ATTN_IMPLS, attention_route
+from ..ops.quant import parse_quant_spec
 from ..tools.weights import load_artifact
 from ..utils.config import Config, apply_overrides
 from ..utils.device import default_device
@@ -134,9 +137,13 @@ def check_supported(cfg: Config, texrec: bool = False, on_card: bool = True) -> 
     refused = []
     if cfg.mesh.seq > 1:
         refused.append("mesh.seq (sequence-parallel ring attention)")
-    if m.quant or m.moe_experts or m.moe_capacity or m.name not in DIT_CONFIGS:
-        refused.append(f"model {m.name!r} / model.quant / model.moe_* (the dense "
-                       "DiT registry is ported)")
+    if m.moe_experts or m.moe_capacity or m.name not in DIT_CONFIGS:
+        refused.append(f"model {m.name!r} / model.moe_* (the dense DiT registry is "
+                       "ported)")
+    try:
+        parse_quant_spec(m.quant)
+    except ValueError as e:
+        refused.append(f"model.quant={m.quant!r} ({e})")
     if m.attn_impl not in ATTN_IMPLS:
         refused.append(f"model.attn_impl={m.attn_impl!r} (the port runs {ATTN_IMPLS})")
     elif m.name in DIT_CONFIGS:

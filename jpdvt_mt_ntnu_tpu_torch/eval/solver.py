@@ -125,11 +125,14 @@ class PuzzleSolver:
         """The model with parameters in the compute type; the model itself
         when that type is float32. The cast copy is kept and made anew only
         when a parameter of the model changed (its version counter), so a
-        run of solves pays the cast once."""
+        run of solves pays the cast once. An int8 model's quantized weights
+        are made from the fp32 parameters before the cast, and the copy
+        carries them."""
         if self.cfg.dtype == torch.float32:
             return self.model
         key = tuple((id(p), p._version) for p in self.model.parameters())
         if self._cast[0] != key:
+            self.model.prepare_int8()
             self._cast = (key, copy.deepcopy(self.model).to(self.cfg.dtype))
         return self._cast[1]
 

@@ -15,7 +15,11 @@ the JAX parameters carry over one to one (``tools/weights.py``):
 - the MLP's GELU is the tanh approximation, LayerNorms have eps 1e-6, no
   affine, and compute their statistics in fp32 as Flax's do in bf16;
 - two heads: the unpatchified image and an 8-dim positional code per token,
-  read from the final layer's output (``models.py:288``).
+  read from the final layer's output (``models.py:288``);
+- ``quant="int8"`` (or ``"int8:K"``, the first K blocks) runs each
+  quantized block's qkv, output and MLP projections as w8a8 int8 products
+  (``ops/quant.py``, JAX ``models/dit.py:129-138,195-202``) around the
+  attention core on its default route; the parameter names do not change.
 
 Parameters are float32; ``DiTConfig.dtype`` is the compute type. Every
 Linear casts its parameters to the type of its input, so a model whose
@@ -34,6 +38,7 @@ from torch import nn
 from ..ops.attention import (attention_route, dense_to_block_weights,
                              fused_attention_block, fused_qkv_attention)
 from ..ops.flash_attention import fused_qkv_flash_attention
+from ..ops.quant import int8_dense, parse_quant_spec, quantize_channelwise
 from ..utils.device import default_device
 from ..utils.pos_embed import get_2d_sincos_pos_embed, timestep_embedding
 
@@ -51,6 +56,7 @@ class DiTConfig:
     code_head_hidden: int = 64
     dtype: torch.dtype = torch.float32  # compute type
     attn_impl: str | None = None  # None (auto), "pallas" (K1/K2), "flash" (K4-K6), "block" (K3)
+    quant: str | None = None  # None, "int8" (every block) or "int8:K" (the first K)
 
     @property
     def tokens_per_side(self) -> int:
@@ -66,9 +72,36 @@ class DiTConfig:
 
 
 class Linear(nn.Linear):
-    """A Linear computing in its input's type (Flax ``Dense(dtype=...)``)."""
+    """A Linear computing in its input's type (Flax ``Dense(dtype=...)``),
+    or with ``quant="int8"`` through :func:`int8_dense` on its fp32
+    parameters, quantized once per parameter version."""
+
+    def __init__(self, in_features: int, out_features: int, quant: str | None = None):
+        super().__init__(in_features, out_features)
+        self.quant = quant
+        self._int8: tuple | None = None  # (parameter versions, (w_q, s_w, fp32 bias))
+
+    @torch.no_grad()
+    def int8_weights(self) -> tuple:
+        """(w_q, s_w, bias) from the fp32 parameters, made anew only when
+        one of them changed. A copy whose parameters were cast to the
+        compute type (``PuzzleSolver``'s) keeps the triple it was copied
+        with: bf16-rounded weights would quantize to other int8 values."""
+        w, b = self.weight, self.bias
+        if w.dtype != torch.float32:
+            if self._int8 is None:
+                raise RuntimeError("an int8 Linear whose parameters are not float32 "
+                                   "must carry the quantized fp32 weights "
+                                   "(DiT.prepare_int8 before the cast)")
+            return self._int8[1]
+        key = (w.data_ptr(), w._version, b.data_ptr(), b._version)
+        if self._int8 is None or self._int8[0] != key:
+            self._int8 = (key, (*quantize_channelwise(w), b.float()))
+        return self._int8[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant:
+            return int8_dense(x, *self.int8_weights())
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
@@ -90,10 +123,10 @@ def patchify(x: torch.Tensor, cfg: DiTConfig) -> torch.Tensor:
 
 
 class Mlp(nn.Module):
-    def __init__(self, features: int, hidden: int):
+    def __init__(self, features: int, hidden: int, quant: str | None = None):
         super().__init__()
-        self.fc1 = Linear(features, hidden)
-        self.fc2 = Linear(hidden, features)
+        self.fc1 = Linear(features, hidden, quant)
+        self.fc2 = Linear(hidden, features, quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
@@ -102,14 +135,17 @@ class Mlp(nn.Module):
 class Attention(nn.Module):
     """timm-compatible MHA: fused qkv projection, attention on the route
     :func:`attention_route` picks, output projection; on the ``"block"``
-    route all three in one K3 call."""
+    route all three in one K3 call. A quantized block ignores
+    ``attn_impl`` (as in the JAX package) and takes the default route
+    between its int8 projections."""
 
-    def __init__(self, hidden_size: int, num_heads: int, attn_impl: str | None = None):
+    def __init__(self, hidden_size: int, num_heads: int, attn_impl: str | None = None,
+                 quant: str | None = None):
         super().__init__()
         self.num_heads = num_heads
-        self.attn_impl = attn_impl
-        self.qkv = Linear(hidden_size, 3 * hidden_size)
-        self.proj = Linear(hidden_size, hidden_size)
+        self.attn_impl = None if quant else attn_impl
+        self.qkv = Linear(hidden_size, 3 * hidden_size, quant)
+        self.proj = Linear(hidden_size, hidden_size, quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         grad = torch.is_grad_enabled() and (
@@ -132,11 +168,11 @@ class DiTBlock(nn.Module):
     """Pre-LN transformer block with adaLN-Zero conditioning (models.py:101-122)."""
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float,
-                 attn_impl: str | None = None):
+                 attn_impl: str | None = None, quant: str | None = None):
         super().__init__()
         self.adaLN_modulation = Linear(hidden_size, 6 * hidden_size)
-        self.attn = Attention(hidden_size, num_heads, attn_impl)
-        self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio))
+        self.attn = Attention(hidden_size, num_heads, attn_impl, quant)
+        self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), quant)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         (shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp,
@@ -191,9 +227,11 @@ class DiT(nn.Module):
                                  cfg.hidden_size)
         self.code_in = Linear(cfg.code_dim, cfg.hidden_size)
         self.t_embedder = TimestepEmbedder(cfg.hidden_size)
+        qmode, qlimit = parse_quant_spec(cfg.quant)
         self.blocks = nn.ModuleList(
-            DiTBlock(cfg.hidden_size, cfg.num_heads, cfg.mlp_ratio, cfg.attn_impl)
-            for _ in range(cfg.depth))
+            DiTBlock(cfg.hidden_size, cfg.num_heads, cfg.mlp_ratio, cfg.attn_impl,
+                     qmode if qlimit is None or i < qlimit else None)
+            for i in range(cfg.depth))
         self.final_layer = FinalLayer(cfg.hidden_size, cfg.patch_dim)
         self.code_out1 = Linear(cfg.patch_dim, cfg.code_head_hidden)
         self.code_out2 = Linear(cfg.code_head_hidden, cfg.code_dim)
@@ -219,6 +257,14 @@ class DiT(nn.Module):
         zeros += [self.final_layer.adaLN_modulation, self.final_layer.linear]
         for m in zeros:
             m.weight.zero_()
+
+    def prepare_int8(self) -> None:
+        """Quantize every int8 Linear's fp32 parameters now (cached per
+        parameter version), so that a copy cast to the compute type
+        carries them."""
+        for m in self.modules():
+            if isinstance(m, Linear) and m.quant:
+                m.int8_weights()
 
     def embed_condition(self, x: torch.Tensor) -> torch.Tensor:
         """Patch embed + position table of the condition image

@@ -7,6 +7,11 @@ seconds. The shared library is built at first use into
 ``jpdvt_mt_ntnu_tpu_torch/_build/`` (listed in ``.gitignore``), named by a
 hash of the source and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. A failed build raises.
+
+``decode.cpp`` alone takes flags of its own: ``-DJP_WITH_LIBJPEG -ljpeg``
+where g++ compiles and links a libjpeg program on this machine, nothing
+otherwise. Which formats its library decodes is thus fixed when it is
+built (``jp_formats``), and its hash covers the choice.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -26,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 NVCC_TIMEOUT_S = 600
+BUILD_SECONDS: dict[str, float] = {}  # name -> seconds of its compile in this process
 
 
 def nvcc_path() -> str:
@@ -49,10 +56,34 @@ def _compiler(src: Path) -> list[str]:
     return ["g++", *CXX_FLAGS]
 
 
+@functools.cache
+def has_libjpeg() -> bool:
+    """Whether g++ compiles and links a program against libjpeg here."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    probe = BUILD_DIR / f"libjpeg_probe.{os.getpid()}"
+    src = ("#include <cstdio>\n#include <jpeglib.h>\n"
+           "int main() { jpeg_decompress_struct c; jpeg_error_mgr e;"
+           " c.err = jpeg_std_error(&e); jpeg_create_decompress(&c);"
+           " jpeg_destroy_decompress(&c); return 0; }\n")
+    proc = subprocess.run(["g++", "-x", "c++", "-", "-ljpeg", "-o", str(probe)], input=src,
+                          capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
+    probe.unlink(missing_ok=True)
+    return proc.returncode == 0
+
+
+def extra_flags(name: str) -> tuple[str, ...]:
+    """Flags of one source beyond its compiler's, placed after the source
+    so that they can name libraries to link."""
+    if name == "decode" and has_libjpeg():
+        return ("-DJP_WITH_LIBJPEG", "-ljpeg")
+    return ()
+
+
 def library_path(name: str) -> Path:
     """Where the library for ``csrc/<name>.cu`` (or ``.cpp``) lives once built."""
     src = _source(name)
-    h = hashlib.sha256(" ".join(NVCC_FLAGS if src.suffix == ".cu" else CXX_FLAGS).encode())
+    flags = (*(NVCC_FLAGS if src.suffix == ".cu" else CXX_FLAGS), *extra_flags(name))
+    h = hashlib.sha256(" ".join(flags).encode())
     h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -70,10 +101,12 @@ def build(name: str) -> Path:
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     log = out.with_suffix(".log")
     src = _source(name)
-    cmd = [*_compiler(src), "-o", str(tmp), str(src)]
+    cmd = [*_compiler(src), "-o", str(tmp), str(src), *extra_flags(name)]
+    t0 = time.perf_counter()
     with open(log, "w") as lf:
         proc = subprocess.run(cmd, stdout=lf, stderr=subprocess.STDOUT,
                               stdin=subprocess.DEVNULL, timeout=NVCC_TIMEOUT_S)
+    BUILD_SECONDS[name] = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"{cmd[0]} exited {proc.returncode} building {name}:\n"
                            f"{' '.join(cmd)}\n{log.read_text()}")

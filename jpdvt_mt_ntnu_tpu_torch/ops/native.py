@@ -1,20 +1,33 @@
-"""ctypes bindings of the port's host assignment solvers.
+"""ctypes bindings of the port's host code: assignment solvers and image decode.
 
-Counterpart of the assignment half of ``jpdvt_mt_ntnu_tpu/ops/native.py``:
-``csrc/assignment.cpp`` (the port's copy of ``native/src/assignment.cpp``)
-is built with ``g++`` into ``_build/`` at first use by ``ops/_build.py``.
-There is no fallback: a failed build raises. The image decoder
-(``native/src/decode.cpp``) is not part of the port yet.
+Counterpart of ``jpdvt_mt_ntnu_tpu/ops/native.py``. ``csrc/assignment.cpp``
+(the port's copy of ``native/src/assignment.cpp``) and ``csrc/decode.cpp``
+(of ``native/src/decode.cpp``) are built with ``g++`` into ``_build/`` at
+first use by ``ops/_build.py``. There is no fallback: a failed build
+raises, and so does a format the decoder does not take. No PIL is used.
+
+Decode: the PNG container is read here (chunks, CRCs, zlib, palette) for
+8-bit, non-interlaced images, which is what the service's page and its
+own writer send; the scanline filters and the ADM center crop run in C.
+JPEG goes through libjpeg where the library was built with it
+(:func:`formats`); elsewhere it raises ``ValueError``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import struct
+import zlib
 
 import numpy as np
 
 from . import _build
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_JPEG_SOI = b"\xff\xd8\xff"
+# PNG colour type -> channels at 8 bits (3, a palette, is expanded to RGB).
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
 
 @functools.cache
@@ -49,3 +62,127 @@ def hungarian_permutation(dist) -> np.ndarray:
     """(..., P, P) float distances -> (..., P) int32 slot per piece of least
     total distance (the optimal assignment)."""
     return _solve("jp_hungarian_batch", dist)
+
+
+@functools.cache
+def _decode_lib() -> ctypes.CDLL:
+    lib = _build.load("decode")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    lib.jp_formats.argtypes = []
+    lib.jp_png_unfilter.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_int, u8p]
+    lib.jp_center_crop.argtypes = [u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, f32p]
+    fns = [lib.jp_formats, lib.jp_png_unfilter, lib.jp_center_crop]
+    if lib.jp_formats() & 2:
+        lib.jp_jpeg_center_crop.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
+                                            f32p]
+        lib.jp_jpeg_probe.argtypes = [ctypes.c_char_p, ctypes.c_long,
+                                      ctypes.POINTER(ctypes.c_int),
+                                      ctypes.POINTER(ctypes.c_int)]
+        fns += [lib.jp_jpeg_center_crop, lib.jp_jpeg_probe]
+    for fn in fns:
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def formats() -> tuple[str, ...]:
+    """The formats the built decoder takes: ``("png",)`` or ``("png", "jpeg")``."""
+    return ("png", "jpeg") if _decode_lib().jp_formats() & 2 else ("png",)
+
+
+def _need_jpeg() -> ctypes.CDLL:
+    lib = _decode_lib()
+    if not lib.jp_formats() & 2:
+        raise ValueError("JPEG decode needs libjpeg, which this machine lacks "
+                         "(native decoder built for PNG only)")
+    return lib
+
+
+def _png_chunks(data: bytes):
+    """(type, body) of each chunk, the CRCs checked."""
+    pos = len(PNG_SIGNATURE)
+    while pos + 12 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) != length or len(crc) != 4:
+            raise ValueError("PNG truncated (native decoder)")
+        if zlib.crc32(kind + body) != struct.unpack(">I", crc)[0]:
+            raise ValueError(f"PNG chunk {kind!r} fails its CRC (native decoder)")
+        yield kind, body
+        if kind == b"IEND":
+            return
+        pos += 12 + length
+    raise ValueError("PNG has no IEND chunk (native decoder)")
+
+
+def _png_header(data: bytes) -> tuple[int, int, int, int, int]:
+    if data[:8] != PNG_SIGNATURE or data[12:16] != b"IHDR":
+        raise ValueError("not a PNG (native decoder)")
+    return struct.unpack(">IIBBxxB", data[16:29])
+
+
+def png_pixels(data: bytes) -> np.ndarray:
+    """An 8-bit, non-interlaced PNG -> (H, W, C) uint8: C = 1 grey, 2 grey
+    + alpha, 3 RGB (palette images too), 4 RGBA."""
+    width, height, depth, colour, interlace = _png_header(data)
+    if depth != 8 or colour not in _PNG_CHANNELS or interlace:
+        raise ValueError(f"PNG of bit depth {depth}, colour type {colour}, interlace "
+                         f"{interlace}: the native decoder takes 8-bit, non-interlaced "
+                         "grey, RGB, palette and alpha images")
+    idat, palette = [], None
+    for kind, body in _png_chunks(data):
+        if kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body[:len(body) // 3 * 3], np.uint8).reshape(-1, 3)
+    channels = _PNG_CHANNELS[colour]
+    need = height * (1 + width * channels)  # a filter byte, then the row
+    try:  # inflate no more than the header's rows hold
+        raw = zlib.decompressobj().decompress(b"".join(idat), need)
+    except zlib.error as e:
+        raise ValueError(f"PNG data does not inflate (native decoder): {e}") from e
+    if not width or not height or len(raw) < need:
+        raise ValueError(f"PNG holds {len(raw)} of the {need} bytes its header "
+                         "declares (native decoder)")
+    out = np.empty((height, width, channels), np.uint8)
+    rc = _decode_lib().jp_png_unfilter(raw, len(raw), width, height, channels, out)
+    if rc != 0:
+        raise ValueError(f"PNG scanlines rejected (native code {rc})")
+    if colour == 3:
+        if palette is None or out.max() >= len(palette):
+            raise ValueError("PNG palette missing or too short (native decoder)")
+        out = palette[out[..., 0]]
+    return out
+
+
+def decode_center_crop(data: bytes, image_size: int) -> np.ndarray:
+    """PNG or JPEG bytes -> (S, S, 3) float32 in [-1, 1]: decode, then the
+    ADM center crop (box halving, bicubic resize, crop). Raises
+    ``ValueError`` for a format the decoder does not take."""
+    out = np.empty((image_size, image_size, 3), np.float32)
+    if data[:8] == PNG_SIGNATURE:
+        px = png_pixels(data)
+        h, w, c = px.shape
+        rc = _decode_lib().jp_center_crop(px, w, h, c, image_size, out)
+    elif data[:3] == _JPEG_SOI:
+        rc = _need_jpeg().jp_jpeg_center_crop(data, len(data), image_size, out)
+    else:
+        raise ValueError("neither a PNG nor a JPEG (native decoder)")
+    if rc != 0:
+        raise ValueError(f"decode failed (native code {rc})")
+    return out
+
+
+def probe(data: bytes) -> tuple[int, int]:
+    """(width, height) of an encoded PNG or JPEG."""
+    if data[:8] == PNG_SIGNATURE:
+        return _png_header(data)[:2]
+    if data[:3] == _JPEG_SOI:
+        w, h = ctypes.c_int(), ctypes.c_int()
+        if _need_jpeg().jp_jpeg_probe(data, len(data), ctypes.byref(w), ctypes.byref(h)):
+            raise ValueError("JPEG header rejected (native code -1)")
+        return w.value, h.value
+    raise ValueError("neither a PNG nor a JPEG (native decoder)")

@@ -4,11 +4,13 @@ Runs fast and faithful solves of the flagship (``JPDVT`` at 192 px, 3x3,
 bf16, weights random from a seed: the time does not depend on them) under
 ``torch.profiler`` and prints one JSON line: per mode, the wall time of a
 solve, the device time summed over its kernels by group (K1, K3's two
-launches A.1 and A.2, K4, GEMM, other), the device's idle share, the
-kernel count, and the time of the parameter cast that the solver makes
-once and keeps. Counterpart of the JAX package's ``tools/profile_step.py``.
+launches A.1 and A.2, K4, int8 GEMM, GEMM, other), the device's idle
+share, the kernel count, and the time of the parameter cast that the
+solver makes once and keeps (with ``--quant``, and of the int8 weights it
+quantizes once). Counterpart of the JAX package's ``tools/profile_step.py``.
 
-    python -m jpdvt_mt_ntnu_tpu_torch.tools.profile_solve [--batch 32] [--attn-impl block]
+    python -m jpdvt_mt_ntnu_tpu_torch.tools.profile_solve [--batch 32] \
+        [--attn-impl block] [--quant int8]
 
 Needs a CUDA card; it fails without one.
 """
@@ -32,6 +34,8 @@ def _group(name: str) -> str:
     if "flash_fwd_" in name:  # flash_fwd_mma_kernel in bf16, flash_fwd_kernel<float> in fp32
         return "k4_flash_fwd"
     low = name.lower()
+    if any(tag in low for tag in ("_s8", "int8", "imma")):  # torch._int_mm's cuBLASLt kernels
+        return "int8_gemm"
     if any(tag in low for tag in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
         return "gemm"
     return "other"
@@ -73,6 +77,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--attn-impl", default=None, choices=["pallas", "flash", "block"],
                     help="model.attn_impl (default: the automatic route, K1 here)")
+    ap.add_argument("--quant", default=None, help="model.quant: int8 or int8:K")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_solve needs a CUDA card")
@@ -83,12 +88,12 @@ def main() -> int:
     from ..ops.jigsaw import random_permutations
 
     model, cfg = create_model("JPDVT", 192, dtype=torch.bfloat16, seed=args.seed,
-                              attn_impl=args.attn_impl)
+                              attn_impl=args.attn_impl, quant=args.quant)
     x = SyntheticPuzzles(192, n=args.batch, seed=7).batch()
     perms = random_permutations(args.batch, 9, generator=torch.Generator().manual_seed(
         args.seed)).numpy()
     out = {"device": torch.cuda.get_device_name(0), "batch": args.batch,
-           "attn_impl": args.attn_impl}
+           "attn_impl": args.attn_impl, "quant": args.quant}
     for mode in ("fast", "faithful"):
         solver = PuzzleSolver(model, cfg, create_diffusion("250"), mode=mode,
                               seed=args.seed)
@@ -100,6 +105,15 @@ def main() -> int:
         solver._cast_params()
     torch.cuda.synchronize()
     out["cast_params_ms"] = 1e3 * (time.perf_counter() - t0) / 10
+    if args.quant:
+        linears = [m for m in model.modules() if getattr(m, "quant", None)]
+        t0 = time.perf_counter()
+        for _ in range(10):
+            for m in linears:
+                m._int8 = None  # drop the kept int8 weights: time the quantization
+            model.prepare_int8()
+        torch.cuda.synchronize()
+        out["int8_weights_ms"] = 1e3 * (time.perf_counter() - t0) / 10
     print(json.dumps(out))
     return 0
 

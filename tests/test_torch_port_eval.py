@@ -312,7 +312,7 @@ def test_synthetic_set_names_and_whole_set_synthesis():
     (["data.synthetic_cues=coords"], "cue regimes"),
     (["model.attn_impl=ring"], "attn_impl='ring'"),
     (["mesh.seq=2"], "mesh.seq"),
-    (["model.quant=int8"], "model.quant"),
+    (["model.quant=int4"], "model.quant"),
     (["model.image_size=320", "model.attn_impl=block", "model.compute_dtype=float32"],
      "shared memory")])
 def test_run_eval_refuses_what_is_not_ported(args, match):
