@@ -93,7 +93,7 @@ then the fused attention sublayer K3 and the evaluation path:
 
 ``python3 chip_smoke.py --grid20-artifact`` (the copy must then hold
 ``waves20_hard_step32700`` in place of waves3) skips the phases that read
-the waves3 artifact (3, 4, 7, 8, 15), warm-starts phase 11 from the artifact
+the waves3 artifact (3, 4, 7, 8, 15, 16), warm-starts phase 11 from the artifact
 at step 32,700 (losses <= 1/10 of a fresh model's on the same batches and
 draws), solves the fixed set in phase 12 with the EMA model beside the
 unchanged artifact, and runs the ``run_train`` CLI at grid 20 (warm start,
@@ -127,10 +127,37 @@ then the service:
     then the servers and the batchers' threads are stopped. Skipped under
     ``--grid20-artifact``.
 
+then data parallelism across processes and the trainer's options (skipped
+under ``--grid20-artifact``):
+
+16. ``run_train`` (its CLI, each rank a subprocess of this script with
+    torchrun's environment: ``--ddp-child``) warm-started from the waves3
+    artifact, 6 steps at global batch 96, bf16, on 2 ranks sharing the card
+    over gloo, on 1 process, and on 1 rank over nccl: 12 K1 + 12 K2
+    launches per rank per step, one checkpoint each, the per-step losses
+    and final EMA of 2 ranks and of 1 nccl rank against 1 process, images/s
+    side by side; two 2-rank runs of a depth-2 DiT, one stopped by SIGTERM
+    to one rank (both exit 42 at one step, one checkpoint), one whose rank 1
+    is killed (rank 0 exits non-zero within 60 s); ``run_eval`` on 2 ranks
+    over the 1,024 seed-11 waves puzzles, fast, batch 64 (the host journals
+    hold each puzzle once, each equals the in-process harness of its
+    ``(process_index, process_count)``, a run cut at 256 a host and resumed
+    equals it); the K3 training route (``model.attn_impl=block``), 12 steps
+    at batch 96 from the artifact, 12 K3 launches and no K1/K2 per step,
+    losses <= 1/10 of a fresh model's, and its fp32 gradients at batch 4
+    against plain autograd; K1 and K2 at a rank's shape (48, 144) and K3 at
+    the route's (96, 144) against their plain versions, timed;
+    ``task.multi_grid=3,4,6`` through ``run_train`` (the ``_g3``/``_g4``/
+    ``_g6`` validations; ``run_eval`` takes its checkpoint at grid 4),
+    ``data.device_cache_augment`` (the cached set's bytes on the card), and
+    ``model.matmul_precision=high`` on an fp32 run (the TF32 GEMMs the
+    profiler names, none at ``highest``).
+
 The last three lines are the ``kernels`` JSON (each kernel with the
-launches of its own path and its shape: K1 for the solve, the train step
-and the service, K2, K3 on the eval path, K4, K5, K6), the card's name and
-power limit, and the device JSON.
+launches of its own path and its shape: K1 for the solve, the train step,
+the service and the 2-rank train step, K2 for the train step and the 2-rank
+one, K3 on the eval path and the training route, K4, K5, K6), the card's
+name and power limit, and the device JSON.
 """
 
 from __future__ import annotations
@@ -139,6 +166,7 @@ import argparse
 import contextlib
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -169,6 +197,7 @@ from jpdvt_mt_ntnu_tpu_torch.tools.weights import load_artifact
 from jpdvt_mt_ntnu_tpu_torch.train import (CheckpointManager, TrainTask,
                                            create_train_state, make_optimizer,
                                            make_train_step, run_train, steps)
+from jpdvt_mt_ntnu_tpu_torch.utils.device import apply_matmul_precision
 from jpdvt_mt_ntnu_tpu_torch.utils.pos_embed import grid_code
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -562,15 +591,19 @@ def check_k5_k6(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
 
 @contextlib.contextmanager
 def plain_attention():
-    """Route the DiT's attention, both routes, to the plain version (torch
-    autograd of the whole-row softmax) for a comparison."""
-    kernel_routes = dit.fused_qkv_attention, dit.fused_qkv_flash_attention
+    """Route the DiT's attention, every route, to the plain versions (torch
+    autograd of the whole-row softmax, or of K3's plain version on the
+    ``block`` route) for a comparison."""
+    kernel_routes = (dit.fused_qkv_attention, dit.fused_qkv_flash_attention,
+                     dit.fused_attention_block)
     dit.fused_qkv_attention = attn_ops.fused_qkv_attention_reference
     dit.fused_qkv_flash_attention = attn_ops.fused_qkv_attention_reference
+    dit.fused_attention_block = attn_ops.fused_attention_block_plain
     try:
         yield
     finally:
-        dit.fused_qkv_attention, dit.fused_qkv_flash_attention = kernel_routes
+        (dit.fused_qkv_attention, dit.fused_qkv_flash_attention,
+         dit.fused_attention_block) = kernel_routes
 
 
 COUNTERS = {"k1": attn_ops.attention, "k2": attn_ops.attention_bwd,
@@ -603,14 +636,15 @@ def randomize(model: torch.nn.Module, seed: int) -> None:
 
 
 def check_gradients(size: int = 192, grid: int = 3, b: int = 8,
-                    expected: dict | None = None) -> dict:
+                    expected: dict | None = None, attn_impl: str | None = None) -> dict:
     """Every parameter's gradient of one training-loss backward of the
     full-width DiT in fp32, through the kernels and through the plain
     attention (torch autograd), on identical injected draws. Phase 6: 192
     px, grid 3, batch 8, 12 K1 + 12 K2 launches; phase 10: 320 px, grid 20,
-    batch 4, 12 K4 + 12 K5 + 12 K6."""
+    batch 4, 12 K4 + 12 K5 + 12 K6; phase 16: 192 px, batch 4 on the
+    ``block`` route, 12 K3 (its backward is autograd of the plain version)."""
     expected = expected or {"k1": 12, "k2": 12}
-    model, cfg = create_model("JPDVT", size, seed=0)
+    model, cfg = create_model("JPDVT", size, seed=0, attn_impl=attn_impl)
     randomize(model, 1)
     diff = create_diffusion("")
     rng = np.random.default_rng(2)
@@ -648,7 +682,7 @@ def check_gradients(size: int = 192, grid: int = 3, b: int = 8,
     qkv = [mine[f"blocks.{i}.attn.qkv.weight"].abs().max().item() for i in range(cfg.depth)]
     if min(qkv) == 0:
         raise AssertionError(f"a qkv.weight gradient is zero: {qkv}")
-    row = {"size": size, "grid": grid, "batch": b, "launches": launched,
+    row = {"size": size, "grid": grid, "batch": b, "attn_impl": attn_impl, "launches": launched,
            "loss_kernels": loss, "loss_plain": loss_plain, "params": len(plain),
            "worst_rel_err": worst, "worst_param": worst_name, "rel_tol": GRAD_TOL,
            "min_qkv_weight_grad_max": min(qkv)}
@@ -1627,10 +1661,466 @@ def host_us(fn, reps: int = 20) -> float:
     return (time.perf_counter() - t0) / reps * 1e6
 
 
+# ------------------------------------------------------------------ phase 16
+
+# 2 ranks against 1 process at batch 96, bf16: the draws are equal (each
+# rank draws the global batch and keeps its half) and the weights start
+# equal, but cuBLAS may take other algorithms at M = 48 x 144 rows than at
+# 96 x 144, which moves bf16 roundings. The per-step loss (a mean of 96
+# samples) stays within 2% of one process's; every EMA element within 20
+# lr: six AdamW updates a run, each at most ~1.4 lr an element, two runs.
+DDP_STEPS, DDP_LOSS_RTOL, DDP_EMA_ATOL = 6, 2e-2, 20 * LR
+DDP_STEP_LAUNCHES = {"k1": 12, "k2": 12}  # a train step of the 12-block DiT
+K3_TRAIN_STEPS = 12
+
+
+@contextlib.contextmanager
+def counting_steps():
+    """Record the kernel launches of every train step ``run_train`` builds
+    while the context is open: yields the list, one dict per step."""
+    per_step: list = []
+    make_step = run_train.make_train_step
+
+    def counted_make(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def counted(state, batch):
+            before = counts()
+            result = step(state, batch)
+            per_step.append(launched_since(before))
+            return result
+
+        return counted
+
+    run_train.make_train_step = counted_make
+    try:
+        yield per_step
+    finally:
+        run_train.make_train_step = make_step
+
+
+def ddp_child(out: str, argv: list[str]) -> int:
+    """One process of phase 16 (``chip_smoke.py --ddp-child <out.json>
+    train|eval <overrides>``): ``run_train.main`` or ``run_eval.main`` as
+    a rank of its launch (torchrun's environment), each train step's
+    kernel launches recorded, written to ``out`` with the exit code."""
+    zero_counts()
+    with counting_steps() as per_step:
+        code = (run_eval.main if argv[0] == "eval" else run_train.main)(argv[1:])
+    with open(out, "w") as f:
+        json.dump({"exit": code, "rank": int(os.environ.get("RANK", 0)), "per_step": per_step,
+                   "launches": counts(), "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30
+                   if torch.cuda.is_available() else 0.0}, f)
+    return code
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(tmp: str, name: str, kind: str, args: list[str], world: int = 2) -> list:
+    """Start ``world`` ranks of ``--ddp-child`` on 127.0.0.1 with torchrun's
+    environment; each writes ``tmp/name.<r>.json`` and ``.log``."""
+    port, procs = free_port(), []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        base = os.path.join(tmp, f"{name}.{r}")
+        with open(base + ".log", "w") as f:
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--ddp-child", base + ".json",
+                 kind, *args], cwd=REPO, env=env, stdout=f, stderr=subprocess.STDOUT,
+                stdin=subprocess.DEVNULL), base))
+    return procs
+
+
+def tail(path: str, lines: int = 30) -> str:
+    with open(path, errors="replace") as f:
+        return "".join(f.readlines()[-lines:])
+
+
+def wait_ranks(procs, timeout: float = 300, codes=(0,)) -> list[dict]:
+    """Wait for every rank (killing all of them past ``timeout`` s); raise
+    unless each exits with one of ``codes``; each rank's JSON where written."""
+    deadline = time.time() + timeout
+    try:
+        exits = [p.wait(timeout=max(1.0, deadline - time.time())) for p, _ in procs]
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"ranks still running after {timeout} s:\n"
+                             + "\n".join(tail(b + ".log") for _, b in procs)) from None
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(e not in codes for e in exits):
+        raise AssertionError(f"rank exits {exits}, expected {codes}:\n"
+                             + "\n".join(tail(b + ".log") for _, b in procs))
+    return [json.load(open(b + ".json")) for _, b in procs if os.path.exists(b + ".json")]
+
+
+def ddp_train_args(exp: str) -> list[str]:
+    return ["data.synthetic_cues=waves", "data.device_stream=true",
+            f"data.synthetic_hard_frac={HARD_FRAC}", f"data.global_batch_size={TRAIN_BATCH}",
+            f"data.synthetic_n={TRAIN_BATCH * DDP_STEPS}", "train.epochs=1",
+            f"train.t_bias={T_BIAS}", "train.ema_warmup=true", "train.log_every=1",
+            "train.ckpt_every=1000000", "diffusion.sampler_mode=fast",
+            f"train.warm_start={ARTIFACT}", f"train.exp_dir={exp}"]
+
+
+def run_metrics(exp: str) -> tuple[list[float], dict, dict]:
+    """(per-step losses, the process-group row, the summary) of a run."""
+    rows = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
+    return ([r["train_loss"] for r in rows if "train_loss" in r],
+            next(r for r in rows if "process_backend" in r),
+            [r["summary"] for r in rows if "summary" in r][-1])
+
+
+def final_ema(exp: str, step: int) -> dict:
+    return torch.load(os.path.join(exp, "checkpoints", str(step), "state.pt"),
+                      map_location="cpu", weights_only=True)["ema"]
+
+
+def check_ddp_train(tmp: str, card: str) -> dict:
+    """Phase 16: ``run_train`` on 2 ranks sharing the card over gloo, on 1
+    process, and on 1 rank over nccl; losses, EMA, launches, checkpoints."""
+    end = 10000 + DDP_STEPS
+    procs = spawn_ranks(tmp, "ddp2", "train", ddp_train_args(f"{tmp}/ddp2"))
+    ranks = wait_ranks(procs)
+    zero_counts()
+    with counting_steps() as per_step:
+        code = run_train.main(ddp_train_args(f"{tmp}/one"))
+    if code != 0:
+        raise AssertionError(f"run_train on one process: exit {code}")
+    nccl = spawn_ranks(tmp, "nccl1", "train", ddp_train_args(f"{tmp}/nccl1")
+                       + ["mesh.distributed=force"], world=1)
+    one_rank = wait_ranks(nccl)
+    want = {name: 0 for name in COUNTERS} | DDP_STEP_LAUNCHES
+    for r in ranks + one_rank + [{"rank": "in-process", "per_step": per_step}]:
+        if len(r["per_step"]) != DDP_STEPS or any(s != want for s in r["per_step"]):
+            raise AssertionError(f"rank {r['rank']}: launches per step {r['per_step']}, "
+                                 f"expected {DDP_STEPS} x {want}")
+    out = {}
+    for name in ("ddp2", "one", "nccl1"):
+        losses, group, summary = run_metrics(f"{tmp}/{name}")
+        steps = CheckpointManager(f"{tmp}/{name}/checkpoints").all_steps()
+        if steps != [end] or len(losses) != DDP_STEPS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{name}: checkpoints {steps}, losses {losses}")
+        out[name] = {"losses": losses, "backend": group["process_backend"],
+                     "world": group["process_world_size"],
+                     "device": group["process_device"],
+                     "train_images_per_s": summary["train_images_per_s"],
+                     "loop_s": summary["loop_s"], "val": summary.get("val_puzzle_acc")}
+    if (out["ddp2"]["backend"], out["ddp2"]["world"], out["nccl1"]["backend"]) != (
+            "gloo", 2, "nccl"):
+        raise AssertionError(f"backends {out}")
+    ema = {name: final_ema(f"{tmp}/{name}", end) for name in ("ddp2", "one", "nccl1")}
+    for name in ("ddp2", "nccl1"):
+        loss_rel = float(np.max(np.abs(np.array(out[name]["losses"])
+                                       / np.array(out["one"]["losses"]) - 1)))
+        diffs = torch.cat([(ema[name][k].float() - w.float()).abs().ravel()
+                           for k, w in ema["one"].items()])
+        out[name] |= {"loss_max_rel_diff": loss_rel, "ema_max_abs_diff": diffs.max().item(),
+                      "ema_mean_abs_diff": diffs.mean().item()}
+        if not (loss_rel <= DDP_LOSS_RTOL and diffs.max().item() <= DDP_EMA_ATOL):
+            raise AssertionError(f"{name} against one process: loss rel {loss_rel} (limit "
+                                 f"{DDP_LOSS_RTOL}), EMA {diffs.max().item()} (limit "
+                                 f"{DDP_EMA_ATOL})")
+    log(f"  DDP run_train on {card}, {DDP_STEPS} steps at global batch {TRAIN_BATCH}: "
+        + json.dumps(out))
+    log(f"  train images/s, 2 ranks sharing one card (gloo): "
+        f"{out['ddp2']['train_images_per_s']:.1f}; 1 process: "
+        f"{out['one']['train_images_per_s']:.1f}; 1 rank on nccl: "
+        f"{out['nccl1']['train_images_per_s']:.1f} (two ranks on one card say nothing "
+        "of scaling)")
+    out["launches_k1"] = sum(s["k1"] for r in ranks for s in r["per_step"])
+    out["launches_k2"] = sum(s["k2"] for r in ranks for s in r["per_step"])
+    out["peak_gib"] = [r["peak_gib"] for r in ranks]
+    return out
+
+
+def start_stop_runs(tmp: str) -> dict:
+    """Two 2-rank ``run_train`` runs of a depth-2 DiT at full width, started
+    together: one to be stopped by SIGTERM to one rank, one whose rank 1
+    is killed."""
+    args = ["data.synthetic_cues=waves", "data.device_stream=true",
+            "data.global_batch_size=16", "data.synthetic_n=1600000", "model.depth=2",
+            "train.epochs=1", "train.log_every=1", "train.ckpt_every=1000000",
+            "diffusion.sampler_mode=fast"]
+    return {name: spawn_ranks(tmp, name, "train", args + [f"train.exp_dir={tmp}/{name}"])
+            for name in ("sigterm", "killed")}
+
+
+def check_stops(tmp: str, runs: dict) -> dict:
+    """SIGTERM to rank 1: both ranks stop at one step, exit 42, one
+    checkpoint. SIGKILL to rank 1: rank 0 fails (non-zero) within 60 s."""
+    for name, procs in runs.items():
+        metrics = os.path.join(tmp, name, "metrics.jsonl")
+        deadline = time.time() + 240
+        while not (os.path.exists(metrics) and "train_loss" in open(metrics).read()):
+            if time.time() > deadline or any(p.poll() is not None for p, _ in procs):
+                wait_ranks(procs, timeout=1)
+                raise AssertionError(f"{name}: no train step logged")
+            time.sleep(0.2)
+    out = {}
+    runs["sigterm"][1][0].send_signal(signal.SIGTERM)
+    t0 = time.perf_counter()
+    wait_ranks(runs["sigterm"], timeout=120, codes=(run_train.PREEMPTED_EXIT,))
+    steps = CheckpointManager(os.path.join(tmp, "sigterm", "checkpoints")).all_steps()
+    summary = run_metrics(os.path.join(tmp, "sigterm"))[2]
+    if len(steps) != 1 or summary.get("preempted_at_step") != steps[0]:
+        raise AssertionError(f"SIGTERM to one rank: checkpoints {steps}, summary {summary}")
+    out["sigterm"] = {"stopped_at_step": steps[0], "both_exit": run_train.PREEMPTED_EXIT,
+                      "s": time.perf_counter() - t0}
+    victim, survivor = runs["killed"][1][0], runs["killed"][0][0]
+    victim.kill()
+    t0 = time.perf_counter()
+    try:
+        code = survivor.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        survivor.kill()
+        raise AssertionError("rank 0 still running 60 s after rank 1 was killed") from None
+    finally:
+        victim.wait()
+    if code in (0, run_train.PREEMPTED_EXIT):
+        raise AssertionError(f"rank 0 exited {code} after rank 1 was killed")
+    out["killed"] = {"rank0_exit": code, "s": time.perf_counter() - t0}
+    log("  stops: " + json.dumps(out))
+    return out
+
+
+def journal_list(path: str) -> list[tuple]:
+    import csv
+
+    with open(path, newline="") as f:
+        return [(r["filename"], int(r["puzzle_correct"]), int(r["patch_matches"]))
+                for r in csv.DictReader(f)]
+
+
+EVAL_JOURNALS = ("inference_progress.csv", "inference_progress_host1.csv")
+
+
+def eval_args(logs: str, *extra: str) -> list[str]:
+    return [f"eval.checkpoint={ARTIFACT}", "data.dataset=synthetic",
+            "data.synthetic_cues=waves", "eval.seed=11", "eval.batch_size=64",
+            "diffusion.sampler_mode=fast", f"eval.logs_dir={logs}", *extra]
+
+
+def in_process_host(logs: str, r: int) -> list[tuple]:
+    """The harness of rank ``r`` of 2, in this process, as ``run_eval``
+    builds it."""
+    from jpdvt_mt_ntnu_tpu_torch.eval.harness import EvalHarness
+    from jpdvt_mt_ntnu_tpu_torch.utils.config import Config, apply_overrides
+
+    cfg = apply_overrides(Config(), eval_args(logs))
+    model, cfg_m = create_model("JPDVT", 192, dtype=torch.bfloat16)
+    run_eval.load_params(cfg, model, torch.device("cuda"))
+    solver = PuzzleSolver(model, cfg_m, create_diffusion("250"), grid_size=3, mode="fast",
+                          seed=11)
+    EvalHarness(solver, logs_dir=logs, batch_size=64, seed=11, process_index=r,
+                process_count=2).run_dataset(run_eval.build_dataset(cfg))
+    return journal_list(os.path.join(logs, EVAL_JOURNALS[r]))
+
+
+def check_sharded_eval(tmp: str, whole: list, cut: list) -> dict:
+    """The 2-rank eval's journals (``whole``: every puzzle; ``cut``: 256 a
+    host then resumed) against each other and the in-process harness."""
+    journals = [journal_list(os.path.join(tmp, "eval_whole", j)) for j in EVAL_JOURNALS]
+    names = sorted(row[0] for rows in journals for row in rows)
+    if names != [f"synthetic_{i:06d}.png" for i in range(1024)]:
+        raise AssertionError(f"the host journals cover {len(set(names))} puzzles in "
+                             f"{len(names)} rows, not each of 1,024 once")
+    for r in range(2):
+        mine = in_process_host(os.path.join(tmp, f"eval_host{r}"), r)
+        if mine != journals[r]:
+            bad = sum(a != b for a, b in zip(mine, journals[r]))
+            raise AssertionError(f"host {r}: {bad} rows differ from the in-process harness")
+    resumed = [journal_list(os.path.join(tmp, "eval_cut", j)) for j in EVAL_JOURNALS]
+    if resumed != journals:
+        raise AssertionError("the cut and resumed 2-rank journals differ from the whole run")
+    rows = [row for rows in journals for row in rows]
+    out = {"puzzles": len(rows), "per_host": [len(j) for j in journals],
+           "puzzle_acc": sum(r[1] for r in rows) / len(rows),
+           "patch_acc": sum(r[2] for r in rows) / (9 * len(rows)),
+           "launches_k1": [r["launches"]["k1"] for r in whole],
+           "cut_rows_per_host": [len(r) for r in cut]}
+    log("  sharded eval: " + json.dumps(out))
+    return out
+
+
+def check_block_training(sd, art_step: int) -> dict:
+    """Phase 16: the K3 training route warm-started from the artifact, 12
+    steps at batch 96 in bf16 (phase 7's settings): 12 K3 launches and no
+    K1/K2 per step, losses <= 1/10 of a fresh model's on the same batches."""
+    model, cfg = create_model("JPDVT", 192, dtype=torch.bfloat16, attn_impl="block")
+    model.load_state_dict(sd)
+    state = create_train_state(model)
+    state.step = art_step
+    diff = create_diffusion("")
+    task = TrainTask(grid_size=3, block_size=64, patch_size=16, shared_perm=True,
+                     ema_decay=EMA_DECAY, ema_warmup=True, ema_anchor=art_step, t_bias=T_BIAS)
+    code = torch.as_tensor(grid_code(8, 3), device="cuda")
+    train_step = make_train_step(diff, make_optimizer(LR, 0.0), task, code)
+    batches = train_batches(SyntheticPuzzles(192, n=9600, hard_frac=HARD_FRAC), art_step,
+                            K3_TRAIN_STEPS, TRAIN_BATCH)
+    zero_counts()
+    losses, per_step = [], []
+    for x in batches:
+        before = counts()
+        state, metrics = train_step(state, x)
+        losses.append(metrics["loss"].item())
+        per_step.append(launched_since(before))
+    launches = counts()
+    want = {name: 0 for name in COUNTERS} | {"k3": cfg.depth}
+    if any(s != want for s in per_step) or not all(np.isfinite(losses)):
+        raise AssertionError(f"block route: launches per step {per_step}, losses {losses}")
+    fresh = fresh_losses(diff, task, code, batches, art_step)
+    ratio = float(np.mean(losses) / np.mean(fresh))
+    if not ratio <= LOSS_RATIO:
+        raise AssertionError(f"block route: warm-started loss ratio {ratio} > {LOSS_RATIO}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in batches[:4]:
+        train_step(state, x)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 4
+    row = {"steps": K3_TRAIN_STEPS, "losses": losses, "fresh": fresh, "ratio": ratio,
+           "launches_per_step": per_step[0], "ms_per_step": ms,
+           "images_per_s": TRAIN_BATCH * 1e3 / ms}
+    log("  block training route: " + json.dumps(row))
+    row["launches"] = launches
+    return row
+
+
+def check_train_options(tmp: str) -> dict:
+    """Phase 16: ``task.multi_grid=3,4,6`` (its ``_g{g}`` validations, the
+    checkpoint ``run_eval`` takes at grid 4) and ``data.device_cache_augment``
+    through ``run_train``, warm-started from the artifact."""
+    common = ["data.synthetic_cues=waves", "data.global_batch_size=32", "train.epochs=1",
+              "train.log_every=1", "train.ckpt_every=1000000", "diffusion.sampler_mode=fast",
+              f"train.warm_start={ARTIFACT}"]
+    mg = f"{tmp}/multi_grid"
+    if run_train.main(common + ["data.device_stream=true", "data.synthetic_n=96",
+                                "task.multi_grid=3,4,6", "train.val_every=3",
+                                f"train.exp_dir={mg}"]) != 0:
+        raise AssertionError("run_train with task.multi_grid failed")
+    rows = [json.loads(line) for line in open(os.path.join(mg, "metrics.jsonl"))]
+    keys = sorted({k for r in rows for k in r if k.startswith(("val_", "raw_val_"))})
+    for g in (3, 4, 6):
+        if f"val_puzzle_acc_g{g}" not in keys or f"raw_val_puzzle_acc_g{g}" not in keys:
+            raise AssertionError(f"multi_grid validation keys {keys}")
+    meta = CheckpointManager(os.path.join(mg, "checkpoints")).metadata()
+    before = counts()
+    code = run_eval.main([f"eval.checkpoint={mg}/checkpoints", "data.dataset=synthetic",
+                          "data.synthetic_cues=waves", "task.grid_size=4", "eval.limit=64",
+                          "eval.batch_size=64", "diffusion.sampler_mode=fast",
+                          f"eval.logs_dir={tmp}/eval_g4"])
+    g4 = journal_list(os.path.join(tmp, "eval_g4", "inference_progress.csv"))
+    if code != 0 or len(g4) != 64 or meta.get("grids") != [3, 4, 6]:
+        raise AssertionError(f"run_eval at grid 4: exit {code}, {len(g4)} rows, meta {meta}")
+    eval_k1 = launched_since(before)["k1"]
+    dc = f"{tmp}/device_cache"
+    if run_train.main(common + ["data.device_cache=true", "data.device_cache_augment=true",
+                                "data.synthetic_n=192", f"train.exp_dir={dc}"]) != 0:
+        raise AssertionError("run_train with data.device_cache_augment failed")
+    line = next(x for x in open(os.path.join(dc, "log.txt")) if "device-cached" in x)
+    want = 192 * 192 * 192 * 3 * 2
+    if f"({want / 1e6:.0f} MB bf16 on cuda" not in line:
+        raise AssertionError(f"device cache: {line!r}, expected {want} bytes")
+    summary = [r for r in rows if "summary" in r][-1]["summary"]
+    out = {"multi_grid_val": {k: v for k, v in summary.items() if k.startswith("val_")},
+           "multi_grid_steps": [r["step"] for r in rows if "train_loss" in r],
+           "eval_grid4": {"rows": len(g4), "puzzle_acc": sum(r[1] for r in g4) / 64,
+                          "k1_launches": eval_k1},
+           "device_cache_bytes": want, "device_cache_log": line.strip().split("] ", 1)[-1]}
+    log("  train options: " + json.dumps(out))
+    return out
+
+
+def check_tf32(tmp: str) -> dict:
+    """Phase 16: ``model.matmul_precision=high`` on an fp32 ``run_train``
+    (depth 2, 2 steps): the GEMM kernels the profiler names, TF32 ones
+    among them, beside ``highest``'s."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {}
+    for precision in ("high", "highest"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            code = run_train.main([
+                "data.synthetic_cues=waves", "data.device_stream=true",
+                "data.global_batch_size=8", "data.synthetic_n=16", "model.depth=2",
+                "model.compute_dtype=float32", f"model.matmul_precision={precision}",
+                "train.epochs=1", "train.ckpt_every=1000000", "diffusion.sampler_mode=fast",
+                "diffusion.sampling_steps=1", f"train.exp_dir={tmp}/tf32_{precision}"])
+        if code != 0:
+            raise AssertionError(f"run_train at matmul_precision={precision}: exit {code}")
+        names[precision] = sorted({e.key for e in prof.key_averages()
+                                   if any(w in e.key.lower() for w in ("gemm", "xmma", "cutlass"))})
+    tf32 = [n for n in names["high"] if "tf32" in n.lower()]
+    log("  matmul_precision=high, fp32 GEMM kernels: " + json.dumps(names["high"]))
+    log("  matmul_precision=highest, fp32 GEMM kernels: " + json.dumps(names["highest"]))
+    if not tf32 or any("tf32" in n.lower() for n in names["highest"]):
+        raise AssertionError(f"TF32 GEMMs at high: {tf32}; at highest: {names['highest']}")
+    apply_matmul_precision(None)
+    return {"tf32_kernels": tf32}
+
+
+def ddp_grid3(card: str, gen: torch.Generator) -> dict:
+    """Phase 16: data parallelism across processes and the trainer's options."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out["ddp"] = check_ddp_train(tmp, card)
+        log(f"phase 16 DDP train: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        stops = start_stop_runs(tmp)
+        whole = spawn_ranks(tmp, "eval_whole", "eval", eval_args(f"{tmp}/eval_whole"))
+        cut = spawn_ranks(tmp, "eval_cut", "eval", eval_args(f"{tmp}/eval_cut", "eval.limit=256"))
+        try:
+            out["stops"] = check_stops(tmp, stops)
+            whole_ranks, cut_ranks = wait_ranks(whole), wait_ranks(cut)
+        finally:
+            for procs in (*stops.values(), whole, cut):
+                for p, _ in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+        cut_rows = [journal_list(os.path.join(tmp, "eval_cut", j)) for j in EVAL_JOURNALS]
+        resume = spawn_ranks(tmp, "eval_resume", "eval", eval_args(f"{tmp}/eval_cut"))
+        wait_ranks(resume)
+        out["eval"] = check_sharded_eval(tmp, whole_ranks, cut_rows)
+        log(f"phase 16 stops and sharded eval: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        sd, art_step = load_artifact(ARTIFACT)
+        out["block"] = check_block_training(sd, art_step)
+        del sd
+        out["block_gradients"] = check_gradients(b=4, expected={"k3": 12}, attn_impl="block")
+        out["k1_ddp"] = check_k1(TRAIN_BATCH // 2, TOKENS, torch.bfloat16, gen, timed=True)
+        out["k2_ddp"] = check_k2(TRAIN_BATCH // 2, TOKENS, torch.bfloat16, gen, timed=True)
+        out["k3_train"] = check_k3(TRAIN_BATCH, TOKENS, torch.bfloat16,
+                                   first_block(load_artifact(ARTIFACT)[0]), gen, timed=True)
+        log(f"phase 16 block route: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        out["options"] = check_train_options(tmp)
+        out["tf32"] = check_tf32(tmp)
+        log(f"phase 16 options: {time.perf_counter() - t0:.2f} s")
+    log(f"phase ddp: {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--ddp-child"]:  # one rank of phase 16's runs
+        return ddp_child(argv[1], argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--grid20-artifact", action="store_true",
-                    help="skip the waves3 artifact's phases (3, 4, 7, 8, 15) and start the "
+                    help="skip the waves3 artifact's phases (3, 4, 7, 8, 15, 16) and start the "
                          "grid-20 phases from artifacts/waves20_hard_step32700")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1703,7 +2193,7 @@ def main(argv=None) -> int:
 
     # 3-4. The waves3 artifact's solve and its throughput.
     if args.grid20_artifact:
-        log("--grid20-artifact: phases 3, 4, 7, 8 and 15 (they read the waves3 artifact, "
+        log("--grid20-artifact: phases 3, 4, 7, 8, 15 and 16 (they read the waves3 artifact, "
             "which this copy does not hold) are skipped")
         g3 = None
     else:
@@ -1827,6 +2317,10 @@ def main(argv=None) -> int:
     # 15. The service on the card: HTTP, the batcher, int8 and its gate, decode.
     serve = None if args.grid20_artifact else serve_grid3(card, gen)
 
+    # 16. Data parallelism across processes, the K3 training route and the
+    # trainer's options.
+    ddp = None if args.grid20_artifact else ddp_grid3(card, gen)
+
     def kernel_row(name, source, replaces, launches, rows, timed):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "shape": timed["shape"],
@@ -1844,7 +2338,8 @@ def main(argv=None) -> int:
     # service's bf16 batches (B=8, phase 15), K2 and
     # K4-K6 for their train steps (B=96; N=144 and N=400), K3 for the
     # block route's eval (timed at B=32; N=144, or N=400 from the grid-20
-    # artifact).
+    # artifact); phase 16's K1 and K2 for the 2-rank train step (both
+    # ranks' launches, B=48 a rank) and K3 for its training route (B=96).
     kernels = []
     if g3 is not None:
         kernels += [
@@ -1858,7 +2353,17 @@ def main(argv=None) -> int:
             kernel_row("k2_whole_row_attention_bwd",
                        "jpdvt_mt_ntnu_tpu_torch/ops/csrc/attention_bwd.cu",
                        "jpdvt_mt_ntnu_tpu/ops/attention.py:44", launches_train[1],
-                       k2_rows, k2_rows[0])]
+                       k2_rows, k2_rows[0]),
+            kernel_row("k1_whole_row_attention_fwd_ddp", *k1, ddp["ddp"]["launches_k1"],
+                       [ddp["k1_ddp"]], ddp["k1_ddp"]),
+            kernel_row("k2_whole_row_attention_bwd_ddp",
+                       "jpdvt_mt_ntnu_tpu_torch/ops/csrc/attention_bwd.cu",
+                       "jpdvt_mt_ntnu_tpu/ops/attention.py:44", ddp["ddp"]["launches_k2"],
+                       [ddp["k2_ddp"]], ddp["k2_ddp"]),
+            kernel_row("k3_fused_attention_block_train",
+                       "jpdvt_mt_ntnu_tpu_torch/ops/csrc/attention_block.cu",
+                       "jpdvt_mt_ntnu_tpu/ops/attention.py:242", ddp["block"]["launches"]["k3"],
+                       [ddp["k3_train"]], ddp["k3_train"])]
     else:  # K1's own path in this mode: the bf16 N = 400 solve of phase 12
         kernels.append(kernel_row(
             "k1_whole_row_attention_fwd", *k1,

@@ -207,6 +207,7 @@ class Diffusion:
                         block_size: int, patch_size: int, add_mask: bool = False,
                         grid_size: int = 3, shared_perm: bool = True,
                         generator: torch.Generator | None = None,
+                        draw_batch: int | None = None, rows: slice | None = None,
                         _inject: dict | None = None) -> dict:
         """Jigsaw diffusion training loss (gaussian_diffusion.py:736-843,
         JAX ``core/diffusion.py:218-295``).
@@ -222,6 +223,11 @@ class Diffusion:
         ``indices``, ``piece_mask``, ``noise_x``, ``noise_c`` instead, which
         is how the tests feed this and the JAX package the same draws.
 
+        Data parallelism: a rank whose ``x_start`` is ``rows`` of a batch of
+        ``draw_batch`` rows draws for the whole batch and keeps its rows
+        (injected draws too cover the whole batch), so the ranks together
+        draw what one process would for that batch.
+
         Returns {"loss", "code_mse", "img_mse"} (each (B,)), "indices" and
         "piece_mask"."""
         b = x_start.shape[0]
@@ -230,17 +236,23 @@ class Diffusion:
         sub = block_size // patch_size
         dev = x_start.device
         inj = _inject or {}
+        nb = b if draw_batch is None else draw_batch
+        if rows is not None and len(range(nb)[rows]) != b:
+            raise ValueError(f"rows {rows} of a draw batch of {nb} do not hold {b} items")
+
+        def keep(v):
+            return v if rows is None else v[rows]
+
         indices = inj.get("indices")
         if indices is None:
-            indices = jigsaw.random_permutations(b, p, shared=shared_perm,
+            indices = jigsaw.random_permutations(nb, p, shared=shared_perm,
                                                  generator=generator, device=dev)
-        indices = torch.as_tensor(indices, device=dev, dtype=torch.long)
+        indices = keep(torch.as_tensor(indices, device=dev, dtype=torch.long))
         piece_mask = inj.get("piece_mask")
-        if piece_mask is None:
-            piece_mask = (jigsaw.random_piece_masks(b, grid, generator=generator,
-                                                    device=dev)
-                          if add_mask else torch.ones((b, p), device=dev))
-        piece_mask = torch.as_tensor(piece_mask, device=dev, dtype=torch.float32)
+        if piece_mask is None and add_mask:
+            piece_mask = jigsaw.random_piece_masks(nb, grid, generator=generator, device=dev)
+        piece_mask = (keep(torch.as_tensor(piece_mask, device=dev, dtype=torch.float32))
+                      if piece_mask is not None else torch.ones((b, p), device=dev))
         x_shuf = jigsaw.scramble(x_start, indices, grid)
         masks = jigsaw.piece_mask_to_image(piece_mask, grid, block_size,
                                            x_start.shape[-1]).to(x_start.dtype)
@@ -249,9 +261,9 @@ class Diffusion:
         def draw(name, like):
             z = inj.get(name)
             if z is None:
-                return torch.randn(like.shape, generator=generator, device=dev,
-                                   dtype=like.dtype)
-            return torch.as_tensor(z, device=dev, dtype=like.dtype)
+                return keep(torch.randn((nb, *like.shape[1:]), generator=generator,
+                                        device=dev, dtype=like.dtype))
+            return keep(torch.as_tensor(z, device=dev, dtype=like.dtype))
 
         noise_x = draw("noise_x", x_shuf)
         noise_c = draw("noise_c", code_tok)

@@ -4,6 +4,10 @@ The port's own copy of ``jpdvt_mt_ntnu_tpu/data/loader.py`` (numpy only): a
 thread pool builds items on the host while the card computes, with
 sharding by process index (the DistributedSampler equivalent,
 train_JPDVT.py:304-310). Batches are (B, H, W, C) float32 numpy arrays.
+
+``rows`` is the port's data-parallel rule: every rank walks the same global
+batches and builds only its ``rows`` of each (``parallel.rank_rows``), so
+that the ranks together train on what one process would.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ class Loader:
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True,
                  seed: int = 0, num_workers: int = 8, prefetch: int = 4,
                  drop_last: bool = True, process_index: int = 0,
-                 process_count: int = 1):
+                 process_count: int = 1, rows: Optional[np.ndarray] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -30,6 +34,7 @@ class Loader:
         self.drop_last = drop_last
         self.process_index = process_index
         self.process_count = process_count
+        self.rows = rows
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -54,6 +59,8 @@ class Loader:
         nb = len(self)
         batches = [idx[i * self.batch_size:(i + 1) * self.batch_size]
                    for i in range(nb)]
+        if self.rows is not None:
+            batches = [b[self.rows] for b in batches]
         out_q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 

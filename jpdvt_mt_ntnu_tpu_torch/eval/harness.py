@@ -94,7 +94,8 @@ class EvalHarness:
                  seed: int = 0, results_dir: Optional[str] = None,
                  journal_name: str = "inference_progress.csv",
                  process_index: int = 0, process_count: int = 1,
-                 draws: Optional[Draws] = None):
+                 draws: Optional[Draws] = None,
+                 sync: Optional[Callable[[], None]] = None):
         self.solver = solver
         self.batch_size = batch_size
         self.results_dir = results_dir
@@ -102,6 +103,10 @@ class EvalHarness:
         self.process_index = process_index
         self.process_count = process_count
         self.draws = draws or torch_draws(seed + process_index, solver.pieces, solver.votes)
+        # Called by every host between reading the journals and writing its
+        # first row (a barrier across the hosts), so that what a host skips
+        # does not depend on how far the others have got.
+        self.sync = sync
         self.logger, self.err_logger = setup_logging(logs_dir)
 
     # ----------------------------------------------------------------- util
@@ -158,6 +163,8 @@ class EvalHarness:
         loader = loader or self._load_image
         p = self.solver.pieces
         state = self.journal.load()
+        if self.sync is not None:
+            self.sync()
         my_paths = list(image_paths)[self.process_index::self.process_count]
         # Journal key: the basename where basenames are unique (the
         # reference's schema, inference.py:172), else the whole path.

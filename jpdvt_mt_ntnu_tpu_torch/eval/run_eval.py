@@ -24,7 +24,16 @@ decodes them, so on a machine that has PIL); ``eval.texrec_dirs=1`` loops
 over its subdirectories with one journal each (inference_texrec.py).
 
 The run is on the card; ``device=cpu`` (an argument without a section)
-runs it on the CPU. Not ported yet, and refused by name before any weights
+runs it on the CPU. On N processes (``python -m torch.distributed.run
+--nproc_per_node N -m jpdvt_mt_ntnu_tpu_torch.eval.run_eval ...``, or the
+launchers and ``mesh.coordinator`` of ``parallel/mesh.py``) rank r takes
+``paths[r::N]`` with the draws of ``eval.seed + r`` and writes its own
+journal (``inference_progress_host{r}.csv``; rank 0's has no suffix); a
+resume merges every host's journal, and each rank prints the summary of
+its harness, as the JAX package's hosts do. ``eval.jax_draws`` may hold
+``{process_index}``, replaced by the rank, for each host's draws.
+``model.matmul_precision`` sets float32 products (``utils/device.py``).
+Not ported yet, and refused by name before any weights
 load: the MET and TEXMET datasets, synthetic cue regimes other than
 ``waves``, an Orbax checkpoint directory, MoE models, sequence
 parallelism, and any geometry no attention kernel takes.
@@ -45,9 +54,10 @@ from ..data import SyntheticPuzzles
 from ..models import DIT_CONFIGS, create_model
 from ..ops.attention import ATTN_IMPLS, attention_route
 from ..ops.quant import parse_quant_spec
+from ..parallel import maybe_initialize_distributed
 from ..tools.weights import load_artifact
 from ..utils.config import Config, apply_overrides
-from ..utils.device import default_device
+from ..utils.device import MATMUL_PRECISION, apply_matmul_precision
 from .harness import EvalHarness, find_images, jax_draws
 from .solver import ASSIGNMENTS, MODES, PuzzleSolver
 
@@ -167,8 +177,9 @@ def check_supported(cfg: Config, texrec: bool = False, on_card: bool = True) -> 
                        "image folders through data.data_path are ported)")
     elif (d.synthetic_cues or ("coords" if d.synthetic_position_cues else "none")) != "waves":
         refused.append("synthetic cue regimes other than data.synthetic_cues=waves")
-    if cfg.model.matmul_precision not in (None, "highest"):
-        refused.append("model.matmul_precision other than 'highest'")
+    if m.matmul_precision not in MATMUL_PRECISION:
+        refused.append(f"model.matmul_precision={m.matmul_precision!r} (the port takes "
+                       f"{sorted(k for k in MATMUL_PRECISION if k)})")
     if refused:
         raise NotImplementedError("not ported yet: " + "; ".join(refused))
 
@@ -197,9 +208,9 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
     cfg = apply_overrides(Config(), argv)
     device = device if device is not None else cli_device
     check_supported(cfg, texrec, on_card=torch.device(device or "cuda").type == "cuda")
-    device = default_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    apply_matmul_precision(cfg.model.matmul_precision)
+    dp = maybe_initialize_distributed(cfg.mesh, device)
+    device, rank, world = dp.device, dp.rank, dp.world
 
     dtype = torch.bfloat16 if cfg.model.compute_dtype == "bfloat16" else torch.float32
     model, model_cfg = create_model(cfg.model.name, cfg.model.image_size, device=device,
@@ -214,17 +225,15 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
                           mode=cfg.diffusion.sampler_mode,
                           assignment_method=cfg.eval.assignment, votes=cfg.eval.votes,
                           seed=cfg.eval.seed, noise_template=noise, device=device)
-    draws = (jax_draws(cfg.eval.jax_draws, solver.pieces, solver.votes)
-             if cfg.eval.jax_draws else None)
-    rank, world = ((torch.distributed.get_rank(), torch.distributed.get_world_size())
-                   if torch.distributed.is_initialized() else (0, 1))
+    draws = (jax_draws(cfg.eval.jax_draws.replace("{process_index}", str(rank)),
+                       solver.pieces, solver.votes) if cfg.eval.jax_draws else None)
 
     def harness(logs_dir: str, journal_name: str = "inference_progress.csv"):
         return EvalHarness(
             solver, logs_dir=logs_dir, batch_size=cfg.eval.batch_size, seed=cfg.eval.seed,
             results_dir=cfg.eval.results_dir if cfg.eval.save_images else None,
             journal_name=journal_name, process_index=rank, process_count=world,
-            draws=draws)
+            draws=draws, sync=dp.barrier)
 
     if texrec:
         # One journal per subdirectory of data_path, '*mask*' files left
@@ -242,6 +251,7 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
         for sub, r in results.items():
             print(f"{sub}: puzzle={r.puzzle_accuracy:.4f} patch={r.patch_accuracy:.4f} "
                   f"n={r.count}")
+        dp.close()
         return 0
 
     h = harness(cfg.eval.logs_dir)
@@ -252,6 +262,7 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
     print(f"puzzle_accuracy={report.puzzle_accuracy:.4f} "
           f"patch_accuracy={report.patch_accuracy:.4f} n={report.count} "
           f"({report.puzzles_per_sec:.2f} puzzles/s)")
+    dp.close()
     return 0
 
 

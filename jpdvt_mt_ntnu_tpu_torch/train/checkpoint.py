@@ -6,7 +6,9 @@ one directory per step, ``<dir>/<step>/state.pt`` holding
 parameter names are the ``state_dict`` names that ``tools/weights.py``
 maps from the JAX tree), and a ``metadata.json`` beside the step
 directories. A step is written to a temporary directory and renamed, so a
-reader never sees half of one. Restores are bit-exact.
+reader never sees half of one. Restores are bit-exact. In a data-parallel
+run (``dp``) rank 0 writes and the other ranks wait until it has, so that
+every rank restores the same file (the reference saves on rank 0 only).
 """
 
 from __future__ import annotations
@@ -17,15 +19,18 @@ import shutil
 
 import torch
 
+from ..parallel.mesh import DataParallel
 from .state import TrainState
 
 STATE_FILE = "state.pt"
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int | None = None):
+    def __init__(self, directory: str, max_to_keep: int | None = None,
+                 dp: DataParallel | None = None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.dp = dp or DataParallel()
         os.makedirs(self.directory, exist_ok=True)
 
     def all_steps(self) -> list[int]:
@@ -40,7 +45,11 @@ class CheckpointManager:
     def save(self, state: TrainState, metadata: dict | None = None) -> bool:
         """Write ``state`` at its step; False (and nothing written) when that
         step is already saved, e.g. the final save right after a periodic
-        one at the same step."""
+        one at the same step. Every rank calls it; rank 0 writes, and each
+        rank returns once the step is on disk."""
+        return self.dp.broadcast(self._write(state, metadata) if self.dp.is_main else None)
+
+    def _write(self, state: TrainState, metadata: dict | None) -> bool:
         step = int(state.step)
         if step in self.all_steps():
             return False

@@ -1,4 +1,4 @@
-"""CLI training loop on one card.
+"""CLI training loop, on one card or as one rank of a data-parallel run.
 
 Counterpart of ``jpdvt_mt_ntnu_tpu/train/run_train.py``, with the same
 ``section.field=value`` overrides:
@@ -9,22 +9,41 @@ Counterpart of ``jpdvt_mt_ntnu_tpu/train/run_train.py``, with the same
         train.warm_start=artifacts/waves3_r5_step10000.manifest.json \\
         train.epochs=1 data.synthetic_n=960 train.exp_dir=results/run
 
+On N processes, one rank each (``parallel/mesh.py`` names the launchers it
+reads and the backend rule):
+
+    python -m torch.distributed.run --nproc_per_node N \\
+        -m jpdvt_mt_ntnu_tpu_torch.train.run_train ...
+
+or the same command in each process with ``mesh.coordinator=host:port
+mesh.num_processes=N mesh.process_id=<rank>``. ``data.global_batch_size``
+stays the global batch: each rank takes its rows of it and the ranks
+average their gradients, so N ranks train what one process would, up to
+summation order. Rank 0 picks the exp dir and writes the logs, metrics,
+``step_anchor.json`` and checkpoints; the others wait for its writes and
+read the same files.
+
 A fresh start, ``train.resume=<checkpoint dir>`` and ``train.warm_start=``
 (an artifact manifest/npz, or a checkpoint directory of this package) are
 supported. The run runs on the card; ``device=cpu`` (an argument without a
 section) runs it on the CPU instead. ``model.attn_impl`` takes None
-(auto), ``pallas`` (the whole-row kernels K1/K2) or ``flash`` (K4-K6);
-``block`` (K3) runs the eval path only and is refused here. Not
-ported yet, and refused with ``NotImplementedError`` where their keys are
-set, before any weights load: the mesh (data, tensor, FSDP, pipeline,
-expert and sequence parallelism, multi-host), ``task.multi_grid``,
-``data.device_cache``, datasets other than the synthetic ``waves``, MoE and
-int8 models, the other attention routes, and any geometry that no
-attention kernel takes (``ops.attention.attention_route``).
+(auto), ``pallas`` (the whole-row kernels K1/K2), ``flash`` (K4-K6) or
+``block`` (K3 forward, its backward by autograd of the plain version, as
+the JAX package leaves it to XLA). ``task.multi_grid=3,4,6`` cycles one
+step per grid; ``data.device_cache`` keeps the whole set on the card (one
+process only), ``device_cache_augment`` rolls and flips its batches;
+``model.matmul_precision`` sets float32 products (``utils/device.py``).
+Not ported yet, and refused with ``NotImplementedError`` where their keys
+are set, before any weights load: the mesh's other axes (tensor, FSDP,
+pipeline, expert and sequence parallelism), datasets other than the
+synthetic ``waves``, MoE and int8 models, the other attention routes, and
+any geometry that no attention kernel takes
+(``ops.attention.attention_route``).
 
 SIGTERM/SIGINT: the loop finishes its step, saves a checkpoint and exits
 with code 42 (``PREEMPTED_EXIT``) for a wrapper to relaunch with
-``train.resume``.
+``train.resume``. The ranks agree on the stop at every step, so a signal
+to any one of them stops all at the same step.
 """
 
 from __future__ import annotations
@@ -37,15 +56,17 @@ import threading
 import time
 import warnings
 
+import numpy as np
 import torch
 
 from ..core.diffusion import create_diffusion
 from ..data import Loader, SyntheticPuzzles
 from ..models import DIT_CONFIGS, create_model
 from ..ops.attention import ATTN_IMPLS, attention_route
+from ..parallel import DataParallel, MeshSpec, maybe_initialize_distributed, rank_rows
 from ..tools.weights import load_artifact
 from ..utils.config import Config, apply_overrides
-from ..utils.device import default_device
+from ..utils.device import MATMUL_PRECISION, apply_matmul_precision
 from ..utils.logging import MetricWriter, auto_experiment_dir, rank0_logger
 from ..utils.pos_embed import grid_code
 from .checkpoint import CheckpointManager
@@ -61,30 +82,18 @@ def check_supported(cfg: Config, on_card: bool = True) -> None:
     """Raise ``NotImplementedError`` for every set key the port cannot run,
     and for a model whose attention no kernel takes (``on_card``: the
     kernels' limits; the CPU's plain versions take any head dim)."""
-    m, t, d, mesh = cfg.model, cfg.task, cfg.data, cfg.mesh
-    refused = []
-    if mesh.data not in (-1, 1) or any(getattr(mesh, k) != 1 for k in
-                                       ("model", "fsdp", "pipe", "ep", "seq")):
-        refused.append("mesh parallelism (mesh.data/model/fsdp/pipe/ep/seq)")
+    m, d, mesh = cfg.model, cfg.data, cfg.mesh
+    refused = [f"{name} (the port runs data parallelism only)"
+               for name in MeshSpec.from_config(mesh).refused()]
     if mesh.pipe_microbatches:
         refused.append("mesh.pipe_microbatches")
-    if (mesh.distributed == "force" or mesh.coordinator or mesh.num_processes
-            or mesh.process_id >= 0):
-        refused.append("multi-host training (mesh.distributed/coordinator/...)")
-    if t.multi_grid:
-        refused.append("task.multi_grid")
-    if d.device_cache or d.device_cache_augment:
-        refused.append("data.device_cache")
     if d.dataset != "synthetic":
         refused.append(f"data.dataset={d.dataset!r} (only 'synthetic' is ported)")
     elif (d.synthetic_cues or ("coords" if d.synthetic_position_cues else "none")) != "waves":
         refused.append("synthetic cue regimes other than data.synthetic_cues=waves")
     if m.quant or m.moe_experts or m.moe_capacity:
         refused.append("model.quant / model.moe_*")
-    if m.attn_impl == "block":
-        refused.append("model.attn_impl='block' for training (K3, the fused sublayer, "
-                       "runs the eval path; its training route is queued in ROADMAP.md)")
-    elif m.attn_impl not in ATTN_IMPLS:
+    if m.attn_impl not in ATTN_IMPLS:
         refused.append(f"model.attn_impl={m.attn_impl!r} (the port runs {ATTN_IMPLS})")
     elif m.name in DIT_CONFIGS:
         arch = {**DIT_CONFIGS[m.name], **m.overrides()}
@@ -95,8 +104,9 @@ def check_supported(cfg: Config, on_card: bool = True) -> None:
                             on_card=on_card)
         except ValueError as e:
             refused.append(f"the attention of model.image_size={m.image_size}: {e}")
-    if m.matmul_precision not in (None, "highest"):
-        refused.append("model.matmul_precision other than 'highest'")
+    if m.matmul_precision not in MATMUL_PRECISION:
+        refused.append(f"model.matmul_precision={m.matmul_precision!r} (the port takes "
+                       f"{sorted(k for k in MATMUL_PRECISION if k)})")
     if refused:
         raise NotImplementedError("not ported yet: " + "; ".join(refused))
 
@@ -142,30 +152,51 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
     cfg = apply_overrides(Config(), argv)
     device = device if device is not None else cli_device
     check_supported(cfg, on_card=torch.device(device or "cuda").type == "cuda")
-    device = default_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    precision = apply_matmul_precision(cfg.model.matmul_precision)
+    dp = maybe_initialize_distributed(cfg.mesh, device)
+    code = train(cfg, dp, precision)
+    dp.close()
+    return code
 
-    exp_dir = cfg.train.exp_dir or auto_experiment_dir(
-        cfg.train.results_dir, cfg.data.dataset, cfg.model.name,
-        crop=cfg.task.crop, with_mask=cfg.task.add_mask)
-    os.makedirs(exp_dir, exist_ok=True)
-    logger = rank0_logger(True, exp_dir)
+
+def train(cfg: Config, dp: DataParallel, precision: str = "highest") -> int:
+    """The run of ``main`` on this process's rank of ``dp``."""
+    device, is_main = dp.device, dp.is_main
+    if cfg.data.device_cache and dp.world > 1:
+        raise NotImplementedError(
+            "data.device_cache across processes: the whole set is staged on one card; "
+            "use the loader or data.device_stream for a multi-process run")
+    exp_dir = None
+    if is_main:
+        exp_dir = cfg.train.exp_dir or auto_experiment_dir(
+            cfg.train.results_dir, cfg.data.dataset, cfg.model.name,
+            crop=cfg.task.crop, with_mask=cfg.task.add_mask)
+        os.makedirs(exp_dir, exist_ok=True)
+    exp_dir = dp.broadcast(exp_dir)
+    logger = rank0_logger(is_main, exp_dir)
     writer = MetricWriter(exp_dir, use_wandb=cfg.train.wandb,
                           run_name=exp_dir.split("/")[-1], config=cfg.to_dict(),
                           tags=[cfg.model.name, cfg.data.dataset,
-                                f"grid{cfg.task.grid_size}"])
+                                f"grid{cfg.task.grid_size}"], is_main=is_main)
     logger.info(f"Config:\n{cfg.to_json()}")
+    procs = {**dp.describe(), "matmul_precision": precision}
+    logger.info(f"Processes: {json.dumps(procs)}")
 
     dtype = torch.bfloat16 if cfg.model.compute_dtype == "bfloat16" else torch.float32
-    size, grid = cfg.model.image_size, cfg.task.grid_size
+    size = cfg.model.image_size
     model, model_cfg = create_model(cfg.model.name, size, device=device,
                                     seed=cfg.train.global_seed, dtype=dtype,
                                     attn_impl=cfg.model.attn_impl, **cfg.model.overrides())
+    # Multi-grid: the DiT is grid-agnostic, so one parameter set trains on
+    # several grids, one step per grid, cycled per training step (JAX
+    # run_train.py:183-208).
+    grids = ([int(g) for g in str(cfg.task.multi_grid).split(",") if g]
+             if cfg.task.multi_grid else [cfg.task.grid_size])
     toks = size // model_cfg.patch_size
-    if size % grid or toks % grid:
-        raise SystemExit(f"task grid {grid} must divide image_size ({size}) and "
-                         f"tokens/side ({toks})")
+    for g in grids:
+        if size % g or toks % g:
+            raise SystemExit(f"task grid {g} must divide image_size ({size}) and "
+                             f"tokens/side ({toks})")
     diffusion = create_diffusion(cfg.diffusion.timestep_respacing,
                                  cfg.diffusion.noise_schedule,
                                  cfg.diffusion.predict_xstart,
@@ -180,7 +211,7 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
             "train.resume and train.warm_start are mutually exclusive: "
             "resume continues a run in place; warm_start seeds a NEW run "
             "(fresh exp_dir checkpoints, EMA reset, warmup re-armed)")
-    ckpt = CheckpointManager(cfg.train.resume or os.path.join(exp_dir, "checkpoints"))
+    ckpt = CheckpointManager(cfg.train.resume or os.path.join(exp_dir, "checkpoints"), dp=dp)
     ema_anchor = 0
     if cfg.train.resume:
         if ckpt.latest_step() is None:
@@ -225,47 +256,71 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
         ema_anchor = state.step
         logger.info(f"Warm-started from {ws} [{src}] at step {ema_anchor} "
                     "(EMA reset to params, warmup re-armed)")
+    # Every rank built or read the same state; hold it to that.
+    dp.check_replicas(state.tensors(), "the train state")
+    if dp.world > 1:
+        logger.info(f"The train state is bit-equal on all {dp.world} ranks at step {state.step}")
 
     # train.epochs is a TOTAL budget from this run's anchor step, persisted
     # in the exp dir beside the EMA warmup anchor, so that a resume
     # recomputes the same target and keeps a warm start's EMA warmup.
-    anchor_path = os.path.join(exp_dir, "step_anchor.json")
-    if os.path.exists(anchor_path):
-        with open(anchor_path) as f:
-            anchors = json.load(f)
-        start_anchor = int(anchors["start_step"])
-        if cfg.train.resume:  # an anchor file from before the key reads as 0
-            ema_anchor = int(anchors.get("ema_anchor", 0))
+    if is_main:
+        anchor_path = os.path.join(exp_dir, "step_anchor.json")
+        if os.path.exists(anchor_path):
+            with open(anchor_path) as f:
+                anchors = json.load(f)
+            start_anchor = int(anchors["start_step"])
+            if cfg.train.resume:  # an anchor file from before the key reads as 0
+                ema_anchor = int(anchors.get("ema_anchor", 0))
+        else:
+            start_anchor = state.step
+            with open(anchor_path, "w") as f:
+                json.dump({"start_step": start_anchor, "ema_anchor": ema_anchor}, f)
     else:
-        start_anchor = state.step
-        with open(anchor_path, "w") as f:
-            json.dump({"start_step": start_anchor, "ema_anchor": ema_anchor}, f)
+        start_anchor = None
+    start_anchor, ema_anchor = dp.broadcast((start_anchor, ema_anchor))
 
-    task = TrainTask(grid_size=grid, block_size=size // grid,
-                     patch_size=model_cfg.patch_size, add_mask=cfg.task.add_mask,
-                     shared_perm=cfg.task.shared_perm, ema_decay=cfg.train.ema_decay,
-                     ema_warmup=cfg.train.ema_warmup, ema_anchor=ema_anchor,
-                     crop_pieces=size // grid if cfg.task.crop else None,
-                     t_bias=cfg.train.t_bias)
-    piece_code = torch.as_tensor(grid_code(model_cfg.code_dim, grid), device=device)
-    train_step = make_train_step(diffusion, optimizer, task, piece_code,
-                                 grad_accum=cfg.train.grad_accum,
-                                 seed=cfg.train.global_seed)
+    def make_task(g: int) -> TrainTask:
+        return TrainTask(grid_size=g, block_size=size // g,
+                         patch_size=model_cfg.patch_size, add_mask=cfg.task.add_mask,
+                         shared_perm=cfg.task.shared_perm, ema_decay=cfg.train.ema_decay,
+                         ema_warmup=cfg.train.ema_warmup, ema_anchor=ema_anchor,
+                         crop_pieces=size // g if cfg.task.crop else None,
+                         t_bias=cfg.train.t_bias)
+
+    grid_steps = [make_train_step(diffusion, optimizer, make_task(g),
+                                  torch.as_tensor(grid_code(model_cfg.code_dim, g),
+                                                  device=device),
+                                  grad_accum=cfg.train.grad_accum,
+                                  seed=cfg.train.global_seed, dp=dp)
+                  for g in grids]
 
     d = cfg.data
     load_size = 288 if cfg.task.crop else size
     train_ds = SyntheticPuzzles(load_size, n=d.synthetic_n, cues="waves",
                                 hard_frac=d.synthetic_hard_frac)
     val_ds = SyntheticPuzzles(load_size, n=128, seed=7, cues="waves")
+    # Each rank's rows of every global batch (None: all of them).
+    rows = (rank_rows(d.global_batch_size, dp.rank, dp.world, cfg.train.grad_accum)
+            if dp.world > 1 else None)
     loader = Loader(train_ds, d.global_batch_size, shuffle=True,
-                    seed=cfg.train.global_seed, num_workers=d.num_workers)
+                    seed=cfg.train.global_seed, num_workers=d.num_workers, rows=rows)
     # The JAX validator's own puzzles where they are committed (grid 3 at
-    # 192 px, grid 20 at 320 px), else the port's draws.
-    validator = Validator(model_cfg, grid_size=grid,
-                          sampling_steps=cfg.diffusion.sampling_steps,
-                          sampler_mode=cfg.diffusion.sampler_mode,
-                          crop_pieces=size // grid if cfg.task.crop else None,
-                          device=device, **jax_draws(grid, model_cfg.num_tokens))
+    # 192 px, grid 20 at 320 px), else the port's draws. Every rank
+    # validates, as every JAX host does; rank 0 logs.
+    validators = {g: Validator(model_cfg, grid_size=g,
+                               sampling_steps=cfg.diffusion.sampling_steps,
+                               sampler_mode=cfg.diffusion.sampler_mode,
+                               crop_pieces=size // g if cfg.task.crop else None,
+                               device=device, **jax_draws(g, model_cfg.num_tokens))
+                  for g in grids}
+
+    cached = None
+    if d.device_cache and not d.device_stream:  # the stream takes precedence, as in JAX
+        # The whole set synthesised on the card, bf16 (JAX run_train.py:386-405).
+        cached = train_ds.device_generate_all(device)
+        logger.info(f"device-cached dataset: {tuple(cached.shape)} "
+                    f"({cached.numel() * cached.element_size() / 1e6:.0f} MB bf16 on {device})")
 
     # Stream cursor in items: item index = step * batch, so a resumed run
     # continues the never-repeating stream where its checkpoint stopped.
@@ -273,11 +328,16 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
 
     def epoch_batches(epoch: int):
         nonlocal stream_pos
+        b = d.global_batch_size
         if d.device_stream:
-            b = d.global_batch_size
             for _ in range(max(1, len(loader))):
                 lo, stream_pos = stream_pos, stream_pos + b
-                yield train_ds.device_batch(range(lo, lo + b), device)
+                yield train_ds.device_batch(
+                    range(lo, lo + b) if rows is None else (lo + rows).tolist(), device)
+            return
+        if cached is not None:
+            yield from cached_batches(cached, b, cfg.train.global_seed, epoch,
+                                      d.device_cache_augment)
             return
         loader.set_epoch(epoch)
         for batch in loader:
@@ -289,22 +349,33 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
                 f"steps/epoch (anchor {start_anchor}, target step {target_steps})")
 
     def validate(tag: str) -> dict:
-        return validator(state.ema if tag == "ema" else state.model, val_ds)
+        model_ = state.ema if tag == "ema" else state.model
+        out = {}
+        for g, v in validators.items():
+            m = v(model_, val_ds)
+            out.update(m if len(grids) == 1 else {f"{k}_g{g}": x for k, x in m.items()})
+        return out
 
+    meta = {"config": cfg.to_dict(), "grids": grids}
+    writer.log({f"process_{k}": v for k, v in procs.items()}, state.step)
     # Losses stay on the device until the log boundary.
     step = loop_start_step = state.step
     loop_start = time.perf_counter()
     window_losses: list = []
     window_start = time.time()
     val_every = cfg.train.val_every or cfg.train.ckpt_every
+    stop = False  # the stop the ranks agreed on
     with _PreemptionGuard() as guard:
         for epoch in range(cfg.train.epochs):
-            if guard.preempted or step >= target_steps:
+            if stop or step >= target_steps:
                 break
             for batch in epoch_batches(epoch):
-                if guard.preempted or step >= target_steps:
+                if step >= target_steps:
                     break
-                state, metrics = train_step(state, batch)
+                if dp.any(guard.preempted):
+                    stop = True
+                    break
+                state, metrics = grid_steps[step % len(grid_steps)](state, batch)
                 window_losses.append(metrics["loss"])
                 step = state.step
                 if step % cfg.train.log_every == 0:
@@ -318,7 +389,7 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
                     window_losses.clear()
                     window_start = time.time()
                 if step % cfg.train.ckpt_every == 0:
-                    ckpt.save(state, metadata={"config": cfg.to_dict(), "step": step})
+                    ckpt.save(state, metadata={**meta, "step": step})
                     logger.info(f"Saved checkpoint at step {step}")
                 if step % val_every == 0:
                     val = validate("ema")
@@ -327,7 +398,7 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
                     writer.log({**val, **raw}, step)
                     window_losses.clear()
                     window_start = time.time()
-    preempted = guard.preempted
+        preempted = dp.any(stop or guard.preempted)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     # End to end: every image of the loop over its whole wall time, data,
@@ -338,7 +409,7 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
             "train_images_per_s": images / loop_s if loop_s > 0 else 0.0}
     logger.info(f"Loop: {images} images in {loop_s:.3f} s, "
                 f"{loop['train_images_per_s']:.1f} images/s")
-    ckpt.save(state, metadata={"config": cfg.to_dict(), "step": step,
+    ckpt.save(state, metadata={**meta, "step": step,
                                "preempted" if preempted else "final": True})
     if preempted:
         logger.info(f"Preempted: checkpoint saved at step {step}")
@@ -348,6 +419,29 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
     logger.info(f"Final validation: {val}")
     writer.finish(summary={**val, **loop})
     return 0
+
+
+def cached_batches(data: torch.Tensor, batch: int, seed: int, epoch: int,
+                   augment: bool):
+    """One epoch of ``data.device_cache`` (JAX run_train.py:434-447): the
+    order of ``default_rng(seed * 100003 + epoch)``, ``len // batch``
+    batches; with ``augment`` each batch is rolled by (dy, dx) over its
+    rows and columns and flipped left-right, then up-down, each with
+    probability 1/2, drawn from the same generator in that order."""
+    rng = np.random.default_rng(seed * 100003 + epoch)
+    perm = torch.as_tensor(rng.permutation(data.shape[0]), device=data.device)
+    for i in range(data.shape[0] // batch):
+        x = data[perm[i * batch:(i + 1) * batch]]
+        if augment:
+            h = x.shape[1]
+            dy, dx = int(rng.integers(0, h)), int(rng.integers(0, h))
+            fh, fv = rng.random() < 0.5, rng.random() < 0.5
+            x = torch.roll(x, (dy, dx), dims=(1, 2))
+            if fh:
+                x = x.flip(2)
+            if fv:
+                x = x.flip(1)
+        yield x
 
 
 if __name__ == "__main__":

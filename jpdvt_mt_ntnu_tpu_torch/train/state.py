@@ -50,6 +50,12 @@ class TrainState:
                 "opt": {"count": self.opt.count, "mu": dict(self.opt.mu),
                         "nu": dict(self.opt.nu)}}
 
+    def tensors(self) -> list[torch.Tensor]:
+        """Every tensor of :meth:`state_dict`, the step and count as one."""
+        return [torch.tensor([self.step, self.opt.count]),
+                *self.model.state_dict().values(), *self.ema.state_dict().values(),
+                *self.opt.mu.values(), *self.opt.nu.values()]
+
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
         """Copy a :meth:`state_dict` into this state's tensors, bit for bit."""

@@ -8,7 +8,10 @@ runs forward through K1 and backward through K2 on the card.
 
 Randomness: every step draws from a generator seeded from (seed, step), the
 counterpart of ``fold_in(rng, state.step)``, so a resumed run draws what an
-uninterrupted one would without storing generator state.
+uninterrupted one would without storing generator state. Across processes
+each rank draws for the global batch and keeps its rows, and the ranks
+average their gradients (``make_train_step``'s ``dp``), where the JAX
+package's step shards one program's batch over a mesh.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 
 from ..core.diffusion import Diffusion
 from ..ops import jigsaw
+from ..parallel.mesh import DataParallel
 from .state import AdamW, TrainState, fused_adamw_ema
 
 
@@ -89,7 +93,7 @@ def _global_norm(tensors) -> torch.Tensor:
 
 def make_train_step(diffusion: Diffusion, optimizer: AdamW, task: TrainTask,
                     piece_code: torch.Tensor, *, grad_accum: int = 1,
-                    seed: int = 0) -> Callable:
+                    seed: int = 0, dp: DataParallel | None = None) -> Callable:
     """Build ``train_step(state, images) -> (state, metrics)``.
 
     images: (B, H, W, C) clean images in [-1, 1] (float32 or bfloat16), or
@@ -100,14 +104,25 @@ def make_train_step(diffusion: Diffusion, optimizer: AdamW, task: TrainTask,
     holds that mean after the step. Metrics ``loss``, ``code_mse``,
     ``img_mse`` and ``grad_norm`` (before any clip) stay on the device as
     0-dim tensors, so that a caller reads them without a sync per step.
-    """
 
-    def loss_fn(model, images, t, generator):
+    ``dp``: this process's rank of a data-parallel run
+    (``parallel.DataParallel``). ``images`` are then the rank's rows of
+    the global batch (``parallel.rank_rows``: each microbatch cut across
+    the ranks), the global batch is ``dp.world`` times theirs, and the step
+    equals one process's step on the global batch up to summation order:
+    every draw is made for the global batch (or microbatch) and the rank
+    keeps its rows, the gradients and the loss metrics are averaged over
+    the ranks before the global norm, the clip and AdamW + EMA, so every
+    rank ends the step with the same state.
+    """
+    dp = dp or DataParallel()
+
+    def loss_fn(model, images, t, generator, draw_batch, rows):
         out = diffusion.training_losses(
             model, images, t, piece_code, block_size=task.block_size,
             patch_size=task.patch_size, add_mask=task.add_mask,
             grid_size=task.grid_size, shared_perm=task.shared_perm,
-            generator=generator)
+            generator=generator, draw_batch=draw_batch, rows=rows)
         return out["loss"].mean(), out
 
     def train_step(state: TrainState, images: torch.Tensor):
@@ -120,9 +135,10 @@ def make_train_step(diffusion: Diffusion, optimizer: AdamW, task: TrainTask,
             images = images.float()
         if task.crop_pieces is not None:
             images = jigsaw.inner_crop_pieces(images, task.grid_size, task.crop_pieces)
-        b = images.shape[0]
-        if b % grad_accum:
-            raise ValueError(f"batch {b} not divisible by grad_accum={grad_accum}")
+        b = images.shape[0] * dp.world  # the global batch
+        if b % (grad_accum * dp.world):
+            raise ValueError(f"batch {b} not divisible by grad_accum={grad_accum}"
+                             + (f" x {dp.world} ranks" if dp.world > 1 else ""))
         gen = step_generator(seed, state.step, device)
         t = draw_timesteps(b, diffusion.num_timesteps, task.t_bias, gen)
 
@@ -130,10 +146,13 @@ def make_train_step(diffusion: Diffusion, optimizer: AdamW, task: TrainTask,
         for p in params:
             p.grad = None
         micro = b // grad_accum
+        part = micro // dp.world  # this rank's rows of each microbatch
+        mine = slice(dp.rank * part, (dp.rank + 1) * part) if dp.world > 1 else None
         loss = code_mse = img_mse = 0.0
         for i in range(grad_accum):
-            sl = slice(i * micro, (i + 1) * micro)
-            l, aux = loss_fn(model, images[sl], t[sl], gen)
+            t_i = t[i * micro:(i + 1) * micro]
+            l, aux = loss_fn(model, images[i * part:(i + 1) * part],
+                             t_i if mine is None else t_i[mine], gen, micro, mine)
             l.backward()
             loss = loss + l.detach()
             code_mse = code_mse + aux["code_mse"].detach().mean()
@@ -142,6 +161,10 @@ def make_train_step(diffusion: Diffusion, optimizer: AdamW, task: TrainTask,
         if grad_accum > 1:
             torch._foreach_div_(grads, grad_accum)
             loss, code_mse, img_mse = (v / grad_accum for v in (loss, code_mse, img_mse))
+        if dp.in_group:
+            means = torch.stack([loss, code_mse, img_mse])
+            dp.all_reduce_mean_(grads + [means])
+            loss, code_mse, img_mse = means.unbind()
         grad_norm = _global_norm(grads)
         if optimizer.grad_clip is not None:
             # optax.clip_by_global_norm: g * clip / norm where norm > clip.

@@ -198,6 +198,12 @@ def test_block_route_table(n, dtype, ok):
 
 
 def test_training_refuses_the_block_route_by_name():
+    """Training takes the block route where K3 takes the geometry (192 px
+    in bf16, the flagship's) and refuses it by name where K3 does not
+    (fp32 at 320 px, N = 400)."""
     cfg = apply_overrides(Config(), ["data.synthetic_cues=waves", "model.attn_impl=block"])
-    with pytest.raises(NotImplementedError, match="attn_impl='block' for training"):
+    run_train.check_supported(cfg)
+    cfg = apply_overrides(Config(), ["data.synthetic_cues=waves", "model.attn_impl=block",
+                                     "model.image_size=320", "model.compute_dtype=float32"])
+    with pytest.raises(NotImplementedError, match="attn_impl='block'.*shared memory"):
         run_train.check_supported(cfg)

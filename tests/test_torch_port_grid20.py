@@ -106,6 +106,12 @@ def _cfg(*overrides):
 @pytest.mark.parametrize("impl", ["xla", "xla2", "xla_split", "interpret", "block",
                                   "block_interpret", "ring"])
 def test_check_supported_refuses_attention_routes_by_name(impl):
+    if impl == "block":  # K3 trains where it takes the geometry; beyond, refused by name
+        run_train.check_supported(_cfg("model.attn_impl=block"))
+        with pytest.raises(NotImplementedError, match="attn_impl='block' at N=400"):
+            run_train.check_supported(_cfg("model.attn_impl=block", "model.image_size=320",
+                                           "model.compute_dtype=float32"))
+        return
     with pytest.raises(NotImplementedError, match=f"model.attn_impl='{impl}'"):
         run_train.check_supported(_cfg(f"model.attn_impl={impl}"))
 
@@ -127,8 +133,8 @@ def test_check_supported_refuses_geometries_no_kernel_takes():
 
 def test_run_train_refuses_before_any_weights_load(tmp_path):
     exp = tmp_path / "exp"
-    with pytest.raises(NotImplementedError, match="block"):
-        run_train.main(["device=cpu", "data.synthetic_cues=waves", "model.attn_impl=block",
+    with pytest.raises(NotImplementedError, match="mesh.model"):
+        run_train.main(["device=cpu", "data.synthetic_cues=waves", "mesh.model=2",
                         f"train.exp_dir={exp}", f"train.warm_start={ARTIFACT}"])
     assert not exp.exists()
 

@@ -461,7 +461,7 @@ def test_warm_start_resets_ema_and_rearms_warmup(tmp_path, source):
 
 
 def test_run_train_refuses_what_is_not_ported():
-    for extra in (["mesh.model=2"], ["task.multi_grid=3,4"], ["data.device_cache=true"],
+    for extra in (["mesh.model=2"], ["mesh.fsdp=2"], ["model.moe_experts=4"],
                   ["data.dataset=met"], ["data.synthetic_cues=coords"],
                   ["model.attn_impl=xla"]):
         with pytest.raises(NotImplementedError):
