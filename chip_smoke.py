@@ -93,7 +93,7 @@ then the fused attention sublayer K3 and the evaluation path:
 
 ``python3 chip_smoke.py --grid20-artifact`` (the copy must then hold
 ``waves20_hard_step32700`` in place of waves3) skips the phases that read
-the waves3 artifact (3, 4, 7, 8, 15, 16), warm-starts phase 11 from the artifact
+the waves3 artifact (3, 4, 7, 8, 15, 16, 17), warm-starts phase 11 from the artifact
 at step 32,700 (losses <= 1/10 of a fresh model's on the same batches and
 draws), solves the fixed set in phase 12 with the EMA model beside the
 unchanged artifact, and runs the ``run_train`` CLI at grid 20 (warm start,
@@ -150,14 +150,34 @@ under ``--grid20-artifact``):
     ``task.multi_grid=3,4,6`` through ``run_train`` (the ``_g3``/``_g4``/
     ``_g6`` validations; ``run_eval`` takes its checkpoint at grid 4),
     ``data.device_cache_augment`` (the cached set's bytes on the card), and
-    ``model.matmul_precision=high`` on an fp32 run (the TF32 GEMMs the
-    profiler names, none at ``highest``).
+    ``model.matmul_precision`` on an fp32 run at ``high``, ``default`` and
+    ``highest`` (the GEMM kernels the profiler names: TF32 at the first
+    two, none at ``highest``, no bf16 GEMM at any).
+
+then the data users train on and the expert-choice MoE (skipped under
+``--grid20-artifact``):
+
+17. ``run_train`` with no overrides but the exp dir and a budget (the JAX
+    package's default config: JPDVT, 192 px, the ``coords`` regime, batch
+    96; 5 steps, finite losses, 12 K1 + 12 K2 a step); ``JPDVT-MoE`` (12
+    blocks, 768 wide, 8 experts, capacity 2.0) through ``run_train``, 6
+    steps at batch 96 from random weights in bf16 (12 K1 + 12 K2 a step,
+    ms a step, peak GiB), then fast and faithful-250 solves at batch 32 on
+    its EMA (puzzles/s), and one expert at capacity 1.0 against the dense
+    ``Mlp`` in bf16; 64 PNG scans of 640 x 480 written into a TEXMET layout
+    and a folder: each transform of ``data/transforms.py`` against PIL (an
+    oracle on this machine only), 3 ``run_train`` steps on TEXMET at batch
+    16, ``run_eval`` on the folder with the waves3 artifact (native decode,
+    its journal equal to an in-process harness's), and MET over ``.jpg``
+    files and a TEXMET split listing a ``.jpg`` refused by name where the
+    decoder has no libjpeg.
 
 The last three lines are the ``kernels`` JSON (each kernel with the
 launches of its own path and its shape: K1 for the solve, the train step,
-the service and the 2-rank train step, K2 for the train step and the 2-rank
-one, K3 on the eval path and the training route, K4, K5, K6), the card's
-name and power limit, and the device JSON.
+the service, the 2-rank train step and the MoE train step, K2 for the
+train step, the 2-rank one and the MoE one, K3 on the eval path and the
+training route, K4, K5, K6), the card's name and power limit, and the
+device JSON.
 """
 
 from __future__ import annotations
@@ -180,11 +200,12 @@ import torch
 import torch.nn.functional as F
 
 from jpdvt_mt_ntnu_tpu_torch.core.diffusion import create_diffusion
-from jpdvt_mt_ntnu_tpu_torch.data import SyntheticPuzzles
+from jpdvt_mt_ntnu_tpu_torch.data import SyntheticPuzzles, transforms
 from jpdvt_mt_ntnu_tpu_torch.eval import run_eval
 from jpdvt_mt_ntnu_tpu_torch.eval.solver import PuzzleSolver
 from jpdvt_mt_ntnu_tpu_torch.models import create_model
 from jpdvt_mt_ntnu_tpu_torch.models import dit
+from jpdvt_mt_ntnu_tpu_torch.models.moe import ExpertChoiceMoE
 from jpdvt_mt_ntnu_tpu_torch.ops import _build, jigsaw, native
 from jpdvt_mt_ntnu_tpu_torch.ops import attention as attn_ops
 from jpdvt_mt_ntnu_tpu_torch.ops import flash_attention as flash_ops
@@ -2041,14 +2062,22 @@ def check_train_options(tmp: str) -> dict:
     return out
 
 
+# Phase 16's fp32 runs: the settings whose GEMM kernels are named, and what
+# each must run (utils/device.py's table): TF32 at high and at default
+# (torch's "medium" has no bf16 algorithm for an fp32 product on the card),
+# none at highest.
+TF32_PRECISIONS = {"high": True, "default": True, "highest": False}
+
+
 def check_tf32(tmp: str) -> dict:
-    """Phase 16: ``model.matmul_precision=high`` on an fp32 ``run_train``
-    (depth 2, 2 steps): the GEMM kernels the profiler names, TF32 ones
-    among them, beside ``highest``'s."""
+    """Phase 16: an fp32 ``run_train`` (depth 2, 2 steps) at each
+    ``model.matmul_precision`` of :data:`TF32_PRECISIONS`: the GEMM kernels
+    the profiler names, TF32 ones where the table says so and none
+    elsewhere, and no bf16 GEMM at any of them."""
     from torch.profiler import ProfilerActivity, profile
 
     names = {}
-    for precision in ("high", "highest"):
+    for precision in TF32_PRECISIONS:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             code = run_train.main([
                 "data.synthetic_cues=waves", "data.device_stream=true",
@@ -2060,13 +2089,18 @@ def check_tf32(tmp: str) -> dict:
             raise AssertionError(f"run_train at matmul_precision={precision}: exit {code}")
         names[precision] = sorted({e.key for e in prof.key_averages()
                                    if any(w in e.key.lower() for w in ("gemm", "xmma", "cutlass"))})
-    tf32 = [n for n in names["high"] if "tf32" in n.lower()]
-    log("  matmul_precision=high, fp32 GEMM kernels: " + json.dumps(names["high"]))
-    log("  matmul_precision=highest, fp32 GEMM kernels: " + json.dumps(names["highest"]))
-    if not tf32 or any("tf32" in n.lower() for n in names["highest"]):
-        raise AssertionError(f"TF32 GEMMs at high: {tf32}; at highest: {names['highest']}")
+        log(f"  matmul_precision={precision}, fp32 GEMM kernels: "
+            + json.dumps(names[precision]))
+    out = {}
+    for precision, want in TF32_PRECISIONS.items():
+        tf32 = [n for n in names[precision] if "tf32" in n.lower()]
+        bf16 = [n for n in names[precision] if "bf16" in n.lower()]
+        if bool(tf32) != want or bf16:
+            raise AssertionError(f"matmul_precision={precision}: TF32 GEMMs {tf32}, bf16 GEMMs "
+                                 f"{bf16}; the table says TF32 {'on' if want else 'off'}")
+        out[f"tf32_kernels_{precision}"] = tf32
     apply_matmul_precision(None)
-    return {"tf32_kernels": tf32}
+    return out
 
 
 def ddp_grid3(card: str, gen: torch.Generator) -> dict:
@@ -2114,13 +2148,341 @@ def ddp_grid3(card: str, gen: torch.Generator) -> dict:
     return out
 
 
+# Phase 17: the default config, JPDVT-MoE, the datasets.
+MOE_STEPS, MOE_SOLVE_BATCH = 6, 32
+# ExpertChoiceMoE with one expert at capacity 1.0 against the dense Mlp on
+# the same weights, bf16, relative to the output's largest magnitude: the
+# two add the fc1 and fc2 biases at other points (F.linear in its GEMM's
+# fp32 epilogue, the expert einsum after a bf16 rounding), one bf16 ulp
+# (2^-8) at each, carried through gelu and fc2.
+MOE_DENSE_TOL = 2 ** -6
+# The transforms against PIL on the card's machine (an oracle only): at most
+# one 8-bit level; bit-equal to Pillow 12.1.0 is held by the CPU tests
+# (tests/test_torch_port_data.py), and another Pillow may round elsewhere.
+PIL_LEVELS = 1
+TEXMET_FILES, TEXMET_W, TEXMET_H = 64, 640, 480
+
+
+def losses_and_rates(exp: str) -> tuple[list[float], list[float]]:
+    """(per-step losses, per-step steps/s) of a run logged every step."""
+    rows = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
+    return ([r["train_loss"] for r in rows if "train_loss" in r],
+            [r["steps_per_sec"] for r in rows if "steps_per_sec" in r])
+
+
+def counted_run_train(args: list[str], name: str, expected: dict) -> dict:
+    """``run_train.main(args)`` with every train step's launches counted
+    (the counts set to 0 just before, read just after); raises unless it
+    exits 0 with finite losses and each step launches ``expected``."""
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counting_steps() as per_step:
+        code = run_train.main(args)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    exp = next(a.split("=", 1)[1] for a in args if a.startswith("train.exp_dir="))
+    losses, rates = losses_and_rates(exp)
+    row = {"exit": code, "steps": len(per_step), "losses": losses,
+           "ms_per_step": [1e3 / r for r in rates if r > 0],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "wall_s": wall,
+           "launches": launches, "per_step": per_step[0] if per_step else {}}
+    log(f"  {name}: " + json.dumps(row))
+    if code != 0 or not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: exit {code}, losses {losses}")
+    bad = [s for s in per_step if any(s[k] != n for k, n in expected.items())]
+    if bad or not per_step:
+        raise AssertionError(f"{name}: per-step launches {per_step}, expected {expected}")
+    return row
+
+
+def check_moe_dense(gen: torch.Generator) -> dict:
+    """One expert at capacity 1.0 is the dense Mlp, bf16 at full width."""
+    moe = ExpertChoiceMoE(768, 3072, 768, 1, 1.0).cuda()
+    moe.initialize_weights(gen)
+    with torch.no_grad():
+        moe.bi.normal_(0, 0.02, generator=gen)
+        moe.bo.normal_(0, 0.02, generator=gen)
+    mlp = dit.Mlp(768, 3072).cuda()
+    mlp.load_state_dict({"fc1.weight": moe.wi[0].T, "fc1.bias": moe.bi[0],
+                         "fc2.weight": moe.wo[0].T, "fc2.bias": moe.bo[0]})
+    x = torch.randn(MOE_SOLVE_BATCH, TOKENS, 768, device="cuda", generator=gen).bfloat16()
+    with torch.no_grad():
+        got, want = moe(x).float(), mlp(x).float()
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    log(f"  ExpertChoiceMoE(E=1, capacity 1.0) against the dense Mlp, bf16 "
+        f"({MOE_SOLVE_BATCH}, {TOKENS}, 768): max |diff| / max |out| = {err:.3e} "
+        f"(tolerance {MOE_DENSE_TOL:.3e})")
+    if not err <= MOE_DENSE_TOL:
+        raise AssertionError(f"MoE(E=1) against Mlp: {err} > {MOE_DENSE_TOL}")
+    return {"moe_vs_dense_rel": err}
+
+
+def moe_solves(state, card: str) -> dict:
+    """Fast and faithful-250 solves at batch 32 on the MoE run's EMA, bf16."""
+    model, cfg = create_model("JPDVT-MoE", 192, dtype=torch.bfloat16)
+    model.load_state_dict(state.ema.state_dict())
+    x32, perms32 = wave_puzzles(MOE_SOLVE_BATCH, 7)
+    out = {}
+    for mode in ("fast", "faithful"):
+        solver = PuzzleSolver(model, cfg, create_diffusion("250"), grid_size=3, mode=mode)
+        res = solver.evaluate(x32, perms32)  # the first call casts the weights
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solver.evaluate(x32, perms32)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = counts()
+        want = cfg.depth * (STEPS if mode == "faithful" else 1)
+        if launches["k1"] != want or not np.isfinite(res.patch_accuracy):
+            raise AssertionError(f"MoE {mode} solve: K1 {launches['k1']}, expected {want}")
+        out[mode] = {"puzzles_per_s": MOE_SOLVE_BATCH / dt, "s": dt,
+                     "puzzle_acc": res.puzzle_accuracy, "k1": launches["k1"]}
+    log(f"  JPDVT-MoE solves at batch {MOE_SOLVE_BATCH} on {card} (EMA after "
+        f"{MOE_STEPS} steps from random weights): " + json.dumps(out))
+    return out
+
+
+def check_default_config(tmp: str) -> dict:
+    """``run_train`` with no overrides but the exp dir and a budget: the
+    JAX package's default config (JPDVT, 192 px, the ``coords`` regime,
+    batch 96, faithful-250 validation); ``data.synthetic_n`` is the budget
+    (480 items, 5 steps of 96)."""
+    return counted_run_train([f"train.exp_dir={tmp}/default", "train.epochs=1",
+                              "data.synthetic_n=480", "train.log_every=1"],
+                             "default config (coords, batch 96)", {"k1": 12, "k2": 12})
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+
+
+def wave_photo(i: int, w: int = TEXMET_W, h: int = TEXMET_H) -> np.ndarray:
+    """A w x h uint8 image of the waves regime (a crop of a w-px field)."""
+    field = SyntheticPuzzles(w, n=i + 1, seed=17, cache=False)[i]
+    return np.round((field[:h] + 1.0) * 127.5).clip(0, 255).astype(np.uint8)
+
+
+def pil_transforms_agree(tmp: str) -> dict:
+    """Each transform of ``data/transforms.py`` against PIL (an oracle on
+    this machine only), on the written scans and a 2,300 px one."""
+    from PIL import Image, ImageEnhance, __version__ as pil_version
+
+    def jitter(img, rng, b, c, s, h):
+        ops = [("b", float(rng.uniform(1 - b, 1 + b))), ("c", float(rng.uniform(1 - c, 1 + c))),
+               ("s", float(rng.uniform(1 - s, 1 + s))), ("h", float(rng.uniform(-h, h)))]
+        rng.shuffle(ops)
+        for kind, f in ops:
+            if kind == "h":
+                hsv = np.array(img.convert("HSV"), dtype=np.int16)
+                hsv[..., 0] = (hsv[..., 0] + int(f * 255)) % 256
+                img = Image.fromarray(hsv.astype(np.uint8), "HSV").convert("RGB")
+            else:
+                img = {"b": ImageEnhance.Brightness, "c": ImageEnhance.Contrast,
+                       "s": ImageEnhance.Color}[kind](img).enhance(f)
+        return img
+
+    def adm(img, size):
+        while min(*img.size) >= 2 * size:
+            img = img.resize(tuple(x // 2 for x in img.size), resample=Image.BOX)
+        scale = size / min(*img.size)
+        img = img.resize(tuple(round(x * scale) for x in img.size), resample=Image.BICUBIC)
+        a = np.asarray(img)
+        top, left = (a.shape[0] - size) // 2, (a.shape[1] - size) // 2
+        return a[top:top + size, left:left + size]
+
+    worst, differ, total = {}, {}, {}
+    for k in range(4):
+        path = os.path.join(tmp, "texmet", "images", f"scan_{k:03d}.png")
+        with open(path, "rb") as f:
+            a = native.decode_rgb(f.read())
+        im = Image.open(path).convert("RGB")
+        big = np.ascontiguousarray(np.tile(a, (5, 4, 1))[:2300, :1700])
+        w, h = im.size
+        short = (398, round(h * 398 / w)) if w <= h else (round(w * 398 / h), 398)
+        thumb = Image.fromarray(big)
+        thumb.thumbnail((2048, 2048), Image.LANCZOS)
+        pairs = {
+            "decode_rgb": (a, np.asarray(im)),
+            "resize_shorter": (transforms.resize_shorter(a, 398),
+                               np.asarray(im.resize(short, Image.BILINEAR))),
+            "safe_resize": (transforms.safe_resize(big), np.asarray(thumb)),
+            "center_crop_arr": (transforms.center_crop_arr(a, 192), adm(im, 192)),
+            "color_jitter": (transforms.color_jitter(a, np.random.default_rng(k), brightness=0.3,
+                                                     contrast=0.3, saturation=0.3, hue=0.05),
+                             np.asarray(jitter(im, np.random.default_rng(k), 0.3, 0.3, 0.3,
+                                               0.05)))}
+        for name, (got, want) in pairs.items():
+            if got.shape != want.shape:
+                raise AssertionError(f"{name}: shape {got.shape} against PIL's {want.shape}")
+            d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+            worst[name] = max(worst.get(name, 0), int(d.max()))
+            differ[name] = differ.get(name, 0) + int((d > 0).sum())
+            total[name] = total.get(name, 0) + d.size
+    share = {k: differ[k] / total[k] for k in worst}
+    log(f"  transforms against PIL {pil_version}: max levels {json.dumps(worst)}, share of "
+        f"values that differ {json.dumps(share)}")
+    if max(worst.values()) > PIL_LEVELS:
+        raise AssertionError(f"transforms against PIL: {worst} levels")
+    return {"pil": pil_version, "max_levels": worst, "share_differing": share}
+
+
+def write_datasets(tmp: str) -> tuple[str, str]:
+    """64 PNG scans of 640 x 480 in a TEXMET layout (48 train, 8 val, 8
+    test) and the same files as a folder of photographs."""
+    texmet, folder = os.path.join(tmp, "texmet"), os.path.join(tmp, "photos")
+    os.makedirs(os.path.join(texmet, "images"))
+    os.makedirs(folder)
+    names = []
+    for i in range(TEXMET_FILES):
+        img = wave_photo(i)
+        names.append(f"scan_{i:03d}.png")
+        write_png(os.path.join(texmet, "images", names[-1]), img)
+        write_png(os.path.join(folder, names[-1]), img)
+    for split, part in (("train", names[:48]), ("val", names[48:56]), ("test", names[56:])):
+        with open(os.path.join(texmet, f"{split}_files.txt"), "w") as f:
+            f.write("\n".join(part) + "\n")
+    return texmet, folder
+
+
+def check_folder_eval(tmp: str, folder: str) -> dict:
+    """Repair 3.4 on the card: ``run_eval`` on the folder of 640 x 480 PNGs
+    with the waves3 artifact, decoded by the native decoder; its journal
+    equals an in-process harness's on the same files and draws."""
+    from jpdvt_mt_ntnu_tpu_torch.eval.harness import EvalHarness, find_images
+
+    args = ["data.dataset=synthetic", f"data.data_path={folder}", f"eval.checkpoint={ARTIFACT}",
+            "eval.seed=11", "eval.batch_size=32", "diffusion.sampler_mode=fast"]
+    zero_counts()
+    t0 = time.perf_counter()
+    code = run_eval.main(args + [f"eval.logs_dir={tmp}/folder_eval"])
+    wall = time.perf_counter() - t0
+    rows = journal_list(os.path.join(tmp, "folder_eval", EVAL_JOURNALS[0]))
+    model, cfg = create_model("JPDVT", 192, dtype=torch.bfloat16)
+    model.load_state_dict(load_artifact(ARTIFACT)[0])
+    solver = PuzzleSolver(model, cfg, create_diffusion("250"), grid_size=3, mode="fast", seed=11)
+    harness = EvalHarness(solver, logs_dir=f"{tmp}/folder_again", batch_size=32, seed=11)
+    decoded = harness._load_image(os.path.join(folder, "scan_000.png"))
+    with open(os.path.join(folder, "scan_000.png"), "rb") as f:
+        direct = native.decode_center_crop(f.read(), 192)
+    harness.run_paths(find_images(folder))
+    again = journal_list(os.path.join(tmp, "folder_again", EVAL_JOURNALS[0]))
+    acc = sum(r[1] for r in rows) / max(1, len(rows))
+    out = {"exit": code, "rows": len(rows), "puzzle_acc": acc, "wall_s": wall,
+           "decode_is_native": bool(np.array_equal(decoded, direct))}
+    log(f"  run_eval on a folder of {TEXMET_FILES} PNGs of {TEXMET_W} x {TEXMET_H}: "
+        + json.dumps(out))
+    if code != 0 or len(rows) != TEXMET_FILES or rows != again or not out["decode_is_native"]:
+        raise AssertionError(f"folder eval: exit {code}, {len(rows)} rows, equal to the "
+                             f"in-process harness {rows == again}")
+    return out
+
+
+def check_refusals(tmp: str, texmet: str) -> dict:
+    """MET over .jpg files and a TEXMET split that lists a .jpg, refused by
+    name where the decoder has no libjpeg."""
+    met = os.path.join(tmp, "met")
+    for sub in ("a", "b", "c"):
+        os.makedirs(os.path.join(met, sub))
+        for i in range(2):
+            with open(os.path.join(met, sub, f"art{i}.jpg"), "wb") as f:
+                f.write(b"\xff\xd8\xff\xe0 not decoded: refused by its name")
+    jpeg_split = os.path.join(tmp, "texmet_jpeg")
+    os.makedirs(os.path.join(jpeg_split, "images"))
+    with open(os.path.join(jpeg_split, "images", "scan.jpg"), "wb") as f:
+        f.write(b"\xff\xd8\xff\xe0")
+    with open(os.path.join(jpeg_split, "train_files.txt"), "w") as f:
+        f.write("scan.jpg\n")
+    if "jpeg" in native.formats():
+        log("  the decoder has libjpeg here: MET and JPEG splits are taken, no refusal to check")
+        return {"refused": False}
+    msgs = {}
+    for name, call in (
+            ("met", lambda: run_train.main([f"train.exp_dir={tmp}/met_exp", "data.dataset=met",
+                                            f"data.data_path={met}"])),
+            ("texmet_jpeg", lambda: run_train.main([f"train.exp_dir={tmp}/tj_exp",
+                                                    "data.dataset=texmet",
+                                                    f"data.data_path={jpeg_split}"])),
+            ("met_eval", lambda: run_eval.main(["data.dataset=met", f"data.data_path={met}",
+                                                f"eval.logs_dir={tmp}/met_logs"]))):
+        try:
+            call()
+        except NotImplementedError as e:
+            msgs[name] = str(e)
+        else:
+            raise AssertionError(f"{name}: not refused without libjpeg")
+        if "libjpeg" not in msgs[name]:
+            raise AssertionError(f"{name}: refused without naming libjpeg: {msgs[name]}")
+    log("  refused without libjpeg: " + json.dumps(msgs))
+    return {"refused": True, "messages": msgs}
+
+
+def data_moe_grid3(card: str, gen: torch.Generator) -> dict:
+    """Phase 17: the default config, JPDVT-MoE and the datasets."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out["default"] = check_default_config(tmp)
+        log(f"phase 17 default config: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        out["moe_dense"] = check_moe_dense(gen)
+        states: list = []
+        make_step = run_train.make_train_step
+
+        def keep_state(*a, **kw):  # the run's last state, for its EMA solves
+            step = make_step(*a, **kw)
+
+            def stepped(state, batch):
+                states[:] = [state]
+                return step(state, batch)
+
+            return stepped
+
+        run_train.make_train_step = keep_state
+        try:
+            out["moe_train"] = counted_run_train(
+                ["model.name=JPDVT-MoE", "data.synthetic_cues=waves", "data.device_stream=true",
+                 f"data.synthetic_n={TRAIN_BATCH * MOE_STEPS}", "train.epochs=1",
+                 "train.log_every=1", "train.ckpt_every=1000000", "diffusion.sampler_mode=fast",
+                 f"train.exp_dir={tmp}/moe"],
+                f"JPDVT-MoE, {MOE_STEPS} steps at batch {TRAIN_BATCH}", {"k1": 12, "k2": 12})
+        finally:
+            run_train.make_train_step = make_step
+        n_params = sum(p.numel() for p in states[0].model.parameters())
+        log(f"  JPDVT-MoE: {n_params / 1e6:.1f}M parameters")
+        out["moe_params"] = n_params
+        out["moe_solve"] = moe_solves(states[0], card)
+        del states[:]
+        torch.cuda.empty_cache()
+        out["k1_moe"] = check_k1(TRAIN_BATCH, TOKENS, torch.bfloat16, gen, timed=True)
+        out["k2_moe"] = check_k2(TRAIN_BATCH, TOKENS, torch.bfloat16, gen, timed=True)
+        log(f"phase 17 MoE: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        texmet, folder = write_datasets(tmp)
+        out["pil"] = pil_transforms_agree(tmp)
+        out["texmet_train"] = counted_run_train(
+            ["data.dataset=texmet", f"data.data_path={texmet}", "data.global_batch_size=16",
+             "train.epochs=1", "train.log_every=1", "train.ckpt_every=1000000",
+             "diffusion.sampler_mode=fast", f"train.exp_dir={tmp}/texmet_exp"],
+            "TEXMET, 3 steps at batch 16", {"k1": 12, "k2": 12})
+        out["folder_eval"] = check_folder_eval(tmp, folder)
+        out["refusals"] = check_refusals(tmp, texmet)
+        log(f"phase 17 datasets: {time.perf_counter() - t0:.2f} s")
+    log(f"phase data-moe: {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--ddp-child"]:  # one rank of phase 16's runs
         return ddp_child(argv[1], argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--grid20-artifact", action="store_true",
-                    help="skip the waves3 artifact's phases (3, 4, 7, 8, 15, 16) and start the "
+                    help="skip the waves3 artifact's phases (3, 4, 7, 8, 15-17) and start the "
                          "grid-20 phases from artifacts/waves20_hard_step32700")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2193,7 +2555,7 @@ def main(argv=None) -> int:
 
     # 3-4. The waves3 artifact's solve and its throughput.
     if args.grid20_artifact:
-        log("--grid20-artifact: phases 3, 4, 7, 8, 15 and 16 (they read the waves3 artifact, "
+        log("--grid20-artifact: phases 3, 4, 7, 8, 15, 16 and 17 (they read the waves3 artifact, "
             "which this copy does not hold) are skipped")
         g3 = None
     else:
@@ -2321,6 +2683,9 @@ def main(argv=None) -> int:
     # trainer's options.
     ddp = None if args.grid20_artifact else ddp_grid3(card, gen)
 
+    # 17. The default config, JPDVT-MoE and the datasets.
+    data17 = None if args.grid20_artifact else data_moe_grid3(card, gen)
+
     def kernel_row(name, source, replaces, launches, rows, timed):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "shape": timed["shape"],
@@ -2339,7 +2704,8 @@ def main(argv=None) -> int:
     # K4-K6 for their train steps (B=96; N=144 and N=400), K3 for the
     # block route's eval (timed at B=32; N=144, or N=400 from the grid-20
     # artifact); phase 16's K1 and K2 for the 2-rank train step (both
-    # ranks' launches, B=48 a rank) and K3 for its training route (B=96).
+    # ranks' launches, B=48 a rank) and K3 for its training route (B=96);
+    # phase 17's K1 and K2 for the JPDVT-MoE train steps (B=96).
     kernels = []
     if g3 is not None:
         kernels += [
@@ -2363,7 +2729,15 @@ def main(argv=None) -> int:
             kernel_row("k3_fused_attention_block_train",
                        "jpdvt_mt_ntnu_tpu_torch/ops/csrc/attention_block.cu",
                        "jpdvt_mt_ntnu_tpu/ops/attention.py:242", ddp["block"]["launches"]["k3"],
-                       [ddp["k3_train"]], ddp["k3_train"])]
+                       [ddp["k3_train"]], ddp["k3_train"]),
+            kernel_row("k1_whole_row_attention_fwd_moe", *k1,
+                       data17["moe_train"]["launches"]["k1"], [data17["k1_moe"]],
+                       data17["k1_moe"]),
+            kernel_row("k2_whole_row_attention_bwd_moe",
+                       "jpdvt_mt_ntnu_tpu_torch/ops/csrc/attention_bwd.cu",
+                       "jpdvt_mt_ntnu_tpu/ops/attention.py:44",
+                       data17["moe_train"]["launches"]["k2"], [data17["k2_moe"]],
+                       data17["k2_moe"])]
     else:  # K1's own path in this mode: the bf16 N = 400 solve of phase 12
         kernels.append(kernel_row(
             "k1_whole_row_attention_fwd", *k1,

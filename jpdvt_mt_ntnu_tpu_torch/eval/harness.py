@@ -20,8 +20,8 @@ puzzles in this host's list -> ``(indices (B, P), sigmas (votes - 1, B, P)
 or None)``. The default draws from a ``torch.Generator`` seeded by
 ``seed + process_index`` and the batch's first position, so a resumed run
 draws what an uninterrupted one would; :func:`jax_draws` reads the JAX
-harness's draws committed as a file. PIL is imported only to decode or
-write PNG files.
+harness's draws committed as a file. Images are decoded by the native
+decoder (``ops/native.py``) and written by ``serve/png.py``: no PIL.
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops import jigsaw
+from ..ops import jigsaw, native
+from ..serve.png import encode_png
 from ..utils.logging import setup_logging
 from .journal import ProgressJournal
 from .solver import PuzzleSolver
@@ -112,28 +113,19 @@ class EvalHarness:
     # ----------------------------------------------------------------- util
 
     def _load_image(self, path: str) -> np.ndarray:
-        """Decode, centre-crop to the model's size, scale to [-1, 1]: the
-        ADM crop and normalisation (``data/transforms.py:center_crop_arr``,
-        ``to_array``, ``normalize``)."""
-        from PIL import Image
-
-        size = self.solver.cfg.input_size
-        img = Image.open(path).convert("RGB")
-        while min(*img.size) >= 2 * size:
-            img = img.resize(tuple(x // 2 for x in img.size), resample=Image.BOX)
-        scale = size / min(*img.size)
-        img = img.resize(tuple(round(x * scale) for x in img.size), resample=Image.BICUBIC)
-        arr = np.asarray(img)
-        top, left = (arr.shape[0] - size) // 2, (arr.shape[1] - size) // 2
-        arr = arr[top:top + size, left:left + size]
-        return np.asarray(arr, dtype=np.float32) / 255.0 * 2.0 - 1.0
+        """Decode, centre-crop to the model's size, scale to [-1, 1] through
+        the native decoder (``ops/native.decode_center_crop``), as the JAX
+        harness does where its own is built (``harness.py:70-85``). PNG
+        everywhere; JPEG where the decoder was built with libjpeg, else a
+        ``ValueError`` that the loop logs and skips."""
+        with open(path, "rb") as f:
+            return native.decode_center_crop(f.read(), self.solver.cfg.input_size)
 
     def _save_images(self, name: str, original, scrambled, reconstructed,
                      puzzle_correct: int, patch_acc: float) -> None:
         """Metric-tagged PNGs in the reference's naming (inference.py:332-344)
-        and an original | scrambled | reconstructed panel."""
-        from PIL import Image
-
+        and an original | scrambled | reconstructed panel, written by
+        ``serve/png.py``."""
         out_dir = os.path.join(self.results_dir, f"Grid{self.solver.grid}")
         os.makedirs(out_dir, exist_ok=True)
         stem = os.path.splitext(os.path.basename(name))[0]
@@ -142,16 +134,17 @@ class EvalHarness:
             arr = np.asarray(arr, dtype=np.float32)
             return (np.clip(arr * 0.5 + 0.5, 0.0, 1.0) * 255).astype(np.uint8)
 
-        def save(arr, suffix):
-            Image.fromarray(to_u8(arr)).save(os.path.join(out_dir, f"{stem}_{suffix}.png"))
+        def save(img, suffix):
+            with open(os.path.join(out_dir, f"{stem}_{suffix}.png"), "wb") as f:
+                f.write(encode_png(img))
 
-        save(original, "original")
-        save(scrambled, "random")
-        save(reconstructed, f"reconstructed_pAcc={puzzle_correct}_patchAcc={patch_acc:.2f}")
         panels = [to_u8(a) for a in (original, scrambled, reconstructed)]
+        save(panels[0], "original")
+        save(panels[1], "random")
+        save(panels[2], f"reconstructed_pAcc={puzzle_correct}_patchAcc={patch_acc:.2f}")
         spacer = np.full((panels[0].shape[0], 8, 3), 255, np.uint8)
-        Image.fromarray(np.concatenate([panels[0], spacer, panels[1], spacer, panels[2]],
-                                       axis=1)).save(os.path.join(out_dir, f"{stem}_combined.png"))
+        save(np.concatenate([panels[0], spacer, panels[1], spacer, panels[2]], axis=1),
+             "combined")
 
     # ------------------------------------------------------------------ run
 

@@ -19,9 +19,12 @@ w8a8 products in the DiT's blocks, ``ops/quant.py``) are the solver's
 options.
 ``eval.jax_draws=<npz>`` and ``eval.jax_noise=<npy>`` solve the JAX
 package's puzzles exactly (its scrambles and noise template, which torch
-cannot draw). ``data.data_path=<dir>`` evaluates a folder of images (PIL
-decodes them, so on a machine that has PIL); ``eval.texrec_dirs=1`` loops
-over its subdirectories with one journal each (inference_texrec.py).
+cannot draw). ``data.data_path=<dir>`` evaluates a folder of images,
+decoded and ADM-cropped by the native decoder (``ops/native.py``: PNG,
+and JPEG where it was built with libjpeg), as the JAX harness does;
+``eval.texrec_dirs=1`` loops over its subdirectories with one journal each
+(inference_texrec.py). ``data.dataset`` takes ``met`` and ``texmet`` (their
+test splits), ``synthetic`` (every cue regime) or an image folder.
 
 The run is on the card; ``device=cpu`` (an argument without a section)
 runs it on the CPU. On N processes (``python -m torch.distributed.run
@@ -33,15 +36,16 @@ resume merges every host's journal, and each rank prints the summary of
 its harness, as the JAX package's hosts do. ``eval.jax_draws`` may hold
 ``{process_index}``, replaced by the rank, for each host's draws.
 ``model.matmul_precision`` sets float32 products (``utils/device.py``).
-Not ported yet, and refused by name before any weights
-load: the MET and TEXMET datasets, synthetic cue regimes other than
-``waves``, an Orbax checkpoint directory, MoE models, sequence
-parallelism, and any geometry no attention kernel takes.
+``model.name=JPDVT-MoE`` (and ``model.moe_*``) evaluates the expert-choice
+MoE; with ``model.quant`` its attention is int8 and its experts dense.
+Not ported yet, and refused by name before any weights load: an Orbax
+checkpoint directory, the mesh's axes other than ``data`` (``mesh.ep``,
+``fsdp``, ``model``, ``pipe``, ``seq``), any geometry no attention kernel
+takes, and images or datasets with JPEGs where the decoder has no libjpeg.
 """
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import os
 import sys
@@ -50,11 +54,13 @@ import numpy as np
 import torch
 
 from ..core.diffusion import create_diffusion
-from ..data import SyntheticPuzzles
+from ..data import ImageFolderDataset, METDataset, SyntheticPuzzles, TEXMETDataset
+from ..data.datasets import require_decoder
+from ..data.synthetic import CUES
 from ..models import DIT_CONFIGS, create_model
 from ..ops.attention import ATTN_IMPLS, attention_route
 from ..ops.quant import parse_quant_spec
-from ..parallel import maybe_initialize_distributed
+from ..parallel import MeshSpec, maybe_initialize_distributed
 from ..tools.weights import load_artifact
 from ..utils.config import Config, apply_overrides
 from ..utils.device import MATMUL_PRECISION, apply_matmul_precision
@@ -144,12 +150,13 @@ def check_supported(cfg: Config, texrec: bool = False, on_card: bool = True) -> 
     """Raise ``NotImplementedError`` for every set key the port's eval
     cannot run, before any weights load."""
     m, d = cfg.model, cfg.data
-    refused = []
-    if cfg.mesh.seq > 1:
-        refused.append("mesh.seq (sequence-parallel ring attention)")
-    if m.moe_experts or m.moe_capacity or m.name not in DIT_CONFIGS:
-        refused.append(f"model {m.name!r} / model.moe_* (the dense DiT registry is "
-                       "ported)")
+    refused = [f"{name} (" + ("sequence-parallel ring attention" if name == "mesh.seq" else
+                              "the port runs data parallelism only") + ")"
+               for name in MeshSpec.from_config(cfg.mesh).refused()]
+    if cfg.mesh.pipe_microbatches:
+        refused.append("mesh.pipe_microbatches")
+    if m.name not in DIT_CONFIGS:
+        refused.append(f"model {m.name!r} (the port's registry is {sorted(DIT_CONFIGS)})")
     try:
         parse_quant_spec(m.quant)
     except ValueError as e:
@@ -169,14 +176,10 @@ def check_supported(cfg: Config, texrec: bool = False, on_card: bool = True) -> 
         refused.append(f"diffusion.sampler_mode={cfg.diffusion.sampler_mode!r}")
     if cfg.eval.assignment not in ASSIGNMENTS:
         refused.append(f"eval.assignment={cfg.eval.assignment!r}")
-    if texrec or _folder_mode(cfg):
-        if importlib.util.find_spec("PIL") is None:
-            refused.append("a folder of images without PIL to decode it")
-    elif d.dataset in ("met", "texmet", "imagenet", "folder"):
-        refused.append(f"data.dataset={d.dataset!r} (only the synthetic waves set and "
-                       "image folders through data.data_path are ported)")
-    elif (d.synthetic_cues or ("coords" if d.synthetic_position_cues else "none")) != "waves":
-        refused.append("synthetic cue regimes other than data.synthetic_cues=waves")
+    if not (texrec or _folder_mode(cfg)) and d.dataset == "synthetic":
+        cues = d.synthetic_cues or ("coords" if d.synthetic_position_cues else "none")
+        if cues not in CUES:
+            refused.append(f"data.synthetic_cues={cues!r} (the regimes are {CUES})")
     if m.matmul_precision not in MATMUL_PRECISION:
         refused.append(f"model.matmul_precision={m.matmul_precision!r} (the port takes "
                        f"{sorted(k for k in MATMUL_PRECISION if k)})")
@@ -184,10 +187,35 @@ def check_supported(cfg: Config, texrec: bool = False, on_card: bool = True) -> 
         raise NotImplementedError("not ported yet: " + "; ".join(refused))
 
 
-def build_dataset(cfg: Config) -> SyntheticPuzzles:
-    """The synthetic waves set of 1,024 puzzles at ``eval.seed`` (the JAX
-    package's ``build_dataset`` for ``data.dataset=synthetic``)."""
-    return SyntheticPuzzles(cfg.model.image_size, n=1024, seed=cfg.eval.seed, cues="waves")
+def build_dataset(cfg: Config):
+    """The evaluation set of ``data.dataset`` (JAX ``run_eval.py:104-117``):
+    ``met`` and ``texmet`` at their test splits, ``synthetic`` 1,024 puzzles
+    at ``eval.seed`` (any cue regime), else an image folder at
+    ``data.data_path``. A set with JPEGs that this machine's decoder cannot
+    take is refused by name (``data/datasets.py``)."""
+    d = cfg.data
+    if d.dataset == "met":
+        return METDataset(d.data_path, "test")
+    if d.dataset == "texmet":
+        return TEXMETDataset(d.data_path, "test", cfg.model.image_size)
+    if d.dataset == "synthetic":
+        return SyntheticPuzzles(cfg.model.image_size, n=1024, seed=cfg.eval.seed,
+                                position_cues=d.synthetic_position_cues,
+                                cues=d.synthetic_cues or None)
+    return ImageFolderDataset(d.data_path, cfg.model.image_size)
+
+
+def _texrec_paths(data_path: str) -> dict[str, list[str]]:
+    """Each subdirectory of ``data_path`` with its images, '*mask*' files
+    left out (inference_texrec.py:232-253)."""
+    out = {}
+    for sub in sorted(os.listdir(data_path)):
+        full = os.path.join(data_path, sub)
+        if os.path.isdir(full):
+            paths = find_images(full, exclude_substr="mask")
+            if paths:
+                out[sub] = paths
+    return out
 
 
 def _split_args(argv) -> tuple[list[str], str | None, bool]:
@@ -211,6 +239,18 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
     apply_matmul_precision(cfg.model.matmul_precision)
     dp = maybe_initialize_distributed(cfg.mesh, device)
     device, rank, world = dp.device, dp.rank, dp.world
+
+    # The images first: files this machine's decoder cannot take are
+    # refused before any weights load.
+    if texrec:
+        subdirs = _texrec_paths(cfg.data.data_path)
+        require_decoder([q for paths in subdirs.values() for q in paths],
+                        f"data.data_path={cfg.data.data_path!r}")
+    elif _folder_mode(cfg):
+        paths = find_images(cfg.data.data_path)
+        require_decoder(paths, f"data.data_path={cfg.data.data_path!r}")
+    else:
+        dataset = build_dataset(cfg)
 
     dtype = torch.bfloat16 if cfg.model.compute_dtype == "bfloat16" else torch.float32
     model, model_cfg = create_model(cfg.model.name, cfg.model.image_size, device=device,
@@ -238,15 +278,9 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
     if texrec:
         # One journal per subdirectory of data_path, '*mask*' files left
         # out, a summary at the end (inference_texrec.py:232-253).
-        results = {}
-        for sub in sorted(os.listdir(cfg.data.data_path)):
-            full = os.path.join(cfg.data.data_path, sub)
-            if not os.path.isdir(full):
-                continue
-            paths = find_images(full, exclude_substr="mask")
-            if paths:
-                results[sub] = harness(cfg.eval.logs_dir, f"{sub}_inference_progress.csv"
-                                       ).run_paths(paths, limit=cfg.eval.limit)
+        results = {sub: harness(cfg.eval.logs_dir, f"{sub}_inference_progress.csv"
+                                ).run_paths(paths, limit=cfg.eval.limit)
+                   for sub, paths in subdirs.items()}
         print("==== OVERALL RESULTS ====")
         for sub, r in results.items():
             print(f"{sub}: puzzle={r.puzzle_accuracy:.4f} patch={r.patch_accuracy:.4f} "
@@ -256,9 +290,9 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
 
     h = harness(cfg.eval.logs_dir)
     if _folder_mode(cfg):
-        report = h.run_paths(find_images(cfg.data.data_path), limit=cfg.eval.limit)
+        report = h.run_paths(paths, limit=cfg.eval.limit)
     else:
-        report = h.run_dataset(build_dataset(cfg), limit=cfg.eval.limit)
+        report = h.run_dataset(dataset, limit=cfg.eval.limit)
     print(f"puzzle_accuracy={report.puzzle_accuracy:.4f} "
           f"patch_accuracy={report.patch_accuracy:.4f} n={report.count} "
           f"({report.puzzles_per_sec:.2f} puzzles/s)")

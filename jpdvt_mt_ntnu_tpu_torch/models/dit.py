@@ -19,7 +19,10 @@ the JAX parameters carry over one to one (``tools/weights.py``):
 - ``quant="int8"`` (or ``"int8:K"``, the first K blocks) runs each
   quantized block's qkv, output and MLP projections as w8a8 int8 products
   (``ops/quant.py``, JAX ``models/dit.py:129-138,195-202``) around the
-  attention core on its default route; the parameter names do not change.
+  attention core on its default route; the parameter names do not change;
+- ``moe_experts=E`` replaces each block's MLP by an expert-choice
+  mixture of E experts (``models/moe.py``, JAX ``models/dit.py:276-286``);
+  with ``quant`` its attention is int8 and its experts stay dense, as there.
 
 Parameters are float32; ``DiTConfig.dtype`` is the compute type. Every
 Linear casts its parameters to the type of its input, so a model whose
@@ -41,6 +44,7 @@ from ..ops.flash_attention import fused_qkv_flash_attention
 from ..ops.quant import int8_dense, parse_quant_spec, quantize_channelwise
 from ..utils.device import default_device
 from ..utils.pos_embed import get_2d_sincos_pos_embed, timestep_embedding
+from .moe import ExpertChoiceMoE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +61,8 @@ class DiTConfig:
     dtype: torch.dtype = torch.float32  # compute type
     attn_impl: str | None = None  # None (auto), "pallas" (K1/K2), "flash" (K4-K6), "block" (K3)
     quant: str | None = None  # None, "int8" (every block) or "int8:K" (the first K)
+    moe_experts: int = 0  # > 0: each block's MLP is an ExpertChoiceMoE of this many experts
+    moe_capacity: float = 2.0
 
     @property
     def tokens_per_side(self) -> int:
@@ -168,11 +174,14 @@ class DiTBlock(nn.Module):
     """Pre-LN transformer block with adaLN-Zero conditioning (models.py:101-122)."""
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float,
-                 attn_impl: str | None = None, quant: str | None = None):
+                 attn_impl: str | None = None, quant: str | None = None,
+                 moe_experts: int = 0, moe_capacity: float = 2.0):
         super().__init__()
         self.adaLN_modulation = Linear(hidden_size, 6 * hidden_size)
         self.attn = Attention(hidden_size, num_heads, attn_impl, quant)
-        self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), quant)
+        hidden = int(hidden_size * mlp_ratio)
+        self.mlp = (ExpertChoiceMoE(hidden_size, hidden, hidden_size, moe_experts, moe_capacity)
+                    if moe_experts else Mlp(hidden_size, hidden, quant))
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         (shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp,
@@ -230,7 +239,8 @@ class DiT(nn.Module):
         qmode, qlimit = parse_quant_spec(cfg.quant)
         self.blocks = nn.ModuleList(
             DiTBlock(cfg.hidden_size, cfg.num_heads, cfg.mlp_ratio, cfg.attn_impl,
-                     qmode if qlimit is None or i < qlimit else None)
+                     qmode if qlimit is None or i < qlimit else None,
+                     cfg.moe_experts, cfg.moe_capacity)
             for i in range(cfg.depth))
         self.final_layer = FinalLayer(cfg.hidden_size, cfg.patch_dim)
         self.code_out1 = Linear(cfg.patch_dim, cfg.code_head_hidden)
@@ -243,7 +253,8 @@ class DiT(nn.Module):
     def initialize_weights(self, generator: torch.Generator | None = None) -> None:
         """The JAX package's init (models.py:187-225): xavier-uniform
         Linears with zero bias; N(0, 0.02) timestep and code-head weights;
-        zero adaLN modulations and final linear."""
+        zero adaLN modulations and final linear; the experts' own
+        (:meth:`ExpertChoiceMoE.initialize_weights`)."""
         for m in self.modules():
             if isinstance(m, nn.Linear):
                 fan_out, fan_in = m.weight.shape
@@ -257,6 +268,9 @@ class DiT(nn.Module):
         zeros += [self.final_layer.adaLN_modulation, self.final_layer.linear]
         for m in zeros:
             m.weight.zero_()
+        for m in self.modules():
+            if isinstance(m, ExpertChoiceMoE):
+                m.initialize_weights(generator)
 
     def prepare_int8(self) -> None:
         """Quantize every int8 Linear's fp32 parameters now (cached per
@@ -295,7 +309,7 @@ def _cfg(depth, hidden, patch, heads):
     return dict(depth=depth, hidden_size=hidden, patch_size=patch, num_heads=heads)
 
 
-# The dense configurations of the JAX registry (reference models.py:373-424).
+# The JAX registry (reference models.py:373-424, and JPDVT-MoE).
 DIT_CONFIGS: dict[str, dict] = {
     "DiT-XL/2": _cfg(28, 1152, 2, 16), "DiT-XL/4": _cfg(28, 1152, 4, 16),
     "DiT-XL/8": _cfg(28, 1152, 8, 16),
@@ -308,6 +322,9 @@ DIT_CONFIGS: dict[str, dict] = {
     "JPDVT": _cfg(12, 768, 16, 12),
     "JPDVT-S": _cfg(12, 768, 32, 12),
     "JPDVT-T": _cfg(12, 768, 64, 12),
+    # 8 expert-choice experts per block MLP (models/moe.py), capacity 2.0:
+    # 8x the dense flagship's MLP parameters, each token refined by ~2.
+    "JPDVT-MoE": dict(_cfg(12, 768, 16, 12), moe_experts=8),
 }
 
 

@@ -8,10 +8,12 @@ seconds. The shared library is built at first use into
 hash of the source and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. A failed build raises.
 
-``decode.cpp`` alone takes flags of its own: ``-DJP_WITH_LIBJPEG -ljpeg``
+``decode.cpp`` takes flags of its own: ``-DJP_WITH_LIBJPEG -ljpeg``
 where g++ compiles and links a libjpeg program on this machine, nothing
 otherwise. Which formats its library decodes is thus fixed when it is
-built (``jp_formats``), and its hash covers the choice.
+built (``jp_formats``), and its hash covers the choice. ``transforms.cpp``
+is built with ``-ffp-contract=off``: its float arithmetic is Pillow's,
+rounding for rounding, and a fused multiply-add would round once less.
 """
 
 from __future__ import annotations
@@ -76,6 +78,8 @@ def extra_flags(name: str) -> tuple[str, ...]:
     so that they can name libraries to link."""
     if name == "decode" and has_libjpeg():
         return ("-DJP_WITH_LIBJPEG", "-ljpeg")
+    if name == "transforms":
+        return ("-ffp-contract=off",)
     return ()
 
 

@@ -1,6 +1,7 @@
-// Image decode for the port's service: PNG scanline filters, the ADM
-// center crop with [-1, 1] output and, where libjpeg is on the machine that
-// builds this file, JPEG decode.
+// Image decode for the port's service, eval harness and datasets: PNG
+// scanline filters, the ADM center crop with [-1, 1] output and, where
+// libjpeg is on the machine that builds this file, JPEG decode (to RGB
+// whole, jp_jpeg_decode, or through the crop).
 //
 // The port's copy of native/src/decode.cpp, split so that its ADM part
 // compiles with no external header: the PNG container (chunks, zlib) is
@@ -286,6 +287,17 @@ int jp_jpeg_center_crop(const uint8_t* data, long len, int image_size, float* ou
   ImageU8 img;
   if (!decode_jpeg(data, static_cast<size_t>(len), &img, false)) return -1;
   return adm_center_crop(&img, image_size, out);
+}
+
+// Decode a JPEG to RGB into `out`, which holds w * h * 3 bytes for the
+// (w, h) that jp_jpeg_probe gave. -1 when libjpeg refuses the data, -7
+// when the decoded size is not (w, h).
+int jp_jpeg_decode(const uint8_t* data, long len, int w, int h, uint8_t* out) {
+  ImageU8 img;
+  if (!decode_jpeg(data, static_cast<size_t>(len), &img, false)) return -1;
+  if (img.w != w || img.h != h) return -7;
+  std::memcpy(out, img.rgb.data(), img.rgb.size());
+  return 0;
 }
 
 // A JPEG's width and height from its header (-1 on failure).

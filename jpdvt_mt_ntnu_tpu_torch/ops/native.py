@@ -9,6 +9,9 @@ raises, and so does a format the decoder does not take. No PIL is used.
 Decode: the PNG container is read here (chunks, CRCs, zlib, palette) for
 8-bit, non-interlaced images, which is what the service's page and its
 own writer send; the scanline filters and the ADM center crop run in C.
+:func:`decode_rgb` returns the whole RGB image (the datasets' decode),
+:func:`decode_center_crop` the ADM crop (the service's and the eval
+harness's).
 JPEG goes through libjpeg where the library was built with it
 (:func:`formats`); elsewhere it raises ``ValueError``.
 """
@@ -81,7 +84,9 @@ def _decode_lib() -> ctypes.CDLL:
         lib.jp_jpeg_probe.argtypes = [ctypes.c_char_p, ctypes.c_long,
                                       ctypes.POINTER(ctypes.c_int),
                                       ctypes.POINTER(ctypes.c_int)]
-        fns += [lib.jp_jpeg_center_crop, lib.jp_jpeg_probe]
+        lib.jp_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
+                                       ctypes.c_int, u8p]
+        fns += [lib.jp_jpeg_center_crop, lib.jp_jpeg_probe, lib.jp_jpeg_decode]
     for fn in fns:
         fn.restype = ctypes.c_int
     return lib
@@ -174,6 +179,27 @@ def decode_center_crop(data: bytes, image_size: int) -> np.ndarray:
     if rc != 0:
         raise ValueError(f"decode failed (native code {rc})")
     return out
+
+
+def decode_rgb(data: bytes) -> np.ndarray:
+    """PNG or JPEG bytes -> the whole (H, W, 3) uint8 RGB image: grey is
+    repeated over the three channels and alpha dropped, as PIL's
+    ``convert("RGB")`` does. Raises ``ValueError`` for a format the
+    decoder does not take (a JPEG without libjpeg names it)."""
+    if data[:8] == PNG_SIGNATURE:
+        px = png_pixels(data)
+        if px.shape[2] < 3:
+            return np.ascontiguousarray(np.repeat(px[..., :1], 3, axis=2))
+        return np.ascontiguousarray(px[..., :3])
+    if data[:3] == _JPEG_SOI:
+        lib = _need_jpeg()
+        w, h = probe(data)
+        out = np.empty((h, w, 3), np.uint8)
+        rc = lib.jp_jpeg_decode(data, len(data), w, h, out)
+        if rc != 0:
+            raise ValueError(f"JPEG decode failed (native code {rc})")
+        return out
+    raise ValueError("neither a PNG nor a JPEG (native decoder)")
 
 
 def probe(data: bytes) -> tuple[int, int]:

@@ -17,13 +17,18 @@ function of that name) reads, in this order:
 - torchrun's ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
   ``MASTER_ADDR`` and ``MASTER_PORT``;
 - Slurm with more than one task (``SLURM_NTASKS``, ``SLURM_PROCID``,
-  ``SLURM_LOCALID``, ``SLURM_NTASKS_PER_NODE``), with ``MASTER_ADDR`` and
-  ``MASTER_PORT``;
+  ``SLURM_LOCALID``, and this node's entry, ``SLURM_NODEID``, of
+  ``SLURM_TASKS_PER_NODE``, which Slurm always sets, in its ``8(x2)`` and
+  ``8,4`` forms), with ``MASTER_ADDR`` and ``MASTER_PORT``;
 - Open MPI (``OMPI_COMM_WORLD_SIZE``, ``OMPI_COMM_WORLD_RANK``,
   ``OMPI_COMM_WORLD_LOCAL_RANK``, ``OMPI_COMM_WORLD_LOCAL_SIZE``), likewise.
 
 ``mesh.distributed=auto`` starts a process group where one of these names
 more than one process, ``force`` also for a world of one, ``never`` never.
+A ``mesh.coordinator`` launch without ``LOCAL_WORLD_SIZE`` counts the
+ranks on each host after the rendezvous (each rank posts its host name to
+the rendezvous store), so that the backend rule sees the ranks that share
+this host's cards and not the whole world.
 
 The backend rule (:func:`backend_and_device`): ``gloo`` on the CPU; on the
 cards ``nccl`` with rank r on ``cuda:LOCAL_RANK`` where the host has a card
@@ -40,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
+import socket
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -126,12 +132,14 @@ def rank_rows(global_batch: int, rank: int, world: int, grad_accum: int = 1) -> 
 
 @dataclasses.dataclass(frozen=True)
 class Launch:
-    """Where this process sits in a multi-process run."""
+    """Where this process sits in a multi-process run. ``local_rank`` and
+    ``local_world`` are None where the launcher does not say them; the
+    rendezvous then counts them (:func:`local_ranks`)."""
 
     rank: int
     world: int
-    local_rank: int
-    local_world: int
+    local_rank: int | None
+    local_world: int | None
     init_method: str
     source: str
 
@@ -140,6 +148,25 @@ def _int(env: Mapping[str, str], key: str, default: int) -> int:
     value = env.get(key, "")
     digits = value.split("(")[0].split(",")[0]  # Slurm's "2(x3)" and "2,1"
     return int(digits) if digits.strip() else default
+
+
+def slurm_tasks_on_node(tasks_per_node: str, node: int) -> int:
+    """Node ``node``'s entry of ``SLURM_TASKS_PER_NODE``: ``8(x2),4`` is
+    8, 8 and 4 tasks on nodes 0, 1 and 2."""
+    counts: list[int] = []
+    for part in tasks_per_node.split(","):
+        n, _, rep = part.partition("(x")
+        counts += [int(n)] * (int(rep.rstrip(")")) if rep else 1)
+    if not 0 <= node < len(counts):
+        raise ValueError(f"SLURM_TASKS_PER_NODE={tasks_per_node!r} has no node {node}")
+    return counts[node]
+
+
+def local_ranks(hosts: Sequence[str], rank: int) -> tuple[int, int]:
+    """(local rank, local world) of ``rank`` from every rank's host name:
+    its place among the ranks on its host, and their count."""
+    mine = [r for r, h in enumerate(hosts) if h == hosts[rank]]
+    return mine.index(rank), len(mine)
 
 
 def _master(env: Mapping[str, str], source: str) -> str:
@@ -168,9 +195,10 @@ def detect_launch(mesh_cfg=None, env: Mapping[str, str] | None = None) -> Launch
             raise ValueError(f"mesh.coordinator={coordinator!r} needs mesh.num_processes "
                              f"and mesh.process_id (got {world}, {rank})")
         method = coordinator if "://" in coordinator else f"tcp://{coordinator}"
-        local = _int(env, "LOCAL_RANK", rank)
-        return Launch(rank, world, local, _int(env, "LOCAL_WORLD_SIZE", world), method,
-                      "mesh.coordinator")
+        if "LOCAL_WORLD_SIZE" not in env:  # counted at the rendezvous
+            return Launch(rank, world, None, None, method, "mesh.coordinator")
+        return Launch(rank, world, _int(env, "LOCAL_RANK", rank),
+                      _int(env, "LOCAL_WORLD_SIZE", world), method, "mesh.coordinator")
     found = None
     if "RANK" in env and "WORLD_SIZE" in env:
         rank, world = _int(env, "RANK", 0), _int(env, "WORLD_SIZE", 1)
@@ -178,8 +206,10 @@ def detect_launch(mesh_cfg=None, env: Mapping[str, str] | None = None) -> Launch
                  _int(env, "LOCAL_WORLD_SIZE", world))
     elif _int(env, "SLURM_NTASKS", 1) > 1:
         world, rank = _int(env, "SLURM_NTASKS", 1), _int(env, "SLURM_PROCID", 0)
-        found = ("Slurm", rank, world, _int(env, "SLURM_LOCALID", rank),
-                 _int(env, "SLURM_NTASKS_PER_NODE", world))
+        per_node = (_int(env, "SLURM_NTASKS_PER_NODE", world) if "SLURM_NTASKS_PER_NODE" in env
+                    else slurm_tasks_on_node(env.get("SLURM_TASKS_PER_NODE", str(world)),
+                                             _int(env, "SLURM_NODEID", 0)))
+        found = ("Slurm", rank, world, _int(env, "SLURM_LOCALID", rank), per_node)
     elif _int(env, "OMPI_COMM_WORLD_SIZE", 1) > 1:
         world, rank = _int(env, "OMPI_COMM_WORLD_SIZE", 1), _int(env, "OMPI_COMM_WORLD_RANK", 0)
         found = ("Open MPI", rank, world, _int(env, "OMPI_COMM_WORLD_LOCAL_RANK", rank),
@@ -309,13 +339,19 @@ def initialize_distributed(launch: Launch, device: str | torch.device | None = N
     cards, ``cpu`` for the CPU)."""
     device_type = torch.device(device or "cuda").type
     count = torch.cuda.device_count() if device_type == "cuda" else 0
-    backend, dev = backend_and_device(device_type, launch.local_rank, launch.local_world, count)
+    store, rank, world = next(dist.rendezvous(launch.init_method, launch.rank, launch.world,
+                                              timeout=TIMEOUT))
+    local_rank, local_world = launch.local_rank, launch.local_world
+    if local_world is None:
+        store.set(f"jpdvt_host/{rank}", socket.gethostname())
+        hosts = [store.get(f"jpdvt_host/{r}").decode() for r in range(world)]
+        local_rank, local_world = local_ranks(hosts, rank)
+    backend, dev = backend_and_device(device_type, local_rank, local_world, count)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     # device_id: NCCL sets up its communicator here, not in the first step.
-    dist.init_process_group(backend, init_method=launch.init_method, world_size=launch.world,
-                            rank=launch.rank, timeout=TIMEOUT,
-                            device_id=dev if backend == "nccl" else None)
+    dist.init_process_group(backend, store=store, world_size=world, rank=rank,
+                            timeout=TIMEOUT, device_id=dev if backend == "nccl" else None)
     control = dist.new_group(backend="gloo", timeout=TIMEOUT) if backend != "gloo" else None
     return DataParallel(launch.rank, launch.world, dev, backend, launch.source, control,
                         owns_group=True)

@@ -6,7 +6,9 @@ a split npz with sha256 per part and for the whole file) and bare
 flattened-params npz files, and maps JAX parameters (a nested dict of
 arrays, or the flat ``params/block_0/attn/qkv/kernel`` keys) to the port's
 ``state_dict``: ``block_{i}`` -> ``blocks.{i}``, ``kernel`` (in, out) ->
-``weight`` (out, in), ``bias`` -> ``bias``. Keys under ``*__bf16`` hold
+``weight`` (out, in), ``bias`` -> ``bias``; an expert-choice MLP's
+``mlp/router`` is a Dense like the others and its ``wi``, ``bi``, ``wo``
+and ``bo`` keep their shapes. Keys under ``*__bf16`` hold
 bfloat16 bit patterns as uint16; they are widened to float32 bit for bit.
 :func:`load_jax_train_state` carries a whole JAX ``TrainState`` (params,
 EMA and the AdamW moments) into the port's train state.
@@ -29,6 +31,8 @@ from ..utils.device import default_device
 
 ARTIFACT_FORMAT = 1
 _BLOCK = re.compile(r"block_(\d+)")
+# ExpertChoiceMoE's stacked expert weights, kept in the JAX layout.
+_MOE_PARAMS = ("wi", "bi", "wo", "bo")
 
 
 def decode_bf16(bits: np.ndarray) -> np.ndarray:
@@ -108,6 +112,8 @@ def params_to_state_dict(params: Mapping) -> tuple[dict[str, np.ndarray], list[s
             sd[".".join(names + ["weight"])] = value.T
         elif parts[-1] == "bias" and value.ndim == 1:
             sd[".".join(names + ["bias"])] = value
+        elif parts[-1] in _MOE_PARAMS and names[-1:] == ["mlp"]:
+            sd[".".join(names + [parts[-1]])] = value
         else:
             unused.append(key)
     return sd, sorted(unused)

@@ -33,12 +33,17 @@ the JAX package leaves it to XLA). ``task.multi_grid=3,4,6`` cycles one
 step per grid; ``data.device_cache`` keeps the whole set on the card (one
 process only), ``device_cache_augment`` rolls and flips its batches;
 ``model.matmul_precision`` sets float32 products (``utils/device.py``).
-Not ported yet, and refused with ``NotImplementedError`` where their keys
-are set, before any weights load: the mesh's other axes (tensor, FSDP,
-pipeline, expert and sequence parallelism), datasets other than the
-synthetic ``waves``, MoE and int8 models, the other attention routes, and
-any geometry that no attention kernel takes
-(``ops.attention.attention_route``).
+``data.dataset`` takes ``synthetic`` (every cue regime; ``coords`` is the
+default), ``met``, ``texmet`` or an image folder (``data.data_path``);
+``model.name=JPDVT-MoE`` and ``model.moe_experts`` train the expert-choice
+MoE (``models/moe.py``). Not ported yet, and refused with
+``NotImplementedError`` where their keys are set, before any weights load:
+the mesh's other axes (tensor, FSDP, pipeline, expert and sequence
+parallelism), ``data.device_stream`` for anything but ``waves`` (as in
+JAX), ``model.quant`` (the JAX trainer trains dense), the other attention
+routes, any geometry that no attention kernel takes
+(``ops.attention.attention_route``), and a dataset with JPEGs where the
+decoder has no libjpeg (when the dataset is built).
 
 SIGTERM/SIGINT: the loop finishes its step, saves a checkpoint and exits
 with code 42 (``PREEMPTED_EXIT``) for a wrapper to relaunch with
@@ -55,12 +60,14 @@ import sys
 import threading
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from ..core.diffusion import create_diffusion
-from ..data import Loader, SyntheticPuzzles
+from ..data import ImageFolderDataset, Loader, METDataset, SyntheticPuzzles, TEXMETDataset
+from ..data.synthetic import CUES
 from ..models import DIT_CONFIGS, create_model
 from ..ops.attention import ATTN_IMPLS, attention_route
 from ..parallel import DataParallel, MeshSpec, maybe_initialize_distributed, rank_rows
@@ -78,6 +85,35 @@ from .validate import Validator, jax_draws
 PREEMPTED_EXIT = 42
 
 
+def build_datasets(cfg: Config):
+    """(train, validation) sets of ``data.dataset`` (JAX ``run_train.py:41-70``):
+    ``met`` and ``texmet`` at their train and val splits, ``synthetic`` (any
+    cue regime; validation: 128 items at seed 7), and otherwise an image
+    folder at ``data.data_path`` (288 px under ``task.crop``, as the
+    reference's ImageNet trainer), which validates on its own items. A set
+    with JPEGs that this machine's decoder cannot take is refused by name
+    (``data/datasets.py``)."""
+    d, size = cfg.data, cfg.model.image_size
+    load_size = 288 if cfg.task.crop else size
+    if d.dataset == "met":
+        return METDataset(d.data_path, "train"), METDataset(d.data_path, "val")
+    if d.dataset == "texmet":
+        return (TEXMETDataset(d.data_path, "train", size),
+                TEXMETDataset(d.data_path, "val", size))
+    if d.dataset == "synthetic":
+        cues = d.synthetic_cues or None
+        return (SyntheticPuzzles(load_size, n=d.synthetic_n,
+                                 position_cues=d.synthetic_position_cues, cues=cues,
+                                 hard_frac=d.synthetic_hard_frac),
+                SyntheticPuzzles(load_size, n=128, seed=7,
+                                 position_cues=d.synthetic_position_cues, cues=cues))
+    train = ImageFolderDataset(d.data_path, load_size)
+    if not len(train):
+        raise ValueError(f"data.dataset={d.dataset!r}: data.data_path={d.data_path!r} holds "
+                         "no .jpg, .jpeg or .png file")
+    return train, train
+
+
 def check_supported(cfg: Config, on_card: bool = True) -> None:
     """Raise ``NotImplementedError`` for every set key the port cannot run,
     and for a model whose attention no kernel takes (``on_card``: the
@@ -87,12 +123,18 @@ def check_supported(cfg: Config, on_card: bool = True) -> None:
                for name in MeshSpec.from_config(mesh).refused()]
     if mesh.pipe_microbatches:
         refused.append("mesh.pipe_microbatches")
-    if d.dataset != "synthetic":
-        refused.append(f"data.dataset={d.dataset!r} (only 'synthetic' is ported)")
-    elif (d.synthetic_cues or ("coords" if d.synthetic_position_cues else "none")) != "waves":
-        refused.append("synthetic cue regimes other than data.synthetic_cues=waves")
-    if m.quant or m.moe_experts or m.moe_capacity:
-        refused.append("model.quant / model.moe_*")
+    if d.dataset == "synthetic":
+        cues = d.synthetic_cues or ("coords" if d.synthetic_position_cues else "none")
+        if cues not in CUES:
+            refused.append(f"data.synthetic_cues={cues!r} (the regimes are {CUES})")
+        elif d.device_stream and cues != "waves":
+            refused.append(f"data.device_stream with data.synthetic_cues={cues!r} (device "
+                           "generation is waves-only, as in the JAX package)")
+    elif d.device_stream:
+        refused.append(f"data.device_stream with data.dataset={d.dataset!r} (device "
+                       "generation is waves-only, as in the JAX package)")
+    if m.quant:
+        refused.append("model.quant (the JAX trainer does not read it and trains dense)")
     if m.attn_impl not in ATTN_IMPLS:
         refused.append(f"model.attn_impl={m.attn_impl!r} (the port runs {ATTN_IMPLS})")
     elif m.name in DIT_CONFIGS:
@@ -181,6 +223,18 @@ def train(cfg: Config, dp: DataParallel, precision: str = "highest") -> int:
     logger.info(f"Config:\n{cfg.to_json()}")
     procs = {**dp.describe(), "matmul_precision": precision}
     logger.info(f"Processes: {json.dumps(procs)}")
+
+    # The data first: a dataset this machine cannot decode is refused
+    # before the model is built.
+    d = cfg.data
+    train_ds, val_ds = build_datasets(cfg)
+    logger.info(f"Data: {d.dataset} ({type(train_ds).__name__}), {len(train_ds)} train items, "
+                f"{len(val_ds)} validation items")
+    # Each rank's rows of every global batch (None: all of them).
+    rows = (rank_rows(d.global_batch_size, dp.rank, dp.world, cfg.train.grad_accum)
+            if dp.world > 1 else None)
+    loader = Loader(train_ds, d.global_batch_size, shuffle=True,
+                    seed=cfg.train.global_seed, num_workers=d.num_workers, rows=rows)
 
     dtype = torch.bfloat16 if cfg.model.compute_dtype == "bfloat16" else torch.float32
     size = cfg.model.image_size
@@ -295,16 +349,6 @@ def train(cfg: Config, dp: DataParallel, precision: str = "highest") -> int:
                                   seed=cfg.train.global_seed, dp=dp)
                   for g in grids]
 
-    d = cfg.data
-    load_size = 288 if cfg.task.crop else size
-    train_ds = SyntheticPuzzles(load_size, n=d.synthetic_n, cues="waves",
-                                hard_frac=d.synthetic_hard_frac)
-    val_ds = SyntheticPuzzles(load_size, n=128, seed=7, cues="waves")
-    # Each rank's rows of every global batch (None: all of them).
-    rows = (rank_rows(d.global_batch_size, dp.rank, dp.world, cfg.train.grad_accum)
-            if dp.world > 1 else None)
-    loader = Loader(train_ds, d.global_batch_size, shuffle=True,
-                    seed=cfg.train.global_seed, num_workers=d.num_workers, rows=rows)
     # The JAX validator's own puzzles where they are committed (grid 3 at
     # 192 px, grid 20 at 320 px), else the port's draws. Every rank
     # validates, as every JAX host does; rank 0 logs.
@@ -317,8 +361,15 @@ def train(cfg: Config, dp: DataParallel, precision: str = "highest") -> int:
 
     cached = None
     if d.device_cache and not d.device_stream:  # the stream takes precedence, as in JAX
-        # The whole set synthesised on the card, bf16 (JAX run_train.py:386-405).
-        cached = train_ds.device_generate_all(device)
+        # The whole set on the card, bf16 (JAX run_train.py:386-405):
+        # synthesised there for waves, else made on the host and copied.
+        if getattr(train_ds, "cues", None) == "waves":
+            cached = train_ds.device_generate_all(device)
+        else:
+            with ThreadPoolExecutor(max(4, d.num_workers)) as pool:
+                stack = np.stack(list(pool.map(train_ds.__getitem__, range(len(train_ds)))))
+            cached = torch.from_numpy(stack).to(device, torch.bfloat16)
+            del stack
         logger.info(f"device-cached dataset: {tuple(cached.shape)} "
                     f"({cached.numel() * cached.element_size() / 1e6:.0f} MB bf16 on {device})")
 

@@ -50,17 +50,21 @@ def apply_matmul_precision(precision: str | None) -> str:
     ``jpdvt_mt_ntnu_tpu/utils/platform.py:15-21`` (``model.matmul_precision``),
     and return torch's name for it:
 
-    ===============================  ===========  ==========================
+    ===============================  ===========  ===============================
     ``model.matmul_precision``       torch        fp32 products on the card
-    ===============================  ===========  ==========================
+    ===============================  ===========  ===============================
     None, ``highest``, ``float32``   ``highest``  fp32 (TF32 off)
     ``high``, ``tensorfloat32``      ``high``     TF32 tensor cores
-    ``default``, ``bfloat16``        ``medium``   bf16 tensor cores
-    ===============================  ===========  ==========================
+    ``default``, ``bfloat16``        ``medium``   TF32 tensor cores, as ``high``
+    ===============================  ===========  ===============================
 
-    None keeps the port's rule of exact fp32 products. It touches only
-    float32 compute: bf16 products are bf16 at every setting. cuDNN's TF32
-    follows (``high`` and ``medium`` allow it)."""
+    torch runs ``medium`` in bf16 only where it has a bf16 algorithm for
+    an fp32 product, and cuBLAS has none: on an H100 (80GB HBM3, 700 W)
+    ``default`` ran the same ``tf32`` GEMM kernels as ``high``
+    (``chip_smoke.py`` phase 16 names them). None keeps the port's rule of
+    exact fp32 products. It touches only float32 compute: bf16 products
+    are bf16 at every setting. cuDNN's TF32 follows (``high`` and
+    ``medium`` allow it)."""
     if precision not in MATMUL_PRECISION:
         raise ValueError(f"model.matmul_precision={precision!r}: one of "
                          f"{sorted(k for k in MATMUL_PRECISION if k)} or None")

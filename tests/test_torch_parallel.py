@@ -38,6 +38,7 @@ Tolerances:
 import json
 import os
 import signal
+import socket
 import sys
 import time
 
@@ -62,7 +63,8 @@ from jpdvt_mt_ntnu_tpu_torch.parallel import (DataParallel, backend_and_device,
                                               detect_launch, local_batch_size,
                                               maybe_initialize_distributed, process_count,
                                               process_index, process_shard, rank_rows)
-from jpdvt_mt_ntnu_tpu_torch.parallel.mesh import MeshSpec
+from jpdvt_mt_ntnu_tpu_torch.parallel.mesh import (Launch, MeshSpec, initialize_distributed,
+                                                   local_ranks, slurm_tasks_on_node)
 from jpdvt_mt_ntnu_tpu_torch.tools.weights import params_to_state_dict
 from jpdvt_mt_ntnu_tpu_torch.train import CheckpointManager, run_train
 from jpdvt_mt_ntnu_tpu_torch.utils.config import Config, apply_overrides
@@ -91,12 +93,55 @@ def _mesh(**kw):
       "OMPI_COMM_WORLD_LOCAL_RANK": "1", "OMPI_COMM_WORLD_LOCAL_SIZE": "2",
       "MASTER_ADDR": "h2", "MASTER_PORT": "7"},
      (1, 2, 1, 2, "tcp://h2:7", "Open MPI")),
-], ids=["torchrun", "slurm", "ompi"])
+    # Two nodes of 8 tasks with no --ntasks-per-node: Slurm sets only
+    # SLURM_TASKS_PER_NODE, whose "8(x2)" names this node's 8.
+    ({"SLURM_NTASKS": "16", "SLURM_PROCID": "9", "SLURM_LOCALID": "1", "SLURM_NODEID": "1",
+      "SLURM_TASKS_PER_NODE": "8(x2)", "MASTER_ADDR": "h1", "MASTER_PORT": "1234"},
+     (9, 16, 1, 8, "tcp://h1:1234", "Slurm")),
+], ids=["torchrun", "slurm", "ompi", "slurm-tasks-per-node"])
 def test_launch_from_each_launchers_environment(env, want):
     got = detect_launch(MESH, env)
     assert (got.rank, got.world, got.local_rank, got.local_world, got.init_method,
             got.source) == want
     assert detect_launch(_mesh(distributed="never"), env) is None
+
+
+@pytest.mark.parametrize("launch", ["slurm-tasks-per-node", "coordinator"])
+def test_two_hosts_of_eight_cards_get_nccl_at_rank_9(launch):
+    """Rank 9 of 2 hosts x 8 cards, where the launcher does not say the
+    ranks per host: 8 ranks share this host's 8 cards, so nccl on cuda:1."""
+    if launch == "coordinator":
+        got = detect_launch(_mesh(coordinator="h0:29500", num_processes=16, process_id=9), {})
+        assert (got.local_rank, got.local_world) == (None, None)  # counted at the rendezvous
+        local_rank, local_world = local_ranks(["h0"] * 8 + ["h1"] * 8, got.rank)
+    else:
+        got = detect_launch(MESH, {"SLURM_NTASKS": "16", "SLURM_PROCID": "9",
+                                   "SLURM_LOCALID": "1", "SLURM_NODEID": "1",
+                                   "SLURM_TASKS_PER_NODE": "8(x2)", "MASTER_ADDR": "h0",
+                                   "MASTER_PORT": "29500"})
+        local_rank, local_world = got.local_rank, got.local_world
+    assert (local_rank, local_world) == (1, 8)
+    assert backend_and_device("cuda", local_rank, local_world, 8) == ("nccl",
+                                                                      torch.device("cuda", 1))
+
+
+def test_slurm_tasks_per_node_forms_and_rank_counting():
+    assert [slurm_tasks_on_node("8(x2),4", n) for n in range(3)] == [8, 8, 4]
+    assert [slurm_tasks_on_node("8,4", n) for n in range(2)] == [8, 4]
+    assert slurm_tasks_on_node("3", 0) == 3
+    with pytest.raises(ValueError, match="no node 2"):
+        slurm_tasks_on_node("8(x2)", 2)
+    assert local_ranks(["a", "b", "a", "b", "a"], 4) == (2, 3)
+    # A one-rank coordinator run counts itself at the rendezvous.
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dp = initialize_distributed(Launch(0, 1, None, None, f"tcp://127.0.0.1:{port}",
+                                       "mesh.coordinator"), "cpu")
+    try:
+        assert (dp.backend, dp.world, dp.rank) == ("gloo", 1, 0)
+    finally:
+        dp.close()
 
 
 def test_launch_from_the_coordinator_and_the_modes():

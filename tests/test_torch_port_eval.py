@@ -15,8 +15,10 @@
   fixture was trained on (coordinate cues): on waves, which it was not
   trained for, its piece distances hold exact and near ties, several
   assignments are optimal, and fp32 summation order picks among them.
-  Greedy and votes run on both. A run cut by ``eval.limit`` and resumed
-  equals one run.
+  Greedy and votes run on both. A folder of 400 x 480 PNGs, larger than
+  the model, is decoded and cropped by both packages' native decoders;
+  the default synthetic regime (coordinate cues) is made by each package
+  from the seed. A run cut by ``eval.limit`` and resumed equals one run.
 - The port's Hungarian solver against scipy and the JAX package's native
   one; votes, DDIM and masked evaluation against the JAX solver on the
   fixture, with the JAX draws, masks and fills given as inputs. fp32
@@ -39,6 +41,7 @@ from scipy.optimize import linear_sum_assignment
 
 from jpdvt_mt_ntnu_tpu.core.diffusion import create_diffusion as jax_create_diffusion
 from jpdvt_mt_ntnu_tpu.data import SyntheticPuzzles as JaxSyntheticPuzzles
+from jpdvt_mt_ntnu_tpu.eval import harness as jax_harness
 from jpdvt_mt_ntnu_tpu.eval import run_eval as jax_run_eval
 from jpdvt_mt_ntnu_tpu.eval.solver import PuzzleSolver as JaxPuzzleSolver
 from jpdvt_mt_ntnu_tpu.models import create_model as jax_create_model
@@ -160,28 +163,64 @@ def coords_pngs(tmp_path_factory):
     return str(d)
 
 
+@pytest.fixture(scope="module")
+def large_pngs(tmp_path_factory):
+    """16 PNGs of the default regime, 400 x 480, larger than the 48 px
+    model: the decoder halves and resamples them before the crop."""
+    from PIL import Image
+
+    d = tmp_path_factory.mktemp("large_pngs")
+    ds = JaxSyntheticPuzzles(480, n=16, seed=11)
+    for i in range(16):
+        u8 = np.round((np.asarray(ds[i]) + 1.0) * 127.5).clip(0, 255).astype(np.uint8)
+        Image.fromarray(u8[:400]).save(d / f"large_{i:02d}.png")
+    return str(d)
+
+
 @pytest.mark.parametrize("data,extra", [
     ("waves", []), ("waves", ["eval.votes=2"]), ("folder", []),
-    ("folder", ["eval.assignment=hungarian"]), ("folder", ["eval.votes=2"])],
+    ("folder", ["eval.assignment=hungarian"]), ("folder", ["eval.votes=2"]),
+    ("folder_large", []), ("coords", [])],
     ids=["waves-greedy", "waves-votes2", "folder-greedy", "folder-hungarian",
-         "folder-votes2"])
-def test_run_eval_journal_equals_jax_row_by_row(tmp_path, tiny_draws, coords_pngs, data,
-                                                extra, monkeypatch):
+         "folder-votes2", "folder-large-greedy", "coords-greedy"])
+def test_run_eval_journal_equals_jax_row_by_row(tmp_path, tiny_draws, coords_pngs, large_pngs,
+                                                data, extra, monkeypatch):
     monkeypatch.chdir(tmp_path)
     draws, noise = tiny_draws
-    args = TINY_ARGS + extra + ([f"data.data_path={coords_pngs}"] if data == "folder" else [])
+    folder = {"folder": coords_pngs, "folder_large": large_pngs}.get(data)
+    args = TINY_ARGS + extra + ([f"data.data_path={folder}"] if folder else [])
+    if data == "coords":  # the synthetic set of the regime, made by each package
+        args = [a for a in args if not a.startswith("data.synthetic_cues")]
     assert jax_run_eval.main(args + ["model.attn_impl=block_interpret",
                                      f"eval.logs_dir={tmp_path}/jax"]) == 0
     assert run_eval.main(args + [
         "device=cpu", "model.attn_impl=block", f"eval.jax_draws={draws}",
         f"eval.jax_noise={noise}", f"eval.logs_dir={tmp_path}/port"]) == 0
     theirs, mine = _journal(tmp_path / "jax"), _journal(tmp_path / "port")
-    names = ([f"synthetic_{i:06d}.png" for i in range(16)] if data == "waves"
-             else [f"coords_{i:02d}.png" for i in range(16)])
+    names = {"folder": [f"coords_{i:02d}.png" for i in range(16)],
+             "folder_large": [f"large_{i:02d}.png" for i in range(16)]}.get(
+                 data, [f"synthetic_{i:06d}.png" for i in range(16)])
     assert [r[0] for r in mine] == names
     assert mine == theirs
-    if data == "folder":  # the regime the fixture solves
+    if data in ("folder", "coords"):  # the regime the fixture solves, at its size
         assert sum(r[1] for r in mine) >= 12
+
+
+def test_folder_images_decode_as_the_jax_harness_decodes(large_pngs):
+    """The harness's decode of a 400 x 480 PNG for a 48 px model against
+    the JAX harness's (its native decoder, built here): within 1e-4 of the
+    [-1, 1] range (the two C++ copies agree to ~1.5e-5 levels)."""
+    cfg = type("Cfg", (), {"input_size": 48})()
+    mine = harness.EvalHarness.__new__(harness.EvalHarness)
+    mine.solver = type("Solver", (), {"cfg": cfg})()
+    theirs = jax_harness.EvalHarness.__new__(jax_harness.EvalHarness)
+    theirs.solver, theirs.use_native_decode = mine.solver, True
+    assert jax_native.available()
+    for i in (0, 7):
+        path = os.path.join(large_pngs, f"large_{i:02d}.png")
+        got, want = mine._load_image(path), theirs._load_image(path)
+        assert got.shape == want.shape == (48, 48, 3)
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("draws_from", ["torch", "jax"])
@@ -308,8 +347,8 @@ def test_synthetic_set_names_and_whole_set_synthesis():
 
 
 @pytest.mark.parametrize("args,match", [
-    (["data.dataset=met"], "data.dataset='met'"),
-    (["data.synthetic_cues=coords"], "cue regimes"),
+    (["mesh.ep=2"], "mesh.ep"),
+    (["mesh.pipe=2"], "mesh.pipe"),
     (["model.attn_impl=ring"], "attn_impl='ring'"),
     (["mesh.seq=2"], "mesh.seq"),
     (["model.quant=int4"], "model.quant"),

@@ -4,9 +4,9 @@ The GPU machine has torch, numpy, scipy and einops, but no jax, flax,
 optax, orbax, ml_dtypes, sklearn, fastapi, uvicorn or pydantic, and the
 port must not need PIL. A child interpreter whose import system refuses
 those (and ``jpdvt_mt_ntnu_tpu``) imports every module of the port (the
-training, eval, serving and ``parallel`` modules included: the eval harness imports PIL
-only to decode or write PNG files in folder mode, and the service decodes
-and writes its images without it) and
+training, eval, serving, ``parallel``, dataset, MoE and library modules
+included: the datasets, the eval harness and the service decode, transform
+and write their images without PIL, and the data split needs no sklearn) and
 ``chip_smoke`` (without running its ``main``). Output goes to a file, not a
 pipe, so a chatty child cannot block.
 """
@@ -56,7 +56,9 @@ def test_port_and_chip_smoke_import_without_jax(tmp_path):
                 "eval.journal", "eval.solver", "ops.native", "ops.attention",
                 "serve.app", "serve.service", "serve.plugins", "serve.gate",
                 "serve.quant_gate", "serve.png", "ops.quant", "data.transforms",
-                "parallel", "parallel.mesh"):
+                "parallel", "parallel.mesh", "data.datasets", "data.synthetic",
+                "models.moe", "core.likelihood", "core.timestep_sampler",
+                "utils.profiling"):
         assert f"jpdvt_mt_ntnu_tpu_torch.{mod}" in modules
     out = tmp_path / "child.log"
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

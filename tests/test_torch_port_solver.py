@@ -155,8 +155,8 @@ def test_waves_puzzles_equal_jax(hard_frac):
     mine = SyntheticPuzzles(64, n=12, seed=5, hard_frac=hard_frac).batch()
     ref = JaxSyntheticPuzzles(64, n=12, seed=5, cues="waves", hard_frac=hard_frac)
     np.testing.assert_array_equal(mine, np.stack([ref[i] for i in range(12)]))
-    with pytest.raises(NotImplementedError):
-        SyntheticPuzzles(64, cues="coords")
+    with pytest.raises(NotImplementedError):  # the other regimes are made on the host only
+        SyntheticPuzzles(64, cues="coords").device_batch([0], "cpu")
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

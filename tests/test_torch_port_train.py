@@ -461,8 +461,8 @@ def test_warm_start_resets_ema_and_rearms_warmup(tmp_path, source):
 
 
 def test_run_train_refuses_what_is_not_ported():
-    for extra in (["mesh.model=2"], ["mesh.fsdp=2"], ["model.moe_experts=4"],
-                  ["data.dataset=met"], ["data.synthetic_cues=coords"],
+    for extra in (["mesh.model=2"], ["mesh.fsdp=2"], ["mesh.ep=2"],
+                  ["mesh.pipe=2"], ["mesh.pipe_microbatches=2"],
                   ["model.attn_impl=xla"]):
         with pytest.raises(NotImplementedError):
             run_train.main(TINY + extra)
