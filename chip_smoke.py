@@ -93,7 +93,7 @@ then the fused attention sublayer K3 and the evaluation path:
 
 ``python3 chip_smoke.py --grid20-artifact`` (the copy must then hold
 ``waves20_hard_step32700`` in place of waves3) skips the phases that read
-the waves3 artifact (3, 4, 7, 8, 15, 16, 17), warm-starts phase 11 from the artifact
+the waves3 artifact (3, 4, 7, 8, 15-19), warm-starts phase 11 from the artifact
 at step 32,700 (losses <= 1/10 of a fresh model's on the same batches and
 draws), solves the fixed set in phase 12 with the EMA model beside the
 unchanged artifact, and runs the ``run_train`` CLI at grid 20 (warm start,
@@ -117,9 +117,10 @@ then the service:
     scored against its own puzzle, fewer batches than requests, 12 x 250
     and 12 K1 launches a batch; two rounds each, the first paying the
     solver's first call), K1 at the batches' shape, the committed
-    400 x 480 JPEG (where libjpeg was found at build time; else its 500)
-    and its PNG twin through ``/api/solve_puzzle`` and the decoder held to
-    PIL's ADM crop; an int8 service on the same artifact whose strict
+    400 x 480 JPEG (the port's own decoder) and its PNG twin through
+    ``/api/solve_puzzle`` and ``/api/solve`` (the same crop, bit for bit,
+    and the same permutation) and the decoder held to PIL's ADM crop; an
+    int8 service on the same artifact whose strict
     start-up gate (32 puzzles, tolerance 0.02) passes, printed beside the
     JAX package's TPU reading, and that solves the 16 in fast; the
     ``quant_gate`` CLI (exit 0); request latency p50/p99 and requests/s,
@@ -168,22 +169,60 @@ then the data users train on and the expert-choice MoE (skipped under
     and a folder: each transform of ``data/transforms.py`` against PIL (an
     oracle on this machine only), 3 ``run_train`` steps on TEXMET at batch
     16, ``run_eval`` on the folder with the waves3 artifact (native decode,
-    its journal equal to an in-process harness's), and MET over ``.jpg``
-    files and a TEXMET split listing a ``.jpg`` refused by name where the
-    decoder has no libjpeg.
+    its journal equal to an in-process harness's).
+
+then JPEG, which the port decodes with its own code (``ops/csrc/
+decode.cpp``; no libjpeg on this machine or in the port), skipped under
+``--grid20-artifact``:
+
+18. every committed fixture of ``tests/golden/torch_jpeg`` decoded
+    bit-equal to its committed libjpeg decode and to this machine's PIL (an
+    oracle only), the arithmetic-coded one refused by name; ``run_train``
+    on MET (``METDataset`` over 3,048 copies of the fixtures, its
+    augmentations, 192 px through ``task.crop``), 3 steps at batch 16, and
+    on a TEXMET split of 64 JPEG scans of 640 x 480 (written by PIL), 3
+    steps at batch 16, 12 K1 + 12 K2 a step; ``run_eval`` on a folder of
+    those JPEGs with the waves3 artifact, its journal equal to an
+    in-process harness's; the host cost: ms per decode of a 1,700 x 2,300
+    scan JPEG and of eight 1.9-5.0 MP photo JPEGs (baseline and
+    progressive, quality 90) beside PIL's SIMD libjpeg-turbo (a yardstick),
+    one MET item's ms and the decode's share of it, and the ``Loader``'s
+    items/s over MET's train split of those photos at
+    ``data.num_workers=8``.
+
+then tensor parallelism and FSDP in the trainer (``parallel/sharding.py``),
+skipped under ``--grid20-artifact``:
+
+19. ``run_train`` warm-started from the waves3 artifact, 6 steps at global
+    batch 96 in bf16 (phase 16's settings) on ``mesh.model=2`` and on
+    ``mesh.fsdp=2``, 2 ranks sharing the card over gloo, and on one process
+    (each a subprocess): 12 K1 + 12 K2 launches per rank per step at the
+    layout's shapes ((96, 6, 144, 64) under TP, (48, 12, 144, 64) under
+    FSDP), the per-step losses within 2% and every final EMA element within
+    20 lr of one process's; ``mesh.model=2`` against one process again in
+    fp32 (fp32 products, 3 steps), the losses within 2e-5 and the EMA
+    within 1e-5, which sets rounding apart from a fault of the reduce;
+    each rank's peak memory beside the bytes the
+    layout predicts for its fp32 state, each 2-rank checkpoint restored
+    bit-equal into one process; then K1 and K2 at both shapes against their
+    plain versions, timed by CUDA events; and one grid-20 step (320 px, N = 400, batch 96,
+    random weights) on ``mesh.model=2``: 12 K4 + 12 K5 + 12 K6 a rank at
+    (96, 6, 400, 64).
 
 The last three lines are the ``kernels`` JSON (each kernel with the
 launches of its own path and its shape: K1 for the solve, the train step,
-the service, the 2-rank train step and the MoE train step, K2 for the
-train step, the 2-rank one and the MoE one, K3 on the eval path and the
-training route, K4, K5, K6), the card's name and power limit, and the
-device JSON.
+the service, the 2-rank train step, the MoE train step and the TP and
+FSDP train steps, K2 for the train step, the 2-rank one, the MoE one and
+the TP and FSDP ones, K3 on the eval path and the training route, K4, K5,
+K6), the card's name and power limit, and the device JSON.
 """
 
 from __future__ import annotations
 
 import argparse
+import base64
 import contextlib
+import functools
 import json
 import os
 import signal
@@ -355,19 +394,20 @@ def bound_ms(b: int, h: int, n: int, d: int, dtype: torch.dtype,
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def qkv_views(b: int, n: int, dtype: torch.dtype, gen: torch.Generator, offset: int = 0):
+def qkv_views(b: int, n: int, dtype: torch.dtype, gen: torch.Generator, offset: int = 0,
+              heads: int = HEADS):
     """q, k, v as the DiT hands them to K1: strided views of (B, N, 3*H*Dh),
     ``offset`` elements into their buffer (2 puts bf16 rows off 16 bytes)."""
-    f = 3 * HEADS * HEAD_DIM
+    f = 3 * heads * HEAD_DIM
     buf = torch.randn((offset + b * n * f,), generator=gen, device="cuda").to(dtype)
     qkv = buf[offset:].view(b, n, f)
-    return qkv.reshape(b, n, 3, HEADS, HEAD_DIM).permute(2, 0, 3, 1, 4).unbind(0)
+    return qkv.reshape(b, n, 3, heads, HEAD_DIM).permute(2, 0, 3, 1, 4).unbind(0)
 
 
-def fused_grads(b: int, n: int, dtype: torch.dtype):
+def fused_grads(b: int, n: int, dtype: torch.dtype, heads: int = HEADS):
     """dq, dk, dv as the train step has them: slots of one (B, N, 3*H*Dh) buffer."""
-    buf = torch.empty((b, n, 3 * HEADS * HEAD_DIM), dtype=dtype, device="cuda")
-    return buf.view(b, n, 3, HEADS, HEAD_DIM).permute(2, 0, 3, 1, 4).unbind(0)
+    buf = torch.empty((b, n, 3 * heads * HEAD_DIM), dtype=dtype, device="cuda")
+    return buf.view(b, n, 3, heads, HEAD_DIM).permute(2, 0, 3, 1, 4).unbind(0)
 
 
 def kernel_ms(fn, reps: int) -> float:
@@ -419,9 +459,10 @@ def sdpa_fwd_ms(q, k, v, reps: int) -> tuple:
     return sdpa_by_backend(q, lambda: (cuda_ms(fwd, reps), kernel_ms(fwd, reps)))
 
 
-def sdpa_bwd_ms(q, k, v, do, reps: int) -> tuple:
+def sdpa_bwd_ms(q, k, v, do, reps: int, device_time: bool = True) -> tuple:
     """SDPA's forward and backward less its forward on the same q, k, v and
-    dO under each backend (``sdpa_by_backend``)."""
+    dO under each backend (``sdpa_by_backend``; without ``device_time``,
+    by CUDA events only)."""
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
 
     def fwd():
@@ -430,54 +471,56 @@ def sdpa_bwd_ms(q, k, v, do, reps: int) -> tuple:
     def fwd_bwd():
         torch.autograd.grad(fwd(), leaves, do)
 
-    return sdpa_by_backend(q, lambda: (cuda_ms(fwd_bwd, reps) - cuda_ms(fwd, reps),
-                                       kernel_ms(fwd_bwd, reps) - kernel_ms(fwd, reps)))
+    return sdpa_by_backend(q, lambda: (
+        cuda_ms(fwd_bwd, reps) - cuda_ms(fwd, reps),
+        kernel_ms(fwd_bwd, reps) - kernel_ms(fwd, reps) if device_time else None))
 
 
 def check_k1(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
-             timed: bool) -> dict:
-    q, k, v = qkv_views(b, n, dtype, gen)
+             timed: bool, heads: int = HEADS) -> dict:
+    q, k, v = qkv_views(b, n, dtype, gen, heads=heads)
     out = attn_ops.attention(q, k, v)
     torch.cuda.synchronize()
     ref = attn_ops.attention_reference(q, k, v)
     err = (out.float() - ref.float()).abs().max().item()
     if not err <= TOL[dtype]:
-        raise AssertionError(f"K1 {(b, HEADS, n, HEAD_DIM)} {dtype}: max abs err "
+        raise AssertionError(f"K1 {(b, heads, n, HEAD_DIM)} {dtype}: max abs err "
                              f"{err} > {TOL[dtype]}")
     if not torch.equal(out, attn_ops.attention(q, k, v)):
-        raise AssertionError(f"K1 {(b, HEADS, n, HEAD_DIM)} {dtype}: two calls differ")
-    row = {"shape": [b, HEADS, n, HEAD_DIM], "dtype": str(dtype).split(".")[-1],
+        raise AssertionError(f"K1 {(b, heads, n, HEAD_DIM)} {dtype}: two calls differ")
+    row = {"shape": [b, heads, n, HEAD_DIM], "dtype": str(dtype).split(".")[-1],
            "max_abs_err": err, "tol": TOL[dtype], "bit_equal": True}
     if timed:
         row["ms"] = cuda_ms(lambda: attn_ops.attention(q, k, v), 200)
         row["plain_ms"] = cuda_ms(lambda: attn_ops.attention_reference(q, k, v), 50)
         row["library_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(q, k, v), 200)
-        row["bound_ms"], row["bound_by"] = bound_ms(b, HEADS, n, HEAD_DIM, dtype)
+        row["bound_ms"], row["bound_by"] = bound_ms(b, heads, n, HEAD_DIM, dtype)
     log("K1 " + json.dumps(row))
     return row
 
 
 def check_k2(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
-             timed: bool, offset: int = 0) -> dict:
+             timed: bool, offset: int = 0, heads: int = HEADS,
+             device_time: bool = True) -> dict:
     """K2 on q/k/v views of a fused qkv (``offset`` elements into its
     buffer) and dO of a (B, N, H*Dh) gradient, writing into one fused
     gradient buffer, as the train step calls it. Two calls give the same
     bits; with an offset, so do aligned copies of q, k, v."""
-    q, k, v = qkv_views(b, n, dtype, gen, offset)
-    do = torch.randn((b, n, HEADS * HEAD_DIM), generator=gen, device="cuda").to(dtype)
-    do = do.view(b, n, HEADS, HEAD_DIM).transpose(1, 2)
-    out = fused_grads(b, n, dtype)
+    q, k, v = qkv_views(b, n, dtype, gen, offset, heads)
+    do = torch.randn((b, n, heads * HEAD_DIM), generator=gen, device="cuda").to(dtype)
+    do = do.view(b, n, heads, HEAD_DIM).transpose(1, 2)
+    out = fused_grads(b, n, dtype, heads)
     attn_ops.attention_bwd(q, k, v, do, out=out)
-    again = attn_ops.attention_bwd(q, k, v, do, out=fused_grads(b, n, dtype))
+    again = attn_ops.attention_bwd(q, k, v, do, out=fused_grads(b, n, dtype, heads))
     torch.cuda.synchronize()
     if not all(torch.equal(x, y) for x, y in zip(out, again)):
-        raise AssertionError(f"K2 {(b, HEADS, n, HEAD_DIM)} {dtype}: two calls differ")
+        raise AssertionError(f"K2 {(b, heads, n, HEAD_DIM)} {dtype}: two calls differ")
     if offset:
         copies = attn_ops.attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), do,
-                                        out=fused_grads(b, n, dtype))
+                                        out=fused_grads(b, n, dtype, heads))
         if not all(torch.equal(x, y) for x, y in zip(out, copies)):
-            raise AssertionError(f"K2 {(b, HEADS, n, HEAD_DIM)} {dtype}: views off 16-byte "
+            raise AssertionError(f"K2 {(b, heads, n, HEAD_DIM)} {dtype}: views off 16-byte "
                                  f"alignment differ from aligned copies")
     errs = {}
     for name, got, want in zip(("dq", "dk", "dv"), out,
@@ -485,21 +528,22 @@ def check_k2(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
         scale = want.float().abs().max().item()
         err = (got.float() - want.float()).abs().max().item()
         if not err <= K2_TOL[dtype] * scale:
-            raise AssertionError(f"K2 {name} {(b, HEADS, n, HEAD_DIM)} {dtype}: max abs "
+            raise AssertionError(f"K2 {name} {(b, heads, n, HEAD_DIM)} {dtype}: max abs "
                                  f"err {err} > {K2_TOL[dtype]} x {scale}")
         errs[name] = [err, scale]
-    row = {"shape": [b, HEADS, n, HEAD_DIM], "dtype": str(dtype).split(".")[-1],
+    row = {"shape": [b, heads, n, HEAD_DIM], "dtype": str(dtype).split(".")[-1],
            "max_abs_err": max(e for e, _ in errs.values()), "err_and_scale": errs,
            "rel_tol": K2_TOL[dtype], "bit_equal": True, "q_offset_elements": offset,
            "q_aligned_16": q.data_ptr() % 16 == 0}
     if timed:
         row["ms"] = cuda_ms(lambda: attn_ops.attention_bwd(q, k, v, do, out=out), 50)
-        row["kernel_device_ms"] = kernel_ms(
-            lambda: attn_ops.attention_bwd(q, k, v, do, out=out), 20)
+        if device_time:
+            row["kernel_device_ms"] = kernel_ms(
+                lambda: attn_ops.attention_bwd(q, k, v, do, out=out), 20)
         row["plain_ms"] = cuda_ms(lambda: attn_ops.attention_bwd_reference(q, k, v, do), 10)
         (row["library_ms"], row["library_backend"], row["library_ms_by_backend"],
-         row["library_kernel_ms_by_backend"]) = sdpa_bwd_ms(q, k, v, do, 50)
-        row["bound_ms"], row["bound_by"] = bound_ms(b, HEADS, n, HEAD_DIM, dtype,
+         row["library_kernel_ms_by_backend"]) = sdpa_bwd_ms(q, k, v, do, 50, device_time)
+        row["bound_ms"], row["bound_by"] = bound_ms(b, heads, n, HEAD_DIM, dtype,
                                                     tensors=7, products=5)
     log("K2 " + json.dumps(row))
     return row
@@ -1556,9 +1600,10 @@ def serve_grid3(card: str, gen: torch.Generator) -> dict:
         jpeg = f.read()
     with open(SERVE_PNG, "rb") as f:
         png_twin = f.read()
-    sources = {"png": png_twin, **({"jpeg": jpeg} if "jpeg" in native.formats() else {})}
-    for name, data in sources.items():
-        diff = np.abs(native.decode_center_crop(data, 192) - want)
+    crops = {}
+    for name, data in (("png", png_twin), ("jpeg", jpeg)):
+        crops[name] = native.decode_center_crop(data, 192)
+        diff = np.abs(crops[name] - want)
         log(f"  decode {name} 400x480 -> 192: max |diff| {diff.max() * 127.5:.3f} levels, "
             f"mean {diff.mean() * 127.5:.4f} levels against PIL's ADM crop")
         if diff.max() > ADM_TOL or diff.mean() > ADM_MEAN_TOL:
@@ -1566,19 +1611,29 @@ def serve_grid3(card: str, gen: torch.Generator) -> dict:
         status, body = http(f"{url}/api/solve_puzzle", *multipart({"file": data}))
         if status != 200 or sorted(body["details"]["predicted_order"]) != list(range(9)):
             raise AssertionError(f"/api/solve_puzzle {name}: {status}")
-    if "jpeg" not in native.formats():
-        status, body = http(f"{url}/api/solve_puzzle", *multipart({"file": jpeg}))
-        if status != 500 or "libjpeg" not in body["detail"]:
-            raise AssertionError(f"a JPEG without libjpeg: {status} {body}")
-        log(f"  JPEG without libjpeg on this machine: 500, {body['detail']!r}")
+    # The twin is PIL's decode of the JPEG: the port's decode equals it, so
+    # the crops are the same bits and /api/solve answers the same order.
+    if not np.array_equal(crops["jpeg"], crops["png"]):
+        raise AssertionError("the JPEG's crop differs from its PNG twin's")
+    orders = {}
+    for name, data in (("png", png_twin), ("jpeg", jpeg)):
+        status, body = http(f"{url}/api/solve", json.dumps(
+            {"image_data": base64.b64encode(data).decode(), "model_id": "fast"}).encode(),
+            {"X-API-Key": SERVE_KEY})
+        if status != 200:
+            raise AssertionError(f"/api/solve {name}: {status} {body}")
+        orders[name] = body["predicted_order"]
+    log(f"  /api/solve of the JPEG and its PNG twin: 200 and 200, orders {orders}")
+    if orders["jpeg"] != orders["png"]:
+        raise AssertionError(f"the JPEG and its PNG twin solve differently: {orders}")
+    out["jpeg_order"] = orders["jpeg"]
     png192 = pngs[0]
     out["host_us"] = {"decode_png_192": host_us(lambda: native.decode_center_crop(png192, 192)),
                       "decode_png_400x480": host_us(
                           lambda: native.decode_center_crop(png_twin, 192)),
+                      "decode_jpeg_400x480": host_us(
+                          lambda: native.decode_center_crop(jpeg, 192)),
                       "encode_png_192": host_us(lambda: array_to_b64(x16[0]))}
-    if "jpeg" in native.formats():
-        out["host_us"]["decode_jpeg_400x480"] = host_us(
-            lambda: native.decode_center_crop(jpeg, 192))
     log(f"  host µs: decode_center_crop and the response PNG: {json.dumps(out['host_us'])}")
     # 6. The int8 service: its startup gate, the 16 puzzles in fast, the CLI.
     zero_counts()
@@ -1720,17 +1775,61 @@ def counting_steps():
         run_train.make_train_step = make_step
 
 
+SHAPED = {"k1": (attn_ops, "attention"), "k2": (attn_ops, "attention_bwd"),
+          "k4": (flash_ops, "flash_attention_fwd"), "k5": (flash_ops, "flash_dq"),
+          "k6": (flash_ops, "flash_dkv")}
+
+
+@contextlib.contextmanager
+def launch_shapes():
+    """Record the (B, H, N, Dh) of every K1, K2, K4, K5 and K6 launch while
+    the context is open: yields {"k1": {"BxHxNxDh": count}, ...}."""
+    seen: dict = {name: {} for name in SHAPED}
+    originals = {name: getattr(mod, fn) for name, (mod, fn) in SHAPED.items()}
+
+    class Recording:
+        """The launcher in its module's namespace: records q's shape, calls
+        it; its ``launches`` (which the launcher counts through its global
+        name) are the launcher's own."""
+
+        def __init__(self, name):
+            self.name, self.fn = name, originals[name]
+
+        @property
+        def launches(self):
+            return self.fn.launches
+
+        @launches.setter
+        def launches(self, n):
+            self.fn.launches = n
+
+        def __call__(self, q, *args, **kw):
+            key = "x".join(map(str, q.shape))
+            seen[self.name][key] = seen[self.name].get(key, 0) + 1
+            return self.fn(q, *args, **kw)
+
+    for name, (mod, fn) in SHAPED.items():
+        setattr(mod, fn, Recording(name))
+    try:
+        yield {k: v for k, v in seen.items()}
+    finally:
+        for name, (mod, fn) in SHAPED.items():
+            setattr(mod, fn, originals[name])
+
+
 def ddp_child(out: str, argv: list[str]) -> int:
-    """One process of phase 16 (``chip_smoke.py --ddp-child <out.json>
-    train|eval <overrides>``): ``run_train.main`` or ``run_eval.main`` as
-    a rank of its launch (torchrun's environment), each train step's
-    kernel launches recorded, written to ``out`` with the exit code."""
+    """One process of phases 16 and 19 (``chip_smoke.py --ddp-child
+    <out.json> train|eval <overrides>``): ``run_train.main`` or
+    ``run_eval.main`` as a rank of its launch (torchrun's environment),
+    each train step's kernel launches and the attention kernels' launch
+    shapes recorded, written to ``out`` with the exit code."""
     zero_counts()
-    with counting_steps() as per_step:
+    with counting_steps() as per_step, launch_shapes() as shapes:
         code = (run_eval.main if argv[0] == "eval" else run_train.main)(argv[1:])
     with open(out, "w") as f:
         json.dump({"exit": code, "rank": int(os.environ.get("RANK", 0)), "per_step": per_step,
-                   "launches": counts(), "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30
+                   "launches": counts(), "shapes": shapes,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30
                    if torch.cuda.is_available() else 0.0}, f)
     return code
 
@@ -2295,7 +2394,7 @@ def pil_transforms_agree(tmp: str) -> dict:
 
     worst, differ, total = {}, {}, {}
     for k in range(4):
-        path = os.path.join(tmp, "texmet", "images", f"scan_{k:03d}.png")
+        path = os.path.join(tmp, "texmet_png", "images", f"scan_{k:03d}.png")
         with open(path, "rb") as f:
             a = native.decode_rgb(f.read())
         im = Image.open(path).convert("RGB")
@@ -2329,18 +2428,28 @@ def pil_transforms_agree(tmp: str) -> dict:
     return {"pil": pil_version, "max_levels": worst, "share_differing": share}
 
 
-def write_datasets(tmp: str) -> tuple[str, str]:
-    """64 PNG scans of 640 x 480 in a TEXMET layout (48 train, 8 val, 8
-    test) and the same files as a folder of photographs."""
-    texmet, folder = os.path.join(tmp, "texmet"), os.path.join(tmp, "photos")
+def write_jpeg(path: str, img: np.ndarray, quality: int = 90) -> None:
+    """A JPEG written by PIL (test data only: the port decodes it)."""
+    from PIL import Image
+
+    Image.fromarray(img).save(path, "JPEG", quality=quality)
+
+
+def write_datasets(tmp: str, ext: str = ".png") -> tuple[str, str]:
+    """64 scans of 640 x 480 (PNG, or JPEG with ``ext=".jpg"``) in a TEXMET
+    layout (48 train, 8 val, 8 test) and the same files as a folder of
+    photographs."""
+    kind = ext.lstrip(".")
+    texmet, folder = os.path.join(tmp, f"texmet_{kind}"), os.path.join(tmp, f"photos_{kind}")
     os.makedirs(os.path.join(texmet, "images"))
     os.makedirs(folder)
+    write = write_png if ext == ".png" else write_jpeg
     names = []
     for i in range(TEXMET_FILES):
         img = wave_photo(i)
-        names.append(f"scan_{i:03d}.png")
-        write_png(os.path.join(texmet, "images", names[-1]), img)
-        write_png(os.path.join(folder, names[-1]), img)
+        names.append(f"scan_{i:03d}{ext}")
+        write(os.path.join(texmet, "images", names[-1]), img)
+        write(os.path.join(folder, names[-1]), img)
     for split, part in (("train", names[:48]), ("val", names[48:56]), ("test", names[56:])):
         with open(os.path.join(texmet, f"{split}_files.txt"), "w") as f:
             f.write("\n".join(part) + "\n")
@@ -2349,74 +2458,37 @@ def write_datasets(tmp: str) -> tuple[str, str]:
 
 def check_folder_eval(tmp: str, folder: str) -> dict:
     """Repair 3.4 on the card: ``run_eval`` on the folder of 640 x 480 PNGs
-    with the waves3 artifact, decoded by the native decoder; its journal
-    equals an in-process harness's on the same files and draws."""
+    (or JPEGs) with the waves3 artifact, decoded by the native decoder; its
+    journal equals an in-process harness's on the same files and draws."""
     from jpdvt_mt_ntnu_tpu_torch.eval.harness import EvalHarness, find_images
 
     args = ["data.dataset=synthetic", f"data.data_path={folder}", f"eval.checkpoint={ARTIFACT}",
             "eval.seed=11", "eval.batch_size=32", "diffusion.sampler_mode=fast"]
     zero_counts()
     t0 = time.perf_counter()
-    code = run_eval.main(args + [f"eval.logs_dir={tmp}/folder_eval"])
+    logs = os.path.join(tmp, f"eval_{os.path.basename(folder)}")
+    code = run_eval.main(args + [f"eval.logs_dir={logs}"])
     wall = time.perf_counter() - t0
-    rows = journal_list(os.path.join(tmp, "folder_eval", EVAL_JOURNALS[0]))
+    rows = journal_list(os.path.join(logs, EVAL_JOURNALS[0]))
     model, cfg = create_model("JPDVT", 192, dtype=torch.bfloat16)
     model.load_state_dict(load_artifact(ARTIFACT)[0])
     solver = PuzzleSolver(model, cfg, create_diffusion("250"), grid_size=3, mode="fast", seed=11)
-    harness = EvalHarness(solver, logs_dir=f"{tmp}/folder_again", batch_size=32, seed=11)
-    decoded = harness._load_image(os.path.join(folder, "scan_000.png"))
-    with open(os.path.join(folder, "scan_000.png"), "rb") as f:
+    harness = EvalHarness(solver, logs_dir=f"{logs}_again", batch_size=32, seed=11)
+    first = find_images(folder)[0]
+    decoded = harness._load_image(first)
+    with open(first, "rb") as f:
         direct = native.decode_center_crop(f.read(), 192)
     harness.run_paths(find_images(folder))
-    again = journal_list(os.path.join(tmp, "folder_again", EVAL_JOURNALS[0]))
+    again = journal_list(os.path.join(f"{logs}_again", EVAL_JOURNALS[0]))
     acc = sum(r[1] for r in rows) / max(1, len(rows))
     out = {"exit": code, "rows": len(rows), "puzzle_acc": acc, "wall_s": wall,
            "decode_is_native": bool(np.array_equal(decoded, direct))}
-    log(f"  run_eval on a folder of {TEXMET_FILES} PNGs of {TEXMET_W} x {TEXMET_H}: "
-        + json.dumps(out))
+    log(f"  run_eval on a folder of {TEXMET_FILES} {os.path.splitext(first)[1]} files of "
+        f"{TEXMET_W} x {TEXMET_H}: " + json.dumps(out))
     if code != 0 or len(rows) != TEXMET_FILES or rows != again or not out["decode_is_native"]:
         raise AssertionError(f"folder eval: exit {code}, {len(rows)} rows, equal to the "
                              f"in-process harness {rows == again}")
     return out
-
-
-def check_refusals(tmp: str, texmet: str) -> dict:
-    """MET over .jpg files and a TEXMET split that lists a .jpg, refused by
-    name where the decoder has no libjpeg."""
-    met = os.path.join(tmp, "met")
-    for sub in ("a", "b", "c"):
-        os.makedirs(os.path.join(met, sub))
-        for i in range(2):
-            with open(os.path.join(met, sub, f"art{i}.jpg"), "wb") as f:
-                f.write(b"\xff\xd8\xff\xe0 not decoded: refused by its name")
-    jpeg_split = os.path.join(tmp, "texmet_jpeg")
-    os.makedirs(os.path.join(jpeg_split, "images"))
-    with open(os.path.join(jpeg_split, "images", "scan.jpg"), "wb") as f:
-        f.write(b"\xff\xd8\xff\xe0")
-    with open(os.path.join(jpeg_split, "train_files.txt"), "w") as f:
-        f.write("scan.jpg\n")
-    if "jpeg" in native.formats():
-        log("  the decoder has libjpeg here: MET and JPEG splits are taken, no refusal to check")
-        return {"refused": False}
-    msgs = {}
-    for name, call in (
-            ("met", lambda: run_train.main([f"train.exp_dir={tmp}/met_exp", "data.dataset=met",
-                                            f"data.data_path={met}"])),
-            ("texmet_jpeg", lambda: run_train.main([f"train.exp_dir={tmp}/tj_exp",
-                                                    "data.dataset=texmet",
-                                                    f"data.data_path={jpeg_split}"])),
-            ("met_eval", lambda: run_eval.main(["data.dataset=met", f"data.data_path={met}",
-                                                f"eval.logs_dir={tmp}/met_logs"]))):
-        try:
-            call()
-        except NotImplementedError as e:
-            msgs[name] = str(e)
-        else:
-            raise AssertionError(f"{name}: not refused without libjpeg")
-        if "libjpeg" not in msgs[name]:
-            raise AssertionError(f"{name}: refused without naming libjpeg: {msgs[name]}")
-    log("  refused without libjpeg: " + json.dumps(msgs))
-    return {"refused": True, "messages": msgs}
 
 
 def data_moe_grid3(card: str, gen: torch.Generator) -> dict:
@@ -2470,9 +2542,402 @@ def data_moe_grid3(card: str, gen: torch.Generator) -> dict:
              "diffusion.sampler_mode=fast", f"train.exp_dir={tmp}/texmet_exp"],
             "TEXMET, 3 steps at batch 16", {"k1": 12, "k2": 12})
         out["folder_eval"] = check_folder_eval(tmp, folder)
-        out["refusals"] = check_refusals(tmp, texmet)
         log(f"phase 17 datasets: {time.perf_counter() - t0:.2f} s")
     log(f"phase data-moe: {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+# ------------------------------------------------------------------ phase 18
+
+JPEG_GOLDEN = os.path.join(REPO, "tests", "golden", "torch_jpeg")
+# MET keeps 2,000 files for test and 1,000 for val: 48 train items, 3 steps of 16.
+MET_FILES, MET_BATCH = 3048, 16
+SCAN_W, SCAN_H = 1700, 2300  # a scan past TEXMET's 2,048 px resize
+LOADER_WORKERS, LOADER_ITEMS = 8, 512
+# Photographs of 1.9-5.0 MP (w, h), each written baseline and progressive
+# at quality 90 by PIL, for the loader's rate at the size of real photos.
+PHOTO_SIZES = ((1600, 1200), (2048, 1536), (1536, 2304), (2592, 1944))
+PHOTO_NOISE = 8.0  # levels of Gaussian grain: about 2 bits a pixel at quality 90, a photo's
+
+
+def check_jpeg_fixtures() -> dict:
+    """Every committed fixture decoded bit-equal to its committed libjpeg
+    decode and to this machine's PIL (an oracle only); the arithmetic-coded
+    one refused by name."""
+    from PIL import Image, __version__ as pil_version
+
+    with np.load(os.path.join(JPEG_GOLDEN, "decodes.npz")) as z:
+        want = dict(z)
+    differ = {}
+    for name, ref in sorted(want.items()):
+        path = os.path.join(JPEG_GOLDEN, f"{name}.jpg")
+        with open(path, "rb") as f:
+            got = native.decode_rgb(f.read())
+        pil = np.asarray(Image.open(path).convert("RGB"))
+        counts_ = [int((got != r).sum()) if got.shape == r.shape else -1 for r in (ref, pil)]
+        if counts_ != [0, 0]:
+            differ[name] = counts_
+    try:
+        with open(os.path.join(JPEG_GOLDEN, "arithmetic_61x77.jpg"), "rb") as f:
+            native.decode_rgb(f.read())
+    except native.NotPortedError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("the arithmetic-coded fixture was decoded")
+    out = {"fixtures": len(want), "pil": pil_version, "differing": differ,
+           "arithmetic": refused}
+    log(f"  JPEG fixtures against their libjpeg decodes and PIL {pil_version}: "
+        + json.dumps(out))
+    if differ or "arithmetic" not in refused:
+        raise AssertionError(f"JPEG fixtures: {differ}, {refused!r}")
+    return out
+
+
+def write_met(tmp: str) -> str:
+    """MET's layout: three subdirectories of ``.jpg`` files, copies of the
+    decoded fixtures in turn."""
+    with np.load(os.path.join(JPEG_GOLDEN, "decodes.npz")) as z:
+        names = sorted(z.files)
+    blobs = []
+    for name in names:
+        with open(os.path.join(JPEG_GOLDEN, f"{name}.jpg"), "rb") as f:
+            blobs.append(f.read())
+    met = os.path.join(tmp, "met")
+    for i in range(MET_FILES):
+        sub = os.path.join(met, "abc"[i % 3])
+        os.makedirs(sub, exist_ok=True)
+        with open(os.path.join(sub, f"art_{i:05d}.jpg"), "wb") as f:
+            f.write(blobs[i % len(blobs)])
+    return met
+
+
+def median_ms(fn, reps: int = 7) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def write_photo_met(tmp: str) -> tuple[str, list[str]]:
+    """MET's layout over photo-size JPEGs: the 8 files of :data:`PHOTO_SIZES`
+    (baseline and progressive), then symbolic links to them in turn, 3,000 +
+    :data:`LOADER_ITEMS` in all, so that MET's split leaves
+    :data:`LOADER_ITEMS` train items. Returns the directory and the 8 files."""
+    from PIL import Image
+
+    met = os.path.join(tmp, "met_photos")
+    rng = np.random.default_rng(5)
+    photos = []
+    for i, (w, h) in enumerate(PHOTO_SIZES * 2):
+        tile = wave_photo(i)
+        img = np.tile(tile, (-(-h // tile.shape[0]), -(-w // tile.shape[1]), 1))[:h, :w]
+        img = np.clip(img + rng.normal(0, PHOTO_NOISE, img.shape), 0, 255).astype(np.uint8)
+        kind = "progressive" if i >= len(PHOTO_SIZES) else "baseline"
+        path = os.path.join(tmp, f"photo_{w}x{h}_{kind}.jpg")
+        Image.fromarray(img).save(path, "JPEG", quality=90, progressive=i >= len(PHOTO_SIZES))
+        photos.append(path)
+    for i in range(3000 + LOADER_ITEMS):
+        sub = os.path.join(met, "abc"[i % 3])
+        os.makedirs(sub, exist_ok=True)
+        os.symlink(photos[i % len(photos)], os.path.join(sub, f"art_{i:05d}.jpg"))
+    return met, photos
+
+
+def jpeg_host_cost(tmp: str) -> dict:
+    """ms per decode of a 1,700 x 2,300 scan JPEG and of 1.9-5.0 MP photos
+    (baseline and progressive) by the port, beside PIL's SIMD libjpeg-turbo
+    on this machine (a yardstick only); one MET train item's ms and the
+    decode's share of it, on one thread; the ``Loader``'s items/s over
+    MET's train split of those photos (its augmentations) at
+    ``data.num_workers=8``."""
+    import io
+
+    from PIL import Image
+
+    from jpdvt_mt_ntnu_tpu_torch.data import Loader, METDataset
+
+    def pil_decode(data: bytes) -> np.ndarray:
+        return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+    scan = np.ascontiguousarray(np.tile(wave_photo(0), (5, 3, 1))[:SCAN_H, :SCAN_W])
+    path = os.path.join(tmp, "scan.jpg")
+    write_jpeg(path, scan)
+    with open(path, "rb") as f:
+        data = f.read()
+    if not np.array_equal(native.decode_rgb(data), pil_decode(data)):
+        raise AssertionError("the scan's decode differs from PIL's")
+    mp = SCAN_W * SCAN_H / 1e6
+    out = {"scan": [SCAN_W, SCAN_H], "bytes": len(data),
+           "port_ms": median_ms(lambda: native.decode_rgb(data)),
+           "port_crop192_ms": median_ms(lambda: native.decode_center_crop(data, 192)),
+           "pil_ms": median_ms(lambda: pil_decode(data))}
+    out["port_mp_per_s"] = mp / (out["port_ms"] / 1e3)
+    out["pil_mp_per_s"] = mp / (out["pil_ms"] / 1e3)
+    met, photos = write_photo_met(tmp)
+    rows = []
+    for path in photos:
+        with open(path, "rb") as f:
+            data = f.read()
+        got = native.decode_rgb(data)
+        if not np.array_equal(got, pil_decode(data)):
+            raise AssertionError(f"{os.path.basename(path)}: the decode differs from PIL's")
+        h, w = got.shape[:2]
+        row = {"photo": os.path.basename(path), "mp": w * h / 1e6,
+               "bits_per_pixel": 8 * len(data) / (w * h),
+               "port_ms": median_ms(lambda: native.decode_rgb(data), reps=3),
+               "pil_ms": median_ms(lambda: pil_decode(data), reps=3)}
+        row["port_mp_per_s"] = row["mp"] / (row["port_ms"] / 1e3)
+        rows.append(row)
+    out["photos"] = rows
+    out["photo_port_ms_mean"] = float(np.mean([r["port_ms"] for r in rows]))
+    out["photo_pil_ms_mean"] = float(np.mean([r["pil_ms"] for r in rows]))
+    ds = METDataset(met, "train")
+    if len(ds) != LOADER_ITEMS:
+        raise AssertionError(f"MET's train split of the photos: {len(ds)} items")
+    # Items on one thread: the decode's share of what an item costs.
+    decode_ms, item_ms = [], []
+    for i in range(8):
+        with open(ds.image_files[i], "rb") as f:
+            data = f.read()
+        decode_ms.append(median_ms(lambda: native.decode_rgb(data), reps=1))
+        item_ms.append(median_ms(lambda: ds[i], reps=1))
+    out["item_ms"] = float(np.mean(item_ms))
+    out["decode_share"] = float(np.sum(decode_ms) / np.sum(item_ms))
+    loader = Loader(ds, MET_BATCH, shuffle=True, seed=0, num_workers=LOADER_WORKERS)
+    n, t0 = 0, time.perf_counter()
+    for batch in loader:
+        n += len(batch)
+    out["loader_met_items_per_s"] = n / (time.perf_counter() - t0)
+    out["loader_items"] = n
+    out["loader_workers"] = LOADER_WORKERS
+    log(f"  JPEG host cost on {os.cpu_count()} cores: " + json.dumps(out))
+    if n != LOADER_ITEMS:
+        raise AssertionError(f"the loader gave {n} of {LOADER_ITEMS} items")
+    return out
+
+
+def jpeg_grid3(card: str) -> dict:
+    """Phase 18: JPEG through the port's own decoder, on this machine."""
+    t_phase = time.perf_counter()
+    out = {"fixtures": check_jpeg_fixtures()}
+    with tempfile.TemporaryDirectory() as tmp:
+        met = write_met(tmp)
+        out["met_train"] = counted_run_train(
+            ["data.dataset=met", f"data.data_path={met}", "task.crop=true",
+             f"data.global_batch_size={MET_BATCH}", "train.epochs=1", "train.log_every=1",
+             "train.ckpt_every=1000000", "diffusion.sampler_mode=fast",
+             f"train.exp_dir={tmp}/met_exp"],
+            f"MET (JPEG), 3 steps at batch {MET_BATCH}", {"k1": 12, "k2": 12})
+        texmet, folder = write_datasets(tmp, ".jpg")
+        out["texmet_train"] = counted_run_train(
+            ["data.dataset=texmet", f"data.data_path={texmet}", "data.global_batch_size=16",
+             "train.epochs=1", "train.log_every=1", "train.ckpt_every=1000000",
+             "diffusion.sampler_mode=fast", f"train.exp_dir={tmp}/texmet_jpeg_exp"],
+            "TEXMET (JPEG), 3 steps at batch 16", {"k1": 12, "k2": 12})
+        for name in ("met_train", "texmet_train"):
+            if out[name]["steps"] != 3:
+                raise AssertionError(f"{name}: {out[name]['steps']} steps, expected 3")
+        out["folder_eval"] = check_folder_eval(tmp, folder)
+        out["host"] = jpeg_host_cost(tmp)
+    log(f"phase jpeg: {time.perf_counter() - t_phase:.2f} s on {card}")
+    return out
+
+
+# ------------------------------------------------------------------ phase 19
+
+# The JPDVT flagship at full width on 2 ranks sharing the card over gloo,
+# warm-started from the waves3 artifact, 6 steps at global batch 96 in bf16,
+# against one process. mesh.fsdp=2 cuts the batch as phase 16's DDP does, so
+# phase 16's bounds hold: 2% of the loss, 20 lr on every EMA element.
+# mesh.model=2 keeps the whole batch on each rank and sums the partial
+# products of proj and fc2 over the ranks in fp32, but in bf16 each rank's
+# half is rounded before the sum, where one process rounds the whole
+# product once: the same bounds, which such rounding stays inside. Whether
+# TP's spread is that rounding, and not a fault of the reduce, the fp32 pair
+# says: mesh.model=2 against one process, both in fp32 with fp32 products
+# (no TF32), 3 steps, where a wrong reduce would keep its size and rounding
+# falls to fp32's. Its limits are about ten times its readings on an H100
+# 80GB HBM3 at 700 W (losses 1.6e-6 relative, EMA 8.7e-7; bf16 TP 1.37%),
+# so that they hold a wrong reduce, and the 2% of bf16 need not.
+FP32_STEPS = 3
+FP32 = ["model.compute_dtype=float32", "model.matmul_precision=highest",
+        f"data.synthetic_n={TRAIN_BATCH * FP32_STEPS}"]
+TP_SHAPE = f"{TRAIN_BATCH}x{HEADS // 2}x{TOKENS}x{HEAD_DIM}"
+ONE_SHAPE = f"{TRAIN_BATCH}x{HEADS}x{TOKENS}x{HEAD_DIM}"
+# name -> (overrides, ranks, the train step's K1/K2 launch shape on each rank, steps)
+MESH_RUNS = {"tp2": (["mesh.model=2"], 2, TP_SHAPE, DDP_STEPS),
+             "fsdp2": (["mesh.fsdp=2"], 2, f"{TRAIN_BATCH // 2}x{HEADS}x{TOKENS}x{HEAD_DIM}",
+                       DDP_STEPS),
+             "one": ([], 1, ONE_SHAPE, DDP_STEPS),
+             "tp2_fp32": (["mesh.model=2", *FP32], 2, TP_SHAPE, FP32_STEPS),
+             "one_fp32": (FP32, 1, ONE_SHAPE, FP32_STEPS)}
+FP32_LOSS_RTOL, FP32_EMA_ATOL = 2e-5, 1e-5
+# each 2-rank run -> (its one-process reference, loss rtol, EMA atol)
+MESH_REFS = {"tp2": ("one", DDP_LOSS_RTOL, DDP_EMA_ATOL),
+             "fsdp2": ("one", DDP_LOSS_RTOL, DDP_EMA_ATOL),
+             "tp2_fp32": ("one_fp32", FP32_LOSS_RTOL, FP32_EMA_ATOL)}
+GIB = 2 ** 30
+
+
+@functools.cache
+def flagship_shapes() -> dict:
+    net, _ = create_model("JPDVT", 192, device="cpu")
+    return {n: tuple(p.shape) for n, p in net.named_parameters()}
+
+
+def layout_bytes(model: int, fsdp: int) -> dict:
+    """What the layout (``parallel/sharding.py``'s rules) predicts each rank
+    holds of the flagship's fp32 train state: params, gradients, EMA and
+    the two moments of its shards, and, under fsdp, the largest Linear's
+    full weight while its product runs."""
+    from jpdvt_mt_ntnu_tpu_torch.parallel.sharding import leaf_specs
+
+    shapes = flagship_shapes()
+    specs = leaf_specs(shapes, model, fsdp)
+
+    def held(names) -> int:
+        total = 0
+        for n in names:
+            cut = (model if specs[n].tp_dim is not None else 1) * (
+                fsdp if specs[n].fsdp_dim is not None else 1)
+            total += int(np.prod(shapes[n])) // cut
+        return total
+
+    shard = held(shapes)
+    gathered = max(int(np.prod(shapes[n])) // (model if specs[n].tp_dim is not None else 1)
+                   - held([n]) for n in shapes if specs[n].fsdp_dim is not None) if fsdp > 1 else 0
+    return {"params": int(sum(np.prod(s) for s in shapes.values())), "held": shard,
+            "state_gib": 5 * 4 * shard / GIB, "gathered_gib": 4 * gathered / GIB}
+
+
+def check_mesh_train(tmp: str, card: str) -> dict:
+    """Phase 19: ``run_train`` at full width on ``mesh.model=2`` and
+    ``mesh.fsdp=2`` (2 ranks sharing the card over gloo) against one
+    process, in bf16, and on ``mesh.model=2`` against one process in fp32:
+    per-step losses, the final EMA, 12 K1 + 12 K2 a step at the layout's
+    shapes, peak memory beside the layout's prediction, and each 2-rank
+    checkpoint restored bit-equal into one process."""
+    out: dict = {}
+    want_step = {name: 0 for name in COUNTERS} | DDP_STEP_LAUNCHES
+    for name, (extra, world, shape, steps) in MESH_RUNS.items():
+        t0 = time.perf_counter()
+        # One process is a child too: its peak memory is its own.
+        ranks = wait_ranks(spawn_ranks(tmp, name, "train",
+                                       ddp_train_args(f"{tmp}/{name}") + extra, world=world),
+                           900)
+        out[name] = {"wall_s": time.perf_counter() - t0}
+        for r in ranks:
+            if len(r["per_step"]) != steps or any(s != want_step for s in r["per_step"]):
+                raise AssertionError(f"{name} rank {r['rank']}: launches per step "
+                                     f"{r['per_step']}, expected {steps} x {want_step}")
+            # Every step's launches at the layout's shape (K1 also runs in the
+            # final validation, at its own batch; K2 only in the steps).
+            at = 12 * steps
+            if r["shapes"]["k1"].get(shape) != at or r["shapes"]["k2"] != {shape: at}:
+                raise AssertionError(f"{name} rank {r['rank']}: K1/K2 launch shapes "
+                                     f"{r['shapes']}, expected {at} each at {shape}")
+        losses, group, summary = run_metrics(f"{tmp}/{name}")
+        ckpts = CheckpointManager(f"{tmp}/{name}/checkpoints").all_steps()
+        if ckpts != [10000 + steps] or len(losses) != steps or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{name}: checkpoints {ckpts}, losses {losses}")
+        model_axis = 2 if "mesh.model=2" in extra else 1
+        fsdp = 2 if "mesh.fsdp=2" in extra else 1
+        out[name] |= {"losses": losses, "backend": group["process_backend"],
+                      "world": group["process_world_size"],
+                      "train_images_per_s": summary["train_images_per_s"],
+                      "loop_s": summary["loop_s"], "val": summary.get("val_puzzle_acc"),
+                      "peak_gib": [r["peak_gib"] for r in ranks],
+                      "launches": {k: sum(r["launches"][k] for r in ranks) for k in ("k1", "k2")},
+                      "shapes": ranks[0]["shapes"],
+                      "predicted": layout_bytes(model_axis, fsdp)}
+    for name, (ref, loss_rtol, ema_atol) in MESH_REFS.items():
+        end = 10000 + MESH_RUNS[name][3]
+        ema, ema_ref = final_ema(f"{tmp}/{name}", end), final_ema(f"{tmp}/{ref}", end)
+        rel = np.abs(np.array(out[name]["losses"]) / np.array(out[ref]["losses"]) - 1)
+        diffs = torch.cat([(ema[k].float() - w.float()).abs().ravel()
+                           for k, w in ema_ref.items()])
+        out[name] |= {"loss_rel_diff": rel.tolist(), "loss_max_rel_diff": float(rel.max()),
+                      "ema_max_abs_diff": diffs.max().item(),
+                      "ema_mean_abs_diff": diffs.mean().item()}
+        if not (rel.max() <= loss_rtol and diffs.max().item() <= ema_atol):
+            raise AssertionError(f"{name} against {ref}: loss rel {rel.tolist()} (limit "
+                                 f"{loss_rtol}), EMA {diffs.max().item()} (limit {ema_atol})")
+        # The 2-rank checkpoint in one process, bit for bit.
+        path = os.path.join(tmp, name, "checkpoints", str(end), "state.pt")
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        state = create_train_state(create_model("JPDVT", 192)[0])
+        CheckpointManager(os.path.join(tmp, name, "checkpoints")).restore(state)
+        back = state.state_dict()
+        same = all(torch.equal(back[part][k].cpu().view(torch.int32), v.view(torch.int32))
+                   for part in ("model", "ema") for k, v in sd[part].items())
+        same &= all(torch.equal(back["opt"][m][k].cpu().view(torch.int32), v.view(torch.int32))
+                    for m in ("mu", "nu") for k, v in sd["opt"][m].items())
+        out[name]["restored_bit_equal"] = bool(same and state.step == end)
+        if not out[name]["restored_bit_equal"]:
+            raise AssertionError(f"{name}: its checkpoint does not restore bit-equal")
+        del state, back, sd
+        torch.cuda.empty_cache()
+    for name, row in out.items():
+        log(f"  {name} on {card}: losses {row['losses']}, peak GiB per rank "
+            f"{row['peak_gib']} beside the layout's {row['predicted']['state_gib']:.3f} GiB of "
+            f"fp32 state (+{row['predicted']['gathered_gib']:.3f} GiB gathered), "
+            f"images/s {row['train_images_per_s']:.1f}")
+    log("  mesh runs: " + json.dumps({k: {x: y for x, y in v.items() if x != "losses"}
+                                       for k, v in out.items()}))
+    return out
+
+
+def check_mesh_grid20(tmp: str) -> dict:
+    """One grid-20 train step (320 px, N = 400, batch 96, bf16, random
+    weights) on ``mesh.model=2``, 2 ranks sharing the card: 12 K4 + 12 K5 +
+    12 K6 a rank at (96, 6, 400, 64), a finite loss."""
+    args = [f"model.image_size={SIZE20}", f"task.grid_size={GRID20}",
+            "data.synthetic_cues=waves", "data.device_stream=true",
+            f"data.global_batch_size={TRAIN_BATCH}", f"data.synthetic_n={TRAIN_BATCH}",
+            "train.epochs=1", "train.log_every=1", "train.ckpt_every=1000000",
+            "diffusion.sampler_mode=fast", "mesh.model=2", f"train.exp_dir={tmp}/tp20"]
+    t0 = time.perf_counter()
+    ranks = wait_ranks(spawn_ranks(tmp, "tp20", "train", args), 900)
+    shape = f"{TRAIN_BATCH}x{HEADS // 2}x{TOKENS20}x{HEAD_DIM}"
+    want = {name: 0 for name in COUNTERS} | {"k4": 12, "k5": 12, "k6": 12}
+    for r in ranks:
+        if r["per_step"] != [want] or any(r["shapes"][k] != {shape: 12}
+                                          for k in ("k4", "k5", "k6")):
+            raise AssertionError(f"grid-20 TP rank {r['rank']}: per step {r['per_step']}, "
+                                 f"shapes {r['shapes']}; expected {want} at {shape}")
+    losses, _, summary = run_metrics(f"{tmp}/tp20")
+    if len(losses) != 1 or not np.isfinite(losses).all():
+        raise AssertionError(f"grid-20 TP: losses {losses}")
+    out = {"loss": losses[0], "wall_s": time.perf_counter() - t0, "shape": shape,
+           "launches": {k: sum(r["launches"][k] for r in ranks) for k in ("k4", "k5", "k6")},
+           "peak_gib": [r["peak_gib"] for r in ranks], "loop_s": summary["loop_s"]}
+    log("  grid-20 step on mesh.model=2: " + json.dumps(out))
+    return out
+
+
+def mesh_grid3(card: str, gen: torch.Generator) -> dict:
+    """Phase 19: tensor parallelism and FSDP in the trainer."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["train"] = check_mesh_train(tmp, card)
+        out["grid20"] = check_mesh_grid20(tmp)
+    # K1 and K2 at the layout's shapes, against their plain versions, timed
+    # by CUDA events only: at this point of the whole script, after the
+    # earlier phases' profiler sessions, torch.profiler has returned no
+    # device kernel (it did when this phase ran alone).
+    out["k1_tp"] = check_k1(TRAIN_BATCH, TOKENS, torch.bfloat16, gen, timed=True,
+                            heads=HEADS // 2)
+    out["k2_tp"] = check_k2(TRAIN_BATCH, TOKENS, torch.bfloat16, gen, timed=True,
+                            heads=HEADS // 2, device_time=False)
+    out["k1_fsdp"] = check_k1(TRAIN_BATCH // 2, TOKENS, torch.bfloat16, gen, timed=True)
+    out["k2_fsdp"] = check_k2(TRAIN_BATCH // 2, TOKENS, torch.bfloat16, gen, timed=True,
+                              device_time=False)
+    log(f"phase mesh: {time.perf_counter() - t_phase:.2f} s")
     return out
 
 
@@ -2482,7 +2947,7 @@ def main(argv=None) -> int:
         return ddp_child(argv[1], argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--grid20-artifact", action="store_true",
-                    help="skip the waves3 artifact's phases (3, 4, 7, 8, 15-17) and start the "
+                    help="skip the waves3 artifact's phases (3, 4, 7, 8, 15-19) and start the "
                          "grid-20 phases from artifacts/waves20_hard_step32700")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2508,7 +2973,9 @@ def main(argv=None) -> int:
     log(f"build: {build_s:.2f} s -> {[os.path.relpath(p, REPO) for p in lib_paths]}; "
         f"per source {json.dumps({k: round(v, 2) for k, v in _build.BUILD_SECONDS.items()})}")
     log(f"decode: built in {_build.BUILD_SECONDS.get('decode', 0.0):.2f} s, takes "
-        f"{native.formats()} (libjpeg found by g++: {_build.has_libjpeg()})")
+        f"{native.formats()} (the port's own JPEG decoder; no libjpeg)")
+    if native.formats() != ("png", "jpeg"):
+        raise AssertionError(f"the decoder takes {native.formats()}")
     for lib_path in lib_paths:
         for line in lib_path.with_suffix(".log").read_text().splitlines():
             if any(w in line for w in ("registers", "Compiling entry", "spill")):
@@ -2555,7 +3022,7 @@ def main(argv=None) -> int:
 
     # 3-4. The waves3 artifact's solve and its throughput.
     if args.grid20_artifact:
-        log("--grid20-artifact: phases 3, 4, 7, 8, 15, 16 and 17 (they read the waves3 artifact, "
+        log("--grid20-artifact: phases 3, 4, 7, 8 and 15-19 (they read the waves3 artifact, "
             "which this copy does not hold) are skipped")
         g3 = None
     else:
@@ -2686,6 +3153,13 @@ def main(argv=None) -> int:
     # 17. The default config, JPDVT-MoE and the datasets.
     data17 = None if args.grid20_artifact else data_moe_grid3(card, gen)
 
+    # 18. JPEG: the fixtures, MET, a JPEG TEXMET split and folder, host cost.
+    if not args.grid20_artifact:
+        jpeg_grid3(card)
+
+    # 19. Tensor parallelism and FSDP in the trainer, 2 ranks sharing the card.
+    mesh19 = None if args.grid20_artifact else mesh_grid3(card, gen)
+
     def kernel_row(name, source, replaces, launches, rows, timed):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "shape": timed["shape"],
@@ -2738,6 +3212,15 @@ def main(argv=None) -> int:
                        "jpdvt_mt_ntnu_tpu/ops/attention.py:44",
                        data17["moe_train"]["launches"]["k2"], [data17["k2_moe"]],
                        data17["k2_moe"])]
+        for name, axis in (("tp", "tp2"), ("fsdp", "fsdp2")):
+            launches = mesh19["train"][axis]["launches"]
+            kernels += [
+                kernel_row(f"k1_whole_row_attention_fwd_{name}", *k1, launches["k1"],
+                           [mesh19[f"k1_{name}"]], mesh19[f"k1_{name}"]),
+                kernel_row(f"k2_whole_row_attention_bwd_{name}",
+                           "jpdvt_mt_ntnu_tpu_torch/ops/csrc/attention_bwd.cu",
+                           "jpdvt_mt_ntnu_tpu/ops/attention.py:44", launches["k2"],
+                           [mesh19[f"k2_{name}"]], mesh19[f"k2_{name}"])]
     else:  # K1's own path in this mode: the bf16 N = 400 solve of phase 12
         kernels.append(kernel_row(
             "k1_whole_row_attention_fwd", *k1,

@@ -6,17 +6,18 @@ Counterpart of ``jpdvt_mt_ntnu_tpu/data/datasets.py`` (``METDataset``,
 float32 (H, W, 3) arrays in [-1, 1], as there.
 
 The files are decoded by the port's native decoder (``ops/native.
-decode_rgb``: PNG everywhere, JPEG where it was built with libjpeg) and
-transformed by ``data/transforms.py``, whose arithmetic is Pillow's, so an
-item equals the JAX package's for the same seed and call order. No PIL
-and no sklearn: the split is a numpy copy of sklearn's
+decode_rgb``: PNG, and JPEG bit-equal to libjpeg's decode, on every
+machine) and transformed by ``data/transforms.py``, whose arithmetic is
+Pillow's, so an item equals the JAX package's for the same seed and call
+order. No PIL and no sklearn: the split is a numpy copy of sklearn's
 ``train_test_split``.
 
-No fallback hides a missing decoder: a dataset with a JPEG among its files
-is refused when it is built, by name, where ``native.formats()`` lacks
-``"jpeg"`` (the GPU machine has no libjpeg). TEXMET's black image for a
-file that fails to decode is the reference's behaviour and stays, for a
-corrupt file.
+A file the decoder refuses raises a ``ValueError`` that names the file.
+TEXMET's black image for a file that fails to decode is the reference's
+behaviour and stays for a file libjpeg cannot decode either (a corrupt
+one); a JPEG feature that libjpeg decodes and the port does not yet
+(``native.NotPortedError``: arithmetic coding, CMYK, ...) fails its item
+instead, so that no scan the reference trains on turns black.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ from ..ops import native
 from . import transforms as T
 
 _IMG_EXTS = (".jpg", ".jpeg", ".png")
-_JPEG_EXTS = (".jpg", ".jpeg")
 
 
 def train_test_split(items: Sequence, test_size: int, seed: int) -> tuple[list, list]:
@@ -54,21 +54,15 @@ def _split_indices(n: int, seed: int = 42, test_size: int = 2000, val_size: int 
     return train, val, test
 
 
-def require_decoder(files: Sequence[str], what: str) -> None:
-    """Refuse ``what`` by name where any of ``files`` is a JPEG and the
-    built decoder takes no JPEG."""
-    jpegs = [f for f in files if f.lower().endswith(_JPEG_EXTS)]
-    if jpegs and "jpeg" not in native.formats():
-        raise NotImplementedError(
-            f"{what}: {len(jpegs)} of its {len(files)} files are JPEGs (first: {jpegs[0]}), "
-            f"and the native decoder was built without libjpeg (native.formats() = "
-            f"{native.formats()}); decode them on a machine with libjpeg")
-
-
 def load_rgb(path: str) -> np.ndarray:
-    """A file -> (H, W, 3) uint8 RGB through the native decoder."""
+    """A file -> (H, W, 3) uint8 RGB through the native decoder; its
+    ``ValueError`` (or ``NotPortedError``) names the file."""
     with open(path, "rb") as f:
-        return native.decode_rgb(f.read())
+        data = f.read()
+    try:
+        return native.decode_rgb(data)
+    except ValueError as e:
+        raise type(e)(f"{path}: {e}") from e
 
 
 class _AtomicCounter:
@@ -104,7 +98,6 @@ class METDataset(_Base):
             full = os.path.join(image_dir, d)
             files += [os.path.join(full, k) for k in sorted(os.listdir(full))
                       if k.lower().endswith(".jpg")]
-        require_decoder(files, f"METDataset({image_dir!r})")
         self.all_files = files
         train, val, test = _split_indices(len(files), seed=seed)
         pick = {"train": train, "val": val, "test": test}[split]
@@ -144,7 +137,6 @@ class TEXMETDataset(_Base):
         candidates = [os.path.join(data_dir, "images", n) for n in names]
         self.image_files = [p for p in candidates if os.path.exists(p)]
         self.missing = len(candidates) - len(self.image_files)
-        require_decoder(self.image_files, f"TEXMETDataset({data_dir!r}, {split!r})")
         self.patch_out = 64 if image_size == 192 else 96
         self._seed = seed
         self._epoch_salt = _AtomicCounter()
@@ -169,6 +161,8 @@ class TEXMETDataset(_Base):
             return rand_erode(arr, rng, n=3, patch_out=self.patch_out,
                               region=self.patch_out + self.patch_out // 2,
                               gap=self.patch_out // 2)
+        except native.NotPortedError:
+            raise  # libjpeg decodes it: not the reference's black image
         except Exception:
             # The reference's black image for a file that fails (datasets.py:
             # 245-248), at the configured size.
@@ -187,7 +181,6 @@ class ImageFolderDataset(_Base):
                 if n.lower().endswith(tuple(extensions)):
                     files.append(os.path.join(dirpath, n))
         self.image_files = sorted(files)
-        require_decoder(self.image_files, f"ImageFolderDataset({root!r})")
 
     def __getitem__(self, i: int) -> np.ndarray:
         img = T.center_crop_arr(load_rgb(self.image_files[i]), self.image_size)

@@ -115,9 +115,9 @@ class EvalHarness:
     def _load_image(self, path: str) -> np.ndarray:
         """Decode, centre-crop to the model's size, scale to [-1, 1] through
         the native decoder (``ops/native.decode_center_crop``), as the JAX
-        harness does where its own is built (``harness.py:70-85``). PNG
-        everywhere; JPEG where the decoder was built with libjpeg, else a
-        ``ValueError`` that the loop logs and skips."""
+        harness does where its own is built (``harness.py:70-85``): PNG and
+        JPEG; a file it refuses raises a ``ValueError`` that the loop logs
+        and skips."""
         with open(path, "rb") as f:
             return native.decode_center_crop(f.read(), self.solver.cfg.input_size)
 

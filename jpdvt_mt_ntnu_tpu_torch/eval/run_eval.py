@@ -20,8 +20,8 @@ options.
 ``eval.jax_draws=<npz>`` and ``eval.jax_noise=<npy>`` solve the JAX
 package's puzzles exactly (its scrambles and noise template, which torch
 cannot draw). ``data.data_path=<dir>`` evaluates a folder of images,
-decoded and ADM-cropped by the native decoder (``ops/native.py``: PNG,
-and JPEG where it was built with libjpeg), as the JAX harness does;
+decoded and ADM-cropped by the native decoder (``ops/native.py``: PNG
+and JPEG, with no libjpeg), as the JAX harness does;
 ``eval.texrec_dirs=1`` loops over its subdirectories with one journal each
 (inference_texrec.py). ``data.dataset`` takes ``met`` and ``texmet`` (their
 test splits), ``synthetic`` (every cue regime) or an image folder.
@@ -38,14 +38,16 @@ its harness, as the JAX package's hosts do. ``eval.jax_draws`` may hold
 ``model.matmul_precision`` sets float32 products (``utils/device.py``).
 ``model.name=JPDVT-MoE`` (and ``model.moe_*``) evaluates the expert-choice
 MoE; with ``model.quant`` its attention is int8 and its experts dense.
-Not ported yet, and refused by name before any weights load: an Orbax
-checkpoint directory, the mesh's axes other than ``data`` (``mesh.ep``,
-``fsdp``, ``model``, ``pipe``, ``seq``), any geometry no attention kernel
-takes, and images or datasets with JPEGs where the decoder has no libjpeg.
+``mesh.model`` and ``mesh.fsdp`` are read as the JAX eval reads them: not
+at all (it evaluates data-parallel). Not ported yet, and refused by name
+before any weights load: an Orbax checkpoint directory, the mesh's
+``pipe``, ``ep`` and ``seq`` axes, and any geometry no attention kernel
+takes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
@@ -55,7 +57,6 @@ import torch
 
 from ..core.diffusion import create_diffusion
 from ..data import ImageFolderDataset, METDataset, SyntheticPuzzles, TEXMETDataset
-from ..data.datasets import require_decoder
 from ..data.synthetic import CUES
 from ..models import DIT_CONFIGS, create_model
 from ..ops.attention import ATTN_IMPLS, attention_route
@@ -151,7 +152,7 @@ def check_supported(cfg: Config, texrec: bool = False, on_card: bool = True) -> 
     cannot run, before any weights load."""
     m, d = cfg.model, cfg.data
     refused = [f"{name} (" + ("sequence-parallel ring attention" if name == "mesh.seq" else
-                              "the port runs data parallelism only") + ")"
+                              "the port's eval runs data parallelism") + ")"
                for name in MeshSpec.from_config(cfg.mesh).refused()]
     if cfg.mesh.pipe_microbatches:
         refused.append("mesh.pipe_microbatches")
@@ -191,8 +192,7 @@ def build_dataset(cfg: Config):
     """The evaluation set of ``data.dataset`` (JAX ``run_eval.py:104-117``):
     ``met`` and ``texmet`` at their test splits, ``synthetic`` 1,024 puzzles
     at ``eval.seed`` (any cue regime), else an image folder at
-    ``data.data_path``. A set with JPEGs that this machine's decoder cannot
-    take is refused by name (``data/datasets.py``)."""
+    ``data.data_path``."""
     d = cfg.data
     if d.dataset == "met":
         return METDataset(d.data_path, "test")
@@ -237,18 +237,15 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
     device = device if device is not None else cli_device
     check_supported(cfg, texrec, on_card=torch.device(device or "cuda").type == "cuda")
     apply_matmul_precision(cfg.model.matmul_precision)
-    dp = maybe_initialize_distributed(cfg.mesh, device)
+    # The JAX eval reads neither mesh.model nor mesh.fsdp: every rank is a
+    # data shard.
+    dp = maybe_initialize_distributed(dataclasses.replace(cfg.mesh, model=1, fsdp=1), device)
     device, rank, world = dp.device, dp.rank, dp.world
 
-    # The images first: files this machine's decoder cannot take are
-    # refused before any weights load.
     if texrec:
         subdirs = _texrec_paths(cfg.data.data_path)
-        require_decoder([q for paths in subdirs.values() for q in paths],
-                        f"data.data_path={cfg.data.data_path!r}")
     elif _folder_mode(cfg):
         paths = find_images(cfg.data.data_path)
-        require_decoder(paths, f"data.data_path={cfg.data.data_path!r}")
     else:
         dataset = build_dataset(cfg)
 

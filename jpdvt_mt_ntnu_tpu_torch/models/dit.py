@@ -80,12 +80,24 @@ class DiTConfig:
 class Linear(nn.Linear):
     """A Linear computing in its input's type (Flax ``Dense(dtype=...)``),
     or with ``quant="int8"`` through :func:`int8_dense` on its fp32
-    parameters, quantized once per parameter version."""
+    parameters, quantized once per parameter version.
+
+    Under tensor parallelism (``parallel/sharding.py`` sets ``tp_mode`` and
+    ``tp``, the mesh) it holds this model rank's part: "column" its output
+    features (the input passes Megatron's identity, whose backward sums
+    the gradient over the model group), "row" its input features (the
+    partial products are summed over the model group in fp32, then the
+    bias is added once and the sum rounded to the compute type). Under
+    FSDP (``fsdp``, the mesh and the cut dim) its weight is this rank's
+    shard, gathered for each product (``Mesh.gathered_linear``)."""
 
     def __init__(self, in_features: int, out_features: int, quant: str | None = None):
         super().__init__(in_features, out_features)
         self.quant = quant
         self._int8: tuple | None = None  # (parameter versions, (w_q, s_w, fp32 bias))
+        self.tp_mode: str | None = None
+        self.tp = None
+        self.fsdp: tuple | None = None
 
     @torch.no_grad()
     def int8_weights(self) -> tuple:
@@ -108,7 +120,18 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.quant:
             return int8_dense(x, *self.int8_weights())
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        if self.tp_mode == "row":
+            y = self.tp.reduce_from_model(self._linear(x, None))
+            return (y + self.bias.float()).to(x.dtype)
+        if self.tp_mode == "column":
+            x = self.tp.copy_to_model(x)
+        return self._linear(x, self.bias.to(x.dtype))
+
+    def _linear(self, x: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+        if self.fsdp is not None:
+            mesh, dim = self.fsdp
+            return mesh.gathered_linear(x, self.weight, bias, dim)
+        return F.linear(x, self.weight.to(x.dtype), bias)
 
 
 def layer_norm(x: torch.Tensor) -> torch.Tensor:
@@ -148,7 +171,8 @@ class Attention(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int, attn_impl: str | None = None,
                  quant: str | None = None):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads = num_heads  # this model rank's heads under TP
+        self.head_dim = hidden_size // num_heads
         self.attn_impl = None if quant else attn_impl
         self.qkv = Linear(hidden_size, 3 * hidden_size, quant)
         self.proj = Linear(hidden_size, hidden_size, quant)
@@ -158,7 +182,7 @@ class Attention(nn.Module):
             x.requires_grad or self.qkv.weight.requires_grad or self.qkv.bias.requires_grad)
         route = attention_route(
             x.shape[1], x.dtype, grad, self.attn_impl,
-            head_dim=self.qkv.weight.shape[0] // (3 * self.num_heads), on_card=x.is_cuda)
+            head_dim=self.head_dim, on_card=x.is_cuda)
         if route == "block":
             # Views of the parameters: K3 reads the Linear weights as they lie.
             dt = x.dtype

@@ -8,12 +8,10 @@ seconds. The shared library is built at first use into
 hash of the source and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. A failed build raises.
 
-``decode.cpp`` takes flags of its own: ``-DJP_WITH_LIBJPEG -ljpeg``
-where g++ compiles and links a libjpeg program on this machine, nothing
-otherwise. Which formats its library decodes is thus fixed when it is
-built (``jp_formats``), and its hash covers the choice. ``transforms.cpp``
-is built with ``-ffp-contract=off``: its float arithmetic is Pillow's,
-rounding for rounding, and a fused multiply-add would round once less.
+``transforms.cpp`` is built with ``-ffp-contract=off``: its float
+arithmetic is Pillow's, rounding for rounding, and a fused multiply-add
+would round once less. ``decode.cpp`` links no image library: the port
+decodes JPEG with its own code on every machine.
 """
 
 from __future__ import annotations
@@ -58,26 +56,9 @@ def _compiler(src: Path) -> list[str]:
     return ["g++", *CXX_FLAGS]
 
 
-@functools.cache
-def has_libjpeg() -> bool:
-    """Whether g++ compiles and links a program against libjpeg here."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    probe = BUILD_DIR / f"libjpeg_probe.{os.getpid()}"
-    src = ("#include <cstdio>\n#include <jpeglib.h>\n"
-           "int main() { jpeg_decompress_struct c; jpeg_error_mgr e;"
-           " c.err = jpeg_std_error(&e); jpeg_create_decompress(&c);"
-           " jpeg_destroy_decompress(&c); return 0; }\n")
-    proc = subprocess.run(["g++", "-x", "c++", "-", "-ljpeg", "-o", str(probe)], input=src,
-                          capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
-    probe.unlink(missing_ok=True)
-    return proc.returncode == 0
-
-
 def extra_flags(name: str) -> tuple[str, ...]:
     """Flags of one source beyond its compiler's, placed after the source
     so that they can name libraries to link."""
-    if name == "decode" and has_libjpeg():
-        return ("-DJP_WITH_LIBJPEG", "-ljpeg")
     if name == "transforms":
         return ("-ffp-contract=off",)
     return ()

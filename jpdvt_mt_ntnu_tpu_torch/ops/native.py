@@ -12,8 +12,18 @@ own writer send; the scanline filters and the ADM center crop run in C.
 :func:`decode_rgb` returns the whole RGB image (the datasets' decode),
 :func:`decode_center_crop` the ADM crop (the service's and the eval
 harness's).
-JPEG goes through libjpeg where the library was built with it
-(:func:`formats`); elsewhere it raises ``ValueError``.
+JPEG is decoded by the port's own decoder in ``csrc/decode.cpp``, bit-equal
+to libjpeg-turbo's default decode (baseline, extended sequential and
+progressive Huffman streams), on every machine: no libjpeg is linked. A
+stream it does not take and truncated or corrupt data raise ``ValueError``
+naming the feature or the byte offset; :class:`NotPortedError`, a
+``ValueError``, marks the features that libjpeg decodes and the port does
+not yet (arithmetic coding, lossless, CMYK/YCCK, block smoothing), so that
+a dataset fails loudly on them instead of treating them as a corrupt file.
+:func:`decode_center_crop`'s ``max_pixels`` refuses, from the header
+alone, an image that declares more pixels (the service's uploads); the
+datasets set none, as the reference's datasets lift PIL's limit for real
+scans above it.
 """
 
 from __future__ import annotations
@@ -31,6 +41,10 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _JPEG_SOI = b"\xff\xd8\xff"
 # PNG colour type -> channels at 8 bits (3, a palette, is expanded to RGB).
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+class NotPortedError(ValueError):
+    """A JPEG feature that libjpeg decodes and the port's decoder does not."""
 
 
 @functools.cache
@@ -77,32 +91,34 @@ def _decode_lib() -> ctypes.CDLL:
                                     ctypes.c_int, ctypes.c_int, u8p]
     lib.jp_center_crop.argtypes = [u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, f32p]
-    fns = [lib.jp_formats, lib.jp_png_unfilter, lib.jp_center_crop]
-    if lib.jp_formats() & 2:
-        lib.jp_jpeg_center_crop.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
-                                            f32p]
-        lib.jp_jpeg_probe.argtypes = [ctypes.c_char_p, ctypes.c_long,
-                                      ctypes.POINTER(ctypes.c_int),
-                                      ctypes.POINTER(ctypes.c_int)]
-        lib.jp_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
-                                       ctypes.c_int, u8p]
-        fns += [lib.jp_jpeg_center_crop, lib.jp_jpeg_probe, lib.jp_jpeg_decode]
-    for fn in fns:
+    msg = [ctypes.c_char_p, ctypes.c_int]  # the error message's buffer
+    lib.jp_jpeg_center_crop.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
+                                        f32p, *msg]
+    lib.jp_jpeg_probe.argtypes = [ctypes.c_char_p, ctypes.c_long,
+                                  ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+                                  *msg]
+    lib.jp_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
+                                   ctypes.c_int, u8p, *msg]
+    for fn in (lib.jp_formats, lib.jp_png_unfilter, lib.jp_center_crop,
+               lib.jp_jpeg_center_crop, lib.jp_jpeg_probe, lib.jp_jpeg_decode):
         fn.restype = ctypes.c_int
     return lib
 
 
 def formats() -> tuple[str, ...]:
-    """The formats the built decoder takes: ``("png",)`` or ``("png", "jpeg")``."""
-    return ("png", "jpeg") if _decode_lib().jp_formats() & 2 else ("png",)
+    """The formats the decoder takes: ``("png", "jpeg")`` on every machine."""
+    bits = _decode_lib().jp_formats()
+    return tuple(name for bit, name in ((1, "png"), (2, "jpeg")) if bits & bit)
 
 
-def _need_jpeg() -> ctypes.CDLL:
-    lib = _decode_lib()
-    if not lib.jp_formats() & 2:
-        raise ValueError("JPEG decode needs libjpeg, which this machine lacks "
-                         "(native decoder built for PNG only)")
-    return lib
+def _jpeg_call(fn_name: str, data: bytes, *args) -> int:
+    """Call a JPEG entry point; raise with its message on -1, -8 and -9."""
+    buf = ctypes.create_string_buffer(256)
+    rc = getattr(_decode_lib(), fn_name)(data, len(data), *args, buf, len(buf))
+    if rc in (-1, -8, -9):
+        error = NotPortedError if rc == -9 else ValueError
+        raise error(f"{buf.value.decode(errors='replace')} (native decoder)")
+    return rc
 
 
 def _png_chunks(data: bytes):
@@ -163,17 +179,24 @@ def png_pixels(data: bytes) -> np.ndarray:
     return out
 
 
-def decode_center_crop(data: bytes, image_size: int) -> np.ndarray:
+def decode_center_crop(data: bytes, image_size: int, max_pixels: int | None = None
+                       ) -> np.ndarray:
     """PNG or JPEG bytes -> (S, S, 3) float32 in [-1, 1]: decode, then the
     ADM center crop (box halving, bicubic resize, crop). Raises
-    ``ValueError`` for a format the decoder does not take."""
+    ``ValueError`` for a format the decoder does not take, or an image
+    above ``max_pixels``, which the header alone tells."""
+    if max_pixels is not None:
+        w, h = probe(data)
+        if w * h > max_pixels:
+            raise ValueError(f"image of {w}x{h} pixels, above the limit of {max_pixels} "
+                             "pixels (native decoder)")
     out = np.empty((image_size, image_size, 3), np.float32)
     if data[:8] == PNG_SIGNATURE:
         px = png_pixels(data)
         h, w, c = px.shape
         rc = _decode_lib().jp_center_crop(px, w, h, c, image_size, out)
     elif data[:3] == _JPEG_SOI:
-        rc = _need_jpeg().jp_jpeg_center_crop(data, len(data), image_size, out)
+        rc = _jpeg_call("jp_jpeg_center_crop", data, image_size, out)
     else:
         raise ValueError("neither a PNG nor a JPEG (native decoder)")
     if rc != 0:
@@ -185,17 +208,16 @@ def decode_rgb(data: bytes) -> np.ndarray:
     """PNG or JPEG bytes -> the whole (H, W, 3) uint8 RGB image: grey is
     repeated over the three channels and alpha dropped, as PIL's
     ``convert("RGB")`` does. Raises ``ValueError`` for a format the
-    decoder does not take (a JPEG without libjpeg names it)."""
+    decoder does not take, naming it."""
     if data[:8] == PNG_SIGNATURE:
         px = png_pixels(data)
         if px.shape[2] < 3:
             return np.ascontiguousarray(np.repeat(px[..., :1], 3, axis=2))
         return np.ascontiguousarray(px[..., :3])
     if data[:3] == _JPEG_SOI:
-        lib = _need_jpeg()
         w, h = probe(data)
         out = np.empty((h, w, 3), np.uint8)
-        rc = lib.jp_jpeg_decode(data, len(data), w, h, out)
+        rc = _jpeg_call("jp_jpeg_decode", data, w, h, out)
         if rc != 0:
             raise ValueError(f"JPEG decode failed (native code {rc})")
         return out
@@ -208,7 +230,8 @@ def probe(data: bytes) -> tuple[int, int]:
         return _png_header(data)[:2]
     if data[:3] == _JPEG_SOI:
         w, h = ctypes.c_int(), ctypes.c_int()
-        if _need_jpeg().jp_jpeg_probe(data, len(data), ctypes.byref(w), ctypes.byref(h)):
-            raise ValueError("JPEG header rejected (native code -1)")
+        rc = _jpeg_call("jp_jpeg_probe", data, ctypes.byref(w), ctypes.byref(h))
+        if rc != 0:
+            raise ValueError(f"JPEG header rejected (native code {rc})")
         return w.value, h.value
     raise ValueError("neither a PNG nor a JPEG (native decoder)")

@@ -1,13 +1,16 @@
-"""Data parallelism across processes: start-up, the backend rule, the ranks' collectives.
+"""Processes on a mesh: start-up, the backend rule, the ranks' collectives.
 
 Counterpart of ``jpdvt_mt_ntnu_tpu/parallel/mesh.py``. There one process
 drives a mesh of devices and XLA inserts the collectives. Here, as in the
 reference's torchrun trainers (train_JPDVT.py:111, :296-311) and its DDP
 eval (inference_ddp.py:77-87, :325), each process is one rank that drives
 one card, and the port's train step reduces its own gradients
-(``train/steps.py``). Only the mesh's ``data`` axis is ported: one rank is
-one data shard, so ``mesh.data`` is -1 (every rank) or the world size, and
-``mesh.model``, ``fsdp``, ``pipe``, ``ep`` and ``seq`` are refused by name.
+(``train/steps.py``). The mesh's ``data``, ``fsdp`` and ``model`` axes are
+ported: the world is data x fsdp x model ranks, placed in the JAX order
+with ``model`` innermost (:class:`MeshSpec`), the batch is cut over data x
+fsdp and the layout of the weights over fsdp and model
+(``parallel/sharding.py``). ``mesh.data`` is -1 (the ranks that the other
+axes leave) or that count; ``pipe``, ``ep`` and ``seq`` are refused by name.
 
 Start-up (:func:`maybe_initialize_distributed`, the counterpart of the JAX
 function of that name) reads, in this order:
@@ -58,12 +61,13 @@ from ..utils.device import default_device, rank_device
 TIMEOUT = datetime.timedelta(minutes=10)
 # Gradients are reduced in buckets of this many elements (400 MB in fp32).
 BUCKET_ELEMS = 1 << 27
-REFUSED_AXES = ("model", "fsdp", "pipe", "ep", "seq")
+REFUSED_AXES = ("pipe", "ep", "seq")
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """The JAX mesh's axes; only ``data`` (-1: every rank) is ported."""
+    """The JAX mesh's axes; ``data`` (-1: the ranks the others leave),
+    ``fsdp`` and ``model`` are ported."""
 
     data: int = -1
     model: int = 1
@@ -81,15 +85,20 @@ class MeshSpec:
         return [f"mesh.{k}" for k in REFUSED_AXES if getattr(self, k) > 1]
 
     def axis_sizes(self, world: int) -> dict[str, int]:
-        """{"data": world}; raises where ``data`` is neither -1 nor ``world``
-        or another axis is set."""
+        """The axes' sizes in the JAX order, ``data`` first and ``model``
+        innermost: ``{"data": d}`` and ``fsdp``/``model`` where they are
+        above 1. Raises where they do not multiply to the world size or a
+        refused axis is set."""
         if self.refused():
             raise NotImplementedError(f"not ported: {', '.join(self.refused())} (the port "
-                                      "runs data parallelism only)")
-        if self.data > 0 and self.data != world:
-            raise ValueError(f"mesh.data={self.data} must be -1 or the world size, {world} "
-                             "processes: each process is one data shard")
-        return {"data": world}
+                                      "runs the data, fsdp and model axes)")
+        fsdp, model = max(1, self.fsdp), max(1, self.model)
+        data = self.data if self.data > 0 else world // (fsdp * model)
+        if data < 1 or data * fsdp * model != world:
+            raise ValueError(f"mesh.data={self.data} x mesh.fsdp={fsdp} x mesh.model={model} "
+                             f"must cover the world size, {world} processes (one rank per "
+                             "shard)")
+        return {"data": data, **{k: v for k, v in (("fsdp", fsdp), ("model", model)) if v > 1}}
 
 
 def process_index() -> int:

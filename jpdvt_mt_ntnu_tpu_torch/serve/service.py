@@ -101,6 +101,11 @@ class ServiceConfig:
 
 # The quant gate's puzzles and permutations (the JAX service's seeds).
 QUANT_GATE_SEED = 20_240_814
+# The most pixels an upload may declare: PIL's default decompression-bomb
+# limit (twice its MAX_IMAGE_PIXELS). The JAX service takes any size (its
+# transforms module lifts PIL's limit), so a few hundred bytes of header
+# could make it allocate tens of GB; this service refuses them.
+MAX_UPLOAD_PIXELS = 178_956_970
 
 
 class PuzzleService:
@@ -227,8 +232,11 @@ class PuzzleService:
         ] + [p.info.to_dict() for p in list_solvers()]
 
     def _prep(self, image_bytes: bytes) -> np.ndarray:
-        """Encoded image -> (S, S, 3) float32 in [-1, 1] (ADM crop)."""
-        return native.decode_center_crop(image_bytes, self.cfg.image_size)
+        """Encoded image -> (S, S, 3) float32 in [-1, 1] (ADM crop); an
+        upload above PIL's decompression-bomb limit is refused from its
+        header, before any buffer it sizes is allocated."""
+        return native.decode_center_crop(image_bytes, self.cfg.image_size,
+                                         max_pixels=MAX_UPLOAD_PIXELS)
 
     def _scramble(self, x: np.ndarray, indices: np.ndarray) -> np.ndarray:
         return jigsaw.scramble(torch.from_numpy(x)[None], torch.from_numpy(indices)[None],

@@ -8,7 +8,10 @@ maps from the JAX tree), and a ``metadata.json`` beside the step
 directories. A step is written to a temporary directory and renamed, so a
 reader never sees half of one. Restores are bit-exact. In a data-parallel
 run (``dp``) rank 0 writes and the other ranks wait until it has, so that
-every rank restores the same file (the reference saves on rank 0 only).
+every rank restores the same file (the reference saves on rank 0 only). A
+state sharded over a mesh is gathered first, by every rank, so the file
+holds the one-process layout whatever the mesh, and restores into one
+process or into another mesh.
 """
 
 from __future__ import annotations
@@ -45,19 +48,21 @@ class CheckpointManager:
     def save(self, state: TrainState, metadata: dict | None = None) -> bool:
         """Write ``state`` at its step; False (and nothing written) when that
         step is already saved, e.g. the final save right after a periodic
-        one at the same step. Every rank calls it; rank 0 writes, and each
-        rank returns once the step is on disk."""
-        return self.dp.broadcast(self._write(state, metadata) if self.dp.is_main else None)
+        one at the same step. Every rank calls it (a sharded state is
+        gathered on all of them); rank 0 writes, and each rank returns once
+        the step is on disk."""
+        sd = state.state_dict()
+        return self.dp.broadcast(self._write(int(state.step), sd, metadata)
+                                 if self.dp.is_main else None)
 
-    def _write(self, state: TrainState, metadata: dict | None) -> bool:
-        step = int(state.step)
+    def _write(self, step: int, sd: dict, metadata: dict | None) -> bool:
         if step in self.all_steps():
             return False
         final = os.path.join(self.directory, str(step))
         tmp = os.path.join(self.directory, f".{step}.tmp.{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save(state.state_dict(), os.path.join(tmp, STATE_FILE))
+        torch.save(sd, os.path.join(tmp, STATE_FILE))
         shutil.rmtree(final, ignore_errors=True)
         os.replace(tmp, final)
         if metadata is not None:

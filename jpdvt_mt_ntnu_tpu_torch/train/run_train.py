@@ -23,6 +23,22 @@ summation order. Rank 0 picks the exp dir and writes the logs, metrics,
 ``step_anchor.json`` and checkpoints; the others wait for its writes and
 read the same files.
 
+Tensor parallelism and fully-sharded data parallelism (the JAX package's
+``mesh.model`` and ``mesh.fsdp``; ``parallel/sharding.py``) split the N
+ranks as data x fsdp x model, ``model`` innermost:
+
+    python -m torch.distributed.run --nproc_per_node 4 \\
+        -m jpdvt_mt_ntnu_tpu_torch.train.run_train mesh.model=2 mesh.fsdp=2 ...
+
+The batch is cut over data x fsdp (a model group's ranks take the same
+rows); the DiT blocks' four matrices are cut over the model ranks (qkv by
+heads, so each rank's attention kernels run on its own heads), and every
+matrix of the params, the EMA and the moments over the fsdp ranks, gathered
+block by block for the forward and again for the backward. Checkpoints are
+written whole, in the one-process layout, and a resume cuts them anew for
+its own mesh. ``model.attn_impl=block`` under ``mesh.model`` takes the
+default route, and says so in the log.
+
 A fresh start, ``train.resume=<checkpoint dir>`` and ``train.warm_start=``
 (an artifact manifest/npz, or a checkpoint directory of this package) are
 supported. The run runs on the card; ``device=cpu`` (an argument without a
@@ -38,12 +54,13 @@ default), ``met``, ``texmet`` or an image folder (``data.data_path``);
 ``model.name=JPDVT-MoE`` and ``model.moe_experts`` train the expert-choice
 MoE (``models/moe.py``). Not ported yet, and refused with
 ``NotImplementedError`` where their keys are set, before any weights load:
-the mesh's other axes (tensor, FSDP, pipeline, expert and sequence
-parallelism), ``data.device_stream`` for anything but ``waves`` (as in
+the mesh's pipeline, expert and sequence axes (and ``mesh.model`` or
+``mesh.fsdp`` with the MoE, whose experts JAX cuts by its expert rules), ``data.device_stream``
+for anything but ``waves`` (as in
 JAX), ``model.quant`` (the JAX trainer trains dense), the other attention
-routes, any geometry that no attention kernel takes
-(``ops.attention.attention_route``), and a dataset with JPEGs where the
-decoder has no libjpeg (when the dataset is built).
+routes, and any geometry that no attention kernel takes
+(``ops.attention.attention_route``). Datasets decode PNG and JPEG with the
+port's own decoder on every machine (``ops/native.py``).
 
 SIGTERM/SIGINT: the loop finishes its step, saves a checkpoint and exits
 with code 42 (``PREEMPTED_EXIT``) for a wrapper to relaunch with
@@ -71,6 +88,7 @@ from ..data.synthetic import CUES
 from ..models import DIT_CONFIGS, create_model
 from ..ops.attention import ATTN_IMPLS, attention_route
 from ..parallel import DataParallel, MeshSpec, maybe_initialize_distributed, rank_rows
+from ..parallel.sharding import MeshRanks, make_layout
 from ..tools.weights import load_artifact
 from ..utils.config import Config, apply_overrides
 from ..utils.device import MATMUL_PRECISION, apply_matmul_precision
@@ -90,9 +108,7 @@ def build_datasets(cfg: Config):
     ``met`` and ``texmet`` at their train and val splits, ``synthetic`` (any
     cue regime; validation: 128 items at seed 7), and otherwise an image
     folder at ``data.data_path`` (288 px under ``task.crop``, as the
-    reference's ImageNet trainer), which validates on its own items. A set
-    with JPEGs that this machine's decoder cannot take is refused by name
-    (``data/datasets.py``)."""
+    reference's ImageNet trainer), which validates on its own items."""
     d, size = cfg.data, cfg.model.image_size
     load_size = 288 if cfg.task.crop else size
     if d.dataset == "met":
@@ -119,8 +135,13 @@ def check_supported(cfg: Config, on_card: bool = True) -> None:
     and for a model whose attention no kernel takes (``on_card``: the
     kernels' limits; the CPU's plain versions take any head dim)."""
     m, d, mesh = cfg.model, cfg.data, cfg.mesh
-    refused = [f"{name} (the port runs data parallelism only)"
+    refused = [f"{name} (the port runs the data, fsdp and model axes)"
                for name in MeshSpec.from_config(mesh).refused()]
+    moe = m.moe_experts or DIT_CONFIGS.get(m.name, {}).get("moe_experts")
+    for axis in ("model", "fsdp"):
+        if getattr(mesh, axis) > 1 and moe:
+            refused.append(f"mesh.{axis} with the expert-choice MoE (JAX's expert rules, "
+                           "_EP_RULES, are not ported)")
     if mesh.pipe_microbatches:
         refused.append("mesh.pipe_microbatches")
     if d.dataset == "synthetic":
@@ -224,15 +245,17 @@ def train(cfg: Config, dp: DataParallel, precision: str = "highest") -> int:
     procs = {**dp.describe(), "matmul_precision": precision}
     logger.info(f"Processes: {json.dumps(procs)}")
 
-    # The data first: a dataset this machine cannot decode is refused
-    # before the model is built.
+    # The data first: a missing split file fails before the model is built.
     d = cfg.data
     train_ds, val_ds = build_datasets(cfg)
     logger.info(f"Data: {d.dataset} ({type(train_ds).__name__}), {len(train_ds)} train items, "
                 f"{len(val_ds)} validation items")
-    # Each rank's rows of every global batch (None: all of them).
-    rows = (rank_rows(d.global_batch_size, dp.rank, dp.world, cfg.train.grad_accum)
-            if dp.world > 1 else None)
+    # Each rank's rows of every global batch (None: all of them), cut over
+    # the batch's data x fsdp shards.
+    mesh_spec = MeshSpec.from_config(cfg.mesh)
+    ranks = MeshRanks.from_spec(mesh_spec, dp.world)
+    rows = (rank_rows(d.global_batch_size, ranks.batch_index(dp.rank), ranks.batch_size,
+                      cfg.train.grad_accum) if ranks.batch_size > 1 else None)
     loader = Loader(train_ds, d.global_batch_size, shuffle=True,
                     seed=cfg.train.global_seed, num_workers=d.num_workers, rows=rows)
 
@@ -314,6 +337,13 @@ def train(cfg: Config, dp: DataParallel, precision: str = "highest") -> int:
     dp.check_replicas(state.tensors(), "the train state")
     if dp.world > 1:
         logger.info(f"The train state is bit-equal on all {dp.world} ranks at step {state.step}")
+    # Then each rank keeps its shards of it, on a mesh with fsdp or model axes.
+    layout = make_layout(mesh_spec, dp, state.model)
+    if layout is not None:
+        layout.shard_(state)
+        held = sum(t.numel() for t in state.tensors()[1:])
+        logger.info(f"Mesh: {json.dumps(layout.mesh.describe)}; this rank holds {held} of "
+                    f"the state's {4 * n_params} elements (params, EMA, moments)")
 
     # train.epochs is a TOTAL budget from this run's anchor step, persisted
     # in the exp dir beside the EMA warmup anchor, so that a resume
@@ -346,7 +376,7 @@ def train(cfg: Config, dp: DataParallel, precision: str = "highest") -> int:
                                   torch.as_tensor(grid_code(model_cfg.code_dim, g),
                                                   device=device),
                                   grad_accum=cfg.train.grad_accum,
-                                  seed=cfg.train.global_seed, dp=dp)
+                                  seed=cfg.train.global_seed, dp=dp, layout=layout)
                   for g in grids]
 
     # The JAX validator's own puzzles where they are committed (grid 3 at

@@ -5,7 +5,9 @@ params, EMA and the optax state as one immutable pytree and replaces it
 every step; here the parameters live in two ``DiT`` modules (float32) and
 the AdamW moments in dicts keyed by the ``state_dict`` names, and the
 update writes into them in place. EMA covers all parameters
-(train_JPDVT.py:37-46).
+(train_JPDVT.py:37-46). On a mesh with fsdp or model axes each tensor is
+this rank's shard (``layout``, ``parallel/sharding.py``), and
+:meth:`TrainState.state_dict` gathers the whole state.
 """
 
 from __future__ import annotations
@@ -43,8 +45,13 @@ class TrainState:
     model: nn.Module
     ema: nn.Module
     opt: AdamState
+    layout: object = None  # parallel.sharding.Layout, where the tensors are shards
 
     def state_dict(self) -> dict:
+        """The whole state in the one-process layout; where it is sharded,
+        gathered from every rank (collective: every rank calls it)."""
+        if self.layout is not None:
+            return self.layout.full_state_dict(self)
         return {"step": self.step, "model": self.model.state_dict(),
                 "ema": self.ema.state_dict(),
                 "opt": {"count": self.opt.count, "mu": dict(self.opt.mu),
@@ -58,7 +65,8 @@ class TrainState:
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
-        """Copy a :meth:`state_dict` into this state's tensors, bit for bit."""
+        """Copy a :meth:`state_dict` into this state's tensors, bit for bit
+        (a whole state: a sharded one is restored before it is cut)."""
         self.model.load_state_dict(sd["model"], strict=True)
         self.ema.load_state_dict(sd["ema"], strict=True)
         for mine, theirs in ((self.opt.mu, sd["opt"]["mu"]),

@@ -10,8 +10,9 @@ Randomness: every step draws from a generator seeded from (seed, step), the
 counterpart of ``fold_in(rng, state.step)``, so a resumed run draws what an
 uninterrupted one would without storing generator state. Across processes
 each rank draws for the global batch and keeps its rows, and the ranks
-average their gradients (``make_train_step``'s ``dp``), where the JAX
-package's step shards one program's batch over a mesh.
+average their gradients (``make_train_step``'s ``dp``, or its ``layout`` on
+a mesh with fsdp and model axes), where the JAX package's step shards one
+program's batch over a mesh.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 from ..core.diffusion import Diffusion
 from ..ops import jigsaw
 from ..parallel.mesh import DataParallel
+from ..parallel.sharding import Layout
 from .state import AdamW, TrainState, fused_adamw_ema
 
 
@@ -93,7 +95,8 @@ def _global_norm(tensors) -> torch.Tensor:
 
 def make_train_step(diffusion: Diffusion, optimizer: AdamW, task: TrainTask,
                     piece_code: torch.Tensor, *, grad_accum: int = 1,
-                    seed: int = 0, dp: DataParallel | None = None) -> Callable:
+                    seed: int = 0, dp: DataParallel | None = None,
+                    layout: Layout | None = None) -> Callable:
     """Build ``train_step(state, images) -> (state, metrics)``.
 
     images: (B, H, W, C) clean images in [-1, 1] (float32 or bfloat16), or
@@ -114,8 +117,19 @@ def make_train_step(diffusion: Diffusion, optimizer: AdamW, task: TrainTask,
     keeps its rows, the gradients and the loss metrics are averaged over
     the ranks before the global norm, the clip and AdamW + EMA, so every
     rank ends the step with the same state.
+
+    ``layout``: the state's layout on a mesh with fsdp or model axes
+    (``parallel/sharding.py``, which ``state`` was cut by). The batch is then
+    cut over data x fsdp only (``layout.batch_index`` and ``batch_size`` in
+    place of the rank and the world: a model group's ranks take the same
+    rows), the gradients and metrics are averaged as the layout reduces
+    them, and the global norm sums each leaf once; every rank ends the step
+    with its shards of the state one process would hold.
     """
     dp = dp or DataParallel()
+    # This rank's shard of the batch, and their number.
+    part_index, parts = ((layout.batch_index, layout.batch_size) if layout is not None
+                         else (dp.rank, dp.world))
 
     def loss_fn(model, images, t, generator, draw_batch, rows):
         out = diffusion.training_losses(
@@ -135,19 +149,20 @@ def make_train_step(diffusion: Diffusion, optimizer: AdamW, task: TrainTask,
             images = images.float()
         if task.crop_pieces is not None:
             images = jigsaw.inner_crop_pieces(images, task.grid_size, task.crop_pieces)
-        b = images.shape[0] * dp.world  # the global batch
-        if b % (grad_accum * dp.world):
+        b = images.shape[0] * parts  # the global batch
+        if b % (grad_accum * parts):
             raise ValueError(f"batch {b} not divisible by grad_accum={grad_accum}"
-                             + (f" x {dp.world} ranks" if dp.world > 1 else ""))
+                             + (f" x {parts} ranks" if parts > 1 else ""))
         gen = step_generator(seed, state.step, device)
         t = draw_timesteps(b, diffusion.num_timesteps, task.t_bias, gen)
 
-        params = list(model.parameters())
+        named = list(model.named_parameters())
+        params = [p for _, p in named]
         for p in params:
             p.grad = None
         micro = b // grad_accum
-        part = micro // dp.world  # this rank's rows of each microbatch
-        mine = slice(dp.rank * part, (dp.rank + 1) * part) if dp.world > 1 else None
+        part = micro // parts  # this rank's rows of each microbatch
+        mine = slice(part_index * part, (part_index + 1) * part) if parts > 1 else None
         loss = code_mse = img_mse = 0.0
         for i in range(grad_accum):
             t_i = t[i * micro:(i + 1) * micro]
@@ -161,11 +176,18 @@ def make_train_step(diffusion: Diffusion, optimizer: AdamW, task: TrainTask,
         if grad_accum > 1:
             torch._foreach_div_(grads, grad_accum)
             loss, code_mse, img_mse = (v / grad_accum for v in (loss, code_mse, img_mse))
-        if dp.in_group:
+        if layout is not None:
             means = torch.stack([loss, code_mse, img_mse])
-            dp.all_reduce_mean_(grads + [means])
+            layout.reduce_grads_([(n, p.grad) for n, p in named])
+            layout.mean_over_batch_(means)
             loss, code_mse, img_mse = means.unbind()
-        grad_norm = _global_norm(grads)
+            grad_norm = layout.global_norm([(n, p.grad) for n, p in named])
+        else:
+            if dp.in_group:
+                means = torch.stack([loss, code_mse, img_mse])
+                dp.all_reduce_mean_(grads + [means])
+                loss, code_mse, img_mse = means.unbind()
+            grad_norm = _global_norm(grads)
         if optimizer.grad_clip is not None:
             # optax.clip_by_global_norm: g * clip / norm where norm > clip.
             factor = torch.clamp(optimizer.grad_clip / grad_norm, max=1.0)

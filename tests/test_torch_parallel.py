@@ -15,7 +15,9 @@
   process's on the loader and on ``data.device_stream``, one checkpoint,
   a resume that every rank restores bit-equal, SIGTERM to one rank (both
   stop at one step and exit 42), a killed rank (the other exits non-zero
-  at its next step) and the refusals that stay.
+  at its next step) and the refusals that stay (``mesh.model`` and
+  ``mesh.fsdp``, ported, refused where they do not fit the world;
+  ``tests/test_torch_mesh.py`` runs them).
 
 Tolerances:
 - 2 ranks against 1 process: loss, code/img MSE and grad norm 1e-6
@@ -183,9 +185,15 @@ def test_mesh_data_is_every_rank_or_the_world_size():
     with pytest.raises(ValueError, match="world size"):
         maybe_initialize_distributed(_mesh(data=2), "cpu", env={})
     assert maybe_initialize_distributed(_mesh(data=1), "cpu", env={}).world == 1
-    for axis in ("model", "fsdp", "pipe", "ep", "seq"):
+    for axis in ("pipe", "ep", "seq"):
         with pytest.raises(NotImplementedError, match=f"mesh.{axis}"):
             MeshSpec(**{axis: 2}).axis_sizes(2)
+    # model and fsdp are ported: they take their ranks from the world's.
+    assert MeshSpec(model=2).axis_sizes(4) == {"data": 2, "model": 2}
+    assert MeshSpec(fsdp=2, data=1).axis_sizes(2) == {"data": 1, "fsdp": 2}
+    for axis in ("model", "fsdp"):
+        with pytest.raises(ValueError, match=rf"mesh\.{axis}=2 .*world size"):
+            MeshSpec(**{axis: 2, "data": 2}).axis_sizes(2)
 
 
 def test_process_shard_and_local_batch_without_a_group():
@@ -434,6 +442,12 @@ def test_a_killed_rank_fails_the_other(tmp_path):
     (["mesh.pipe=2"], "mesh.pipe"), (["mesh.ep=2"], "mesh.ep"), (["mesh.seq=2"], "mesh.seq"),
     (["mesh.pipe_microbatches=4"], "mesh.pipe_microbatches")])
 def test_run_train_refuses_the_other_mesh_axes(extra, name):
+    """The pipeline, expert and sequence axes are not ported; mesh.model and
+    mesh.fsdp are, and a run of one process refuses them for want of ranks."""
+    if name in ("mesh.model", "mesh.fsdp"):
+        with pytest.raises(ValueError, match=name.replace(".", r"\.") + "=2 .*world size"):
+            run_train.main(TINY + extra)
+        return
     with pytest.raises(NotImplementedError, match=name.replace(".", r"\.")):
         run_train.main(TINY + extra)
 

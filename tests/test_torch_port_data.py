@@ -13,15 +13,19 @@
 - The transforms (``data/transforms.py``, Pillow's arithmetic in C) are
   bit-equal to PIL 12.1 on random images of odd sizes, upscaling and
   downscaling, for every operation; ``decode_rgb`` equals PIL's decode of
-  PNGs of every colour type, and of a JPEG where both use libjpeg (bit-equal
-  here: 0 values of 230,400 differ; the tolerance is 1 level).
+  PNGs of every colour type, and bit for bit of a JPEG, which the port
+  decodes with its own decoder (``tests/test_torch_jpeg.py`` holds it to
+  libjpeg on every layout).
 - ``_split_indices`` equals sklearn's ``train_test_split`` for several n.
 - ``rand_erode`` and the datasets (``TEXMETDataset``, ``METDataset``,
   ``ImageFolderDataset``) on folders written here (PNG and JPEG files, an
   oversized scan, a corrupt file, a missing one): items bit-equal to the
-  JAX datasets', the black image for the corrupt file; and every dataset
-  with a JPEG refused by name when the decoder lacks libjpeg.
-- ``run_train`` on TEXMET and on an image folder, ``run_eval`` on TEXMET.
+  JAX datasets', the black image for the corrupt file; and the datasets
+  and both CLIs taking JPEG directories with no libjpeg in the port, a
+  JPEG feature the port does not decode failing its TEXMET item by name
+  instead of turning black.
+- ``run_train`` on TEXMET and on an image folder, ``run_eval`` on TEXMET
+  and on a folder of JPEGs.
 """
 
 import io
@@ -261,13 +265,9 @@ def test_decode_rgb_equals_pil():
     jpeg = os.path.join(REPO, "tests", "golden", "serve_waves_400x480.jpg")
     with open(jpeg, "rb") as f:
         data = f.read()
-    if "jpeg" not in native.formats():
-        with pytest.raises(ValueError, match="libjpeg"):
-            native.decode_rgb(data)
-        return
-    diff = np.abs(native.decode_rgb(data).astype(int)
-                  - np.asarray(Image.open(jpeg).convert("RGB")).astype(int))
-    assert diff.max() <= 1 and (diff > 0).mean() < 0.01
+    assert native.formats() == ("png", "jpeg")
+    np.testing.assert_array_equal(native.decode_rgb(data),
+                                  np.asarray(Image.open(jpeg).convert("RGB")))
 
 
 # ------------------------------------------------------------------ splits
@@ -323,7 +323,7 @@ def test_texmet_items_equal_jax(texmet_dir, split, size):
         for i in range(len(mine)):
             got, want = mine[i], theirs[i]
             assert got.shape == (out, out, 3) and got.dtype == np.float32
-            # Bit-equal for PNG; JPEG is decoded by libjpeg on both sides here.
+            # Bit-equal for PNG and JPEG: the port's decoder equals PIL's libjpeg.
             np.testing.assert_array_equal(got, want, err_msg=mine.image_files[i])
     corrupt = mine.image_files.index(os.path.join(texmet_dir, "images", "corrupt.png"))
     assert not mine[corrupt].any()  # the reference's black image
@@ -368,27 +368,52 @@ def test_met_items_equal_jax(met_dir, split):
         np.testing.assert_array_equal(got, want)
 
 
-def test_datasets_with_jpegs_are_refused_without_libjpeg(texmet_dir, met_dir, tmp_path,
-                                                          monkeypatch):
-    monkeypatch.setattr(native, "formats", lambda: ("png",))
-    with pytest.raises(NotImplementedError, match="libjpeg"):
-        datasets.METDataset(met_dir, "train")
-    with pytest.raises(NotImplementedError, match="TEXMETDataset.*libjpeg"):
-        datasets.TEXMETDataset(texmet_dir, "train", 192)
-    with pytest.raises(NotImplementedError, match="ImageFolderDataset.*libjpeg"):
-        datasets.ImageFolderDataset(os.path.join(texmet_dir, "images"), 48)
-    # A PNG-only split is taken.
+def test_datasets_with_jpegs_are_refused_without_libjpeg(texmet_dir, met_dir, tmp_path):
+    """No: the port links no libjpeg anywhere, and its datasets and CLIs
+    take JPEG directories, item for item the JAX datasets' (PIL's libjpeg).
+    Only a JPEG feature the port does not decode yet fails, by name."""
+    assert native.formats() == ("png", "jpeg")
+    for split in ("train", "test"):
+        mine, theirs = (datasets.METDataset(met_dir, split),
+                        jax_datasets.METDataset(met_dir, split))
+        np.testing.assert_array_equal(mine[1], theirs[1])
+    mine = datasets.TEXMETDataset(texmet_dir, "train", 192)
+    theirs = jax_datasets.TEXMETDataset(texmet_dir, "train", 192)
+    jpegs = [i for i, f in enumerate(mine.image_files) if f.endswith(".jpg")]
+    assert jpegs
+    for i in jpegs:
+        np.testing.assert_array_equal(mine[i], theirs[i])
+    root = os.path.join(texmet_dir, "images")
+    mine, theirs = datasets.ImageFolderDataset(root, 48), jax_datasets.ImageFolderDataset(root, 48)
+    for i, path in enumerate(mine.image_files):
+        if path.endswith(".jpg"):
+            np.testing.assert_array_equal(mine[i], theirs[i], err_msg=path)
+    # An arithmetic-coded scan (libjpeg decodes it, the port not yet) fails
+    # its TEXMET item by file and feature; a corrupt one turns black as in
+    # the reference.
     (tmp_path / "images").mkdir()
-    Image.fromarray(_image(np.random.default_rng(0), 300, 420)).save(tmp_path / "images" / "a.png")
-    (tmp_path / "train_files.txt").write_text("a.png\n")
-    assert datasets.TEXMETDataset(str(tmp_path), "train", 192)[0].shape == (192, 192, 3)
-    # The CLIs refuse before a model is built.
-    with pytest.raises(NotImplementedError, match="libjpeg"):
-        run_train.main(["device=cpu", "data.dataset=texmet", f"data.data_path={texmet_dir}",
-                        f"train.exp_dir={tmp_path}/exp"])
-    with pytest.raises(NotImplementedError, match="libjpeg"):
-        run_eval.main(["device=cpu", f"data.data_path={texmet_dir}/images",
-                       f"eval.logs_dir={tmp_path}/logs"])
+    golden = os.path.join(REPO, "tests", "golden", "torch_jpeg")
+    with open(os.path.join(golden, "arithmetic_61x77.jpg"), "rb") as f:
+        (tmp_path / "images" / "arith.jpg").write_bytes(f.read())
+    with open(os.path.join(golden, "q50_420_61x77.jpg"), "rb") as f:
+        (tmp_path / "images" / "cut.jpg").write_bytes(f.read()[:700])
+    (tmp_path / "train_files.txt").write_text("arith.jpg\ncut.jpg\n")
+    split = datasets.TEXMETDataset(str(tmp_path), "train", 192)
+    with pytest.raises(native.NotPortedError, match="arith.jpg.*arithmetic"):
+        split[0]
+    assert not split[1].any()
+    # The CLIs: a JPEG TEXMET split trains, a JPEG folder evaluates (its
+    # corrupt PNG logged and skipped, as the JAX harness skips it).
+    assert run_train.main(SMALL + ["model.image_size=192", "data.dataset=texmet",
+                                   f"data.data_path={texmet_dir}",
+                                   f"train.exp_dir={tmp_path}/exp"]) == 0
+    assert np.isfinite(_losses(tmp_path / "exp")).all()
+    assert run_eval.main(SMALL[:5] + ["model.image_size=48", f"data.data_path={root}",
+                                      "eval.batch_size=4", "diffusion.sampler_mode=fast",
+                                      "diffusion.sampling_steps=2",
+                                      f"eval.logs_dir={tmp_path}/logs"]) == 0
+    rows = (tmp_path / "logs" / "inference_progress.csv").read_text().splitlines()[1:]
+    assert sum(r.split(",")[0].endswith(".jpg") for r in rows) == 2
 
 
 SMALL = ["device=cpu", "model.depth=1", "model.hidden_size=64", "model.num_heads=4",
