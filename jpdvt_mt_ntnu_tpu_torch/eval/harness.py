@@ -96,7 +96,7 @@ class EvalHarness:
                  journal_name: str = "inference_progress.csv",
                  process_index: int = 0, process_count: int = 1,
                  draws: Optional[Draws] = None,
-                 sync: Optional[Callable[[], None]] = None):
+                 sync: Optional[Callable[[], None]] = None, writes_journal: bool = True):
         self.solver = solver
         self.batch_size = batch_size
         self.results_dir = results_dir
@@ -108,6 +108,9 @@ class EvalHarness:
         # first row (a barrier across the hosts), so that what a host skips
         # does not depend on how far the others have got.
         self.sync = sync
+        # False on the ranks of a seq group but its first, which solve the
+        # same puzzles in lockstep (eval/run_eval.py).
+        self.writes_journal = writes_journal
         self.logger, self.err_logger = setup_logging(logs_dir)
 
     # ----------------------------------------------------------------- util
@@ -192,6 +195,8 @@ class EvalHarness:
         def write_results(names, batch, res, per_item):
             # The writer thread: rows stay in submission order (resume), PNGs
             # are encoded while the card solves the next batch.
+            if not self.writes_journal:
+                return
             if self.results_dir:
                 scrambled = self.solver.scramble(batch, res.indices)
                 recon = self.solver.reconstruct(scrambled, res.pred)

@@ -38,11 +38,15 @@ its harness, as the JAX package's hosts do. ``eval.jax_draws`` may hold
 ``model.matmul_precision`` sets float32 products (``utils/device.py``).
 ``model.name=JPDVT-MoE`` (and ``model.moe_*``) evaluates the expert-choice
 MoE; with ``model.quant`` its attention is int8 and its experts dense.
-``mesh.model`` and ``mesh.fsdp`` are read as the JAX eval reads them: not
-at all (it evaluates data-parallel). Not ported yet, and refused by name
-before any weights load: an Orbax checkpoint directory, the mesh's
-``pipe``, ``ep`` and ``seq`` axes, and any geometry no attention kernel
-takes.
+``mesh.seq=s`` solves each puzzle on s ranks with ring attention
+(``parallel/sequence.py``), as the JAX eval does on its (data, seq) mesh:
+the ranks of a seq group solve the same puzzles in lockstep, each on its
+N/s tokens, the data groups take ``paths[d::D]`` with the draws of
+``eval.seed + d``, and each seq group's first rank writes the journal of
+data index d. ``mesh.model``, ``mesh.fsdp``, ``mesh.ep``, ``mesh.pipe``
+and ``mesh.pipe_microbatches`` are read as the JAX eval reads them: not at
+all. Not ported yet, and refused by name before any weights load: an Orbax
+checkpoint directory and any geometry no attention kernel takes.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ from ..models import DIT_CONFIGS, create_model
 from ..ops.attention import ATTN_IMPLS, attention_route
 from ..ops.quant import parse_quant_spec
 from ..parallel import MeshSpec, maybe_initialize_distributed
+from ..parallel.sharding import Mesh, MeshRanks, use_ring
 from ..tools.weights import load_artifact
 from ..utils.config import Config, apply_overrides
 from ..utils.device import MATMUL_PRECISION, apply_matmul_precision
@@ -151,11 +156,7 @@ def check_supported(cfg: Config, texrec: bool = False, on_card: bool = True) -> 
     """Raise ``NotImplementedError`` for every set key the port's eval
     cannot run, before any weights load."""
     m, d = cfg.model, cfg.data
-    refused = [f"{name} (" + ("sequence-parallel ring attention" if name == "mesh.seq" else
-                              "the port's eval runs data parallelism") + ")"
-               for name in MeshSpec.from_config(cfg.mesh).refused()]
-    if cfg.mesh.pipe_microbatches:
-        refused.append("mesh.pipe_microbatches")
+    refused = []
     if m.name not in DIT_CONFIGS:
         refused.append(f"model {m.name!r} (the port's registry is {sorted(DIT_CONFIGS)})")
     try:
@@ -237,10 +238,15 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
     device = device if device is not None else cli_device
     check_supported(cfg, texrec, on_card=torch.device(device or "cuda").type == "cuda")
     apply_matmul_precision(cfg.model.matmul_precision)
-    # The JAX eval reads neither mesh.model nor mesh.fsdp: every rank is a
-    # data shard.
-    dp = maybe_initialize_distributed(dataclasses.replace(cfg.mesh, model=1, fsdp=1), device)
-    device, rank, world = dp.device, dp.rank, dp.world
+    # The JAX eval reads only mesh.data and mesh.seq: every rank is a data
+    # shard of a (data, seq) mesh.
+    dp = maybe_initialize_distributed(
+        dataclasses.replace(cfg.mesh, model=1, fsdp=1, ep=1, pipe=1), device)
+    device = dp.device
+    ranks = MeshRanks.from_spec(MeshSpec(data=cfg.mesh.data, seq=cfg.mesh.seq), dp.world)
+    # This rank's data index and the data groups' count, and whether it writes.
+    rank, world = ranks.coord(dp.rank, "data"), ranks.data
+    writes = ranks.coord(dp.rank, "seq") == 0
 
     if texrec:
         subdirs = _texrec_paths(cfg.data.data_path)
@@ -254,6 +260,8 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
                                     dtype=dtype, attn_impl=cfg.model.attn_impl,
                                     **cfg.model.overrides())
     load_params(cfg, model, device)
+    if ranks.seq > 1:
+        use_ring(model, Mesh(ranks, dp))
     diffusion = create_diffusion(str(cfg.diffusion.sampling_steps),
                                  cfg.diffusion.noise_schedule, cfg.diffusion.predict_xstart,
                                  cfg.diffusion.sigma_small, device=device)
@@ -270,7 +278,7 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
             solver, logs_dir=logs_dir, batch_size=cfg.eval.batch_size, seed=cfg.eval.seed,
             results_dir=cfg.eval.results_dir if cfg.eval.save_images else None,
             journal_name=journal_name, process_index=rank, process_count=world,
-            draws=draws, sync=dp.barrier)
+            draws=draws, sync=dp.barrier, writes_journal=writes)
 
     if texrec:
         # One journal per subdirectory of data_path, '*mask*' files left

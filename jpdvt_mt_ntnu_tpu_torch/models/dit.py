@@ -22,7 +22,12 @@ the JAX parameters carry over one to one (``tools/weights.py``):
   attention core on its default route; the parameter names do not change;
 - ``moe_experts=E`` replaces each block's MLP by an expert-choice
   mixture of E experts (``models/moe.py``, JAX ``models/dit.py:276-286``);
-  with ``quant`` its attention is int8 and its experts stay dense, as there.
+  with ``quant`` its attention is int8 and its experts stay dense, as there;
+- on a mesh (``parallel/sharding.py``'s layout sets the hooks) a block
+  runs its rank's part: TP's heads and hidden features, FSDP's gathered
+  weights, EP's experts, or under ``mesh.seq`` its rank's tokens with
+  ``Attention.ring`` for the attention core (``parallel/sequence.py``);
+  the outputs are gathered whole.
 
 Parameters are float32; ``DiTConfig.dtype`` is the compute type. Every
 Linear casts its parameters to the type of its input, so a model whose
@@ -176,8 +181,11 @@ class Attention(nn.Module):
         self.attn_impl = None if quant else attn_impl
         self.qkv = Linear(hidden_size, 3 * hidden_size, quant)
         self.proj = Linear(hidden_size, hidden_size, quant)
+        self.ring = None  # the mesh under sequence parallelism (parallel/sequence.py)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.ring is not None:
+            return self.proj(self.ring.ring_attention(self.qkv(x), self.num_heads))
         grad = torch.is_grad_enabled() and (
             x.requires_grad or self.qkv.weight.requires_grad or self.qkv.bias.requires_grad)
         route = attention_route(
@@ -272,6 +280,7 @@ class DiT(nn.Module):
         pos = get_2d_sincos_pos_embed(cfg.hidden_size, cfg.tokens_per_side)
         self.register_buffer("pos_embed", torch.tensor(pos, dtype=torch.float32),
                              persistent=False)
+        self.seq = None  # the mesh under sequence parallelism (parallel/sequence.py)
 
     @torch.no_grad()
     def initialize_weights(self, generator: torch.Generator | None = None) -> None:
@@ -318,10 +327,20 @@ class DiT(nn.Module):
         x = x.to(dt) if x_is_tokens else self.embed_condition(x)
         x = x + self.code_in(code.to(dt))
         c = self.t_embedder(t, dt)
+        if self.seq is not None:  # this rank's tokens of the sequence
+            x = self.seq.local_tokens(x)
         for block in self.blocks:
             x = block(x, c)
+        return self.head(x, c)
+
+    def head(self, x: torch.Tensor, c: torch.Tensor):
+        """The final layer, the code head and unpatchify: (image, code),
+        float32; under sequence parallelism per token, then gathered."""
+        cfg = self.config
         x = self.final_layer(x, c)
         code_out = self.code_out2(F.silu(self.code_out1(x)))
+        if self.seq is not None:
+            x, code_out = self.seq.gather_tokens(x), self.seq.gather_tokens(code_out)
         b, n_side, p = x.shape[0], cfg.tokens_per_side, cfg.patch_size
         img = x.reshape(b, n_side, n_side, p, p, cfg.in_channels)
         img = img.permute(0, 1, 3, 2, 4, 5).reshape(

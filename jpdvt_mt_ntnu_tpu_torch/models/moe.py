@@ -25,8 +25,27 @@ the C-th place can change it.
 
 Parameters keep the JAX names and layouts (``router`` a Linear, ``wi``
 (E, d, h), ``bi`` (E, h), ``wo`` (E, h, out), ``bo`` (E, out)), which
-``tools/weights.py`` carries over as they are. The expert parallelism of
-the JAX package's ``ep`` mesh axis is not ported (``mesh.ep`` is refused).
+``tools/weights.py`` carries over as they are.
+
+On a mesh (``parallel/sharding.py`` sets ``mesh``, ``first_expert`` and
+``fsdp_dims``), as the JAX package's ``_EP_RULES`` lay the experts out:
+
+- **Expert parallelism** (``mesh.ep``): this rank holds E/ep of the
+  experts, from ``first_expert`` on. The ranks of an ep group see the same
+  rows, so each computes the fp32 router over all E experts, takes the
+  top-C of its own (C counted from the global E) and scatters their gated
+  outputs into fp32 rows, which are summed over the group. The input
+  passes Megatron's identity, whose backward sums its gradient over the
+  group; the router's own gradient is partial on each rank (it gates only
+  its experts), and the layout sums it.
+- **Tensor parallelism** (``mesh.model``): each expert's hidden features
+  are cut over the model group; fc2's partial products are summed in fp32,
+  then ``bo`` is added once, as ``dit.Linear``'s "row" mode does.
+- **FSDP** (``mesh.fsdp``): a stacked leaf is this rank's shard, gathered
+  for its einsum and again for the backward (``Mesh.gathered_einsum``).
+- **Sequence parallelism** (``mesh.seq``): the top-C spans the sequence,
+  so the tokens are gathered first, and the input's gradient is summed and
+  scattered back over the seq group.
 """
 
 from __future__ import annotations
@@ -54,6 +73,9 @@ class ExpertChoiceMoE(nn.Module):
         self.bi = nn.Parameter(torch.zeros(num_experts, hidden))
         self.wo = nn.Parameter(torch.empty(num_experts, hidden, out))
         self.bo = nn.Parameter(torch.zeros(num_experts, out))
+        self.mesh = None  # parallel.sharding.Mesh, where the experts or tokens are cut
+        self.first_expert = 0  # the global index of this rank's first expert
+        self.fsdp_dims: dict[str, int] = {}  # stacked leaf -> its dim cut over fsdp
 
     def capacity(self, n: int) -> int:
         """C, the tokens each expert takes of a sequence of ``n``."""
@@ -75,25 +97,59 @@ class ExpertChoiceMoE(nn.Module):
         self.bo.zero_()
 
     def route(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """(gate, idx), each (B, E, C): each expert's top-C router
-        probabilities (fp32) and the tokens they belong to."""
+        """(gate, idx), each (B, E, C) for this rank's E experts: each
+        expert's top-C router probabilities (fp32) and the tokens they
+        belong to."""
         probs = torch.softmax(self.router(x.float()), dim=-1)        # (B, N, E)
+        local = self.wi.shape[0]
+        if local != self.num_experts:
+            probs = probs[..., self.first_expert:self.first_expert + local]
         return torch.topk(probs.transpose(1, 2), self.capacity(x.shape[1]), dim=-1)
 
+    def _leaf(self, name: str, dtype: torch.dtype) -> torch.Tensor:
+        p = getattr(self, name)
+        if name in self.fsdp_dims:
+            p = self.mesh.gathered(p, self.fsdp_dims[name])
+        return p.to(dtype)
+
+    def _product(self, eq: str, x: torch.Tensor, name: str) -> torch.Tensor:
+        if name in self.fsdp_dims:
+            return self.mesh.gathered_einsum(eq, x, getattr(self, name), self.fsdp_dims[name])
+        return torch.einsum(eq, x, getattr(self, name).to(x.dtype))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mesh = self.mesh
+        if mesh is None or mesh.seq.size == 1:
+            return self._experts(x)
+        return mesh.local_tokens(self._experts(mesh.gather_tokens_summed(x)))
+
+    def _experts(self, x: torch.Tensor) -> torch.Tensor:
+        mesh = self.mesh
+        ep = mesh is not None and mesh.ep.size > 1
+        tp = mesh is not None and mesh.model.size > 1
+        if ep:
+            x = mesh.copy_to(x, mesh.ep)
         b, n, d = x.shape
-        e = self.num_experts
         dt = x.dtype
         gate, idx = self.route(x)
-        c = idx.shape[-1]
+        e, c = idx.shape[1], idx.shape[-1]
+        xd = mesh.copy_to(x, mesh.model) if tp else x
         # Dispatch: (B, E, C, d), each expert's tokens.
-        xe = torch.gather(x[:, None].expand(b, e, n, d), 2, idx[..., None].expand(b, e, c, d))
-        h = torch.einsum("becd,edh->bech", xe, self.wi.to(dt)) + self.bi.to(dt)[None, :, None]
+        xe = torch.gather(xd[:, None].expand(b, e, n, d), 2, idx[..., None].expand(b, e, c, d))
+        h = self._product("becd,edh->bech", xe, "wi") + self._leaf("bi", dt)[None, :, None]
         h = F.gelu(h, approximate="tanh")
-        y = torch.einsum("bech,eho->beco", h, self.wo.to(dt)) + self.bo.to(dt)[None, :, None]
+        y = self._product("bech,eho->beco", h, "wo")
+        if tp:
+            y = (mesh.reduce_from(y, mesh.model)
+                 + self._leaf("bo", torch.float32)[None, :, None]).to(dt)
+        else:
+            y = y + self._leaf("bo", dt)[None, :, None]
         o = y.shape[-1]
         # Combine: gated outputs into each expert's rows, summed over E.
         gated = y.float() * gate.to(dt).float()[..., None]
         rows = torch.zeros(b, e, n, o, dtype=torch.float32, device=x.device)
         rows = rows.scatter(2, idx[..., None].expand(b, e, c, o), gated)
-        return rows.sum(dim=1).to(dt)
+        out = rows.sum(dim=1)
+        if ep:
+            out = mesh.reduce_from(out, mesh.ep)
+        return out.to(dt)

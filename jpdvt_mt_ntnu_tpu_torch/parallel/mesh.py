@@ -5,12 +5,13 @@ drives a mesh of devices and XLA inserts the collectives. Here, as in the
 reference's torchrun trainers (train_JPDVT.py:111, :296-311) and its DDP
 eval (inference_ddp.py:77-87, :325), each process is one rank that drives
 one card, and the port's train step reduces its own gradients
-(``train/steps.py``). The mesh's ``data``, ``fsdp`` and ``model`` axes are
-ported: the world is data x fsdp x model ranks, placed in the JAX order
-with ``model`` innermost (:class:`MeshSpec`), the batch is cut over data x
-fsdp and the layout of the weights over fsdp and model
-(``parallel/sharding.py``). ``mesh.data`` is -1 (the ranks that the other
-axes leave) or that count; ``pipe``, ``ep`` and ``seq`` are refused by name.
+(``train/steps.py``). Every axis of the JAX mesh is ported: the world is
+pipe x data x fsdp x ep x seq x model ranks, placed in the JAX order
+(:class:`MeshSpec`: ``pipe`` outermost, ``model`` innermost); the batch is
+cut over data x fsdp, the layout of the weights over fsdp, ep, model and
+pipe (``parallel/sharding.py``, ``parallel/pipeline.py``) and the tokens
+over seq (``parallel/sequence.py``). ``mesh.data`` is -1 (the ranks that
+the other axes leave) or that count.
 
 Start-up (:func:`maybe_initialize_distributed`, the counterpart of the JAX
 function of that name) reads, in this order:
@@ -61,13 +62,13 @@ from ..utils.device import default_device, rank_device
 TIMEOUT = datetime.timedelta(minutes=10)
 # Gradients are reduced in buckets of this many elements (400 MB in fp32).
 BUCKET_ELEMS = 1 << 27
-REFUSED_AXES = ("pipe", "ep", "seq")
+# The JAX mesh's axes, outermost first (its MeshSpec.axis_sizes order).
+AXES = ("pipe", "data", "fsdp", "ep", "seq", "model")
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """The JAX mesh's axes; ``data`` (-1: the ranks the others leave),
-    ``fsdp`` and ``model`` are ported."""
+    """The JAX mesh's axes; ``data`` is -1 for the ranks the others leave."""
 
     data: int = -1
     model: int = 1
@@ -80,25 +81,20 @@ class MeshSpec:
     def from_config(cls, mesh_cfg) -> "MeshSpec":
         return cls(**{f.name: getattr(mesh_cfg, f.name) for f in dataclasses.fields(cls)})
 
-    def refused(self) -> list[str]:
-        """The set axes the port cannot run, as ``mesh.<axis>`` names."""
-        return [f"mesh.{k}" for k in REFUSED_AXES if getattr(self, k) > 1]
-
     def axis_sizes(self, world: int) -> dict[str, int]:
-        """The axes' sizes in the JAX order, ``data`` first and ``model``
-        innermost: ``{"data": d}`` and ``fsdp``/``model`` where they are
-        above 1. Raises where they do not multiply to the world size or a
-        refused axis is set."""
-        if self.refused():
-            raise NotImplementedError(f"not ported: {', '.join(self.refused())} (the port "
-                                      "runs the data, fsdp and model axes)")
-        fsdp, model = max(1, self.fsdp), max(1, self.model)
-        data = self.data if self.data > 0 else world // (fsdp * model)
-        if data < 1 or data * fsdp * model != world:
-            raise ValueError(f"mesh.data={self.data} x mesh.fsdp={fsdp} x mesh.model={model} "
-                             f"must cover the world size, {world} processes (one rank per "
-                             "shard)")
-        return {"data": data, **{k: v for k, v in (("fsdp", fsdp), ("model", model)) if v > 1}}
+        """The axes' sizes in the JAX order (``pipe`` outermost, ``model``
+        innermost): ``data`` always, the others where they are above 1.
+        Raises where they do not multiply to the world size."""
+        sizes = {k: max(1, getattr(self, k)) for k in AXES if k != "data"}
+        rest = int(np.prod(list(sizes.values())))
+        data = self.data if self.data > 0 else world // rest
+        if data < 1 or data * rest != world:
+            named = " x ".join([f"mesh.data={self.data}"]
+                               + [f"mesh.{k}={v}" for k, v in sizes.items() if v > 1])
+            raise ValueError(f"{named} must cover the world size, {world} processes (one "
+                             "rank per shard)")
+        return {k: (data if k == "data" else sizes[k]) for k in AXES
+                if k == "data" or sizes[k] > 1}
 
 
 def process_index() -> int:
@@ -380,7 +376,7 @@ def maybe_initialize_distributed(mesh_cfg=None, device: str | torch.device | Non
     if mesh_cfg is not None:
         try:
             MeshSpec.from_config(mesh_cfg).axis_sizes(dp.world)
-        except (ValueError, NotImplementedError):
+        except ValueError:
             dp.close()
             raise
     return dp

@@ -39,16 +39,21 @@ on the CPU and on a card's tensors, and nccl across cards.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.dit import Linear
-from .mesh import BUCKET_ELEMS, DataParallel, MeshSpec
+from ..models.dit import DiT, DiTBlock, Linear
+from ..models.moe import ExpertChoiceMoE
+from .mesh import AXES, BUCKET_ELEMS, DataParallel, MeshSpec
+from . import sequence
+from .pipeline import Pipeline
 
 log = logging.getLogger(__name__)
 
@@ -59,41 +64,58 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_sc
 
 # ------------------------------------------------------------------- placement
 
+# Each axis's letter in MeshRanks.groups, in the JAX order.
+LETTERS = dict(zip(AXES, "pdfesm"))
+
+
 @dataclasses.dataclass(frozen=True)
 class MeshRanks:
-    """Where each rank sits on the data x fsdp x model mesh, ``model``
-    innermost: rank r is (r // (F M), r // M % F, r % M)."""
+    """Where each rank sits on the pipe x data x fsdp x ep x seq x model
+    mesh, in the JAX order: ``pipe`` outermost, ``model`` innermost."""
 
     data: int = 1
     fsdp: int = 1
     model: int = 1
+    pipe: int = 1
+    ep: int = 1
+    seq: int = 1
 
     @classmethod
     def from_spec(cls, spec: MeshSpec, world: int) -> "MeshRanks":
-        sizes = spec.axis_sizes(world)
-        return cls(sizes["data"], sizes.get("fsdp", 1), sizes.get("model", 1))
+        return cls(**{k: v for k, v in spec.axis_sizes(world).items()})
 
     @property
     def world(self) -> int:
-        return self.data * self.fsdp * self.model
+        return int(np.prod([getattr(self, a) for a in AXES]))
 
-    def coords(self, rank: int) -> tuple[int, int, int]:
-        return rank // (self.fsdp * self.model), rank // self.model % self.fsdp, rank % self.model
+    @property
+    def names(self) -> tuple[str, ...]:
+        """The JAX mesh's axes for these sizes: data, fsdp and model always
+        (so (d, f, m) as before), pipe, ep and seq where above 1."""
+        return tuple(a for a in AXES if a in ("data", "fsdp", "model") or getattr(self, a) > 1)
+
+    def coord(self, rank: int, axis: str) -> int:
+        inner = int(np.prod([getattr(self, a) for a in AXES[AXES.index(axis) + 1:]]))
+        return rank // inner % getattr(self, axis)
+
+    def coords(self, rank: int) -> tuple[int, ...]:
+        """This rank's coordinates along :attr:`names`."""
+        return tuple(self.coord(rank, a) for a in self.names)
 
     def groups(self, axes: str) -> list[list[int]]:
         """Every group of ranks that differ only along ``axes`` (letters of
-        "dfm": "m" the model groups, "df" the batch's data x fsdp), each in
-        rank order, which is its order along those axes."""
+        "pdfesm": "m" the model groups, "df" the batch's data x fsdp), each
+        in rank order, which is its order along those axes."""
         out: dict = {}
         for r in range(self.world):
-            key = tuple(c for a, c in zip("dfm", self.coords(r)) if a not in axes)
+            key = tuple(self.coord(r, a) for a in AXES if LETTERS[a] not in axes)
             out.setdefault(key, []).append(r)
         return [out[k] for k in sorted(out)]
 
     def batch_index(self, rank: int) -> int:
-        """This rank's shard of the batch: its (d, f) in data x fsdp."""
-        d, f, _ = self.coords(rank)
-        return d * self.fsdp + f
+        """This rank's shard of the batch: its (d, f) in data x fsdp (the
+        ranks of a pipe, ep, seq or model group take the same rows)."""
+        return self.coord(rank, "data") * self.fsdp + self.coord(rank, "fsdp")
 
     @property
     def batch_size(self) -> int:
@@ -114,31 +136,36 @@ class Group:
 
 
 class Mesh:
-    """This process's groups on the mesh (model, fsdp, data and the batch's
-    data x fsdp) and the collectives over them (see the module docstring)."""
+    """This process's groups on the mesh (model, fsdp, data, the batch's
+    data x fsdp, ep, seq and pipe) and the collectives over them (see the
+    module docstring)."""
+
+    GROUPS = (("model", "m"), ("fsdp", "f"), ("data", "d"), ("batch", "df"), ("ep", "e"),
+              ("seq", "s"), ("pipe", "p"))
 
     def __init__(self, ranks: MeshRanks, dp: DataParallel):
         if ranks.world != dp.world:
             raise ValueError(f"a mesh of {ranks.world} ranks on a world of {dp.world}")
         self.ranks = ranks
         self.rank = dp.rank
+        self.backend = dp.backend
         found = {}
         # Every rank creates every group, in one order, as new_group requires.
-        for name, axes in (("model", "m"), ("fsdp", "f"), ("data", "d"), ("batch", "df")):
+        for name, axes in self.GROUPS:
             for members in ranks.groups(axes):
                 pg = dist.new_group(members) if dp.in_group and len(members) > 1 else None
                 if self.rank in members:
                     found[name] = Group(members, members.index(self.rank), pg)
-        self.model, self.fsdp, self.data, self.batch = (
-            found[k] for k in ("model", "fsdp", "data", "batch"))
+        for name, _ in self.GROUPS:
+            setattr(self, name, found[name])
 
     def __deepcopy__(self, memo):  # modules that hold it are copied, it is not
         return self
 
     @property
     def describe(self) -> dict:
-        return {"data": self.ranks.data, "fsdp": self.ranks.fsdp, "model": self.ranks.model,
-                "coords": self.ranks.coords(self.rank)}
+        return {**{a: getattr(self.ranks, a) for a in AXES},
+                "coords": dict(zip(self.ranks.names, self.ranks.coords(self.rank)))}
 
     def all_reduce_(self, tensors: Sequence[torch.Tensor], group: Group,
                     bucket_elems: int = BUCKET_ELEMS) -> None:
@@ -157,6 +184,11 @@ class Mesh:
             if t is not None:
                 bucket.append(t)
                 size += t.numel()
+
+    def broadcast_(self, t: torch.Tensor, group: Group, index: int) -> None:
+        """``t`` of the group's rank ``index`` on every rank of ``group``."""
+        if group.size > 1:
+            dist.broadcast(t, src=group.ranks[index], group=group.pg)
 
     def stack(self, t: torch.Tensor, group: Group) -> torch.Tensor:
         """(n, *t.shape): every rank's ``t`` of ``group``, bit for bit, in
@@ -185,13 +217,37 @@ class Mesh:
         _reduce_scatter(out.view(-1), parts.view(-1), group=group.pg)
         return out
 
-    # Megatron's conjugate pair over the model group (dit.Linear's tp_mode).
+    def exchange(self, sends: Sequence[tuple[torch.Tensor, int]],
+                 recvs: Sequence[tuple[torch.Tensor, int]], group: Group) -> None:
+        """Point-to-point: each ``(tensor, index)`` of ``sends`` to the
+        group's rank ``index``, each of ``recvs`` filled from its rank, all
+        posted at once (``batch_isend_irecv``, so two ranks that send to each
+        other do not wait on each other) and waited for. Ranks sharing a card
+        over gloo pass card tensors through :func:`host_exchange`."""
+        if self.backend == "gloo" and any(t.is_cuda for t, _ in [*sends, *recvs]):
+            host_exchange(sends, recvs, group)
+            return
+        ops = [dist.P2POp(dist.isend, t.contiguous(), group.ranks[i], group.pg)
+               for t, i in sends]
+        ops += [dist.P2POp(dist.irecv, t, group.ranks[i], group.pg) for t, i in recvs]
+        for work in dist.batch_isend_irecv(ops) if ops else []:
+            work.wait()
+
+    # Megatron's conjugate pair over a group (dit.Linear's tp_mode over the
+    # model group, the MoE's over the ep group).
+    def copy_to(self, x: torch.Tensor, group: Group) -> torch.Tensor:
+        """Identity forward; the gradient summed over ``group``."""
+        return _CopyTo.apply(x, self, group) if group.size > 1 else x
+
+    def reduce_from(self, y: torch.Tensor, group: Group) -> torch.Tensor:
+        """The fp32 sum over ``group`` of the partial results ``y``."""
+        return _ReduceFrom.apply(y, self, group) if group.size > 1 else y.float()
+
     def copy_to_model(self, x: torch.Tensor) -> torch.Tensor:
-        return _CopyToModel.apply(x, self) if self.model.size > 1 else x
+        return self.copy_to(x, self.model)
 
     def reduce_from_model(self, y: torch.Tensor) -> torch.Tensor:
-        """The fp32 sum over the model group of the partial products ``y``."""
-        return _ReduceFromModel.apply(y, self) if self.model.size > 1 else y.float()
+        return self.reduce_from(y, self.model)
 
     def gathered_linear(self, x: torch.Tensor, shard: torch.Tensor, bias: torch.Tensor | None,
                         dim: int) -> torch.Tensor:
@@ -199,36 +255,76 @@ class Mesh:
         gathered from ``shard`` (cut along ``dim``) and cast to x's type."""
         return _GatheredLinear.apply(x, shard, bias, self, dim)
 
-    def sum_fp32(self, t: torch.Tensor) -> torch.Tensor:
+    def gathered_einsum(self, eq: str, x: torch.Tensor, shard: torch.Tensor,
+                        dim: int) -> torch.Tensor:
+        """``einsum(eq, x, w)``, ``w`` gathered over fsdp as in
+        :meth:`gathered_linear` (the MoE's stacked experts)."""
+        return _GatheredEinsum.apply(eq, x, shard, self, dim)
+
+    def gathered(self, shard: torch.Tensor, dim: int) -> torch.Tensor:
+        """The fsdp group's leaf whole from ``shard``; its gradient
+        reduce-scattered back (the MoE's expert biases)."""
+        return _Gathered.apply(shard, self, dim)
+
+    # Sequence parallelism over the seq group (parallel/sequence.py).
+    def ring_attention(self, qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+        return sequence.ring_attention(self, qkv, num_heads, self.seq)
+
+    def local_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        return sequence.local_tokens(x, self.seq)
+
+    def gather_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        return sequence.gather_tokens(self, x, self.seq)
+
+    def gather_tokens_summed(self, x: torch.Tensor) -> torch.Tensor:
+        return sequence.gather_tokens_summed(self, x, self.seq)
+
+    def sum_fp32(self, t: torch.Tensor, group: Group | None = None) -> torch.Tensor:
         out = t.to(torch.float32, copy=True)
-        dist.all_reduce(out, group=self.model.pg)
+        dist.all_reduce(out, group=(group or self.model).pg)
         return out
 
 
-class _CopyToModel(torch.autograd.Function):
-    """Identity forward; the gradient summed over the model group (in fp32)."""
+def host_exchange(sends, recvs, group: Group) -> None:
+    """:meth:`Mesh.exchange` for card tensors over gloo, which reads and
+    writes host memory only: each tensor is staged through a pinned host
+    buffer. The compute stays on the card; only the bytes in flight pass
+    the host."""
+    staged = [(torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t), i)
+              for t, i in sends]
+    landing = [(torch.empty(t.shape, dtype=t.dtype, pin_memory=True), i) for t, i in recvs]
+    ops = [dist.P2POp(dist.isend, h, group.ranks[i], group.pg) for h, i in staged]
+    ops += [dist.P2POp(dist.irecv, h, group.ranks[i], group.pg) for h, i in landing]
+    for work in dist.batch_isend_irecv(ops) if ops else []:
+        work.wait()
+    for (t, _), (h, _) in zip(recvs, landing):
+        t.copy_(h)
+
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward; the gradient summed over a group (in fp32)."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+    def forward(ctx, x, mesh, group):
+        ctx.mesh, ctx.group = mesh, group
         return x
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.mesh.sum_fp32(g).to(g.dtype), None
+        return ctx.mesh.sum_fp32(g, ctx.group).to(g.dtype), None, None
 
 
-class _ReduceFromModel(torch.autograd.Function):
-    """The partial sums added over the model group in fp32; identity backward."""
+class _ReduceFrom(torch.autograd.Function):
+    """The partial results added over a group in fp32; identity backward."""
 
     @staticmethod
-    def forward(ctx, y, mesh):
+    def forward(ctx, y, mesh, group):
         ctx.dtype = y.dtype
-        return mesh.sum_fp32(y)
+        return mesh.sum_fp32(y, group)
 
     @staticmethod
     def backward(ctx, g):
-        return g.to(ctx.dtype), None
+        return g.to(ctx.dtype), None, None
 
 
 class _GatheredLinear(torch.autograd.Function):
@@ -260,30 +356,94 @@ class _GatheredLinear(torch.autograd.Function):
         return gx, gw, gb, None, None
 
 
+class _GatheredEinsum(torch.autograd.Function):
+    """``einsum("A,B->C", x, w)`` on a ``w`` gathered over the fsdp group,
+    saving the input and the shard as :class:`_GatheredLinear` does. Every
+    index of the two equations it serves (the experts' fc1 and fc2) stands
+    in two of the three operands, so the gradients are
+    ``einsum("C,B->A")`` and ``einsum("A,C->B")``."""
+
+    @staticmethod
+    def forward(ctx, eq, x, shard, mesh, dim):
+        w = mesh.gather(shard.detach(), mesh.fsdp, dim).to(x.dtype)
+        ctx.save_for_backward(x, shard)
+        ctx.mesh, ctx.dim = mesh, dim
+        ctx.terms = eq.replace("->", ",").split(",")
+        return torch.einsum(eq, x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, shard = ctx.saved_tensors
+        a, b, c = ctx.terms
+        mesh = ctx.mesh
+        gx = gw = None
+        if ctx.needs_input_grad[1]:
+            w = mesh.gather(shard.detach(), mesh.fsdp, ctx.dim).to(g.dtype)
+            gx = torch.einsum(f"{c},{b}->{a}", g, w)
+        if ctx.needs_input_grad[2]:
+            full = torch.einsum(f"{a},{c}->{b}", x, g)
+            gw = mesh.scatter_sum(full.to(shard.dtype), mesh.fsdp, ctx.dim)
+        return None, gx, gw, None, None
+
+
+class _Gathered(torch.autograd.Function):
+    """A leaf gathered over the fsdp group; its gradient reduce-scattered."""
+
+    @staticmethod
+    def forward(ctx, shard, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return mesh.gather(shard.detach(), mesh.fsdp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.scatter_sum(g.contiguous(), ctx.mesh.fsdp, ctx.dim), None, None
+
+
 # ----------------------------------------------------------------------- rules
 
 @dataclasses.dataclass(frozen=True)
 class LeafSpec:
     """How one leaf is cut: ``tp_dim`` over the model group (in ``tp_parts``
-    runs cut alike: qkv's q, k and v), then ``fsdp_dim`` over fsdp."""
+    runs cut alike: qkv's q, k and v), ``fsdp_dim`` over fsdp and
+    ``ep_dim`` (a stacked expert leaf's E) over ep."""
 
     tp_dim: int | None = None
     tp_parts: int = 1
     fsdp_dim: int | None = None
+    ep_dim: int | None = None
 
 
 # (module names, torch dim of the weight, of the bias, runs): _TP_RULES in the
 # torch layout, where a Linear's weight is (out, in).
 TP_RULES = ((("attn", "qkv"), 0, 0, 3), (("attn", "proj"), 1, None, 1),
             (("mlp", "fc1"), 0, 0, 1), (("mlp", "fc2"), 1, None, 1))
-# The expert-choice MoE's leaves, whose expert hidden dims JAX's _EP_RULES
-# give the model axis (so never fsdp's): torch dim of each.
+# The expert-choice MoE's stacked leaves (_EP_RULES): E (dim 0) over ep, and
+# the expert hidden dims, torch dim of each, over model.
 EP_MODEL_DIMS = {"wi": 2, "bi": 1, "wo": 1}
+EXPERT_LEAVES = ("wi", "bi", "wo", "bo")
+
+
+def is_expert_leaf(name: str) -> bool:
+    parts = name.split(".")
+    return "mlp" in parts and parts[-1] in EXPERT_LEAVES
+
+
+def is_router_leaf(name: str) -> bool:
+    parts = name.split(".")
+    return "mlp" in parts and "router" in parts
+
+
+def block_index(name: str) -> int | None:
+    """i of a leaf of ``blocks.{i}``, else None (the stem and the head)."""
+    parts = name.split(".")
+    return int(parts[1]) if parts[0] == "blocks" else None
 
 
 def tp_rule(name: str, ndim: int) -> tuple[int | None, int]:
     """(torch dim cut over the model group, runs) of a leaf by its name."""
     parts = name.split(".")
+    if is_expert_leaf(name):
+        return EP_MODEL_DIMS.get(parts[-1]), 1
     for keys, wdim, bdim, runs in TP_RULES:
         if all(k in parts for k in keys):
             if parts[-1] == "weight" and ndim == 2:
@@ -293,29 +453,33 @@ def tp_rule(name: str, ndim: int) -> tuple[int | None, int]:
     return None, 1
 
 
-def fsdp_dim(name: str, shape: Sequence[int], taken: int | None, fsdp: int) -> int | None:
-    """``_with_fsdp``: the largest dim that no TP rule takes and that fsdp
-    divides, ties to the first in the JAX package's order (a Linear weight's
-    Flax kernel is (in, out), the torch weight's transpose); None for 1-D
-    leaves and where no dim divides."""
+def fsdp_dim(name: str, shape: Sequence[int], taken: int | None, fsdp: int,
+             ep: int = 1) -> int | None:
+    """``_with_fsdp``: the largest dim that no TP or expert rule takes and
+    that fsdp divides, ties to the first in the JAX package's order (a
+    Linear weight's Flax kernel is (in, out), the torch weight's
+    transpose); None for 1-D leaves and where no dim divides. The rules
+    take their dims whatever the size of their axis, as JAX's specs name
+    them; an expert leaf's E only where the mesh has an ep axis."""
     if fsdp <= 1 or len(shape) < 2:
         return None
     flax = name.endswith(".weight") and len(shape) == 2
     order = [1, 0] if flax else list(range(len(shape)))
-    parts = name.split(".")
-    if "mlp" in parts and parts[-1] in EP_MODEL_DIMS:
-        taken = EP_MODEL_DIMS[parts[-1]]
-    free = [d for d in order if d != taken and shape[d] % fsdp == 0]
+    taken_dims = {taken} | ({0} if ep > 1 and is_expert_leaf(name) else set())
+    free = [d for d in order if d not in taken_dims and shape[d] % fsdp == 0]
     return max(free, key=lambda d: shape[d]) if free else None
 
 
-def leaf_specs(shapes: dict[str, Sequence[int]], model: int, fsdp: int) -> dict[str, LeafSpec]:
-    """The spec of every named leaf of a DiT for a mesh of ``model`` x ``fsdp``."""
+def leaf_specs(shapes: dict[str, Sequence[int]], model: int, fsdp: int,
+               ep: int = 1) -> dict[str, LeafSpec]:
+    """The spec of every named leaf of a DiT for a mesh of ``model`` x
+    ``fsdp`` x ``ep``."""
     out = {}
     for name, shape in shapes.items():
         dim, runs = tp_rule(name, len(shape))
         out[name] = LeafSpec(dim if model > 1 else None, runs,
-                             fsdp_dim(name, shape, dim, fsdp))
+                             fsdp_dim(name, shape, dim, fsdp, ep),
+                             0 if ep > 1 and is_expert_leaf(name) else None)
     return out
 
 
@@ -344,17 +508,23 @@ def fsdp_slice(t: torch.Tensor, spec: LeafSpec, f: int, fsdp: int) -> torch.Tens
 
 # ---------------------------------------------------------------------- layout
 
+# The axes that may cut a leaf, in the order the global norm sums over them.
+CUT_AXES = ("model", "fsdp", "ep", "pipe")
+
+
 class Layout:
     """The train state's layout on a mesh: shards it, runs its forward and
     backward with the collectives, reduces its gradients, measures their
     global norm and gathers it whole for a checkpoint."""
 
-    def __init__(self, mesh: Mesh, shapes: dict[str, Sequence[int]]):
+    def __init__(self, mesh: Mesh, shapes: dict[str, Sequence[int]], microbatches: int = 0):
         self.mesh = mesh
         r = mesh.ranks
-        self.specs = leaf_specs(shapes, r.model, r.fsdp)
-        self.m = mesh.model.index
-        self.f = mesh.fsdp.index
+        self.names = list(shapes)  # the one-process order
+        self.specs = leaf_specs(shapes, r.model, r.fsdp, r.ep)
+        self.m, self.f, self.e = mesh.model.index, mesh.fsdp.index, mesh.ep.index
+        depth = 1 + max((i for i in map(block_index, shapes) if i is not None), default=-1)
+        self.pipeline = Pipeline(mesh, depth, microbatches) if r.pipe > 1 else None
 
     @property
     def batch_index(self) -> int:
@@ -364,20 +534,32 @@ class Layout:
     def batch_size(self) -> int:
         return self.mesh.ranks.batch_size
 
+    def cut_axes(self, name: str) -> tuple[bool, ...]:
+        """For each of :data:`CUT_AXES`, whether it cuts this leaf."""
+        spec = self.specs[name]
+        staged = self.pipeline is not None and block_index(name) is not None
+        return (spec.tp_dim is not None, spec.fsdp_dim is not None, spec.ep_dim is not None,
+                staged)
+
     def local(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's shard of a full leaf (a new contiguous tensor)."""
-        spec = self.specs[name]
-        t = tp_slice(full, spec, self.m, self.mesh.ranks.model)
-        return fsdp_slice(t, spec, self.f, self.mesh.ranks.fsdp).contiguous().clone()
+        spec, ranks = self.specs[name], self.mesh.ranks
+        t = tp_slice(full, spec, self.m, ranks.model)
+        t = fsdp_slice(t, spec, self.f, ranks.fsdp)
+        if spec.ep_dim is not None:
+            t = t.chunk(ranks.ep, dim=spec.ep_dim)[self.e]
+        return t.contiguous().clone()
 
     def full(self, name: str, shard: torch.Tensor) -> torch.Tensor:
-        """A leaf whole from every rank's shard (collective)."""
+        """A leaf of this stage whole from every rank's shard (collective)."""
         spec, mesh = self.specs[name], self.mesh
         t = shard.detach()
         if spec.fsdp_dim is not None:
             t = mesh.gather(t, mesh.fsdp, spec.fsdp_dim)
         if spec.tp_dim is not None:
             t = tp_join(mesh.stack(t, mesh.model), spec)
+        if spec.ep_dim is not None:
+            t = mesh.gather(t, mesh.ep, spec.ep_dim)
         return t.contiguous()
 
     # -- sharding the state ------------------------------------------------
@@ -388,51 +570,82 @@ class Layout:
         the model and EMA run their forward through the layout."""
         for module in (state.model, state.ema):
             self._shard_module(module)
+        kept = {n for n, _ in state.model.named_parameters()}
         for moments in (state.opt.mu, state.opt.nu):
             for name in list(moments):
-                moments[name] = self.local(name, moments[name])
+                if name in kept:
+                    moments[name] = self.local(name, moments[name])
+                else:  # another stage's block
+                    del moments[name]
         state.layout = self
 
     def _shard_module(self, model: nn.Module) -> None:
-        ranks = self.mesh.ranks
-        for block in model.blocks:
+        ranks, mesh = self.mesh.ranks, self.mesh
+        if self.pipeline is not None:
+            for i in range(len(model.blocks)):
+                if i not in self.pipeline.blocks:
+                    model.blocks[i] = nn.Identity()  # keeps the others' names
+        blocks = [b for b in model.blocks if isinstance(b, DiTBlock)]
+        for block in blocks:
             attn = block.attn
-            if attn.attn_impl == "block":
-                # K3 reads qkv's and proj's weights whole, and under TP would
-                # need proj's bias after the reduce.
-                log.warning("mesh.model=%d, mesh.fsdp=%d: model.attn_impl=block takes the "
-                            "default route", ranks.model, ranks.fsdp)
+            if attn.attn_impl == "block" and (ranks.model > 1 or ranks.fsdp > 1 or ranks.seq > 1):
+                # K3 reads qkv's and proj's weights whole, under TP would need
+                # proj's bias after the reduce, and attends to every token.
+                log.warning("mesh.model=%d, mesh.fsdp=%d, mesh.seq=%d: model.attn_impl=block "
+                            "takes the default route", ranks.model, ranks.fsdp, ranks.seq)
                 attn.attn_impl = None
+        moes = [b.mlp for b in blocks if isinstance(b.mlp, ExpertChoiceMoE)]
+        if ranks.seq > 1:
+            use_ring(model, mesh)
         if ranks.model > 1:
-            for block in model.blocks:
+            for block in blocks:
                 attn = block.attn
                 if attn.num_heads % ranks.model:
                     raise ValueError(f"mesh.model={ranks.model} does not divide "
                                      f"{attn.num_heads} heads")
                 attn.num_heads //= ranks.model
-                for lin, mode in ((attn.qkv, "column"), (attn.proj, "row"),
-                                  (block.mlp.fc1, "column"), (block.mlp.fc2, "row")):
-                    lin.tp_mode, lin.tp = mode, self.mesh
+                pairs = [(attn.qkv, "column"), (attn.proj, "row")]
+                if not isinstance(block.mlp, ExpertChoiceMoE):
+                    pairs += [(block.mlp.fc1, "column"), (block.mlp.fc2, "row")]
+                for lin, mode in pairs:
+                    lin.tp_mode, lin.tp = mode, mesh
+        for moe in moes:
+            if moe.num_experts % ranks.ep:
+                raise ValueError(f"mesh.ep={ranks.ep} does not divide {moe.num_experts} "
+                                 "experts")
+            if ranks.ep > 1 or ranks.model > 1 or ranks.seq > 1:
+                moe.mesh = mesh
+            moe.first_expert = self.e * (moe.num_experts // ranks.ep)
         for name, p in list(model.named_parameters()):
             owner, leaf = _owner(model, name)
             dim = self.specs[name].fsdp_dim
             if dim is not None:
-                if not (isinstance(owner, Linear) and leaf == "weight"):
-                    raise NotImplementedError(
-                        f"mesh.fsdp={ranks.fsdp}: {name} is not a Linear weight (the port "
-                        "shards Linear weights; the expert-choice MoE's experts wait for "
-                        "the expert rules)")
-                owner.fsdp = (self.mesh, dim)
+                if isinstance(owner, Linear) and leaf == "weight":
+                    owner.fsdp = (mesh, dim)
+                elif isinstance(owner, ExpertChoiceMoE) and leaf in EXPERT_LEAVES:
+                    owner.mesh = mesh
+                    owner.fsdp_dims[leaf] = dim
+                else:
+                    raise NotImplementedError(f"mesh.fsdp={ranks.fsdp}: {name} is neither a "
+                                              "Linear weight nor an expert leaf")
             owner._parameters[leaf] = nn.Parameter(self.local(name, p.detach()),
                                                    requires_grad=p.requires_grad)
 
     # -- the step --------------------------------------------------------------
 
     def reduce_grads_(self, named: Sequence[tuple[str, torch.Tensor]]) -> None:
-        """Every rank's gradients to their mean over the batch's shards:
-        fsdp-cut leaves (already summed over fsdp) over the data group, the
-        others over data x fsdp."""
+        """Every rank's gradients to their mean over the batch's shards.
+        First the sums of partial gradients: the stem's and the head's over
+        the pipe group (a stage that did not use a leaf holds zeros), the
+        router's over the ep group (each rank's forward gates only its
+        experts), every leaf's over the seq group (each rank's tokens).
+        Then the mean: fsdp-cut leaves (already summed over fsdp) over the
+        data group, the others over data x fsdp."""
         mesh = self.mesh
+        if self.pipeline is not None:
+            mesh.all_reduce_([g for n, g in named if block_index(n) is None], mesh.pipe)
+        mesh.all_reduce_([g for n, g in named if is_router_leaf(n)], mesh.ep)
+        mesh.all_reduce_([g for _, g in named], mesh.seq)
         cut = [g for n, g in named if self.specs[n].fsdp_dim is not None]
         whole = [g for n, g in named if self.specs[n].fsdp_dim is None]
         mesh.all_reduce_(cut, mesh.data)
@@ -441,40 +654,87 @@ class Layout:
             torch._foreach_div_([g for _, g in named], self.batch_size)
 
     def mean_over_batch_(self, t: torch.Tensor) -> None:
+        """The metrics' mean over the batch's shards; under the pipeline the
+        last stage's (the only one that computes them) first."""
+        if self.pipeline is not None:
+            self.mesh.broadcast_(t, self.mesh.pipe, self.mesh.pipe.size - 1)
         self.mesh.all_reduce_([t], self.mesh.batch)
         t.div_(self.batch_size)
 
     def global_norm(self, named: Sequence[tuple[str, torch.Tensor]]) -> torch.Tensor:
         """The norm of the whole gradient, each leaf counted once: the
         squares of cut leaves summed over the groups that cut them."""
-        sq = {}
+        keys = list(itertools.product((False, True), repeat=len(CUT_AXES)))
+        by_key: dict = {}
         for n, g in named:
-            spec = self.specs[n]
-            key = (spec.tp_dim is not None, spec.fsdp_dim is not None)
-            sq.setdefault(key, []).append(g)
+            by_key.setdefault(self.cut_axes(n), []).append(g)
         dev = named[0][1].device
-        parts = {k: torch.linalg.vector_norm(torch.stack(torch._foreach_norm(v))) ** 2
-                 for k, v in sq.items()}
-        tp = torch.stack([parts.get((True, False), torch.zeros((), device=dev)),
-                          parts.get((True, True), torch.zeros((), device=dev))])
-        self.mesh.all_reduce_([tp], self.mesh.model)
-        fs = torch.stack([parts.get((False, True), torch.zeros((), device=dev)), tp[1]])
-        self.mesh.all_reduce_([fs], self.mesh.fsdp)
-        return torch.sqrt(parts.get((False, False), torch.zeros((), device=dev))
-                          + tp[0] + fs[0] + fs[1])
+        zero = torch.zeros((), device=dev)
+        sq = torch.stack([torch.linalg.vector_norm(torch.stack(torch._foreach_norm(by_key[k])))
+                          ** 2 if k in by_key else zero for k in keys])
+        for a, axis in enumerate(CUT_AXES):
+            rows = [i for i, k in enumerate(keys) if k[a]]
+            part = sq[rows].contiguous()
+            self.mesh.all_reduce_([part], getattr(self.mesh, axis))
+            sq[rows] = part
+        return torch.sqrt(sq.sum())
 
     # -- checkpoints -----------------------------------------------------------
+
+    def whole_params(self, named) -> dict:
+        """``{name: tensor}`` of a module's (or moments') leaves whole, in
+        the one-process names and order (collective: every rank gathers,
+        every rank gets it)."""
+        out = {}
+        for n, t in named:
+            t = self.full(n, t)
+            i = block_index(n)
+            if self.pipeline is None or i is None:
+                out[n] = t
+                continue
+            # Stage s holds blocks [s L, (s+1) L); this rank's block i sits at
+            # the same place in its stage as block s L + j in stage s.
+            per, j = len(self.pipeline.blocks), i - self.pipeline.blocks.start
+            rest = n.split(".", 2)[2]
+            for s, each in enumerate(self.mesh.stack(t, self.mesh.pipe)):
+                out[f"blocks.{s * per + j}.{rest}"] = each
+        return {n: out[n] for n in self.names if n in out}
 
     def full_state_dict(self, state) -> dict:
         """``TrainState.state_dict()`` of the whole state, in the one-process
         layout (collective: every rank gathers, every rank gets it)."""
-        def whole(named):
-            return {n: self.full(n, t) for n, t in named}
+        return {"step": state.step, "model": self.whole_params(state.model.named_parameters()),
+                "ema": self.whole_params(state.ema.named_parameters()),
+                "opt": {"count": state.opt.count, "mu": self.whole_params(state.opt.mu.items()),
+                        "nu": self.whole_params(state.opt.nu.items())}}
 
-        return {"step": state.step, "model": whole(state.model.named_parameters()),
-                "ema": whole(state.ema.named_parameters()),
-                "opt": {"count": state.opt.count, "mu": whole(state.opt.mu.items()),
-                        "nu": whole(state.opt.nu.items())}}
+    def whole(self, module: nn.Module) -> nn.Module:
+        """Under the pipeline, a one-process DiT of ``module``'s weights
+        gathered from every stage (the validation's solves need every
+        block); otherwise ``module``, whose forward runs the layout's
+        collectives itself."""
+        if self.pipeline is None:
+            return module
+        sd = self.whole_params(module.named_parameters())
+        dev = next(iter(sd.values())).device
+        with torch.device(dev):
+            out = DiT(module.config)
+        out.load_state_dict(sd)
+        return out.requires_grad_(False)
+
+
+def use_ring(model: nn.Module, mesh: Mesh) -> None:
+    """Run ``model`` on this rank's tokens of the seq group, its attention
+    as the ring and its MoE on the gathered sequence (``parallel/sequence.py``)."""
+    n = model.config.num_tokens
+    if n % mesh.seq.size:
+        raise ValueError(f"mesh.seq={mesh.seq.size} does not divide {n} tokens")
+    model.seq = mesh
+    for block in model.blocks:
+        if isinstance(block, DiTBlock):
+            block.attn.ring = mesh
+            if isinstance(block.mlp, ExpertChoiceMoE):
+                block.mlp.mesh = mesh
 
 
 def _owner(model: nn.Module, name: str) -> tuple[nn.Module, str]:
@@ -482,10 +742,13 @@ def _owner(model: nn.Module, name: str) -> tuple[nn.Module, str]:
     return (model.get_submodule(path) if path else model), leaf
 
 
-def make_layout(spec: MeshSpec, dp: DataParallel, model: nn.Module) -> Layout | None:
+def make_layout(spec: MeshSpec, dp: DataParallel, model: nn.Module,
+                microbatches: int = 0) -> Layout | None:
     """The layout of ``model``'s state on ``spec``'s mesh over ``dp``'s
-    ranks, or None where the mesh is data-parallel only."""
+    ranks, or None where the mesh is data-parallel only. ``microbatches``:
+    the pipeline's (``mesh.pipe_microbatches``; 0 is twice the stages)."""
     ranks = MeshRanks.from_spec(spec, dp.world)
-    if ranks.model == 1 and ranks.fsdp == 1:
+    if ranks.world == ranks.data:
         return None
-    return Layout(Mesh(ranks, dp), {n: tuple(p.shape) for n, p in model.named_parameters()})
+    return Layout(Mesh(ranks, dp), {n: tuple(p.shape) for n, p in model.named_parameters()},
+                  microbatches)

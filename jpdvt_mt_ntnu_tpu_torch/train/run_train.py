@@ -23,21 +23,28 @@ summation order. Rank 0 picks the exp dir and writes the logs, metrics,
 ``step_anchor.json`` and checkpoints; the others wait for its writes and
 read the same files.
 
-Tensor parallelism and fully-sharded data parallelism (the JAX package's
-``mesh.model`` and ``mesh.fsdp``; ``parallel/sharding.py``) split the N
-ranks as data x fsdp x model, ``model`` innermost:
+Every axis of the JAX package's mesh is ported (``parallel/``): the N
+ranks are pipe x data x fsdp x ep x seq x model, ``pipe`` outermost and
+``model`` innermost, as the JAX mesh places its devices:
 
     python -m torch.distributed.run --nproc_per_node 4 \\
         -m jpdvt_mt_ntnu_tpu_torch.train.run_train mesh.model=2 mesh.fsdp=2 ...
 
-The batch is cut over data x fsdp (a model group's ranks take the same
-rows); the DiT blocks' four matrices are cut over the model ranks (qkv by
-heads, so each rank's attention kernels run on its own heads), and every
-matrix of the params, the EMA and the moments over the fsdp ranks, gathered
-block by block for the forward and again for the backward. Checkpoints are
-written whole, in the one-process layout, and a resume cuts them anew for
-its own mesh. ``model.attn_impl=block`` under ``mesh.model`` takes the
-default route, and says so in the log.
+The batch is cut over data x fsdp (the ranks of a pipe, ep, seq or model
+group take the same rows). ``mesh.model`` cuts the DiT blocks' four
+matrices (qkv by heads, so each rank's attention kernels run on its own
+heads) and the experts' hidden features; ``mesh.fsdp`` every matrix of
+the params, the EMA and the moments, gathered block by block for the
+forward and again for the backward (``parallel/sharding.py``);
+``mesh.ep`` the MoE's experts (``model.name=JPDVT-MoE``); ``mesh.pipe``
+the blocks into GPipe stages of ``mesh.pipe_microbatches`` microbatches
+(``parallel/pipeline.py``); ``mesh.seq`` each puzzle's tokens, with the
+attention as a ring (``parallel/sequence.py``). Checkpoints are written
+whole, in the one-process layout, and a resume cuts them anew for its own
+mesh. ``model.attn_impl=block`` under ``mesh.model``, ``mesh.fsdp`` or
+``mesh.seq`` takes the default route, and says so in the log. Refused by
+name, before any weights load: ``mesh.pipe`` with ``model``, ``fsdp``,
+``ep`` or ``seq``, and ``mesh.seq`` with ``model`` or ``ep``.
 
 A fresh start, ``train.resume=<checkpoint dir>`` and ``train.warm_start=``
 (an artifact manifest/npz, or a checkpoint directory of this package) are
@@ -54,10 +61,8 @@ default), ``met``, ``texmet`` or an image folder (``data.data_path``);
 ``model.name=JPDVT-MoE`` and ``model.moe_experts`` train the expert-choice
 MoE (``models/moe.py``). Not ported yet, and refused with
 ``NotImplementedError`` where their keys are set, before any weights load:
-the mesh's pipeline, expert and sequence axes (and ``mesh.model`` or
-``mesh.fsdp`` with the MoE, whose experts JAX cuts by its expert rules), ``data.device_stream``
-for anything but ``waves`` (as in
-JAX), ``model.quant`` (the JAX trainer trains dense), the other attention
+the mesh compositions above, ``data.device_stream`` for anything but
+``waves`` (as in JAX), ``model.quant`` (the JAX trainer trains dense), the other attention
 routes, and any geometry that no attention kernel takes
 (``ops.attention.attention_route``). Datasets decode PNG and JPEG with the
 port's own decoder on every machine (``ops/native.py``).
@@ -130,20 +135,19 @@ def build_datasets(cfg: Config):
     return train, train
 
 
+# The mesh compositions the port does not run: the pipeline with any axis
+# but data, and the ring with TP's heads or EP's experts.
+COMPOSITIONS_REFUSED = (("pipe", "model"), ("pipe", "fsdp"), ("pipe", "ep"), ("pipe", "seq"),
+                        ("seq", "model"), ("seq", "ep"))
+
+
 def check_supported(cfg: Config, on_card: bool = True) -> None:
     """Raise ``NotImplementedError`` for every set key the port cannot run,
     and for a model whose attention no kernel takes (``on_card``: the
     kernels' limits; the CPU's plain versions take any head dim)."""
     m, d, mesh = cfg.model, cfg.data, cfg.mesh
-    refused = [f"{name} (the port runs the data, fsdp and model axes)"
-               for name in MeshSpec.from_config(mesh).refused()]
-    moe = m.moe_experts or DIT_CONFIGS.get(m.name, {}).get("moe_experts")
-    for axis in ("model", "fsdp"):
-        if getattr(mesh, axis) > 1 and moe:
-            refused.append(f"mesh.{axis} with the expert-choice MoE (JAX's expert rules, "
-                           "_EP_RULES, are not ported)")
-    if mesh.pipe_microbatches:
-        refused.append("mesh.pipe_microbatches")
+    refused = [f"mesh.{a} with mesh.{b}" for a, b in COMPOSITIONS_REFUSED
+               if getattr(mesh, a) > 1 and getattr(mesh, b) > 1]
     if d.dataset == "synthetic":
         cues = d.synthetic_cues or ("coords" if d.synthetic_position_cues else "none")
         if cues not in CUES:
@@ -337,8 +341,10 @@ def train(cfg: Config, dp: DataParallel, precision: str = "highest") -> int:
     dp.check_replicas(state.tensors(), "the train state")
     if dp.world > 1:
         logger.info(f"The train state is bit-equal on all {dp.world} ranks at step {state.step}")
-    # Then each rank keeps its shards of it, on a mesh with fsdp or model axes.
-    layout = make_layout(mesh_spec, dp, state.model)
+    # Then each rank keeps its shards of it, on a mesh with more axes than data.
+    layout = make_layout(mesh_spec, dp, state.model, cfg.mesh.pipe_microbatches)
+    if ranks.seq > 1:
+        logger.info(f"mesh.seq={ranks.seq}: attention = ring (sequence parallel)")
     if layout is not None:
         layout.shard_(state)
         held = sum(t.numel() for t in state.tensors()[1:])
@@ -431,6 +437,8 @@ def train(cfg: Config, dp: DataParallel, precision: str = "highest") -> int:
 
     def validate(tag: str) -> dict:
         model_ = state.ema if tag == "ema" else state.model
+        if layout is not None:  # under the pipeline, gathered from every stage
+            model_ = layout.whole(model_)
         out = {}
         for g, v in validators.items():
             m = v(model_, val_ds)

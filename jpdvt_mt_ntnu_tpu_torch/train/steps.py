@@ -118,13 +118,16 @@ def make_train_step(diffusion: Diffusion, optimizer: AdamW, task: TrainTask,
     the ranks before the global norm, the clip and AdamW + EMA, so every
     rank ends the step with the same state.
 
-    ``layout``: the state's layout on a mesh with fsdp or model axes
+    ``layout``: the state's layout on a mesh with more axes than data
     (``parallel/sharding.py``, which ``state`` was cut by). The batch is then
     cut over data x fsdp only (``layout.batch_index`` and ``batch_size`` in
-    place of the rank and the world: a model group's ranks take the same
-    rows), the gradients and metrics are averaged as the layout reduces
-    them, and the global norm sums each leaf once; every rank ends the step
-    with its shards of the state one process would hold.
+    place of the rank and the world: the ranks of a pipe, ep, seq or model
+    group take the same rows), the gradients and metrics are reduced as the
+    layout reduces them, and the global norm sums each leaf once; every rank
+    ends the step with its shards of the state one process would hold.
+    Under ``mesh.pipe`` the forward and backward run the layout's GPipe
+    schedule (``parallel/pipeline.py``), and a leaf a stage did not use
+    gets a zero gradient before the reduction.
     """
     dp = dp or DataParallel()
     # This rank's shard of the batch, and their number.
@@ -139,8 +142,12 @@ def make_train_step(diffusion: Diffusion, optimizer: AdamW, task: TrainTask,
             generator=generator, draw_batch=draw_batch, rows=rows)
         return out["loss"].mean(), out
 
+    pipeline = layout.pipeline if layout is not None else None
+
     def train_step(state: TrainState, images: torch.Tensor):
         model = state.model
+        model_fn = model if pipeline is None else (
+            lambda x, t, code: pipeline.forward(model, x, t, code))
         device = next(model.parameters()).device
         images = torch.as_tensor(images, device=device)
         if images.dtype == torch.uint8:
@@ -166,12 +173,18 @@ def make_train_step(diffusion: Diffusion, optimizer: AdamW, task: TrainTask,
         loss = code_mse = img_mse = 0.0
         for i in range(grad_accum):
             t_i = t[i * micro:(i + 1) * micro]
-            l, aux = loss_fn(model, images[i * part:(i + 1) * part],
+            l, aux = loss_fn(model_fn, images[i * part:(i + 1) * part],
                              t_i if mine is None else t_i[mine], gen, micro, mine)
-            l.backward()
+            if pipeline is None:
+                l.backward()
+            else:
+                pipeline.backward(l)
             loss = loss + l.detach()
             code_mse = code_mse + aux["code_mse"].detach().mean()
             img_mse = img_mse + aux["img_mse"].detach().mean()
+        for p in params:
+            if p.grad is None:  # a leaf of the stem or head on another stage
+                p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
         if grad_accum > 1:
             torch._foreach_div_(grads, grad_accum)

@@ -185,9 +185,8 @@ def test_mesh_data_is_every_rank_or_the_world_size():
     with pytest.raises(ValueError, match="world size"):
         maybe_initialize_distributed(_mesh(data=2), "cpu", env={})
     assert maybe_initialize_distributed(_mesh(data=1), "cpu", env={}).world == 1
-    for axis in ("pipe", "ep", "seq"):
-        with pytest.raises(NotImplementedError, match=f"mesh.{axis}"):
-            MeshSpec(**{axis: 2}).axis_sizes(2)
+    for axis in ("pipe", "ep", "seq"):  # ported: they take their ranks from the world's
+        assert MeshSpec(**{axis: 2}).axis_sizes(2) == {"data": 1, axis: 2}
     # model and fsdp are ported: they take their ranks from the world's.
     assert MeshSpec(model=2).axis_sizes(4) == {"data": 2, "model": 2}
     assert MeshSpec(fsdp=2, data=1).axis_sizes(2) == {"data": 1, "fsdp": 2}
@@ -440,11 +439,12 @@ def test_a_killed_rank_fails_the_other(tmp_path):
 @pytest.mark.parametrize("extra,name", [
     (["mesh.model=2"], "mesh.model"), (["mesh.fsdp=2"], "mesh.fsdp"),
     (["mesh.pipe=2"], "mesh.pipe"), (["mesh.ep=2"], "mesh.ep"), (["mesh.seq=2"], "mesh.seq"),
-    (["mesh.pipe_microbatches=4"], "mesh.pipe_microbatches")])
+    (["mesh.pipe_microbatches=4", "mesh.pipe=2", "mesh.model=2"], "mesh.pipe with mesh.model")])
 def test_run_train_refuses_the_other_mesh_axes(extra, name):
-    """The pipeline, expert and sequence axes are not ported; mesh.model and
-    mesh.fsdp are, and a run of one process refuses them for want of ranks."""
-    if name in ("mesh.model", "mesh.fsdp"):
+    """Every axis of the JAX mesh is ported, and a run of one process
+    refuses each for want of ranks; the compositions the port does not run
+    (the pipeline with another axis than data) are refused by name."""
+    if " with " not in name:
         with pytest.raises(ValueError, match=name.replace(".", r"\.") + "=2 .*world size"):
             run_train.main(TINY + extra)
         return

@@ -133,9 +133,10 @@ def test_check_supported_refuses_geometries_no_kernel_takes():
 
 def test_run_train_refuses_before_any_weights_load(tmp_path):
     exp = tmp_path / "exp"
-    with pytest.raises(NotImplementedError, match="mesh.pipe"):
+    # mesh.pipe is ported; with mesh.seq it is refused by name.
+    with pytest.raises(NotImplementedError, match=r"mesh\.pipe with mesh\.seq"):
         run_train.main(["device=cpu", "data.synthetic_cues=waves", "mesh.pipe=2",
-                        f"train.exp_dir={exp}", f"train.warm_start={ARTIFACT}"])
+                        "mesh.seq=2", f"train.exp_dir={exp}", f"train.warm_start={ARTIFACT}"])
     # mesh.model is ported; one process has no ranks for it.
     with pytest.raises(ValueError, match=r"mesh\.model=2 .*world size"):
         run_train.main(["device=cpu", "data.synthetic_cues=waves", "mesh.model=2",
