@@ -93,7 +93,7 @@ then the fused attention sublayer K3 and the evaluation path:
 
 ``python3 chip_smoke.py --grid20-artifact`` (the copy must then hold
 ``waves20_hard_step32700`` in place of waves3) skips the phases that read
-the waves3 artifact (3, 4, 7, 8, 15-19), warm-starts phase 11 from the artifact
+the waves3 artifact (3, 4, 7, 8, 15-20), warm-starts phase 11 from the artifact
 at step 32,700 (losses <= 1/10 of a fresh model's on the same batches and
 draws), solves the fixed set in phase 12 with the EMA model beside the
 unchanged artifact, and runs the ``run_train`` CLI at grid 20 (warm start,
@@ -209,12 +209,35 @@ skipped under ``--grid20-artifact``:
     random weights) on ``mesh.model=2``: 12 K4 + 12 K5 + 12 K6 a rank at
     (96, 6, 400, 64).
 
+then the last three axes of the trainer, skipped under ``--grid20-artifact``:
+
+20. on 2 ranks sharing the card over gloo, each process set one child
+    (``--runs-child``) beside one process: expert parallelism on
+    JPDVT-MoE (8 experts, from phase 17's random init, 6 steps at batch 96
+    in bf16 on ``mesh.ep=2``; 3 each on ``mesh.model=2`` and
+    ``mesh.fsdp=2`` with the MoE; 3 on ``mesh.ep=2`` in fp32 beside one
+    fp32 process), the GPipe pipeline (``mesh.pipe=2``, 4 microbatches, 6
+    steps warm-started from the waves3 artifact; 24 K1 + 24 K2 a rank a
+    step at (24, 12, 144, 64); 3 in fp32) and the ring (``mesh.seq=2``, 72
+    tokens a rank, no attention kernel; one grid-20 step, 200 tokens a
+    rank): the losses within 2% and the EMA within 20 lr of one
+    process's, the fp32 pairs within 2e-5 and 1e-5, the 2-rank
+    checkpoints restored bit-equal into one process, peak GiB a rank
+    beside the layout's bytes, images/s and the transport seconds a step
+    of the pipe's sends and the ring's rotations; ``run_eval`` on
+    ``mesh.seq=2`` over the 16 export-smoke puzzles, fast and
+    faithful-250, its journal the one-process ``run_eval``'s, 1.00; K1 and
+    K2 at the pipeline's microbatch shape beside their bound, plain
+    version and SDPA.
+
 The last three lines are the ``kernels`` JSON (each kernel with the
 launches of its own path and its shape: K1 for the solve, the train step,
-the service, the 2-rank train step, the MoE train step and the TP and
-FSDP train steps, K2 for the train step, the 2-rank one, the MoE one and
-the TP and FSDP ones, K3 on the eval path and the training route, K4, K5,
-K6), the card's name and power limit, and the device JSON.
+the service, the 2-rank train step, the MoE train step, the TP and FSDP
+train steps, the pipeline's stages, the ep ranks and TP of the MoE, K2
+for the train step, the 2-rank one, the MoE one, the TP and FSDP ones,
+the pipeline's, the ep ranks' and TP of the MoE's, K3 on the eval path
+and the training route, K4, K5, K6), the card's name and power limit, and
+the device JSON.
 """
 
 from __future__ import annotations
@@ -222,6 +245,7 @@ from __future__ import annotations
 import argparse
 import base64
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -2941,13 +2965,401 @@ def mesh_grid3(card: str, gen: torch.Generator) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 20
+
+# The last three axes of the trainer on 2 ranks sharing the card over gloo,
+# each beside one process on the same settings (phase 16's bounds for bf16,
+# phase 19's for fp32): expert parallelism on JPDVT-MoE from its random
+# init (phase 17's), the GPipe pipeline and the ring on the flagship
+# warm-started from the waves3 artifact (phase 16's settings), and one
+# grid-20 step on the ring. Each process set is one pair of children
+# (``--runs-child``): one process group runs every run of the set in turn,
+# the one-process references on rank 0 alone while rank 1 waits. The
+# checkpoints stay in rank 0's memory (a whole JPDVT-MoE state is 8.4 GB,
+# and a card machine's disk takes some 45 GiB in a call), where the EMA
+# comparisons and the restores into one process are made. A 2-rank rate
+# says nothing of scaling: the ranks share one card and pass every
+# collective and transfer through the host (gloo).
+AXES_STEPS, MOE_ONE_CKPT = 6, 3
+PIPE_MICRO = 4
+PIPE_SHAPE = f"{TRAIN_BATCH // PIPE_MICRO}x{HEADS}x{TOKENS}x{HEAD_DIM}"
+NO_LAUNCH = {name: 0 for name in COUNTERS}
+
+
+def moe_args(exp: str, steps: int, *extra: str) -> list[str]:
+    return ["model.name=JPDVT-MoE", "data.synthetic_cues=waves", "data.device_stream=true",
+            f"data.global_batch_size={TRAIN_BATCH}", f"data.synthetic_n={TRAIN_BATCH * steps}",
+            "train.epochs=1", "train.log_every=1", "train.ckpt_every=1000000",
+            "diffusion.sampler_mode=fast", f"train.exp_dir={exp}", *extra]
+
+
+def grid20_args(exp: str, *extra: str) -> list[str]:
+    return [f"model.image_size={SIZE20}", f"task.grid_size={GRID20}",
+            "data.synthetic_cues=waves", "data.device_stream=true",
+            f"data.global_batch_size={TRAIN_BATCH}", f"data.synthetic_n={TRAIN_BATCH}",
+            "train.epochs=1", "train.log_every=1", "train.ckpt_every=1000000",
+            "diffusion.sampler_mode=fast", f"train.exp_dir={exp}", *extra]
+
+
+@dataclasses.dataclass
+class AxesRun:
+    """One run of phase 20: its ``run_train`` arguments, the K1/K2/K4-K6
+    launches a step a rank and their shape, its steps, whether rank 0 runs
+    it alone (a one-process reference), and the reference it is held to
+    (loss rtol, EMA atol; None: no EMA gate) and whether its checkpoint is
+    restored into one process."""
+
+    argv: list
+    launches: dict
+    shape: str | None
+    steps: int
+    solo: bool = False
+    ref: str | None = None
+    loss_rtol: float = DDP_LOSS_RTOL
+    ema_atol: float | None = DDP_EMA_ATOL
+    restore: bool = False
+
+
+def axes_plans(tmp: str) -> dict:
+    """{process set: {run: AxesRun}}, each set's runs in order (each
+    reference before the runs held to it)."""
+    one_shape, fsdp_shape = (f"{TRAIN_BATCH}x{HEADS}x{TOKENS}x{HEAD_DIM}",
+                             f"{TRAIN_BATCH // 2}x{HEADS}x{TOKENS}x{HEAD_DIM}")
+    k12, pipe = {"k1": 12, "k2": 12}, {"k1": 24, "k2": 24}
+    fp32 = FP32[:2] + [f"data.synthetic_n={TRAIN_BATCH * FP32_STEPS}"]
+    fp32_gate = dict(loss_rtol=FP32_LOSS_RTOL, ema_atol=FP32_EMA_ATOL)
+    pipe_args = ["mesh.pipe=2", f"mesh.pipe_microbatches={PIPE_MICRO}"]
+    return {
+        "ep": {
+            "moe_one": AxesRun(moe_args(f"{tmp}/moe_one", AXES_STEPS,
+                                        f"train.ckpt_every={MOE_ONE_CKPT}"),
+                               k12, one_shape, AXES_STEPS, solo=True),
+            "ep2": AxesRun(moe_args(f"{tmp}/ep2", AXES_STEPS, "mesh.ep=2"), k12, one_shape,
+                           AXES_STEPS, ref="moe_one", restore=True),
+            "moe_tp2": AxesRun(moe_args(f"{tmp}/moe_tp2", FP32_STEPS, "mesh.model=2"), k12,
+                               TP_SHAPE, FP32_STEPS, ref="moe_one"),
+            "moe_fsdp2": AxesRun(moe_args(f"{tmp}/moe_fsdp2", FP32_STEPS, "mesh.fsdp=2"), k12,
+                                 fsdp_shape, FP32_STEPS, ref="moe_one"),
+            "moe_one_fp32": AxesRun(moe_args(f"{tmp}/moe_one_fp32", FP32_STEPS, *FP32[:2]),
+                                    k12, one_shape, FP32_STEPS, solo=True),
+            "ep2_fp32": AxesRun(moe_args(f"{tmp}/ep2_fp32", FP32_STEPS, "mesh.ep=2",
+                                         *FP32[:2]), k12, one_shape, FP32_STEPS,
+                                ref="moe_one_fp32", **fp32_gate)},
+        "pipe_seq": {
+            "one": AxesRun(ddp_train_args(f"{tmp}/one"), k12, one_shape, AXES_STEPS,
+                           solo=True),
+            "pipe2": AxesRun(ddp_train_args(f"{tmp}/pipe2") + pipe_args, pipe, PIPE_SHAPE,
+                             AXES_STEPS, ref="one", restore=True),
+            "seq2": AxesRun(ddp_train_args(f"{tmp}/seq2") + ["mesh.seq=2"], {}, None,
+                            AXES_STEPS, ref="one", restore=True),
+            "one_fp32": AxesRun(ddp_train_args(f"{tmp}/one_fp32") + fp32, k12, one_shape,
+                                FP32_STEPS, solo=True),
+            "pipe2_fp32": AxesRun(ddp_train_args(f"{tmp}/pipe2_fp32") + fp32 + pipe_args,
+                                  pipe, PIPE_SHAPE, FP32_STEPS, ref="one_fp32", **fp32_gate),
+            "one20": AxesRun(grid20_args(f"{tmp}/one20"), {"k4": 12, "k5": 12, "k6": 12},
+                             f"{TRAIN_BATCH}x{HEADS}x{TOKENS20}x{HEAD_DIM}", 1, solo=True),
+            "seq20": AxesRun(grid20_args(f"{tmp}/seq20", "mesh.seq=2"), {}, None, 1,
+                             ref="one20", ema_atol=None)},
+    }
+
+
+# exp dir -> {step: the saved state dict, on the host}: rank 0's checkpoints
+# in a --runs-child (see the comment above AXES_STEPS).
+KEPT: dict = {}
+
+
+def keep_checkpoint(self, step: int, sd: dict, metadata) -> bool:
+    """``CheckpointManager._write`` in a ``--runs-child``: the state on the
+    host, in memory, bit for bit."""
+    host = {"step": sd["step"], "model": {k: v.cpu() for k, v in sd["model"].items()},
+            "ema": {k: v.cpu() for k, v in sd["ema"].items()},
+            "opt": {"count": sd["opt"]["count"],
+                    **{m: {k: v.cpu() for k, v in sd["opt"][m].items()} for m in ("mu", "nu")}}}
+    KEPT.setdefault(os.path.dirname(self.directory), {})[step] = host
+    return True
+
+
+def restored_bit_equal(sd: dict, model: str) -> bool:
+    """``sd`` restored into a one-process state (``TrainState.load_state_dict``,
+    as ``CheckpointManager.restore`` does after its load), read back equal
+    bit for bit."""
+    state = create_train_state(create_model(model, 192)[0])
+    state.load_state_dict(sd)
+    back = state.state_dict()
+    same = all(torch.equal(back[part][k].cpu().view(torch.int32), v.view(torch.int32))
+               for part in ("model", "ema") for k, v in sd[part].items())
+    same &= all(torch.equal(back["opt"][m][k].cpu().view(torch.int32), v.view(torch.int32))
+                for m in ("mu", "nu") for k, v in sd["opt"][m].items())
+    return bool(same and state.step == sd["step"])
+
+
+def runs_child(out: str, plan_path: str) -> int:
+    """One process of phase 20 (``chip_smoke.py --runs-child <out.json>
+    <plan.json>``): each run of the plan in turn as ``run_train``'s run on
+    this process's rank of one process group (torchrun's environment
+    names it), a solo run on rank 0 alone; each train step's launches and
+    transport, the launch shapes and the peak memory recorded, and on rank
+    0 each run's final EMA against its reference's and its checkpoint
+    restored into one process; written to ``out``."""
+    from jpdvt_mt_ntnu_tpu_torch.parallel import (DataParallel, MeshSpec,
+                                                  maybe_initialize_distributed)
+    from jpdvt_mt_ntnu_tpu_torch.parallel import sharding
+    from jpdvt_mt_ntnu_tpu_torch.utils.config import Config, apply_overrides
+
+    with open(plan_path) as f:
+        plan = json.load(f)
+    dp = maybe_initialize_distributed(device="cuda")
+    CheckpointManager._write = keep_checkpoint
+    results = []
+    try:
+        for name, run in plan:
+            exp = next(a.split("=", 1)[1] for a in run["argv"]
+                       if a.startswith("train.exp_dir="))
+            row = {"name": name}
+            if not run["solo"] or dp.rank == 0:
+                run_dp = DataParallel(device=dp.device) if run["solo"] else dp
+                cfg = apply_overrides(Config(), run["argv"])
+                run_train.check_supported(cfg)
+                precision = apply_matmul_precision(cfg.model.matmul_precision)
+                MeshSpec.from_config(cfg.mesh).axis_sizes(run_dp.world)
+                zero_counts()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                moved: list = []
+                make_step = run_train.make_train_step
+
+                def timed_make(*a, **kw):  # each step's transport seconds and bytes
+                    step = make_step(*a, **kw)
+
+                    def timed(state, batch):
+                        before = dict(sharding.TRANSPORT)
+                        result = step(state, batch)
+                        moved.append({k: sharding.TRANSPORT[k] - before[k] for k in before})
+                        return result
+
+                    return timed
+
+                t0 = time.perf_counter()
+                run_train.make_train_step = timed_make
+                try:
+                    with counting_steps() as per_step, launch_shapes() as shapes:
+                        code = run_train.train(cfg, run_dp, precision)
+                finally:
+                    run_train.make_train_step = make_step
+                torch.cuda.synchronize()
+                row |= {"exit": code, "wall_s": time.perf_counter() - t0, "per_step": per_step,
+                        "transport": moved, "shapes": shapes, "launches": counts(),
+                        "peak_gib": torch.cuda.max_memory_allocated() / GIB}
+                del cfg
+                torch.cuda.empty_cache()
+            if dp.rank == 0:
+                kept = KEPT.get(exp, {})
+                end = max(kept)
+                row["ckpt_step"] = end
+                if run["ref"] is not None and run["ema_atol"] is not None:
+                    ref_exp = next(a.split("=", 1)[1] for n, r in plan if n == run["ref"]
+                                   for a in r["argv"] if a.startswith("train.exp_dir="))
+                    ema, ema_ref = kept[end]["ema"], KEPT[ref_exp][end]["ema"]
+                    diffs = torch.cat([(ema[k].float() - w.float()).abs().ravel()
+                                       for k, w in ema_ref.items()])
+                    row |= {"ema_max_abs_diff": diffs.max().item(),
+                            "ema_mean_abs_diff": diffs.mean().item()}
+                if run["restore"]:
+                    model = "JPDVT-MoE" if "model.name=JPDVT-MoE" in run["argv"] else "JPDVT"
+                    row["restored_bit_equal"] = restored_bit_equal(kept[end], model)
+                    torch.cuda.empty_cache()
+                for step in list(kept):  # the references' EMA is all a later run reads
+                    kept[step] = {"ema": kept[step]["ema"]} if run["solo"] else {}
+            results.append(row)
+            dp.barrier()
+    finally:
+        with open(out, "w") as f:
+            json.dump({"rank": dp.rank, "runs": results}, f)
+        dp.close()
+    return 0
+
+
+def layout_bytes_of(name: str, axes: dict) -> dict:
+    """:func:`layout_bytes` for any registry model on any mesh of the
+    layout's: what each rank holds of the fp32 train state (params,
+    gradients, EMA, two moments) by the rules, on the first stage."""
+    from jpdvt_mt_ntnu_tpu_torch.parallel.sharding import block_index, leaf_specs
+
+    cfg = dit.DiTConfig(input_size=192, **dit.DIT_CONFIGS[name])
+    with torch.device("meta"):
+        net = dit.DiT(cfg)
+    shapes = {n: tuple(p.shape) for n, p in net.named_parameters()}
+    specs = leaf_specs(shapes, axes.get("model", 1), axes.get("fsdp", 1), axes.get("ep", 1))
+    per_stage = cfg.depth // axes.get("pipe", 1)
+    held = 0
+    for n, shape in shapes.items():
+        i = block_index(n)
+        if i is not None and i >= per_stage:
+            continue
+        spec = specs[n]
+        cut = ((axes.get("model", 1) if spec.tp_dim is not None else 1)
+               * (axes.get("fsdp", 1) if spec.fsdp_dim is not None else 1)
+               * (axes.get("ep", 1) if spec.ep_dim is not None else 1))
+        held += int(np.prod(shape)) // cut
+    return {"params": int(sum(np.prod(s) for s in shapes.values())), "held": held,
+            "state_gib": 5 * 4 * held / GIB}
+
+
+def mesh_axes(argv: list[str]) -> dict:
+    return {a.split("=")[0][len("mesh."):]: int(a.split("=")[1]) for a in argv
+            if a.split("=")[0] in ("mesh.model", "mesh.fsdp", "mesh.ep", "mesh.pipe")}
+
+
+def check_axes_train(tmp: str, card: str) -> dict:
+    """Phase 20's training runs: every process set of :func:`axes_plans`,
+    the launches a step at their shapes, the losses against each run's
+    reference, the EMA and restore results of rank 0."""
+    out: dict = {}
+    for group, runs in axes_plans(tmp).items():
+        plan_path = os.path.join(tmp, f"{group}.plan.json")
+        with open(plan_path, "w") as f:
+            json.dump([[name, dataclasses.asdict(run)] for name, run in runs.items()], f)
+        t0 = time.perf_counter()
+        port, procs = free_port(), []
+        for r in range(2):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                       LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            base = os.path.join(tmp, f"{group}.{r}")
+            with open(base + ".log", "w") as f:
+                procs.append((subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--runs-child",
+                     base + ".json", plan_path], cwd=REPO, env=env, stdout=f,
+                    stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL), base))
+        ranks = wait_ranks(procs, 900)
+        log(f"  phase 20 {group}: {time.perf_counter() - t0:.2f} s")
+        for i, (name, run) in enumerate(runs.items()):
+            want = NO_LAUNCH | run.launches
+            rows = [r["runs"][i] for r in ranks if "exit" in r["runs"][i]]
+            for row in rows:
+                if row["exit"] != 0 or len(row["per_step"]) != run.steps or any(
+                        s != want for s in row["per_step"]):
+                    raise AssertionError(f"{name}: exit {row['exit']}, launches per step "
+                                         f"{row['per_step']}, expected {run.steps} x {want}")
+                for k, n in run.launches.items():  # every step's at the layout's shape
+                    if row["shapes"][k].get(run.shape, 0) < n * run.steps:
+                        raise AssertionError(f"{name}: {k} launch shapes {row['shapes'][k]}, "
+                                             f"expected {n * run.steps} at {run.shape}")
+            exp = next(a.split("=", 1)[1] for a in run.argv if a.startswith("train.exp_dir="))
+            losses, group_row, summary = run_metrics(exp)
+            if len(losses) != run.steps or not np.all(np.isfinite(losses)):
+                raise AssertionError(f"{name}: losses {losses}")
+            first = ranks[0]["runs"][i]
+            moved = [sum(s["seconds"] for s in row["transport"]) / run.steps for row in rows]
+            out[name] = {"losses": losses, "world": group_row["process_world_size"],
+                         "backend": group_row["process_backend"],
+                         "train_images_per_s": summary["train_images_per_s"],
+                         "loop_s": summary["loop_s"], "val": summary.get("val_puzzle_acc"),
+                         "wall_s": rows[0]["wall_s"], "peak_gib": [r["peak_gib"] for r in rows],
+                         "transport_s_per_step": moved,
+                         "transport_mb_per_step": [
+                             sum(s["bytes"] for s in row["transport"]) / run.steps / 1e6
+                             for row in rows],
+                         "launches": {k: sum(row["launches"][k] for row in rows)
+                                      for k in COUNTERS},
+                         "shapes": rows[0]["shapes"],
+                         "predicted": layout_bytes_of(
+                             "JPDVT-MoE" if "model.name=JPDVT-MoE" in run.argv else "JPDVT",
+                             mesh_axes(run.argv)),
+                         **{k: first[k] for k in ("ema_max_abs_diff", "ema_mean_abs_diff",
+                                                  "restored_bit_equal", "ckpt_step")
+                            if k in first}}
+            if run.ref is None:
+                continue
+            ref = out[run.ref]["losses"][:run.steps]
+            rel = np.abs(np.array(losses) / np.array(ref) - 1)
+            out[name] |= {"reference": run.ref, "loss_rel_diff": rel.tolist(),
+                          "loss_max_rel_diff": float(rel.max())}
+            ema = out[name].get("ema_max_abs_diff")
+            if not (rel.max() <= run.loss_rtol
+                    and (run.ema_atol is None or ema is not None and ema <= run.ema_atol)
+                    and out[name].get("restored_bit_equal", True)):
+                raise AssertionError(f"{name} against {run.ref}: loss rel {rel.tolist()} "
+                                     f"(limit {run.loss_rtol}), EMA {ema} (limit "
+                                     f"{run.ema_atol}), restored bit-equal "
+                                     f"{out[name].get('restored_bit_equal')}")
+    for name, row in out.items():
+        log(f"  {name} on {card}: losses {row['losses']}, peak GiB per rank {row['peak_gib']} "
+            f"beside the layout's {row['predicted']['state_gib']:.3f} GiB of fp32 state, "
+            f"images/s {row['train_images_per_s']:.1f}, transport s/step "
+            f"{row['transport_s_per_step']} ({row['transport_mb_per_step']} MB)")
+    log("  axes runs: " + json.dumps({k: {x: y for x, y in v.items() if x != "losses"}
+                                       for k, v in out.items()}))
+    return out
+
+
+def seq_eval_args(logs: str, mode: str, *extra: str) -> list[str]:
+    """``run_eval`` on the 16 export-smoke puzzles (the first 16 of the
+    seed-123 wave set) with the waves3 artifact and phase 3's template."""
+    return [f"eval.checkpoint={ARTIFACT}", "data.dataset=synthetic",
+            "data.synthetic_cues=waves", "eval.seed=123", "eval.limit=16",
+            "eval.batch_size=16", f"eval.jax_noise={NOISE_TEMPLATE}",
+            f"diffusion.sampler_mode={mode}", f"eval.logs_dir={logs}", *extra]
+
+
+def check_seq_eval(tmp: str) -> dict:
+    """``run_eval`` on ``mesh.seq=2`` (2 ranks sharing the card) against
+    ``run_eval`` in this process, fast and faithful-250: the same journal
+    rows, accuracy 1.00, no K1 launch on the ring's ranks."""
+    out = {}
+    for mode in ("fast", "faithful"):
+        t0 = time.perf_counter()
+        zero_counts()
+        run_eval.main(seq_eval_args(f"{tmp}/eval_one_{mode}", mode))
+        one_launches = counts()["k1"]
+        t1 = time.perf_counter()
+        ranks = wait_ranks(spawn_ranks(tmp, f"seq_eval_{mode}", "eval", seq_eval_args(
+            f"{tmp}/eval_seq_{mode}", mode, "mesh.seq=2")), 600)
+        t2 = time.perf_counter()
+        one = journal_list(os.path.join(tmp, f"eval_one_{mode}", EVAL_JOURNALS[0]))
+        seq = journal_list(os.path.join(tmp, f"eval_seq_{mode}", EVAL_JOURNALS[0]))
+        written = sorted(os.listdir(os.path.join(tmp, f"eval_seq_{mode}")))
+        acc = sum(r[1] for r in seq) / max(1, len(seq))
+        out[mode] = {"rows": len(seq), "puzzle_acc": acc, "same_rows": seq == one,
+                     "one_s": t1 - t0, "seq_s": t2 - t1, "one_k1": one_launches,
+                     "seq_k1": [r["launches"]["k1"] for r in ranks],
+                     "journals": [w for w in written if w.endswith(".csv")]}
+        log(f"  run_eval mesh.seq=2 {mode}: " + json.dumps(out[mode]))
+        if not (len(seq) == 16 and seq == one and acc == 1.0
+                and out[mode]["journals"] == [EVAL_JOURNALS[0]]
+                and all(k == 0 for k in out[mode]["seq_k1"]) and one_launches > 0):
+            raise AssertionError(f"run_eval mesh.seq=2 {mode}: {out[mode]}")
+    return out
+
+
+def axes_grid3(card: str, gen: torch.Generator) -> dict:
+    """Phase 20: expert parallelism, the pipeline and the ring."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["train"] = check_axes_train(tmp, card)
+        t0 = time.perf_counter()
+        out["eval"] = check_seq_eval(tmp)
+        log(f"phase 20 seq eval: {time.perf_counter() - t0:.2f} s")
+    # K1 and K2 at the pipeline's microbatch shape, against their plain
+    # versions, timed by CUDA events beside their bound and SDPA.
+    out["k1_pipe"] = check_k1(TRAIN_BATCH // PIPE_MICRO, TOKENS, torch.bfloat16, gen,
+                              timed=True)
+    out["k2_pipe"] = check_k2(TRAIN_BATCH // PIPE_MICRO, TOKENS, torch.bfloat16, gen,
+                              timed=True, device_time=False)
+    log(f"phase axes: {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--ddp-child"]:  # one rank of phase 16's runs
         return ddp_child(argv[1], argv[2:])
+    if argv[:1] == ["--runs-child"]:  # one rank of phase 20's process sets
+        return runs_child(argv[1], argv[2])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--grid20-artifact", action="store_true",
-                    help="skip the waves3 artifact's phases (3, 4, 7, 8, 15-19) and start the "
+                    help="skip the waves3 artifact's phases (3, 4, 7, 8, 15-20) and start the "
                          "grid-20 phases from artifacts/waves20_hard_step32700")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3022,7 +3434,7 @@ def main(argv=None) -> int:
 
     # 3-4. The waves3 artifact's solve and its throughput.
     if args.grid20_artifact:
-        log("--grid20-artifact: phases 3, 4, 7, 8 and 15-19 (they read the waves3 artifact, "
+        log("--grid20-artifact: phases 3, 4, 7, 8 and 15-20 (they read the waves3 artifact, "
             "which this copy does not hold) are skipped")
         g3 = None
     else:
@@ -3160,6 +3572,9 @@ def main(argv=None) -> int:
     # 19. Tensor parallelism and FSDP in the trainer, 2 ranks sharing the card.
     mesh19 = None if args.grid20_artifact else mesh_grid3(card, gen)
 
+    # 20. Expert parallelism, the pipeline and the ring, 2 ranks sharing the card.
+    axes20 = None if args.grid20_artifact else axes_grid3(card, gen)
+
     def kernel_row(name, source, replaces, launches, rows, timed):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "shape": timed["shape"],
@@ -3221,6 +3636,20 @@ def main(argv=None) -> int:
                            "jpdvt_mt_ntnu_tpu_torch/ops/csrc/attention_bwd.cu",
                            "jpdvt_mt_ntnu_tpu/ops/attention.py:44", launches["k2"],
                            [mesh19[f"k2_{name}"]], mesh19[f"k2_{name}"])]
+        # Phase 20: K1 and K2 on the pipeline's stages (24 a microbatch), on
+        # the ep ranks (the whole batch) and under TP of the MoE (6 heads).
+        for name, run, k1_row, k2_row in (
+                ("pipe", "pipe2", axes20["k1_pipe"], axes20["k2_pipe"]),
+                ("ep", "ep2", k1_rows[2], k2_rows[0]),
+                ("moe_tp", "moe_tp2", mesh19["k1_tp"], mesh19["k2_tp"])):
+            launches = axes20["train"][run]["launches"]
+            kernels += [
+                kernel_row(f"k1_whole_row_attention_fwd_{name}", *k1, launches["k1"],
+                           [k1_row], k1_row),
+                kernel_row(f"k2_whole_row_attention_bwd_{name}",
+                           "jpdvt_mt_ntnu_tpu_torch/ops/csrc/attention_bwd.cu",
+                           "jpdvt_mt_ntnu_tpu/ops/attention.py:44", launches["k2"],
+                           [k2_row], k2_row)]
     else:  # K1's own path in this mode: the bf16 N = 400 solve of phase 12
         kernels.append(kernel_row(
             "k1_whole_row_attention_fwd", *k1,

@@ -28,8 +28,10 @@ pipe group is one stage and the schedule is written out (:class:`Pipeline`):
   their stage's graph, so one microbatch's backward never runs another's
   twice; the stem's graph runs once, after them.
 - The transfers are point-to-point sends and receives outside autograd
-  (``Mesh.exchange``): each stage posts its sends and receives together,
-  so no two blocking sends wait on each other.
+  (``Mesh.exchange``), in one order on every stage: a stage receives
+  before it computes and sends after, so a send waits only for the next
+  stage's receive, which that stage posts before any send of its own, and
+  no two sends wait on each other.
 
 The gradients that this leaves partial are the layout's to sum
 (``Layout.reduce_grads_``): the stem's and the head's over the pipe group

@@ -1,9 +1,12 @@
-"""Tensor parallelism (``mesh.model``) and fully-sharded data parallelism (``mesh.fsdp``).
+"""The train state's layout on the mesh: tensor parallelism (``mesh.model``),
+fully-sharded data parallelism (``mesh.fsdp``) and expert parallelism
+(``mesh.ep``), with the pipeline's stages (``parallel/pipeline.py``) and the
+ring's token groups (``parallel/sequence.py``).
 
 Counterpart of ``jpdvt_mt_ntnu_tpu/parallel/sharding.py``. There GSPMD
 turns the partition specs into collectives; here each process is one rank
-of the data x fsdp x model mesh (:class:`MeshRanks`, ``model`` innermost as
-in the JAX package) and the collectives are written out:
+of the pipe x data x fsdp x ep x seq x model mesh (:class:`MeshRanks`, in
+the JAX package's order) and the collectives are written out:
 
 - **Tensor parallelism**, the JAX package's ``_TP_RULES`` (Megatron): the
   DiT block's qkv and fc1 keep their output features of this model rank,
@@ -14,26 +17,35 @@ in the JAX package) and the collectives are written out:
   of the partial sums in fp32, the bias added once after it). adaLN, the
   embeddings, the heads and every other leaf stay replicated, and get
   identical gradients on the ranks of a model group.
+- **Expert parallelism**, ``_EP_RULES``: the MoE's stacked ``wi``, ``bi``,
+  ``wo`` and ``bo`` keep E/ep of the experts; the experts' hidden features
+  are cut over model as fc1's and fc2's are. The MoE (``models/moe.py``)
+  applies the same conjugate pair over the ep group; the router's gradient,
+  partial on each ep rank, is summed over the group.
 - **Fully-sharded data parallelism**, ``_with_fsdp`` (ZeRO-3): every leaf of
   two or more dimensions keeps 1/fsdp of its largest dimension that no TP
-  rule takes and that fsdp divides (in the JAX package's Flax order: a
-  Linear's (in, out)), in the params, the EMA and the AdamW moments; 1-D
-  leaves stay replicated. Every such leaf is a ``dit.Linear`` weight, whose
-  forward gathers it, casts it and applies it in one autograd function
-  (:class:`_GatheredLinear`) that saves only the shard: the backward
-  gathers the weight again, and reduce-scatters its gradient. A full
-  weight lives only while its product runs.
-- The batch is cut over data x fsdp (``batch_index``, ``batch_size``); a
-  model group's ranks take the same rows. The gradients of sharded leaves
-  are reduced over the data group after the fsdp reduce-scatter, those of
-  the other leaves over data x fsdp; the global norm sums each leaf once.
+  or expert rule takes and that fsdp divides (in the JAX package's Flax
+  order: a Linear's (in, out)), in the params, the EMA and the AdamW
+  moments; 1-D leaves stay replicated. A ``dit.Linear`` weight is gathered,
+  cast and applied in one autograd function (:class:`_GatheredLinear`), an
+  expert leaf in its einsum (:class:`_GatheredEinsum`), each saving only
+  the shard: the backward gathers the weight again, and reduce-scatters its
+  gradient. A full weight lives only while its product runs.
+- The batch is cut over data x fsdp (``batch_index``, ``batch_size``); the
+  ranks of a pipe, ep, seq or model group take the same rows. The partial
+  gradients are summed first (the stem's and head's over pipe, the
+  router's over ep, every leaf's over seq), then the gradients of sharded
+  leaves are reduced over the data group after the fsdp reduce-scatter,
+  those of the other leaves over data x fsdp; the global norm sums each
+  leaf once.
 - Checkpoints hold the one-process layout: :meth:`Layout.full_state_dict`
   gathers the state on every rank, and a restore into the full state before
   :meth:`Layout.shard_` re-shards it.
 
 The gathers and reduce-scatters are the backends' own
 (``all_gather_into_tensor``, ``reduce_scatter_tensor``), which gloo takes
-on the CPU and on a card's tensors, and nccl across cards.
+on the CPU and on a card's tensors, and nccl across cards; the
+point-to-point transfers go through :meth:`Mesh.exchange`.
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import logging
+import time
 from typing import Sequence
 
 import numpy as np
@@ -56,6 +69,11 @@ from . import sequence
 from .pipeline import Pipeline
 
 log = logging.getLogger(__name__)
+
+# What the point-to-point transfers (Mesh.exchange: the pipeline's sends, the
+# ring's rotations) took in all: wall seconds, bytes sent, calls. A reader
+# sets it to 0 and reads it; the card's queue is drained before each timing.
+TRANSPORT = {"seconds": 0.0, "bytes": 0, "calls": 0}
 
 # torch >= 2.13 names the single-tensor collectives so; older ones as below.
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
@@ -224,14 +242,23 @@ class Mesh:
         posted at once (``batch_isend_irecv``, so two ranks that send to each
         other do not wait on each other) and waited for. Ranks sharing a card
         over gloo pass card tensors through :func:`host_exchange`."""
-        if self.backend == "gloo" and any(t.is_cuda for t, _ in [*sends, *recvs]):
+        on_card = any(t.is_cuda for t, _ in [*sends, *recvs])
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if self.backend == "gloo" and on_card:
             host_exchange(sends, recvs, group)
-            return
-        ops = [dist.P2POp(dist.isend, t.contiguous(), group.ranks[i], group.pg)
-               for t, i in sends]
-        ops += [dist.P2POp(dist.irecv, t, group.ranks[i], group.pg) for t, i in recvs]
-        for work in dist.batch_isend_irecv(ops) if ops else []:
-            work.wait()
+        else:
+            ops = [dist.P2POp(dist.isend, t.contiguous(), group.ranks[i], group.pg)
+                   for t, i in sends]
+            ops += [dist.P2POp(dist.irecv, t, group.ranks[i], group.pg) for t, i in recvs]
+            for work in dist.batch_isend_irecv(ops) if ops else []:
+                work.wait()
+            if on_card:
+                torch.cuda.synchronize()
+        TRANSPORT["seconds"] += time.perf_counter() - t0
+        TRANSPORT["bytes"] += sum(t.numel() * t.element_size() for t, _ in sends)
+        TRANSPORT["calls"] += 1
 
     # Megatron's conjugate pair over a group (dit.Linear's tp_mode over the
     # model group, the MoE's over the ep group).

@@ -5,9 +5,10 @@ params, EMA and the optax state as one immutable pytree and replaces it
 every step; here the parameters live in two ``DiT`` modules (float32) and
 the AdamW moments in dicts keyed by the ``state_dict`` names, and the
 update writes into them in place. EMA covers all parameters
-(train_JPDVT.py:37-46). On a mesh with fsdp or model axes each tensor is
-this rank's shard (``layout``, ``parallel/sharding.py``), and
-:meth:`TrainState.state_dict` gathers the whole state.
+(train_JPDVT.py:37-46). On a mesh with more axes than data each tensor is
+this rank's shard (``layout``, ``parallel/sharding.py``; under the
+pipeline only this stage's blocks), and :meth:`TrainState.state_dict`
+gathers the whole state.
 """
 
 from __future__ import annotations

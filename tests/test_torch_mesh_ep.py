@@ -22,12 +22,13 @@
 
 Tolerances (fp32; the measured worst in brackets):
 - a mesh against one process: the loss, MSEs and grad norm 1e-6 relative
-  (2.1e-7); params, EMA and moments after 3 steps every element within
-  ``PARAM_ATOL`` = 2e-4 (a tenth of lr; 6.3e-6) and 99.9% within 1e-6
-  (99.99%). The first step's router gradient 1e-6 relative with 1e-9
-  absolute (1.1e-7 relative).
-- against the JAX mesh: the loss and grad norm 1e-5 relative (3.4e-7),
-  params and EMA within ``PARAM_ATOL`` (1.0e-6), 99.9% within 2e-6.
+  (1.6e-7); params, EMA and moments after 3 steps every element within
+  ``PARAM_ATOL`` = 2e-4 (a tenth of lr; 1.9e-5) and 99.9% within 1e-6
+  (99.999%). The first step's router gradient within 3e-6 of each leaf's
+  largest magnitude (2.8e-7); one ep rank's part alone is 33% of it off.
+- against the JAX mesh: the loss and grad norm 1e-5 relative (4.7e-7),
+  params and EMA within ``PARAM_ATOL`` (2.6e-5), 99.9% within 2e-6
+  (99.998%).
 """
 
 import sys
@@ -145,13 +146,13 @@ def test_router_gradient_is_summed_over_the_ep_group(runs, mesh):
     for res in ranks[mesh]:
         for k in names:
             np.testing.assert_allclose(res[k], one[k], rtol=0, err_msg=k,
-                                       atol=1e-6 * np.abs(one[k]).max())
+                                       atol=3e-6 * np.abs(one[k]).max())
     if mesh == "ep2":  # each rank's part before the sum is not the whole; the parts add to it
         for k in names:
             parts = [res["partial" + k[len("grad"):]] for res in ranks[mesh]]
             assert not np.allclose(parts[0], one[k], rtol=1e-2, atol=0)
             np.testing.assert_allclose(parts[0] + parts[1], one[k], rtol=0, err_msg=k,
-                                       atol=1e-6 * np.abs(one[k]).max())
+                                       atol=3e-6 * np.abs(one[k]).max())
 
 
 @pytest.mark.parametrize("mesh", ["ep2_data2", "ep2_fsdp2"])

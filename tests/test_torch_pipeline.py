@@ -19,12 +19,14 @@
   refused by name.
 
 Tolerances (fp32; the measured worst in brackets): a mesh against one
-process, the loss, MSEs and grad norm 1e-6 relative (1.3e-7) and the
-state after 3 steps within ``PARAM_ATOL`` = 2e-4 with 99.9% of the
-elements within 1e-6 (99.99%); against the JAX pipeline, the loss and
-grad norm 1e-5 relative (2.9e-7) and the params and EMA within
-``PARAM_ATOL`` with 99.9% within 2e-6; ``run_train``'s losses 1e-5
-relative, as ``tests/test_torch_mesh.py``'s.
+process, the loss, MSEs and grad norm 1e-6 relative (2.0e-7), the stem's
+and head's first-step gradients within 3e-6 of each leaf's largest
+magnitude (3.4e-7), the state after 3 steps within ``PARAM_ATOL`` = 2e-4
+(1.2e-5) with 99.9% of the elements within 1e-6 (99.999%); against the
+JAX pipeline, the loss and grad norm 1e-5 relative (2.7e-7) and the
+params and EMA within ``PARAM_ATOL`` (2.8e-5) with 99.9% within 2e-6
+(99.996%); ``run_train``'s losses 1e-5 relative, as
+``tests/test_torch_mesh.py``'s.
 """
 
 import shutil
@@ -54,8 +56,9 @@ PIPE_MESHES = ("pipe2", "pipe2_data2")
 @pytest.mark.parametrize("pipe", [2, 4])
 def test_stages_hold_the_blocks_jax_gives_them(pipe):
     jmodel, cfg = common.jax_model("deep")
-    params = jmodel.init(jax.random.key(0), jnp.zeros((1, 48, 48, 3)), jnp.zeros((1,), jnp.int32),
-                         jnp.zeros((1, 9, 8)))
+    shapes = jax.eval_shape(jmodel.init, jax.random.key(0), jnp.zeros((1, 48, 48, 3)),
+                            jnp.zeros((1,), jnp.int32), jnp.zeros((1, 9, 8)))
+    params = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes)
     jmesh = make_mesh(JaxMeshSpec(data=8 // pipe, pipe=pipe), devices=jax.devices()[:8])
     stacked = stack_block_params(params)
     leaf = stacked["params"]["blocks"]["adaLN_modulation"]["kernel"]
@@ -93,7 +96,7 @@ def test_mesh_step_equals_one_process_step(runs, mesh):
     for res in ranks[mesh]:
         for k in [k for k in one if k.startswith("grad.") and not k.startswith("grad.blocks.")]:
             np.testing.assert_allclose(res[k], one[k], rtol=0, err_msg=k,
-                                       atol=1e-6 * np.abs(one[k]).max())
+                                       atol=3e-6 * np.abs(one[k]).max())
 
 
 def test_mesh_step_equals_the_jax_pipeline_step(runs):

@@ -19,13 +19,14 @@
   ``mesh.model`` refused by name.
 
 Tolerances (fp32; the measured worst in brackets): the ring 1e-5 absolute
-and relative, as the JAX package's test (out 4.8e-7, gradient 9.5e-7); a
+and relative, as the JAX package's test (out 3.0e-7, gradient 6.6e-7); a
 mesh against one process, the loss, MSEs and grad norm 1e-6 relative
-(1.6e-7), the first step's gradients 1e-6 of each leaf's largest
-magnitude, the state after 3 steps within ``PARAM_ATOL`` = 2e-4 with 99.9%
-of the elements within 1e-6 (99.99%); against the JAX ring, the loss and
-grad norm 1e-5 relative (3.0e-7) and the params and EMA within
-``PARAM_ATOL`` with 99.9% within 2e-6.
+(1.4e-7), the first step's gradients within 3e-6 of each leaf's largest
+magnitude (8.5e-7; a mean over seq would be 50% off), the state after 3
+steps within ``PARAM_ATOL`` = 2e-4 (5.1e-6) with 99.9% of the elements
+within 1e-6 (99.9995%); against the JAX ring, the loss and grad norm 1e-5
+relative (7.6e-8) and the params and EMA within ``PARAM_ATOL`` (4.5e-6)
+with 99.9% within 2e-6 (99.997%).
 """
 
 import sys
@@ -83,7 +84,7 @@ def test_mesh_step_equals_one_process_step(runs, mesh):
     for res in ranks[mesh]:
         for k in [k for k in res if k.startswith("grad.")]:
             np.testing.assert_allclose(res[k], ref[k], rtol=0, err_msg=k,
-                                       atol=1e-6 * np.abs(ref[k]).max())
+                                       atol=3e-6 * np.abs(ref[k]).max())
 
 
 def test_mesh_step_equals_the_jax_ring_step(runs):
