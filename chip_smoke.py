@@ -246,7 +246,6 @@ import argparse
 import base64
 import contextlib
 import dataclasses
-import functools
 import json
 import os
 import signal
@@ -2806,33 +2805,33 @@ MESH_REFS = {"tp2": ("one", DDP_LOSS_RTOL, DDP_EMA_ATOL),
 GIB = 2 ** 30
 
 
-@functools.cache
-def flagship_shapes() -> dict:
-    net, _ = create_model("JPDVT", 192, device="cpu")
-    return {n: tuple(p.shape) for n, p in net.named_parameters()}
-
-
-def layout_bytes(model: int, fsdp: int) -> dict:
+def layout_bytes(axes: dict, name: str = "JPDVT") -> dict:
     """What the layout (``parallel/sharding.py``'s rules) predicts each rank
-    holds of the flagship's fp32 train state: params, gradients, EMA and
-    the two moments of its shards, and, under fsdp, the largest Linear's
+    of a mesh of ``axes`` (model, fsdp, ep, pipe) holds of a registry
+    model's fp32 train state: params, gradients, EMA and the two moments of
+    its shards (on the first stage), and, under fsdp, the largest leaf's
     full weight while its product runs."""
-    from jpdvt_mt_ntnu_tpu_torch.parallel.sharding import leaf_specs
+    from jpdvt_mt_ntnu_tpu_torch.parallel.sharding import block_index, leaf_specs
 
-    shapes = flagship_shapes()
-    specs = leaf_specs(shapes, model, fsdp)
+    cfg = dit.DiTConfig(input_size=192, **dit.DIT_CONFIGS[name])
+    with torch.device("meta"):
+        net = dit.DiT(cfg)
+    shapes = {n: tuple(p.shape) for n, p in net.named_parameters()}
+    model, fsdp, ep = (axes.get(k, 1) for k in ("model", "fsdp", "ep"))
+    specs = leaf_specs(shapes, model, fsdp, ep)
+    per_stage = cfg.depth // axes.get("pipe", 1)
 
-    def held(names) -> int:
-        total = 0
-        for n in names:
-            cut = (model if specs[n].tp_dim is not None else 1) * (
-                fsdp if specs[n].fsdp_dim is not None else 1)
-            total += int(np.prod(shapes[n])) // cut
-        return total
+    def held(n: str, gathered: bool = False) -> int:
+        spec = specs[n]
+        cut = ((model if spec.tp_dim is not None else 1)
+               * (fsdp if spec.fsdp_dim is not None and not gathered else 1)
+               * (ep if spec.ep_dim is not None else 1))
+        return int(np.prod(shapes[n])) // cut
 
-    shard = held(shapes)
-    gathered = max(int(np.prod(shapes[n])) // (model if specs[n].tp_dim is not None else 1)
-                   - held([n]) for n in shapes if specs[n].fsdp_dim is not None) if fsdp > 1 else 0
+    mine = [n for n in shapes if block_index(n) is None or block_index(n) < per_stage]
+    shard = sum(held(n) for n in mine)
+    gathered = max((held(n, True) - held(n) for n in mine if specs[n].fsdp_dim is not None),
+                   default=0)
     return {"params": int(sum(np.prod(s) for s in shapes.values())), "held": shard,
             "state_gib": 5 * 4 * shard / GIB, "gathered_gib": 4 * gathered / GIB}
 
@@ -2876,7 +2875,7 @@ def check_mesh_train(tmp: str, card: str) -> dict:
                       "peak_gib": [r["peak_gib"] for r in ranks],
                       "launches": {k: sum(r["launches"][k] for r in ranks) for k in ("k1", "k2")},
                       "shapes": ranks[0]["shapes"],
-                      "predicted": layout_bytes(model_axis, fsdp)}
+                      "predicted": layout_bytes({"model": model_axis, "fsdp": fsdp})}
     for name, (ref, loss_rtol, ema_atol) in MESH_REFS.items():
         end = 10000 + MESH_RUNS[name][3]
         ema, ema_ref = final_ema(f"{tmp}/{name}", end), final_ema(f"{tmp}/{ref}", end)
@@ -3179,32 +3178,6 @@ def runs_child(out: str, plan_path: str) -> int:
     return 0
 
 
-def layout_bytes_of(name: str, axes: dict) -> dict:
-    """:func:`layout_bytes` for any registry model on any mesh of the
-    layout's: what each rank holds of the fp32 train state (params,
-    gradients, EMA, two moments) by the rules, on the first stage."""
-    from jpdvt_mt_ntnu_tpu_torch.parallel.sharding import block_index, leaf_specs
-
-    cfg = dit.DiTConfig(input_size=192, **dit.DIT_CONFIGS[name])
-    with torch.device("meta"):
-        net = dit.DiT(cfg)
-    shapes = {n: tuple(p.shape) for n, p in net.named_parameters()}
-    specs = leaf_specs(shapes, axes.get("model", 1), axes.get("fsdp", 1), axes.get("ep", 1))
-    per_stage = cfg.depth // axes.get("pipe", 1)
-    held = 0
-    for n, shape in shapes.items():
-        i = block_index(n)
-        if i is not None and i >= per_stage:
-            continue
-        spec = specs[n]
-        cut = ((axes.get("model", 1) if spec.tp_dim is not None else 1)
-               * (axes.get("fsdp", 1) if spec.fsdp_dim is not None else 1)
-               * (axes.get("ep", 1) if spec.ep_dim is not None else 1))
-        held += int(np.prod(shape)) // cut
-    return {"params": int(sum(np.prod(s) for s in shapes.values())), "held": held,
-            "state_gib": 5 * 4 * held / GIB}
-
-
 def mesh_axes(argv: list[str]) -> dict:
     return {a.split("=")[0][len("mesh."):]: int(a.split("=")[1]) for a in argv
             if a.split("=")[0] in ("mesh.model", "mesh.fsdp", "mesh.ep", "mesh.pipe")}
@@ -3262,9 +3235,9 @@ def check_axes_train(tmp: str, card: str) -> dict:
                          "launches": {k: sum(row["launches"][k] for row in rows)
                                       for k in COUNTERS},
                          "shapes": rows[0]["shapes"],
-                         "predicted": layout_bytes_of(
-                             "JPDVT-MoE" if "model.name=JPDVT-MoE" in run.argv else "JPDVT",
-                             mesh_axes(run.argv)),
+                         "predicted": layout_bytes(
+                             mesh_axes(run.argv),
+                             "JPDVT-MoE" if "model.name=JPDVT-MoE" in run.argv else "JPDVT"),
                          **{k: first[k] for k in ("ema_max_abs_diff", "ema_mean_abs_diff",
                                                   "restored_bit_equal", "ckpt_step")
                             if k in first}}

@@ -126,10 +126,10 @@ class Linear(nn.Linear):
         if self.quant:
             return int8_dense(x, *self.int8_weights())
         if self.tp_mode == "row":
-            y = self.tp.reduce_from_model(self._linear(x, None))
+            y = self.tp.reduce_from(self._linear(x, None), self.tp.model)
             return (y + self.bias.float()).to(x.dtype)
         if self.tp_mode == "column":
-            x = self.tp.copy_to_model(x)
+            x = self.tp.copy_to(x, self.tp.model)
         return self._linear(x, self.bias.to(x.dtype))
 
     def _linear(self, x: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:

@@ -270,12 +270,6 @@ class Mesh:
         """The fp32 sum over ``group`` of the partial results ``y``."""
         return _ReduceFrom.apply(y, self, group) if group.size > 1 else y.float()
 
-    def copy_to_model(self, x: torch.Tensor) -> torch.Tensor:
-        return self.copy_to(x, self.model)
-
-    def reduce_from_model(self, y: torch.Tensor) -> torch.Tensor:
-        return self.reduce_from(y, self.model)
-
     def gathered_linear(self, x: torch.Tensor, shard: torch.Tensor, bias: torch.Tensor | None,
                         dim: int) -> torch.Tensor:
         """``F.linear(x, w, bias)`` with ``w`` this fsdp group's weight,
@@ -306,9 +300,9 @@ class Mesh:
     def gather_tokens_summed(self, x: torch.Tensor) -> torch.Tensor:
         return sequence.gather_tokens_summed(self, x, self.seq)
 
-    def sum_fp32(self, t: torch.Tensor, group: Group | None = None) -> torch.Tensor:
+    def sum_fp32(self, t: torch.Tensor, group: Group) -> torch.Tensor:
         out = t.to(torch.float32, copy=True)
-        dist.all_reduce(out, group=(group or self.model).pg)
+        dist.all_reduce(out, group=group.pg)
         return out
 
 
@@ -640,7 +634,7 @@ class Layout:
             if moe.num_experts % ranks.ep:
                 raise ValueError(f"mesh.ep={ranks.ep} does not divide {moe.num_experts} "
                                  "experts")
-            if ranks.ep > 1 or ranks.model > 1 or ranks.seq > 1:
+            if ranks.ep > 1 or ranks.model > 1:
                 moe.mesh = mesh
             moe.first_expert = self.e * (moe.num_experts // ranks.ep)
         for name, p in list(model.named_parameters()):

@@ -11,7 +11,7 @@ counterpart of ``fold_in(rng, state.step)``, so a resumed run draws what an
 uninterrupted one would without storing generator state. Across processes
 each rank draws for the global batch and keeps its rows, and the ranks
 average their gradients (``make_train_step``'s ``dp``, or its ``layout`` on
-a mesh with fsdp and model axes), where the JAX package's step shards one
+a mesh with more axes than data), where the JAX package's step shards one
 program's batch over a mesh.
 """
 

@@ -118,7 +118,7 @@ def _jax_specs(params, mesh) -> dict[str, tuple]:
     ("JPDVT-MoE", 2, 4, 2, 1), ("JPDVT-MoE", 2, 2, 4, 1)],
     ids=["tp2", "fsdp2", "fsdp4", "fsdp2_tp2", "moe-fsdp2", "moe-fsdp4"])
 def test_leaves_are_cut_on_the_jax_dims(name, experts, data, fsdp, model):
-    """(The MoE under mesh.model is refused: its expert rules are not ported.)"""
+    """(The MoE under mesh.model and mesh.ep: tests/test_torch_mesh_ep.py.)"""
     kw = dict(depth=2, hidden_size=64, num_heads=4, **({"moe_experts": experts} if experts else {}))
     jmodel, _ = jax_create_model(name, 48, attn_impl="xla", **kw)
     params = jmodel.init(jax.random.key(0), jnp.zeros((1, 48, 48, 3)), jnp.zeros((1,), jnp.int32),
