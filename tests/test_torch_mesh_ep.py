@@ -11,9 +11,9 @@
 - The train step (``tests/torch_axes_worker.py``, 3 AdamW steps in fp32,
   injected draws) on 2 ranks (``ep=2``, ``model=2`` and ``fsdp=2`` with the
   MoE) and on 4 (``ep=2`` with ``data=2``, ``model=2`` and ``fsdp=2``)
-  against the port's one process, and ``ep=2`` and ``ep=2 x model=2``
-  against the JAX trainer on the same mesh of virtual CPU devices with the
-  same weights, batches and draws. The router's gradient is partial on each
+  against the port's one process, and ``ep=2`` against the JAX trainer on
+  the same mesh of virtual CPU devices with the same weights, batches and
+  draws. The router's gradient is partial on each
   ep rank (each gates only its experts) and summed over the ep group: the
   first step's reduced router gradient is one process's; every leaf that no
   axis cuts has bit-equal gradients on every rank.
@@ -27,7 +27,7 @@ Tolerances (fp32; the measured worst in brackets):
   (99.999%). The first step's router gradient within 3e-6 of each leaf's
   largest magnitude (2.8e-7); one ep rank's part alone is 33% of it off.
 - against the JAX mesh: the loss and grad norm 1e-5 relative (4.7e-7),
-  params and EMA within ``PARAM_ATOL`` (2.6e-5), 99.9% within 2e-6
+  params and EMA within ``PARAM_ATOL`` (1.7e-5), 99.9% within 2e-6
   (99.998%).
 """
 
@@ -50,7 +50,7 @@ from jpdvt_mt_ntnu_tpu_torch.parallel.sharding import MeshRanks, leaf_specs
 from jpdvt_mt_ntnu_tpu_torch.train import CheckpointManager, create_train_state, run_train
 
 EP_MESHES = ("ep2", "moe_tp2", "moe_fsdp2", "ep2_data2", "ep2_tp2", "ep2_fsdp2")
-JAX_MESHES = {"ep2": dict(data=1, ep=2), "ep2_tp2": dict(data=1, ep=2, model=2)}
+JAX_MESHES = {"ep2": dict(data=1, ep=2)}
 
 
 # ----------------------------------------------------------------- placement
@@ -91,8 +91,9 @@ def test_six_axes_in_the_jax_order():
 def test_expert_leaves_are_cut_on_the_jax_dims(data, fsdp, model, ep):
     kw = dict(depth=2, hidden_size=64, num_heads=4, moe_experts=4)
     jmodel, _ = jax_create_model("JPDVT-MoE", 48, attn_impl="xla", **kw)
-    params = jmodel.init(jax.random.key(0), np.zeros((1, 48, 48, 3), np.float32),
-                         np.zeros((1,), np.int32), np.zeros((1, 9, 8), np.float32))
+    shapes = jax.eval_shape(jmodel.init, jax.random.key(0), np.zeros((1, 48, 48, 3), np.float32),
+                            np.zeros((1,), np.int32), np.zeros((1, 9, 8), np.float32))
+    params = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes)
     want = _jax_specs(params, make_mesh(JaxMeshSpec(data=data, fsdp=fsdp, model=model, ep=ep),
                                          devices=jax.devices()[:8]))
     port, _ = create_model("JPDVT-MoE", 48, device="cpu", **kw)

@@ -49,8 +49,9 @@ def weights(tmp_dir, models) -> dict:
     out = {}
     for model in models:
         jmodel, cfg = jax_model(model)
-        shapes = jmodel.init(jax.random.key(0), jnp.zeros((1, dpw.SIZE, dpw.SIZE, 3)),
-                             jnp.zeros((1,), jnp.int32), jnp.zeros((1, cfg.num_tokens, 8)))
+        shapes = jax.eval_shape(jmodel.init, jax.random.key(0),
+                                jnp.zeros((1, dpw.SIZE, dpw.SIZE, 3)), jnp.zeros((1,), jnp.int32),
+                                jnp.zeros((1, cfg.num_tokens, 8)))
         rng = np.random.default_rng(0)
         params = jax.tree.map(lambda a: (0.05 * rng.standard_normal(a.shape)).astype(np.float32),
                               shapes)

@@ -199,7 +199,7 @@ def solve(weights_dir: str, dp=None) -> np.ndarray:
 
 def main(argv) -> None:
     out_path, weights_dir, suite = argv[:3]
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)  # up to 4 ranks beside the test's own process
     dp = maybe_initialize_distributed(device="cpu")
     world, meshes, rings, with_solve = SUITES[suite]
     assert dp.world == world, (dp.world, world)
