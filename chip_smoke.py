@@ -93,7 +93,7 @@ then the fused attention sublayer K3 and the evaluation path:
 
 ``python3 chip_smoke.py --grid20-artifact`` (the copy must then hold
 ``waves20_hard_step32700`` in place of waves3) skips the phases that read
-the waves3 artifact (3, 4, 7, 8, 15-20), warm-starts phase 11 from the artifact
+the waves3 artifact (3, 4, 7, 8, 15-21), warm-starts phase 11 from the artifact
 at step 32,700 (losses <= 1/10 of a fresh model's on the same batches and
 draws), solves the fixed set in phase 12 with the EMA model beside the
 unchanged artifact, and runs the ``run_train`` CLI at grid 20 (warm start,
@@ -213,7 +213,8 @@ then the last three axes of the trainer, skipped under ``--grid20-artifact``:
 
 20. on 2 ranks sharing the card over gloo, each process set one child
     (``--runs-child``) beside one process: expert parallelism on
-    JPDVT-MoE (8 experts, from phase 17's random init, 6 steps at batch 96
+    JPDVT-MoE (4 of its 12 blocks, 8 experts, random init, 6 steps at
+    batch 96
     in bf16 on ``mesh.ep=2``; 3 each on ``mesh.model=2`` and
     ``mesh.fsdp=2`` with the MoE; 3 on ``mesh.ep=2`` in fp32 beside one
     fp32 process), the GPipe pipeline (``mesh.pipe=2``, 4 microbatches, 6
@@ -226,14 +227,35 @@ then the last three axes of the trainer, skipped under ``--grid20-artifact``:
     beside the layout's bytes, images/s and the transport seconds a step
     of the pipe's sends and the ring's rotations; ``run_eval`` on
     ``mesh.seq=2`` over the 16 export-smoke puzzles, fast and
-    faithful-250, its journal the one-process ``run_eval``'s, 1.00; K1 and
+    faithful-50, its journal the one-process ``run_eval``'s, 1.00; K1 and
     K2 at the pipeline's microbatch shape beside their bound, plain
     version and SDPA.
+
+then the tools users run on each checkpoint (``jpdvt_mt_ntnu_tpu_torch/
+tools/``), skipped under ``--grid20-artifact``:
+
+21. on the waves3 artifact and the 16 export-smoke puzzles: its weights
+    written as a reference-format ``.pt`` (``args`` an
+    ``argparse.Namespace``) and converted back by ``tools.convert``'s CLI,
+    loaded by ``run_eval``'s loader bit-equal, solving the 16 with the
+    artifact's permutations, 16/16; a port checkpoint (the artifact
+    warm-started, 2 train steps at batch 16) exported by ``tools.export``,
+    whose fresh process restores it on the card (sha256 ok, a fast solve
+    of the 16), the artifact the EMA rounded to bf16 bit for bit;
+    ``tools.bench`` at batch 32 (its JSON line printed); the sampler table
+    (faithful-250 and fast 1.00), the masked table at k = 0 and 2 (k = 0
+    the unmasked solve) and the checkpoint probe on the 16;
+    ``bench_serve`` under 16 clients (fewer batches than requests) and
+    ``bench_quant`` at fast only; ``cliff_report`` (the committed
+    ``cliff.json`` of both grid-20 journals) and ``metrics_report``. The
+    K1 launches of each tool are counted; each tool that solves in this
+    process launches K1.
 
 The last three lines are the ``kernels`` JSON (each kernel with the
 launches of its own path and its shape: K1 for the solve, the train step,
 the service, the 2-rank train step, the MoE train step, the TP and FSDP
-train steps, the pipeline's stages, the ep ranks and TP of the MoE, K2
+train steps, the pipeline's stages, the ep ranks and TP of the MoE, the
+tools, K2
 for the train step, the 2-rank one, the MoE one, the TP and FSDP ones,
 the pipeline's, the ep ranks' and TP of the MoE's, K3 on the eval path
 and the training route, K4, K5, K6), the card's name and power limit, and
@@ -276,10 +298,15 @@ from jpdvt_mt_ntnu_tpu_torch.serve import plugins as serve_plugins
 from jpdvt_mt_ntnu_tpu_torch.serve.gate import AccessGate
 from jpdvt_mt_ntnu_tpu_torch.serve.png import array_to_b64, encode_png
 from jpdvt_mt_ntnu_tpu_torch.serve.service import PuzzleService, ServiceConfig
-from jpdvt_mt_ntnu_tpu_torch.tools.weights import load_artifact
+from jpdvt_mt_ntnu_tpu_torch.tools import (bench, bench_quant, bench_serve, cliff_report,
+                                           convert, export, masked_eval_table,
+                                           metrics_report, probe_checkpoint, sampler_table)
+from jpdvt_mt_ntnu_tpu_torch.tools.weights import (decode_bf16, encode_bf16, load_artifact,
+                                                   read_artifact)
 from jpdvt_mt_ntnu_tpu_torch.train import (CheckpointManager, TrainTask,
                                            create_train_state, make_optimizer,
                                            make_train_step, run_train, steps)
+from jpdvt_mt_ntnu_tpu_torch.utils.config import Config, apply_overrides
 from jpdvt_mt_ntnu_tpu_torch.utils.device import apply_matmul_precision
 from jpdvt_mt_ntnu_tpu_torch.utils.pos_embed import grid_code
 
@@ -2057,7 +2084,6 @@ def in_process_host(logs: str, r: int) -> list[tuple]:
     """The harness of rank ``r`` of 2, in this process, as ``run_eval``
     builds it."""
     from jpdvt_mt_ntnu_tpu_torch.eval.harness import EvalHarness
-    from jpdvt_mt_ntnu_tpu_torch.utils.config import Config, apply_overrides
 
     cfg = apply_overrides(Config(), eval_args(logs))
     model, cfg_m = create_model("JPDVT", 192, dtype=torch.bfloat16)
@@ -2805,7 +2831,7 @@ MESH_REFS = {"tp2": ("one", DDP_LOSS_RTOL, DDP_EMA_ATOL),
 GIB = 2 ** 30
 
 
-def layout_bytes(axes: dict, name: str = "JPDVT") -> dict:
+def layout_bytes(axes: dict, name: str = "JPDVT", depth: int = 0) -> dict:
     """What the layout (``parallel/sharding.py``'s rules) predicts each rank
     of a mesh of ``axes`` (model, fsdp, ep, pipe) holds of a registry
     model's fp32 train state: params, gradients, EMA and the two moments of
@@ -2813,7 +2839,8 @@ def layout_bytes(axes: dict, name: str = "JPDVT") -> dict:
     full weight while its product runs."""
     from jpdvt_mt_ntnu_tpu_torch.parallel.sharding import block_index, leaf_specs
 
-    cfg = dit.DiTConfig(input_size=192, **dit.DIT_CONFIGS[name])
+    cfg = dit.DiTConfig(input_size=192, **{**dit.DIT_CONFIGS[name],
+                                           **({"depth": depth} if depth else {})})
     with torch.device("meta"):
         net = dit.DiT(cfg)
     shapes = {n: tuple(p.shape) for n, p in net.named_parameters()}
@@ -2980,13 +3007,18 @@ def mesh_grid3(card: str, gen: torch.Generator) -> dict:
 # says nothing of scaling: the ranks share one card and pass every
 # collective and transfer through the host (gloo).
 AXES_STEPS, MOE_ONE_CKPT = 6, 3
+# The EP set's JPDVT-MoE keeps 4 of its 12 blocks, so that the whole script
+# stays well inside its time limit: every expert rule, gate and restore is
+# per block, so 4 blocks hold what 12 would at a third of the time.
+MOE_DEPTH = 4
 PIPE_MICRO = 4
 PIPE_SHAPE = f"{TRAIN_BATCH // PIPE_MICRO}x{HEADS}x{TOKENS}x{HEAD_DIM}"
 NO_LAUNCH = {name: 0 for name in COUNTERS}
 
 
 def moe_args(exp: str, steps: int, *extra: str) -> list[str]:
-    return ["model.name=JPDVT-MoE", "data.synthetic_cues=waves", "data.device_stream=true",
+    return ["model.name=JPDVT-MoE", f"model.depth={MOE_DEPTH}", "data.synthetic_cues=waves",
+            "data.device_stream=true",
             f"data.global_batch_size={TRAIN_BATCH}", f"data.synthetic_n={TRAIN_BATCH * steps}",
             "train.epochs=1", "train.log_every=1", "train.ckpt_every=1000000",
             "diffusion.sampler_mode=fast", f"train.exp_dir={exp}", *extra]
@@ -3025,6 +3057,7 @@ def axes_plans(tmp: str) -> dict:
     one_shape, fsdp_shape = (f"{TRAIN_BATCH}x{HEADS}x{TOKENS}x{HEAD_DIM}",
                              f"{TRAIN_BATCH // 2}x{HEADS}x{TOKENS}x{HEAD_DIM}")
     k12, pipe = {"k1": 12, "k2": 12}, {"k1": 24, "k2": 24}
+    kmoe = {"k1": MOE_DEPTH, "k2": MOE_DEPTH}
     fp32 = FP32[:2] + [f"data.synthetic_n={TRAIN_BATCH * FP32_STEPS}"]
     fp32_gate = dict(loss_rtol=FP32_LOSS_RTOL, ema_atol=FP32_EMA_ATOL)
     pipe_args = ["mesh.pipe=2", f"mesh.pipe_microbatches={PIPE_MICRO}"]
@@ -3032,17 +3065,17 @@ def axes_plans(tmp: str) -> dict:
         "ep": {
             "moe_one": AxesRun(moe_args(f"{tmp}/moe_one", AXES_STEPS,
                                         f"train.ckpt_every={MOE_ONE_CKPT}"),
-                               k12, one_shape, AXES_STEPS, solo=True),
-            "ep2": AxesRun(moe_args(f"{tmp}/ep2", AXES_STEPS, "mesh.ep=2"), k12, one_shape,
+                               kmoe, one_shape, AXES_STEPS, solo=True),
+            "ep2": AxesRun(moe_args(f"{tmp}/ep2", AXES_STEPS, "mesh.ep=2"), kmoe, one_shape,
                            AXES_STEPS, ref="moe_one", restore=True),
-            "moe_tp2": AxesRun(moe_args(f"{tmp}/moe_tp2", FP32_STEPS, "mesh.model=2"), k12,
+            "moe_tp2": AxesRun(moe_args(f"{tmp}/moe_tp2", FP32_STEPS, "mesh.model=2"), kmoe,
                                TP_SHAPE, FP32_STEPS, ref="moe_one"),
-            "moe_fsdp2": AxesRun(moe_args(f"{tmp}/moe_fsdp2", FP32_STEPS, "mesh.fsdp=2"), k12,
+            "moe_fsdp2": AxesRun(moe_args(f"{tmp}/moe_fsdp2", FP32_STEPS, "mesh.fsdp=2"), kmoe,
                                  fsdp_shape, FP32_STEPS, ref="moe_one"),
             "moe_one_fp32": AxesRun(moe_args(f"{tmp}/moe_one_fp32", FP32_STEPS, *FP32[:2]),
-                                    k12, one_shape, FP32_STEPS, solo=True),
+                                    kmoe, one_shape, FP32_STEPS, solo=True),
             "ep2_fp32": AxesRun(moe_args(f"{tmp}/ep2_fp32", FP32_STEPS, "mesh.ep=2",
-                                         *FP32[:2]), k12, one_shape, FP32_STEPS,
+                                         *FP32[:2]), kmoe, one_shape, FP32_STEPS,
                                 ref="moe_one_fp32", **fp32_gate)},
         "pipe_seq": {
             "one": AxesRun(ddp_train_args(f"{tmp}/one"), k12, one_shape, AXES_STEPS,
@@ -3078,11 +3111,11 @@ def keep_checkpoint(self, step: int, sd: dict, metadata) -> bool:
     return True
 
 
-def restored_bit_equal(sd: dict, model: str) -> bool:
+def restored_bit_equal(sd: dict, model: str, **overrides) -> bool:
     """``sd`` restored into a one-process state (``TrainState.load_state_dict``,
     as ``CheckpointManager.restore`` does after its load), read back equal
     bit for bit."""
-    state = create_train_state(create_model(model, 192)[0])
+    state = create_train_state(create_model(model, 192, **overrides)[0])
     state.load_state_dict(sd)
     back = state.state_dict()
     same = all(torch.equal(back[part][k].cpu().view(torch.int32), v.view(torch.int32))
@@ -3103,7 +3136,6 @@ def runs_child(out: str, plan_path: str) -> int:
     from jpdvt_mt_ntnu_tpu_torch.parallel import (DataParallel, MeshSpec,
                                                   maybe_initialize_distributed)
     from jpdvt_mt_ntnu_tpu_torch.parallel import sharding
-    from jpdvt_mt_ntnu_tpu_torch.utils.config import Config, apply_overrides
 
     with open(plan_path) as f:
         plan = json.load(f)
@@ -3164,8 +3196,9 @@ def runs_child(out: str, plan_path: str) -> int:
                     row |= {"ema_max_abs_diff": diffs.max().item(),
                             "ema_mean_abs_diff": diffs.mean().item()}
                 if run["restore"]:
-                    model = "JPDVT-MoE" if "model.name=JPDVT-MoE" in run["argv"] else "JPDVT"
-                    row["restored_bit_equal"] = restored_bit_equal(kept[end], model)
+                    model = apply_overrides(Config(), run["argv"]).model
+                    row["restored_bit_equal"] = restored_bit_equal(kept[end], model.name,
+                                                                   **model.overrides())
                     torch.cuda.empty_cache()
                 for step in list(kept):  # the references' EMA is all a later run reads
                     kept[step] = {"ema": kept[step]["ema"]} if run["solo"] else {}
@@ -3237,7 +3270,8 @@ def check_axes_train(tmp: str, card: str) -> dict:
                          "shapes": rows[0]["shapes"],
                          "predicted": layout_bytes(
                              mesh_axes(run.argv),
-                             "JPDVT-MoE" if "model.name=JPDVT-MoE" in run.argv else "JPDVT"),
+                             "JPDVT-MoE" if "model.name=JPDVT-MoE" in run.argv else "JPDVT",
+                             apply_overrides(Config(), run.argv).model.depth),
                          **{k: first[k] for k in ("ema_max_abs_diff", "ema_mean_abs_diff",
                                                   "restored_bit_equal", "ckpt_step")
                             if k in first}}
@@ -3271,12 +3305,19 @@ def seq_eval_args(logs: str, mode: str, *extra: str) -> list[str]:
     return [f"eval.checkpoint={ARTIFACT}", "data.dataset=synthetic",
             "data.synthetic_cues=waves", "eval.seed=123", "eval.limit=16",
             "eval.batch_size=16", f"eval.jax_noise={NOISE_TEMPLATE}",
-            f"diffusion.sampler_mode={mode}", f"eval.logs_dir={logs}", *extra]
+            f"diffusion.sampler_mode={mode}", f"diffusion.sampling_steps={SEQ_EVAL_STEPS}",
+            f"eval.logs_dir={logs}", *extra]
+
+
+# The faithful chain of the ring's eval: 50 steps, to keep the whole script
+# well inside its time limit; faithful gives the fast solve's permutations
+# at any step count, so 50 rotations a block test what 250 would.
+SEQ_EVAL_STEPS = 50
 
 
 def check_seq_eval(tmp: str) -> dict:
     """``run_eval`` on ``mesh.seq=2`` (2 ranks sharing the card) against
-    ``run_eval`` in this process, fast and faithful-250: the same journal
+    ``run_eval`` in this process, fast and faithful-50: the same journal
     rows, accuracy 1.00, no K1 launch on the ring's ranks."""
     out = {}
     for mode in ("fast", "faithful"):
@@ -3324,6 +3365,168 @@ def axes_grid3(card: str, gen: torch.Generator) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 21
+# The committed journals the reports run on, each with its committed cliff.json.
+CLIFF_JOURNALS = ("waves20_hard_eval", "waves20_r4_eval")
+
+
+def counted(launches: dict, name: str, fn):
+    """``fn()``, with the K1 launches it made under ``launches[name]``."""
+    before = counts()
+    t0 = time.perf_counter()
+    out = fn()
+    launches[name] = launched_since(before)["k1"]
+    log(f"  {name}: {time.perf_counter() - t0:.2f} s, {launches[name]} K1 launches")
+    return out
+
+
+def check_convert(tmp: str, sd: dict, step: int, template, x16, perms16, base) -> dict:
+    """The artifact's weights as a reference-format checkpoint, converted
+    back by the CLI and loaded by ``run_eval``'s loader: bit-equal weights,
+    the artifact's permutations on the 16, 16/16."""
+    ref = convert.state_dict_to_reference(sd, patch_size=16, pos_embed=None)
+    pt, npz = os.path.join(tmp, f"{step}.pt"), os.path.join(tmp, "converted.npz")
+    torch.save({"model": ref, "ema": ref, "opt": {"state": {}},
+                "args": argparse.Namespace(model="JPDVT", image_size=192, grid_size=3),
+                "train_steps": step}, pt)
+    if convert.main([pt, npz, "--depth", "12"]) != 0:
+        raise AssertionError("tools.convert failed")
+    cfg = apply_overrides(Config(), [f"eval.checkpoint={npz}"])
+    model, model_cfg = run_eval.build_model(cfg, torch.device("cuda"))
+    same = all(torch.equal(v.cpu(), sd[k].cpu()) for k, v in model.state_dict().items())
+    res = PuzzleSolver(model, model_cfg, create_diffusion("250"), mode="fast",
+                       noise_template=template).evaluate(x16, perms16)
+    out = {"weights_bit_equal": same, "puzzle_acc": res.puzzle_accuracy,
+           "same_permutations": bool(np.array_equal(res.pred, base.pred))}
+    log("  converter: " + json.dumps(out))
+    if not (same and out["same_permutations"] and res.puzzle_accuracy == 1.0):
+        raise AssertionError(f"the converted checkpoint: {out}")
+    return out
+
+
+def check_export(tmp: str, sd: dict, step: int) -> dict:
+    """A port checkpoint (the artifact warm-started, two train steps, so
+    that the EMA leaves bf16's grid) through ``tools.export``; its fresh
+    process restores and fast-solves the 16 on the card; the artifact's
+    weights are the EMA rounded to bf16, bit for bit."""
+    state, _ = warm_state(sd, step)
+    task = TrainTask(grid_size=3, block_size=64, patch_size=16, ema_decay=EMA_DECAY,
+                     ema_warmup=True, ema_anchor=step, t_bias=T_BIAS)
+    train_step = make_train_step(create_diffusion(""), make_optimizer(LR, 0.0), task,
+                                 torch.as_tensor(grid_code(8, 3), device="cuda"))
+    for x in train_batches(SyntheticPuzzles(192, n=9600, hard_frac=HARD_FRAC), step, 2, 16):
+        train_step(state, x)
+    run = os.path.join(tmp, "waves3_tools")
+    os.makedirs(run)
+    with open(ARTIFACT) as f:
+        run_config = json.load(f)["run_config"]
+    with open(os.path.join(run, "run_config.json"), "w") as f:
+        json.dump(run_config, f)
+    CheckpointManager(os.path.join(run, "checkpoints")).save(state)
+    t0 = time.perf_counter()
+    if export.main([os.path.join(run, "checkpoints"), "--out", os.path.join(tmp, "art"),
+                    "--solve-n", "16"]) != 0:
+        raise AssertionError("tools.export or its fresh-process restore failed")
+    manifest = os.path.join(tmp, "art", f"waves3_tools_step{state.step}.manifest.json")
+    flat, art_step = read_artifact(manifest)
+    want = {k: torch.from_numpy(decode_bf16(encode_bf16(v.float().cpu().numpy())))
+            for k, v in state.ema.state_dict().items()}
+    got, _ = load_artifact(manifest, device="cpu")
+    moved = sum(not torch.equal(v.cpu(), want[k]) for k, v in state.ema.state_dict().items())
+    out = {"step": art_step, "leaves": len(flat), "export_and_restore_s":
+           time.perf_counter() - t0, "leaves_off_bf16_grid": moved,
+           "bf16_bit_equal": sorted(got) == sorted(want)
+           and all(torch.equal(got[k], want[k]) for k in want)}
+    log("  exporter: " + json.dumps(out))
+    if not (out["bf16_bit_equal"] and art_step == state.step and moved > 0):
+        raise AssertionError(f"the exported artifact: {out}")
+    return out
+
+
+def tools_grid3(card: str, gen: torch.Generator) -> dict:
+    """Phase 21: the tools users run on each checkpoint, on the waves3
+    artifact and the 16 export-smoke puzzles."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    zero_counts()
+    launches: dict = {}
+    out: dict = {"launches": launches}
+    sd, step = load_artifact(ARTIFACT)
+    template = np.load(NOISE_TEMPLATE)
+    x16, perms16 = wave_puzzles(16, 123)
+    model, cfg = create_model("JPDVT", 192, dtype=torch.bfloat16)
+    model.load_state_dict(sd)
+    fast = PuzzleSolver(model, cfg, create_diffusion("250"), mode="fast",
+                        noise_template=template)
+    base = fast.evaluate(x16, perms16)
+    if base.puzzle_accuracy != 1.0:
+        raise AssertionError(f"the artifact's fast solve of the 16: {base.puzzle_accuracy}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out["convert"] = counted(launches, "convert", lambda: check_convert(
+            tmp, sd, step, template, x16, perms16, base))
+        out["export"] = counted(launches, "export", lambda: check_export(tmp, sd, step))
+    # The headline bench at batch 32, its JSON line printed as it prints it.
+    out["bench"] = counted(launches, "bench", lambda: bench.run(torch.device("cuda")))
+    log(json.dumps(out["bench"]))
+    # The tables on the 16 (the noise template and scrambles of phase 3).
+    rows = counted(launches, "sampler_table", lambda: sampler_table.sampler_rows(
+        model, cfg, x16, indices=perms16, noise_template=template, target_s=0.0,
+        min_iters=1))
+    out["sampler_table"] = {r[0]: {"puzzle_acc": r[3], "patch_acc": r[4],
+                                   "puzzles_per_s": r[5]} for r in rows}
+    rows = counted(launches, "masked_eval_table", lambda: masked_eval_table.masked_rows(
+        fast, x16, ks=(0, 2), draws=lambda fill, k: {"indices": perms16}))
+    out["masked_eval_table"] = [list(r) for r in rows]
+    rows = counted(launches, "probe_checkpoint", lambda: probe_checkpoint.probe_rows(
+        model, cfg, x16, indices=perms16, noise_template=template))
+    out["probe_checkpoint"] = {r[0]: [float(r[1]), float(r[2])] for r in rows}
+    log("  tables: " + json.dumps({k: out[k] for k in (
+        "sampler_table", "masked_eval_table", "probe_checkpoint")}))
+    table = out["sampler_table"]
+    unmasked = (base.puzzle_accuracy, base.patch_accuracy)
+    if not (table["faithful-250 (reference protocol)"]["puzzle_acc"] == 1.0
+            and table["fast (1-step equivalent)"]["puzzle_acc"] == 1.0
+            and all(tuple(r[2:]) == unmasked for r in out["masked_eval_table"] if r[1] == 0)
+            and out["probe_checkpoint"]["mode=faithful"][0] == 1.0):
+        raise AssertionError("the tables: faithful-250 and fast must read 1.00 and masked "
+                             "k = 0 the unmasked solve")
+    # The service under 16 clients, and int8 against bf16 at fast only.
+    args = bench_serve.parse_args(["--clients", "16"])
+    out["bench_serve"] = counted(launches, "bench_serve",
+                                 lambda: bench_serve.bench(args, torch.device("cuda")))
+    if not out["bench_serve"][1]["programs"] < 16:
+        raise AssertionError(f"the batched service ran {out['bench_serve'][1]['programs']} "
+                             "programs for 16 requests")
+    out["bench_quant"] = counted(launches, "bench_quant", lambda: bench_quant.run(
+        torch.device("cuda"), 192, 128, 20, 0, ["bf16", "int8"]))
+    log("  bench_quant: " + json.dumps(out["bench_quant"]))
+    # The reports on committed journals.
+    for run in CLIFF_JOURNALS:
+        path = os.path.join(REPO, "logs", run)
+        with tempfile.TemporaryDirectory() as tmp:
+            cliff_out = os.path.join(tmp, "cliff.json")
+            if cliff_report.main([os.path.join(path, "inference_progress.csv"), "--seed", "11",
+                                  "--grid", "20", "--out", cliff_out]) != 0:
+                raise AssertionError(f"cliff_report on {run} failed")
+            with open(cliff_out) as f, open(os.path.join(path, "cliff.json")) as g:
+                mine, committed = json.load(f), json.load(g)
+        mine.pop("journal"), committed.pop("journal")
+        if mine != committed:
+            raise AssertionError(f"cliff_report on {run}: {mine} != {committed}")
+        if metrics_report.main([path, "--grid", "20"]) != 0:
+            raise AssertionError(f"metrics_report on {run} failed")
+    out["k1_launches"] = counts()["k1"]
+    log(f"  K1 launches by tool: {json.dumps(launches)} ({out['k1_launches']} in phase 21; "
+        "the exporter's restore runs in its own process)")
+    missing = [name for name in ("convert", "bench", "sampler_table", "masked_eval_table",
+                                 "probe_checkpoint", "bench_serve", "bench_quant")
+               if not launches[name]]
+    if missing:
+        raise AssertionError(f"no K1 launch in {missing}")
+    log(f"phase tools: {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--ddp-child"]:  # one rank of phase 16's runs
@@ -3332,7 +3535,7 @@ def main(argv=None) -> int:
         return runs_child(argv[1], argv[2])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--grid20-artifact", action="store_true",
-                    help="skip the waves3 artifact's phases (3, 4, 7, 8, 15-20) and start the "
+                    help="skip the waves3 artifact's phases (3, 4, 7, 8, 15-21) and start the "
                          "grid-20 phases from artifacts/waves20_hard_step32700")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3407,7 +3610,7 @@ def main(argv=None) -> int:
 
     # 3-4. The waves3 artifact's solve and its throughput.
     if args.grid20_artifact:
-        log("--grid20-artifact: phases 3, 4, 7, 8 and 15-20 (they read the waves3 artifact, "
+        log("--grid20-artifact: phases 3, 4, 7, 8 and 15-21 (they read the waves3 artifact, "
             "which this copy does not hold) are skipped")
         g3 = None
     else:
@@ -3548,6 +3751,9 @@ def main(argv=None) -> int:
     # 20. Expert parallelism, the pipeline and the ring, 2 ranks sharing the card.
     axes20 = None if args.grid20_artifact else axes_grid3(card, gen)
 
+    # 21. The tools users run on each checkpoint.
+    tools21 = None if args.grid20_artifact else tools_grid3(card, gen)
+
     def kernel_row(name, source, replaces, launches, rows, timed):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "shape": timed["shape"],
@@ -3623,6 +3829,9 @@ def main(argv=None) -> int:
                            "jpdvt_mt_ntnu_tpu_torch/ops/csrc/attention_bwd.cu",
                            "jpdvt_mt_ntnu_tpu/ops/attention.py:44", launches["k2"],
                            [k2_row], k2_row)]
+        # Phase 21: K1 under the tools (their solves at batch 16, 32 and 128).
+        kernels.append(kernel_row("k1_whole_row_attention_fwd_tools", *k1,
+                                  tools21["k1_launches"], [k1_rows[1]], k1_rows[1]))
     else:  # K1's own path in this mode: the bf16 N = 400 solve of phase 12
         kernels.append(kernel_row(
             "k1_whole_row_attention_fwd", *k1,

@@ -68,7 +68,7 @@ from ..ops.quant import parse_quant_spec
 from ..parallel import MeshSpec, maybe_initialize_distributed
 from ..parallel.sharding import Mesh, MeshRanks, use_ring
 from ..tools.weights import load_artifact
-from ..utils.config import Config, apply_overrides
+from ..utils.config import Config, apply_overrides, split_device
 from ..utils.device import MATMUL_PRECISION, apply_matmul_precision
 from .harness import EvalHarness, find_images, jax_draws
 from .solver import ASSIGNMENTS, MODES, PuzzleSolver
@@ -143,6 +143,17 @@ def load_params(cfg: Config, model, device: torch.device) -> None:
     state = create_train_state(model)
     mgr.restore(state)
     model.load_state_dict((state.ema if cfg.eval.use_ema else state.model).state_dict())
+
+
+def build_model(cfg: Config, device: torch.device):
+    """(model, config) of ``cfg.model`` on ``device`` with ``eval.checkpoint``
+    loaded (:func:`load_params`): the model of ``run_eval`` and the tools."""
+    dtype = torch.bfloat16 if cfg.model.compute_dtype == "bfloat16" else torch.float32
+    model, model_cfg = create_model(cfg.model.name, cfg.model.image_size, device=device,
+                                    dtype=dtype, attn_impl=cfg.model.attn_impl,
+                                    **cfg.model.overrides())
+    load_params(cfg, model, device)
+    return model, model_cfg
 
 
 def _folder_mode(cfg: Config) -> bool:
@@ -220,16 +231,9 @@ def _texrec_paths(data_path: str) -> dict[str, list[str]]:
 
 
 def _split_args(argv) -> tuple[list[str], str | None, bool]:
-    device, texrec, rest = None, False, []
-    for item in argv:
-        key = item.lstrip("-")
-        if key.startswith("device="):
-            device = key.split("=", 1)[1]
-        elif key.startswith("eval.texrec_dirs"):
-            texrec = True
-        else:
-            rest.append(item)
-    return rest, device, texrec
+    argv, device = split_device(argv)
+    rest = [item for item in argv if not item.lstrip("-").startswith("eval.texrec_dirs")]
+    return rest, device, len(rest) < len(argv)
 
 
 def main(argv=None, device: str | torch.device | None = None) -> int:
@@ -255,11 +259,7 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
     else:
         dataset = build_dataset(cfg)
 
-    dtype = torch.bfloat16 if cfg.model.compute_dtype == "bfloat16" else torch.float32
-    model, model_cfg = create_model(cfg.model.name, cfg.model.image_size, device=device,
-                                    dtype=dtype, attn_impl=cfg.model.attn_impl,
-                                    **cfg.model.overrides())
-    load_params(cfg, model, device)
+    model, model_cfg = build_model(cfg, device)
     if ranks.seq > 1:
         use_ring(model, Mesh(ranks, dp))
     diffusion = create_diffusion(str(cfg.diffusion.sampling_steps),

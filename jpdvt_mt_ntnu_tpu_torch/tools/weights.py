@@ -10,6 +10,9 @@ arrays, or the flat ``params/block_0/attn/qkv/kernel`` keys) to the port's
 ``mlp/router`` is a Dense like the others and its ``wi``, ``bi``, ``wo``
 and ``bo`` keep their shapes. Keys under ``*__bf16`` hold
 bfloat16 bit patterns as uint16; they are widened to float32 bit for bit.
+:func:`state_dict_to_params` is the inverse map (the exporter and the
+converter write the JAX key names with it), :func:`encode_bf16` the
+inverse of :func:`decode_bf16` after a round to nearest even.
 :func:`load_jax_train_state` carries a whole JAX ``TrainState`` (params,
 EMA and the AdamW moments) into the port's train state.
 """
@@ -40,6 +43,13 @@ def decode_bf16(bits: np.ndarray) -> np.ndarray:
     return (bits.astype(np.uint32) << 16).view(np.float32)
 
 
+def encode_bf16(values) -> np.ndarray:
+    """float values -> uint16 bfloat16 bit patterns, rounded to nearest even
+    (torch's cast, which ml_dtypes' ``astype(bfloat16)`` equals)."""
+    t = torch.as_tensor(np.asarray(values, np.float32)).to(torch.bfloat16)
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
 def read_npz(source) -> dict[str, np.ndarray]:
     """A flattened-params npz (path or file object) -> flat float arrays."""
     flat = {}
@@ -52,13 +62,10 @@ def read_npz(source) -> dict[str, np.ndarray]:
     return flat
 
 
-def read_artifact(path: str) -> tuple[dict[str, np.ndarray], int]:
-    """(flat params, training step) from a ``*.manifest.json`` artifact,
-    checked against its sha256s, or from a bare ``.npz`` (step 0)."""
-    if not path.endswith(".json"):
-        warnings.warn(f"{path} is a bare npz and records no training step; "
-                      "returning step 0", stacklevel=2)
-        return read_npz(path), 0
+def reassemble_artifact(path: str) -> tuple[dict, bytes]:
+    """(manifest, npz bytes) of a ``*.manifest.json`` artifact, each part
+    and the whole checked against the manifest's sha256s; a part that
+    differs is refused by name."""
     with open(path) as f:
         manifest = json.load(f)
     if manifest.get("format") != ARTIFACT_FORMAT:
@@ -79,8 +86,17 @@ def read_artifact(path: str) -> tuple[dict[str, np.ndarray], int]:
     if whole.hexdigest() != manifest["npz_sha256"]:
         raise ValueError(f"integrity failure: reassembled npz sha256 "
                          f"{whole.hexdigest()} != manifest {manifest['npz_sha256']}")
-    blob = b"".join(chunks)
-    del chunks
+    return manifest, b"".join(chunks)
+
+
+def read_artifact(path: str) -> tuple[dict[str, np.ndarray], int]:
+    """(flat params, training step) from a ``*.manifest.json`` artifact,
+    checked against its sha256s, or from a bare ``.npz`` (step 0)."""
+    if not path.endswith(".json"):
+        warnings.warn(f"{path} is a bare npz and records no training step; "
+                      "returning step 0", stacklevel=2)
+        return read_npz(path), 0
+    manifest, blob = reassemble_artifact(path)
     return read_npz(io.BytesIO(blob)), int(manifest["step"])
 
 
@@ -117,6 +133,40 @@ def params_to_state_dict(params: Mapping) -> tuple[dict[str, np.ndarray], list[s
         else:
             unused.append(key)
     return sd, sorted(unused)
+
+
+def state_dict_to_params(sd: Mapping) -> dict[str, np.ndarray]:
+    """The port's ``state_dict`` (tensors or arrays) -> flat JAX params,
+    ``params/block_{i}/.../kernel`` keys, the inverse of
+    :func:`params_to_state_dict`: ``weight`` (out, in) -> ``kernel``
+    (in, out), the MoE's ``wi``, ``bi``, ``wo`` and ``bo`` as they are.
+    Raises on a name with no JAX counterpart."""
+    flat = {}
+    for name, value in sd.items():
+        a = (value.detach().cpu().float().numpy() if isinstance(value, torch.Tensor)
+             else np.asarray(value, np.float32))
+        parts = name.split(".")
+        path = []
+        i = 0
+        while i < len(parts) - 1:
+            if parts[i] == "blocks":
+                path.append(f"block_{parts[i + 1]}")
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+        leaf = parts[-1]
+        if leaf == "weight" and a.ndim == 2:
+            path.append("kernel")
+            a = a.T
+        elif leaf == "bias" and a.ndim == 1:
+            path.append("bias")
+        elif leaf in _MOE_PARAMS and path[-1:] == ["mlp"]:
+            path.append(leaf)
+        else:
+            raise ValueError(f"{name}: no counterpart in the JAX parameters")
+        flat["/".join(["params"] + path)] = np.ascontiguousarray(a)
+    return flat
 
 
 def load_artifact(path: str, *, device: str | torch.device | None = None

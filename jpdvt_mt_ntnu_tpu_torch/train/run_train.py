@@ -95,7 +95,7 @@ from ..ops.attention import ATTN_IMPLS, attention_route
 from ..parallel import DataParallel, MeshSpec, maybe_initialize_distributed, rank_rows
 from ..parallel.sharding import MeshRanks, make_layout
 from ..tools.weights import load_artifact
-from ..utils.config import Config, apply_overrides
+from ..utils.config import Config, apply_overrides, split_device
 from ..utils.device import MATMUL_PRECISION, apply_matmul_precision
 from ..utils.logging import MetricWriter, auto_experiment_dir, rank0_logger
 from ..utils.pos_embed import grid_code
@@ -204,18 +204,8 @@ class _PreemptionGuard:
         return self.flag.is_set()
 
 
-def _split_device(argv) -> tuple[list[str], str | None]:
-    device, rest = None, []
-    for item in argv:
-        if item.lstrip("-").startswith("device="):
-            device = item.split("=", 1)[1]
-        else:
-            rest.append(item)
-    return rest, device
-
-
 def main(argv=None, device: str | torch.device | None = None) -> int:
-    argv, cli_device = _split_device(sys.argv[1:] if argv is None else argv)
+    argv, cli_device = split_device(sys.argv[1:] if argv is None else argv)
     cfg = apply_overrides(Config(), argv)
     device = device if device is not None else cli_device
     check_supported(cfg, on_card=torch.device(device or "cuda").type == "cuda")

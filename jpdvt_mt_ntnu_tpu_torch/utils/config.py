@@ -253,6 +253,36 @@ def _coerce(value: str, typ: Any) -> Any:
     return json.loads(value)
 
 
+def config_from_dict(d: dict) -> Config:
+    """A Config from a ``to_dict()`` dump (``run_config.json``, an
+    artifact manifest's ``run_config``): the defaults overlaid with every
+    recorded value of a known field; unknown keys are ignored, as JAX
+    ``utils/config.py:272-288`` ignores them."""
+    cfg = Config()
+    for section in dataclasses.fields(cfg):
+        sub = d.get(section.name)
+        if not isinstance(sub, dict):
+            continue
+        obj = getattr(cfg, section.name)
+        known = {f.name for f in dataclasses.fields(obj)}
+        for k, v in sub.items():
+            if k in known:
+                setattr(obj, k, v)
+    return cfg
+
+
+def split_device(argv: Sequence[str]) -> tuple[list[str], str | None]:
+    """The CLIs' ``device=<device>`` argument (no section) apart from the
+    ``section.field=value`` overrides: (overrides, device or None)."""
+    device, rest = None, []
+    for item in argv:
+        if item.lstrip("-").startswith("device="):
+            device = item.split("=", 1)[1]
+        else:
+            rest.append(item)
+    return rest, device
+
+
 def apply_overrides(cfg: Config, overrides: Sequence[str]) -> Config:
     """Apply ``section.field=value`` strings (also accepts --prefixed)."""
     for item in overrides:

@@ -72,3 +72,32 @@ def apply_matmul_precision(precision: str | None) -> str:
     torch.set_float32_matmul_precision(name)
     torch.backends.cudnn.allow_tf32 = name != "highest"
     return name
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU): the fence of
+    a host-clock timing window."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def describe_device(device: torch.device) -> str:
+    """The card's ``name, power.limit`` as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them (torch's name where
+    nvidia-smi is missing), or ``"cpu"``: what a tool prints beside a
+    measurement (the first card's line where the host has several)."""
+    if device.type != "cuda":
+        return str(device)
+    import subprocess
+    import tempfile
+
+    with tempfile.TemporaryFile("w+") as out:
+        try:
+            subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"],
+                           stdout=out, stderr=subprocess.DEVNULL, stdin=subprocess.DEVNULL,
+                           timeout=60, check=True)
+        except (OSError, subprocess.SubprocessError):
+            return torch.cuda.get_device_name(device)
+        out.seek(0)
+        return out.read().strip().splitlines()[0]

@@ -1,8 +1,8 @@
 """The PyTorch port imports neither JAX nor the JAX package.
 
 The GPU machine has torch, numpy, scipy and einops, but no jax, flax,
-optax, orbax, ml_dtypes, sklearn, fastapi, uvicorn or pydantic, and the
-port must not need PIL. A child interpreter whose import system refuses
+optax, orbax, ml_dtypes, sklearn, fastapi, uvicorn, pydantic, pandas or
+matplotlib, and the port must not need PIL. A child interpreter whose import system refuses
 those (and ``jpdvt_mt_ntnu_tpu``) imports every module of the port (the
 training, eval, serving, ``parallel``, dataset, MoE and library modules
 included: the datasets, the eval harness and the service decode, transform
@@ -20,7 +20,10 @@ import jpdvt_mt_ntnu_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "PIL", "sklearn",
-           "fastapi", "uvicorn", "pydantic", "jpdvt_mt_ntnu_tpu")
+           "fastapi", "uvicorn", "pydantic", "pandas", "matplotlib", "jpdvt_mt_ntnu_tpu")
+TOOLS = ("convert", "export", "bench", "sampler_table", "masked_eval_table",
+         "probe_checkpoint", "bench_train", "bench_quant", "bench_serve", "metrics_report",
+         "cliff_report", "ambiguity_probe", "val_panel", "make_wave_pngdir")
 
 CHILD = r"""
 import importlib, sys
@@ -58,7 +61,7 @@ def test_port_and_chip_smoke_import_without_jax(tmp_path):
                 "serve.quant_gate", "serve.png", "ops.quant", "data.transforms",
                 "parallel", "parallel.mesh", "data.datasets", "data.synthetic",
                 "models.moe", "core.likelihood", "core.timestep_sampler",
-                "utils.profiling"):
+                "utils.profiling", *(f"tools.{t}" for t in TOOLS)):
         assert f"jpdvt_mt_ntnu_tpu_torch.{mod}" in modules
     out = tmp_path / "child.log"
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
