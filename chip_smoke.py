@@ -213,11 +213,11 @@ then the last three axes of the trainer, skipped under ``--grid20-artifact``:
 
 20. on 2 ranks sharing the card over gloo, each process set one child
     (``--runs-child``) beside one process: expert parallelism on
-    JPDVT-MoE (4 of its 12 blocks, 8 experts, random init, 6 steps at
+    JPDVT-MoE (4 of its 12 blocks, 8 experts, random init, 4 steps at
     batch 96
     in bf16 on ``mesh.ep=2``; 3 each on ``mesh.model=2`` and
     ``mesh.fsdp=2`` with the MoE; 3 on ``mesh.ep=2`` in fp32 beside one
-    fp32 process), the GPipe pipeline (``mesh.pipe=2``, 4 microbatches, 6
+    fp32 process), the GPipe pipeline (``mesh.pipe=2``, 4 microbatches, 4
     steps warm-started from the waves3 artifact; 24 K1 + 24 K2 a rank a
     step at (24, 12, 144, 64); 3 in fp32) and the ring (``mesh.seq=2``, 72
     tokens a rank, no attention kernel; one grid-20 step, 200 tokens a
@@ -229,6 +229,16 @@ then the last three axes of the trainer, skipped under ``--grid20-artifact``:
     ``mesh.seq=2`` over the 16 export-smoke puzzles, fast and
     faithful-50, its journal the one-process ``run_eval``'s, 1.00; K1 and
     K2 at the pipeline's microbatch shape beside their bound, plain
+    version and SDPA. Then the four compositions of axes on 4 ranks sharing
+    the card (one ``--runs-child`` set of 4), 3 steps at batch 96 in bf16:
+    ``mesh.pipe=2 mesh.model=2`` and ``mesh.pipe=2 mesh.fsdp=2`` (4
+    microbatches; 24 K1 + 24 K2 a rank a step at (24, 6, 144, 64) and
+    (12, 12, 144, 64)) and ``mesh.seq=2 mesh.model=2`` warm-started from
+    the waves3 artifact, held to the pipeline set's one process, and
+    ``mesh.seq=2 mesh.ep=2`` on the 4-block JPDVT-MoE, held to the EP set's
+    (those references keep their EMA after step 3 on disk for it): the
+    same gates, bit-equal restores, peak GiB a rank beside the layout's
+    bytes; K1 and K2 at the two new shapes beside their bound, plain
     version and SDPA.
 
 then the tools users run on each checkpoint (``jpdvt_mt_ntnu_tpu_torch/
@@ -247,17 +257,23 @@ tools/``), skipped under ``--grid20-artifact``:
     the unmasked solve) and the checkpoint probe on the 16;
     ``bench_serve`` under 16 clients (fewer batches than requests) and
     ``bench_quant`` at fast only; ``cliff_report`` (the committed
-    ``cliff.json`` of both grid-20 journals) and ``metrics_report``. The
-    K1 launches of each tool are counted; each tool that solves in this
-    process launches K1.
+    ``cliff.json`` of both grid-20 journals) and ``metrics_report``;
+    ``tools.activation_compare`` on the reference ``.pt`` and its
+    conversion (the reference-semantics DiT on the CPU against the port's
+    DiT on the card, fp32, K1's fp32 path), each head within 2e-4; the 16
+    solved fast and faithful-50 by ``PuzzleSolver(devices=["cuda:0",
+    "cuda:0"])`` (each half of a batch on a stream of its own) with one
+    device's permutations, 1.00. The K1 launches of each tool are counted;
+    each tool that solves in this process launches K1.
 
 The last three lines are the ``kernels`` JSON (each kernel with the
 launches of its own path and its shape: K1 for the solve, the train step,
 the service, the 2-rank train step, the MoE train step, the TP and FSDP
 train steps, the pipeline's stages, the ep ranks and TP of the MoE, the
-tools, K2
+pipeline's stages under TP and under FSDP, the tools, K2
 for the train step, the 2-rank one, the MoE one, the TP and FSDP ones,
-the pipeline's, the ep ranks' and TP of the MoE's, K3 on the eval path
+the pipeline's, the ep ranks' and TP of the MoE's, the composed
+pipelines', K3 on the eval path
 and the training route, K4, K5, K6), the card's name and power limit, and
 the device JSON.
 """
@@ -298,8 +314,8 @@ from jpdvt_mt_ntnu_tpu_torch.serve import plugins as serve_plugins
 from jpdvt_mt_ntnu_tpu_torch.serve.gate import AccessGate
 from jpdvt_mt_ntnu_tpu_torch.serve.png import array_to_b64, encode_png
 from jpdvt_mt_ntnu_tpu_torch.serve.service import PuzzleService, ServiceConfig
-from jpdvt_mt_ntnu_tpu_torch.tools import (bench, bench_quant, bench_serve, cliff_report,
-                                           convert, export, masked_eval_table,
+from jpdvt_mt_ntnu_tpu_torch.tools import (activation_compare, bench, bench_quant, bench_serve,
+                                           cliff_report, convert, export, masked_eval_table,
                                            metrics_report, probe_checkpoint, sampler_table)
 from jpdvt_mt_ntnu_tpu_torch.tools.weights import (decode_bf16, encode_bf16, load_artifact,
                                                    read_artifact)
@@ -3006,7 +3022,8 @@ def mesh_grid3(card: str, gen: torch.Generator) -> dict:
 # comparisons and the restores into one process are made. A 2-rank rate
 # says nothing of scaling: the ranks share one card and pass every
 # collective and transfer through the host (gloo).
-AXES_STEPS, MOE_ONE_CKPT = 6, 3
+# 4 steps a run, so that the 4-rank set after them fits the script's limit.
+AXES_STEPS, MOE_ONE_CKPT = 4, 3
 # The EP set's JPDVT-MoE keeps 4 of its 12 blocks, so that the whole script
 # stays well inside its time limit: every expert rule, gate and restore is
 # per block, so 4 blocks hold what 12 would at a third of the time.
@@ -3014,6 +3031,13 @@ MOE_DEPTH = 4
 PIPE_MICRO = 4
 PIPE_SHAPE = f"{TRAIN_BATCH // PIPE_MICRO}x{HEADS}x{TOKENS}x{HEAD_DIM}"
 NO_LAUNCH = {name: 0 for name in COUNTERS}
+# The four compositions on 4 ranks: 3 steps each, held to the step-3 EMA of
+# the one-process references of the sets above. The pipeline's K1/K2 shapes:
+# a microbatch of the whole batch on 6 heads under TP, of half of it under
+# FSDP.
+COMPOSE_STEPS = 3
+PIPE_TP_SHAPE = f"{TRAIN_BATCH // PIPE_MICRO}x{HEADS // 2}x{TOKENS}x{HEAD_DIM}"
+PIPE_FSDP_SHAPE = f"{TRAIN_BATCH // 2 // PIPE_MICRO}x{HEADS}x{TOKENS}x{HEAD_DIM}"
 
 
 def moe_args(exp: str, steps: int, *extra: str) -> list[str]:
@@ -3038,7 +3062,10 @@ class AxesRun:
     launches a step a rank and their shape, its steps, whether rank 0 runs
     it alone (a one-process reference), and the reference it is held to
     (loss rtol, EMA atol; None: no EMA gate) and whether its checkpoint is
-    restored into one process."""
+    restored into one process. ``ref_dir``: the exp dir of a reference run
+    in an earlier process set, whose EMA this run reads from disk;
+    ``share``: a reference whose kept EMAs rank 0 writes to its exp dir for
+    such runs."""
 
     argv: list
     launches: dict
@@ -3049,11 +3076,13 @@ class AxesRun:
     loss_rtol: float = DDP_LOSS_RTOL
     ema_atol: float | None = DDP_EMA_ATOL
     restore: bool = False
+    ref_dir: str | None = None
+    share: bool = False
 
 
 def axes_plans(tmp: str) -> dict:
-    """{process set: {run: AxesRun}}, each set's runs in order (each
-    reference before the runs held to it)."""
+    """{process set: (ranks, {run: AxesRun})}, each set's runs in order
+    (each reference before the runs held to it)."""
     one_shape, fsdp_shape = (f"{TRAIN_BATCH}x{HEADS}x{TOKENS}x{HEAD_DIM}",
                              f"{TRAIN_BATCH // 2}x{HEADS}x{TOKENS}x{HEAD_DIM}")
     k12, pipe = {"k1": 12, "k2": 12}, {"k1": 24, "k2": 24}
@@ -3061,11 +3090,16 @@ def axes_plans(tmp: str) -> dict:
     fp32 = FP32[:2] + [f"data.synthetic_n={TRAIN_BATCH * FP32_STEPS}"]
     fp32_gate = dict(loss_rtol=FP32_LOSS_RTOL, ema_atol=FP32_EMA_ATOL)
     pipe_args = ["mesh.pipe=2", f"mesh.pipe_microbatches={PIPE_MICRO}"]
+    # The compositions' runs: phase 16's settings for 3 steps (the JPDVT
+    # ones) and the EP set's MoE, held to those sets' one process.
+    three = [f"data.synthetic_n={TRAIN_BATCH * COMPOSE_STEPS}"]
+    four = [f"data.synthetic_n={TRAIN_BATCH * AXES_STEPS}"]
+    held = dict(ref="one", ref_dir=f"{tmp}/one", restore=True)
     return {
-        "ep": {
+        "ep": (2, {
             "moe_one": AxesRun(moe_args(f"{tmp}/moe_one", AXES_STEPS,
                                         f"train.ckpt_every={MOE_ONE_CKPT}"),
-                               kmoe, one_shape, AXES_STEPS, solo=True),
+                               kmoe, one_shape, AXES_STEPS, solo=True, share=True),
             "ep2": AxesRun(moe_args(f"{tmp}/ep2", AXES_STEPS, "mesh.ep=2"), kmoe, one_shape,
                            AXES_STEPS, ref="moe_one", restore=True),
             "moe_tp2": AxesRun(moe_args(f"{tmp}/moe_tp2", FP32_STEPS, "mesh.model=2"), kmoe,
@@ -3076,13 +3110,16 @@ def axes_plans(tmp: str) -> dict:
                                     kmoe, one_shape, FP32_STEPS, solo=True),
             "ep2_fp32": AxesRun(moe_args(f"{tmp}/ep2_fp32", FP32_STEPS, "mesh.ep=2",
                                          *FP32[:2]), kmoe, one_shape, FP32_STEPS,
-                                ref="moe_one_fp32", **fp32_gate)},
-        "pipe_seq": {
-            "one": AxesRun(ddp_train_args(f"{tmp}/one"), k12, one_shape, AXES_STEPS,
-                           solo=True),
-            "pipe2": AxesRun(ddp_train_args(f"{tmp}/pipe2") + pipe_args, pipe, PIPE_SHAPE,
+                                ref="moe_one_fp32", **fp32_gate)}),
+        "pipe_seq": (2, {
+            # Its EMA 3 steps past the artifact's step 10,000 is the
+            # compositions' reference too.
+            "one": AxesRun(ddp_train_args(f"{tmp}/one") + four + [
+                f"train.ckpt_every={10000 + COMPOSE_STEPS}", "train.val_every=1000000"],
+                k12, one_shape, AXES_STEPS, solo=True, share=True),
+            "pipe2": AxesRun(ddp_train_args(f"{tmp}/pipe2") + four + pipe_args, pipe, PIPE_SHAPE,
                              AXES_STEPS, ref="one", restore=True),
-            "seq2": AxesRun(ddp_train_args(f"{tmp}/seq2") + ["mesh.seq=2"], {}, None,
+            "seq2": AxesRun(ddp_train_args(f"{tmp}/seq2") + four + ["mesh.seq=2"], {}, None,
                             AXES_STEPS, ref="one", restore=True),
             "one_fp32": AxesRun(ddp_train_args(f"{tmp}/one_fp32") + fp32, k12, one_shape,
                                 FP32_STEPS, solo=True),
@@ -3091,7 +3128,20 @@ def axes_plans(tmp: str) -> dict:
             "one20": AxesRun(grid20_args(f"{tmp}/one20"), {"k4": 12, "k5": 12, "k6": 12},
                              f"{TRAIN_BATCH}x{HEADS}x{TOKENS20}x{HEAD_DIM}", 1, solo=True),
             "seq20": AxesRun(grid20_args(f"{tmp}/seq20", "mesh.seq=2"), {}, None, 1,
-                             ref="one20", ema_atol=None)},
+                             ref="one20", ema_atol=None)}),
+        "compose": (4, {
+            "pipe2_tp2": AxesRun(ddp_train_args(f"{tmp}/pipe2_tp2") + three + pipe_args
+                                 + ["mesh.model=2"], pipe, PIPE_TP_SHAPE, COMPOSE_STEPS,
+                                 **held),
+            "pipe2_fsdp2": AxesRun(ddp_train_args(f"{tmp}/pipe2_fsdp2") + three + pipe_args
+                                   + ["mesh.fsdp=2"], pipe, PIPE_FSDP_SHAPE, COMPOSE_STEPS,
+                                   **held),
+            "seq2_tp2": AxesRun(ddp_train_args(f"{tmp}/seq2_tp2") + three
+                                + ["mesh.seq=2", "mesh.model=2"], {}, None, COMPOSE_STEPS,
+                                **held),
+            "seq2_ep2": AxesRun(moe_args(f"{tmp}/seq2_ep2", COMPOSE_STEPS, "mesh.seq=2",
+                                         "mesh.ep=2"), {}, None, COMPOSE_STEPS, ref="moe_one",
+                                ref_dir=f"{tmp}/moe_one", restore=True)}),
     }
 
 
@@ -3188,9 +3238,15 @@ def runs_child(out: str, plan_path: str) -> int:
                 end = max(kept)
                 row["ckpt_step"] = end
                 if run["ref"] is not None and run["ema_atol"] is not None:
-                    ref_exp = next(a.split("=", 1)[1] for n, r in plan if n == run["ref"]
-                                   for a in r["argv"] if a.startswith("train.exp_dir="))
-                    ema, ema_ref = kept[end]["ema"], KEPT[ref_exp][end]["ema"]
+                    if run["ref_dir"] is not None:  # a reference of an earlier set
+                        ema_ref = torch.load(os.path.join(run["ref_dir"], f"ema{end}.pt"),
+                                             weights_only=True)
+                    else:
+                        ref_exp = next(a.split("=", 1)[1] for n, r in plan
+                                       if n == run["ref"] for a in r["argv"]
+                                       if a.startswith("train.exp_dir="))
+                        ema_ref = KEPT[ref_exp][end]["ema"]
+                    ema = kept[end]["ema"]
                     diffs = torch.cat([(ema[k].float() - w.float()).abs().ravel()
                                        for k, w in ema_ref.items()])
                     row |= {"ema_max_abs_diff": diffs.max().item(),
@@ -3202,6 +3258,8 @@ def runs_child(out: str, plan_path: str) -> int:
                     torch.cuda.empty_cache()
                 for step in list(kept):  # the references' EMA is all a later run reads
                     kept[step] = {"ema": kept[step]["ema"]} if run["solo"] else {}
+                    if run["share"]:
+                        torch.save(kept[step]["ema"], os.path.join(exp, f"ema{step}.pt"))
             results.append(row)
             dp.barrier()
     finally:
@@ -3221,15 +3279,16 @@ def check_axes_train(tmp: str, card: str) -> dict:
     the launches a step at their shapes, the losses against each run's
     reference, the EMA and restore results of rank 0."""
     out: dict = {}
-    for group, runs in axes_plans(tmp).items():
+    for group, (world, runs) in axes_plans(tmp).items():
         plan_path = os.path.join(tmp, f"{group}.plan.json")
         with open(plan_path, "w") as f:
             json.dump([[name, dataclasses.asdict(run)] for name, run in runs.items()], f)
         t0 = time.perf_counter()
         port, procs = free_port(), []
-        for r in range(2):
-            env = dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
-                       LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        for r in range(world):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                       LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port))
             base = os.path.join(tmp, f"{group}.{r}")
             with open(base + ".log", "w") as f:
                 procs.append((subprocess.Popen(
@@ -3237,7 +3296,8 @@ def check_axes_train(tmp: str, card: str) -> dict:
                      base + ".json", plan_path], cwd=REPO, env=env, stdout=f,
                     stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL), base))
         ranks = wait_ranks(procs, 900)
-        log(f"  phase 20 {group}: {time.perf_counter() - t0:.2f} s")
+        out[f"{group}_s"] = time.perf_counter() - t0
+        log(f"  phase 20 {group} ({world} ranks): {out[f'{group}_s']:.2f} s")
         for i, (name, run) in enumerate(runs.items()):
             want = NO_LAUNCH | run.launches
             rows = [r["runs"][i] for r in ranks if "exit" in r["runs"][i]]
@@ -3289,13 +3349,14 @@ def check_axes_train(tmp: str, card: str) -> dict:
                                      f"(limit {run.loss_rtol}), EMA {ema} (limit "
                                      f"{run.ema_atol}), restored bit-equal "
                                      f"{out[name].get('restored_bit_equal')}")
-    for name, row in out.items():
+    runs = {k: v for k, v in out.items() if isinstance(v, dict)}
+    for name, row in runs.items():
         log(f"  {name} on {card}: losses {row['losses']}, peak GiB per rank {row['peak_gib']} "
             f"beside the layout's {row['predicted']['state_gib']:.3f} GiB of fp32 state, "
             f"images/s {row['train_images_per_s']:.1f}, transport s/step "
             f"{row['transport_s_per_step']} ({row['transport_mb_per_step']} MB)")
     log("  axes runs: " + json.dumps({k: {x: y for x, y in v.items() if x != "losses"}
-                                       for k, v in out.items()}))
+                                       for k, v in runs.items()}))
     return out
 
 
@@ -3361,6 +3422,13 @@ def axes_grid3(card: str, gen: torch.Generator) -> dict:
                               timed=True)
     out["k2_pipe"] = check_k2(TRAIN_BATCH // PIPE_MICRO, TOKENS, torch.bfloat16, gen,
                               timed=True, device_time=False)
+    # And at the composed pipelines' shapes: 6 heads of a microbatch of 24
+    # under TP, 12 heads of one of 12 under FSDP.
+    for name, b, h in (("pipe_tp", TRAIN_BATCH // PIPE_MICRO, HEADS // 2),
+                       ("pipe_fsdp", TRAIN_BATCH // 2 // PIPE_MICRO, HEADS)):
+        out[f"k1_{name}"] = check_k1(b, TOKENS, torch.bfloat16, gen, timed=True, heads=h)
+        out[f"k2_{name}"] = check_k2(b, TOKENS, torch.bfloat16, gen, timed=True, heads=h,
+                                     device_time=False)
     log(f"phase axes: {time.perf_counter() - t_phase:.2f} s")
     return out
 
@@ -3368,6 +3436,9 @@ def axes_grid3(card: str, gen: torch.Generator) -> dict:
 # ------------------------------------------------------------------ phase 21
 # The committed journals the reports run on, each with its committed cliff.json.
 CLIFF_JOURNALS = ("waves20_hard_eval", "waves20_r4_eval")
+# activation_compare's tolerance (its --tol default and the reference
+# protocol's): each output head's largest absolute difference, fp32.
+ACTIVATION_TOL = 2e-4
 
 
 def counted(launches: dict, name: str, fn):
@@ -3401,6 +3472,49 @@ def check_convert(tmp: str, sd: dict, step: int, template, x16, perms16, base) -
     log("  converter: " + json.dumps(out))
     if not (same and out["same_permutations"] and res.puzzle_accuracy == 1.0):
         raise AssertionError(f"the converted checkpoint: {out}")
+    return out
+
+
+def check_activation_compare(tmp: str, step: int) -> dict:
+    """``tools.activation_compare`` on :func:`check_convert`'s reference
+    ``.pt`` and its conversion: the reference-semantics DiT on the CPU
+    against the port's on the card in fp32 (K1's fp32 path), each head
+    within :data:`ACTIVATION_TOL`."""
+    t0 = time.perf_counter()
+    r = activation_compare.compare(os.path.join(tmp, f"{step}.pt"),
+                                   os.path.join(tmp, "converted.npz"), "JPDVT", 192, "ema",
+                                   ACTIVATION_TOL, device="cuda")
+    out = {**r, "tol": ACTIVATION_TOL, "s": time.perf_counter() - t0}
+    log("  activation_compare: " + json.dumps(out))
+    if not r["ok"]:
+        raise AssertionError(f"activation_compare: {out}")
+    return out
+
+
+def check_split_solver(model, cfg, template, x16, perms16, base) -> dict:
+    """The 16 solved fast and faithful-50 (the ring eval's steps) by
+    ``PuzzleSolver(devices=["cuda:0", "cuda:0"])``, each half of the batch
+    on a stream of its own: one device's permutations, 1.00."""
+    out = {}
+    for mode, steps in (("fast", "250"), ("faithful", str(SEQ_EVAL_STEPS))):
+        solvers = {name: PuzzleSolver(model, cfg, create_diffusion(steps), mode=mode,
+                                      noise_template=template, devices=devices)
+                   for name, devices in (("one", None), ("split", ["cuda:0", "cuda:0"]))}
+        res = {}
+        for name, solver in solvers.items():
+            if name == "one" and mode == "fast":
+                res[name] = base
+                continue
+            t0 = time.perf_counter()
+            res[name] = solver.evaluate(x16, perms16)
+            out[f"{mode}_{name}_s"] = time.perf_counter() - t0
+        out[mode] = {"puzzle_acc": res["split"].puzzle_accuracy,
+                     "same_permutations": bool(np.array_equal(res["split"].pred,
+                                                              res["one"].pred))}
+    log("  split solver: " + json.dumps(out))
+    if not all(out[m]["same_permutations"] and out[m]["puzzle_acc"] == 1.0
+               for m in ("fast", "faithful")):
+        raise AssertionError(f"PuzzleSolver(devices=[cuda:0, cuda:0]): {out}")
     return out
 
 
@@ -3464,6 +3578,8 @@ def tools_grid3(card: str, gen: torch.Generator) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         out["convert"] = counted(launches, "convert", lambda: check_convert(
             tmp, sd, step, template, x16, perms16, base))
+        out["activation_compare"] = counted(launches, "activation_compare",
+                                            lambda: check_activation_compare(tmp, step))
         out["export"] = counted(launches, "export", lambda: check_export(tmp, sd, step))
     # The headline bench at batch 32, its JSON line printed as it prints it.
     out["bench"] = counted(launches, "bench", lambda: bench.run(torch.device("cuda")))
@@ -3500,6 +3616,8 @@ def tools_grid3(card: str, gen: torch.Generator) -> dict:
     out["bench_quant"] = counted(launches, "bench_quant", lambda: bench_quant.run(
         torch.device("cuda"), 192, 128, 20, 0, ["bf16", "int8"]))
     log("  bench_quant: " + json.dumps(out["bench_quant"]))
+    out["split_solver"] = counted(launches, "split_solver", lambda: check_split_solver(
+        model, cfg, template, x16, perms16, base))
     # The reports on committed journals.
     for run in CLIFF_JOURNALS:
         path = os.path.join(REPO, "logs", run)
@@ -3518,8 +3636,9 @@ def tools_grid3(card: str, gen: torch.Generator) -> dict:
     out["k1_launches"] = counts()["k1"]
     log(f"  K1 launches by tool: {json.dumps(launches)} ({out['k1_launches']} in phase 21; "
         "the exporter's restore runs in its own process)")
-    missing = [name for name in ("convert", "bench", "sampler_table", "masked_eval_table",
-                                 "probe_checkpoint", "bench_serve", "bench_quant")
+    missing = [name for name in ("convert", "activation_compare", "bench", "sampler_table",
+                                 "masked_eval_table", "probe_checkpoint", "bench_serve",
+                                 "bench_quant", "split_solver")
                if not launches[name]]
     if missing:
         raise AssertionError(f"no K1 launch in {missing}")
@@ -3816,11 +3935,15 @@ def main(argv=None) -> int:
                            "jpdvt_mt_ntnu_tpu/ops/attention.py:44", launches["k2"],
                            [mesh19[f"k2_{name}"]], mesh19[f"k2_{name}"])]
         # Phase 20: K1 and K2 on the pipeline's stages (24 a microbatch), on
-        # the ep ranks (the whole batch) and under TP of the MoE (6 heads).
+        # the ep ranks (the whole batch), under TP of the MoE (6 heads) and on
+        # the composed pipelines' stages (6 heads of 24; 12 of 12).
         for name, run, k1_row, k2_row in (
                 ("pipe", "pipe2", axes20["k1_pipe"], axes20["k2_pipe"]),
                 ("ep", "ep2", k1_rows[2], k2_rows[0]),
-                ("moe_tp", "moe_tp2", mesh19["k1_tp"], mesh19["k2_tp"])):
+                ("moe_tp", "moe_tp2", mesh19["k1_tp"], mesh19["k2_tp"]),
+                ("pipe_tp", "pipe2_tp2", axes20["k1_pipe_tp"], axes20["k2_pipe_tp"]),
+                ("pipe_fsdp", "pipe2_fsdp2", axes20["k1_pipe_fsdp"],
+                 axes20["k2_pipe_fsdp"])):
             launches = axes20["train"][run]["launches"]
             kernels += [
                 kernel_row(f"k1_whole_row_attention_fwd_{name}", *k1, launches["k1"],

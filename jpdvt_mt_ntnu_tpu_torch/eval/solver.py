@@ -18,13 +18,24 @@ leave it out to draw one from a ``torch.Generator`` seeded with ``seed``.
 For the same reason the scrambles (``indices``), the votes' arrangements
 (``sigmas``) and the masked puzzles' masks and fills may be given by the
 caller; what is not given is drawn from the solver's generator.
+
+``devices=[...]`` splits each batch's rows over several devices in one
+process, as the JAX solver's ``mesh=`` shards them over the mesh's ``data``
+axis (``solver.py:78-82``, ``:222-233``): one model replica per device
+(devices named twice share one), each device's rows solved concurrently
+in a thread of its own (on the card, on a stream of its own), the results
+joined in row order. Everything random is drawn on the first device, as
+one device draws it: the scrambles, the arrangements and the sampler's
+step noise (:meth:`PuzzleSolver._step_noise`), so the permutations and
+the distances are one device's.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Callable
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -63,15 +74,18 @@ def _score(pred: np.ndarray, indices: np.ndarray) -> SolveResult:
 class PuzzleSolver:
     """Solves puzzles with one (model, diffusion, grid, mode) configuration.
 
-    ``device`` defaults to the card and must hold the model's parameters.
-    ``microbatch`` None means 32; 0 never splits a batch."""
+    ``device`` defaults to the card (or the first of ``devices``) and must
+    hold the model's parameters. ``devices``: the devices each batch's rows
+    are split over (module docstring); None is ``device`` alone.
+    ``microbatch`` None means 32 (a device); 0 never splits a batch."""
 
     def __init__(self, model, model_config, diffusion: Diffusion, *,
                  grid_size: int = 3, mode: str = "faithful",
                  assignment_method: str = "greedy", votes: int = 1, seed: int = 0,
                  microbatch: int | None = None,
                  noise_template: np.ndarray | torch.Tensor | None = None,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 devices: Sequence[torch.device | str] | None = None):
         if mode not in MODES:
             raise ValueError(f"unknown sampler mode {mode!r}; choose from {MODES}")
         if assignment_method not in ASSIGNMENTS:
@@ -80,7 +94,14 @@ class PuzzleSolver:
         if int(votes) < 1:
             raise ValueError(f"votes must be >= 1; got {votes}")
         cfg = model_config
-        self.device = default_device(device)
+        if devices is not None and not len(devices):
+            raise ValueError("devices=[]: name at least one device")
+        self.device = default_device(device if devices is None or device is not None
+                                     else devices[0])
+        self.devices = ([self.device] if devices is None
+                        else [default_device(d) for d in devices])
+        if self.devices[0] != self.device:
+            raise ValueError(f"devices={list(devices)} must start with device={self.device}")
         param_device = next(model.parameters()).device
         if param_device != self.device:
             raise ValueError(f"model lives on {param_device}, solver on {self.device}")
@@ -109,6 +130,7 @@ class PuzzleSolver:
         self.noise_template = noise_template.to(self.device)
         self.generator = torch.Generator(self.device).manual_seed(seed + 1)
         self._cast: tuple = (None, None)
+        self._replicas: tuple = (None, {})  # (model, {device: its copy}) for devices
 
     @property
     def pieces(self) -> int:
@@ -136,9 +158,10 @@ class PuzzleSolver:
             self._cast = (key, copy.deepcopy(self.model).to(self.cfg.dtype))
         return self._cast[1]
 
-    def _solve_codes_chunk(self, model, x_scrambled: torch.Tensor):
+    def _solve_codes_chunk(self, model, x_scrambled: torch.Tensor, step_noise=None):
         b = x_scrambled.shape[0]
-        noise = self.noise_template.expand(b, -1, -1)
+        dev = x_scrambled.device
+        noise = self.noise_template.to(dev).expand(b, -1, -1)
         condition = model.embed_condition(x_scrambled)
 
         def model_fn(cond, t_orig, code):
@@ -150,15 +173,86 @@ class PuzzleSolver:
         else:
             final = self.diffusion.p_sample_loop(
                 model_fn, condition, noise, mode=self.mode, clip_denoised=False,
-                generator=self.generator)
+                generator=self.generator, step_noise=step_noise)
         pieces = jigsaw.tokens_to_piece_code(final, self.grid, self.sub)
-        dist = assignment.manhattan_distances(pieces, self.canon)
+        dist = assignment.manhattan_distances(pieces, self.canon.to(dev))
         return assignment.greedy_permutation(dist), dist
 
-    def _solve_codes(self, model, x: torch.Tensor):
-        b = x.shape[0]
+    def _chunks(self, b: int) -> list[slice]:
         mb = self._resolve_microbatch(b) or b
-        outs = [self._solve_codes_chunk(model, x[i:i + mb]) for i in range(0, b, mb)]
+        return [slice(i, i + mb) for i in range(0, b, mb)]
+
+    def _solve_codes(self, model, x: torch.Tensor):
+        """(greedy pred, dist) of scrambled ``x`` on the solver's device, or
+        split over ``devices``."""
+        if len(self.devices) > 1:
+            return self._solve_split(model, x)
+        return self._solve_rows(model, x)
+
+    def _solve_rows(self, model, x: torch.Tensor, step_noise=None):
+        """(greedy pred, dist) of ``x`` on its device, microbatch by microbatch."""
+        outs = [self._solve_codes_chunk(model, x[c], None if step_noise is None
+                                        else [z[c] for z in step_noise])
+                for c in self._chunks(x.shape[0])]
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+    def _step_noise(self, b: int) -> list[torch.Tensor] | None:
+        """The sampler's step noise for a batch of ``b`` rows, (b, N, d) a
+        step, drawn from the solver's generator in the order one device
+        draws it (each microbatch's steps in turn); None where the sampler
+        draws none (fast, DDIM at eta 0)."""
+        if self.mode not in ("faithful", "iterative"):
+            return None
+        shape = self.noise_template.shape[1:]
+        steps = self.diffusion.num_timesteps
+        per_chunk = [[torch.randn((c.stop - c.start, *shape), generator=self.generator,
+                                  device=self.device) for _ in range(steps)]
+                     for c in self._chunks(b)]
+        return [torch.cat([chunk[i] for chunk in per_chunk]) for i in range(steps)]
+
+    def _replica(self, model, device: torch.device):
+        """``model`` on ``device``: itself on the solver's device, else a
+        copy made once per (model, device)."""
+        if device == self.device:
+            return model
+        if self._replicas[0] is not model:
+            self._replicas = (model, {})
+        copies = self._replicas[1]
+        if str(device) not in copies:
+            copies[str(device)] = copy.deepcopy(model).to(device)
+        return copies[str(device)]
+
+    def _solve_split(self, model, x: torch.Tensor):
+        """:meth:`_solve_codes` with the rows of ``x`` split over
+        ``devices``: each part solved in a thread of its own (on the card on
+        a stream of its own, after the solver's stream), with the step noise
+        one device would draw, and the parts joined in row order on the
+        solver's device."""
+        b = x.shape[0]
+        step_noise = self._step_noise(b)
+        bounds = np.linspace(0, b, len(self.devices) + 1).astype(int)
+        main = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+
+        def run(k: int):
+            dev, rows = self.devices[k], slice(int(bounds[k]), int(bounds[k + 1]))
+            stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+            with torch.inference_mode(), torch.cuda.stream(stream):
+                if stream is not None and main is not None:
+                    stream.wait_stream(main)
+                noise = None if step_noise is None else [z[rows].to(dev) for z in step_noise]
+                pred, dist = self._solve_rows(self._replica(model, dev), x[rows].to(dev), noise)
+                pred, dist = pred.to(self.device), dist.to(self.device)
+                if stream is not None and main is not None:
+                    for t in (pred, dist):
+                        t.record_stream(main)
+            return pred, dist, stream
+
+        parts = [k for k in range(len(self.devices)) if bounds[k + 1] > bounds[k]]
+        with ThreadPoolExecutor(len(parts)) as pool:
+            outs = list(pool.map(run, parts))
+        for _, _, stream in outs:
+            if stream is not None and main is not None:
+                main.wait_stream(stream)
         return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
     @torch.inference_mode()

@@ -30,7 +30,10 @@ the JAX package's order) and the collectives are written out:
   cast and applied in one autograd function (:class:`_GatheredLinear`), an
   expert leaf in its einsum (:class:`_GatheredEinsum`), each saving only
   the shard: the backward gathers the weight again, and reduce-scatters its
-  gradient. A full weight lives only while its product runs.
+  gradient. A full weight lives only while its product runs. A step's
+  backwards (the pipeline's microbatches, ``train.grad_accum``'s) sum each
+  leaf's whole gradient and reduce-scatter it once
+  (:meth:`Mesh.deferred_scatter`).
 - The batch is cut over data x fsdp (``batch_index``, ``batch_size``); the
   ranks of a pipe, ep, seq or model group take the same rows. The partial
   gradients are summed first (the stem's and head's over pipe, the
@@ -50,6 +53,7 @@ point-to-point transfers go through :meth:`Mesh.exchange`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import logging
@@ -167,6 +171,8 @@ class Mesh:
         self.ranks = ranks
         self.rank = dp.rank
         self.backend = dp.backend
+        self._deferred: dict | None = None  # deferred_scatter's sums, by leaf
+        self.reduce_scatters = 0  # scatter_sum's calls, for a reader to count
         found = {}
         # Every rank creates every group, in one order, as new_group requires.
         for name, axes in self.GROUPS:
@@ -179,6 +185,36 @@ class Mesh:
 
     def __deepcopy__(self, memo):  # modules that hold it are copied, it is not
         return self
+
+    @contextlib.contextmanager
+    def deferred_scatter(self):
+        """Within it, the gathered leaves' gradients are summed whole on this
+        rank and reduce-scattered over fsdp once each, at its end, into
+        their ``.grad``: a step's backwards (the pipeline's microbatches,
+        ``train.grad_accum``'s) then reduce-scatter each leaf once."""
+        self._deferred = {}
+        try:
+            yield
+            for shard, dim, full in self._deferred.values():
+                g = self.scatter_sum(full, self.fsdp, dim)
+                shard.grad = g if shard.grad is None else shard.grad + g
+        finally:
+            self._deferred = None
+
+    def scatter_grad(self, shard: torch.Tensor, full: torch.Tensor, dim: int):
+        """The gradient of a gathered leaf (``shard``, the parameter itself)
+        from its whole gradient ``full``: reduce-scattered over fsdp now, or
+        within :meth:`deferred_scatter` added to the leaf's running sum
+        (None: nothing for autograd)."""
+        full = full.to(shard.dtype)
+        if self._deferred is None:
+            return self.scatter_sum(full, self.fsdp, dim)
+        key = id(shard)
+        if key in self._deferred:
+            self._deferred[key][2].add_(full)
+        else:
+            self._deferred[key] = (shard, dim, full)
+        return None
 
     @property
     def describe(self) -> dict:
@@ -229,6 +265,7 @@ class Mesh:
         """This rank's slice along ``dim`` of the group's sum of ``full``."""
         if group.size == 1:
             return full
+        self.reduce_scatters += 1
         n = group.size
         parts = full.unflatten(dim, (n, full.shape[dim] // n)).movedim(dim, 0).contiguous()
         out = torch.empty_like(parts[0])
@@ -352,13 +389,14 @@ class _GatheredLinear(torch.autograd.Function):
     """A Linear on a weight gathered over the fsdp group. It saves the
     input and the shard, gathers the weight again in the backward where
     the input needs a gradient, and reduce-scatters the weight's gradient
-    (computed in the compute type, summed in the shard's)."""
+    (computed in the compute type, summed in the shard's;
+    :meth:`Mesh.scatter_grad`)."""
 
     @staticmethod
     def forward(ctx, x, shard, bias, mesh, dim):
         w = mesh.gather(shard.detach(), mesh.fsdp, dim).to(x.dtype)
         ctx.save_for_backward(x, shard)
-        ctx.mesh, ctx.dim = mesh, dim
+        ctx.mesh, ctx.dim, ctx.leaf = mesh, dim, shard
         return F.linear(x, w, bias)
 
     @staticmethod
@@ -370,8 +408,7 @@ class _GatheredLinear(torch.autograd.Function):
             gx = g @ mesh.gather(shard.detach(), mesh.fsdp, ctx.dim).to(g.dtype)
         g2 = g.reshape(-1, g.shape[-1])
         if ctx.needs_input_grad[1]:
-            full = g2.T @ x.reshape(-1, x.shape[-1])
-            gw = mesh.scatter_sum(full.to(shard.dtype), mesh.fsdp, ctx.dim)
+            gw = mesh.scatter_grad(ctx.leaf, g2.T @ x.reshape(-1, x.shape[-1]), ctx.dim)
         if ctx.needs_input_grad[2]:
             gb = g2.sum(0)
         return gx, gw, gb, None, None
@@ -388,7 +425,7 @@ class _GatheredEinsum(torch.autograd.Function):
     def forward(ctx, eq, x, shard, mesh, dim):
         w = mesh.gather(shard.detach(), mesh.fsdp, dim).to(x.dtype)
         ctx.save_for_backward(x, shard)
-        ctx.mesh, ctx.dim = mesh, dim
+        ctx.mesh, ctx.dim, ctx.leaf = mesh, dim, shard
         ctx.terms = eq.replace("->", ",").split(",")
         return torch.einsum(eq, x, w)
 
@@ -402,8 +439,7 @@ class _GatheredEinsum(torch.autograd.Function):
             w = mesh.gather(shard.detach(), mesh.fsdp, ctx.dim).to(g.dtype)
             gx = torch.einsum(f"{c},{b}->{a}", g, w)
         if ctx.needs_input_grad[2]:
-            full = torch.einsum(f"{a},{c}->{b}", x, g)
-            gw = mesh.scatter_sum(full.to(shard.dtype), mesh.fsdp, ctx.dim)
+            gw = mesh.scatter_grad(ctx.leaf, torch.einsum(f"{a},{c}->{b}", x, g), ctx.dim)
         return None, gx, gw, None, None
 
 
@@ -412,12 +448,12 @@ class _Gathered(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, shard, mesh, dim):
-        ctx.mesh, ctx.dim = mesh, dim
+        ctx.mesh, ctx.dim, ctx.leaf = mesh, dim, shard
         return mesh.gather(shard.detach(), mesh.fsdp, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.mesh.scatter_sum(g.contiguous(), ctx.mesh.fsdp, ctx.dim), None, None
+        return ctx.mesh.scatter_grad(ctx.leaf, g.contiguous(), ctx.dim), None, None
 
 
 # ----------------------------------------------------------------------- rules

@@ -41,10 +41,13 @@ the blocks into GPipe stages of ``mesh.pipe_microbatches`` microbatches
 (``parallel/pipeline.py``); ``mesh.seq`` each puzzle's tokens, with the
 attention as a ring (``parallel/sequence.py``). Checkpoints are written
 whole, in the one-process layout, and a resume cuts them anew for its own
-mesh. ``model.attn_impl=block`` under ``mesh.model``, ``mesh.fsdp`` or
-``mesh.seq`` takes the default route, and says so in the log. Refused by
-name, before any weights load: ``mesh.pipe`` with ``model``, ``fsdp``,
-``ep`` or ``seq``, and ``mesh.seq`` with ``model`` or ``ep``.
+mesh. The axes compose as the JAX trainer's do: ``mesh.pipe`` with
+``model`` or ``fsdp`` (each stage's blocks cut by TP or FSDP), ``mesh.seq``
+with ``model`` (the ring on each rank's heads) or ``ep`` (the MoE on the
+gathered sequence). ``model.attn_impl=block`` under ``mesh.model``,
+``mesh.fsdp`` or ``mesh.seq`` takes the default route, and says so in the
+log. Refused by name, before any weights load: ``mesh.pipe`` with ``seq``
+or ``ep``, on which the JAX trainer fails (:data:`COMPOSITIONS_REFUSED`).
 
 A fresh start, ``train.resume=<checkpoint dir>`` and ``train.warm_start=``
 (an artifact manifest/npz, or a checkpoint directory of this package) are
@@ -61,7 +64,7 @@ default), ``met``, ``texmet`` or an image folder (``data.data_path``);
 ``model.name=JPDVT-MoE`` and ``model.moe_experts`` train the expert-choice
 MoE (``models/moe.py``). Not ported yet, and refused with
 ``NotImplementedError`` where their keys are set, before any weights load:
-the mesh compositions above, ``data.device_stream`` for anything but
+the two mesh compositions above, ``data.device_stream`` for anything but
 ``waves`` (as in JAX), ``model.quant`` (the JAX trainer trains dense), the other attention
 routes, and any geometry that no attention kernel takes
 (``ops.attention.attention_route``). Datasets decode PNG and JPEG with the
@@ -135,10 +138,17 @@ def build_datasets(cfg: Config):
     return train, train
 
 
-# The mesh compositions the port does not run: the pipeline with any axis
-# but data, and the ring with TP's heads or EP's experts.
-COMPOSITIONS_REFUSED = (("pipe", "model"), ("pipe", "fsdp"), ("pipe", "ep"), ("pipe", "seq"),
-                        ("seq", "model"), ("seq", "ep"))
+# The mesh compositions the port does not run, because the JAX trainer fails
+# on them: its pipeline stage builds each block without the ring's mesh or
+# the MoE's experts (jpdvt_mt_ntnu_tpu/parallel/pipeline.py:147-153).
+COMPOSITIONS_REFUSED = {
+    ("pipe", "seq"): "the JAX trainer's pipeline stage builds its blocks with the ring but no "
+                     "seq mesh and fails (AttributeError: 'NoneType' object has no attribute "
+                     "'shape')",
+    ("pipe", "ep"): "the JAX trainer's pipeline stage builds its blocks without moe_experts, "
+                    "looks for a dense MLP and fails (ScopeParamNotFoundError: no parameter "
+                    "\"kernel\" in \"/mlp/fc1\")",
+}
 
 
 def check_supported(cfg: Config, on_card: bool = True) -> None:
@@ -146,7 +156,7 @@ def check_supported(cfg: Config, on_card: bool = True) -> None:
     and for a model whose attention no kernel takes (``on_card``: the
     kernels' limits; the CPU's plain versions take any head dim)."""
     m, d, mesh = cfg.model, cfg.data, cfg.mesh
-    refused = [f"mesh.{a} with mesh.{b}" for a, b in COMPOSITIONS_REFUSED
+    refused = [f"mesh.{a} with mesh.{b} ({why})" for (a, b), why in COMPOSITIONS_REFUSED.items()
                if getattr(mesh, a) > 1 and getattr(mesh, b) > 1]
     if d.dataset == "synthetic":
         cues = d.synthetic_cues or ("coords" if d.synthetic_position_cues else "none")

@@ -17,6 +17,7 @@ program's batch over a mesh.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
@@ -171,17 +172,19 @@ def make_train_step(diffusion: Diffusion, optimizer: AdamW, task: TrainTask,
         part = micro // parts  # this rank's rows of each microbatch
         mine = slice(part_index * part, (part_index + 1) * part) if parts > 1 else None
         loss = code_mse = img_mse = 0.0
-        for i in range(grad_accum):
-            t_i = t[i * micro:(i + 1) * micro]
-            l, aux = loss_fn(model_fn, images[i * part:(i + 1) * part],
-                             t_i if mine is None else t_i[mine], gen, micro, mine)
-            if pipeline is None:
-                l.backward()
-            else:
-                pipeline.backward(l)
-            loss = loss + l.detach()
-            code_mse = code_mse + aux["code_mse"].detach().mean()
-            img_mse = img_mse + aux["img_mse"].detach().mean()
+        # Each fsdp-cut leaf's gradient is reduce-scattered once, after every backward.
+        with layout.mesh.deferred_scatter() if layout is not None else contextlib.nullcontext():
+            for i in range(grad_accum):
+                t_i = t[i * micro:(i + 1) * micro]
+                l, aux = loss_fn(model_fn, images[i * part:(i + 1) * part],
+                                 t_i if mine is None else t_i[mine], gen, micro, mine)
+                if pipeline is None:
+                    l.backward()
+                else:
+                    pipeline.backward(l)
+                loss = loss + l.detach()
+                code_mse = code_mse + aux["code_mse"].detach().mean()
+                img_mse = img_mse + aux["img_mse"].detach().mean()
         for p in params:
             if p.grad is None:  # a leaf of the stem or head on another stage
                 p.grad = torch.zeros_like(p)

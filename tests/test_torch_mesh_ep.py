@@ -18,7 +18,9 @@
   first step's reduced router gradient is one process's; every leaf that no
   axis cuts has bit-equal gradients on every rank.
 - ``run_train`` on ``mesh.ep=2``, resumed on one process from its
-  checkpoint; ``mesh.ep`` with ``mesh.seq`` refused by name.
+  checkpoint; ``mesh.ep`` with ``mesh.pipe`` refused by name, with the JAX
+  trainer's failure (``mesh.seq`` with ``mesh.ep`` runs:
+  ``tests/test_torch_sequence.py``).
 
 Tolerances (fp32; the measured worst in brackets):
 - a mesh against one process: the loss, MSEs and grad norm 1e-6 relative
@@ -208,5 +210,11 @@ def test_run_train_on_an_ep_mesh_resumes_on_one_process(tmp_path, monkeypatch):
 
 
 def test_run_train_refuses_ep_with_seq():
-    with pytest.raises(NotImplementedError, match=r"mesh\.seq with mesh\.ep"):
+    """seq x ep is ported (tests/test_torch_sequence.py): one process refuses
+    it for want of ranks only. ep with the pipeline is refused by name, as
+    the JAX trainer fails on it."""
+    with pytest.raises(ValueError, match=r"mesh\.ep=2 x mesh\.seq=2 .*world size"):
         run_train.main(TINY + ["mesh.ep=2", "mesh.seq=2"])
+    with pytest.raises(NotImplementedError, match=r"mesh\.pipe with mesh\.ep \(the JAX "
+                       r"trainer's .*ScopeParamNotFoundError"):
+        run_train.main(TINY + ["mesh.ep=2", "mesh.pipe=2"])

@@ -439,16 +439,20 @@ def test_a_killed_rank_fails_the_other(tmp_path):
 @pytest.mark.parametrize("extra,name", [
     (["mesh.model=2"], "mesh.model"), (["mesh.fsdp=2"], "mesh.fsdp"),
     (["mesh.pipe=2"], "mesh.pipe"), (["mesh.ep=2"], "mesh.ep"), (["mesh.seq=2"], "mesh.seq"),
-    (["mesh.pipe_microbatches=4", "mesh.pipe=2", "mesh.model=2"], "mesh.pipe with mesh.model")])
+    (["mesh.pipe_microbatches=4", "mesh.pipe=2", "mesh.model=2"], "mesh.pipe with mesh.model"),
+    (["mesh.pipe=2", "mesh.seq=2"], "mesh.pipe with mesh.seq")])
 def test_run_train_refuses_the_other_mesh_axes(extra, name):
-    """Every axis of the JAX mesh is ported, and a run of one process
-    refuses each for want of ranks; the compositions the port does not run
-    (the pipeline with another axis than data) are refused by name."""
-    if " with " not in name:
-        with pytest.raises(ValueError, match=name.replace(".", r"\.") + "=2 .*world size"):
+    """Every axis of the JAX mesh is ported, and so is every composition the
+    JAX trainer runs (the pipeline with TP, say): a run of one process
+    refuses each for want of ranks. The two the JAX trainer fails on (the
+    pipeline with the ring or the experts) are refused by name, with why."""
+    if name == "mesh.pipe with mesh.seq":
+        with pytest.raises(NotImplementedError, match=r"mesh\.pipe with mesh\.seq \(the JAX "
+                           r"trainer's pipeline stage .*AttributeError"):
             run_train.main(TINY + extra)
         return
-    with pytest.raises(NotImplementedError, match=name.replace(".", r"\.")):
+    named = " x ".join(a.replace(".", r"\.") + "=2" for a in name.split(" with "))
+    with pytest.raises(ValueError, match=named + " .*world size"):
         run_train.main(TINY + extra)
 
 

@@ -6,8 +6,11 @@ matplotlib, and the port must not need PIL. A child interpreter whose import sys
 those (and ``jpdvt_mt_ntnu_tpu``) imports every module of the port (the
 training, eval, serving, ``parallel``, dataset, MoE and library modules
 included: the datasets, the eval harness and the service decode, transform
-and write their images without PIL, and the data split needs no sklearn) and
-``chip_smoke`` (without running its ``main``). Output goes to a file, not a
+and write their images without PIL, and the data split needs no sklearn; the
+reference-oracle tools ``ref_pipeline``, ``make_dit_goldens``,
+``activation_compare`` and ``parity`` keep their own copies of what they
+take from the JAX package's tools) and ``chip_smoke`` (without running its
+``main``). Output goes to a file, not a
 pipe, so a chatty child cannot block.
 """
 
@@ -23,7 +26,8 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "PIL", "sklea
            "fastapi", "uvicorn", "pydantic", "pandas", "matplotlib", "jpdvt_mt_ntnu_tpu")
 TOOLS = ("convert", "export", "bench", "sampler_table", "masked_eval_table",
          "probe_checkpoint", "bench_train", "bench_quant", "bench_serve", "metrics_report",
-         "cliff_report", "ambiguity_probe", "val_panel", "make_wave_pngdir")
+         "cliff_report", "ambiguity_probe", "val_panel", "make_wave_pngdir",
+         "ref_pipeline", "make_dit_goldens", "activation_compare", "parity")
 
 CHILD = r"""
 import importlib, sys

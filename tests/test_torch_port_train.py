@@ -461,17 +461,20 @@ def test_warm_start_resets_ema_and_rearms_warmup(tmp_path, source):
 
 
 def test_run_train_refuses_what_is_not_ported():
-    for extra in (["mesh.pipe=2", "mesh.fsdp=2"], ["mesh.seq=2", "mesh.ep=2"],
+    for extra in (["mesh.pipe=2", "mesh.seq=2"],
                   ["mesh.pipe=2", "mesh.pipe_microbatches=2", "mesh.ep=2"],
                   ["model.attn_impl=xla"]):
         with pytest.raises(NotImplementedError):
             run_train.main(TINY + extra)
     # mesh.model and mesh.fsdp with the MoE are ported (tests/test_torch_mesh_ep.py),
-    # as are mesh.ep and mesh.pipe; one process has no ranks for them.
+    # as are mesh.ep and mesh.pipe, and pipe x fsdp and seq x ep
+    # (tests/test_torch_pipeline.py, test_torch_sequence.py); one process has no
+    # ranks for them.
     for axis in ("model", "fsdp"):
         with pytest.raises(ValueError, match=f"mesh.{axis}=2 .*world size"):
             run_train.main(TINY + ["model.moe_experts=2", f"mesh.{axis}=2"])
-    for extra in (["mesh.model=2"], ["mesh.fsdp=2"], ["mesh.ep=2"], ["mesh.pipe=2"]):
+    for extra in (["mesh.model=2"], ["mesh.fsdp=2"], ["mesh.ep=2"], ["mesh.pipe=2"],
+                  ["mesh.pipe=2", "mesh.fsdp=2"], ["mesh.seq=2", "mesh.ep=2"]):
         with pytest.raises(ValueError, match="world size"):
             run_train.main(TINY + extra)
 

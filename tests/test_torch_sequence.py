@@ -13,10 +13,17 @@
   halve them and leave the loss as it is), and ``seq=2`` against the JAX
   trainer with ``attn_impl="ring"`` on 2 virtual CPU devices with the same
   weights, batches and draws.
+- The compositions (4 ranks): ``seq=2 x model=2`` (the ring on each
+  rank's 2 heads of the TP-cut qkv) and ``seq=2 x ep=2`` with the 4-expert
+  MoE (each ep rank's experts on the sequence gathered over seq) against
+  one process and the JAX ring trainer on the same composition of 4
+  virtual CPU devices, every rank; their checkpoints restore bit-equal
+  into one process.
 - The solver with the ring predicts the permutations one process does
   (``tests/test_sequence_eval.py``); ``run_eval`` on ``mesh.seq=2`` writes
   the journal the one-process ``run_eval`` writes; ``mesh.seq`` with
-  ``mesh.model`` refused by name.
+  ``mesh.model`` refused in one process for want of ranks only, with
+  ``mesh.pipe`` by name.
 
 Tolerances (fp32; the measured worst in brackets): the ring 1e-5 absolute
 and relative, as the JAX package's test (out 3.0e-7, gradient 6.6e-7); a
@@ -39,9 +46,11 @@ import torch_axes_common as common
 import torch_axes_worker as worker
 from torch_parallel_worker import launch, logs, wait_all
 from jpdvt_mt_ntnu_tpu_torch.eval import run_eval
-from jpdvt_mt_ntnu_tpu_torch.train import run_train
+from jpdvt_mt_ntnu_tpu_torch.models import create_model
+from jpdvt_mt_ntnu_tpu_torch.train import CheckpointManager, create_train_state, run_train
 
-SEQ_MESHES = ("seq2", "seq2_moe", "seq2_data2", "seq2_fsdp2")
+SEQ_MESHES = ("seq2", "seq2_moe", "seq2_data2", "seq2_fsdp2", "seq2_tp2", "seq2_ep2")
+COMPOSED = ("seq2_tp2", "seq2_ep2")  # the ring with TP's heads, with EP's experts (the MoE)
 
 
 @pytest.fixture(scope="module")
@@ -51,8 +60,10 @@ def runs(tmp_path_factory):
     procs = common.start(tmp, ["seq-2", "seq-4"])
     one = {"p8": worker.run_case("seq2", str(tmp)), "p8moe": worker.run_case("seq2_moe", str(tmp))}
     solve = worker.solve(str(tmp))
-    jax_ref = common.jax_steps("p8", params["p8"], dict(data=1, seq=2), ring=True)
-    return common.finish(tmp, procs), one, solve, jax_ref
+    jax_ref = {name: common.jax_steps(worker.MESHES[name][0], params[worker.MESHES[name][0]],
+                                      {"data": 1, **worker.MESHES[name][1]}, ring=True)
+               for name in ("seq2", *COMPOSED)}
+    return common.finish(tmp, procs), one, solve, jax_ref, tmp
 
 
 def plain_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
@@ -78,7 +89,7 @@ def test_ring_forward_and_gradient_match_plain_attention(runs, seq, suite):
 
 @pytest.mark.parametrize("mesh", SEQ_MESHES)
 def test_mesh_step_equals_one_process_step(runs, mesh):
-    ranks, one, _, _ = runs
+    ranks, one, _, _, _ = runs
     ref = one[worker.MESHES[mesh][0]]
     common.check_against_one_process(ranks[mesh], ref)
     for res in ranks[mesh]:
@@ -88,12 +99,42 @@ def test_mesh_step_equals_one_process_step(runs, mesh):
 
 
 def test_mesh_step_equals_the_jax_ring_step(runs):
-    ranks, _, _, jax_ref = runs
-    common.check_against_jax(ranks["seq2"][0], jax_ref)
+    ranks, _, _, jax_ref, _ = runs
+    common.check_against_jax(ranks["seq2"][0], jax_ref["seq2"])
+
+
+@pytest.mark.parametrize("mesh", COMPOSED)
+def test_composed_mesh_step_equals_the_jax_ring_step(runs, mesh):
+    """seq x model and seq x ep (JPDVT-MoE) against the JAX trainer with
+    ``attn_impl="ring"`` on the same composition of 4 virtual CPU devices,
+    every rank."""
+    ranks, _, _, jax_ref, _ = runs
+    for res in ranks[mesh]:
+        common.check_against_jax(res, jax_ref[mesh])
+
+
+@pytest.mark.parametrize("mesh", COMPOSED)
+def test_composed_seq_checkpoint_restores_bit_equal_into_one_process(runs, mesh):
+    """The 4-rank checkpoint holds the one-process layout (the heads joined
+    over model, the experts over ep): it restores bit-equal into one
+    process."""
+    ranks, _, _, _, tmp = runs
+    got = ranks[mesh][0]
+    name, kw = worker.MODELS[worker.MESHES[mesh][0]]
+    model, _ = create_model(name, 48, device="cpu", **kw)
+    state = CheckpointManager(str(tmp / "seq-4" / f"{mesh}_ckpt")).restore(
+        create_train_state(model))
+    assert state.step == 3 and state.opt.count == 3
+    sd = state.state_dict()
+    for part, tensors in (("model", sd["model"]), ("ema", sd["ema"]), ("mu", sd["opt"]["mu"]),
+                          ("nu", sd["opt"]["nu"])):
+        for k, v in tensors.items():
+            np.testing.assert_array_equal(v.numpy().view(np.int32),
+                                          got[f"{part}.{k}"].view(np.int32), err_msg=k)
 
 
 def test_solver_with_the_ring_predicts_what_one_process_does(runs):
-    ranks, _, solve, _ = runs
+    ranks, _, solve, _, _ = runs
     for res in ranks["seq-2"]:
         np.testing.assert_array_equal(res["solve/pred"], solve)
 
@@ -125,7 +166,12 @@ def test_run_eval_on_a_seq_mesh_writes_the_one_process_journal(tmp_path):
 
 
 def test_run_train_refuses_seq_with_model():
+    """seq x model is ported (the ``seq2_tp2`` mesh above): one process
+    refuses it for want of ranks only; seq with the pipeline is refused by
+    name, as the JAX trainer fails on it."""
     tiny = ["device=cpu", "data.synthetic_cues=waves", "model.image_size=48",
             "model.depth=2", "model.hidden_size=64", "model.num_heads=4"]
-    with pytest.raises(NotImplementedError, match=r"mesh\.seq with mesh\.model"):
+    with pytest.raises(ValueError, match=r"mesh\.seq=2 x mesh\.model=2 .*world size"):
         run_train.main(tiny + ["mesh.seq=2", "mesh.model=2"])
+    with pytest.raises(NotImplementedError, match=r"mesh\.pipe with mesh\.seq \(the JAX"):
+        run_train.main(tiny + ["mesh.seq=2", "mesh.pipe=2"])

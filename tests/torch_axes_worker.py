@@ -8,8 +8,10 @@ joins the group as torchrun's ranks do and runs every mesh of
 hidden 64, 4 heads; :data:`MODELS`) with injected draws, on the same
 global batches as ``tests/torch_parallel_worker.py``, cut by
 ``parallel/sharding.py``'s layout, writing to ``out.npz`` per mesh the
-per-step metrics, the whole state gathered after the last step and the
-first step's reduced gradients. The sequence suites also run the ring
+per-step metrics, the whole state gathered after the last step, the
+first step's reduced gradients, and its reduce-scatters beside the
+fsdp-cut leaves its backward reached. The 4-rank suites also run the
+compositions (pipe x model, pipe x fsdp, seq x model, seq x ep). The sequence suites also run the ring
 (``parallel/sequence.py``) on fixed inputs, forward and backward, and the
 seq=2 suite the solver with the ring. Every mesh holds the replicated
 leaves' gradients equal on all ranks (``DataParallel.check_replicas``).
@@ -56,19 +58,23 @@ MESHES = {
     "ep2_fsdp2": ("moe", dict(ep=2, fsdp=2), 0),
     "pipe2": ("deep", dict(pipe=2), 4),
     "pipe2_data2": ("deep", dict(pipe=2, data=2), 2),
+    "pipe2_tp2": ("deep", dict(pipe=2, model=2), 4),
+    "pipe2_fsdp2": ("deep", dict(pipe=2, fsdp=2), 2),
     "seq2": ("p8", dict(seq=2), 0),
     "seq2_moe": ("p8moe", dict(seq=2), 0),
     "seq2_data2": ("p8", dict(seq=2, data=2), 0),
     "seq2_fsdp2": ("p8", dict(seq=2, fsdp=2), 0),
+    "seq2_tp2": ("p8", dict(seq=2, model=2), 0),
+    "seq2_ep2": ("p8moe", dict(seq=2, ep=2), 0),
 }
 # suite -> (world, meshes, ring sizes, solve)
 SUITES = {
     "ep-2": (2, ("ep2", "moe_tp2", "moe_fsdp2"), (), False),
     "ep-4": (4, ("ep2_data2", "ep2_tp2", "ep2_fsdp2"), (), False),
     "pipe-2": (2, ("pipe2",), (), False),
-    "pipe-4": (4, ("pipe2_data2",), (), False),
+    "pipe-4": (4, ("pipe2_data2", "pipe2_tp2", "pipe2_fsdp2"), (), False),
     "seq-2": (2, ("seq2", "seq2_moe"), (2,), True),
-    "seq-4": (4, ("seq2_data2", "seq2_fsdp2"), (4,), False),
+    "seq-4": (4, ("seq2_data2", "seq2_fsdp2", "seq2_tp2", "seq2_ep2"), (4,), False),
 }
 RING = dict(b=2, n=24, heads=4, dim=8)
 
@@ -127,12 +133,15 @@ def run_case(mesh_name: str, weights_dir: str, dp=None, ckpt: str | None = None)
     parts, index = (layout.batch_size, layout.batch_index) if layout else (1, 0)
     rows = rank_rows(dpw.B, index, parts)
     partial = {}  # the router's gradients of the first step before the reduction
+    used = []  # the fsdp-cut leaves the first step's backward reached (the others hold zeros)
     if layout is not None:
         reduce = layout.reduce_grads_
 
         def recording(named):
-            if not partial:
+            if not used:
                 partial.update({n: g.clone() for n, g in named if is_router_leaf(n)})
+                used.append(sum(1 for n, g in named
+                                if layout.specs[n].fsdp_dim is not None and g.any()))
             reduce(named)
 
         layout.reduce_grads_ = recording
@@ -144,6 +153,7 @@ def run_case(mesh_name: str, weights_dir: str, dp=None, ckpt: str | None = None)
             out[k].append(float(metrics[k]))
         if s == 0:
             named = list(state.model.named_parameters())
+            scatters = layout.mesh.reduce_scatters if layout is not None else 0
             if dp is not None:  # the replicated leaves' gradients, bit-equal on every rank
                 dp.check_replicas([p.grad for n, p in named if not any(layout.cut_axes(n))],
                                   f"{mesh_name}: the replicated leaves' gradients")
@@ -158,6 +168,9 @@ def run_case(mesh_name: str, weights_dir: str, dp=None, ckpt: str | None = None)
         res.update({f"{part}.{k}": v.detach().numpy().copy() for k, v in sd["opt"][part].items()})
     res.update({f"grad.{k}": v.numpy() for k, v in grads.items()})
     res.update({f"partial.{k}": v.numpy() for k, v in partial.items()})
+    if layout is not None:  # the first step's reduce-scatters, and the leaves they serve
+        res["fsdp_leaves_used"] = np.asarray(used[0])
+        res["reduce_scatters"] = np.asarray(scatters)
     if ckpt is not None:
         CheckpointManager(ckpt, dp=dp).save(state)
     return res
