@@ -93,7 +93,7 @@ then the fused attention sublayer K3 and the evaluation path:
 
 ``python3 chip_smoke.py --grid20-artifact`` (the copy must then hold
 ``waves20_hard_step32700`` in place of waves3) skips the phases that read
-the waves3 artifact (3, 4, 7, 8, 15-21), warm-starts phase 11 from the artifact
+the waves3 artifact (3, 4, 7, 8, 15-22), warm-starts phase 11 from the artifact
 at step 32,700 (losses <= 1/10 of a fresh model's on the same batches and
 draws), solves the fixed set in phase 12 with the EMA model beside the
 unchanged artifact, and runs the ``run_train`` CLI at grid 20 (warm start,
@@ -133,12 +133,13 @@ under ``--grid20-artifact``):
 
 16. ``run_train`` (its CLI, each rank a subprocess of this script with
     torchrun's environment: ``--ddp-child``) warm-started from the waves3
-    artifact, 6 steps at global batch 96, bf16, on 2 ranks sharing the card
-    over gloo, on 1 process, and on 1 rank over nccl: 12 K1 + 12 K2
-    launches per rank per step, one checkpoint each, the per-step losses
-    and final EMA of 2 ranks and of 1 nccl rank against 1 process, images/s
-    side by side; two 2-rank runs of a depth-2 DiT, one stopped by SIGTERM
-    to one rank (both exit 42 at one step, one checkpoint), one whose rank 1
+    artifact, 4 steps at global batch 96, bf16, on 2 ranks sharing the card
+    over gloo, on 1 process, and on 1 rank over nccl, the three at once: 12
+    K1 + 12 K2 launches per rank per step, one checkpoint each, the
+    per-step losses and final EMA of 2 ranks and of 1 nccl rank against 1
+    process, images/s side by side (read while they share the card); two
+    2-rank runs of a depth-2 DiT, one stopped by SIGTERM to one rank (both
+    exit 42 at one step, one checkpoint), one whose rank 1
     is killed (rank 0 exits non-zero within 60 s); ``run_eval`` on 2 ranks
     over the 1,024 seed-11 waves puzzles, fast, batch 64 (the host journals
     hold each puzzle once, each equals the in-process harness of its
@@ -193,10 +194,11 @@ decode.cpp``; no libjpeg on this machine or in the port), skipped under
 then tensor parallelism and FSDP in the trainer (``parallel/sharding.py``),
 skipped under ``--grid20-artifact``:
 
-19. ``run_train`` warm-started from the waves3 artifact, 6 steps at global
+19. ``run_train`` warm-started from the waves3 artifact, 4 steps at global
     batch 96 in bf16 (phase 16's settings) on ``mesh.model=2`` and on
     ``mesh.fsdp=2``, 2 ranks sharing the card over gloo, and on one process
-    (each a subprocess): 12 K1 + 12 K2 launches per rank per step at the
+    (each a subprocess, the three at once, then the fp32 pair at once;
+    their rates read while they share the card): 12 K1 + 12 K2 launches per rank per step at the
     layout's shapes ((96, 6, 144, 64) under TP, (48, 12, 144, 64) under
     FSDP), the per-step losses within 2% and every final EMA element within
     20 lr of one process's; ``mesh.model=2`` against one process again in
@@ -212,7 +214,10 @@ skipped under ``--grid20-artifact``:
 then the last three axes of the trainer, skipped under ``--grid20-artifact``:
 
 20. on 2 ranks sharing the card over gloo, each process set one child
-    (``--runs-child``) beside one process: expert parallelism on
+    (``--runs-child``) beside one process, the EP set and the pipeline and
+    ring set at once (their rates read while they share the card), the
+    compositions' set after them with the ring's eval beside it: expert
+    parallelism on
     JPDVT-MoE (4 of its 12 blocks, 8 experts, random init, 4 steps at
     batch 96
     in bf16 on ``mesh.ep=2``; 3 each on ``mesh.model=2`` and
@@ -227,7 +232,7 @@ then the last three axes of the trainer, skipped under ``--grid20-artifact``:
     beside the layout's bytes, images/s and the transport seconds a step
     of the pipe's sends and the ring's rotations; ``run_eval`` on
     ``mesh.seq=2`` over the 16 export-smoke puzzles, fast and
-    faithful-50, its journal the one-process ``run_eval``'s, 1.00; K1 and
+    faithful-25, its journal the one-process ``run_eval``'s, 1.00; K1 and
     K2 at the pipeline's microbatch shape beside their bound, plain
     version and SDPA. Then the four compositions of axes on 4 ranks sharing
     the card (one ``--runs-child`` set of 4), 3 steps at batch 96 in bf16:
@@ -261,20 +266,42 @@ tools/``), skipped under ``--grid20-artifact``:
     ``tools.activation_compare`` on the reference ``.pt`` and its
     conversion (the reference-semantics DiT on the CPU against the port's
     DiT on the card, fp32, K1's fp32 path), each head within 2e-4; the 16
-    solved fast and faithful-50 by ``PuzzleSolver(devices=["cuda:0",
+    solved fast and faithful-25 by ``PuzzleSolver(devices=["cuda:0",
     "cuda:0"])`` (each half of a batch on a stream of its own) with one
     device's permutations, 1.00. The K1 launches of each tool are counted;
     each tool that solves in this process launches K1.
 
+then the last modules of one host, skipped under ``--grid20-artifact``:
+
+22. the JPEG features past baseline: every other fixture of
+    ``tests/golden/torch_jpeg`` (CMYK and YCCK, Motion-JPEG frames without
+    their Huffman tables, arithmetic coding, block smoothing of incomplete
+    progressive streams, lossless frames) decoded bit-equal to its
+    committed decode and to this machine's PIL; ``data.device_cache`` with
+    its rolls and flips on 2 ranks sharing the card over gloo beside one
+    process (phase 16's settings and gate, 4 steps: the losses within 2%,
+    every EMA element within 20 lr, 12 K1 + 12 K2 a rank a step, the whole
+    set cached on each rank); both demos (``examples/demo_walkthrough``,
+    ``masked_patches_demo``) on the waves3 artifact with a waves PNG,
+    faithful-250: the scramble recovered (the masked demo with no slot
+    blacked out; with its default two, fast, which the artifact, trained
+    without masks, is not held to solve, its input shows them black), the
+    panel a PNG; and
+    ``train/autoresume`` over a warm-started run of 24 steps at batch 32
+    (``--ddp-child`` processes): SIGTERMed after its first step, exit 42
+    with its checkpoint, relaunched with ``train.resume``, ending at step
+    10,024 with every step trained once.
+
 The last three lines are the ``kernels`` JSON (each kernel with the
-launches of its own path and its shape: K1 for the solve, the train step,
-the service, the 2-rank train step, the MoE train step, the TP and FSDP
-train steps, the pipeline's stages, the ep ranks and TP of the MoE, the
-pipeline's stages under TP and under FSDP, the tools, K2
-for the train step, the 2-rank one, the MoE one, the TP and FSDP ones,
-the pipeline's, the ep ranks' and TP of the MoE's, the composed
-pipelines', K3 on the eval path
-and the training route, K4, K5, K6), the card's name and power limit, and
+launches of its own path and its shape: K1 for the solve (and phase 22's
+demos), the train step (and phase 22's one-process and relaunched runs),
+the service, the 2-rank train step (and phase 22's), the MoE train step,
+the TP and FSDP train steps, the pipeline's stages, the ep ranks and TP
+of the MoE, the pipeline's stages under TP and under FSDP, the tools, K2
+for the train step, the 2-rank one (each with phase 22's as K1), the MoE
+one, the TP and FSDP ones, the pipeline's, the ep ranks' and TP of the
+MoE's, the composed pipelines', K3 on the eval path and the training
+route, K4, K5, K6), the card's name and power limit, and
 the device JSON.
 """
 
@@ -284,8 +311,10 @@ import argparse
 import base64
 import contextlib
 import dataclasses
+import io
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -294,6 +323,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -303,6 +333,7 @@ from jpdvt_mt_ntnu_tpu_torch.core.diffusion import create_diffusion
 from jpdvt_mt_ntnu_tpu_torch.data import SyntheticPuzzles, transforms
 from jpdvt_mt_ntnu_tpu_torch.eval import run_eval
 from jpdvt_mt_ntnu_tpu_torch.eval.solver import PuzzleSolver
+from jpdvt_mt_ntnu_tpu_torch.examples import demo_walkthrough, masked_patches_demo
 from jpdvt_mt_ntnu_tpu_torch.models import create_model
 from jpdvt_mt_ntnu_tpu_torch.models import dit
 from jpdvt_mt_ntnu_tpu_torch.models.moe import ExpertChoiceMoE
@@ -319,7 +350,7 @@ from jpdvt_mt_ntnu_tpu_torch.tools import (activation_compare, bench, bench_quan
                                            metrics_report, probe_checkpoint, sampler_table)
 from jpdvt_mt_ntnu_tpu_torch.tools.weights import (decode_bf16, encode_bf16, load_artifact,
                                                    read_artifact)
-from jpdvt_mt_ntnu_tpu_torch.train import (CheckpointManager, TrainTask,
+from jpdvt_mt_ntnu_tpu_torch.train import (CheckpointManager, TrainTask, autoresume,
                                            create_train_state, make_optimizer,
                                            make_train_step, run_train, steps)
 from jpdvt_mt_ntnu_tpu_torch.utils.config import Config, apply_overrides
@@ -1810,8 +1841,9 @@ def host_us(fn, reps: int = 20) -> float:
 # equal, but cuBLAS may take other algorithms at M = 48 x 144 rows than at
 # 96 x 144, which moves bf16 roundings. The per-step loss (a mean of 96
 # samples) stays within 2% of one process's; every EMA element within 20
-# lr: six AdamW updates a run, each at most ~1.4 lr an element, two runs.
-DDP_STEPS, DDP_LOSS_RTOL, DDP_EMA_ATOL = 6, 2e-2, 20 * LR
+# lr, set for six AdamW updates a run, each at most ~1.4 lr an element, two
+# runs. 4 steps a run since PR 21 (6 before), to keep the script in its time.
+DDP_STEPS, DDP_LOSS_RTOL, DDP_EMA_ATOL = 4, 2e-2, 20 * LR
 DDP_STEP_LAUNCHES = {"k1": 12, "k2": 12}  # a train step of the 12-block DiT
 K3_TRAIN_STEPS = 12
 
@@ -1975,16 +2007,18 @@ def check_ddp_train(tmp: str, card: str) -> dict:
     """Phase 16: ``run_train`` on 2 ranks sharing the card over gloo, on 1
     process, and on 1 rank over nccl; losses, EMA, launches, checkpoints."""
     end = 10000 + DDP_STEPS
+    # The three run at once (since PR 21, for the script's time): their rates
+    # are read while they share the card.
     procs = spawn_ranks(tmp, "ddp2", "train", ddp_train_args(f"{tmp}/ddp2"))
-    ranks = wait_ranks(procs)
+    nccl = spawn_ranks(tmp, "nccl1", "train", ddp_train_args(f"{tmp}/nccl1")
+                       + ["mesh.distributed=force"], world=1)
     zero_counts()
     with counting_steps() as per_step:
         code = run_train.main(ddp_train_args(f"{tmp}/one"))
+    ranks = wait_ranks(procs)
+    one_rank = wait_ranks(nccl)
     if code != 0:
         raise AssertionError(f"run_train on one process: exit {code}")
-    nccl = spawn_ranks(tmp, "nccl1", "train", ddp_train_args(f"{tmp}/nccl1")
-                       + ["mesh.distributed=force"], world=1)
-    one_rank = wait_ranks(nccl)
     want = {name: 0 for name in COUNTERS} | DDP_STEP_LAUNCHES
     for r in ranks + one_rank + [{"rank": "in-process", "per_step": per_step}]:
         if len(r["per_step"]) != DDP_STEPS or any(s != want for s in r["per_step"]):
@@ -2021,8 +2055,8 @@ def check_ddp_train(tmp: str, card: str) -> dict:
     log(f"  train images/s, 2 ranks sharing one card (gloo): "
         f"{out['ddp2']['train_images_per_s']:.1f}; 1 process: "
         f"{out['one']['train_images_per_s']:.1f}; 1 rank on nccl: "
-        f"{out['nccl1']['train_images_per_s']:.1f} (two ranks on one card say nothing "
-        "of scaling)")
+        f"{out['nccl1']['train_images_per_s']:.1f} (the three share the card at once; two "
+        "ranks on one card say nothing of scaling)")
     out["launches_k1"] = sum(s["k1"] for r in ranks for s in r["per_step"])
     out["launches_k2"] = sum(s["k2"] for r in ranks for s in r["per_step"])
     out["peak_gib"] = [r["peak_gib"] for r in ranks]
@@ -2625,14 +2659,23 @@ PHOTO_SIZES = ((1600, 1200), (2048, 1536), (1536, 2304), (2592, 1944))
 PHOTO_NOISE = 8.0  # levels of Gaussian grain: about 2 bits a pixel at quality 90, a photo's
 
 
-def check_jpeg_fixtures() -> dict:
-    """Every committed fixture decoded bit-equal to its committed libjpeg
-    decode and to this machine's PIL (an oracle only); the arithmetic-coded
-    one refused by name."""
-    from PIL import Image, __version__ as pil_version
+# The fixtures of phase 18 (baseline, extended and progressive Huffman
+# streams); phase 22 takes the rest of decodes.npz (the features past them).
+JPEG_BASELINE = ("grey_61x77", "grey_progressive_7x9", "keep_rgb_61x77",
+                 "progressive_420_333x500", "progressive_444_61x77", "q50_420_61x77",
+                 "q75_420_1x1", "q75_420_333x500", "q75_420_7x9", "q75_422_61x77",
+                 "q75_444_7x9", "q95_444_61x77", "qtables16_61x77", "restart_420_61x77",
+                 "restart_progressive_422_61x77", "s411_61x77", "s411_progressive_7x9",
+                 "s440_61x77", "s440_progressive_61x77")
+
+
+def check_jpeg_fixtures(names=JPEG_BASELINE) -> dict:
+    """The committed fixtures ``names`` decoded bit-equal to their committed
+    libjpeg decodes and to this machine's PIL (an oracle only)."""
+    from PIL import Image, __version__ as pil_version, features
 
     with np.load(os.path.join(JPEG_GOLDEN, "decodes.npz")) as z:
-        want = dict(z)
+        want = {name: z[name] for name in names}
     differ = {}
     for name, ref in sorted(want.items()):
         path = os.path.join(JPEG_GOLDEN, f"{name}.jpg")
@@ -2642,19 +2685,13 @@ def check_jpeg_fixtures() -> dict:
         counts_ = [int((got != r).sum()) if got.shape == r.shape else -1 for r in (ref, pil)]
         if counts_ != [0, 0]:
             differ[name] = counts_
-    try:
-        with open(os.path.join(JPEG_GOLDEN, "arithmetic_61x77.jpg"), "rb") as f:
-            native.decode_rgb(f.read())
-    except native.NotPortedError as e:
-        refused = str(e)
-    else:
-        raise AssertionError("the arithmetic-coded fixture was decoded")
-    out = {"fixtures": len(want), "pil": pil_version, "differing": differ,
-           "arithmetic": refused}
-    log(f"  JPEG fixtures against their libjpeg decodes and PIL {pil_version}: "
-        + json.dumps(out))
-    if differ or "arithmetic" not in refused:
-        raise AssertionError(f"JPEG fixtures: {differ}, {refused!r}")
+    libjpeg = features.version("libjpeg_turbo")
+    out = {"fixtures": len(want), "pil": pil_version, "pil_libjpeg_turbo": libjpeg,
+           "differing": differ}
+    log(f"  JPEG fixtures against their libjpeg decodes and PIL {pil_version} "
+        f"(libjpeg-turbo {libjpeg}): " + json.dumps(out))
+    if differ:
+        raise AssertionError(f"JPEG fixtures: {differ}")
     return out
 
 
@@ -2814,7 +2851,7 @@ def jpeg_grid3(card: str) -> dict:
 # ------------------------------------------------------------------ phase 19
 
 # The JPDVT flagship at full width on 2 ranks sharing the card over gloo,
-# warm-started from the waves3 artifact, 6 steps at global batch 96 in bf16,
+# warm-started from the waves3 artifact, 4 steps at global batch 96 in bf16,
 # against one process. mesh.fsdp=2 cuts the batch as phase 16's DDP does, so
 # phase 16's bounds hold: 2% of the loss, 20 lr on every EMA element.
 # mesh.model=2 keeps the whole batch on each rank and sums the partial
@@ -2839,6 +2876,10 @@ MESH_RUNS = {"tp2": (["mesh.model=2"], 2, TP_SHAPE, DDP_STEPS),
              "one": ([], 1, ONE_SHAPE, DDP_STEPS),
              "tp2_fp32": (["mesh.model=2", *FP32], 2, TP_SHAPE, FP32_STEPS),
              "one_fp32": (FP32, 1, ONE_SHAPE, FP32_STEPS)}
+# The process sets in two waves, each wave's sets sharing the card at once
+# (since PR 21, for the script's time: their rates are read while they
+# share it; the gates are numeric).
+MESH_GROUPS = (("tp2", "fsdp2", "one"), ("tp2_fp32", "one_fp32"))
 FP32_LOSS_RTOL, FP32_EMA_ATOL = 2e-5, 1e-5
 # each 2-rank run -> (its one-process reference, loss rtol, EMA atol)
 MESH_REFS = {"tp2": ("one", DDP_LOSS_RTOL, DDP_EMA_ATOL),
@@ -2888,37 +2929,42 @@ def check_mesh_train(tmp: str, card: str) -> dict:
     checkpoint restored bit-equal into one process."""
     out: dict = {}
     want_step = {name: 0 for name in COUNTERS} | DDP_STEP_LAUNCHES
-    for name, (extra, world, shape, steps) in MESH_RUNS.items():
+    for names in MESH_GROUPS:
         t0 = time.perf_counter()
         # One process is a child too: its peak memory is its own.
-        ranks = wait_ranks(spawn_ranks(tmp, name, "train",
-                                       ddp_train_args(f"{tmp}/{name}") + extra, world=world),
-                           900)
-        out[name] = {"wall_s": time.perf_counter() - t0}
-        for r in ranks:
-            if len(r["per_step"]) != steps or any(s != want_step for s in r["per_step"]):
-                raise AssertionError(f"{name} rank {r['rank']}: launches per step "
-                                     f"{r['per_step']}, expected {steps} x {want_step}")
-            # Every step's launches at the layout's shape (K1 also runs in the
-            # final validation, at its own batch; K2 only in the steps).
-            at = 12 * steps
-            if r["shapes"]["k1"].get(shape) != at or r["shapes"]["k2"] != {shape: at}:
-                raise AssertionError(f"{name} rank {r['rank']}: K1/K2 launch shapes "
-                                     f"{r['shapes']}, expected {at} each at {shape}")
-        losses, group, summary = run_metrics(f"{tmp}/{name}")
-        ckpts = CheckpointManager(f"{tmp}/{name}/checkpoints").all_steps()
-        if ckpts != [10000 + steps] or len(losses) != steps or not np.all(np.isfinite(losses)):
-            raise AssertionError(f"{name}: checkpoints {ckpts}, losses {losses}")
-        model_axis = 2 if "mesh.model=2" in extra else 1
-        fsdp = 2 if "mesh.fsdp=2" in extra else 1
-        out[name] |= {"losses": losses, "backend": group["process_backend"],
-                      "world": group["process_world_size"],
-                      "train_images_per_s": summary["train_images_per_s"],
-                      "loop_s": summary["loop_s"], "val": summary.get("val_puzzle_acc"),
-                      "peak_gib": [r["peak_gib"] for r in ranks],
-                      "launches": {k: sum(r["launches"][k] for r in ranks) for k in ("k1", "k2")},
-                      "shapes": ranks[0]["shapes"],
-                      "predicted": layout_bytes({"model": model_axis, "fsdp": fsdp})}
+        started = {name: spawn_ranks(tmp, name, "train", ddp_train_args(f"{tmp}/{name}")
+                                     + MESH_RUNS[name][0], world=MESH_RUNS[name][1])
+                   for name in names}
+        for name in names:
+            extra, world, shape, steps = MESH_RUNS[name]
+            ranks = wait_ranks(started[name], 900)
+            out[name] = {"wall_s": time.perf_counter() - t0}
+            for r in ranks:
+                if len(r["per_step"]) != steps or any(s != want_step for s in r["per_step"]):
+                    raise AssertionError(f"{name} rank {r['rank']}: launches per step "
+                                         f"{r['per_step']}, expected {steps} x {want_step}")
+                # Every step's launches at the layout's shape (K1 also runs in the
+                # final validation, at its own batch; K2 only in the steps).
+                at = 12 * steps
+                if r["shapes"]["k1"].get(shape) != at or r["shapes"]["k2"] != {shape: at}:
+                    raise AssertionError(f"{name} rank {r['rank']}: K1/K2 launch shapes "
+                                         f"{r['shapes']}, expected {at} each at {shape}")
+            losses, group, summary = run_metrics(f"{tmp}/{name}")
+            ckpts = CheckpointManager(f"{tmp}/{name}/checkpoints").all_steps()
+            if (ckpts != [10000 + steps] or len(losses) != steps
+                    or not np.all(np.isfinite(losses))):
+                raise AssertionError(f"{name}: checkpoints {ckpts}, losses {losses}")
+            model_axis = 2 if "mesh.model=2" in extra else 1
+            fsdp = 2 if "mesh.fsdp=2" in extra else 1
+            out[name] |= {"losses": losses, "backend": group["process_backend"],
+                          "world": group["process_world_size"],
+                          "train_images_per_s": summary["train_images_per_s"],
+                          "loop_s": summary["loop_s"], "val": summary.get("val_puzzle_acc"),
+                          "peak_gib": [r["peak_gib"] for r in ranks],
+                          "launches": {k: sum(r["launches"][k] for r in ranks)
+                                       for k in ("k1", "k2")},
+                          "shapes": ranks[0]["shapes"],
+                          "predicted": layout_bytes({"model": model_axis, "fsdp": fsdp})}
     for name, (ref, loss_rtol, ema_atol) in MESH_REFS.items():
         end = 10000 + MESH_RUNS[name][3]
         ema, ema_ref = final_ema(f"{tmp}/{name}", end), final_ema(f"{tmp}/{ref}", end)
@@ -3274,81 +3320,110 @@ def mesh_axes(argv: list[str]) -> dict:
             if a.split("=")[0] in ("mesh.model", "mesh.fsdp", "mesh.ep", "mesh.pipe")}
 
 
-def check_axes_train(tmp: str, card: str) -> dict:
+# Phase 20's process sets in waves (since PR 21, for the script's time):
+# the ep and pipe_seq sets are independent and start together; the compose
+# set reads their references' EMA and starts after them, with the ring's
+# eval beside it. The sets' rates are read while they share the card.
+AXES_WAVES = (("ep", "pipe_seq"), ("compose",))
+
+
+def start_axes_set(tmp: str, group: str, world: int, runs: dict) -> tuple:
+    """A process set of :func:`axes_plans` started: (start time, ranks)."""
+    plan_path = os.path.join(tmp, f"{group}.plan.json")
+    with open(plan_path, "w") as f:
+        json.dump([[name, dataclasses.asdict(run)] for name, run in runs.items()], f)
+    t0 = time.perf_counter()
+    port, procs = free_port(), []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        base = os.path.join(tmp, f"{group}.{r}")
+        with open(base + ".log", "w") as f:
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--runs-child",
+                 base + ".json", plan_path], cwd=REPO, env=env, stdout=f,
+                stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL), base))
+    return t0, procs
+
+
+def check_axes_train(tmp: str, card: str, beside=None) -> tuple[dict, object]:
     """Phase 20's training runs: every process set of :func:`axes_plans`,
     the launches a step at their shapes, the losses against each run's
-    reference, the EMA and restore results of rank 0."""
+    reference, the EMA and restore results of rank 0; and what ``beside()``
+    returns, called once the last wave has started."""
     out: dict = {}
-    for group, (world, runs) in axes_plans(tmp).items():
-        plan_path = os.path.join(tmp, f"{group}.plan.json")
-        with open(plan_path, "w") as f:
-            json.dump([[name, dataclasses.asdict(run)] for name, run in runs.items()], f)
-        t0 = time.perf_counter()
-        port, procs = free_port(), []
-        for r in range(world):
-            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
-                       LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
-                       MASTER_PORT=str(port))
-            base = os.path.join(tmp, f"{group}.{r}")
-            with open(base + ".log", "w") as f:
-                procs.append((subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__), "--runs-child",
-                     base + ".json", plan_path], cwd=REPO, env=env, stdout=f,
-                    stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL), base))
-        ranks = wait_ranks(procs, 900)
-        out[f"{group}_s"] = time.perf_counter() - t0
-        log(f"  phase 20 {group} ({world} ranks): {out[f'{group}_s']:.2f} s")
-        for i, (name, run) in enumerate(runs.items()):
-            want = NO_LAUNCH | run.launches
-            rows = [r["runs"][i] for r in ranks if "exit" in r["runs"][i]]
-            for row in rows:
-                if row["exit"] != 0 or len(row["per_step"]) != run.steps or any(
-                        s != want for s in row["per_step"]):
-                    raise AssertionError(f"{name}: exit {row['exit']}, launches per step "
-                                         f"{row['per_step']}, expected {run.steps} x {want}")
-                for k, n in run.launches.items():  # every step's at the layout's shape
-                    if row["shapes"][k].get(run.shape, 0) < n * run.steps:
-                        raise AssertionError(f"{name}: {k} launch shapes {row['shapes'][k]}, "
-                                             f"expected {n * run.steps} at {run.shape}")
-            exp = next(a.split("=", 1)[1] for a in run.argv if a.startswith("train.exp_dir="))
-            losses, group_row, summary = run_metrics(exp)
-            if len(losses) != run.steps or not np.all(np.isfinite(losses)):
-                raise AssertionError(f"{name}: losses {losses}")
-            first = ranks[0]["runs"][i]
-            moved = [sum(s["seconds"] for s in row["transport"]) / run.steps for row in rows]
-            out[name] = {"losses": losses, "world": group_row["process_world_size"],
-                         "backend": group_row["process_backend"],
-                         "train_images_per_s": summary["train_images_per_s"],
-                         "loop_s": summary["loop_s"], "val": summary.get("val_puzzle_acc"),
-                         "wall_s": rows[0]["wall_s"], "peak_gib": [r["peak_gib"] for r in rows],
-                         "transport_s_per_step": moved,
-                         "transport_mb_per_step": [
-                             sum(s["bytes"] for s in row["transport"]) / run.steps / 1e6
-                             for row in rows],
-                         "launches": {k: sum(row["launches"][k] for row in rows)
-                                      for k in COUNTERS},
-                         "shapes": rows[0]["shapes"],
-                         "predicted": layout_bytes(
-                             mesh_axes(run.argv),
-                             "JPDVT-MoE" if "model.name=JPDVT-MoE" in run.argv else "JPDVT",
-                             apply_overrides(Config(), run.argv).model.depth),
-                         **{k: first[k] for k in ("ema_max_abs_diff", "ema_mean_abs_diff",
-                                                  "restored_bit_equal", "ckpt_step")
-                            if k in first}}
-            if run.ref is None:
-                continue
-            ref = out[run.ref]["losses"][:run.steps]
-            rel = np.abs(np.array(losses) / np.array(ref) - 1)
-            out[name] |= {"reference": run.ref, "loss_rel_diff": rel.tolist(),
-                          "loss_max_rel_diff": float(rel.max())}
-            ema = out[name].get("ema_max_abs_diff")
-            if not (rel.max() <= run.loss_rtol
-                    and (run.ema_atol is None or ema is not None and ema <= run.ema_atol)
-                    and out[name].get("restored_bit_equal", True)):
-                raise AssertionError(f"{name} against {run.ref}: loss rel {rel.tolist()} "
-                                     f"(limit {run.loss_rtol}), EMA {ema} (limit "
-                                     f"{run.ema_atol}), restored bit-equal "
-                                     f"{out[name].get('restored_bit_equal')}")
+    plans = axes_plans(tmp)
+    beside_out = None
+    for w, wave in enumerate(AXES_WAVES):
+        started = {group: start_axes_set(tmp, group, *plans[group]) for group in wave}
+        if beside is not None and w == len(AXES_WAVES) - 1:
+            beside_out = beside()
+        for group in wave:
+            world, runs = plans[group]
+            t0, procs = started[group]
+            ranks = wait_ranks(procs, 900)
+            out[f"{group}_s"] = time.perf_counter() - t0
+            log(f"  phase 20 {group} ({world} ranks): {out[f'{group}_s']:.2f} s")
+            for i, (name, run) in enumerate(runs.items()):
+                want = NO_LAUNCH | run.launches
+                rows = [r["runs"][i] for r in ranks if "exit" in r["runs"][i]]
+                for row in rows:
+                    if row["exit"] != 0 or len(row["per_step"]) != run.steps or any(
+                            s != want for s in row["per_step"]):
+                        raise AssertionError(f"{name}: exit {row['exit']}, launches per "
+                                             f"step {row['per_step']}, expected "
+                                             f"{run.steps} x {want}")
+                    for k, n in run.launches.items():  # every step's at the layout's shape
+                        if row["shapes"][k].get(run.shape, 0) < n * run.steps:
+                            raise AssertionError(f"{name}: {k} launch shapes "
+                                                 f"{row['shapes'][k]}, expected "
+                                                 f"{n * run.steps} at {run.shape}")
+                exp = next(a.split("=", 1)[1] for a in run.argv
+                           if a.startswith("train.exp_dir="))
+                losses, group_row, summary = run_metrics(exp)
+                if len(losses) != run.steps or not np.all(np.isfinite(losses)):
+                    raise AssertionError(f"{name}: losses {losses}")
+                first = ranks[0]["runs"][i]
+                moved = [sum(s["seconds"] for s in row["transport"]) / run.steps
+                         for row in rows]
+                out[name] = {"losses": losses, "world": group_row["process_world_size"],
+                             "backend": group_row["process_backend"],
+                             "train_images_per_s": summary["train_images_per_s"],
+                             "loop_s": summary["loop_s"], "val": summary.get("val_puzzle_acc"),
+                             "wall_s": rows[0]["wall_s"],
+                             "peak_gib": [r["peak_gib"] for r in rows],
+                             "transport_s_per_step": moved,
+                             "transport_mb_per_step": [
+                                 sum(s["bytes"] for s in row["transport"]) / run.steps / 1e6
+                                 for row in rows],
+                             "launches": {k: sum(row["launches"][k] for row in rows)
+                                          for k in COUNTERS},
+                             "shapes": rows[0]["shapes"],
+                             "predicted": layout_bytes(
+                                 mesh_axes(run.argv),
+                                 "JPDVT-MoE" if "model.name=JPDVT-MoE" in run.argv else "JPDVT",
+                                 apply_overrides(Config(), run.argv).model.depth),
+                             **{k: first[k] for k in ("ema_max_abs_diff",
+                                                      "ema_mean_abs_diff",
+                                                      "restored_bit_equal", "ckpt_step")
+                                if k in first}}
+                if run.ref is None:
+                    continue
+                ref = out[run.ref]["losses"][:run.steps]
+                rel = np.abs(np.array(losses) / np.array(ref) - 1)
+                out[name] |= {"reference": run.ref, "loss_rel_diff": rel.tolist(),
+                              "loss_max_rel_diff": float(rel.max())}
+                ema = out[name].get("ema_max_abs_diff")
+                if not (rel.max() <= run.loss_rtol
+                        and (run.ema_atol is None
+                             or ema is not None and ema <= run.ema_atol)
+                        and out[name].get("restored_bit_equal", True)):
+                    raise AssertionError(f"{name} against {run.ref}: loss rel "
+                                         f"{rel.tolist()} "
+                                         f"(limit {run.loss_rtol}), EMA {ema} (limit "
+                                         f"{run.ema_atol}), restored bit-equal "
+                                         f"{out[name].get('restored_bit_equal')}")
     runs = {k: v for k, v in out.items() if isinstance(v, dict)}
     for name, row in runs.items():
         log(f"  {name} on {card}: losses {row['losses']}, peak GiB per rank {row['peak_gib']} "
@@ -3357,7 +3432,7 @@ def check_axes_train(tmp: str, card: str) -> dict:
             f"{row['transport_s_per_step']} ({row['transport_mb_per_step']} MB)")
     log("  axes runs: " + json.dumps({k: {x: y for x, y in v.items() if x != "losses"}
                                        for k, v in runs.items()}))
-    return out
+    return out, beside_out
 
 
 def seq_eval_args(logs: str, mode: str, *extra: str) -> list[str]:
@@ -3370,38 +3445,45 @@ def seq_eval_args(logs: str, mode: str, *extra: str) -> list[str]:
             f"eval.logs_dir={logs}", *extra]
 
 
-# The faithful chain of the ring's eval: 50 steps, to keep the whole script
-# well inside its time limit; faithful gives the fast solve's permutations
-# at any step count, so 50 rotations a block test what 250 would.
-SEQ_EVAL_STEPS = 50
+# The faithful chain of the ring's eval (and of phase 21's split solver): 25
+# steps (50 before PR 21, 250 before PR 19), to keep the whole script inside
+# its time; faithful gives the fast solve's permutations at any step count,
+# so 25 rotations a block test what 250 would.
+SEQ_EVAL_STEPS = 25
 
 
 def check_seq_eval(tmp: str) -> dict:
     """``run_eval`` on ``mesh.seq=2`` (2 ranks sharing the card) against
-    ``run_eval`` in this process, fast and faithful-50: the same journal
-    rows, accuracy 1.00, no K1 launch on the ring's ranks."""
+    ``run_eval`` in this process, fast and faithful-25: the same journal
+    rows, accuracy 1.00, no K1 launch on the ring's ranks. Both modes' ring
+    runs start at once, beside this process's own (since PR 21, for the
+    script's time): their seconds are read while they share the card."""
     out = {}
-    for mode in ("fast", "faithful"):
+    modes = ("fast", "faithful")
+    t_start = time.perf_counter()
+    started = {mode: spawn_ranks(tmp, f"seq_eval_{mode}", "eval", seq_eval_args(
+        f"{tmp}/eval_seq_{mode}", mode, "mesh.seq=2")) for mode in modes}
+    one_k1, one_s = {}, {}
+    for mode in modes:
         t0 = time.perf_counter()
         zero_counts()
         run_eval.main(seq_eval_args(f"{tmp}/eval_one_{mode}", mode))
-        one_launches = counts()["k1"]
-        t1 = time.perf_counter()
-        ranks = wait_ranks(spawn_ranks(tmp, f"seq_eval_{mode}", "eval", seq_eval_args(
-            f"{tmp}/eval_seq_{mode}", mode, "mesh.seq=2")), 600)
-        t2 = time.perf_counter()
+        one_k1[mode], one_s[mode] = counts()["k1"], time.perf_counter() - t0
+    for mode in modes:
+        ranks = wait_ranks(started[mode], 600)
+        seq_s = time.perf_counter() - t_start
         one = journal_list(os.path.join(tmp, f"eval_one_{mode}", EVAL_JOURNALS[0]))
         seq = journal_list(os.path.join(tmp, f"eval_seq_{mode}", EVAL_JOURNALS[0]))
         written = sorted(os.listdir(os.path.join(tmp, f"eval_seq_{mode}")))
         acc = sum(r[1] for r in seq) / max(1, len(seq))
         out[mode] = {"rows": len(seq), "puzzle_acc": acc, "same_rows": seq == one,
-                     "one_s": t1 - t0, "seq_s": t2 - t1, "one_k1": one_launches,
+                     "one_s": one_s[mode], "seq_s_from_start": seq_s, "one_k1": one_k1[mode],
                      "seq_k1": [r["launches"]["k1"] for r in ranks],
                      "journals": [w for w in written if w.endswith(".csv")]}
         log(f"  run_eval mesh.seq=2 {mode}: " + json.dumps(out[mode]))
         if not (len(seq) == 16 and seq == one and acc == 1.0
                 and out[mode]["journals"] == [EVAL_JOURNALS[0]]
-                and all(k == 0 for k in out[mode]["seq_k1"]) and one_launches > 0):
+                and all(k == 0 for k in out[mode]["seq_k1"]) and one_k1[mode] > 0):
             raise AssertionError(f"run_eval mesh.seq=2 {mode}: {out[mode]}")
     return out
 
@@ -3412,10 +3494,15 @@ def axes_grid3(card: str, gen: torch.Generator) -> dict:
     torch.cuda.empty_cache()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        out["train"] = check_axes_train(tmp, card)
-        t0 = time.perf_counter()
-        out["eval"] = check_seq_eval(tmp)
-        log(f"phase 20 seq eval: {time.perf_counter() - t0:.2f} s")
+
+        def seq_eval():
+            t0 = time.perf_counter()
+            result = check_seq_eval(tmp)
+            log(f"phase 20 seq eval (beside the compose set): "
+                f"{time.perf_counter() - t0:.2f} s")
+            return result
+
+        out["train"], out["eval"] = check_axes_train(tmp, card, beside=seq_eval)
     # K1 and K2 at the pipeline's microbatch shape, against their plain
     # versions, timed by CUDA events beside their bound and SDPA.
     out["k1_pipe"] = check_k1(TRAIN_BATCH // PIPE_MICRO, TOKENS, torch.bfloat16, gen,
@@ -3492,7 +3579,7 @@ def check_activation_compare(tmp: str, step: int) -> dict:
 
 
 def check_split_solver(model, cfg, template, x16, perms16, base) -> dict:
-    """The 16 solved fast and faithful-50 (the ring eval's steps) by
+    """The 16 solved fast and faithful-25 (the ring eval's steps) by
     ``PuzzleSolver(devices=["cuda:0", "cuda:0"])``, each half of the batch
     on a stream of its own: one device's permutations, 1.00."""
     out = {}
@@ -3646,6 +3733,208 @@ def tools_grid3(card: str, gen: torch.Generator) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 22
+# data.device_cache on 2 ranks sharing the card beside one process, phase
+# 16's settings (the waves3 artifact warm-started, batch 96, bf16) and its
+# gate, 4 steps: each rank caches the 384 images and takes its rows.
+CACHE_STEPS = 4
+# The demos' waves image (the artifact's regime, which it solves at 1.00).
+DEMO_SEED = 5
+# autoresume: a warm-started run of 24 steps at batch 32, SIGTERMed after
+# its first step, relaunched: no step lost or repeated.
+RESUME_STEPS, RESUME_BATCH = 24, 32
+
+
+def cache_train_args(exp: str) -> list[str]:
+    return ["data.synthetic_cues=waves", "data.device_cache=true",
+            "data.device_cache_augment=true", f"data.synthetic_hard_frac={HARD_FRAC}",
+            f"data.global_batch_size={TRAIN_BATCH}",
+            f"data.synthetic_n={TRAIN_BATCH * CACHE_STEPS}", "train.epochs=1",
+            f"train.t_bias={T_BIAS}", "train.ema_warmup=true", "train.log_every=1",
+            "train.ckpt_every=1000000", "diffusion.sampler_mode=fast",
+            f"train.warm_start={ARTIFACT}", f"train.exp_dir={exp}"]
+
+
+def check_device_cache(tmp: str, card: str) -> dict:
+    """``data.device_cache`` (with its rolls and flips) on 2 ranks sharing
+    the card over gloo and on one process: 12 K1 + 12 K2 a rank a step, the
+    losses and EMA within phase 16's bounds, the whole set on each card."""
+    end = 10000 + CACHE_STEPS
+    procs = spawn_ranks(tmp, "cache2", "train", cache_train_args(f"{tmp}/cache2"))
+    zero_counts()  # the one process runs while the ranks start
+    with counting_steps() as per_step:
+        code = run_train.main(cache_train_args(f"{tmp}/cache1"))
+    ranks = wait_ranks(procs)
+    if code != 0:
+        raise AssertionError(f"run_train with data.device_cache on one process: exit {code}")
+    want = {name: 0 for name in COUNTERS} | DDP_STEP_LAUNCHES
+    for r in ranks + [{"rank": "in-process", "per_step": per_step}]:
+        if len(r["per_step"]) != CACHE_STEPS or any(s != want for s in r["per_step"]):
+            raise AssertionError(f"rank {r['rank']}: launches per step {r['per_step']}, "
+                                 f"expected {CACHE_STEPS} x {want}")
+    out = {}
+    for name in ("cache2", "cache1"):
+        losses, group, summary = run_metrics(f"{tmp}/{name}")
+        steps = CheckpointManager(f"{tmp}/{name}/checkpoints").all_steps()
+        cached = f"device-cached dataset: ({TRAIN_BATCH * CACHE_STEPS}, 192, 192, 3)"
+        with open(f"{tmp}/{name}/log.txt") as f:
+            logged = cached in f.read()
+        if steps != [end] or len(losses) != CACHE_STEPS or not logged:
+            raise AssertionError(f"{name}: checkpoints {steps}, losses {losses}, "
+                                 f"cache logged {logged}")
+        out[name] = {"losses": losses, "backend": group["process_backend"],
+                     "world": group["process_world_size"],
+                     "train_images_per_s": summary["train_images_per_s"]}
+    if (out["cache2"]["backend"], out["cache2"]["world"]) != ("gloo", 2):
+        raise AssertionError(f"backends {out}")
+    loss_rel = float(np.max(np.abs(np.array(out["cache2"]["losses"])
+                                   / np.array(out["cache1"]["losses"]) - 1)))
+    ema = {name: final_ema(f"{tmp}/{name}", end) for name in ("cache2", "cache1")}
+    diffs = torch.cat([(ema["cache2"][k].float() - w.float()).abs().ravel()
+                       for k, w in ema["cache1"].items()])
+    out |= {"loss_max_rel_diff": loss_rel, "ema_max_abs_diff": diffs.max().item(),
+            "peak_gib": [r["peak_gib"] for r in ranks],
+            "launches_k1": sum(s["k1"] for r in ranks for s in r["per_step"]),
+            "launches_k2": sum(s["k2"] for r in ranks for s in r["per_step"]),
+            "one_process_launches": {k: sum(s[k] for s in per_step) for k in ("k1", "k2")}}
+    log(f"  device_cache on 2 ranks and 1 process on {card}: " + json.dumps(out))
+    if not (loss_rel <= DDP_LOSS_RTOL and diffs.max().item() <= DDP_EMA_ATOL):
+        raise AssertionError(f"device_cache on 2 ranks against one process: loss rel "
+                             f"{loss_rel} (limit {DDP_LOSS_RTOL}), EMA {diffs.max().item()} "
+                             f"(limit {DDP_EMA_ATOL})")
+    return out
+
+
+def check_demos(tmp: str) -> dict:
+    """Both demos on the waves3 artifact with a waves image written as a
+    PNG: the walk-through and the masked demo with no slot blacked out
+    (default mode, faithful-250) recover the scramble; with its default
+    slots 0 and 4 blacked out (fast: the artifact, trained without masks,
+    is not held to solve it) the masked demo's input shows them black.
+    Each panel a PNG of original | input | reconstruction."""
+    png = os.path.join(tmp, "waves.png")
+    write_png(png, np.round((SyntheticPuzzles(192, n=1, seed=DEMO_SEED)[0] + 1.0) * 127.5)
+              .clip(0, 255).astype(np.uint8))
+    out = {}
+    for name, module, extra in (("walkthrough", demo_walkthrough, []),
+                                ("masked_none", masked_patches_demo, ["--skip"]),
+                                ("masked_0_4", masked_patches_demo, ["--mode", "fast"])):
+        panel = os.path.join(tmp, f"{name}.png")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            code = module.main(["--image", png, "--checkpoint", ARTIFACT, "--seed",
+                                str(DEMO_SEED), "--out", panel, *extra])
+        text = buf.getvalue()
+        perm = json.loads(re.search(r"permutation: +(\[.*\])", text).group(1))
+        pred = json.loads(re.search(r"predicted(?: slots)?: +(\[.*\])", text).group(1))
+        with open(panel, "rb") as f:
+            img = native.png_pixels(f.read())
+        middle = img[:, 192 + 8:2 * 192 + 8]
+        black = [int((middle[64 * (s // 3):64 * (s // 3 + 1), 64 * (s % 3):64 * (s % 3 + 1)]
+                      == 127).all()) for s in (0, 4)]
+        out[name] = {"exit": code, "permutation": perm, "predicted": pred,
+                     "pieces_right": int(sum(a == b for a, b in zip(perm, pred))),
+                     "panel": list(img.shape), "slots_0_4_black": black,
+                     "s": time.perf_counter() - t0}
+        ok = code == 0 and img.shape == (192, 3 * 192 + 16, 3)
+        ok = ok and (black == [1, 1] if name == "masked_0_4" else pred == perm)
+        if not ok:
+            raise AssertionError(f"the {name} demo: {out[name]}\n{text}")
+    log("  demos: " + json.dumps(out))
+    return out
+
+
+def check_autoresume(tmp: str) -> dict:
+    """``train.autoresume`` over a warm-started run (``--ddp-child``
+    processes, so that their launches are counted): SIGTERM after its first
+    step, exit 42 with a checkpoint, a relaunch that resumes from it, and
+    the run's final step, every step once."""
+    exp = f"{tmp}/resume"
+    args = ["data.synthetic_cues=waves", "data.device_stream=true",
+            f"data.global_batch_size={RESUME_BATCH}",
+            f"data.synthetic_n={RESUME_BATCH * RESUME_STEPS}", "train.epochs=1",
+            "train.log_every=1", "train.ckpt_every=1000000", "diffusion.sampler_mode=fast",
+            f"train.warm_start={ARTIFACT}"]
+    procs = []
+
+    def sigterm_after_first_step(proc):
+        metrics = os.path.join(exp, "metrics.jsonl")
+        deadline = time.time() + 300
+        while proc.poll() is None and time.time() < deadline:
+            if os.path.exists(metrics) and "train_loss" in open(metrics).read():
+                proc.send_signal(signal.SIGTERM)
+                return
+            time.sleep(0.02)
+
+    def launch(run_args):
+        base = os.path.join(tmp, f"resume.{len(procs)}")
+        with open(base + ".log", "w") as f:
+            proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ddp-child",
+                                     base + ".json", "train", *run_args], cwd=REPO, stdout=f,
+                                    stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL)
+        if not procs:
+            threading.Thread(target=sigterm_after_first_step, args=(proc,), daemon=True).start()
+        procs.append((proc, base))
+        return proc
+
+    said = []  # the wrapper's lines, logged by the caller (this runs in a thread)
+    t0 = time.perf_counter()
+    code = autoresume.supervise(exp, args, launch=launch, log=said.append)
+    runs = [json.load(open(b + ".json")) for _, b in procs if os.path.exists(b + ".json")]
+    end = 10000 + RESUME_STEPS
+    steps = CheckpointManager(f"{exp}/checkpoints").all_steps()
+    trained = [len(r["per_step"]) for r in runs]
+    out = {"exit": code, "attempts": [r["exit"] for r in runs], "steps_per_attempt": trained,
+           "checkpoints": steps, "s": time.perf_counter() - t0,
+           "launches": {k: sum(s[k] for r in runs for s in r["per_step"]) for k in ("k1", "k2")}}
+    if (code != 0 or out["attempts"] != [run_train.PREEMPTED_EXIT, 0] or steps[-1] != end
+            or sum(trained) != RESUME_STEPS or not 0 < trained[0] < RESUME_STEPS):
+        raise AssertionError(f"autoresume: {out}\n" + "\n".join(said) + "\n"
+                             + "\n".join(tail(b + ".log") for _, b in procs))
+    out["said"] = said
+    return out
+
+
+def entry_points_grid3(card: str, gen: torch.Generator) -> dict:
+    """Phase 22: the JPEG features past baseline, ``data.device_cache`` on
+    2 ranks, the demos and the relaunch wrapper."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with np.load(os.path.join(JPEG_GOLDEN, "decodes.npz")) as z:
+        features = tuple(sorted(set(z.files) - set(JPEG_BASELINE)))
+    out = {"jpeg": check_jpeg_fixtures(features)}
+    log(f"  phase 22 JPEG: {time.perf_counter() - t0:.2f} s")
+    # autoresume's runs are child processes, counted by their own JSON: they
+    # share the card with the device_cache runs and the demos, whose
+    # in-process launches the counters read, so none of these runs' rates is
+    # a throughput measurement.
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
+        t0 = time.perf_counter()
+        resumed = pool.submit(check_autoresume, tmp)
+        out["device_cache"] = check_device_cache(tmp, card)
+        log(f"  phase 22 device_cache: {time.perf_counter() - t0:.2f} s")
+        zero_counts()
+        out["demos"] = check_demos(tmp)
+        out["demos"]["launches"] = counts()
+        out["autoresume"] = resumed.result()
+        for line in out["autoresume"].pop("said"):
+            log(f"  {line}")
+        log("  autoresume: " + json.dumps(out["autoresume"]))
+        log(f"  phase 22 autoresume (beside them): {time.perf_counter() - t0:.2f} s")
+    missing = [path for path, n in (("device_cache K1", out["device_cache"]["launches_k1"]),
+                                    ("device_cache K2", out["device_cache"]["launches_k2"]),
+                                    ("demos K1", out["demos"]["launches"]["k1"]),
+                                    ("autoresume K1", out["autoresume"]["launches"]["k1"]),
+                                    ("autoresume K2", out["autoresume"]["launches"]["k2"]))
+               if not n]
+    if missing:
+        raise AssertionError(f"no launch in {missing}")
+    log(f"phase entry points: {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--ddp-child"]:  # one rank of phase 16's runs
@@ -3654,7 +3943,7 @@ def main(argv=None) -> int:
         return runs_child(argv[1], argv[2])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--grid20-artifact", action="store_true",
-                    help="skip the waves3 artifact's phases (3, 4, 7, 8, 15-21) and start the "
+                    help="skip the waves3 artifact's phases (3, 4, 7, 8, 15-22) and start the "
                          "grid-20 phases from artifacts/waves20_hard_step32700")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3729,7 +4018,7 @@ def main(argv=None) -> int:
 
     # 3-4. The waves3 artifact's solve and its throughput.
     if args.grid20_artifact:
-        log("--grid20-artifact: phases 3, 4, 7, 8 and 15-21 (they read the waves3 artifact, "
+        log("--grid20-artifact: phases 3, 4, 7, 8 and 15-22 (they read the waves3 artifact, "
             "which this copy does not hold) are skipped")
         g3 = None
     else:
@@ -3873,6 +4162,10 @@ def main(argv=None) -> int:
     # 21. The tools users run on each checkpoint.
     tools21 = None if args.grid20_artifact else tools_grid3(card, gen)
 
+    # 22. The JPEG features past baseline, data.device_cache on 2 ranks, the
+    # demos and the relaunch wrapper.
+    entry22 = None if args.grid20_artifact else entry_points_grid3(card, gen)
+
     def kernel_row(name, source, replaces, launches, rows, timed):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "shape": timed["shape"],
@@ -3893,25 +4186,35 @@ def main(argv=None) -> int:
     # artifact); phase 16's K1 and K2 for the 2-rank train step (both
     # ranks' launches, B=48 a rank) and K3 for its training route (B=96);
     # phase 17's K1 and K2 for the JPDVT-MoE train steps (B=96).
+    # Phase 22 adds its launches to the rows of its paths: the demos' solves
+    # to the solve's, the one-process device_cache run's and autoresume's
+    # train steps to the train step's, the 2-rank device_cache run's to the
+    # 2-rank train step's.
     kernels = []
     if g3 is not None:
+        cache, resumed = entry22["device_cache"], entry22["autoresume"]["launches"]
         kernels += [
-            kernel_row("k1_whole_row_attention_fwd", *k1, g3["launches_solve"],
+            kernel_row("k1_whole_row_attention_fwd", *k1,
+                       g3["launches_solve"] + entry22["demos"]["launches"]["k1"],
                        [r for r in k1_rows if r["shape"][0] != TRAIN_BATCH
                         and r["shape"][2] != TOKENS20], k1_rows[0]),
-            kernel_row("k1_whole_row_attention_fwd_train", *k1, launches_train[0],
-                       [k1_rows[2]], k1_rows[2]),
+            kernel_row("k1_whole_row_attention_fwd_train", *k1,
+                       launches_train[0] + cache["one_process_launches"]["k1"]
+                       + resumed["k1"], [k1_rows[2]], k1_rows[2]),
             kernel_row("k1_whole_row_attention_fwd_serve", *k1, serve["launches_k1"],
                        [serve["k1_row"]], serve["k1_row"]),
             kernel_row("k2_whole_row_attention_bwd",
                        "jpdvt_mt_ntnu_tpu_torch/ops/csrc/attention_bwd.cu",
-                       "jpdvt_mt_ntnu_tpu/ops/attention.py:44", launches_train[1],
-                       k2_rows, k2_rows[0]),
-            kernel_row("k1_whole_row_attention_fwd_ddp", *k1, ddp["ddp"]["launches_k1"],
+                       "jpdvt_mt_ntnu_tpu/ops/attention.py:44",
+                       launches_train[1] + cache["one_process_launches"]["k2"]
+                       + resumed["k2"], k2_rows, k2_rows[0]),
+            kernel_row("k1_whole_row_attention_fwd_ddp", *k1,
+                       ddp["ddp"]["launches_k1"] + cache["launches_k1"],
                        [ddp["k1_ddp"]], ddp["k1_ddp"]),
             kernel_row("k2_whole_row_attention_bwd_ddp",
                        "jpdvt_mt_ntnu_tpu_torch/ops/csrc/attention_bwd.cu",
-                       "jpdvt_mt_ntnu_tpu/ops/attention.py:44", ddp["ddp"]["launches_k2"],
+                       "jpdvt_mt_ntnu_tpu/ops/attention.py:44",
+                       ddp["ddp"]["launches_k2"] + cache["launches_k2"],
                        [ddp["k2_ddp"]], ddp["k2_ddp"]),
             kernel_row("k3_fused_attention_block_train",
                        "jpdvt_mt_ntnu_tpu_torch/ops/csrc/attention_block.cu",

@@ -14,10 +14,9 @@ order. No PIL and no sklearn: the split is a numpy copy of sklearn's
 
 A file the decoder refuses raises a ``ValueError`` that names the file.
 TEXMET's black image for a file that fails to decode is the reference's
-behaviour and stays for a file libjpeg cannot decode either (a corrupt
-one); a JPEG feature that libjpeg decodes and the port does not yet
-(``native.NotPortedError``: arithmetic coding, CMYK, ...) fails its item
-instead, so that no scan the reference trains on turns black.
+behaviour; the decoder takes every JPEG that libjpeg decodes (CMYK,
+arithmetic coding, lossless, ...), so only a file libjpeg cannot decode
+either (a corrupt one) turns black.
 """
 
 from __future__ import annotations
@@ -56,7 +55,7 @@ def _split_indices(n: int, seed: int = 42, test_size: int = 2000, val_size: int 
 
 def load_rgb(path: str) -> np.ndarray:
     """A file -> (H, W, 3) uint8 RGB through the native decoder; its
-    ``ValueError`` (or ``NotPortedError``) names the file."""
+    ``ValueError`` names the file."""
     with open(path, "rb") as f:
         data = f.read()
     try:
@@ -161,8 +160,6 @@ class TEXMETDataset(_Base):
             return rand_erode(arr, rng, n=3, patch_out=self.patch_out,
                               region=self.patch_out + self.patch_out // 2,
                               gap=self.patch_out // 2)
-        except native.NotPortedError:
-            raise  # libjpeg decodes it: not the reference's black image
         except Exception:
             # The reference's black image for a file that fails (datasets.py:
             # 245-248), at the configured size.

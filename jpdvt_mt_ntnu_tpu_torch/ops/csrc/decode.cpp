@@ -1,6 +1,6 @@
 // Image decode for the port's service, eval harness and datasets: PNG
-// scanline filters, JPEG (baseline, extended sequential and progressive
-// Huffman streams, below), and the ADM center crop with [-1, 1] output.
+// scanline filters, JPEG (every stream libjpeg's 8-bit decode takes, below),
+// and the ADM center crop with [-1, 1] output.
 //
 // The port's counterpart of native/src/decode.cpp. It includes no image
 // library header and links none: the PNG container (chunks, zlib) is read
@@ -35,39 +35,45 @@ struct ImageU8 {
 
 // ------------------------------ JPEG -------------------------------------
 //
-// A whole-image decoder: every scan's coefficients go into one buffer per
-// component (sequential single- and multi-scan, and progressive), then the
-// IDCT, the upsampling and the colour conversion run once over the image.
-// Each step is libjpeg-turbo's integer arithmetic with its default
-// decompression settings (JDCT_ISLOW, fancy upsampling, out_color_space
+// A whole-image decoder: every scan's coefficients (or, in a lossless frame,
+// samples) go into one buffer per component, then the IDCT, the upsampling
+// and the colour conversion run once over the image. Each step is
+// libjpeg-turbo's integer arithmetic with its default decompression
+// settings (JDCT_ISLOW, fancy upsampling, block smoothing, out_color_space
 // JCS_RGB), so the pixels are the same bits:
+//   - entropy decoding: Huffman (jdhuff.c, jdphuff.c, jdlhuff.c) and
+//     arithmetic (jdarith.c, T.81 Annex D), sequential and progressive;
+//     a Huffman frame without its tables gets the standard ones in slots 0
+//     and 1 (std_huff_tables, as Motion-JPEG frames need);
 //   - jidctint.c jpeg_idct_islow (CONST_BITS 13, PASS1_BITS 2, the
 //     all-zero column and row shortcuts) and jdmaster.c's range-limit table;
+//   - jdcoefct.c decompress_smooth_data: a progressive image whose scans
+//     leave one of the first ten coefficients incomplete has them estimated
+//     from the DC values of a 5 x 5 block neighbourhood (SAVED_COEFS 10);
+//   - jdlossls.c: a lossless frame's predictors 1-7 and point transform;
 //   - jdsample.c: h2v1, h2v2 and h1v2 triangle filters where the component
 //     is more than two samples wide (h1v2: always), plain replication
 //     otherwise, int_upsample for every other integral ratio; the rows
-//     above the first and below the last repeat them (jdmainct.c);
-//   - jdcolor.c's fixed-point YCbCr -> RGB tables (SCALEBITS 16).
+//     above the first and below the last repeat them (jdmainct.c); a
+//     lossless frame replicates only (its DCT size is 1);
+//   - jdcolor.c's fixed-point YCbCr -> RGB tables (SCALEBITS 16), and
+//     ycck_cmyk_convert.
 // The colour space is jdapimin.c's guess: JFIF means YCbCr, else the Adobe
-// APP14 transform flag, else component ids 'R','G','B' mean RGB.
-// Refused by name, and reported apart (not_ported) because libjpeg-turbo
-// decodes them: arithmetic coding, lossless frames, 4 components
-// (CMYK/YCCK), a progressive stream that leaves one of its first ten
-// coefficients unrefined (libjpeg would smooth its blocks) and a scan
-// without its Huffman tables (libjpeg supplies Motion-JPEG's defaults).
+// APP14 transform flag, else component ids 'R','G','B' mean RGB (and in a
+// lossless frame ids 1, 2, 3 or unknown ones too). Four components are CMYK
+// (YCCK where Adobe's flag is not 0), turned into RGB as PIL does: it reads
+// libjpeg's CMYK inverted (Adobe's convention) and applies its cmyk2rgb.
 // Refused by name as libjpeg's 8-bit decode refuses them: other precisions
-// than 8 bits, hierarchical frames, DNL, 2 components. Truncated or corrupt
-// entropy data raises with the byte offset, where libjpeg warns and fills
-// with zeros; so does a stream without its EOI marker.
+// than 8 bits, hierarchical frames, lossless arithmetic coding (SOF11), DNL,
+// 2 components, and a lossless frame whose colours need converting. Truncated
+// or corrupt entropy data raises with the byte offset, where libjpeg warns
+// and fills with zeros; so does a stream without its EOI marker.
 
 struct JpegError {
   std::string msg;
-  bool not_ported;
 };
 
-[[noreturn]] void fail(const std::string& msg) { throw JpegError{msg, false}; }
-
-[[noreturn]] void not_ported(const std::string& msg) { throw JpegError{msg, true}; }
+[[noreturn]] void fail(const std::string& msg) { throw JpegError{msg}; }
 
 [[noreturn]] void fail_at(const std::string& what, size_t offset) {
   fail(what + " at byte offset " + std::to_string(offset));
@@ -80,10 +86,89 @@ const uint8_t kNatural[64] = {
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
 
+// T.81 Table D.2 as jaricom.c packs it: Qe << 16 | next MPS index << 8 |
+// switch-MPS << 7 | next LPS index. Entry 113 is the fixed 0.5 estimate.
+#define V(qe, lps, mps, sw) ((uint32_t{qe} << 16) | (mps << 8) | (sw << 7) | lps)
+const uint32_t kAritab[114] = {
+    V(0x5a1d, 1, 1, 1),     V(0x2586, 14, 2, 0),    V(0x1114, 16, 3, 0),
+    V(0x080b, 18, 4, 0),    V(0x03d8, 20, 5, 0),    V(0x01da, 23, 6, 0),
+    V(0x00e5, 25, 7, 0),    V(0x006f, 28, 8, 0),    V(0x0036, 30, 9, 0),
+    V(0x001a, 33, 10, 0),   V(0x000d, 35, 11, 0),   V(0x0006, 9, 12, 0),
+    V(0x0003, 10, 13, 0),   V(0x0001, 12, 13, 0),   V(0x5a7f, 15, 15, 1),
+    V(0x3f25, 36, 16, 0),   V(0x2cf2, 38, 17, 0),   V(0x207c, 39, 18, 0),
+    V(0x17b9, 40, 19, 0),   V(0x1182, 42, 20, 0),   V(0x0cef, 43, 21, 0),
+    V(0x09a1, 45, 22, 0),   V(0x072f, 46, 23, 0),   V(0x055c, 48, 24, 0),
+    V(0x0406, 49, 25, 0),   V(0x0303, 51, 26, 0),   V(0x0240, 52, 27, 0),
+    V(0x01b1, 54, 28, 0),   V(0x0144, 56, 29, 0),   V(0x00f5, 57, 30, 0),
+    V(0x00b7, 59, 31, 0),   V(0x008a, 60, 32, 0),   V(0x0068, 62, 33, 0),
+    V(0x004e, 63, 34, 0),   V(0x003b, 32, 35, 0),   V(0x002c, 33, 9, 0),
+    V(0x5ae1, 37, 37, 1),   V(0x484c, 64, 38, 0),   V(0x3a0d, 65, 39, 0),
+    V(0x2ef1, 67, 40, 0),   V(0x261f, 68, 41, 0),   V(0x1f33, 69, 42, 0),
+    V(0x19a8, 70, 43, 0),   V(0x1518, 72, 44, 0),   V(0x1177, 73, 45, 0),
+    V(0x0e74, 74, 46, 0),   V(0x0bfb, 75, 47, 0),   V(0x09f8, 77, 48, 0),
+    V(0x0861, 78, 49, 0),   V(0x0706, 79, 50, 0),   V(0x05cd, 48, 51, 0),
+    V(0x04de, 50, 52, 0),   V(0x040f, 50, 53, 0),   V(0x0363, 51, 54, 0),
+    V(0x02d4, 52, 55, 0),   V(0x025c, 53, 56, 0),   V(0x01f8, 54, 57, 0),
+    V(0x01a4, 55, 58, 0),   V(0x0160, 56, 59, 0),   V(0x0125, 57, 60, 0),
+    V(0x00f6, 58, 61, 0),   V(0x00cb, 59, 62, 0),   V(0x00ab, 61, 63, 0),
+    V(0x008f, 61, 32, 0),   V(0x5b12, 65, 65, 1),   V(0x4d04, 80, 66, 0),
+    V(0x412c, 81, 67, 0),   V(0x37d8, 82, 68, 0),   V(0x2fe8, 83, 69, 0),
+    V(0x293c, 84, 70, 0),   V(0x2379, 86, 71, 0),   V(0x1edf, 87, 72, 0),
+    V(0x1aa9, 87, 73, 0),   V(0x174e, 72, 74, 0),   V(0x1424, 72, 75, 0),
+    V(0x119c, 74, 76, 0),   V(0x0f6b, 74, 77, 0),   V(0x0d51, 75, 78, 0),
+    V(0x0bb6, 77, 79, 0),   V(0x0a40, 77, 48, 0),   V(0x5832, 80, 81, 1),
+    V(0x4d1c, 88, 82, 0),   V(0x438e, 89, 83, 0),   V(0x3bdd, 90, 84, 0),
+    V(0x34ee, 91, 85, 0),   V(0x2eae, 92, 86, 0),   V(0x299a, 93, 87, 0),
+    V(0x2516, 86, 71, 0),   V(0x5570, 88, 89, 1),   V(0x4ca9, 95, 90, 0),
+    V(0x44d9, 96, 91, 0),   V(0x3e22, 97, 92, 0),   V(0x3824, 99, 93, 0),
+    V(0x32b4, 99, 94, 0),   V(0x2e17, 93, 86, 0),   V(0x56a8, 95, 96, 1),
+    V(0x4f46, 101, 97, 0),  V(0x47e5, 102, 98, 0),  V(0x41cf, 103, 99, 0),
+    V(0x3c3d, 104, 100, 0), V(0x375e, 99, 93, 0),   V(0x5231, 105, 102, 0),
+    V(0x4c0f, 106, 103, 0), V(0x4639, 107, 104, 0), V(0x415e, 103, 99, 0),
+    V(0x5627, 105, 106, 1), V(0x50e7, 108, 107, 0), V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0), V(0x504f, 111, 107, 0), V(0x5a10, 110, 111, 1),
+    V(0x5522, 112, 109, 0), V(0x59eb, 112, 111, 1), V(0x5a1d, 113, 113, 0)};
+#undef V
+
+// The standard tables of T.81 K.3 (jstdhuff.c): DC and AC luminance (slot
+// 0), DC and AC chrominance (slot 1); counts of code lengths 1-16, values.
+const uint8_t kStdDcCounts[2][17] = {{0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+                                     {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0}};
+const uint8_t kStdDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kStdAcCounts[2][17] = {
+    {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d},
+    {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77}};
+const uint8_t kStdAcVals[2][162] = {
+    {0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51,
+     0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1,
+     0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18,
+     0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
+     0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57,
+     0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+     0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92,
+     0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
+     0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+     0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8,
+     0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2,
+     0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa},
+    {0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07,
+     0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09,
+     0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25,
+     0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38,
+     0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56,
+     0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+     0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+     0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
+     0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
+     0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6,
+     0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2,
+     0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa}};
+
 constexpr int kLookBits = 9;
 
 struct Huffman {
   bool defined = false;
+  int max_sym = 0;
   uint8_t look_len[1 << kLookBits];  // 0: the code is longer than kLookBits
   uint8_t look_sym[1 << kLookBits];
   int32_t maxcode[18];    // largest code of each length, -1 if none
@@ -93,7 +178,7 @@ struct Huffman {
 
 // jdhuff.c jpeg_make_d_derived_tbl.
 void build_huffman(Huffman* h, const uint8_t counts[17], const uint8_t* vals, int nvals,
-                   bool dc, size_t offset) {
+                   size_t offset) {
   int p = 0;
   uint8_t sizes[257];
   uint32_t codes[257];
@@ -132,15 +217,24 @@ void build_huffman(Huffman* h, const uint8_t counts[17], const uint8_t* vals, in
     }
   }
   std::memcpy(h->vals, vals, nvals);
-  if (dc)
-    for (int i = 0; i < nvals; ++i)
-      if (vals[i] > 15) fail_at("corrupt JPEG: DC Huffman symbol above 15", offset);
+  h->max_sym = 0;
+  for (int i = 0; i < nvals; ++i) h->max_sym = std::max<int>(h->max_sym, vals[i]);
   h->defined = true;
 }
 
-// The entropy-coded bits of one scan or restart interval. Past the next
-// marker (or the end of the data) it reads zeros and counts them; a decode
-// that consumes one of them is truncated or corrupt.
+// The offset just past the marker at or after `from`, which must be RSTn
+// (`expect`); garbage before it is skipped as libjpeg skips it.
+size_t restart_marker(const uint8_t* d, size_t n, size_t from, int expect) {
+  size_t q = from;
+  while (q + 1 < n && !(d[q] == 0xFF && d[q + 1] != 0 && d[q + 1] != 0xFF)) ++q;
+  if (q + 1 >= n || d[q + 1] != 0xD0 + expect)
+    fail_at("corrupt JPEG: expected restart marker RST" + std::to_string(expect), q);
+  return q + 2;
+}
+
+// The entropy-coded bits of one Huffman scan or restart interval. Past the
+// next marker (or the end of the data) it reads zeros and counts them; a
+// decode that consumes one of them is truncated or corrupt.
 struct BitReader {
   const uint8_t* d;
   size_t n;
@@ -185,6 +279,8 @@ struct BitReader {
               at_marker ? marker : pos);
   }
 
+  size_t end() const { return at_marker ? marker : pos; }
+
   int bits(int k) {  // k in 0..16
     if (k == 0) return 0;
     if (cnt < k) fill();
@@ -217,17 +313,93 @@ struct BitReader {
     return h.vals[h.valoffset[l] + static_cast<int32_t>(code)];
   }
 
-  // Drop the bits left of this interval and step over the next marker,
-  // which must be RSTn; garbage before it is skipped as libjpeg skips it.
+  // Drop the bits left of this interval and step over the next marker.
   void restart(int expect) {
-    size_t q = at_marker ? marker : pos;
-    while (q + 1 < n && !(d[q] == 0xFF && d[q + 1] != 0 && d[q + 1] != 0xFF)) ++q;
-    if (q + 1 >= n || d[q + 1] != 0xD0 + expect)
-      fail_at("corrupt JPEG: expected restart marker RST" + std::to_string(expect), q);
-    pos = q + 2;
+    pos = restart_marker(d, n, end(), expect);
     at_marker = false;
     buf = 0;
     cnt = pad = 0;
+  }
+};
+
+// jdarith.c's decoder: the C and A registers and the bit counter. A marker
+// met inside the data feeds zeros from then on, which is legal in
+// arithmetic coding (T.81 D.2.6), so truncation is not detectable here.
+struct ArithReader {
+  const uint8_t* d;
+  size_t n;
+  size_t pos;
+  size_t marker = 0;
+  bool at_marker = false;
+  int64_t c = 0, a = 0;
+  int ct = -16;  // -16: the two initial bytes are still to be read
+
+  size_t end() const { return at_marker ? marker : pos; }
+
+  int byte() {
+    if (at_marker) return 0;
+    if (pos >= n) {
+      at_marker = true;
+      marker = n;
+      return 0;
+    }
+    int v = d[pos++];
+    if (v != 0xFF) return v;
+    size_t q = pos;
+    while (q < n && d[q] == 0xFF) ++q;  // extra 0xFF bytes are swallowed
+    if (q < n && d[q] == 0) {           // a stuffed zero: the data byte 0xFF
+      pos = q + 1;
+      return 0xFF;
+    }
+    at_marker = true;
+    marker = pos - 1;
+    return 0;
+  }
+
+  // jdarith.c arith_decode: one binary decision with the statistics bin st.
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {  // renormalisation and data input, D.2.6
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // the 2 initial bytes are in
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    uint32_t qe = kAritab[sv & 0x7F];
+    const int nl = qe & 0xFF;
+    qe >>= 8;
+    const int nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional LPS exchange
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {  // conditional MPS exchange
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  void restart(int expect) {
+    pos = restart_marker(d, n, end(), expect);
+    at_marker = false;
+    c = a = 0;
+    ct = -16;
   }
 };
 
@@ -235,14 +407,17 @@ inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 :
 
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
-  int bw = 0, bh = 0;      // blocks that hold the component's samples
+  int bw = 0, bh = 0;      // blocks (lossless: samples) that hold the component
   int stride = 0;          // blocks per row of coef (MCU-padded)
   int dw = 0, dh = 0;      // downsampled width and height
   std::vector<int16_t> coef;
-  bool latched = false;
+  std::vector<uint16_t> samples;  // lossless: dw x dh, before the point transform
+  bool scanned = false, latched = false;
   int32_t q[64];           // the quantisation table, natural order
   int coef_bits[64];       // progressive: -1 until a scan sends the coefficient
-  int dc_tbl = 0, ac_tbl = 0, last_dc = 0;
+  int dc_tbl = 0, ac_tbl = 0, last_dc = 0, dc_context = 0;
+  int pt = 0;              // lossless: the point transform of its scan
+  bool first_row = true;   // lossless: the next row uses the first row's predictor
   int16_t* block(int by, int bx) {
     return coef.data() + (static_cast<size_t>(by) * stride + bx) * 64;
   }
@@ -254,15 +429,22 @@ struct Jpeg {
   size_t pos = 0;
   int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1;
   int mcux = 0, mcuy = 0, restart_interval = 0;
-  bool progressive = false, have_frame = false;
-  bool jfif = false, adobe = false;
+  bool progressive = false, arithmetic = false, lossless = false, have_frame = false;
+  bool jfif = false, adobe = false, std_tables = false;
   int adobe_transform = -1;
   std::vector<Component> comp;
   uint16_t qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
+  // Arithmetic conditioning (DAC; jdmarker.c's defaults) and statistics.
+  uint8_t arith_dc_L[16], arith_dc_U[16], arith_ac_K[16];
+  uint8_t dc_stats[16][64], ac_stats[16][256];
 
-  Jpeg(const uint8_t* data, size_t len) : d(data), n(len) {}
+  Jpeg(const uint8_t* data, size_t len) : d(data), n(len) {
+    std::memset(arith_dc_L, 0, sizeof arith_dc_L);
+    std::memset(arith_dc_U, 1, sizeof arith_dc_U);
+    std::memset(arith_ac_K, 5, sizeof arith_ac_K);
+  }
 
   int u8() {
     if (pos >= n) fail_at("truncated JPEG", pos);
@@ -273,16 +455,20 @@ struct Jpeg {
     return (hi << 8) | u8();
   }
 
-  // The next marker code; garbage before it is skipped (libjpeg warns).
+  // The next marker code; garbage before it, and stuffed FF 00 pairs left of
+  // an entropy-coded segment, are skipped (libjpeg warns).
   int next_marker() {
-    while (pos < n && d[pos] != 0xFF) ++pos;
-    while (pos < n && d[pos] == 0xFF) ++pos;
-    if (pos >= n) fail_at("truncated JPEG: no EOI marker", n);
-    return d[pos++];
+    for (;;) {
+      while (pos < n && d[pos] != 0xFF) ++pos;
+      while (pos < n && d[pos] == 0xFF) ++pos;
+      if (pos >= n) fail_at("truncated JPEG: no EOI marker", n);
+      int m = d[pos++];
+      if (m) return m;
+    }
   }
 
-  // The frame header; the coefficient buffers it sizes are allocated by
-  // alloc_coefficients, which a probe never calls.
+  // The frame header; the buffers it sizes are allocated by alloc_buffers,
+  // which a probe never calls.
   void read_sof(int marker) {
     size_t at = pos - 2;
     if (have_frame) fail_at("corrupt JPEG: a second frame header", at);
@@ -298,9 +484,9 @@ struct Jpeg {
     if (height == 0)
       fail("JPEG whose height is given by a DNL marker (DNL is not ported)");
     if (width == 0) fail_at("corrupt JPEG: image width 0", at);
-    if (ncomp == 4) not_ported("4-component (CMYK/YCCK) JPEG (CMYK/YCCK is not ported)");
-    if (ncomp != 1 && ncomp != 3)
-      fail(std::to_string(ncomp) + "-component JPEG (the port decodes 1 or 3)");
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
+      fail(std::to_string(ncomp) + "-component JPEG (the port decodes 1, 3 or 4; libjpeg "
+           "converts no other count to RGB)");
     comp.resize(ncomp);
     for (auto& c : comp) {
       c.id = u8();
@@ -313,24 +499,32 @@ struct Jpeg {
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
-    progressive = marker == 0xC2;
-    mcux = (width + 8 * hmax - 1) / (8 * hmax);
-    mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    progressive = marker == 0xC2 || marker == 0xCA;
+    arithmetic = marker >= 0xC9;
+    lossless = marker == 0xC3;
+    const int unit = lossless ? 1 : 8;  // a lossless data unit is one sample
+    mcux = (width + unit * hmax - 1) / (unit * hmax);
+    mcuy = (height + unit * vmax - 1) / (unit * vmax);
     for (auto& c : comp) {
       if (hmax % c.h || vmax % c.v)
         fail("JPEG with fractional sampling ratios (libjpeg refuses them too)");
       c.dw = static_cast<int>((static_cast<long>(width) * c.h + hmax - 1) / hmax);
       c.dh = static_cast<int>((static_cast<long>(height) * c.v + vmax - 1) / vmax);
-      c.bw = (c.dw + 7) / 8;
-      c.bh = (c.dh + 7) / 8;
+      c.bw = (c.dw + unit - 1) / unit;
+      c.bh = (c.dh + unit - 1) / unit;
       c.stride = mcux * c.h;
       std::fill(c.coef_bits, c.coef_bits + 64, -1);
     }
     have_frame = true;
   }
 
-  void alloc_coefficients() {
-    for (auto& c : comp) c.coef.assign(static_cast<size_t>(c.stride) * mcuy * c.v * 64, 0);
+  void alloc_buffers() {
+    for (auto& c : comp) {
+      if (lossless)
+        c.samples.assign(static_cast<size_t>(c.dw) * c.dh, 0);
+      else
+        c.coef.assign(static_cast<size_t>(c.stride) * mcuy * c.v * 64, 0);
+    }
   }
 
   void read_dht() {
@@ -347,9 +541,28 @@ struct Jpeg {
         fail_at("corrupt JPEG: bad Huffman table length", at);
       uint8_t vals[256];
       for (int i = 0; i < total; ++i) vals[i] = static_cast<uint8_t>(u8());
-      build_huffman(tc ? &ac[th] : &dc[th], counts, vals, total, tc == 0, at);
+      build_huffman(tc ? &ac[th] : &dc[th], counts, vals, total, at);
     }
     if (pos != end) fail_at("corrupt JPEG: bad DHT length", pos);
+  }
+
+  // jdmarker.c get_dac: arithmetic conditioning, L and U of a DC table, K of
+  // an AC table.
+  void read_dac() {
+    size_t at = pos - 2;
+    size_t end = pos + u16();
+    while (pos + 2 <= end) {
+      int index = u8(), val = u8();
+      if (index >= 32) fail_at("corrupt JPEG: bad DAC table index", at);
+      if (index >= 16) {
+        arith_ac_K[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        arith_dc_L[index] = static_cast<uint8_t>(val & 15);
+        arith_dc_U[index] = static_cast<uint8_t>(val >> 4);
+        if (arith_dc_L[index] > arith_dc_U[index]) fail_at("corrupt JPEG: bad DAC value", at);
+      }
+    }
+    if (pos != end) fail_at("corrupt JPEG: bad DAC length", at);
   }
 
   void read_dqt() {
@@ -385,15 +598,37 @@ struct Jpeg {
     pos = start + len;
   }
 
+  // The quantisation table is copied at the component's first scan, as
+  // jdinput.c latch_quant_tables does; a lossless frame has none.
   void latch(Component& c) {
-    if (c.latched) return;
+    c.scanned = true;
+    if (c.latched || lossless) return;
     if (!qt_defined[c.tq]) fail("corrupt JPEG: a component's quantisation table is missing");
     for (int i = 0; i < 64; ++i) c.q[i] = qt[c.tq][i];
     c.latched = true;
   }
 
+  // jdhuff.c std_huff_tables: slots 0 and 1 still empty when decompression
+  // starts get the standard tables (Motion-JPEG frames leave them out).
+  void fill_std_tables() {
+    if (std_tables) return;
+    std_tables = true;
+    for (int t = 0; t < 2; ++t) {
+      if (!dc[t].defined) build_huffman(&dc[t], kStdDcCounts[t], kStdDcVals, 12, 0);
+      if (!ac[t].defined) build_huffman(&ac[t], kStdAcCounts[t], kStdAcVals[t], 162, 0);
+    }
+  }
+
+  template <class Block, class Restart>
+  void walk(std::vector<Component*>& sc, Block&& block, Restart&& restart);
   void read_sos();
   void decode_scan(std::vector<Component*>& sc, int ss, int se, int ah, int al, size_t at);
+  void decode_arith_scan(std::vector<Component*>& sc, int ss, int se, int ah, int al);
+  int arith_dc(ArithReader& ar, Component* c);
+  void arith_ac(ArithReader& ar, int tbl, int16_t* blk, int ss, int se, int al, uint8_t* fixed);
+  void decode_lossless_scan(std::vector<Component*>& sc, int psv, int pt, size_t at);
+  bool smoothing_ok() const;
+  void smooth_idct(Component& c, uint8_t* s, int istride, const uint8_t* range);
   void finish(std::vector<uint8_t>* rgb);
   void decode(std::vector<uint8_t>* rgb, bool header_only);
 };
@@ -413,14 +648,18 @@ void Jpeg::read_sos() {
     if (!c) fail_at("corrupt JPEG: a scan names an unknown component", at);
     for (auto* k : sc)
       if (k == c) fail_at("corrupt JPEG: a scan names a component twice", at);
-    c->dc_tbl = tables >> 4;
+    c->dc_tbl = tables >> 4;  // arithmetic tables are 0..15, Huffman ones 0..3
     c->ac_tbl = tables & 15;
-    if (c->dc_tbl > 3 || c->ac_tbl > 3) fail_at("corrupt JPEG: bad table in SOS", at);
+    if (!arithmetic && (c->dc_tbl > 3 || c->ac_tbl > 3))
+      fail_at("corrupt JPEG: bad table in SOS", at);
     sc.push_back(c);
   }
   int ss = u8(), se = u8(), ahal = u8();
   int ah = ahal >> 4, al = ahal & 15;
-  if (progressive) {
+  if (lossless) {  // Ss is the predictor, Al the point transform
+    if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8)
+      fail_at("corrupt JPEG: bad lossless scan parameters", at);
+  } else if (progressive) {
     bool bad = ss > se || se > 63 || al > 13 || (ah && al != ah - 1) ||
                (ss == 0 && se != 0) || (ss > 0 && ns != 1);
     if (bad) fail_at("corrupt JPEG: bad progressive scan parameters", at);
@@ -434,21 +673,59 @@ void Jpeg::read_sos() {
     for (auto* c : sc) blocks += c->h * c->v;
     if (blocks > 10) fail_at("corrupt JPEG: more than 10 blocks in an MCU", at);
   }
+  if (!arithmetic) fill_std_tables();
+  const bool need_dc = lossless || !progressive || (ss == 0 && ah == 0);
+  const bool need_ac = !lossless && (!progressive || ss > 0);
   for (auto* c : sc) {
     latch(*c);
-    if (progressive) {
+    if (progressive)
       for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
-    }
-    // libjpeg-turbo supplies the standard tables where a Motion-JPEG frame
-    // has none; the port does not.
-    if ((!progressive || (ss == 0 && ah == 0)) && !dc[c->dc_tbl].defined)
-      not_ported("JPEG scan without its DC Huffman table (Motion-JPEG default tables are "
-                 "not ported)");
-    if ((!progressive || ss > 0) && !ac[c->ac_tbl].defined)
-      not_ported("JPEG scan without its AC Huffman table (Motion-JPEG default tables are "
-                 "not ported)");
+    if (arithmetic) continue;
+    if (need_dc && !dc[c->dc_tbl].defined)
+      fail_at("corrupt JPEG: DC Huffman table " + std::to_string(c->dc_tbl) +
+                  " is not defined",
+              at);
+    if (need_dc && dc[c->dc_tbl].max_sym > (lossless ? 16 : 15))
+      fail_at("corrupt JPEG: DC Huffman symbol above " + std::string(lossless ? "16" : "15"),
+              at);
+    if (need_ac && !ac[c->ac_tbl].defined)
+      fail_at("corrupt JPEG: AC Huffman table " + std::to_string(c->ac_tbl) +
+                  " is not defined",
+              at);
   }
-  decode_scan(sc, ss, se, ah, al, at);
+  if (lossless)
+    decode_lossless_scan(sc, ss, al, at);
+  else if (arithmetic)
+    decode_arith_scan(sc, ss, se, ah, al);
+  else
+    decode_scan(sc, ss, se, ah, al, at);
+}
+
+// The blocks of a DCT scan in stream order: a single-component scan is not
+// interleaved (one block per MCU over the blocks that hold samples);
+// otherwise each MCU holds h x v blocks of each component. `restart(n)`
+// runs where restart interval n (mod 8) begins, after the first.
+template <class Block, class Restart>
+void Jpeg::walk(std::vector<Component*>& sc, Block&& block, Restart&& restart) {
+  const bool single = sc.size() == 1;
+  const long units = single ? static_cast<long>(sc[0]->bw) * sc[0]->bh
+                            : static_cast<long>(mcux) * mcuy;
+  int rst = 0;
+  for (long u = 0; u < units; ++u) {
+    if (restart_interval && u && u % restart_interval == 0) {
+      restart(rst);
+      rst = (rst + 1) & 7;
+    }
+    if (single) {
+      Component* c = sc[0];
+      block(c, c->block(static_cast<int>(u / c->bw), static_cast<int>(u % c->bw)));
+    } else {
+      int my = static_cast<int>(u / mcux), mx = static_cast<int>(u % mcux);
+      for (auto* c : sc)
+        for (int by = 0; by < c->v; ++by)
+          for (int bx = 0; bx < c->h; ++bx) block(c, c->block(my * c->v + by, mx * c->h + bx));
+    }
+  }
 }
 
 void Jpeg::decode_scan(std::vector<Component*>& sc, int ss, int se, int ah, int al,
@@ -456,12 +733,6 @@ void Jpeg::decode_scan(std::vector<Component*>& sc, int ss, int se, int ah, int 
   BitReader br{d, n, pos};
   for (auto* c : sc) c->last_dc = 0;
   int eobrun = 0;
-  // A single-component scan is not interleaved: one block per MCU over the
-  // blocks that hold samples. Otherwise each MCU holds h x v blocks of each.
-  bool single = sc.size() == 1;
-  long units = single ? static_cast<long>(sc[0]->bw) * sc[0]->bh
-                      : static_cast<long>(mcux) * mcuy;
-  int rst = 0;
   const int p1 = 1 << al, m1 = -1 * (1 << al);
 
   auto decode_block = [&](Component* c, int16_t* blk) {
@@ -560,26 +831,245 @@ void Jpeg::decode_scan(std::vector<Component*>& sc, int ss, int se, int ah, int 
     }
   };
 
-  for (long u = 0; u < units; ++u) {
-    if (restart_interval && u && u % restart_interval == 0) {
-      br.restart(rst);
-      rst = (rst + 1) & 7;
-      for (auto* c : sc) c->last_dc = 0;
-      eobrun = 0;
-    }
-    if (single) {
-      Component* c = sc[0];
-      decode_block(c, c->block(static_cast<int>(u / c->bw), static_cast<int>(u % c->bw)));
-    } else {
-      int my = static_cast<int>(u / mcux), mx = static_cast<int>(u % mcux);
-      for (auto* c : sc)
-        for (int by = 0; by < c->v; ++by)
-          for (int bx = 0; bx < c->h; ++bx)
-            decode_block(c, c->block(my * c->v + by, mx * c->h + bx));
-    }
-    br.check(at);
+  walk(
+      sc,
+      [&](Component* c, int16_t* blk) {
+        decode_block(c, blk);
+        br.check(at);
+      },
+      [&](int rst) {
+        br.restart(rst);
+        for (auto* c : sc) c->last_dc = 0;
+        eobrun = 0;
+      });
+  pos = br.end();
+}
+
+// jdarith.c, Figures F.19-F.24: a DC difference, its context kept per
+// component.
+int Jpeg::arith_dc(ArithReader& ar, Component* c) {
+  const int tbl = c->dc_tbl;
+  uint8_t* st = dc_stats[tbl] + c->dc_context;
+  if (ar.decode(st) == 0) {
+    c->dc_context = 0;
+    return 0;
   }
-  pos = br.at_marker ? br.marker : br.pos;
+  const int sign = ar.decode(st + 1);
+  st += 2 + sign;
+  int m = ar.decode(st);
+  if (m) {
+    st = dc_stats[tbl] + 20;  // X1
+    while (ar.decode(st)) {
+      if ((m <<= 1) == 0x8000)
+        fail_at("corrupt JPEG: arithmetic-coded magnitude overflows", ar.end());
+      ++st;
+    }
+  }
+  if (m < static_cast<int>((1L << arith_dc_L[tbl]) >> 1))
+    c->dc_context = 0;
+  else if (m > static_cast<int>((1L << arith_dc_U[tbl]) >> 1))
+    c->dc_context = 12 + sign * 4;
+  else
+    c->dc_context = 4 + sign * 4;
+  int v = m;
+  st += 14;
+  while (m >>= 1)
+    if (ar.decode(st)) v |= m;
+  v += 1;
+  return sign ? -v : v;
+}
+
+// The AC coefficients ss..se of one block (jdarith.c decode_mcu's second
+// half, and decode_mcu_AC_first), scaled by 2^al.
+void Jpeg::arith_ac(ArithReader& ar, int tbl, int16_t* blk, int ss, int se, int al,
+                    uint8_t* fixed) {
+  uint8_t* stats = ac_stats[tbl];
+  for (int k = ss; k <= se; ++k) {
+    uint8_t* st = stats + 3 * (k - 1);
+    if (ar.decode(st)) break;  // end of block
+    while (ar.decode(st + 1) == 0) {
+      st += 3;
+      if (++k > se) fail_at("corrupt JPEG: arithmetic-coded coefficient past the band", ar.end());
+    }
+    const int sign = ar.decode(fixed);
+    st += 2;
+    int m = ar.decode(st);
+    if (m && ar.decode(st)) {
+      m <<= 1;
+      st = stats + (k <= arith_ac_K[tbl] ? 189 : 217);
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000)
+          fail_at("corrupt JPEG: arithmetic-coded magnitude overflows", ar.end());
+        ++st;
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    blk[kNatural[k]] = static_cast<int16_t>(static_cast<int>(static_cast<unsigned>(v) << al));
+  }
+}
+
+void Jpeg::decode_arith_scan(std::vector<Component*>& sc, int ss, int se, int ah, int al) {
+  ArithReader ar{d, n, pos};
+  uint8_t fixed = 113;  // the fixed 0.5 estimate: its state never moves
+  const bool dc_first = !progressive || (ss == 0 && ah == 0);
+  const bool has_ac = !progressive || ss > 0;
+  auto reset = [&] {  // at the scan's start and at each restart
+    for (auto* c : sc) {
+      if (dc_first) {
+        std::memset(dc_stats[c->dc_tbl], 0, sizeof dc_stats[0]);
+        c->last_dc = c->dc_context = 0;
+      }
+      if (has_ac) std::memset(ac_stats[c->ac_tbl], 0, sizeof ac_stats[0]);
+    }
+  };
+  reset();
+  const int p1 = 1 << al, m1 = -1 * (1 << al);
+  auto block = [&](Component* c, int16_t* blk) {
+    if (!progressive) {
+      c->last_dc = (c->last_dc + arith_dc(ar, c)) & 0xFFFF;
+      blk[0] = static_cast<int16_t>(c->last_dc);
+      arith_ac(ar, c->ac_tbl, blk, 1, 63, 0, &fixed);
+      return;
+    }
+    if (ss == 0) {
+      if (ah == 0) {
+        c->last_dc = (c->last_dc + arith_dc(ar, c)) & 0xFFFF;
+        blk[0] = static_cast<int16_t>(static_cast<int>(static_cast<unsigned>(c->last_dc) << al));
+      } else if (ar.decode(&fixed)) {
+        blk[0] = static_cast<int16_t>(blk[0] | p1);
+      }
+      return;
+    }
+    if (ah == 0) {
+      arith_ac(ar, c->ac_tbl, blk, ss, se, al, &fixed);
+      return;
+    }
+    // AC refinement (decode_mcu_AC_refine): past the block's own end of
+    // band (the last coefficient already nonzero) an end-of-block may come.
+    int kex = se;
+    while (kex > 0 && !blk[kNatural[kex]]) --kex;
+    uint8_t* stats = ac_stats[c->ac_tbl];
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;
+      for (;;) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef) {  // previously nonzero: a correction bit
+          if (ar.decode(st + 2)) *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+          break;
+        }
+        if (ar.decode(st + 1)) {  // newly nonzero
+          *coef = static_cast<int16_t>(ar.decode(&fixed) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se)
+          fail_at("corrupt JPEG: arithmetic-coded coefficient past the band", ar.end());
+      }
+    }
+  };
+  walk(sc, block, [&](int rst) {
+    ar.restart(rst);
+    reset();
+  });
+  pos = ar.end();
+}
+
+// A lossless scan (jddiffct.c, jdlhuff.c, jdlossls.c): Huffman-coded
+// differences, one per sample, undone row by row with predictor psv. The
+// first row, and the first after a restart, predicts from 2^(7 - pt) and
+// then from the left; a restart takes effect for the whole iMCU row it
+// falls in, as libjpeg applies it when that row is undifferenced.
+void Jpeg::decode_lossless_scan(std::vector<Component*>& sc, int psv, int pt, size_t at) {
+  BitReader br{d, n, pos};
+  const bool single = sc.size() == 1;
+  const int per_row = single ? sc[0]->dw : mcux;  // MCUs in an MCU row
+  if (restart_interval % per_row)
+    fail("lossless JPEG whose restart interval is not a whole number of MCU rows "
+         "(libjpeg refuses it too)");
+  const int rows_per_restart = restart_interval / per_row;
+  int rows_to_go = rows_per_restart, rst = 0;
+  std::vector<std::vector<int>> diff(sc.size());
+  std::vector<int> width(sc.size());  // coded samples per row, padding included
+  for (size_t k = 0; k < sc.size(); ++k) {
+    width[k] = single ? sc[k]->dw : mcux * sc[k]->h;
+    diff[k].assign(static_cast<size_t>(width[k]) * sc[k]->v, 0);
+    sc[k]->pt = pt;
+  }
+  auto sample = [&](Component* c) {
+    int s = br.decode(dc[c->dc_tbl]);
+    if (s == 16) return 32768;
+    return s ? extend(br.bits(s), s) : 0;
+  };
+  const int init = 1 << (7 - pt);
+  for (int i = 0; i < mcuy; ++i) {
+    bool reset = i == 0;
+    const int mcu_rows = single ? std::min(sc[0]->v, sc[0]->dh - i * sc[0]->v) : 1;
+    for (int r = 0; r < mcu_rows; ++r) {
+      if (restart_interval) {
+        if (rows_to_go == 0) {
+          br.restart(rst);
+          rst = (rst + 1) & 7;
+          reset = true;
+          rows_to_go = rows_per_restart;
+        }
+        --rows_to_go;
+      }
+      for (int m = 0; m < per_row; ++m) {
+        if (single) {
+          diff[0][static_cast<size_t>(r) * width[0] + m] = sample(sc[0]);
+        } else {
+          for (size_t k = 0; k < sc.size(); ++k)
+            for (int y = 0; y < sc[k]->v; ++y)
+              for (int x = 0; x < sc[k]->h; ++x)
+                diff[k][static_cast<size_t>(y) * width[k] + m * sc[k]->h + x] = sample(sc[k]);
+        }
+        br.check(at);
+      }
+    }
+    for (size_t k = 0; k < sc.size(); ++k) {
+      Component& c = *sc[k];
+      if (reset) c.first_row = true;
+      const int rows = std::min(c.v, c.dh - i * c.v);
+      for (int y = 0; y < rows; ++y) {
+        const int row = i * c.v + y;
+        const int* df = diff[k].data() + static_cast<size_t>(y) * width[k];
+        uint16_t* out = c.samples.data() + static_cast<size_t>(row) * c.dw;
+        if (c.first_row) {  // jpeg_undifference_first_row
+          int ra = (df[0] + init) & 0xFFFF;
+          out[0] = static_cast<uint16_t>(ra);
+          for (int x = 1; x < c.dw; ++x) out[x] = static_cast<uint16_t>(ra = (df[x] + ra) & 0xFFFF);
+          c.first_row = false;
+          continue;
+        }
+        const uint16_t* prev = out - c.dw;
+        int rb = prev[0], rc = 0;
+        int ra = (df[0] + rb) & 0xFFFF;
+        out[0] = static_cast<uint16_t>(ra);
+        for (int x = 1; x < c.dw; ++x) {
+          rc = rb;
+          rb = prev[x];
+          int p;
+          switch (psv) {
+            case 1: p = ra; break;
+            case 2: p = rb; break;
+            case 3: p = rc; break;
+            case 4: p = ra + rb - rc; break;
+            case 5: p = ra + ((rb - rc) >> 1); break;
+            case 6: p = rb + ((ra - rc) >> 1); break;
+            default: p = (ra + rb) >> 1; break;
+          }
+          out[x] = static_cast<uint16_t>(ra = (df[x] + p) & 0xFFFF);
+        }
+      }
+    }
+  }
+  pos = br.end();
 }
 
 // jidctint.c jpeg_idct_islow, into an 8 x 8 tile of `out` (row stride ostride).
@@ -701,20 +1191,147 @@ void idct_islow(const int16_t* in, const int32_t* q, uint8_t* out, size_t ostrid
   }
 }
 
-// One component's samples brought to the full width x height (jdsample.c).
+// jdcoefct.c smoothing_ok: every component has its DC and nonzero
+// quantisers at the ten positions, and some first AC coefficient is not
+// known to full precision.
+bool Jpeg::smoothing_ok() const {
+  if (!progressive) return false;
+  static const int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+  bool useful = false;
+  for (const auto& c : comp) {
+    if (!c.latched || c.coef_bits[0] < 0) return false;
+    for (int p : kPos)
+      if (c.q[p] == 0) return false;
+    for (int k = 1; k < 10; ++k)
+      if (c.coef_bits[k] != 0) useful = true;
+  }
+  return useful;
+}
+
+// jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1+): each block's
+// first nine AC coefficients that are still zero and not known exactly,
+// and with DC scans alone its DC too, are estimated from the DC values of
+// its 5 x 5 neighbourhood, then the block goes through the IDCT. The rows
+// and columns past the image repeat the edge as libjpeg's buffer pointers
+// do, iMCU row by iMCU row.
+void Jpeg::smooth_idct(Component& c, uint8_t* s, int istride, const uint8_t* range) {
+  const int* bits = c.coef_bits;
+  bool change_dc = true;
+  for (int k = 1; k < 10; ++k) change_dc = change_dc && bits[k] == -1;
+  const int64_t Q00 = c.q[0], Q01 = c.q[1], Q10 = c.q[8], Q20 = c.q[16], Q11 = c.q[9],
+                Q02 = c.q[2], Q03 = c.q[3], Q12 = c.q[10], Q21 = c.q[17], Q30 = c.q[24];
+  auto pred = [](int64_t num, int64_t q, int al) {
+    int p = static_cast<int>(((q << 7) + (num >= 0 ? num : -num)) / (q << 8));
+    if (al > 0 && p >= (1 << al)) p = (1 << al) - 1;
+    return static_cast<int16_t>(num >= 0 ? p : -p);
+  };
+  const int last = mcuy - 1;  // the last iMCU row
+  const int last_col = c.bw - 1;
+  int16_t ws[64];
+  for (int by = 0; by < c.bh; ++by) {
+    const int i = by / c.v, br = by % c.v;
+    int rows = c.v;
+    if (i == last) {
+      rows = c.bh % c.v;
+      if (!rows) rows = c.v;
+    }
+    // decompress_smooth_data's row bounds: it counts image block rows as
+    // iMCU row x (this iMCU row's block rows) + block row, over that count x
+    // the iMCU rows. So the padding rows of the last iMCU row serve as
+    // neighbours from above, and within the last iMCU row the count is off
+    // where it holds fewer than v block rows; the pixels are libjpeg's.
+    const int ibr = i * rows + br, ibrs = rows * mcuy;
+    const int prev = ibr > 0 ? by - 1 : by;
+    const int pprev = ibr > 1 ? by - 2 : prev;
+    const int next = ibr < ibrs - 1 ? by + 1 : by;
+    const int nnext = ibr < ibrs - 2 ? by + 2 : next;
+    const int16_t* r1 = c.block(pprev, 0);
+    const int16_t* r2 = c.block(prev, 0);
+    const int16_t* r3 = c.block(by, 0);
+    const int16_t* r4 = c.block(next, 0);
+    const int16_t* r5 = c.block(nnext, 0);
+    for (int bx = 0; bx <= last_col; ++bx) {
+      // The DC values of the 5 x 5 neighbourhood, DC13 this block's; the
+      // columns past the image repeat its edge.
+      auto dc = [&](const int16_t* row, int dx) {
+        return static_cast<int>(row[std::clamp(bx + dx, 0, last_col) * 64]);
+      };
+      const int DC01 = dc(r1, -2), DC02 = dc(r1, -1), DC03 = dc(r1, 0), DC04 = dc(r1, 1),
+                DC05 = dc(r1, 2), DC06 = dc(r2, -2), DC07 = dc(r2, -1), DC08 = dc(r2, 0),
+                DC09 = dc(r2, 1), DC10 = dc(r2, 2), DC11 = dc(r3, -2), DC12 = dc(r3, -1),
+                DC13 = dc(r3, 0), DC14 = dc(r3, 1), DC15 = dc(r3, 2), DC16 = dc(r4, -2),
+                DC17 = dc(r4, -1), DC18 = dc(r4, 0), DC19 = dc(r4, 1), DC20 = dc(r4, 2),
+                DC21 = dc(r5, -2), DC22 = dc(r5, -1), DC23 = dc(r5, 0), DC24 = dc(r5, 1),
+                DC25 = dc(r5, 2);
+      std::memcpy(ws, c.block(by, bx), sizeof ws);
+      if (bits[1] != 0 && ws[1] == 0)  // AC01
+        ws[1] = pred(Q00 * (change_dc ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 -
+                                         13 * DC09 + 3 * DC10 - 3 * DC11 + 38 * DC12 -
+                                         38 * DC14 + 3 * DC15 - 3 * DC16 + 13 * DC17 -
+                                         13 * DC19 + 3 * DC20 - DC21 - DC22 + DC24 + DC25)
+                                      : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)),
+                     Q01, bits[1]);
+      if (bits[2] != 0 && ws[8] == 0)  // AC10
+        ws[8] = pred(Q00 * (change_dc ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 +
+                                         13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 + DC16 -
+                                         13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+                                         3 * DC22 + 3 * DC23 + 3 * DC24 + DC25)
+                                      : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)),
+                     Q10, bits[2]);
+      if (bits[3] != 0 && ws[16] == 0)  // AC20
+        ws[16] = pred(Q00 * (change_dc ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 -
+                                          14 * DC13 - 5 * DC14 + 2 * DC17 + 7 * DC18 +
+                                          2 * DC19 + DC23)
+                                       : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)),
+                      Q20, bits[3]);
+      if (bits[4] != 0 && ws[9] == 0)  // AC11
+        ws[9] = pred(Q00 * (change_dc ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 +
+                                         9 * DC19 + DC21 - DC25)
+                                      : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 +
+                                         DC22 - DC24 + DC04 - DC06 + 10 * DC07 - 10 * DC09)),
+                     Q11, bits[4]);
+      if (bits[5] != 0 && ws[2] == 0)  // AC02
+        ws[2] = pred(Q00 * (change_dc ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 -
+                                         14 * DC13 + 7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 +
+                                         2 * DC19)
+                                      : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)),
+                     Q02, bits[5]);
+      if (change_dc) {
+        if (bits[6] != 0 && ws[3] == 0)  // AC03
+          ws[3] = pred(Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19), Q03, bits[6]);
+        if (bits[7] != 0 && ws[10] == 0)  // AC12
+          ws[10] = pred(Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19), Q12, bits[7]);
+        if (bits[8] != 0 && ws[17] == 0)  // AC21
+          ws[17] = pred(Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19), Q21, bits[8]);
+        if (bits[9] != 0 && ws[24] == 0)  // AC30
+          ws[24] = pred(Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19), Q30, bits[9]);
+        ws[0] = pred(Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 +
+                            6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 +
+                            42 * DC12 + 152 * DC13 + 42 * DC14 - 8 * DC15 - 6 * DC16 +
+                            6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 - 2 * DC21 -
+                            6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25),
+                     Q00, 0);
+      }
+      idct_islow(ws, c.q, s + (static_cast<size_t>(by) * 8 * istride + bx * 8), istride, range);
+    }
+  }
+}
+
+// One component's samples brought to the full width x height (jdsample.c);
+// without `fancy` every ratio replicates.
 std::vector<uint8_t> upsample(const std::vector<uint8_t>& in, int istride, int dw, int dh,
-                              int hx, int vx, int width, int height) {
+                              int hx, int vx, int width, int height, bool fancy) {
   std::vector<uint8_t> out(static_cast<size_t>(width) * height);
   auto row = [&](int r) {
     return in.data() + static_cast<size_t>(std::clamp(r, 0, dh - 1)) * istride;
   };
-  const bool fancy_h2 = hx == 2 && dw > 2;  // else h2 replicates
+  const bool fancy_h2 = fancy && hx == 2 && dw > 2;  // else h2 replicates
   std::vector<int> sums(dw);
   std::vector<uint8_t> tmp(2 * static_cast<size_t>(dw));
   for (int y = 0; y < height; ++y) {
     uint8_t* o = out.data() + static_cast<size_t>(y) * width;
     const int r = y / vx;
-    if (vx == 2 && (hx == 1 || fancy_h2)) {
+    if (vx == 2 && ((fancy && hx == 1) || fancy_h2)) {
       // Vertical triangle: the nearer input row 3/4, the next nearer 1/4.
       const uint8_t* near = row(r);
       const uint8_t* far = row(y % 2 ? r + 1 : r - 1);
@@ -757,25 +1374,74 @@ std::vector<uint8_t> upsample(const std::vector<uint8_t>& in, int istride, int d
   return out;
 }
 
+// jdcolor.c build_ycc_rgb_table and ycc_rgb_convert, one pixel.
+struct YccTables {
+  static constexpr int kScale = 16;
+  int cr_r[256], cb_b[256];
+  int64_t cr_g[256], cb_g[256];
+  YccTables() {
+    constexpr int64_t kHalf = int64_t{1} << (kScale - 1);
+    auto fix = [](double x) { return static_cast<int64_t>(x * (1 << kScale) + 0.5); };
+    for (int i = 0; i < 256; ++i) {
+      int64_t x = i - 128;
+      cr_r[i] = static_cast<int>((fix(1.40200) * x + kHalf) >> kScale);
+      cb_b[i] = static_cast<int>((fix(1.77200) * x + kHalf) >> kScale);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + kHalf;
+    }
+  }
+  void rgb(int y, int cb, int cr, uint8_t* o) const {
+    o[0] = clamp8(y + cr_r[cr]);
+    o[1] = clamp8(y + static_cast<int>((cb_g[cb] + cr_g[cr]) >> kScale));
+    o[2] = clamp8(y + cb_b[cb]);
+  }
+  static uint8_t clamp8(int v) { return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v); }
+};
+
 void Jpeg::finish(std::vector<uint8_t>* rgb) {
   static const RangeLimit range;
-  if (progressive) {
-    for (auto& c : comp)
-      for (int k = 0; k < 10; ++k)
-        if (c.coef_bits[k] != 0)
-          not_ported("progressive JPEG whose scans leave coefficient " + std::to_string(k) +
-                     " unrefined (libjpeg smooths such blocks; block smoothing is not "
-                     "ported)");
+  static const YccTables ycc;
+  // The colour space (jdapimin.c default_decompress_parms); libjpeg's
+  // lossless mode converts none, so such a frame must be RGB, grey or CMYK.
+  bool convert = false;  // YCbCr -> RGB, or YCCK -> CMYK
+  if (ncomp == 3) {
+    const int a = comp[0].id, b = comp[1].id, c = comp[2].id;
+    if (jfif)
+      convert = true;
+    else if (adobe)
+      convert = adobe_transform != 0;
+    else if (a == 'R' && b == 'G' && c == 'B')
+      convert = false;
+    else
+      convert = !lossless;  // ids 1, 2, 3 or unknown: YCbCr, lossless RGB
+  } else if (ncomp == 4) {
+    convert = adobe && adobe_transform != 0;  // YCCK
   }
+  if (lossless && convert)
+    fail(std::string("lossless JPEG in ") + (ncomp == 3 ? "YCbCr" : "YCCK") +
+         " (libjpeg converts no colour space in lossless mode and refuses it too)");
+  const bool smooth = smoothing_ok();
   std::vector<std::vector<uint8_t>> planes;
   for (auto& c : comp) {
-    if (!c.latched) fail("corrupt JPEG: a component no scan decodes");
-    int istride = c.bw * 8;
-    std::vector<uint8_t> s(static_cast<size_t>(istride) * c.bh * 8);
-    for (int by = 0; by < c.bh; ++by)
-      for (int bx = 0; bx < c.bw; ++bx)
-        idct_islow(c.block(by, bx), c.q, s.data() + (static_cast<size_t>(by) * 8 * istride + bx * 8),
-                   istride, range.t);
+    if (!c.scanned) fail("corrupt JPEG: a component no scan decodes");
+    int istride;
+    std::vector<uint8_t> s;
+    if (lossless) {  // jdlossls.c: the point transform undone, 8 bits kept
+      istride = c.dw;
+      s.resize(c.samples.size());
+      for (size_t i = 0; i < s.size(); ++i) s[i] = static_cast<uint8_t>(c.samples[i] << c.pt);
+    } else {
+      istride = c.bw * 8;
+      s.resize(static_cast<size_t>(istride) * c.bh * 8);
+      if (smooth) {
+        smooth_idct(c, s.data(), istride, range.t);
+      } else {
+        for (int by = 0; by < c.bh; ++by)
+          for (int bx = 0; bx < c.bw; ++bx)
+            idct_islow(c.block(by, bx), c.q, s.data() + (static_cast<size_t>(by) * 8 * istride + bx * 8),
+                       istride, range.t);
+      }
+    }
     int hx = hmax / c.h, vx = vmax / c.v;
     if (hx == 1 && vx == 1) {
       std::vector<uint8_t> full(static_cast<size_t>(width) * height);
@@ -783,7 +1449,7 @@ void Jpeg::finish(std::vector<uint8_t>* rgb) {
         std::memcpy(full.data() + static_cast<size_t>(y) * width, s.data() + static_cast<size_t>(y) * istride, width);
       planes.push_back(std::move(full));
     } else {
-      planes.push_back(upsample(s, istride, c.dw, c.dh, hx, vx, width, height));
+      planes.push_back(upsample(s, istride, c.dw, c.dh, hx, vx, width, height, !lossless));
     }
   }
   size_t npx = static_cast<size_t>(width) * height;
@@ -793,38 +1459,37 @@ void Jpeg::finish(std::vector<uint8_t>* rgb) {
     for (size_t i = 0; i < npx; ++i) o[3 * i] = o[3 * i + 1] = o[3 * i + 2] = planes[0][i];
     return;
   }
-  bool is_rgb;
-  if (jfif)
-    is_rgb = false;
-  else if (adobe)
-    is_rgb = adobe_transform == 0;
-  else
-    is_rgb = comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
-  if (is_rgb) {
-    for (size_t i = 0; i < npx; ++i)
-      for (int k = 0; k < 3; ++k) o[3 * i + k] = planes[k][i];
+  const uint8_t *p0 = planes[0].data(), *p1 = planes[1].data(), *p2 = planes[2].data();
+  if (ncomp == 3) {
+    for (size_t i = 0; i < npx; ++i) {
+      if (convert) {
+        ycc.rgb(p0[i], p1[i], p2[i], o + 3 * i);
+      } else {
+        o[3 * i] = p0[i];
+        o[3 * i + 1] = p1[i];
+        o[3 * i + 2] = p2[i];
+      }
+    }
     return;
   }
-  // jdcolor.c build_ycc_rgb_table and ycc_rgb_convert.
-  constexpr int kScale = 16;
-  constexpr int64_t kHalf = int64_t{1} << (kScale - 1);
-  auto fix = [](double x) { return static_cast<int64_t>(x * (1 << kScale) + 0.5); };
-  int cr_r[256], cb_b[256];
-  int64_t cr_g[256], cb_g[256];
-  for (int i = 0; i < 256; ++i) {
-    int64_t x = i - 128;
-    cr_r[i] = static_cast<int>((fix(1.40200) * x + kHalf) >> kScale);
-    cb_b[i] = static_cast<int>((fix(1.77200) * x + kHalf) >> kScale);
-    cr_g[i] = -fix(0.71414) * x;
-    cb_g[i] = -fix(0.34414) * x + kHalf;
-  }
-  auto clamp8 = [](int v) { return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v); };
-  const uint8_t *py = planes[0].data(), *pb = planes[1].data(), *pr = planes[2].data();
+  // CMYK: YCCK becomes 255 minus its RGB, K unchanged (ycck_cmyk_convert).
+  // PIL reads libjpeg's CMYK inverted (CMYK;I: Adobe's convention) and its
+  // cmyk2rgb gives K' - K' * C' / 255 in 8-bit fixed point, where C' and
+  // K' are the raw samples (the inversions cancel).
+  const uint8_t* p3 = planes[3].data();
+  auto muldiv255 = [](int a, int b) {
+    int t = a * b + 128;
+    return ((t >> 8) + t) >> 8;
+  };
   for (size_t i = 0; i < npx; ++i) {
-    int y = py[i], cb = pb[i], cr = pr[i];
-    o[3 * i] = clamp8(y + cr_r[cr]);
-    o[3 * i + 1] = clamp8(y + static_cast<int>((cb_g[cb] + cr_g[cr]) >> kScale));
-    o[3 * i + 2] = clamp8(y + cb_b[cb]);
+    uint8_t cmy[3] = {p0[i], p1[i], p2[i]};
+    if (convert) {
+      uint8_t t[3];
+      ycc.rgb(p0[i], p1[i], p2[i], t);
+      for (int k = 0; k < 3; ++k) cmy[k] = static_cast<uint8_t>(255 - t[k]);
+    }
+    const int k = p3[i];
+    for (int j = 0; j < 3; ++j) o[3 * i + j] = YccTables::clamp8(k - muldiv255(255 - cmy[j], k));
   }
 }
 
@@ -836,18 +1501,18 @@ void Jpeg::decode(std::vector<uint8_t>* rgb, bool header_only) {
     int m = next_marker();
     size_t at = pos - 2;
     switch (m) {
-      case 0xC0: case 0xC1: case 0xC2:
+      case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC9: case 0xCA:
         read_sof(m);
         if (header_only) return;
-        alloc_coefficients();
+        alloc_buffers();
         break;
-      case 0xC3: case 0xC7: case 0xCB: case 0xCF:
-        not_ported("lossless JPEG (lossless JPEG is not ported)");
-      case 0xC5: case 0xC6: case 0xDE: case 0xDF:
-        fail("hierarchical JPEG (hierarchical JPEG is not ported)");
-      case 0xC9: case 0xCA: case 0xCC: case 0xCD: case 0xCE:
-        not_ported("arithmetic-coded JPEG (arithmetic coding is not ported)");
+      case 0xCB:
+        fail("lossless arithmetic-coded JPEG (SOF11; libjpeg refuses it too)");
+      case 0xC5: case 0xC6: case 0xC7: case 0xCD: case 0xCE: case 0xCF: case 0xDE:
+      case 0xDF:
+        fail("hierarchical JPEG (libjpeg refuses it too)");
       case 0xC4: read_dht(); break;
+      case 0xCC: read_dac(); break;
       case 0xDB: read_dqt(); break;
       case 0xDD: {
         if (u16() != 4) fail_at("corrupt JPEG: bad DRI length", at);
@@ -1017,15 +1682,14 @@ int paeth(int a, int b, int c) {
 
 // The three JPEG entry points return 0, or with a message in `msg`
 // (msg_len bytes): -1 for a stream libjpeg refuses too, naming the feature
-// or the corrupt byte offset; -9 for a feature libjpeg decodes and the port
-// does not; -8 when memory runs out.
+// or the corrupt byte offset; -8 when memory runs out.
 template <typename F>
 int guarded(char* msg, int msg_len, F&& f) {
   try {
     return f();
   } catch (const JpegError& e) {
     set_msg(msg, msg_len, e.msg);
-    return e.not_ported ? -9 : -1;
+    return -1;
   } catch (const std::bad_alloc&) {
     set_msg(msg, msg_len, "out of memory decoding a JPEG");
     return -8;

@@ -13,13 +13,15 @@ own writer send; the scanline filters and the ADM center crop run in C.
 :func:`decode_center_crop` the ADM crop (the service's and the eval
 harness's).
 JPEG is decoded by the port's own decoder in ``csrc/decode.cpp``, bit-equal
-to libjpeg-turbo's default decode (baseline, extended sequential and
-progressive Huffman streams), on every machine: no libjpeg is linked. A
-stream it does not take and truncated or corrupt data raise ``ValueError``
-naming the feature or the byte offset; :class:`NotPortedError`, a
-``ValueError``, marks the features that libjpeg decodes and the port does
-not yet (arithmetic coding, lossless, CMYK/YCCK, block smoothing), so that
-a dataset fails loudly on them instead of treating them as a corrupt file.
+to libjpeg-turbo's default decode as PIL reads it, on every machine: no
+libjpeg is linked. It takes baseline, extended sequential, progressive and
+lossless (8-bit) frames, Huffman or arithmetic coded, Motion-JPEG frames
+without their Huffman tables, 1, 3 or 4 components (CMYK and YCCK become
+RGB as PIL's ``convert("RGB")`` makes them), and smooths the blocks of an
+incomplete progressive image as libjpeg does. What libjpeg's 8-bit decode
+refuses (other precisions, hierarchical frames, lossless arithmetic
+coding, DNL, 2 components), and truncated or corrupt data, raise
+``ValueError`` naming the feature or the byte offset.
 :func:`decode_center_crop`'s ``max_pixels`` refuses, from the header
 alone, an image that declares more pixels (the service's uploads); the
 datasets set none, as the reference's datasets lift PIL's limit for real
@@ -41,10 +43,6 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _JPEG_SOI = b"\xff\xd8\xff"
 # PNG colour type -> channels at 8 bits (3, a palette, is expanded to RGB).
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
-
-
-class NotPortedError(ValueError):
-    """A JPEG feature that libjpeg decodes and the port's decoder does not."""
 
 
 @functools.cache
@@ -112,12 +110,11 @@ def formats() -> tuple[str, ...]:
 
 
 def _jpeg_call(fn_name: str, data: bytes, *args) -> int:
-    """Call a JPEG entry point; raise with its message on -1, -8 and -9."""
+    """Call a JPEG entry point; raise with its message on -1 and -8."""
     buf = ctypes.create_string_buffer(256)
     rc = getattr(_decode_lib(), fn_name)(data, len(data), *args, buf, len(buf))
-    if rc in (-1, -8, -9):
-        error = NotPortedError if rc == -9 else ValueError
-        raise error(f"{buf.value.decode(errors='replace')} (native decoder)")
+    if rc in (-1, -8):
+        raise ValueError(f"{buf.value.decode(errors='replace')} (native decoder)")
     return rc
 
 

@@ -249,8 +249,10 @@ class DataParallel:
 
     def __init__(self, rank: int = 0, world: int = 1, device: torch.device | None = None,
                  backend: str | None = None, source: str = "one process",
-                 control=None, owns_group: bool = False):
+                 control=None, owns_group: bool = False, local_world: int | None = None):
         self.rank, self.world = rank, world
+        # The ranks on this rank's host: fewer than the world on several hosts.
+        self.local_world = world if local_world is None else local_world
         self.device = device if device is not None else torch.device("cpu")
         self.backend, self.source = backend, source
         self._control = control
@@ -359,7 +361,7 @@ def initialize_distributed(launch: Launch, device: str | torch.device | None = N
                             timeout=TIMEOUT, device_id=dev if backend == "nccl" else None)
     control = dist.new_group(backend="gloo", timeout=TIMEOUT) if backend != "gloo" else None
     return DataParallel(launch.rank, launch.world, dev, backend, launch.source, control,
-                        owns_group=True)
+                        owns_group=True, local_world=local_world)
 
 
 def maybe_initialize_distributed(mesh_cfg=None, device: str | torch.device | None = None,

@@ -56,8 +56,9 @@ section) runs it on the CPU instead. ``model.attn_impl`` takes None
 (auto), ``pallas`` (the whole-row kernels K1/K2), ``flash`` (K4-K6) or
 ``block`` (K3 forward, its backward by autograd of the plain version, as
 the JAX package leaves it to XLA). ``task.multi_grid=3,4,6`` cycles one
-step per grid; ``data.device_cache`` keeps the whole set on the card (one
-process only), ``device_cache_augment`` rolls and flips its batches;
+step per grid; ``data.device_cache`` keeps the whole set on the card (on
+each rank's card, one host only), ``device_cache_augment`` rolls and flips
+its batches;
 ``model.matmul_precision`` sets float32 products (``utils/device.py``).
 ``data.dataset`` takes ``synthetic`` (every cue regime; ``coords`` is the
 default), ``met``, ``texmet`` or an image folder (``data.data_path``);
@@ -229,10 +230,11 @@ def main(argv=None, device: str | torch.device | None = None) -> int:
 def train(cfg: Config, dp: DataParallel, precision: str = "highest") -> int:
     """The run of ``main`` on this process's rank of ``dp``."""
     device, is_main = dp.device, dp.is_main
-    if cfg.data.device_cache and dp.world > 1:
+    if cfg.data.device_cache and not cfg.data.device_stream and dp.local_world < dp.world:
         raise NotImplementedError(
-            "data.device_cache across processes: the whole set is staged on one card; "
-            "use the loader or data.device_stream for a multi-process run")
+            "data.device_cache across hosts: each rank stages the whole set on its own card, "
+            "which the JAX trainer does on one host only; use the loader or "
+            "data.device_stream for a multi-host run")
     exp_dir = None
     if is_main:
         exp_dir = cfg.train.exp_dir or auto_experiment_dir(
@@ -302,38 +304,10 @@ def train(cfg: Config, dp: DataParallel, precision: str = "highest") -> int:
         ckpt.restore(state)
         logger.info(f"Resumed from step {state.step}")
     elif cfg.train.warm_start:
-        # Params carry over; the EMA belongs to the old run and is reset to
-        # them, with the warmup re-armed at the restored step. The step
-        # counter carries over, so the stream cursor and the step budget
-        # continue where the donor stopped.
         ws = cfg.train.warm_start
-        if ws.endswith((".json", ".npz")):
-            # A durable artifact holds EMA weights only: the optimizer
-            # starts fresh; the step comes from the manifest.
-            sd, ws_step = load_artifact(ws, device=device)
-            try:
-                state.model.load_state_dict(sd, strict=True)
-            except RuntimeError as e:
-                raise SystemExit(f"train.warm_start={ws!r} does not fit the "
-                                 f"model: {e}") from e
-            del sd
-            state.step = ws_step
-            if ws_step == 0:
-                warnings.warn(
-                    f"train.warm_start={ws!r} records no training step (a bare "
-                    ".npz reads as step 0): the data stream cursor, the EMA "
-                    "warmup anchor and the step budget restart from 0. Point "
-                    "at the artifact's .manifest.json to continue its stream.",
-                    stacklevel=1)
-                logger.warning(f"warm start {ws} reads step 0")
-            src = "artifact, params-only, fresh optimizer"
-        else:
-            warm = CheckpointManager(ws)
-            if warm.latest_step() is None:
-                raise FileNotFoundError(f"train.warm_start={ws!r} contains no checkpoints")
-            warm.restore(state)
-            src = "checkpoint"
-        state.ema.load_state_dict(state.model.state_dict())
+        src = warm_start(state, ws, device)
+        if state.step == 0 and ws.endswith((".json", ".npz")):
+            logger.warning(f"warm start {ws} reads step 0")
         ema_anchor = state.step
         logger.info(f"Warm-started from {ws} [{src}] at step {ema_anchor} "
                     "(EMA reset to params, warmup re-armed)")
@@ -424,7 +398,7 @@ def train(cfg: Config, dp: DataParallel, precision: str = "highest") -> int:
             return
         if cached is not None:
             yield from cached_batches(cached, b, cfg.train.global_seed, epoch,
-                                      d.device_cache_augment)
+                                      d.device_cache_augment, rows)
             return
         loader.set_epoch(epoch)
         for batch in loader:
@@ -510,17 +484,55 @@ def train(cfg: Config, dp: DataParallel, precision: str = "highest") -> int:
     return 0
 
 
+def warm_start(state, ws: str, device) -> str:
+    """Seed ``state`` from ``train.warm_start=ws``, before any mesh cuts it:
+    params carry over, and the EMA belongs to the old run and is reset to
+    them. The step counter carries over, so the stream cursor and the step
+    budget continue where the donor stopped. Returns where it came from."""
+    if ws.endswith((".json", ".npz")):
+        # A durable artifact holds EMA weights only: the optimizer starts
+        # fresh; the step comes from the manifest.
+        sd, ws_step = load_artifact(ws, device=device)
+        try:
+            state.model.load_state_dict(sd, strict=True)
+        except RuntimeError as e:
+            raise SystemExit(f"train.warm_start={ws!r} does not fit the model: {e}") from e
+        del sd
+        state.step = ws_step
+        if ws_step == 0:
+            warnings.warn(
+                f"train.warm_start={ws!r} records no training step (a bare "
+                ".npz reads as step 0): the data stream cursor, the EMA "
+                "warmup anchor and the step budget restart from 0. Point "
+                "at the artifact's .manifest.json to continue its stream.",
+                stacklevel=2)
+        src = "artifact, params-only, fresh optimizer"
+    else:
+        warm = CheckpointManager(ws)
+        if warm.latest_step() is None:
+            raise FileNotFoundError(f"train.warm_start={ws!r} contains no checkpoints")
+        warm.restore(state)
+        src = "checkpoint"
+    state.ema.load_state_dict(state.model.state_dict())
+    return src
+
+
 def cached_batches(data: torch.Tensor, batch: int, seed: int, epoch: int,
-                   augment: bool):
+                   augment: bool, rows=None):
     """One epoch of ``data.device_cache`` (JAX run_train.py:434-447): the
     order of ``default_rng(seed * 100003 + epoch)``, ``len // batch``
     batches; with ``augment`` each batch is rolled by (dy, dx) over its
     rows and columns and flipped left-right, then up-down, each with
-    probability 1/2, drawn from the same generator in that order."""
+    probability 1/2, drawn from the same generator in that order. Every
+    rank holds the whole set and draws alike; ``rows`` (None: all) are this
+    rank's of each global batch. The roll and the flips act within an
+    image, so the ranks' rows together are one process's batch."""
     rng = np.random.default_rng(seed * 100003 + epoch)
     perm = torch.as_tensor(rng.permutation(data.shape[0]), device=data.device)
+    mine = None if rows is None else torch.as_tensor(np.asarray(rows), device=data.device)
     for i in range(data.shape[0] // batch):
-        x = data[perm[i * batch:(i + 1) * batch]]
+        idx = perm[i * batch:(i + 1) * batch]
+        x = data[idx if mine is None else idx[mine]]
         if augment:
             h = x.shape[1]
             dy, dx = int(rng.integers(0, h)), int(rng.integers(0, h))

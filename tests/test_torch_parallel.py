@@ -12,10 +12,13 @@
   step on a ``data=2`` mesh of two virtual CPU devices, with the same
   injected draws and weights.
 - ``run_train`` on 2 ranks: its losses and final state against one
-  process's on the loader and on ``data.device_stream``, one checkpoint,
+  process's on the loader, on ``data.device_stream`` and on
+  ``data.device_cache`` (with and without its augmentation; the ranks'
+  rows of each cached batch are one process's batch), one checkpoint,
   a resume that every rank restores bit-equal, SIGTERM to one rank (both
   stop at one step and exit 42), a killed rank (the other exits non-zero
-  at its next step) and the refusals that stay (``mesh.model`` and
+  at its next step) and the refusals that stay (``data.device_cache``
+  across hosts; ``mesh.model`` and
   ``mesh.fsdp``, ported, refused where they do not fit the world;
   ``tests/test_torch_mesh.py`` runs them).
 
@@ -399,6 +402,46 @@ def test_two_rank_run_train_equals_one_process_and_resumes(tmp_path, data, monke
     assert len(_losses(two)) == 8
 
 
+@pytest.mark.parametrize("augment", [False, True], ids=["cache", "cache_augment"])
+def test_two_rank_device_cache_equals_one_process(tmp_path, augment, monkeypatch):
+    """``data.device_cache`` on 2 ranks of one host: each stages the whole
+    set, draws the order (and the rolls and flips) one process draws and
+    trains on its rows of each batch."""
+    extra = TINY + ["data.device_cache=true", f"data.device_cache_augment={augment}",
+                    "train.epochs=1"]
+    monkeypatch.chdir(tmp_path)
+    one = tmp_path / "one"
+    assert run_train.main(extra + [f"train.exp_dir={one}"]) == 0
+    two = tmp_path / "two"
+    procs = launch(lambda r: CLI + extra + [f"train.exp_dir={two}"], tmp_path, "cache")
+    assert wait_all(procs) == [0, 0], logs(procs)
+    np.testing.assert_allclose(_losses(two), _losses(one), rtol=1e-6)
+    assert len(_losses(two)) == 4
+    a, b = _state(two, 4), _state(one, 4)
+    for part in ("model", "ema"):
+        assert_adam_close({k: v.numpy() for k, v in a[part].items()},
+                          {k: v.numpy() for k, v in b[part].items()}, 0.1 * 0.003, 1e-7, 0.995)
+    assert "device-cached dataset: (32, 48, 48, 3)" in (two / "log.txt").read_text()
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_cached_batch_rows_of_the_ranks_make_one_process_batch(accum):
+    """Every step, with and without the rolls and flips, the two ranks'
+    rows put back in place are one process's batch, bit for bit."""
+    data = torch.randn(21, 6, 6, 3)
+    for augment in (False, True):
+        whole = list(run_train.cached_batches(data, 8, 5, 2, augment))
+        rows = [rank_rows(8, r, 2, accum) for r in range(2)]
+        parts = [list(run_train.cached_batches(data, 8, 5, 2, augment, rows[r]))
+                 for r in range(2)]
+        assert len(whole) == len(parts[0]) == len(parts[1]) == 2
+        for s, want in enumerate(whole):
+            got = torch.empty_like(want)
+            for r in range(2):
+                got[torch.as_tensor(rows[r])] = parts[r][s]
+            assert torch.equal(got, want), (augment, s)
+
+
 def _start_long_run(tmp_path, name):
     exp = tmp_path / name
     procs = launch(lambda r: CLI + TINY + [f"train.exp_dir={exp}", "train.epochs=100000"],
@@ -457,9 +500,13 @@ def test_run_train_refuses_the_other_mesh_axes(extra, name):
 
 
 def test_run_train_refuses_mesh_data_other_than_the_world_and_cache_across_ranks(tmp_path):
+    """``mesh.data`` must be the world; ``data.device_cache`` runs on the
+    ranks of one host and is refused across hosts, as the JAX trainer
+    refuses it on several."""
     with pytest.raises(ValueError, match="world size"):
         run_train.main(TINY + ["mesh.data=2", f"train.exp_dir={tmp_path}/a"])
     cfg = apply_overrides(Config(), [a for a in TINY if a != "device=cpu"]
                           + ["data.device_cache=true"])
-    with pytest.raises(NotImplementedError, match="device_cache across processes"):
-        run_train.train(cfg, DataParallel(rank=0, world=2))
+    with pytest.raises(NotImplementedError, match="device_cache across hosts"):
+        run_train.train(cfg, DataParallel(rank=0, world=4, local_world=2))
+    assert DataParallel(rank=1, world=2).local_world == 2

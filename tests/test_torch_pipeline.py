@@ -18,7 +18,9 @@
   pipelined step on the same composition of 4 virtual CPU devices, every
   rank; their checkpoints restore bit-equal into one process; under
   FSDP every fsdp-cut leaf a stage reached is reduce-scattered once a
-  step, not once a microbatch.
+  step, not once a microbatch; ``pipe=2 x fsdp=2`` warm-started from
+  ``tests/fixtures/tiny_jpdvt_48px.npz`` (as ``train.warm_start`` does it)
+  against one process warm-started alike.
 - ``run_train`` on ``mesh.pipe=2`` (depth 2, one block a stage, the
   default 4 microbatches) with checkpoints interchangeable with one
   process's both ways, as ``tests/test_pipeline.py:152-180`` holds the JAX
@@ -135,6 +137,16 @@ def test_pipe_fsdp_reduce_scatters_each_leaf_once_a_step(runs):
     used = [int(res["fsdp_leaves_used"]) for res in ranks["pipe2_fsdp2"]]
     assert [int(res["reduce_scatters"]) for res in ranks["pipe2_fsdp2"]] == used
     assert used[0] == used[1] and used[2] == used[3] and used[0] != used[2]
+
+
+def test_warm_started_pipe_fsdp_equals_one_process(runs):
+    """``train.warm_start`` from the tiny fixture on ``pipe=2 x fsdp=2``:
+    every rank builds and warm-starts the whole state before the mesh
+    cuts it (the path the JAX trainer gets wrong under its pipeline), and
+    trains as one process warm-started alike."""
+    ranks, _, _, tmp = runs
+    one = worker.run_case("pipe2_fsdp2_warm", str(tmp))
+    common.check_against_one_process(ranks["pipe2_fsdp2_warm"], one)
 
 
 @pytest.mark.parametrize("mesh", PIPE_MESHES)

@@ -370,8 +370,8 @@ def test_met_items_equal_jax(met_dir, split):
 
 def test_datasets_with_jpegs_are_refused_without_libjpeg(texmet_dir, met_dir, tmp_path):
     """No: the port links no libjpeg anywhere, and its datasets and CLIs
-    take JPEG directories, item for item the JAX datasets' (PIL's libjpeg).
-    Only a JPEG feature the port does not decode yet fails, by name."""
+    take JPEG directories, item for item the JAX datasets' (PIL's libjpeg),
+    arithmetic-coded and CMYK files too."""
     assert native.formats() == ("png", "jpeg")
     for split in ("train", "test"):
         mine, theirs = (datasets.METDataset(met_dir, split),
@@ -388,20 +388,25 @@ def test_datasets_with_jpegs_are_refused_without_libjpeg(texmet_dir, met_dir, tm
     for i, path in enumerate(mine.image_files):
         if path.endswith(".jpg"):
             np.testing.assert_array_equal(mine[i], theirs[i], err_msg=path)
-    # An arithmetic-coded scan (libjpeg decodes it, the port not yet) fails
-    # its TEXMET item by file and feature; a corrupt one turns black as in
-    # the reference.
+    # An arithmetic-coded and a CMYK scan (both of which libjpeg decodes)
+    # give the JAX datasets' items, through PIL there; a corrupt one turns
+    # black as in the reference.
     (tmp_path / "images").mkdir()
     golden = os.path.join(REPO, "tests", "golden", "torch_jpeg")
-    with open(os.path.join(golden, "arithmetic_61x77.jpg"), "rb") as f:
-        (tmp_path / "images" / "arith.jpg").write_bytes(f.read())
+    for name in ("arithmetic_61x77", "ycck_420_61x77"):
+        with open(os.path.join(golden, f"{name}.jpg"), "rb") as f:
+            (tmp_path / "images" / f"{name}.jpg").write_bytes(f.read())
     with open(os.path.join(golden, "q50_420_61x77.jpg"), "rb") as f:
         (tmp_path / "images" / "cut.jpg").write_bytes(f.read()[:700])
-    (tmp_path / "train_files.txt").write_text("arith.jpg\ncut.jpg\n")
+    (tmp_path / "train_files.txt").write_text(
+        "arithmetic_61x77.jpg\nycck_420_61x77.jpg\ncut.jpg\n")
     split = datasets.TEXMETDataset(str(tmp_path), "train", 192)
-    with pytest.raises(native.NotPortedError, match="arith.jpg.*arithmetic"):
-        split[0]
-    assert not split[1].any()
+    theirs = jax_datasets.TEXMETDataset(str(tmp_path), "train", 192)
+    for i in (0, 1):
+        got = split[i]
+        assert got.any()
+        np.testing.assert_array_equal(got, theirs[i])
+    assert not split[2].any()
     # The CLIs: a JPEG TEXMET split trains, a JPEG folder evaluates (its
     # corrupt PNG logged and skipped, as the JAX harness skips it).
     assert run_train.main(SMALL + ["model.image_size=192", "data.dataset=texmet",

@@ -9,8 +9,9 @@ included: the datasets, the eval harness and the service decode, transform
 and write their images without PIL, and the data split needs no sklearn; the
 reference-oracle tools ``ref_pipeline``, ``make_dit_goldens``,
 ``activation_compare`` and ``parity`` keep their own copies of what they
-take from the JAX package's tools) and ``chip_smoke`` (without running its
-``main``). Output goes to a file, not a
+take from the JAX package's tools; ``make_goldens`` imports the reference's
+``diffusion`` package only when it runs), the port's demos and relaunch
+wrapper, and ``chip_smoke`` (without running its ``main``). Output goes to a file, not a
 pipe, so a chatty child cannot block.
 """
 
@@ -27,7 +28,7 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "PIL", "sklea
 TOOLS = ("convert", "export", "bench", "sampler_table", "masked_eval_table",
          "probe_checkpoint", "bench_train", "bench_quant", "bench_serve", "metrics_report",
          "cliff_report", "ambiguity_probe", "val_panel", "make_wave_pngdir",
-         "ref_pipeline", "make_dit_goldens", "activation_compare", "parity")
+         "ref_pipeline", "make_dit_goldens", "activation_compare", "parity", "make_goldens")
 
 CHILD = r"""
 import importlib, sys
@@ -65,7 +66,8 @@ def test_port_and_chip_smoke_import_without_jax(tmp_path):
                 "serve.quant_gate", "serve.png", "ops.quant", "data.transforms",
                 "parallel", "parallel.mesh", "data.datasets", "data.synthetic",
                 "models.moe", "core.likelihood", "core.timestep_sampler",
-                "utils.profiling", *(f"tools.{t}" for t in TOOLS)):
+                "utils.profiling", "train.autoresume", "examples.demo_walkthrough",
+                "examples.masked_patches_demo", *(f"tools.{t}" for t in TOOLS)):
         assert f"jpdvt_mt_ntnu_tpu_torch.{mod}" in modules
     out = tmp_path / "child.log"
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

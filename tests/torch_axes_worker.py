@@ -11,7 +11,8 @@ global batches as ``tests/torch_parallel_worker.py``, cut by
 per-step metrics, the whole state gathered after the last step, the
 first step's reduced gradients, and its reduce-scatters beside the
 fsdp-cut leaves its backward reached. The 4-rank suites also run the
-compositions (pipe x model, pipe x fsdp, seq x model, seq x ep). The sequence suites also run the ring
+compositions (pipe x model, pipe x fsdp, seq x model, seq x ep), and
+pipe x fsdp once more warm-started from the tiny fixture. The sequence suites also run the ring
 (``parallel/sequence.py``) on fixed inputs, forward and backward, and the
 seq=2 suite the solver with the ring. Every mesh holds the replicated
 leaves' gradients equal on all ranks (``DataParallel.check_replicas``).
@@ -35,19 +36,22 @@ from jpdvt_mt_ntnu_tpu_torch.parallel import MeshSpec, maybe_initialize_distribu
 from jpdvt_mt_ntnu_tpu_torch.parallel.sharding import (Mesh, MeshRanks, is_router_leaf,
                                                        make_layout, use_ring)
 from jpdvt_mt_ntnu_tpu_torch.train import (CheckpointManager, TrainTask, create_train_state,
-                                           make_optimizer, make_train_step)
+                                           make_optimizer, make_train_step, run_train)
 from jpdvt_mt_ntnu_tpu_torch.utils.pos_embed import grid_code
 
 # name -> (registry name, overrides): the MoE of 4 experts (9 tokens), the
-# dense DiT of depth 4 (2 blocks a stage at pipe=2), and the 36-token DiT of
-# patch 8 (18 tokens a rank at seq=2), dense and with 4 experts.
+# dense DiT of depth 4 (2 blocks a stage at pipe=2), the 36-token DiT of
+# patch 8 (18 tokens a rank at seq=2), dense and with 4 experts, and the
+# tiny fixture's DiT (depth 2), warm-started from that fixture.
 MODELS = {
     "moe": ("JPDVT-MoE", dict(depth=2, hidden_size=64, num_heads=4, moe_experts=4)),
     "deep": ("JPDVT", dict(depth=4, hidden_size=64, num_heads=4)),
     "p8": ("JPDVT", dict(depth=2, hidden_size=64, num_heads=4, patch_size=8)),
     "p8moe": ("JPDVT-MoE", dict(depth=2, hidden_size=64, num_heads=4, patch_size=8,
                                 moe_experts=4)),
+    "tiny": ("JPDVT", dict(depth=2, hidden_size=64, num_heads=4)),
 }
+TINY_FIXTURE = os.path.join(dpw.REPO, "tests", "fixtures", "tiny_jpdvt_48px.npz")
 # mesh name -> (model, MeshSpec fields, pipe microbatches)
 MESHES = {
     "ep2": ("moe", dict(ep=2), 0),
@@ -60,6 +64,7 @@ MESHES = {
     "pipe2_data2": ("deep", dict(pipe=2, data=2), 2),
     "pipe2_tp2": ("deep", dict(pipe=2, model=2), 4),
     "pipe2_fsdp2": ("deep", dict(pipe=2, fsdp=2), 2),
+    "pipe2_fsdp2_warm": ("tiny", dict(pipe=2, fsdp=2), 2),
     "seq2": ("p8", dict(seq=2), 0),
     "seq2_moe": ("p8moe", dict(seq=2), 0),
     "seq2_data2": ("p8", dict(seq=2, data=2), 0),
@@ -72,7 +77,7 @@ SUITES = {
     "ep-2": (2, ("ep2", "moe_tp2", "moe_fsdp2"), (), False),
     "ep-4": (4, ("ep2_data2", "ep2_tp2", "ep2_fsdp2"), (), False),
     "pipe-2": (2, ("pipe2",), (), False),
-    "pipe-4": (4, ("pipe2_data2", "pipe2_tp2", "pipe2_fsdp2"), (), False),
+    "pipe-4": (4, ("pipe2_data2", "pipe2_tp2", "pipe2_fsdp2", "pipe2_fsdp2_warm"), (), False),
     "seq-2": (2, ("seq2", "seq2_moe"), (2,), True),
     "seq-4": (4, ("seq2_data2", "seq2_fsdp2", "seq2_tp2", "seq2_ep2"), (4,), False),
 }
@@ -110,8 +115,9 @@ class Injected:
 def build(model: str, weights_dir: str):
     name, kw = MODELS[model]
     net, cfg = create_model(name, dpw.SIZE, device="cpu", **kw)
-    with np.load(os.path.join(weights_dir, f"{model}.npz")) as z:
-        net.load_state_dict({k: torch.from_numpy(v) for k, v in z.items()})
+    if model != "tiny":  # the tiny DiT is warm-started in run_case
+        with np.load(os.path.join(weights_dir, f"{model}.npz")) as z:
+            net.load_state_dict({k: torch.from_numpy(v) for k, v in z.items()})
     return net, cfg
 
 
@@ -122,6 +128,8 @@ def run_case(mesh_name: str, weights_dir: str, dp=None, ckpt: str | None = None)
     model_name, axes, micro = MESHES[mesh_name]
     net, cfg = build(model_name, weights_dir)
     state = create_train_state(net)
+    if model_name == "tiny":  # run_train's train.warm_start, before the mesh cuts the state
+        run_train.warm_start(state, TINY_FIXTURE, "cpu")
     layout = make_layout(MeshSpec(**axes), dp, net, micro) if dp is not None else None
     if layout is not None:
         layout.shard_(state)
