@@ -187,6 +187,8 @@ RUN = ["device=cpu", "data.synthetic_cues=waves", "data.global_batch_size=8",
 
 def test_a_sigtermed_run_resumes_to_the_uninterrupted_step(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
+    # The launched run_train processes on one thread too (torch_tools_common).
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     assert run_train.main(RUN + [f"train.exp_dir={tmp_path / 'one'}"]) == 0
     want = CheckpointManager(str(tmp_path / "one" / "checkpoints")).latest_step()
     assert want == 160  # 40 epochs of 4 steps
