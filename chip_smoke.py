@@ -6,11 +6,13 @@ card and ``nvcc``; it exits non-zero, printing no result, without them.
 
 Phases, each of which raises on failure:
 
-1. build the CUDA kernels, one ``nvcc`` per source started together
-   (``.cu`` -> ``.so`` -> ``ctypes``), print the card's name and power
-   limit, check that the bf16 kernels of K1, K2, K3, K4, K5 and K6 hold ``HMMA``
-   (tensor-core) instructions in their SASS, and that the route table's
-   shared-memory sums are the kernels';
+1. build the CUDA kernels, one ``nvcc`` per unit started together
+   (``.cu`` -> ``.so`` -> ``ctypes``; K1, K4 and K5/K6 twice, at Dh 64 and
+   at DiT-XL's 72), print the card's name and power limit, check that the
+   bf16 kernels of K1, K2, K3, K4, K5 and K6 (and of K1, K4, K5, K6 at Dh
+   72) hold ``HMMA`` (tensor-core) instructions in their SASS, and that the
+   route table's shared-memory sums are the kernels' (K1's at both head
+   dims);
 2. hold kernel K1 (whole-row attention) against its plain PyTorch version
    on the card at the solve's shapes (B=16, 32 at N = 144 and 400), the
    train step's (B=96) and ragged ones (N = 9, 77, 200), two calls
@@ -292,6 +294,23 @@ then the last modules of one host, skipped under ``--grid20-artifact``:
     with its checkpoint, relaunched with ``train.resume``, ending at step
     10,024 with every step trained once.
 
+then DiT-XL's head dim (run under ``--grid20-artifact`` too):
+
+23. DiT-XL/8 at 192 px, grid 3 (28 blocks, 1,152 wide, 16 heads of 72,
+    576 tokens, 674M parameters): K1, K4, K5 and K6 at Dh 72 against
+    their plain versions at (8, 16, 576, 72) in bf16 and in fp32 (K1 at
+    (2, 16, 309, 72), the most its fp32 kernel takes; K4-K6 at (2, 16,
+    576, 72)) and at a ragged N = 77 with rows off 16 bytes, two calls
+    bit-equal, timed beside their bound, plain version and SDPA;
+    ``run_train`` from a seeded init, 4 steps at batch 8 in bf16, 28 K4 +
+    28 K5 + 28 K6 and no K1/K2/K3 a step, finite losses, one checkpoint
+    (kept in memory, as phase 20's: the state is 10.7 GB); on its EMA a
+    fast solve of 64 puzzles (28 K1 a microbatch of 32), one faithful-250
+    microbatch of 8 (7,000 K1) and an fp32 fast solve of 8 (28 K4), every
+    row a permutation (untrained weights: accuracy is not a gate); the
+    full-width bf16 forward with open gates on the kernels against the
+    plain attention, within 2^-4 of each output's largest magnitude.
+
 The last three lines are the ``kernels`` JSON (each kernel with the
 launches of its own path and its shape: K1 for the solve (and phase 22's
 demos), the train step (and phase 22's one-process and relaunched runs),
@@ -301,8 +320,9 @@ of the MoE, the pipeline's stages under TP and under FSDP, the tools, K2
 for the train step, the 2-rank one (each with phase 22's as K1), the MoE
 one, the TP and FSDP ones, the pipeline's, the ep ranks' and TP of the
 MoE's, the composed pipelines', K3 on the eval path and the training
-route, K4, K5, K6), the card's name and power limit, and
-the device JSON.
+route, K4, K5, K6, and the Dh-72 rows of K1, K4, K5 and K6: phase 23's
+solves and validation, train step and fp32 solve), the card's name and
+power limit, and the device JSON.
 """
 
 from __future__ import annotations
@@ -492,19 +512,19 @@ def bound_ms(b: int, h: int, n: int, d: int, dtype: torch.dtype,
 
 
 def qkv_views(b: int, n: int, dtype: torch.dtype, gen: torch.Generator, offset: int = 0,
-              heads: int = HEADS):
+              heads: int = HEADS, d: int = HEAD_DIM):
     """q, k, v as the DiT hands them to K1: strided views of (B, N, 3*H*Dh),
     ``offset`` elements into their buffer (2 puts bf16 rows off 16 bytes)."""
-    f = 3 * heads * HEAD_DIM
+    f = 3 * heads * d
     buf = torch.randn((offset + b * n * f,), generator=gen, device="cuda").to(dtype)
     qkv = buf[offset:].view(b, n, f)
-    return qkv.reshape(b, n, 3, heads, HEAD_DIM).permute(2, 0, 3, 1, 4).unbind(0)
+    return qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
 
 
-def fused_grads(b: int, n: int, dtype: torch.dtype, heads: int = HEADS):
+def fused_grads(b: int, n: int, dtype: torch.dtype, heads: int = HEADS, d: int = HEAD_DIM):
     """dq, dk, dv as the train step has them: slots of one (B, N, 3*H*Dh) buffer."""
-    buf = torch.empty((b, n, 3 * heads * HEAD_DIM), dtype=dtype, device="cuda")
-    return buf.view(b, n, 3, heads, HEAD_DIM).permute(2, 0, 3, 1, 4).unbind(0)
+    buf = torch.empty((b, n, 3 * heads * d), dtype=dtype, device="cuda")
+    return buf.view(b, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
 
 
 PROFILE_TRIES = 3
@@ -586,25 +606,25 @@ def sdpa_bwd_ms(q, k, v, do, reps: int, device_time: bool = True) -> tuple:
 
 
 def check_k1(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
-             timed: bool, heads: int = HEADS) -> dict:
-    q, k, v = qkv_views(b, n, dtype, gen, heads=heads)
+             timed: bool, heads: int = HEADS, d: int = HEAD_DIM) -> dict:
+    q, k, v = qkv_views(b, n, dtype, gen, heads=heads, d=d)
     out = attn_ops.attention(q, k, v)
     torch.cuda.synchronize()
     ref = attn_ops.attention_reference(q, k, v)
     err = (out.float() - ref.float()).abs().max().item()
     if not err <= TOL[dtype]:
-        raise AssertionError(f"K1 {(b, heads, n, HEAD_DIM)} {dtype}: max abs err "
+        raise AssertionError(f"K1 {(b, heads, n, d)} {dtype}: max abs err "
                              f"{err} > {TOL[dtype]}")
     if not torch.equal(out, attn_ops.attention(q, k, v)):
-        raise AssertionError(f"K1 {(b, heads, n, HEAD_DIM)} {dtype}: two calls differ")
-    row = {"shape": [b, heads, n, HEAD_DIM], "dtype": str(dtype).split(".")[-1],
+        raise AssertionError(f"K1 {(b, heads, n, d)} {dtype}: two calls differ")
+    row = {"shape": [b, heads, n, d], "dtype": str(dtype).split(".")[-1],
            "max_abs_err": err, "tol": TOL[dtype], "bit_equal": True}
     if timed:
         row["ms"] = cuda_ms(lambda: attn_ops.attention(q, k, v), 200)
         row["plain_ms"] = cuda_ms(lambda: attn_ops.attention_reference(q, k, v), 50)
         row["library_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(q, k, v), 200)
-        row["bound_ms"], row["bound_by"] = bound_ms(b, heads, n, HEAD_DIM, dtype)
+        row["bound_ms"], row["bound_by"] = bound_ms(b, heads, n, d, dtype)
     log("K1 " + json.dumps(row))
     return row
 
@@ -659,25 +679,26 @@ def check_k2(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
 
 
 def check_k4(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
-             timed: bool, fused: bool = True, offset: int = 0) -> dict:
+             timed: bool, fused: bool = True, offset: int = 0, heads: int = HEADS,
+             d: int = HEAD_DIM) -> dict:
     """K4 on q/k/v views of a fused qkv (``offset`` elements into its
     buffer; or contiguous (B, H, N, Dh) tensors) against its plain version
     at the kernel's key tile and over the whole row. Two calls give the
     same bits; with an offset, so do aligned copies of q, k, v."""
     if fused:
-        q, k, v = qkv_views(b, n, dtype, gen, offset)
+        q, k, v = qkv_views(b, n, dtype, gen, offset, heads, d)
     else:
-        q, k, v = (torch.randn((b, HEADS, n, HEAD_DIM), generator=gen, device="cuda")
+        q, k, v = (torch.randn((b, heads, n, d), generator=gen, device="cuda")
                    .to(dtype) for _ in range(3))
     o, lse = flash_ops.flash_attention_fwd(q, k, v)
     o2, lse2 = flash_ops.flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
     if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
-        raise AssertionError(f"K4 {(b, HEADS, n, HEAD_DIM)} {dtype}: two calls differ")
+        raise AssertionError(f"K4 {(b, heads, n, d)} {dtype}: two calls differ")
     if offset:
         o2, lse2 = flash_ops.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous())
         if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
-            raise AssertionError(f"K4 {(b, HEADS, n, HEAD_DIM)} {dtype}: views off 16-byte "
+            raise AssertionError(f"K4 {(b, heads, n, d)} {dtype}: views off 16-byte "
                                  f"alignment differ from aligned copies")
     ref_o, ref_lse = flash_ops.flash_attention_fwd_reference(q, k, v, flash_ops.BLOCK_K)
     row_o, _ = flash_ops.flash_attention_fwd_reference(q, k, v)
@@ -685,9 +706,9 @@ def check_k4(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
     err_row = (o.float() - row_o.float()).abs().max().item()
     err_lse = (lse - ref_lse).abs().max().item()
     if not (err <= TOL[dtype] and err_row <= TOL[dtype] and err_lse <= LSE_TOL):
-        raise AssertionError(f"K4 {(b, HEADS, n, HEAD_DIM)} {dtype}: max abs err {err} "
+        raise AssertionError(f"K4 {(b, heads, n, d)} {dtype}: max abs err {err} "
                              f"(whole row {err_row}) > {TOL[dtype]} or LSE {err_lse}")
-    row = {"shape": [b, HEADS, n, HEAD_DIM], "dtype": str(dtype).split(".")[-1],
+    row = {"shape": [b, heads, n, d], "dtype": str(dtype).split(".")[-1],
            "layout": "fused qkv" if fused else "contiguous", "max_abs_err": err,
            "err_vs_whole_row": err_row, "lse_err": err_lse, "tol": TOL[dtype],
            "lse_tol": LSE_TOL, "bit_equal": True, "q_offset_elements": offset,
@@ -698,34 +719,35 @@ def check_k4(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
             q, k, v, flash_ops.BLOCK_K), 5)
         (row["library_ms"], row["library_backend"], row["library_ms_by_backend"],
          row["library_kernel_ms_by_backend"]) = sdpa_fwd_ms(q, k, v, 50)
-        row["bound_ms"], row["bound_by"] = bound_ms(b, HEADS, n, HEAD_DIM, dtype, lse=True)
+        row["bound_ms"], row["bound_by"] = bound_ms(b, heads, n, d, dtype, lse=True)
     log("K4 " + json.dumps(row))
     return row
 
 
 def check_k5_k6(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
-                timed: bool, offset: int = 0) -> tuple[dict, dict]:
+                timed: bool, offset: int = 0, heads: int = HEADS,
+                d: int = HEAD_DIM) -> tuple[dict, dict]:
     """K5 and K6 as the train step calls them: q/k/v views of a fused qkv
     (``offset`` elements into its buffer), O and dO views of (B, N, H*Dh)
     buffers, dq/dk/dv written into one fused gradient buffer; O and the LSE
     from the plain forward. Two calls give the same bits; with an offset,
     so do aligned copies of q, k, v."""
-    q, k, v = qkv_views(b, n, dtype, gen, offset)
+    q, k, v = qkv_views(b, n, dtype, gen, offset, heads, d)
     o, lse = flash_ops.flash_attention_fwd_reference(q, k, v, flash_ops.BLOCK_K)
     o = o.transpose(1, 2).contiguous().transpose(1, 2)
-    do = torch.randn((b, n, HEADS * HEAD_DIM), generator=gen, device="cuda").to(dtype)
-    do = do.view(b, n, HEADS, HEAD_DIM).transpose(1, 2)
-    out = fused_grads(b, n, dtype)
+    do = torch.randn((b, n, heads * d), generator=gen, device="cuda").to(dtype)
+    do = do.view(b, n, heads, d).transpose(1, 2)
+    out = fused_grads(b, n, dtype, heads, d)
     flash_ops.flash_attention_bwd(q, k, v, o, lse, do, out=out)
-    again = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, out=fused_grads(b, n, dtype))
+    again = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, out=fused_grads(b, n, dtype, heads, d))
     torch.cuda.synchronize()
     if not all(torch.equal(x, y) for x, y in zip(out, again)):
-        raise AssertionError(f"K5/K6 {(b, HEADS, n, HEAD_DIM)} {dtype}: two calls differ")
+        raise AssertionError(f"K5/K6 {(b, heads, n, d)} {dtype}: two calls differ")
     if offset:
         copies = flash_ops.flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                                               o, lse, do, out=fused_grads(b, n, dtype))
+                                               o, lse, do, out=fused_grads(b, n, dtype, heads, d))
         if not all(torch.equal(x, y) for x, y in zip(out, copies)):
-            raise AssertionError(f"K5/K6 {(b, HEADS, n, HEAD_DIM)} {dtype}: views off 16-byte "
+            raise AssertionError(f"K5/K6 {(b, heads, n, d)} {dtype}: views off 16-byte "
                                  f"alignment differ from aligned copies")
     errs = {}
     for name, got, want in zip(("dq", "dk", "dv"), out,
@@ -733,10 +755,10 @@ def check_k5_k6(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
         scale = want.float().abs().max().item()
         err = (got.float() - want.float()).abs().max().item()
         if not err <= K2_TOL[dtype] * scale:
-            raise AssertionError(f"K5/K6 {name} {(b, HEADS, n, HEAD_DIM)} {dtype}: max "
+            raise AssertionError(f"K5/K6 {name} {(b, heads, n, d)} {dtype}: max "
                                  f"abs err {err} > {K2_TOL[dtype]} x {scale}")
         errs[name] = [err, scale]
-    base = {"shape": [b, HEADS, n, HEAD_DIM], "dtype": str(dtype).split(".")[-1],
+    base = {"shape": [b, heads, n, d], "dtype": str(dtype).split(".")[-1],
             "rel_tol": K2_TOL[dtype], "bit_equal": True,
             "q_offset_elements": offset, "q_aligned_16": q.data_ptr() % 16 == 0}
     k5 = {**base, "max_abs_err": errs["dq"][0], "err_and_scale": {"dq": errs["dq"]}}
@@ -754,9 +776,9 @@ def check_k5_k6(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
             (row["library_ms"], row["library_backend"], row["library_ms_by_backend"],
              row["library_kernel_ms_by_backend"]) = lib
         k5["library_covers"] = k6["library_covers"] = "dq, dk, dv (K5 + K6)"
-        k5["bound_ms"], k5["bound_by"] = bound_ms(b, HEADS, n, HEAD_DIM, dtype,
+        k5["bound_ms"], k5["bound_by"] = bound_ms(b, heads, n, d, dtype,
                                                   tensors=6, products=3, lse=True)
-        k6["bound_ms"], k6["bound_by"] = bound_ms(b, HEADS, n, HEAD_DIM, dtype,
+        k6["bound_ms"], k6["bound_by"] = bound_ms(b, heads, n, d, dtype,
                                                   tensors=7, products=4, lse=True)
     log("K5 " + json.dumps(k5))
     log("K6 " + json.dumps(k6))
@@ -3947,6 +3969,150 @@ def entry_points_grid3(card: str, gen: torch.Generator) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 23
+
+# DiT-XL/8 at 192 px, grid 3: 28 blocks, 1,152 wide, 16 heads of 72, 576
+# tokens; trained 4 steps at batch 8 from a seeded init. K1 takes fp32 at
+# Dh 72 up to N = 309, so its fp32 check runs there; fp32 at N = 576 is
+# K4's (the fp32 solve's route).
+XL_NAME, XL_HEADS, XL_DH, XL_TOKENS = "DiT-XL/8", 16, 72, 576
+XL_BATCH, XL_STEPS, XL_FP32_BATCH, XL_K1_FP32_TOKENS = 8, 4, 2, 309
+XL_FAST_PUZZLES, XL_FAITHFUL_PUZZLES = 64, 8
+# The full-width bf16 forward on the kernels against the same model on the
+# plain versions, random weights with open gates: the largest |diff| of
+# each output over its largest |value|, stated before the first run. K1 and
+# its plain version round P and O at the same points and differ by an
+# occasional bf16 ulp (2^-8 relative) where exp or summation order flips a
+# rounding; 28 residual blocks carry such flips on, and 2^-4 leaves room
+# for that growth while a wrong kernel (its output off by O(1)) fails.
+XL_FORWARD_REL = 2 ** -4
+
+
+def xl_solve(model, cfg, mode: str, n: int) -> dict:
+    """``mode`` solve of ``n`` wave puzzles, its launches counted from 0
+    (its time includes the solver's cast of the weights); every row a
+    permutation."""
+    x, perms = wave_puzzles(n, 23)
+    solver = PuzzleSolver(model, cfg, create_diffusion("250"), grid_size=3, mode=mode)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solver.evaluate(x, perms)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = counts()
+    if not all(sorted(row) == list(range(9)) for row in res.pred.tolist()):
+        raise AssertionError(f"{XL_NAME} {mode} solve: a row is not a permutation")
+    return {"mode": mode, "puzzles": n, "s": dt, "puzzles_per_s": n / dt,
+            "puzzle_acc": res.puzzle_accuracy, "patch_acc": res.patch_accuracy,
+            "launches": launches}
+
+
+def check_xl_forward(gen: torch.Generator) -> dict:
+    """The full-width DiT-XL/8 forward in bf16 on the kernels (K1: no grad)
+    against the same model with the plain attention."""
+    model, cfg = create_model(XL_NAME, 192, dtype=torch.bfloat16)
+    randomize(model, 7)
+    x, _ = wave_puzzles(XL_BATCH, 29)
+    x = torch.from_numpy(x).cuda()
+    t = torch.randint(0, 1000, (XL_BATCH,), generator=gen, device="cuda")
+    code = torch.randn((XL_BATCH, XL_TOKENS, 8), generator=gen, device="cuda")
+    with torch.no_grad():
+        zero_counts()
+        mine = model(x, t, code)
+        launched = counts()
+        with plain_attention():
+            plain = model(x, t, code)
+    if launched["k1"] != cfg.depth:
+        raise AssertionError(f"{XL_NAME} forward: K1 {launched['k1']}, expected {cfg.depth}")
+    row = {"launches": launched, "rel_tol": XL_FORWARD_REL}
+    for name, a, b in zip(("img", "code"), mine, plain):
+        a, b = a.float(), b.float()
+        scale = b.abs().max().item()
+        rel = (a - b).abs().max().item() / scale
+        row[name] = {"max_abs_diff_over_max_abs": rel, "mean_abs_diff_over_max_abs":
+                     (a - b).abs().mean().item() / scale, "max_abs": scale,
+                     "finite": bool(torch.isfinite(a).all())}
+        if not (rel <= XL_FORWARD_REL and row[name]["finite"]):
+            raise AssertionError(f"{XL_NAME} forward {name}: kernels against plain "
+                                 f"{rel} > {XL_FORWARD_REL}")
+    del model
+    return row
+
+
+def dit_xl_grid3(card: str, gen: torch.Generator) -> dict:
+    """Phase 23: DiT-XL/8 at 192 px (Dh 72) on K1 and K4-K6."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    bf16, fp32 = torch.bfloat16, torch.float32
+    xl = {"heads": XL_HEADS, "d": XL_DH}
+    out = {}
+    # 1. The kernels alone at the model's shapes (and ragged, off 16 bytes).
+    t0 = time.perf_counter()
+    out["k1"] = [check_k1(XL_BATCH, XL_TOKENS, bf16, gen, timed=True, **xl),
+                 check_k1(XL_FP32_BATCH, XL_K1_FP32_TOKENS, fp32, gen, timed=True, **xl),
+                 check_k1(3, 77, bf16, gen, timed=False, **xl)]
+    out["k4"] = [check_k4(XL_BATCH, XL_TOKENS, bf16, gen, timed=True, **xl),
+                 check_k4(XL_FP32_BATCH, XL_TOKENS, fp32, gen, timed=True, **xl),
+                 check_k4(3, 77, bf16, gen, timed=False, offset=2, **xl)]
+    out["k56"] = [check_k5_k6(XL_BATCH, XL_TOKENS, bf16, gen, timed=True, **xl),
+                  check_k5_k6(XL_FP32_BATCH, XL_TOKENS, fp32, gen, timed=True, **xl),
+                  check_k5_k6(3, 77, bf16, gen, timed=False, offset=2, **xl)]
+    log(f"  phase 23 kernels at Dh {XL_DH}: {time.perf_counter() - t0:.2f} s")
+    # 2. run_train from a seeded init; its checkpoint kept in memory, as
+    # phase 20's (a DiT-XL state is 10.7 GB: params, EMA, mu and nu).
+    t0 = time.perf_counter()
+    writer = CheckpointManager._write
+    CheckpointManager._write = keep_checkpoint
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            exp = os.path.join(tmp, "xl")
+            out["train"] = counted_run_train(
+                [f"model.name={XL_NAME}", "data.synthetic_cues=waves", "data.device_stream=true",
+                 f"data.global_batch_size={XL_BATCH}", f"data.synthetic_n={XL_BATCH * XL_STEPS}",
+                 "train.epochs=1", "train.log_every=1", "train.ckpt_every=1000000",
+                 "diffusion.sampler_mode=fast", f"train.exp_dir={exp}"],
+                f"{XL_NAME}, {XL_STEPS} steps at batch {XL_BATCH}",
+                {"k1": 0, "k2": 0, "k3": 0, "k4": 28, "k5": 28, "k6": 28})
+            kept = KEPT.pop(exp, {})
+    finally:
+        CheckpointManager._write = writer
+    if sorted(kept) != [XL_STEPS] or out["train"]["steps"] != XL_STEPS:
+        raise AssertionError(f"{XL_NAME}: checkpoints at steps {sorted(kept)}, "
+                             f"{out['train']['steps']} steps")
+    ema = kept[XL_STEPS]["ema"]
+    n_params = sum(v.numel() for v in ema.values())
+    log(f"  phase 23 run_train: {time.perf_counter() - t0:.2f} s; {n_params / 1e6:.1f}M "
+        f"parameters, one checkpoint (step {XL_STEPS})")
+    # 3. The solve on the EMA: fast, faithful-250 (bf16, K1), fast in fp32 (K4).
+    t0 = time.perf_counter()
+    out["solve"] = {}
+    for dtype, mode, n in ((bf16, "fast", XL_FAST_PUZZLES),
+                           (bf16, "faithful", XL_FAITHFUL_PUZZLES),
+                           (fp32, "fast", XL_FAITHFUL_PUZZLES)):
+        model, cfg = create_model(XL_NAME, 192, dtype=dtype)
+        model.load_state_dict(ema)
+        res = xl_solve(model, cfg, mode, n)
+        key = "k1" if dtype == bf16 else "k4"
+        want = cfg.depth * (STEPS if mode == "faithful" else 1) * -(-n // 32)
+        if res["launches"][key] != want or sum(res["launches"].values()) != want:
+            raise AssertionError(f"{XL_NAME} {mode} solve in {dtype}: launches "
+                                 f"{res['launches']}, expected {want} {key}")
+        out["solve"][f"{str(dtype).split('.')[-1]}_{mode}"] = res
+        del model
+    del ema, kept
+    log(f"  {XL_NAME} solves on {card}: " + json.dumps(out["solve"]))
+    log(f"  phase 23 solves: {time.perf_counter() - t0:.2f} s")
+    # 4. The whole model at full width, on the kernels against the plain versions.
+    t0 = time.perf_counter()
+    out["forward"] = check_xl_forward(gen)
+    log(f"  {XL_NAME} forward, kernels against plain, bf16: " + json.dumps(out["forward"]))
+    log(f"  phase 23 forward: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+    log(f"phase dit-xl: {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--ddp-child"]:  # one rank of phase 16's runs
@@ -3971,12 +4137,15 @@ def main(argv=None) -> int:
     # 1. Build, one nvcc per source, all started together.
     t0 = time.perf_counter()
     lib_paths = _build.build_all("attention", "attention_bwd", "attention_block", "flash_fwd",
-                                 "flash_bwd", "assignment", "decode")
-    attn_ops._kernel()
+                                 "flash_bwd", "assignment", "decode",
+                                 *(_build.unit(name, XL_DH)
+                                   for name in ("attention", "flash_fwd", "flash_bwd")))
+    for d in attn_ops.HEAD_DIMS:
+        attn_ops._kernel(d)
+        flash_ops._fwd_kernel(d)
+        flash_ops._bwd_kernel(d)
     attn_ops._bwd_kernel()
     attn_ops._block_kernel()
-    flash_ops._fwd_kernel()
-    flash_ops._bwd_kernel()
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.2f} s -> {[os.path.relpath(p, REPO) for p in lib_paths]}; "
         f"per source {json.dumps({k: round(v, 2) for k, v in _build.BUILD_SECONDS.items()})}")
@@ -3988,22 +4157,30 @@ def main(argv=None) -> int:
         for line in lib_path.with_suffix(".log").read_text().splitlines():
             if any(w in line for w in ("registers", "Compiling entry", "spill")):
                 log(f"  ptxas: {line.strip()}")
-    # The bf16 kernels of K1-K6 run on the tensor cores: HMMA in their SASS.
+    # The bf16 kernels of K1-K6 run on the tensor cores: HMMA in their SASS,
+    # K1 and K4-K6 at Dh 64 and 72.
     for name, lib_path, bf16_kernels in (
             ("K1", lib_paths[0], ("attention_fwd_mma_kernel",)),
             ("K2", lib_paths[1], ("attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel")),
             ("K3", lib_paths[2], ("block_attention_mma_kernel", "out_proj_mma_kernel")),
             ("K4", lib_paths[3], ("flash_fwd_mma_kernel",)),
-            ("K5/K6", lib_paths[4], ("flash_dq_mma_kernel", "flash_dkv_mma_kernel"))):
+            ("K5/K6", lib_paths[4], ("flash_dq_mma_kernel", "flash_dkv_mma_kernel")),
+            (f"K1 at Dh {XL_DH}", lib_paths[7], ("attention_fwd_mma_kernel",)),
+            (f"K4 at Dh {XL_DH}", lib_paths[8], ("flash_fwd_mma_kernel",)),
+            (f"K5/K6 at Dh {XL_DH}", lib_paths[9],
+             ("flash_dq_mma_kernel", "flash_dkv_mma_kernel"))):
         hmma = sass_count(lib_path, "HMMA")
         log(f"{name} SASS HMMA per kernel: {json.dumps(hmma)}")
         for kernel in bf16_kernels:
             if not sum(c for f, c in hmma.items() if kernel in f):
                 raise AssertionError(f"{name}'s {kernel} has no HMMA in its SASS")
-    # The route table's shared-memory sums (ops/attention.py) are the kernels'.
-    for n in (9, 144, 164, 165, 205, 206, 341, 342, 400, 571, 572, 1024):
+    # The route table's shared-memory sums (ops/attention.py) are the kernels',
+    # K1's at both head dims.
+    for n in (9, 144, 164, 165, 205, 206, 309, 310, 341, 342, 400, 571, 572, 576, 1024):
         for elem in (2, 4):
-            if (attn_ops.k1_smem_bytes(n, elem) != attn_ops._kernel().k1_attention_smem_bytes(n, elem)
+            if (any(attn_ops.k1_smem_bytes(n, elem, d)
+                    != attn_ops._kernel(d).k1_attention_smem_bytes(n, elem)
+                    for d in attn_ops.HEAD_DIMS)
                     or attn_ops.k2_smem_bytes(n, elem)
                     != attn_ops._bwd_kernel().k2_attention_bwd_smem_bytes(n, elem)):
                 raise AssertionError(f"the route table's shared memory at N={n}, "
@@ -4178,6 +4355,9 @@ def main(argv=None) -> int:
     # demos and the relaunch wrapper.
     entry22 = None if args.grid20_artifact else entry_points_grid3(card, gen)
 
+    # 23. DiT-XL/8 (Dh 72) on K1 and K4-K6: the kernels, run_train, the solves.
+    xl23 = dit_xl_grid3(card, gen)
+
     def kernel_row(name, source, replaces, launches, rows, timed):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "shape": timed["shape"],
@@ -4288,6 +4468,24 @@ def main(argv=None) -> int:
         kernel_row("k6_flash_attention_dkv", flash_bwd,
                    "jpdvt_mt_ntnu_tpu/ops/flash_attention.py:194", launches_train20["k6"],
                    [r[1] for r in k56_rows], k56_rows[0][1])]
+    # Phase 23, Dh 72: K1 for the bf16 solves and the run's validation, K4
+    # for the train step and the fp32 solve, K5 and K6 for the train step;
+    # each timed at (8, 16, 576, 72) in bf16, its errors over bf16 and fp32.
+    xl_train, xl_solve_ = xl23["train"]["launches"], xl23["solve"]
+    kernels += [
+        kernel_row("k1_whole_row_attention_fwd_dh72", *k1,
+                   xl_train["k1"] + sum(xl_solve_[f"bfloat16_{m}"]["launches"]["k1"]
+                                        for m in ("fast", "faithful")),
+                   xl23["k1"], xl23["k1"][0]),
+        kernel_row("k4_flash_attention_fwd_dh72", *flash_fwd,
+                   xl_train["k4"] + xl_solve_["float32_fast"]["launches"]["k4"],
+                   xl23["k4"], xl23["k4"][0]),
+        kernel_row("k5_flash_attention_dq_dh72", flash_bwd,
+                   "jpdvt_mt_ntnu_tpu/ops/flash_attention.py:162", xl_train["k5"],
+                   [r[0] for r in xl23["k56"]], xl23["k56"][0][0]),
+        kernel_row("k6_flash_attention_dkv_dh72", flash_bwd,
+                   "jpdvt_mt_ntnu_tpu/ops/flash_attention.py:194", xl_train["k6"],
+                   [r[1] for r in xl23["k56"]], xl23["k56"][0][1])]
     log(f"total: {time.perf_counter() - t_start:.2f} s (build {build_s:.2f} s)")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -8,6 +8,12 @@ seconds. The shared library is built at first use into
 hash of the source and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. A failed build raises.
 
+A kernel source built for more than one attention head dim is compiled
+once per head dim, each into a library of its own: the unit
+``<name>_d<Dh>`` (:func:`unit`) is ``csrc/<name>.cu`` with
+``-DHEAD_DIM=<Dh>``, and ``<name>`` alone is the source at its default,
+Dh 64.
+
 ``transforms.cpp`` is built with ``-ffp-contract=off``: its float
 arithmetic is Pillow's, rounding for rounding, and a fused multiply-add
 would round once less. ``decode.cpp`` links no image library: the port
@@ -21,6 +27,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -45,9 +52,26 @@ def nvcc_path() -> str:
                        "CUDA kernels need the CUDA toolkit to build")
 
 
+_HEAD_DIM_UNIT = re.compile(r"(.+)_d(\d+)")
+DEFAULT_HEAD_DIM = 64
+
+
+def unit(name: str, head_dim: int) -> str:
+    """The build unit of source ``name`` at ``head_dim``: ``name`` at the
+    default (64), else ``<name>_d<head_dim>``."""
+    return name if head_dim == DEFAULT_HEAD_DIM else f"{name}_d{head_dim}"
+
+
+def _split(name: str) -> tuple[str, int | None]:
+    """``<source>_d<Dh>`` -> (source, Dh); any other name -> (name, None)."""
+    m = _HEAD_DIM_UNIT.fullmatch(name)
+    return (m[1], int(m[2])) if m else (name, None)
+
+
 def _source(name: str) -> Path:
-    cu = CSRC / f"{name}.cu"
-    return cu if cu.exists() else CSRC / f"{name}.cpp"
+    base = _split(name)[0]
+    cu = CSRC / f"{base}.cu"
+    return cu if cu.exists() else CSRC / f"{base}.cpp"
 
 
 def _compiler(src: Path) -> list[str]:
@@ -57,15 +81,17 @@ def _compiler(src: Path) -> list[str]:
 
 
 def extra_flags(name: str) -> tuple[str, ...]:
-    """Flags of one source beyond its compiler's, placed after the source
+    """Flags of one unit beyond its compiler's, placed after the source
     so that they can name libraries to link."""
     if name == "transforms":
         return ("-ffp-contract=off",)
-    return ()
+    head_dim = _split(name)[1]
+    return () if head_dim is None else (f"-DHEAD_DIM={head_dim}",)
 
 
 def library_path(name: str) -> Path:
-    """Where the library for ``csrc/<name>.cu`` (or ``.cpp``) lives once built."""
+    """Where the library of unit ``name`` (``csrc/<name>.cu`` or ``.cpp``,
+    or a head-dim unit of a ``.cu``) lives once built."""
     src = _source(name)
     flags = (*(NVCC_FLAGS if src.suffix == ".cu" else CXX_FLAGS), *extra_flags(name))
     h = hashlib.sha256(" ".join(flags).encode())
@@ -100,7 +126,7 @@ def build(name: str) -> Path:
 
 
 def build_all(*names: str) -> list[Path]:
-    """:func:`build` each source, one ``nvcc`` per source, all started together."""
+    """:func:`build` each unit, one compiler per unit, all started together."""
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         return list(pool.map(build, names))
 

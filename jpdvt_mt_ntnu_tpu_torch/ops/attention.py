@@ -46,7 +46,11 @@ import torch
 
 from . import _build
 
+# Head dims the kernels take: K1 and the flash kernels K4-K6 are built once
+# per head dim in HEAD_DIMS (``csrc/*.cu`` compiled with ``-DHEAD_DIM=<Dh>``,
+# ``_build.unit``); K2 and K3 take HEAD_DIM alone.
 HEAD_DIM = 64
+HEAD_DIMS = (64, 72)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Dynamic shared memory one block may opt into on Hopper (H100, H200), the
 # only target the kernels are built for (sm_90a).
@@ -64,14 +68,22 @@ ATTN_IMPLS = (None, "pallas", "flash", "block")
 WHOLE_ROW_GRAD_MAX_N = 205
 
 
-def k1_smem_bytes(n: int, elem: int) -> int:
+def smem_row(head_dim: int) -> int:
+    """Elements of a bf16 K/V row in the tensor-core kernels' shared memory
+    (``kRow``): Dh + 8 where that is an odd count of 16-byte units (64: 72,
+    144 B), else Dh + 16 (72: 88, 176 B), so that the eight rows of an
+    ``ldmatrix`` fall on distinct banks."""
+    return head_dim + 8 if head_dim // 8 % 2 == 0 else head_dim + 16
+
+
+def k1_smem_bytes(n: int, elem: int, head_dim: int = HEAD_DIM) -> int:
     """K1's shared memory per block (``csrc/attention.cu`` ``smem_bytes``).
-    bf16: two stages of 64-key chunks of K and V with rows of Dh + 8, the
-    same at every N. fp32: K and V whole with rows of Dh + 2, a 32-row fp32
-    query tile and its fp32 score rows."""
+    bf16: two stages of 64-key chunks of K and V with rows of
+    :func:`smem_row`, the same at every N. fp32: K and V whole with rows of
+    Dh + 2, a 32-row fp32 query tile and its fp32 score rows."""
     if elem == 2:
-        return 2 * 2 * 64 * (HEAD_DIM + 8) * elem
-    return 2 * n * (HEAD_DIM + 2) * elem + 32 * (HEAD_DIM + 2) * 4 + 32 * (n + 1) * 4
+        return 2 * 2 * 64 * smem_row(head_dim) * elem
+    return 2 * n * (head_dim + 2) * elem + 32 * (head_dim + 2) * 4 + 32 * (n + 1) * 4
 
 
 def k2_smem_bytes(n: int, elem: int) -> int:
@@ -113,19 +125,32 @@ def attention_route(n: int, dtype: torch.dtype, grad: bool, attn_impl=None, *,
     ``"block"``; bf16 N <= 416, fp32 N <= 252 on the card).
 
     ``attn_impl`` None takes the whole-row kernels where their shared
-    memory fits a Hopper block (bf16: every N; fp32: 341 without grad and
-    164 with it), with grad in bf16 up to ``WHOLE_ROW_GRAD_MAX_N`` (205),
-    and flash beyond; ``"pallas"`` insists on the whole-row kernels (bf16:
-    every N, with grad too) and ``"flash"`` on the flash ones. The CPU takes the
-    same route through the plain versions, which hold no limit of Dh or
-    dtype; ``on_card`` adds the kernels' (Dh 64, fp32 or bf16). Raises
-    ``ValueError`` naming the reason where no kernel takes the geometry."""
+    memory fits a Hopper block (bf16: every N; fp32 at Dh 64: 341 without
+    grad and 164 with it, at Dh 72: 309 without grad), with grad in bf16 up
+    to ``WHOLE_ROW_GRAD_MAX_N`` (205), and flash beyond; ``"pallas"``
+    insists on the whole-row kernels (bf16: every N, with grad too) and
+    ``"flash"`` on the flash ones. K2 and K3 take Dh 64 alone: at Dh 72 the
+    route with grad is flash at every N (a rule of the route, until K2
+    takes 72), and ``"pallas"`` with grad and ``"block"`` are refused on
+    the card. The CPU takes the same route through the plain versions,
+    which hold no limit of Dh or dtype (a Dh outside ``HEAD_DIMS`` routes
+    by the Dh-64 table); ``on_card`` adds the kernels' limits (Dh 64 or 72,
+    fp32 or bf16). Raises ``ValueError`` naming the reason where no kernel
+    takes the geometry."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl={attn_impl!r} is not ported; the port runs "
                          f"{ATTN_IMPLS}")
-    if on_card and (head_dim != HEAD_DIM or dtype not in _DTYPE_CODES):
+    if on_card and (head_dim not in HEAD_DIMS or dtype not in _DTYPE_CODES):
         raise ValueError(f"no attention kernel takes head dim {head_dim} in {dtype}; "
-                         f"the kernels take Dh == {HEAD_DIM}, float32 or bfloat16")
+                         f"the kernels take Dh 64 or 72, float32 or bfloat16")
+    whole_row_bwd = head_dim == HEAD_DIM or head_dim not in HEAD_DIMS
+    if on_card and not whole_row_bwd and (attn_impl == "block" or
+                                          attn_impl == "pallas" and grad):
+        kernel = "K3 (attn_impl='block')" if attn_impl == "block" else (
+            "K2 (attn_impl='pallas' with grad)")
+        raise ValueError(f"{kernel} takes Dh {HEAD_DIM} alone, not {head_dim}; at Dh "
+                         f"{head_dim} the kernels are K1 and the flash K4-K6 "
+                         f"(attn_impl None or 'flash')")
     if attn_impl == "flash":
         return "flash"
     elem = torch.empty((), dtype=dtype).element_size()
@@ -136,7 +161,10 @@ def attention_route(n: int, dtype: torch.dtype, grad: bool, attn_impl=None, *,
                              f"shared memory per block, more than the "
                              f"{HOPPER_MAX_SMEM} B a Hopper block has")
         return "block"
-    need = max(k1_smem_bytes(n, elem), k2_smem_bytes(n, elem) if grad else 0)
+    if grad and attn_impl is None and not whole_row_bwd:
+        return "flash"
+    d = head_dim if head_dim in HEAD_DIMS else HEAD_DIM
+    need = max(k1_smem_bytes(n, elem, d), k2_smem_bytes(n, elem) if grad else 0)
     if need > HOPPER_MAX_SMEM:
         if attn_impl == "pallas":
             raise ValueError(f"attn_impl='pallas' at N={n} in {dtype}"
@@ -149,11 +177,29 @@ def attention_route(n: int, dtype: torch.dtype, grad: bool, attn_impl=None, *,
     return "whole_row"
 
 
+@functools.cache
+def q_scale(head_dim: int, dtype: torch.dtype) -> float:
+    """s_q = T(Dh^-1/2), the factor q is scaled by: the JAX package writes
+    ``q * (d ** -0.5)``, and the weakly typed Python float is rounded to
+    q's type T first. bf16 at Dh 72: 0.11767578, not 0.11785113; at a
+    power of two (Dh 16, 64) nothing is rounded. dQ is scaled by the fp32
+    Dh^-1/2 (``dq * scale`` on an fp32 product), not by this."""
+    return torch.tensor(head_dim ** -0.5, dtype=dtype).item()
+
+
+def scaled_q(q: torch.Tensor) -> torch.Tensor:
+    """qs = T(q s_q) in q's type T, as the JAX package's ``q * (d ** -0.5)``:
+    the product of two bf16 numbers is exact in fp32, so PyTorch's fp32
+    product of q and the bf16-valued scale is rounded once, to the same
+    number. Every plain version, the ring and the kernels (through the
+    scale their wrappers pass) scale q so."""
+    return q * q_scale(q.shape[-1], q.dtype)
+
+
 def attention_reference(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K1. q, k, v: (B, H, N, Dh) -> (B, H, N, Dh)."""
-    d = q.shape[-1]
-    s = torch.matmul((q * d ** -0.5).float(), k.float().transpose(-1, -2))
+    s = torch.matmul(scaled_q(q).float(), k.float().transpose(-1, -2))
     p = torch.softmax(s, dim=-1)
     o = torch.matmul(p.to(v.dtype).float(), v.float())
     return o.to(q.dtype)
@@ -168,10 +214,11 @@ def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (not torch autograd of :func:`attention_reference`, which rounds
     elsewhere in bf16): q * scale rounded to the input type; P in fp32;
     dV = round(P)^T dO; dP = dO V^T; dS = P (dP - rowsum(dP P)) with the
-    fp32 P, then rounded to the q type; dQ = dS K * scale; dK = dS^T
-    (q * scale). Products in fp32, outputs in the input type."""
+    fp32 P, then rounded to the q type; dQ = dS K * scale with the fp32
+    scale; dK = dS^T qs with qs = :func:`scaled_q` (q * scale rounded to the
+    input type). Products in fp32, outputs in the input type."""
     scale = q.shape[-1] ** -0.5
-    qs = (q * scale).float()
+    qs = scaled_q(q).float()
     p = torch.softmax(torch.matmul(qs, k.float().transpose(-1, -2)), dim=-1)
     dof = do.float()
     dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), dof)
@@ -184,8 +231,11 @@ def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 @functools.cache
-def _kernel():
-    lib = _build.load("attention")
+def _kernel(head_dim: int = HEAD_DIM):
+    lib = _build.load(_build.unit("attention", head_dim))
+    if lib.k1_attention_head_dim() != head_dim:
+        raise RuntimeError(f"the K1 library for Dh {head_dim} was built for Dh "
+                           f"{lib.k1_attention_head_dim()}")
     fn = lib.k1_attention_fwd
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                    + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3
@@ -212,14 +262,15 @@ def _bwd_kernel():
 
 
 @functools.cache
-def _max_smem(device_index: int) -> int:
-    return _kernel().k1_attention_max_smem(device_index)
+def _max_smem(device_index: int, head_dim: int) -> int:
+    return _kernel(head_dim).k1_attention_max_smem(device_index)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           smem_bytes=None) -> None:
+           smem_bytes=None, head_dims: tuple = HEAD_DIMS) -> None:
     """Raise on q, k, v that the kernels cannot take. ``smem_bytes(n,
-    elem)`` is the kernel's shared memory per block (default: K1's)."""
+    elem)`` is the kernel's shared memory per block (default: K1's at q's
+    head dim); ``head_dims`` the head dims the kernel is built for."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"attention kernel needs q, k, v on one CUDA device; "
                          f"got {q.device}, {k.device}, {v.device}")
@@ -229,8 +280,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (B, H, N, Dh) shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if q.shape[-1] != HEAD_DIM or q.shape[2] < 1:
-        raise ValueError(f"attention kernel needs Dh == {HEAD_DIM} and N >= 1; "
+    if q.shape[-1] not in head_dims or q.shape[2] < 1:
+        raise ValueError(f"attention kernel needs Dh in {head_dims} and N >= 1; "
                          f"got shape {tuple(q.shape)}")
     if k.stride() != q.stride() or v.stride() != q.stride():
         raise ValueError("q, k and v must share strides")
@@ -239,9 +290,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             t.data_ptr() % (2 * elem) for t in (q, k, v)):
         raise ValueError("the head dim must be contiguous, with even strides "
                          "and pair-aligned pointers")
-    need = (smem_bytes or _kernel().k1_attention_smem_bytes)(q.shape[2], elem)
+    need = (smem_bytes or _kernel(q.shape[-1]).k1_attention_smem_bytes)(q.shape[2], elem)
     have = _max_smem(q.device.index if q.device.index is not None
-                     else torch.cuda.current_device())
+                     else torch.cuda.current_device(), q.shape[-1])
     if need > have:
         raise ValueError(f"N={q.shape[2]} needs {need} B of shared memory per "
                          f"block; this device allows {have} B")
@@ -262,20 +313,22 @@ def _check_like(q: torch.Tensor, *tensors: torch.Tensor) -> None:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """K1. q, k, v: (B, H, N, 64), any batch/head/token strides -> (B, H, N, 64).
+    """K1. q, k, v: (B, H, N, Dh), Dh 64 or 72, any batch/head/token strides
+    -> (B, H, N, Dh).
 
     On the card the output is a (B, H, N, Dh) view of a (B, N, H, Dh)
-    buffer, so ``.transpose(1, 2).reshape(B, N, H * Dh)`` is free. Each
-    launch adds one to ``attention.launches``."""
+    buffer, so ``.transpose(1, 2).reshape(B, N, H * Dh)`` is free. The
+    kernel scales q by :func:`q_scale`. Each launch adds one to
+    ``attention.launches``."""
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return attention_reference(q, k, v)
     _check(q, k, v)
     b, h, n, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    err = _kernel().k1_attention_fwd(
+    err = _kernel(d).k1_attention_fwd(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), *q.stride()[:3], *out.stride()[:3], b, h, n,
-        d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+        q_scale(d, q.dtype), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
     attention.launches += 1
@@ -301,7 +354,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dst.copy_(src)
         return out
     dq, dk, dv = out
-    _check(q, k, v, _bwd_kernel().k2_attention_bwd_smem_bytes)
+    _check(q, k, v, _bwd_kernel().k2_attention_bwd_smem_bytes, (HEAD_DIM,))
     _check_like(q, do, dq, dk, dv)
     if dk.stride() != dq.stride() or dv.stride() != dq.stride():
         raise ValueError("dq, dk and dv must share strides")
@@ -399,20 +452,19 @@ def fused_attention_block_plain(x: torch.Tensor, w_qkv: torch.Tensor,
                                 b_qkv: torch.Tensor, w_proj: torch.Tensor,
                                 b_proj: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Plain PyTorch version of K3 with ``_attn_block_kernel``'s rounding
-    points (T is ``x.dtype``): q = T(x Wq + bq) * Dh^-1/2 in T, k and v
-    alike unscaled, products in fp32 and the biases added in fp32; S = q k^T
-    and the softmax in fp32; o_h = T(T(P) v); out = T(sum_h o_h Wp_h + bp),
-    summed over the heads in order in fp32. x: (B, N, D) -> (B, N, D).
-    Differentiable by torch autograd."""
+    points (T is ``x.dtype``): q = T(x Wq + bq) * Dh^-1/2 in T
+    (:func:`scaled_q`), k and v alike unscaled, products in fp32 and the
+    biases added in fp32; S = q k^T and the softmax in fp32; o_h = T(T(P)
+    v); out = T(sum_h o_h Wp_h + bp), summed over the heads in order in
+    fp32. x: (B, N, D) -> (B, N, D). Differentiable by torch autograd."""
     dt, h = x.dtype, num_heads
-    d = w_qkv.shape[-1]
     xf = x.float()
 
     def proj(i: int) -> torch.Tensor:  # (B, H, N, Dh)
         y = torch.einsum("bnk,hkd->bhnd", xf, w_qkv[i * h:(i + 1) * h].float())
         return (y + b_qkv[i * h:(i + 1) * h].float()[None]).to(dt)
 
-    q = proj(0) * d ** -0.5
+    q = scaled_q(proj(0))
     k, v = proj(1), proj(2)
     p = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)), dim=-1)
     o = torch.matmul(p.to(v.dtype).float(), v.float()).to(dt)

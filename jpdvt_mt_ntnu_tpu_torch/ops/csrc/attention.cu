@@ -2,8 +2,10 @@
 //
 // Replaces jpdvt_mt_ntnu_tpu/ops/attention.py:_attn_kernel, the Pallas
 // kernel behind _attention_pallas_fwd_only and fused_qkv_attention. Same
-// arithmetic: q * Dh^-1/2 rounded to the input type (exact for Dh = 64),
-// S = Q K^T in fp32, a max-subtracted softmax in fp32 normalised before P
+// arithmetic: q * s_q rounded to the input type, where s_q is Dh^-1/2
+// rounded to the input type first (JAX rounds its weakly typed Python float
+// so; the wrapper passes s_q as `scale`, and bf16 q times a bf16 s_q is
+// exact in fp32, so the one rounding is JAX's), S = Q K^T in fp32, a max-subtracted softmax in fp32 normalised before P
 // is rounded to the V type, O = P V accumulated in fp32 and stored in the
 // input type. No masking, no dropout. The kernel takes element strides for
 // batch, head and token, so it reads q/k/v straight out of the fused
@@ -35,6 +37,20 @@
 // Each output element has one owning accumulator and keys run in a fixed
 // order (no atomics, no split over keys): two calls are bit-equal.
 //
+// The head dim is a compile-time constant, HEAD_DIM (64 by default; the
+// build compiles this file again with -DHEAD_DIM=72 for DiT-XL, a library
+// of its own). At Dh 72: S = q K^T takes five k16 steps, the fifth over
+// dims 64-79 with dims 72-79 zero (in the q fragments, and in K's shared
+// memory rows, padding the copies never write), which keeps one mma path
+// for every step at the cost of 8 zero dims in 72 (the other choice, a
+// closing m16n8k8 with ldmatrix.x2 operands, is a second path for each
+// operand); O = P V takes nine n8 tiles over Dh, in pairs by
+// ldmatrix.x4.trans and the ninth alone by ldmatrix.x2.trans. Rows are 88
+// elements (176 B, eleven 16-byte units, odd, so ldmatrix stays free of
+// bank conflicts; 80 would be ten), 45,056 B of shared memory a block.
+// The fp32 kernel's threads own three column pairs of O each at Dh 72
+// (two at 64), the third only where it lies inside Dh.
+//
 // What the earlier scalar design (kept below for fp32) left, and what this
 // one does about it: its products were scalar fp32 FMAs (now mma.sync);
 // its fp32 score rows sat in shared memory beside K and V whole (165 KB a
@@ -58,9 +74,14 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#ifndef HEAD_DIM
+#define HEAD_DIM 64
+#endif
+
 namespace {
 
-constexpr int kD = 64;           // head dim; the Python wrapper checks it
+constexpr int kD = HEAD_DIM;     // head dim (64 or 72); the Python wrapper checks it
+static_assert(kD % 8 == 0, "rows are staged in 16-byte pieces");
 // The scalar fp32 kernel.
 constexpr int kTQ = 32;          // query rows per block
 constexpr int kThreads = 128;    // 8 row groups x 16 column groups
@@ -68,6 +89,12 @@ constexpr int kKS = kD + 2;      // smem row stride of K and V (elements)
 constexpr int kQS = kD + 2;      // smem row stride of the query tile (floats)
 constexpr int kCT = 3;           // key columns per thread in one score chunk
 constexpr int kChunk = 16 * kCT; // key columns per score chunk
+constexpr int kCP = (kD / 2 + 15) / 16;  // column pairs of O a thread owns
+
+// Whether column-pair group cg owns its p-th pair of O (dims 2 (cg + 16 p)).
+__device__ __forceinline__ bool owns_pair(int cg, int p) {
+  return kD / 2 % 16 == 0 || cg + 16 * p < kD / 2;
+}
 
 // The scalar kernel below is a template of the element type T as it was
 // written; since the bf16 design moved to the tensor cores (namespace tc)
@@ -98,11 +125,17 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 constexpr int kKB = 64;             // keys per chunk
-constexpr int kRow = kD + 8;        // smem row stride of K and V (elements): 144 B
+// smem row stride of K and V (elements), an odd count of 16-byte units:
+// 144 B at Dh 64, 176 B at 72.
+constexpr int kRow = kD / 8 % 2 == 0 ? kD + 8 : kD + 16;
 constexpr int kStage = kKB * kRow;  // elements of one chunk of K or V
 constexpr int kC8 = kD / 8;         // 16-byte pieces of a row
-// K and V, two stages each: 36,864 B at every N.
+// k16 steps over Dh (S = q K^T); the last one's dims past kD are zero.
+constexpr int kK16 = (kD + 15) / 16;
+static_assert(kK16 * 16 - kD <= 8 && kK16 * 16 <= kRow, "one zero piece a row pads Dh");
+// K and V, two stages each: 36,864 B at every N (Dh 64), 45,056 B (Dh 72).
 constexpr size_t kSmemBytes = 4 * (size_t)kStage * sizeof(bf16);
+static_assert(kSmemBytes <= 48 * 1024, "launched without opting into more shared memory");
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kWarps = 4;           // 16 query rows each
 constexpr int kBlock = 32 * kWarps;
@@ -124,6 +157,13 @@ __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
 __device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+// Two 8 x 8 b16 matrices, transposed; lanes 8i..8i+7 (i < 2) give matrix
+// i's row addresses.
+__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p)));
 }
 
@@ -183,8 +223,9 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          long long in_sb, long long in_sh, long long in_sn,
                          long long out_sb, long long out_sh, long long out_sn,
                          int n, float scale, int aligned) {
-  constexpr int kPieces = kKB * kC8 / kBlock;  // a thread's pieces of one chunk of K (or V)
-  static_assert(kKB * kC8 % kBlock == 0, "a chunk must split evenly over the threads");
+  // A thread's pieces of one chunk of K (or V); at Dh 72 the last round
+  // takes half the threads.
+  constexpr int kPieces = (kKB * kC8 + kBlock - 1) / kBlock;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);  // [2][kKB][kRow]
   bf16* vs = ks + 2 * kStage;                // [2][kKB][kRow]
@@ -198,18 +239,25 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // This warp's rows: q0 + g (accumulator elements 0, 1) and q0 + g + 8 (2, 3).
   const int q0 = (blockIdx.x * kWarps + warp) * 16;
   const bool active = q0 < n;  // warp-uniform; idle warps still stage K and V
+  if (kK16 * 16 > kD) {
+    // K's dims kD.. of the last k16 step, in both stages: zero (the copies
+    // never write them; the barrier of the first step orders these stores).
+    for (int i = tid; i < 2 * kKB; i += kBlock)
+      *reinterpret_cast<uint4*>(ks + i * kRow + kD) = make_uint4(0u, 0u, 0u, 0u);
+  }
 
-  // The query tile as A operands (16 rows x 4 slices of 16 dims), q * scale
-  // rounded to bf16; zero rows past n.
-  unsigned qa[4][4];
+  // The query tile as A operands (16 rows x kK16 slices of 16 dims), q *
+  // scale rounded to bf16; zero rows past n and dims past kD.
+  unsigned qa[kK16][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < kK16; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = q0 + g + (e % 2) * 8, col = kk * 16 + t2 + (e / 2) * 8;
-      const float2 x = row < n ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                                     qg + row * in_sn + col))
-                               : make_float2(0.f, 0.f);
+      const float2 x = row < n && (kK16 * 16 == kD || col < kD)
+                           ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                                 qg + row * in_sn + col))
+                           : make_float2(0.f, 0.f);
       qa[kk][e] = pack(x.x * scale, x.y * scale);
     }
 
@@ -220,7 +268,9 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int c = step < nc ? step : step - nc, st = step % 2;
 #pragma unroll
     for (int u = 0; u < kPieces; ++u) {
-      const int i = tid + u * kBlock, r = i / kC8, col = i % kC8 * 8, key = c * kKB + r;
+      const int i = tid + u * kBlock;
+      if (kKB * kC8 % kBlock != 0 && i >= kKB * kC8) break;
+      const int r = i / kC8, col = i % kC8 * 8, key = c * kKB + r;
       const long long off = (long long)min(key, n - 1) * in_sn + col;
       stage_piece(ks + st * kStage + r * kRow + col, kg + off, key < n, aligned);
       if (step >= nc) stage_piece(vs + st * kStage + r * kRow + col, vg + off, key < n, aligned);
@@ -238,7 +288,7 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < kK16; ++kk)
 #pragma unroll
       for (int u = 0; u < kKB / 16; ++u)
         if (u < groups) {
@@ -327,13 +377,21 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          : 0.f;
             pa[2 * t + half] = pack(p[0], p[1]);
           }
+        // Pairs of n8 tiles over Dh, counted: a loop on j + 1 < kD / 8 put
+        // the accumulators in local memory at Dh 72.
 #pragma unroll
-        for (int j = 0; j < kD / 8; j += 2) {
+        for (int jp = 0; jp < kD / 16; ++jp) {
+          const int j = 2 * jp;
           unsigned vb[4];  // v as [key][dim]: B (k = key, n = dim) through .trans
           ldsm_x4_trans(vb, vst + (16 * u + lane % 8 + ((lane / 8) % 2) * 8) * kRow + j * 8 +
                                 (lane / 16) * 8);
           mma(oacc[j], pa, vb[0], vb[1]);
           mma(oacc[j + 1], pa, vb[2], vb[3]);
+        }
+        if (kD / 8 % 2) {  // an odd count of n8 tiles (Dh 72): the last alone
+          unsigned vb[2];
+          ldsm_x2_trans(vb, vst + (16 * u + lane % 8 + ((lane / 8) % 2) * 8) * kRow + kD - 8);
+          mma(oacc[kD / 8 - 1], pa, vb[0], vb[1]);
         }
       }
     }
@@ -478,24 +536,29 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  // O = P V, fp32; this thread owns rows rg*4.. and columns 2cg, 2cg+1,
-  // 2cg+32, 2cg+33.
-  float acc[4][4];
+  // O = P V, fp32; this thread owns rows rg*4.. and the column pairs
+  // 2 (cg + 16 p), p < kCP, that lie inside Dh (Dh 64: columns 2cg, 2cg+1,
+  // 2cg+32, 2cg+33).
+  float acc[4][2 * kCP];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < 2 * kCP; ++c) acc[i][c] = 0.f;
   for (int j = 0; j < n; ++j) {
-    const float2 v0 = to_float2(*reinterpret_cast<const T2*>(vs + j * kKS + 2 * cg));
-    const float2 v1 =
-        to_float2(*reinterpret_cast<const T2*>(vs + j * kKS + 2 * cg + kD / 2));
+    float2 vv[kCP];
+#pragma unroll
+    for (int p = 0; p < kCP; ++p)
+      vv[p] = owns_pair(cg, p)
+                  ? to_float2(*reinterpret_cast<const T2*>(vs + j * kKS + 2 * (cg + 16 * p)))
+                  : make_float2(0.f, 0.f);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float p = ss[(rg * 4 + i) * sst + j];
-      acc[i][0] = fmaf(p, v0.x, acc[i][0]);
-      acc[i][1] = fmaf(p, v0.y, acc[i][1]);
-      acc[i][2] = fmaf(p, v1.x, acc[i][2]);
-      acc[i][3] = fmaf(p, v1.y, acc[i][3]);
+      const float pr = ss[(rg * 4 + i) * sst + j];
+#pragma unroll
+      for (int p = 0; p < kCP; ++p) {
+        acc[i][2 * p] = fmaf(pr, vv[p].x, acc[i][2 * p]);
+        acc[i][2 * p + 1] = fmaf(pr, vv[p].y, acc[i][2 * p + 1]);
+      }
     }
   }
   T* og = o + blockIdx.z * out_sb + blockIdx.y * out_sh;
@@ -503,8 +566,10 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + rg * 4 + i;
     if (r < n) {
-      store_pair(og + r * out_sn + 2 * cg, acc[i][0], acc[i][1]);
-      store_pair(og + r * out_sn + 2 * cg + kD / 2, acc[i][2], acc[i][3]);
+#pragma unroll
+      for (int p = 0; p < kCP; ++p)
+        if (owns_pair(cg, p))
+          store_pair(og + r * out_sn + 2 * (cg + 16 * p), acc[i][2 * p], acc[i][2 * p + 1]);
     }
   }
 }
@@ -533,6 +598,9 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
+// The head dim this library was built for (HEAD_DIM).
+int k1_attention_head_dim() { return kD; }
+
 // Shared memory one block needs for sequence length n and element size.
 size_t k1_attention_smem_bytes(int n, int elem_bytes) {
   return smem_bytes(n, (size_t)elem_bytes);
@@ -548,8 +616,9 @@ int k1_attention_max_smem(int device) {
 }
 
 // q, k, v share the element strides (in_sb, in_sh, in_sn); the last dim is
-// contiguous and kD long. dtype: 0 = float32, 1 = bfloat16. Returns the
-// cudaError_t of the launch (0 on success).
+// contiguous and kD long. scale is q's factor s_q, Dh^-1/2 rounded to the
+// input type. dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of
+// the launch (0 on success).
 int k1_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                      void* o, long long in_sb, long long in_sh, long long in_sn,
                      long long out_sb, long long out_sh, long long out_sn,

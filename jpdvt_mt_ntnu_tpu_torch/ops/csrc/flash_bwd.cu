@@ -3,13 +3,15 @@
 //
 // K5 replaces jpdvt_mt_ntnu_tpu/ops/flash_attention.py:_dq_kernel and K6
 // replaces _dkv_kernel, the two Pallas kernels of _flash_bwd, the
-// FlashAttention-2 recomputation. Same arithmetic: q * Dh^-1/2 rounded to
-// the input type; S = Q K^T in fp32, padded key columns out; P = exp(S -
+// FlashAttention-2 recomputation. Same arithmetic: qs = q * s_q rounded to
+// the input type, s_q being Dh^-1/2 rounded to the input type first, as JAX
+// rounds its weakly typed Python float; S = Q K^T in fp32, padded key columns out; P = exp(S -
 // LSE) in fp32 from the forward's LSE; dP = dO V^T; delta = rowsum(dO * O)
 // from the saved output O in the input type; dS = P (dP - delta) rounded
-// to the input type. K5: dQ = sum over key tiles of (dS K) * scale. K6:
-// dV = sum over query tiles of round(P)^T dO with P rounded to the dO type,
-// dK = sum over query tiles of dS^T (q * scale). Every product accumulates
+// to the input type. K5: dQ = sum over key tiles of (dS K) * scale, with
+// the fp32 scale Dh^-1/2 (the JAX kernel multiplies an fp32 product by
+// it). K6: dV = sum over query tiles of round(P)^T dO with P rounded to the
+// dO type, dK = sum over query tiles of dS^T qs. Every product accumulates
 // in fp32; the outputs are stored in the input type. P uses the saved row
 // LSE, so nothing rounded depends on the tiling: a kernel may pick any
 // tile, and only the order of the fp32 sums differs from the Pallas one.
@@ -36,9 +38,11 @@
 //   exp(S^T - LSE), dP^T = V dO^T, dS^T = P^T (dP^T - delta) rounded to
 //   bf16; dV += round(P^T) dO and dK += dS^T q, the accumulators of two
 //   8-query n-tiles repacked as one 16 x 16 A operand, B from the ring by
-//   ldmatrix.trans. The ring takes q as it is; scale is 2^-3 for the only
-//   Dh the kernel takes (64), so q * scale is exact in bf16 and S = scale
-//   (K q^T), dK = scale (sum dS^T q) are the same fp32 numbers.
+//   ldmatrix.trans. At Dh 64 the ring takes q as it is: s_q is 2^-3, so q *
+//   s_q is exact in bf16 and S = s_q (K q^T), dK = s_q (sum dS^T q) are the
+//   same fp32 numbers. At any other Dh (72) q * s_q rounds, so each q
+//   chunk is scaled and rounded in place once it has landed (the barrier
+//   that publishes delta publishes it), and S and dK take qs as they are.
 // - K5 (dQ): one block per (batch, head, 64 queries), K1's structure. Each
 //   warp loads its 16 rows of q * scale (rounded to bf16) and of dO into A
 //   fragments once, with their LSE and delta (dO from the fragments, O
@@ -46,7 +50,9 @@
 //   the ring: S = q K^T, dP = dO V^T (B by ldmatrix), P = exp(S - LSE) with
 //   keys past N masked to 0, dS = P (dP - delta) rounded to bf16 and
 //   repacked as A, dQ += dS K (B by ldmatrix.trans); dQ is multiplied by
-//   scale (2^-3, exact) once, at the store.
+//   the fp32 scale once, at the store (the JAX kernel multiplies each key
+//   tile's product: at Dh 64, 2^-3, the same numbers; elsewhere they differ
+//   by summation order only).
 // exp is exp2 of one FFMA on the special-function unit (2 ulp): P moves by
 // a few fp32 ulp, far below its bf16 rounding. Rows past N are zero in
 // shared memory and in the fragments (0 times a stale NaN would not be 0);
@@ -78,6 +84,19 @@
 // Both designs take element strides: q/k/v are read out of the saved fused
 // (B, N, 3*H*Dh) projection, O and dO out of (B, N, H*Dh) buffers, and
 // dq/dk/dv are written into one (B, N, 3, H, Dh) gradient buffer.
+//
+// The head dim is a compile-time constant, HEAD_DIM (64 by default; the
+// build compiles this file again with -DHEAD_DIM=72 for DiT-XL, a library
+// of its own), laid out as in attention.cu (K1): at Dh 72 the products over
+// Dh (S = q K^T, dP = dO V^T, and their transposes in K6) take five k16
+// steps, the fifth over dims 64-79 with dims 72-79 zero in the fragments
+// and in the shared-memory rows of the operands read over Dh (K5: K and V;
+// K6: q and dO); the products into Dh (dQ, dK, dV) nine n8 tiles, the
+// ninth alone by ldmatrix.x2.trans; K6's delta splits a row's nine 16-byte
+// pieces five and four over its two threads. Rows of 88 elements (176 B,
+// an odd count of 16-byte units): 45,056 B a K5 block, 68,608 B a K6
+// block. The fp32 kernels' threads own three column pairs (two at 64), the
+// third only inside Dh.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,15 +105,30 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#ifndef HEAD_DIM
+#define HEAD_DIM 64
+#endif
+
 namespace {
 
-constexpr int kD = 64;         // head dim; the Python wrapper checks it
+constexpr int kD = HEAD_DIM;   // head dim (64 or 72); the Python wrapper checks it
+static_assert(kD % 8 == 0, "rows are staged in 16-byte pieces");
+// Dh^-1/2 is 2^-3: q * s_q is exact in bf16, and K6 may scale S and dK
+// instead of q.
+constexpr bool kPow2Scale = kD == 64;
 // The scalar fp32 kernels.
 constexpr int kBQ = 64;        // query rows per tile
 constexpr int kBK = 64;        // key rows per tile
 constexpr int kThreads = 256;  // 16 row groups x 16 column groups
 constexpr int kS = kD + 2;     // smem row stride of q, dO, K, V (elements)
 constexpr int kPS = kBK + 1;   // smem row stride of the P and dS tiles (floats)
+constexpr int kCP = (kD / 2 + 15) / 16;  // column pairs of dQ (dK, dV) a thread owns
+
+// Whether column-pair group cg owns its p-th pair of the outputs (dims
+// 2 (cg + 16 p)).
+__device__ __forceinline__ bool owns_pair(int cg, int p) {
+  return kD / 2 % 16 == 0 || cg + 16 * p < kD / 2;
+}
 
 // The scalar kernels below are templates of the element type T as they
 // were written; since the bf16 design moved to the tensor cores (namespace
@@ -170,6 +204,11 @@ __device__ void stage_q_rows(const T* qg, const T* og, const T* dog,
       const float2 y = to_float2(
           *reinterpret_cast<const T2*>(og + (r0 + r) * st.o_sn + 2 * lane));
       part = g.x * y.x + g.y * y.y;
+      for (int c = 2 * lane + 64; c < kD; c += 64) {  // Dh 72: columns 64-71
+        const float2 g2 = to_float2(*reinterpret_cast<const T2*>(dog + (r0 + r) * st.do_sn + c));
+        const float2 y2 = to_float2(*reinterpret_cast<const T2*>(og + (r0 + r) * st.o_sn + c));
+        part += g2.x * y2.x + g2.y * y2.y;
+      }
     }
     const float delta = warp_sum(part);
     if (lane == 0) {
@@ -235,7 +274,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ o,
                 const T* __restrict__ dout, const float* __restrict__ lse,
-                T* __restrict__ dq, Strides st, int h, int n, float scale) {
+                T* __restrict__ dq, Strides st, int h, int n, float scale,
+                float dq_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);                    // [kBK][kS]
   T* vs = ks + kBK * kS;                                 // [kBK][kS]
@@ -256,12 +296,13 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                scale, qs, dos, lse_s, delta_s);
 
   const int rg = tid / 16, cg = tid % 16;
-  // acc[i][0..3]: dQ row rg*4+i, head-dim columns 2cg, 2cg+1, 2cg+32, 2cg+33.
-  float acc[4][4];
+  // acc[i][2p, 2p + 1]: dQ row rg*4+i, head-dim columns 2 (cg + 16 p) and the
+  // next, p < kCP, inside Dh (Dh 64: 2cg, 2cg+1, 2cg+32, 2cg+33).
+  float acc[4][2 * kCP];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < 2 * kCP; ++c) acc[i][c] = 0.f;
 
   for (int k0 = 0; k0 < n; k0 += kBK) {
     __syncthreads();  // staging done; the previous tile's readers are done
@@ -279,31 +320,35 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();
-    // dQ += (dS K) * scale, the tile's product scaled before it is added.
-    float t[4][4];
+    // dQ += (dS K) * dq_scale, the tile's product scaled before it is added.
+    float t[4][2 * kCP];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) t[i][c] = 0.f;
+      for (int c = 0; c < 2 * kCP; ++c) t[i][c] = 0.f;
     using T2 = typename Pair<T>::type;
 #pragma unroll 4
     for (int j = 0; j < kBK; ++j) {
-      const float2 k0v = to_float2(*reinterpret_cast<const T2*>(ks + j * kS + 2 * cg));
-      const float2 k1v =
-          to_float2(*reinterpret_cast<const T2*>(ks + j * kS + 2 * cg + kD / 2));
+      float2 kv[kCP];
+#pragma unroll
+      for (int p = 0; p < kCP; ++p)
+        kv[p] = owns_pair(cg, p)
+                    ? to_float2(*reinterpret_cast<const T2*>(ks + j * kS + 2 * (cg + 16 * p)))
+                    : make_float2(0.f, 0.f);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float g = dss[(rg * 4 + i) * kPS + j];
-        t[i][0] = fmaf(g, k0v.x, t[i][0]);
-        t[i][1] = fmaf(g, k0v.y, t[i][1]);
-        t[i][2] = fmaf(g, k1v.x, t[i][2]);
-        t[i][3] = fmaf(g, k1v.y, t[i][3]);
+#pragma unroll
+        for (int p = 0; p < kCP; ++p) {
+          t[i][2 * p] = fmaf(g, kv[p].x, t[i][2 * p]);
+          t[i][2 * p + 1] = fmaf(g, kv[p].y, t[i][2 * p + 1]);
+        }
       }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] += t[i][c] * scale;
+      for (int c = 0; c < 2 * kCP; ++c) acc[i][c] += t[i][c] * dq_scale;
   }
 
   T* dqg = dq + blockIdx.z * st.out_sb + blockIdx.y * st.out_sh;
@@ -311,8 +356,11 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + rg * 4 + i;
     if (r < n) {
-      store_pair(dqg + r * st.out_sn + 2 * cg, acc[i][0], acc[i][1]);
-      store_pair(dqg + r * st.out_sn + 2 * cg + kD / 2, acc[i][2], acc[i][3]);
+#pragma unroll
+      for (int p = 0; p < kCP; ++p)
+        if (owns_pair(cg, p))
+          store_pair(dqg + r * st.out_sn + 2 * (cg + 16 * p), acc[i][2 * p],
+                     acc[i][2 * p + 1]);
     }
   }
 }
@@ -345,12 +393,13 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   stage_kv_rows(k + in_base, v + in_base, st.in_sn, k0, n, ks, vs);
 
   const int rg = tid / 16, cg = tid % 16;
-  // dk/dv[j][0..3]: key row rg*4+j, head-dim columns 2cg, 2cg+1, 2cg+32, 2cg+33.
-  float dka[4][4], dva[4][4];
+  // dk/dv[j][2p, 2p + 1]: key row rg*4+j, head-dim columns 2 (cg + 16 p) and
+  // the next, p < kCP, inside Dh (Dh 64: 2cg, 2cg+1, 2cg+32, 2cg+33).
+  float dka[4][2 * kCP], dva[4][2 * kCP];
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) dka[j][c] = dva[j][c] = 0.f;
+    for (int c = 0; c < 2 * kCP; ++c) dka[j][c] = dva[j][c] = 0.f;
 
   for (int q0 = 0; q0 < n; q0 += kBQ) {
     __syncthreads();  // staging done; the previous tile's readers are done
@@ -373,22 +422,26 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // dV += round(P)^T dO, dK += dS^T (q * scale), over this tile's rows.
 #pragma unroll 2
     for (int i = 0; i < kBQ; ++i) {
-      const float2 g0 = *reinterpret_cast<const float2*>(dos + i * kS + 2 * cg);
-      const float2 g1 = *reinterpret_cast<const float2*>(dos + i * kS + 2 * cg + kD / 2);
-      const float2 x0 = *reinterpret_cast<const float2*>(qs + i * kS + 2 * cg);
-      const float2 x1 = *reinterpret_cast<const float2*>(qs + i * kS + 2 * cg + kD / 2);
+      float2 gv[kCP], xv[kCP];
+#pragma unroll
+      for (int p = 0; p < kCP; ++p) {
+        const int c = 2 * (cg + 16 * p);
+        gv[p] = owns_pair(cg, p) ? *reinterpret_cast<const float2*>(dos + i * kS + c)
+                                 : make_float2(0.f, 0.f);
+        xv[p] = owns_pair(cg, p) ? *reinterpret_cast<const float2*>(qs + i * kS + c)
+                                 : make_float2(0.f, 0.f);
+      }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = pcs[i * kPS + rg * 4 + j];
+        const float pr = pcs[i * kPS + rg * 4 + j];
         const float g = dss[i * kPS + rg * 4 + j];
-        dva[j][0] = fmaf(p, g0.x, dva[j][0]);
-        dva[j][1] = fmaf(p, g0.y, dva[j][1]);
-        dva[j][2] = fmaf(p, g1.x, dva[j][2]);
-        dva[j][3] = fmaf(p, g1.y, dva[j][3]);
-        dka[j][0] = fmaf(g, x0.x, dka[j][0]);
-        dka[j][1] = fmaf(g, x0.y, dka[j][1]);
-        dka[j][2] = fmaf(g, x1.x, dka[j][2]);
-        dka[j][3] = fmaf(g, x1.y, dka[j][3]);
+#pragma unroll
+        for (int p = 0; p < kCP; ++p) {
+          dva[j][2 * p] = fmaf(pr, gv[p].x, dva[j][2 * p]);
+          dva[j][2 * p + 1] = fmaf(pr, gv[p].y, dva[j][2 * p + 1]);
+          dka[j][2 * p] = fmaf(g, xv[p].x, dka[j][2 * p]);
+          dka[j][2 * p + 1] = fmaf(g, xv[p].y, dka[j][2 * p + 1]);
+        }
       }
     }
   }
@@ -400,10 +453,13 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (r < n) {
       T* kr = dk + out_base + r * st.out_sn;
       T* vr = dv + out_base + r * st.out_sn;
-      store_pair(kr + 2 * cg, dka[j][0], dka[j][1]);
-      store_pair(kr + 2 * cg + kD / 2, dka[j][2], dka[j][3]);
-      store_pair(vr + 2 * cg, dva[j][0], dva[j][1]);
-      store_pair(vr + 2 * cg + kD / 2, dva[j][2], dva[j][3]);
+#pragma unroll
+      for (int p = 0; p < kCP; ++p)
+        if (owns_pair(cg, p)) {
+          const int c = 2 * (cg + 16 * p);
+          store_pair(kr + c, dka[j][2 * p], dka[j][2 * p + 1]);
+          store_pair(vr + c, dva[j][2 * p], dva[j][2 * p + 1]);
+        }
     }
   }
 }
@@ -418,14 +474,14 @@ int set_smem(K kernel, size_t smem) {
 template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const float* lse, void* dq, const Strides& st,
-              int b, int h, int n, float scale, cudaStream_t stream) {
+              int b, int h, int n, float scale, float dq_scale, cudaStream_t stream) {
   const size_t smem = dq_smem_bytes(sizeof(T));
   if (const int err = set_smem(flash_dq_kernel<T>, smem)) return err;
   const dim3 grid((n + kBQ - 1) / kBQ, h, b);
   flash_dq_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(o), static_cast<const T*>(dout), lse,
-      static_cast<T*>(dq), st, h, n, scale);
+      static_cast<T*>(dq), st, h, n, scale, dq_scale);
   return (int)cudaGetLastError();
 }
 
@@ -449,16 +505,25 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 constexpr int kRows = 64;             // rows of a chunk in the ring, and of a block's tile
-constexpr int kRow = kD + 8;          // smem row stride (elements): 144 B
+// smem row stride (elements), an odd count of 16-byte units: 144 B at Dh
+// 64, 176 B at 72.
+constexpr int kRow = kD / 8 % 2 == 0 ? kD + 8 : kD + 16;
 constexpr int kStage = kRows * kRow;  // elements of one chunk of one tensor
 constexpr int kC8 = kD / 8;           // 16-byte pieces of a row
+// k16 steps over Dh (S and dP); the last one's dims past kD are zero.
+constexpr int kK16 = (kD + 15) / 16;
+static_assert(kK16 * 16 - kD <= 8 && kK16 * 16 <= kRow, "one zero piece a row pads Dh");
 constexpr int kWarps = 4;             // 16 rows each
 constexpr int kBlock = 32 * kWarps;
+// A thread's 16-byte pieces of one chunk of one tensor; at Dh 72 the last
+// round takes half the threads.
+constexpr int kPieces = (kRows * kC8 + kBlock - 1) / kBlock;
 constexpr float kLog2e = 1.4426950408889634f;
-// K5: K and V, two stages each: 36,864 B at every N.
+// K5: K and V, two stages each: 36,864 B at every N (Dh 64), 45,056 B (72).
 constexpr size_t kDqSmemBytes = 4 * (size_t)kStage * sizeof(bf16);
+static_assert(kDqSmemBytes <= 48 * 1024, "K5 is launched without opting into more");
 // K6: q, dO and O, two stages each, and each stage's LSE and delta (fp32):
-// 56,320 B at every N.
+// 56,320 B at every N (Dh 64), 68,608 B (72).
 constexpr size_t kDkvSmemBytes =
     2 * (3 * (size_t)kStage * sizeof(bf16) + 2 * (size_t)kRows * sizeof(float));
 // Blocks an SM, by measurement on an H100 (PERF.md §6): 4 caps K5 at 128
@@ -480,6 +545,13 @@ __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
 __device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+// Two 8 x 8 b16 matrices, transposed; lanes 8i..8i+7 (i < 2) give matrix
+// i's row addresses.
+__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p)));
 }
 
@@ -517,22 +589,38 @@ __device__ __forceinline__ void load_b_trans(unsigned (&r)[4], const bf16* base,
                                              int j0, int lane) {
   ldsm_x4_trans(r, base + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * kRow + j0 + (lane / 16) * 8);
 }
+// The B operand of the last n-tile over Dh alone (columns kD - 8..) x k16,
+// for an odd count of n8 tiles (Dh 72).
+__device__ __forceinline__ void load_b_trans_last(unsigned (&r)[2], const bf16* base, int k0,
+                                                  int lane) {
+  ldsm_x2_trans(r, base + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * kRow + kD - 8);
+}
 
-// The A operands (16 rows x 4 slices of 16 dims) of rows r0.. of a (N, Dh)
-// slice with row stride sn, times mul, rounded to bf16; zero rows past n.
-__device__ __forceinline__ void load_a(unsigned (&a)[4][4], const bf16* g, long long sn, int r0,
-                                       int n, float mul, int lane) {
+// The A operands (16 rows x kK16 slices of 16 dims) of rows r0.. of a
+// (N, Dh) slice with row stride sn, times mul, rounded to bf16; zero rows
+// past n and dims past kD.
+__device__ __forceinline__ void load_a(unsigned (&a)[kK16][4], const bf16* g, long long sn,
+                                       int r0, int n, float mul, int lane) {
   const int gr = lane / 4, t2 = 2 * (lane % 4);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < kK16; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = r0 + gr + (e % 2) * 8, col = kk * 16 + t2 + (e / 2) * 8;
-      const float2 x = row < n ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                                     g + row * sn + col))
-                               : make_float2(0.f, 0.f);
+      const float2 x = row < n && (kK16 * 16 == kD || col < kD)
+                           ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                                 g + row * sn + col))
+                           : make_float2(0.f, 0.f);
       a[kk][e] = pack(x.x * mul, x.y * mul);
     }
+}
+
+// Dims kD.. of the last k16 step in `rows` rows of stride kRow from p:
+// zero (the ring's copies never write them).
+__device__ __forceinline__ void zero_pad(bf16* p, int rows) {
+  if (kK16 * 16 > kD)
+    for (int i = threadIdx.x; i < rows; i += blockDim.x)
+      *reinterpret_cast<uint4*>(p + i * kRow + kD) = make_uint4(0u, 0u, 0u, 0u);
 }
 
 __device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src) {
@@ -584,12 +672,11 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ o,
                     const bf16* __restrict__ dout, const float* __restrict__ lse,
                     bf16* __restrict__ dq, Strides st, int h, int n, float scale,
-                    int aligned) {
-  constexpr int kPieces = kRows * kC8 / kBlock;  // a thread's pieces of one chunk of K (or V)
-  static_assert(kRows * kC8 % kBlock == 0, "a chunk must split evenly over the threads");
+                    float dq_scale, int aligned) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);  // [2][kRows][kRow]
   bf16* vs = ks + 2 * kStage;                // [2][kRows][kRow]
+  zero_pad(ks, 4 * kRows);                   // K and V: both are read over Dh
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t2 = 2 * (lane % 4);  // accumulator row, column pair
@@ -606,16 +693,16 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // q * scale (rounded) and dO as A operands; each row's LSE log2(e) and
   // delta = rowsum(dO * O), from this lane's dO pieces and O at the same
   // places, summed over the quad.
-  unsigned qa[4][4], da[4][4];
+  unsigned qa[kK16][4], da[kK16][4];
   load_a(qa, q + in_base, st.in_sn, q0, n, scale, lane);
   load_a(da, dog, st.do_sn, q0, n, 1.f, lane);
   float lse2[2], delta[2] = {0.f, 0.f};
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < kK16; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = q0 + g + (e % 2) * 8, col = kk * 16 + t2 + (e / 2) * 8;
-      if (row < n) {
+      if (row < n && (kK16 * 16 == kD || col < kD)) {
         const float2 d = unpack(da[kk][e]);
         const float2 y = __bfloat1622float2(
             *reinterpret_cast<const __nv_bfloat162*>(og + row * st.o_sn + col));
@@ -636,7 +723,9 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int stg = c % 2;
 #pragma unroll
     for (int u = 0; u < kPieces; ++u) {
-      const int i = tid + u * kBlock, r = i / kC8, col = i % kC8 * 8, key = c * kRows + r;
+      const int i = tid + u * kBlock;
+      if (kRows * kC8 % kBlock != 0 && i >= kRows * kC8) break;
+      const int r = i / kC8, col = i % kC8 * 8, key = c * kRows + r;
       const long long off = (long long)min(key, n - 1) * st.in_sn + col;
       stage_piece(ks + stg * kStage + r * kRow + col, kg + off, key < n, aligned);
       stage_piece(vs + stg * kStage + r * kRow + col, vg + off, key < n, aligned);
@@ -674,7 +763,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < kK16; ++kk) {
           unsigned b[4];
           load_b<kRow>(b, kst, 16 * u, kk * 16, lane);
           mma(s[0], qa[kk], b[0], b[1]);
@@ -700,12 +789,20 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             dsa[2 * t + half] = pack(x[0], x[1]);
           }
         // dQ += dS K: K as [key][dim] is B (k = key, n = dim) through .trans.
+        // Pairs of n8 tiles over Dh, counted: a loop on j + 1 < kD / 8 put
+        // the accumulators in local memory at Dh 72.
 #pragma unroll
-        for (int j = 0; j < kD / 8; j += 2) {
+        for (int jp = 0; jp < kD / 16; ++jp) {
+          const int j = 2 * jp;
           unsigned b[4];
           load_b_trans(b, kst, 16 * u, j * 8, lane);
           mma(acc[j], dsa, b[0], b[1]);
           mma(acc[j + 1], dsa, b[2], b[3]);
+        }
+        if (kD / 8 % 2) {  // an odd count of n8 tiles (Dh 72): the last alone
+          unsigned b[2];
+          load_b_trans_last(b, kst, 16 * u, lane);
+          mma(acc[kD / 8 - 1], dsa, b[0], b[1]);
         }
       }
     }
@@ -720,7 +817,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kD / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dqg + r * st.out_sn + j * 8 + t2) =
-          __floats2bfloat162_rn(acc[j][2 * half] * scale, acc[j][2 * half + 1] * scale);
+          __floats2bfloat162_rn(acc[j][2 * half] * dq_scale, acc[j][2 * half + 1] * dq_scale);
   }
 }
 
@@ -732,8 +829,6 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ dout, const float* __restrict__ lse,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, Strides st, int h, int n,
                      float scale, int aligned) {
-  constexpr int kPieces = kRows * kC8 / kBlock;  // a thread's pieces of one chunk of q (dO, O)
-  static_assert(kRows * kC8 % kBlock == 0, "a chunk must split evenly over the threads");
   static_assert(kBlock == 2 * kRows, "delta takes two threads a row");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);               // [2][kRows][kRow]
@@ -741,6 +836,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* os = dos + 2 * kStage;                            // [2][kRows][kRow]
   float* lse_s = reinterpret_cast<float*>(os + 2 * kStage);  // [2][kRows]
   float* delta_s = lse_s + 2 * kRows;                     // [2][kRows]
+  zero_pad(qs, 4 * kRows);                                // q and dO: read over Dh
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t2 = 2 * (lane % 4);  // accumulator row (key), column pair
@@ -753,10 +849,12 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k0 = (blockIdx.x * kWarps + warp) * 16;
   const bool active = k0 < n;  // warp-uniform; idle warps still stage the ring
 
-  unsigned ka[4][4], va[4][4];
+  unsigned ka[kK16][4], va[kK16][4];
   load_a(ka, k + in_base, st.in_sn, k0, n, 1.f, lane);
   load_a(va, v + in_base, st.in_sn, k0, n, 1.f, lane);
-  const float sl2e = scale * kLog2e;  // S^T = scale (K q^T): exact, scale = 2^-3
+  // S^T = scale (K q^T), exact where scale = 2^-3; else S^T = K qs^T, the
+  // ring's q scaled in place.
+  const float sl2e = kPow2Scale ? scale * kLog2e : kLog2e;
 
   // Chunk c of q, dO, O and the LSE into stage c % 2 of the ring.
   const int nc = (n + kRows - 1) / kRows;
@@ -764,7 +862,9 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int stg = c % 2;
 #pragma unroll
     for (int u = 0; u < kPieces; ++u) {
-      const int i = tid + u * kBlock, r = i / kC8, col = i % kC8 * 8, row = c * kRows + r;
+      const int i = tid + u * kBlock;
+      if (kRows * kC8 % kBlock != 0 && i >= kRows * kC8) break;
+      const int r = i / kC8, col = i % kC8 * 8, row = c * kRows + r;
       const long long rr = min(row, n - 1);
       const int at = stg * kStage + r * kRow + col;
       stage_piece(qs + at, qg + rr * st.in_sn + col, row < n, aligned);
@@ -776,7 +876,8 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
   };
 
-  float dka[kD / 8][4], dva[kD / 8][4];  // dK / scale and dV: n-tile j holds dims 8 j..
+  // dK (at Dh 64 dK / scale) and dV: n-tile j holds dims 8 j..
+  float dka[kD / 8][4], dva[kD / 8][4];
 #pragma unroll
   for (int j = 0; j < kD / 8; ++j)
 #pragma unroll
@@ -798,18 +899,32 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float* dl = delta_s + stg * kRows;
     {
       // Each query row's delta = rowsum(dO * O) and LSE log2(e), +inf past
-      // n (P = 0 there): two threads a row.
-      const int r = tid / 2, d0 = tid % 2 * (kD / 2);
+      // n (P = 0 there): two threads a row, the first taking kHalf of its
+      // 16-byte pieces, the second the rest.
+      constexpr int kHalf = (kC8 + 1) / 2;
+      const int r = tid / 2, p0 = tid % 2 * kHalf;
       float part = 0.f;
 #pragma unroll
-      for (int p = 0; p < kD / 2; p += 8)
-        part += dot8(*reinterpret_cast<const uint4*>(dost + r * kRow + d0 + p),
-                     *reinterpret_cast<const uint4*>(os + stg * kStage + r * kRow + d0 + p));
+      for (int p = 0; p < kHalf; ++p)
+        if (kC8 % 2 == 0 || p0 + p < kC8)
+          part += dot8(
+              *reinterpret_cast<const uint4*>(dost + r * kRow + (p0 + p) * 8),
+              *reinterpret_cast<const uint4*>(os + stg * kStage + r * kRow + (p0 + p) * 8));
       part += __shfl_xor_sync(0xffffffffu, part, 1);
       if (tid % 2 == 0) {
         dl[r] = part;
       } else {
         ls[r] = c0 + r < n ? ls[r] * kLog2e : INFINITY;
+      }
+      if (!kPow2Scale) {
+        // qs = q * scale rounded to bf16, in place (rows past n stay 0).
+        bf16* qw = qs + stg * kStage;
+        for (int i = tid; i < kRows * kD / 2; i += kBlock) {
+          __nv_bfloat162* x =
+              reinterpret_cast<__nv_bfloat162*>(qw + i / (kD / 2) * kRow + i % (kD / 2) * 2);
+          const float2 f = __bfloat1622float2(*x);
+          *x = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+        }
       }
     }
     __syncthreads();
@@ -825,7 +940,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < kK16; ++kk) {
           unsigned b[4];
           load_b<kRow>(b, qst, 16 * u, kk * 16, lane);
           mma(s[0], ka[kk], b[0], b[1]);
@@ -853,8 +968,11 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
         // dV += round(P^T) dO, dK += dS^T q: dO and q as [query][dim] are B
         // (k = query, n = dim) through .trans.
+        // Pairs of n8 tiles over Dh, counted: a loop on j + 1 < kD / 8 put
+        // the accumulators in local memory at Dh 72.
 #pragma unroll
-        for (int j = 0; j < kD / 8; j += 2) {
+        for (int jp = 0; jp < kD / 16; ++jp) {
+          const int j = 2 * jp;
           unsigned b[4];
           load_b_trans(b, dost, 16 * u, j * 8, lane);
           mma(dva[j], pa, b[0], b[1]);
@@ -863,12 +981,20 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           mma(dka[j], dsa, b[0], b[1]);
           mma(dka[j + 1], dsa, b[2], b[3]);
         }
+        if (kD / 8 % 2) {  // an odd count of n8 tiles (Dh 72): the last alone
+          unsigned b[2];
+          load_b_trans_last(b, dost, 16 * u, lane);
+          mma(dva[kD / 8 - 1], pa, b[0], b[1]);
+          load_b_trans_last(b, qst, 16 * u, lane);
+          mma(dka[kD / 8 - 1], dsa, b[0], b[1]);
+        }
       }
     }
     __syncthreads();  // the next chunk's copies overwrite this stage
   }
 
   const long long out_base = blockIdx.z * st.out_sb + blockIdx.y * st.out_sh;
+  const float dk_mul = kPow2Scale ? scale : 1.f;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = k0 + g + half * 8;
@@ -878,7 +1004,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kD / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(kr + j * 8 + t2) =
-          __floats2bfloat162_rn(dka[j][2 * half] * scale, dka[j][2 * half + 1] * scale);
+          __floats2bfloat162_rn(dka[j][2 * half] * dk_mul, dka[j][2 * half + 1] * dk_mul);
       *reinterpret_cast<__nv_bfloat162*>(vr + j * 8 + t2) =
           __floats2bfloat162_rn(dva[j][2 * half], dva[j][2 * half + 1]);
     }
@@ -898,12 +1024,13 @@ bool aligned16(const void* q, const void* k, const void* v, const void* o,
 
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
               const float* lse, void* dq, const Strides& st, int b, int h, int n, float scale,
-              cudaStream_t stream) {
+              float dq_scale, cudaStream_t stream) {
   const dim3 grid((n + kRows - 1) / kRows, h, b);
   flash_dq_mma_kernel<<<grid, kBlock, kDqSmemBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
-      static_cast<bf16*>(dq), st, h, n, scale, aligned16(q, k, v, o, dout, st) ? 1 : 0);
+      static_cast<bf16*>(dq), st, h, n, scale, dq_scale,
+      aligned16(q, k, v, o, dout, st) ? 1 : 0);
   return (int)cudaGetLastError();
 }
 
@@ -926,6 +1053,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* o, const
 
 extern "C" {
 
+// The head dim this library was built for (HEAD_DIM).
+int k56_flash_bwd_head_dim() { return kD; }
+
 // Shared memory one block of K5 / K6 needs for the element size (any N).
 // bf16: the ring (tc::kDqSmemBytes, tc::kDkvSmemBytes); fp32: the scalar
 // kernels' tiles.
@@ -940,26 +1070,29 @@ size_t k6_flash_dkv_smem_bytes(int elem_bytes) {
 
 // q, k, v share the element strides (in_*); O, dO and dq have their own;
 // the last dim of each is contiguous and kD long; lse is contiguous
-// (b, h, n) float32. dtype: 0 = float32, 1 = bfloat16. Returns the
-// cudaError_t of the launch (0 on success).
+// (b, h, n) float32. scale is q's factor s_q (Dh^-1/2 rounded to the input
+// type), dq_scale dQ's, the fp32 Dh^-1/2. dtype: 0 = float32, 1 =
+// bfloat16. Returns the cudaError_t of the launch (0 on success).
 int k5_flash_dq(int dtype, const void* q, const void* k, const void* v,
                 const void* o, const void* dout, const void* lse, void* dq,
                 long long in_sb, long long in_sh, long long in_sn,
                 long long o_sb, long long o_sh, long long o_sn,
                 long long do_sb, long long do_sh, long long do_sn,
                 long long out_sb, long long out_sh, long long out_sn,
-                int b, int h, int n, float scale, void* stream) {
+                int b, int h, int n, float scale, float dq_scale, void* stream) {
   const Strides st{in_sb, in_sh, in_sn, o_sb, o_sh, o_sn,
                    do_sb, do_sh, do_sn, out_sb, out_sh, out_sn};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  if (dtype == 0) return launch_dq<float>(q, k, v, o, dout, l, dq, st, b, h, n, scale, s);
+  if (dtype == 0)
+    return launch_dq<float>(q, k, v, o, dout, l, dq, st, b, h, n, scale, dq_scale, s);
   if (dtype == 1)
-    return tc::launch_dq(q, k, v, o, dout, l, dq, st, b, h, n, scale, s);
+    return tc::launch_dq(q, k, v, o, dout, l, dq, st, b, h, n, scale, dq_scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// As k5_flash_dq; dk and dv share the strides (out_*).
+// As k5_flash_dq, with q's factor s_q alone; dk and dv share the strides
+// (out_*).
 int k6_flash_dkv(int dtype, const void* q, const void* k, const void* v,
                  const void* o, const void* dout, const void* lse, void* dk,
                  void* dv, long long in_sb, long long in_sh, long long in_sn,

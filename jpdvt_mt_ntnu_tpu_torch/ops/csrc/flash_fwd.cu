@@ -3,7 +3,10 @@
 //
 // Replaces jpdvt_mt_ntnu_tpu/ops/flash_attention.py:_fwd_kernel, the Pallas
 // kernel behind _flash_fwd and fused_qkv_flash_attention. Same arithmetic:
-// q * Dh^-1/2 rounded to the input type; per key tile S = Q K^T in fp32,
+// q * s_q rounded to the input type, s_q being Dh^-1/2 rounded to the input
+// type first, as JAX rounds its weakly typed Python float (the wrapper
+// passes s_q as `scale`; bf16 q times a bf16 s_q is exact in fp32, so the
+// one rounding is JAX's); per key tile S = Q K^T in fp32,
 // padded key columns at -inf; the online softmax m' = max(m, rowmax S),
 // alpha = exp(m - m'), E = exp(S - m'), l' = l alpha + rowsum E (fp32 E),
 // acc' = acc alpha + round(E) V with E rounded to the V type and the
@@ -24,8 +27,7 @@
 // mma.sync m16n8k16, bf16 in, fp32 accumulators. One block per (batch,
 // head, 64 queries), 4 warps each owning 16 query rows; a warp whose rows
 // all lie past N stages K and V with the others but skips the math. Each
-// warp loads its q * scale, rounded to bf16 (exact for Dh = 64, scale
-// 2^-3), once into mma A fragments. K and V stream through a two-stage
+// warp loads its q * scale, rounded to bf16, once into mma A fragments. K and V stream through a two-stage
 // cp.async ring of 64-key chunks, rows of 64 + 8 elements (144 B, so the
 // eight rows of an 8 x 8 ldmatrix fall on distinct banks): 36,864 B at
 // every N, so no sequence length is refused. Per chunk, all in registers
@@ -68,6 +70,16 @@
 // Both designs take element strides, so they read q/k/v straight out of
 // the fused (B, N, 3*H*Dh) projection and write O as (B, N, H*Dh); the LSE
 // is a contiguous (B, H, N) fp32 tensor.
+//
+// The head dim is a compile-time constant, HEAD_DIM (64 by default; the
+// build compiles this file again with -DHEAD_DIM=72 for DiT-XL, a library
+// of its own), laid out as in attention.cu (K1): at Dh 72, S = q K^T takes
+// five k16 steps, the fifth over dims 64-79 with dims 72-79 zero in the q
+// fragments and in K's shared-memory rows; round(E) V nine n8 tiles over
+// Dh, the ninth alone by ldmatrix.x2.trans; rows of 88 elements (176 B, an
+// odd count of 16-byte units), 45,056 B of shared memory a block; the fp32
+// kernel's threads own three column pairs of O (two at 64), the third only
+// inside Dh.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,15 +88,26 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#ifndef HEAD_DIM
+#define HEAD_DIM 64
+#endif
+
 namespace {
 
-constexpr int kD = 64;         // head dim; the Python wrapper checks it
+constexpr int kD = HEAD_DIM;   // head dim (64 or 72); the Python wrapper checks it
+static_assert(kD % 8 == 0, "rows are staged in 16-byte pieces");
 constexpr int kBK = 64;        // key rows per tile (BLOCK_K in flash_attention.py)
 // The scalar fp32 kernel.
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kThreads = 256;  // 16 row groups x 16 column groups
 constexpr int kS = kD + 2;     // smem row stride of q, K, V (elements)
 constexpr int kPS = kBK + 1;   // smem row stride of the score tile (floats)
+constexpr int kCP = (kD / 2 + 15) / 16;  // column pairs of O a thread owns
+
+// Whether column-pair group cg owns its p-th pair of O (dims 2 (cg + 16 p)).
+__device__ __forceinline__ bool owns_pair(int cg, int p) {
+  return kD / 2 % 16 == 0 || cg + 16 * p < kD / 2;
+}
 
 // The scalar kernel below is a template of the element type T as it was
 // written; since the bf16 design moved to the tensor cores (namespace tc)
@@ -163,12 +186,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rg = tid / 16;  // this thread's rows: rg * 4 .. rg * 4 + 3
   const int cg = tid % 16;  // this thread's column group
   const int warp = tid / 32, lane = tid % 32;
-  // acc[i][0..3]: row rg*4+i, head-dim columns 2cg, 2cg+1, 2cg+32, 2cg+33.
-  float acc[4][4];
+  // acc[i][2p, 2p + 1]: row rg*4+i, head-dim columns 2 (cg + 16 p) and the
+  // next, p < kCP, inside Dh (Dh 64: 2cg, 2cg+1, 2cg+32, 2cg+33).
+  float acc[4][2 * kCP];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < 2 * kCP; ++c) acc[i][c] = 0.f;
 
   for (int k0 = 0; k0 < n; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done with K, V, P
@@ -239,20 +263,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
       const float alpha = a_s[rg * 4 + i];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < 2 * kCP; ++c) acc[i][c] *= alpha;
     }
 #pragma unroll 4
     for (int j = 0; j < kBK; ++j) {
-      const float2 v0 = to_float2(*reinterpret_cast<const T2*>(vs + j * kS + 2 * cg));
-      const float2 v1 =
-          to_float2(*reinterpret_cast<const T2*>(vs + j * kS + 2 * cg + kD / 2));
+      float2 vv[kCP];
+#pragma unroll
+      for (int p = 0; p < kCP; ++p)
+        vv[p] = owns_pair(cg, p)
+                    ? to_float2(*reinterpret_cast<const T2*>(vs + j * kS + 2 * (cg + 16 * p)))
+                    : make_float2(0.f, 0.f);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float p = ps[(rg * 4 + i) * kPS + j];
-        acc[i][0] = fmaf(p, v0.x, acc[i][0]);
-        acc[i][1] = fmaf(p, v0.y, acc[i][1]);
-        acc[i][2] = fmaf(p, v1.x, acc[i][2]);
-        acc[i][3] = fmaf(p, v1.y, acc[i][3]);
+        const float pr = ps[(rg * 4 + i) * kPS + j];
+#pragma unroll
+        for (int p = 0; p < kCP; ++p) {
+          acc[i][2 * p] = fmaf(pr, vv[p].x, acc[i][2 * p]);
+          acc[i][2 * p + 1] = fmaf(pr, vv[p].y, acc[i][2 * p + 1]);
+        }
       }
     }
   }
@@ -264,8 +292,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + rg * 4 + i;
     if (r < n) {
       const float l = l_s[rg * 4 + i];
-      store_pair(og + r * out_sn + 2 * cg, acc[i][0] / l, acc[i][1] / l);
-      store_pair(og + r * out_sn + 2 * cg + kD / 2, acc[i][2] / l, acc[i][3] / l);
+#pragma unroll
+      for (int p = 0; p < kCP; ++p)
+        if (owns_pair(cg, p))
+          store_pair(og + r * out_sn + 2 * (cg + 16 * p), acc[i][2 * p] / l,
+                     acc[i][2 * p + 1] / l);
     }
   }
   float* lg = lse + ((long long)blockIdx.z * h + blockIdx.y) * n;
@@ -296,11 +327,17 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-constexpr int kRow = kD + 8;          // smem row stride of K and V (elements): 144 B
+// smem row stride of K and V (elements), an odd count of 16-byte units:
+// 144 B at Dh 64, 176 B at 72.
+constexpr int kRow = kD / 8 % 2 == 0 ? kD + 8 : kD + 16;
 constexpr int kStage = kBK * kRow;    // elements of one chunk of K or V
 constexpr int kC8 = kD / 8;           // 16-byte pieces of a row
-// K and V, two stages each: 36,864 B at every N.
+// k16 steps over Dh (S = q K^T); the last one's dims past kD are zero.
+constexpr int kK16 = (kD + 15) / 16;
+static_assert(kK16 * 16 - kD <= 8 && kK16 * 16 <= kRow, "one zero piece a row pads Dh");
+// K and V, two stages each: 36,864 B at every N (Dh 64), 45,056 B (Dh 72).
 constexpr size_t kSmemBytes = 4 * (size_t)kStage * sizeof(bf16);
+static_assert(kSmemBytes <= 48 * 1024, "launched without opting into more shared memory");
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kWarps = 4;             // 16 query rows each
 constexpr int kBlock = 32 * kWarps;
@@ -322,6 +359,13 @@ __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
 __device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+// Two 8 x 8 b16 matrices, transposed; lanes 8i..8i+7 (i < 2) give matrix
+// i's row addresses.
+__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p)));
 }
 
@@ -399,18 +443,25 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // This warp's rows: q0 + g (accumulator elements 0, 1) and q0 + g + 8 (2, 3).
   const int q0 = (blockIdx.x * kWarps + warp) * 16;
   const bool active = q0 < n;  // warp-uniform; idle warps still stage K and V
+  if (kK16 * 16 > kD) {
+    // K's dims kD.. of the last k16 step, in both stages: zero (the copies
+    // never write them; the barrier of the first chunk orders these stores).
+    for (int i = tid; i < 2 * kBK; i += kBlock)
+      *reinterpret_cast<uint4*>(ks + i * kRow + kD) = make_uint4(0u, 0u, 0u, 0u);
+  }
 
-  // The query tile as A operands (16 rows x 4 slices of 16 dims), q * scale
-  // rounded to bf16; zero rows past n.
-  unsigned qa[4][4];
+  // The query tile as A operands (16 rows x kK16 slices of 16 dims), q *
+  // scale rounded to bf16; zero rows past n and dims past kD.
+  unsigned qa[kK16][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < kK16; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = q0 + g + (e % 2) * 8, col = kk * 16 + t2 + (e / 2) * 8;
-      const float2 x = row < n ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                                     qg + row * in_sn + col))
-                               : make_float2(0.f, 0.f);
+      const float2 x = row < n && (kK16 * 16 == kD || col < kD)
+                           ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                                 qg + row * in_sn + col))
+                           : make_float2(0.f, 0.f);
       qa[kk][e] = pack(x.x * scale, x.y * scale);
     }
 
@@ -461,7 +512,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < kK16; ++kk)
 #pragma unroll
         for (int u = 0; u < kBK / 16; ++u)
           if (u < groups) {
@@ -514,13 +565,21 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
           for (int half = 0; half < 2; ++half)
             pa[2 * t + half] = pack(s[2 * u + t][2 * half], s[2 * u + t][2 * half + 1]);
+        // Pairs of n8 tiles over Dh, counted: a loop on j + 1 < kD / 8 put
+        // the accumulators in local memory at Dh 72.
 #pragma unroll
-        for (int j = 0; j < kD / 8; j += 2) {
+        for (int jp = 0; jp < kD / 16; ++jp) {
+          const int j = 2 * jp;
           unsigned vb[4];  // v as [key][dim]: B (k = key, n = dim) through .trans
           ldsm_x4_trans(vb, vst + (16 * u + lane % 8 + ((lane / 8) % 2) * 8) * kRow + j * 8 +
                                 (lane / 16) * 8);
           mma(oacc[j], pa, vb[0], vb[1]);
           mma(oacc[j + 1], pa, vb[2], vb[3]);
+        }
+        if (kD / 8 % 2) {  // an odd count of n8 tiles (Dh 72): the last alone
+          unsigned vb[2];
+          ldsm_x2_trans(vb, vst + (16 * u + lane % 8 + ((lane / 8) % 2) * 8) * kRow + kD - 8);
+          mma(oacc[kD / 8 - 1], pa, vb[0], vb[1]);
         }
       }
     }
@@ -569,6 +628,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 extern "C" {
 
+// The head dim this library was built for (HEAD_DIM).
+int k4_flash_fwd_head_dim() { return kD; }
+
 // Shared memory one block needs for the element size (any sequence length).
 // bf16: the ring (tc::kSmemBytes); fp32: the scalar kernel's tiles.
 size_t k4_flash_fwd_smem_bytes(int elem_bytes) {
@@ -578,7 +640,8 @@ size_t k4_flash_fwd_smem_bytes(int elem_bytes) {
 
 // q, k, v share the element strides (in_sb, in_sh, in_sn); o has
 // (out_sb, out_sh, out_sn); the last dim of each is contiguous and kD long.
-// lse is contiguous (b, h, n) float32. dtype: 0 = float32, 1 = bfloat16.
+// lse is contiguous (b, h, n) float32. scale is q's factor s_q, Dh^-1/2
+// rounded to the input type. dtype: 0 = float32, 1 = bfloat16.
 // Returns the cudaError_t of the launch (0 on success).
 int k4_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                  void* lse, long long in_sb, long long in_sh, long long in_sn,

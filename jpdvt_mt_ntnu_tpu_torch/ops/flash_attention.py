@@ -13,7 +13,9 @@ tile, dQ in a pass that streams K/V, dK/dV in a pass that streams Q.
   :func:`flash_dq` and :func:`flash_dkv` are the two launches;
 - :func:`flash_attention_fwd_reference` and
   :func:`flash_attention_bwd_reference` are their plain versions, with the
-  Pallas kernels' rounding points: q * Dh^-1/2 rounded to the input type;
+  Pallas kernels' rounding points: q * Dh^-1/2 rounded to the input type
+  (``scaled_q``: the scale itself rounded to that type first, as JAX
+  rounds its weakly typed Python float; dQ takes the fp32 scale);
   S in fp32; the forward's product takes exp(S - m) rounded to the V type
   and divides by l at the end (K1 normalises before it rounds);
   delta = rowsum(dO * O) from the saved output in the input type (K2 takes
@@ -41,7 +43,7 @@ import functools
 import torch
 
 from . import _build
-from .attention import _DTYPE_CODES, _check, _check_like, _heads
+from .attention import HEAD_DIM, _DTYPE_CODES, _check, _check_like, _heads, q_scale, scaled_q
 
 BLOCK_K = 64  # key rows per tile of K4 (``kBK`` in csrc/flash_fwd.cu)
 
@@ -53,7 +55,7 @@ def flash_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     tiles of ``block_k`` (None: one tile over the whole row)."""
     b, h, n, d = q.shape
     block = k.shape[2] if block_k is None else block_k
-    qs = (q * d ** -0.5).float()
+    qs = scaled_q(q).float()
     m = torch.full((b, h, n, 1), float("-inf"), device=q.device)
     l = torch.zeros((b, h, n, 1), device=q.device)
     acc = torch.zeros((b, h, n, d), device=q.device)
@@ -75,10 +77,11 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     in the input type, from the forward's output ``o`` and ``lse`` (B, H, N)
     and the output gradient ``do``. P = exp(S - LSE) in fp32; dV =
     round(P)^T dO; dP = dO V^T; dS = P (dP - rowsum(dO O)), rounded to the
-    input type; dQ = dS K * scale; dK = dS^T (q * scale). Products in fp32;
-    no rounding between tiles, so one pass over the whole row."""
+    input type; dQ = dS K * scale with the fp32 scale; dK = dS^T qs, qs =
+    :func:`scaled_q` (q * scale rounded to the input type). Products in
+    fp32; no rounding between tiles, so one pass over the whole row."""
     scale = q.shape[-1] ** -0.5
-    qs = (q * scale).float()
+    qs = scaled_q(q).float()
     p = torch.exp(torch.matmul(qs, k.float().transpose(-1, -2)) - lse[..., None])
     dof = do.float()
     dp = torch.matmul(dof, v.float().transpose(-1, -2))
@@ -91,8 +94,11 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
 
 
 @functools.cache
-def _fwd_kernel():
-    lib = _build.load("flash_fwd")
+def _fwd_kernel(head_dim: int = HEAD_DIM):
+    lib = _build.load(_build.unit("flash_fwd", head_dim))
+    if lib.k4_flash_fwd_head_dim() != head_dim:
+        raise RuntimeError(f"the K4 library for Dh {head_dim} was built for Dh "
+                           f"{lib.k4_flash_fwd_head_dim()}")
     fn = lib.k4_flash_fwd
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
                    + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3
@@ -104,11 +110,14 @@ def _fwd_kernel():
 
 
 @functools.cache
-def _bwd_kernel():
-    lib = _build.load("flash_bwd")
+def _bwd_kernel(head_dim: int = HEAD_DIM):
+    lib = _build.load(_build.unit("flash_bwd", head_dim))
+    if lib.k56_flash_bwd_head_dim() != head_dim:
+        raise RuntimeError(f"the K5/K6 library for Dh {head_dim} was built for Dh "
+                           f"{lib.k56_flash_bwd_head_dim()}")
     lib.k5_flash_dq.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                                 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
-                                + [ctypes.c_float, ctypes.c_void_p])
+                                + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     lib.k6_flash_dkv.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                                  + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
                                  + [ctypes.c_float, ctypes.c_void_p])
@@ -132,22 +141,23 @@ def _stream(q: torch.Tensor) -> int:
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """K4. q, k, v: (B, H, N, 64) sharing any batch/head/token strides ->
-    (o (B, H, N, 64), lse (B, H, N) fp32).
+    """K4. q, k, v: (B, H, N, Dh), Dh 64 or 72, sharing any batch/head/token
+    strides -> (o (B, H, N, Dh), lse (B, H, N) fp32); q is scaled by
+    ``q_scale``.
 
     On the card ``o`` is a (B, H, N, Dh) view of a (B, N, H, Dh) buffer, so
     ``.transpose(1, 2).reshape(B, N, H * Dh)`` is free. Each launch adds one
     to ``flash_attention_fwd.launches``."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_fwd_reference(q, k, v, BLOCK_K)
-    _check(q, k, v, lambda n, elem: _fwd_kernel().k4_flash_fwd_smem_bytes(elem))
     b, h, n, d = q.shape
+    _check(q, k, v, lambda n, elem: _fwd_kernel(d).k4_flash_fwd_smem_bytes(elem))
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    err = _fwd_kernel().k4_flash_fwd(
+    err = _fwd_kernel(d).k4_flash_fwd(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), *q.stride()[:3], *o.stride()[:3], b, h, n,
-        d ** -0.5, _stream(q))
+        q_scale(d, q.dtype), _stream(q))
     if err:
         raise RuntimeError(f"flash attention forward launch failed: cudaError {err}")
     flash_attention_fwd.launches += 1
@@ -161,24 +171,26 @@ def _check_bwd(q, k, v, o, lse, do, smem_fn: str) -> None:
     """Raise on operands the backward kernels cannot take; ``smem_fn`` names
     the library's shared-memory function of the kernel (the library is
     built only once the operands are known to lie on the card)."""
-    _check(q, k, v, lambda n, elem: getattr(_bwd_kernel(), smem_fn)(elem))
+    _check(q, k, v, lambda n, elem: getattr(_bwd_kernel(q.shape[-1]), smem_fn)(elem))
     _check_like(q, o, do)
     _check_lse(q, lse)
 
 
 def flash_dq(q, k, v, o, lse, do, dq: torch.Tensor) -> torch.Tensor:
     """K5: writes dq of :func:`flash_attention_fwd` into ``dq`` (a
-    (B, H, N, 64) view with its own strides). Each launch adds one to
+    (B, H, N, Dh) view with its own strides). The kernel scales q by
+    ``q_scale`` and dQ by the fp32 Dh^-1/2. Each launch adds one to
     ``flash_dq.launches``."""
     if all(t.device.type == "cpu" for t in (q, k, v, o, lse, do)):
         return dq.copy_(flash_attention_bwd_reference(q, k, v, o, lse, do)[0])
     _check_bwd(q, k, v, o, lse, do, "k5_flash_dq_smem_bytes")
     _check_like(q, dq)
     b, h, n, d = q.shape
-    err = _bwd_kernel().k5_flash_dq(
+    err = _bwd_kernel(d).k5_flash_dq(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dq.data_ptr(), *q.stride()[:3], *o.stride()[:3],
-        *do.stride()[:3], *dq.stride()[:3], b, h, n, d ** -0.5, _stream(q))
+        *do.stride()[:3], *dq.stride()[:3], b, h, n, q_scale(d, q.dtype), d ** -0.5,
+        _stream(q))
     if err:
         raise RuntimeError(f"flash attention dq launch failed: cudaError {err}")
     flash_dq.launches += 1
@@ -190,7 +202,8 @@ flash_dq.launches = 0
 
 def flash_dkv(q, k, v, o, lse, do, dk: torch.Tensor, dv: torch.Tensor):
     """K6: writes dk, dv of :func:`flash_attention_fwd` into ``dk`` and
-    ``dv`` (two (B, H, N, 64) views sharing strides). Each launch adds one
+    ``dv`` (two (B, H, N, Dh) views sharing strides). The kernel takes qs =
+    q ``q_scale`` rounded to q's type for S and dK. Each launch adds one
     to ``flash_dkv.launches``."""
     if all(t.device.type == "cpu" for t in (q, k, v, o, lse, do)):
         _, gk, gv = flash_attention_bwd_reference(q, k, v, o, lse, do)
@@ -200,11 +213,11 @@ def flash_dkv(q, k, v, o, lse, do, dk: torch.Tensor, dv: torch.Tensor):
     if dv.stride() != dk.stride():
         raise ValueError("dk and dv must share strides")
     b, h, n, d = q.shape
-    err = _bwd_kernel().k6_flash_dkv(
+    err = _bwd_kernel(d).k6_flash_dkv(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr(), *q.stride()[:3],
-        *o.stride()[:3], *do.stride()[:3], *dk.stride()[:3], b, h, n, d ** -0.5,
-        _stream(q))
+        *o.stride()[:3], *do.stride()[:3], *dk.stride()[:3], b, h, n,
+        q_scale(d, q.dtype), _stream(q))
     if err:
         raise RuntimeError(f"flash attention dk/dv launch failed: cudaError {err}")
     flash_dkv.launches += 1
@@ -216,7 +229,7 @@ flash_dkv.launches = 0
 
 def flash_attention_bwd(q, k, v, o, lse, do, out) -> tuple:
     """K5 then K6: writes (dq, dk, dv) of :func:`flash_attention_fwd` for the
-    output gradient ``do`` into ``out`` (three (B, H, N, 64) views; in the
+    output gradient ``do`` into ``out`` (three (B, H, N, Dh) views; in the
     train step, slots of the fused-qkv gradient buffer) and returns it."""
     dq, dk, dv = out
     if all(t.device.type == "cpu" for t in (q, k, v, o, lse, do)):

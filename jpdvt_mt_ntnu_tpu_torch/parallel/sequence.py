@@ -12,10 +12,13 @@ puzzle and the ring is written out (:class:`_Ring`):
   rank by point-to-point sends (``Mesh.exchange``), s - 1 times. The
   running max m, the sum l and the unnormalised output o are fp32 whatever
   the input type (``sequence.py:48-86``); the result is o / l, and the
-  rank keeps the log-sum-exp m + log l.
+  rank keeps the log-sum-exp m + log l. q is scaled as everywhere in the
+  port (``ops.attention.scaled_q``: q * Dh^-1/2 rounded to q's type, the
+  scale rounded to it first, as JAX's ``(q * scale).astype(q.dtype)``).
 - **Backward**, the standard ring backward (Liu et al. 2023, "Ring
   Attention with Blockwise Transformers"): each block's P is recomputed
-  from the saved LSE, with delta = rowsum(dO o); dQ accumulates on the
+  from the saved LSE and the scaled q, with delta = rowsum(dO o); dK sums
+  dS^T qs and dQ sums dS K times the fp32 scale; dQ accumulates on the
   rank, and the dK and dV accumulators travel around the ring with their K
   and V blocks, arriving home after s hops. ``torch.distributed``'s sends
   are not autograd-aware, so plain autograd through the forward would give
@@ -35,6 +38,8 @@ its input (:func:`gather_tokens_summed`).
 from __future__ import annotations
 
 import torch
+
+from ..ops.attention import scaled_q
 
 
 def local_tokens(x: torch.Tensor, group) -> torch.Tensor:
@@ -108,8 +113,7 @@ class _Ring(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mesh, group):
-        scale = q.shape[-1] ** -0.5
-        qf = q.float() * scale
+        qf = scaled_q(q).float()  # JAX's (q * scale).astype(q.dtype)
         kb, vb = k.contiguous(), v.contiguous()
         m = l = o = None
         for step in range(group.size):
@@ -135,20 +139,20 @@ class _Ring(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
         mesh, group = ctx.mesh, ctx.group
-        scale = q.shape[-1] ** -0.5
-        qf, gf = q.float(), g.float()
+        scale = q.shape[-1] ** -0.5  # dQ's, in fp32
+        qs, gf = scaled_q(q).float(), g.float()
         delta = (gf * out).sum(-1, keepdim=True)
-        dq = torch.zeros_like(qf)
+        dq = torch.zeros_like(qs)
         kb, vb = k.contiguous(), v.contiguous()
         dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
         dv = torch.zeros_like(dk)
         for step in range(group.size):
             kf, vf = kb.float(), vb.float()
-            p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse[..., None])
+            p = torch.exp(torch.matmul(qs, kf.transpose(-1, -2)) - lse[..., None])
             dv += torch.matmul(p.transpose(-1, -2), gf)
             ds = p * (torch.matmul(gf, vf.transpose(-1, -2)) - delta)
             dq += torch.matmul(ds, kf) * scale
-            dk += torch.matmul(ds.transpose(-1, -2), qf) * scale
+            dk += torch.matmul(ds.transpose(-1, -2), qs)
             # The accumulators travel with their block and are home after s hops.
             if step < group.size - 1:
                 kb, vb, dk, dv = _rotate(mesh, group, [kb, vb, dk, dv])

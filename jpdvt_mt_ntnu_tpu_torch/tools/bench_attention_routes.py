@@ -6,7 +6,9 @@ by CUDA events of K1 against K4 (the no-grad forward), and of K1 + K2
 against K4 + K5 + K6 (forward and backward, the train step's attention).
 A route whose shared memory does not fit a block at that N is "n/a". The
 table ``ops.attention.attention_route`` applies is printed beside each
-row. Prints one JSON line per (N, batch).
+row. Prints one JSON line per (N, batch). The head dim is fixed at 64:
+the comparison needs K2, which takes Dh 64 alone (at DiT-XL's Dh 72 the
+route with grad is flash at every N, by rule).
 
     python -m jpdvt_mt_ntnu_tpu_torch.tools.bench_attention_routes \\
         [--n 144 205 324 400 576] [--batch 32 96]
@@ -24,7 +26,7 @@ import torch
 from ..ops import attention as attn_ops
 from ..ops import flash_attention as flash_ops
 
-HEADS, HEAD_DIM = 12, 64
+HEADS, HEAD_DIM = 12, 64  # the JPDVT flagship's; K2 takes Dh 64 alone
 
 
 def _us(fn, reps: int = 20, warmup: int = 3) -> float:

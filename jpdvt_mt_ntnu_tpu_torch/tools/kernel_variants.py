@@ -27,7 +27,11 @@ one SM ran.
 
     python -m jpdvt_mt_ntnu_tpu_torch.tools.kernel_variants [--kernel k3|k1|k2|k4|k5|k6]
         [--ablations] [--variants FILE.json|NAME,...] [--shapes 32x144,32x400]
-        [--rounds 3] [--clocks]
+        [--rounds 3] [--clocks] [--head-dim 64|72]
+
+The calls take the JPDVT flagship's attention, 12 heads of 64, by default;
+``--head-dim 72`` (K1, K4, K5 and K6, the kernels built for it) takes
+DiT-XL's, 16 heads of 72, each variant compiled with ``-DHEAD_DIM=72``.
 
 Needs a CUDA card and ``nvcc``; it fails without them. Variants are a tool
 for finding a bottleneck, never a route: the port runs only the source.
@@ -50,7 +54,7 @@ from ..ops import flash_attention as flash_ops
 
 SOURCES = {"k3": "attention_block.cu", "k1": "attention.cu", "k2": "attention_bwd.cu",
            "k4": "flash_fwd.cu", "k5": "flash_bwd.cu", "k6": "flash_bwd.cu"}
-HEADS, HEAD_DIM = 12, 64
+HEADS, HEAD_DIM = 12, 64  # the default; --head-dim 72 sets 16, 72 (DiT-XL)
 # --ablations: each drops one part of the kernel (its output is then wrong).
 # K3: parts of A.1. K1 (bf16): the copies of K and V (the ring's cp.async),
 # pass 1's work (its copies stay), P and P V in pass 2 (S stays), every exp2.
@@ -61,8 +65,8 @@ HEADS, HEAD_DIM = 12, 64
 # delta's dot products). K2 (bf16, both kernels): the rings' cp.async
 # copies, the row kernel's pass A (its work and its copies; delta = 0),
 # dQ += dS K, and the column kernel's dV += P^T dO or dK += dS^T q.
-_NO_EXP2 = [["namespace {\n\nconstexpr int kD = 64;",
-             "#define exp2f(x) (x)\nnamespace {\n\nconstexpr int kD = 64;"]]
+_NO_EXP2 = [["namespace {\n\nconstexpr int kD = HEAD_DIM;",
+             "#define exp2f(x) (x)\nnamespace {\n\nconstexpr int kD = HEAD_DIM;"]]
 _NO_LOADS = [["    cp_async16(dst, src);\n", ""]]
 _FLASH_BWD_COMMON = {"no_loads": _NO_LOADS, "no_exp2": _NO_EXP2}
 ABLATIONS = {
@@ -105,8 +109,8 @@ ABLATIONS = {
                    "          mma(dva[j + 1], pa, b[2], b[3]);\n", ""]],
         "no_dk": [["          mma(dka[j], dsa, b[0], b[1]);\n"
                    "          mma(dka[j + 1], dsa, b[2], b[3]);\n", ""]],
-        "no_delta": [["      for (int p = 0; p < kD / 2; p += 8)",
-                      "      for (int p = 0; p < 0; p += 8)"]],
+        "no_delta": [["      for (int p = 0; p < kHalf; ++p)",
+                      "      for (int p = 0; p < 0; ++p)"]],
     },
     "k2": {
         "no_loads": _NO_LOADS,
@@ -308,15 +312,17 @@ def _with_clocks(src: str) -> str:
     return _substitute(src, [(_CLOCKS_END[0], _CLOCKS_END[0] + _CLOCKS_END[1])]) + _CLOCKS_EXPORT
 
 
-def _build_all(kernel: str, sources: dict) -> dict:
-    """name -> source text; returns name -> ctypes library."""
+def _build_all(kernel: str, sources: dict, head_dim: int = 64) -> dict:
+    """name -> source text; returns name -> ctypes library (each built for
+    ``head_dim``)."""
     out = _build.BUILD_DIR / f"{kernel}_variants"
     out.mkdir(parents=True, exist_ok=True)
 
     def build(name: str):
         cu, so = out / f"{name}.cu", out / f"{name}.so"
         cu.write_text(sources[name])
-        proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+        proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu),
+                               f"-DHEAD_DIM={head_dim}"],
                               capture_output=True, text=True, stdin=subprocess.DEVNULL,
                               timeout=_build.NVCC_TIMEOUT_S)
         (out / f"{name}.log").write_text(proc.stdout + proc.stderr)  # ptxas -v: registers, spills
@@ -346,7 +352,7 @@ def _build_all(kernel: str, sources: dict) -> dict:
         else:
             lib.k5_flash_dq.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                                         + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
-                                        + [ctypes.c_float, ctypes.c_void_p])
+                                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
             lib.k6_flash_dkv.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                                          + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
                                          + [ctypes.c_float, ctypes.c_void_p])
@@ -389,7 +395,7 @@ def _k1_case(b: int, n: int, gen: torch.Generator):
     def call(lib):
         err = lib.k1_attention_fwd(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                    *q.stride()[:3], *out.stride()[:3], b, HEADS, n,
-                                   HEAD_DIM ** -0.5, stream)
+                                   attn_ops.q_scale(HEAD_DIM, torch.bfloat16), stream)
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
 
@@ -442,7 +448,7 @@ def _flash_fwd_case(b: int, n: int, gen: torch.Generator):
     def call(lib):
         err = lib.k4_flash_fwd(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                lse.data_ptr(), *q.stride()[:3], *out.stride()[:3], b, HEADS,
-                               n, HEAD_DIM ** -0.5, stream)
+                               n, attn_ops.q_scale(HEAD_DIM, torch.bfloat16), stream)
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
 
@@ -470,13 +476,14 @@ def _flash_bwd_case(kernel: str, b: int, n: int, gen: torch.Generator):
     want = [t.float() for t in flash_ops.flash_attention_bwd_reference(q, k, v, o, lse, do)]
     stream = torch.cuda.current_stream().cuda_stream
     common = (*q.stride()[:3], *o.stride()[:3], *do.stride()[:3], *dq.stride()[:3], b, HEADS,
-              n, HEAD_DIM ** -0.5, stream)
+              n, attn_ops.q_scale(HEAD_DIM, torch.bfloat16))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr())
 
     def call(lib):
-        err = (lib.k5_flash_dq(1, *ptrs, dq.data_ptr(), *common) if kernel == "k5" else
-               lib.k6_flash_dkv(1, *ptrs, dk.data_ptr(), dv.data_ptr(), *common))
+        err = (lib.k5_flash_dq(1, *ptrs, dq.data_ptr(), *common, HEAD_DIM ** -0.5, stream)
+               if kernel == "k5" else
+               lib.k6_flash_dkv(1, *ptrs, dk.data_ptr(), dv.data_ptr(), *common, stream))
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
 
@@ -486,6 +493,7 @@ def _flash_bwd_case(kernel: str, b: int, n: int, gen: torch.Generator):
 
 
 def main() -> int:
+    global HEADS, HEAD_DIM
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=sorted(SOURCES), default="k3")
     ap.add_argument("--variants", help="JSON file: {name: [[old, new], ...]}, or names "
@@ -495,9 +503,15 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--ablations", action="store_true", help="add the built-in ABLATIONS")
     ap.add_argument("--clocks", action="store_true", help="per-block phase cycles (K3)")
+    ap.add_argument("--head-dim", type=int, choices=attn_ops.HEAD_DIMS, default=HEAD_DIM,
+                    help="72: DiT-XL's 16 heads of 72 (K1, K4, K5, K6)")
     args = ap.parse_args()
     if args.kernel != "k3" and args.clocks:
         raise SystemExit("--clocks takes K3's source only")
+    if args.head_dim != HEAD_DIM and args.kernel in ("k2", "k3"):
+        raise SystemExit(f"{args.kernel} is built for Dh {HEAD_DIM} alone")
+    if args.head_dim == 72:
+        HEADS, HEAD_DIM = 16, 72
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants needs a CUDA card")
     src = (_build.CSRC / SOURCES[args.kernel]).read_text()
@@ -511,7 +525,7 @@ def main() -> int:
     sources = {name: _substitute(src, subs) for name, subs in variants.items()}
     if args.clocks:
         sources["base_clocks"] = _with_clocks(src)
-    libs = _build_all(args.kernel, sources)
+    libs = _build_all(args.kernel, sources, HEAD_DIM)
     gen = torch.Generator("cuda").manual_seed(0)
     if args.kernel == "k3":
         d = HEADS * HEAD_DIM
@@ -520,7 +534,8 @@ def main() -> int:
         wp = (torch.randn(d, d, generator=gen, device="cuda") * d ** -0.5).bfloat16()
         bp = 0.1 * torch.randn(d, generator=gen, device="cuda")
         weights = (wq, bq, wp, bp, attn_ops.dense_to_block_weights(wq, bq, wp, bp, HEADS))
-    result = {"device": torch.cuda.get_device_name(0), "kernel": args.kernel}
+    result = {"device": torch.cuda.get_device_name(0), "kernel": args.kernel,
+              "heads": HEADS, "head_dim": HEAD_DIM}
     for shape in args.shapes.split(","):
         b, n = (int(v) for v in shape.split("x"))
         if args.kernel == "k3":

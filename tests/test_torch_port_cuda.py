@@ -27,6 +27,10 @@ and views off 16-byte alignment bit-equal to aligned copies. K5 and K6 as K2
 bit-equal, and views off 16-byte alignment bit-equal to aligned copies. The
 DiT's gradients through K4-K6 as through K1/K2.
 
+K1, K4, K5 and K6 also run at DiT-XL's head dim, 72 (16 heads), under the
+same tolerances: the kernels built with ``-DHEAD_DIM=72``, held to the
+plain versions, which scale q by Dh^-1/2 rounded to the input type.
+
 K3 against its plain version, relative to the output's largest magnitude:
 bf16 2e-2 (both round q, k, v, P, o and the output at the same points;
 exp, the reciprocal of the row sum or summation order can flip one
@@ -45,6 +49,7 @@ from jpdvt_mt_ntnu_tpu_torch.ops import flash_attention as flash
 from jpdvt_mt_ntnu_tpu_torch.utils.pos_embed import grid_code
 
 K2_TOL = {torch.bfloat16: 2 ** -6, torch.float32: 1e-5}
+HEADS = {64: 12, 72: 16}  # the JPDVT flagship's heads; DiT-XL's at Dh 72
 
 pytestmark = pytest.mark.cuda
 
@@ -55,25 +60,32 @@ def cuda():
         pytest.skip("needs a CUDA card: K1 and K2 are CUDA kernels with no CPU mode")
 
 
-def _k1_views(b, n, dtype, gen, offset=0):
+def _k1_views(b, n, dtype, gen, offset=0, d=64):
     """q, k, v as the DiT hands them to K1: strided views of a fused (B, N,
     3*H*Dh) qkv, starting ``offset`` elements into their buffer."""
-    f = 3 * 12 * 64
+    h = HEADS[d]
+    f = 3 * h * d
     buf = torch.randn(offset + b * n * f, generator=gen, device="cuda").to(dtype)
     qkv = buf[offset:].view(b, n, f)
-    return qkv.view(b, n, 3, 12, 64).permute(2, 0, 3, 1, 4).unbind(0)
+    return qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
 
 
-@pytest.mark.parametrize("b,n,dtype", [(16, 144, torch.bfloat16),
-                                       (32, 400, torch.bfloat16),
-                                       (3, 77, torch.bfloat16),
-                                       (2, 9, torch.bfloat16),
-                                       (2, 144, torch.float32)])
-def test_k1_cuda_kernel_matches_plain(cuda, b, n, dtype):
+@pytest.mark.parametrize("b,n,dtype,d", [(16, 144, torch.bfloat16, 64),
+                                         (32, 400, torch.bfloat16, 64),
+                                         (3, 77, torch.bfloat16, 64),
+                                         (2, 9, torch.bfloat16, 64),
+                                         (2, 144, torch.float32, 64),
+                                         (8, 576, torch.bfloat16, 72),
+                                         (3, 77, torch.bfloat16, 72),
+                                         (2, 9, torch.bfloat16, 72),
+                                         (2, 144, torch.float32, 72),
+                                         (2, 309, torch.float32, 72)])
+def test_k1_cuda_kernel_matches_plain(cuda, b, n, dtype, d):
     """N = 9 (the tiny fixture's grid) and 77 leave the last 64-key chunk
-    and the last query tile ragged; 400 is the grid-20 solve's."""
+    and the last query tile ragged; 400 is the grid-20 solve's; 576
+    DiT-XL/8's at 192 px; 309 the most fp32 takes at Dh 72."""
     gen = torch.Generator("cuda").manual_seed(n)
-    q, k, v = _k1_views(b, n, dtype, gen)
+    q, k, v = _k1_views(b, n, dtype, gen, d=d)
     before = port.attention.launches
     out = port.attention(q, k, v)
     torch.cuda.synchronize()
@@ -82,32 +94,38 @@ def test_k1_cuda_kernel_matches_plain(cuda, b, n, dtype):
     assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-4)
 
 
-@pytest.mark.parametrize("b,n,dtype", [(32, 144, torch.bfloat16), (32, 400, torch.bfloat16),
-                                       (2, 144, torch.float32)])
-def test_k1_cuda_kernel_is_bit_equal_across_calls(cuda, b, n, dtype):
+@pytest.mark.parametrize("b,n,dtype,d", [(32, 144, torch.bfloat16, 64),
+                                         (32, 400, torch.bfloat16, 64),
+                                         (2, 144, torch.float32, 64),
+                                         (8, 576, torch.bfloat16, 72),
+                                         (2, 144, torch.float32, 72)])
+def test_k1_cuda_kernel_is_bit_equal_across_calls(cuda, b, n, dtype, d):
     """One owning accumulator per output, keys in a fixed order, no atomics."""
-    q, k, v = _k1_views(b, n, dtype, torch.Generator("cuda").manual_seed(n + 2))
+    q, k, v = _k1_views(b, n, dtype, torch.Generator("cuda").manual_seed(n + 2), d=d)
     out = port.attention(q, k, v)
     assert torch.equal(out, port.attention(q, k, v))
 
 
-@pytest.mark.parametrize("b,n,dtype,offset", [(4, 144, torch.bfloat16, 0),
-                                              (3, 77, torch.bfloat16, 0),
-                                              (3, 77, torch.bfloat16, 2),
-                                              (2, 77, torch.float32, 0)])
-def test_k1_cuda_kernel_reads_strided_views_of_the_fused_qkv(cuda, b, n, dtype, offset):
+@pytest.mark.parametrize("b,n,dtype,offset,d", [(4, 144, torch.bfloat16, 0, 64),
+                                                (3, 77, torch.bfloat16, 0, 64),
+                                                (3, 77, torch.bfloat16, 2, 64),
+                                                (2, 77, torch.float32, 0, 64),
+                                                (3, 77, torch.bfloat16, 0, 72),
+                                                (3, 77, torch.bfloat16, 2, 72)])
+def test_k1_cuda_kernel_reads_strided_views_of_the_fused_qkv(cuda, b, n, dtype, offset, d):
     """The same bits from strided views of the fused qkv as from contiguous
     (B, H, N, Dh) copies. ``offset`` 2 puts the bf16 rows off 16-byte
     alignment, where the kernel stages K and V without cp.async."""
-    q, k, v = _k1_views(b, n, dtype, torch.Generator("cuda").manual_seed(n + 3), offset)
-    assert q.stride()[:3] == (n * 3 * 12 * 64, 64, 3 * 12 * 64)
+    q, k, v = _k1_views(b, n, dtype, torch.Generator("cuda").manual_seed(n + 3), offset, d)
+    f = 3 * HEADS[d] * d
+    assert q.stride()[:3] == (n * f, d, f)
     out = port.attention(q, k, v)
     assert torch.equal(out, port.attention(q.contiguous(), k.contiguous(), v.contiguous()))
 
 
 def test_k1_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     q = torch.zeros((1, 2, 9, 32), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="Dh == 64"):
+    with pytest.raises(ValueError, match=r"Dh in \(64, 72\)"):
         port.attention(q, q, q)
     q = torch.zeros((1, 2, 9, 64), device="cuda", dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -115,8 +133,13 @@ def test_k1_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     q = torch.zeros((1, 2, 342, 64), device="cuda", dtype=torch.float32)
     with pytest.raises(ValueError, match="shared memory"):
         port.attention(q, q, q)  # fp32 keeps whole score rows: N <= 341
-    for n, elem in ((9, 2), (4096, 2), (341, 4), (342, 4)):
-        assert port.k1_smem_bytes(n, elem) == port._kernel().k1_attention_smem_bytes(n, elem)
+    q = torch.zeros((1, 2, 310, 72), device="cuda", dtype=torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        port.attention(q, q, q)  # at Dh 72: N <= 309
+    for d in port.HEAD_DIMS:
+        for n, elem in ((9, 2), (4096, 2), (309, 4), (310, 4), (341, 4), (342, 4)):
+            assert port.k1_smem_bytes(n, elem, d) == \
+                port._kernel(d).k1_attention_smem_bytes(n, elem)
 
 
 @pytest.mark.parametrize("b,n,dtype", [(32, 144, torch.bfloat16),
@@ -237,6 +260,9 @@ def test_k2_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
             out[2] = torch.empty((1, 2, n, 64), device="cuda", dtype=dtype)
         port.attention_bwd(*heads, do, out=out)
 
+    q72 = torch.zeros((1, 2, 9, 72), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"Dh in \(64,\)"):
+        port.attention_bwd(q72, q72, q72, q72, out=(q72, q72, q72))
     with pytest.raises(ValueError, match="dtype"):
         call(do_dtype=torch.float32)
     with pytest.raises(ValueError, match="share strides"):
@@ -251,26 +277,31 @@ def test_k2_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
             port._bwd_kernel().k2_attention_bwd_smem_bytes(n, elem)
 
 
-def _fused(b, n, dtype, gen, heads=12):
-    qkv = torch.randn((b, n, 3 * heads * 64), generator=gen, device="cuda").to(dtype)
-    return qkv.reshape(b, n, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
+def _fused(b, n, dtype, gen, d=64):
+    heads = HEADS[d]
+    qkv = torch.randn((b, n, 3 * heads * d), generator=gen, device="cuda").to(dtype)
+    return qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
 
 
-@pytest.mark.parametrize("b,n,dtype", [(4, 400, torch.bfloat16),
-                                       (3, 77, torch.bfloat16),
-                                       (2, 401, torch.bfloat16),
-                                       (2, 200, torch.float32),
-                                       (2, 9, torch.bfloat16),
-                                       (2, 63, torch.bfloat16),
-                                       (2, 64, torch.bfloat16),
-                                       (2, 65, torch.bfloat16)])
-def test_k4_cuda_kernel_matches_plain(cuda, b, n, dtype):
-    """N = 9, 63, 65, 77 and 401 leave the last 64-key chunk and the last
-    64-query tile ragged; 64 is one whole tile; 400 the grid-20 step's. The
-    output also holds to the plain version over the whole row (the tiles
-    round exp(S - m) against the running max: within the same tolerance)."""
+# (B, N, dtype, Dh): N = 9, 63, 65, 77 and 401 leave the last 64-row chunk
+# and the last 64-row tile ragged; 64 is one whole tile; 400 the grid-20
+# step's; 576 DiT-XL/8's at 192 px (Dh 72).
+_FLASH_CASES = [(4, 400, torch.bfloat16, 64), (3, 77, torch.bfloat16, 64),
+                (2, 401, torch.bfloat16, 64), (2, 200, torch.float32, 64),
+                (2, 9, torch.bfloat16, 64), (2, 63, torch.bfloat16, 64),
+                (2, 64, torch.bfloat16, 64), (2, 65, torch.bfloat16, 64),
+                (8, 576, torch.bfloat16, 72), (3, 77, torch.bfloat16, 72),
+                (2, 65, torch.bfloat16, 72), (2, 9, torch.bfloat16, 72),
+                (2, 200, torch.float32, 72)]
+
+
+@pytest.mark.parametrize("b,n,dtype,d", _FLASH_CASES)
+def test_k4_cuda_kernel_matches_plain(cuda, b, n, dtype, d):
+    """The output also holds to the plain version over the whole row (the
+    tiles round exp(S - m) against the running max: within the same
+    tolerance)."""
     gen = torch.Generator("cuda").manual_seed(n + 2)
-    q, k, v = _fused(b, n, dtype, gen)
+    q, k, v = _fused(b, n, dtype, gen, d)
     before = flash.flash_attention_fwd.launches
     o, lse = flash.flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
@@ -283,24 +314,28 @@ def test_k4_cuda_kernel_matches_plain(cuda, b, n, dtype):
     assert (o.float() - row_o.float()).abs().max().item() <= tol
 
 
-@pytest.mark.parametrize("b,n,dtype", [(4, 400, torch.bfloat16), (3, 77, torch.bfloat16),
-                                       (2, 200, torch.float32)])
-def test_k4_cuda_kernel_is_bit_equal_across_calls(cuda, b, n, dtype):
+@pytest.mark.parametrize("b,n,dtype,d", [(4, 400, torch.bfloat16, 64),
+                                         (3, 77, torch.bfloat16, 64),
+                                         (2, 200, torch.float32, 64),
+                                         (8, 576, torch.bfloat16, 72),
+                                         (2, 200, torch.float32, 72)])
+def test_k4_cuda_kernel_is_bit_equal_across_calls(cuda, b, n, dtype, d):
     """One owning accumulator per output, chunks in a fixed order, no
     atomics: the train step's forward repeats itself bit for bit."""
-    q, k, v = _fused(b, n, dtype, torch.Generator("cuda").manual_seed(n + 7))
+    q, k, v = _fused(b, n, dtype, torch.Generator("cuda").manual_seed(n + 7), d)
     o1, lse1 = flash.flash_attention_fwd(q, k, v)
     o2, lse2 = flash.flash_attention_fwd(q, k, v)
     assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
 
 
-@pytest.mark.parametrize("b,n", [(3, 77), (2, 400)])
-def test_k4_cuda_kernel_reads_views_off_16_byte_alignment(cuda, b, n):
+@pytest.mark.parametrize("b,n,d", [(3, 77, 64), (2, 400, 64), (3, 77, 72)])
+def test_k4_cuda_kernel_reads_views_off_16_byte_alignment(cuda, b, n, d):
     """q, k, v rows that do not start on 16 bytes (pair-aligned views the
     wrapper admits) are read without cp.async: the same bits as from
     aligned copies, and within the tolerance of the plain version."""
-    q, k, v = _k1_views(b, n, torch.bfloat16, torch.Generator("cuda").manual_seed(n + 8), 2)
-    assert q.data_ptr() % 16 and q.stride()[:3] == (n * 3 * 12 * 64, 64, 3 * 12 * 64)
+    q, k, v = _k1_views(b, n, torch.bfloat16, torch.Generator("cuda").manual_seed(n + 8), 2, d)
+    f = 3 * HEADS[d] * d
+    assert q.data_ptr() % 16 and q.stride()[:3] == (n * f, d, f)
     o, lse = flash.flash_attention_fwd(q, k, v)
     o_al, lse_al = flash.flash_attention_fwd(*(t.contiguous() for t in (q, k, v)))
     assert torch.equal(o, o_al) and torch.equal(lse, lse_al)
@@ -309,24 +344,16 @@ def test_k4_cuda_kernel_reads_views_off_16_byte_alignment(cuda, b, n):
     assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("b,n,dtype", [(4, 400, torch.bfloat16),
-                                       (3, 77, torch.bfloat16),
-                                       (2, 401, torch.bfloat16),
-                                       (2, 200, torch.float32),
-                                       (2, 9, torch.bfloat16),
-                                       (2, 63, torch.bfloat16),
-                                       (2, 64, torch.bfloat16),
-                                       (2, 65, torch.bfloat16)])
-def test_k5_k6_cuda_kernels_match_plain(cuda, b, n, dtype):
-    """N = 9, 63, 65, 77 and 401 leave the last 64-row chunk and the last
-    64-row tile ragged; 64 is one whole tile; 400 the grid-20 step's."""
+@pytest.mark.parametrize("b,n,dtype,d", _FLASH_CASES)
+def test_k5_k6_cuda_kernels_match_plain(cuda, b, n, dtype, d):
+    """The cases of K4's test."""
     gen = torch.Generator("cuda").manual_seed(n + 3)
-    q, k, v = _fused(b, n, dtype, gen)
+    q, k, v = _fused(b, n, dtype, gen, d)
     o, lse = flash.flash_attention_fwd_reference(q, k, v, flash.BLOCK_K)
-    do = torch.randn((b, n, 12 * 64), generator=gen, device="cuda").to(dtype)
-    do = do.view(b, n, 12, 64).transpose(1, 2)
-    buf = torch.empty((b, n, 3 * 12 * 64), dtype=dtype, device="cuda")
-    out = buf.view(b, n, 3, 12, 64).permute(2, 0, 3, 1, 4).unbind(0)
+    h = HEADS[d]
+    do = torch.randn((b, n, h * d), generator=gen, device="cuda").to(dtype)
+    do = do.view(b, n, h, d).transpose(1, 2)
+    out = _fused_grads(b, n, dtype, d)
     before = (flash.flash_dq.launches, flash.flash_dkv.launches)
     flash.flash_attention_bwd(q, k, v, o, lse, do, out=out)
     torch.cuda.synchronize()
@@ -338,45 +365,52 @@ def test_k5_k6_cuda_kernels_match_plain(cuda, b, n, dtype):
         assert err <= K2_TOL[dtype] * scale, (err, scale)
 
 
-def _flash_bwd_inputs(b, n, dtype, gen, offset=0):
+def _flash_bwd_inputs(b, n, dtype, gen, offset=0, d=64):
     """q, k, v as strided views of a fused qkv ``offset`` elements into its
     buffer, O and the LSE of the plain forward, dO as a view of a
     (B, N, H*Dh) gradient."""
-    q, k, v = _k1_views(b, n, dtype, gen, offset)
+    q, k, v = _k1_views(b, n, dtype, gen, offset, d)
     o, lse = flash.flash_attention_fwd_reference(q, k, v, flash.BLOCK_K)
-    do = torch.randn((b, n, 12 * 64), generator=gen, device="cuda").to(dtype)
-    return q, k, v, o, lse, do.view(b, n, 12, 64).transpose(1, 2)
+    h = HEADS[d]
+    do = torch.randn((b, n, h * d), generator=gen, device="cuda").to(dtype)
+    return q, k, v, o, lse, do.view(b, n, h, d).transpose(1, 2)
 
 
-def _fused_grads(b, n, dtype):
+def _fused_grads(b, n, dtype, d=64):
     """dq, dk, dv as the slots of one fused (B, N, 3*H*Dh) gradient buffer."""
-    buf = torch.empty((b, n, 3 * 12 * 64), dtype=dtype, device="cuda")
-    return buf.view(b, n, 3, 12, 64).permute(2, 0, 3, 1, 4).unbind(0)
+    h = HEADS[d]
+    buf = torch.empty((b, n, 3 * h * d), dtype=dtype, device="cuda")
+    return buf.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
 
 
-@pytest.mark.parametrize("b,n,dtype", [(4, 400, torch.bfloat16), (3, 77, torch.bfloat16),
-                                       (2, 200, torch.float32)])
-def test_k5_k6_cuda_kernels_are_bit_equal_across_calls(cuda, b, n, dtype):
+@pytest.mark.parametrize("b,n,dtype,d", [(4, 400, torch.bfloat16, 64),
+                                         (3, 77, torch.bfloat16, 64),
+                                         (2, 200, torch.float32, 64),
+                                         (8, 576, torch.bfloat16, 72),
+                                         (3, 77, torch.bfloat16, 72),
+                                         (2, 200, torch.float32, 72)])
+def test_k5_k6_cuda_kernels_are_bit_equal_across_calls(cuda, b, n, dtype, d):
     """One owning accumulator per output, chunks in a fixed order, no
     atomics: a resumed train run repeats the uninterrupted one."""
-    args = _flash_bwd_inputs(b, n, dtype, torch.Generator("cuda").manual_seed(n + 5))
-    first = flash.flash_attention_bwd(*args, out=_fused_grads(b, n, dtype))
-    second = flash.flash_attention_bwd(*args, out=_fused_grads(b, n, dtype))
+    args = _flash_bwd_inputs(b, n, dtype, torch.Generator("cuda").manual_seed(n + 5), d=d)
+    first = flash.flash_attention_bwd(*args, out=_fused_grads(b, n, dtype, d))
+    second = flash.flash_attention_bwd(*args, out=_fused_grads(b, n, dtype, d))
     for a, c in zip(first, second):
         assert torch.equal(a, c)
 
 
-@pytest.mark.parametrize("b,n", [(3, 77), (2, 400)])
-def test_k5_k6_cuda_kernels_read_views_off_16_byte_alignment(cuda, b, n):
+@pytest.mark.parametrize("b,n,d", [(3, 77, 64), (2, 400, 64), (3, 77, 72)])
+def test_k5_k6_cuda_kernels_read_views_off_16_byte_alignment(cuda, b, n, d):
     """q, k, v rows that do not start on 16 bytes (pair-aligned views the
     wrappers admit) are staged without cp.async: the same bits as from
     aligned copies, and within the tolerance of the plain version."""
     q, k, v, o, lse, do = _flash_bwd_inputs(b, n, torch.bfloat16,
-                                            torch.Generator("cuda").manual_seed(n + 6), 2)
-    assert q.data_ptr() % 16 and q.stride()[:3] == (n * 3 * 12 * 64, 64, 3 * 12 * 64)
-    got = flash.flash_attention_bwd(q, k, v, o, lse, do, out=_fused_grads(b, n, q.dtype))
+                                            torch.Generator("cuda").manual_seed(n + 6), 2, d)
+    f = 3 * HEADS[d] * d
+    assert q.data_ptr() % 16 and q.stride()[:3] == (n * f, d, f)
+    got = flash.flash_attention_bwd(q, k, v, o, lse, do, out=_fused_grads(b, n, q.dtype, d))
     aligned = [t.contiguous() for t in (q, k, v)]
-    want = flash.flash_attention_bwd(*aligned, o, lse, do, out=_fused_grads(b, n, q.dtype))
+    want = flash.flash_attention_bwd(*aligned, o, lse, do, out=_fused_grads(b, n, q.dtype, d))
     for g, w, ref in zip(got, want, flash.flash_attention_bwd_reference(q, k, v, o, lse, do)):
         assert torch.equal(g, w)
         scale = ref.float().abs().max().item()
@@ -385,7 +419,7 @@ def test_k5_k6_cuda_kernels_read_views_off_16_byte_alignment(cuda, b, n):
 
 def test_flash_cuda_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     q = torch.zeros((1, 2, 9, 32), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="Dh == 64"):
+    with pytest.raises(ValueError, match=r"Dh in \(64, 72\)"):
         flash.flash_attention_fwd(q, q, q)
     q = torch.zeros((1, 2, 9, 64), device="cuda", dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -399,9 +433,12 @@ def test_flash_cuda_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     assert o.shape == long.shape and lse.shape == (1, 2, 4096)
 
 
-def test_dit_gradients_through_k4_k5_k6_match_plain_autograd(cuda):
-    model, cfg = create_model("JPDVT", 96, seed=0, depth=2, hidden_size=128,
-                              num_heads=2, attn_impl="flash")
+@pytest.mark.parametrize("hidden,attn_impl", [(128, "flash"), (144, None)],
+                         ids=["dh64-flash", "dh72-auto"])
+def test_dit_gradients_through_k4_k5_k6_match_plain_autograd(cuda, hidden, attn_impl):
+    """At Dh 72 the route with grad is flash by rule (K2 takes Dh 64 alone)."""
+    model, cfg = create_model("JPDVT", 96, seed=0, depth=2, hidden_size=hidden,
+                              num_heads=2, attn_impl=attn_impl)
     rng = np.random.default_rng(1)
     with torch.no_grad():
         for p in model.parameters():

@@ -26,6 +26,15 @@ Tolerances:
 - the ``autograd.Function`` (K4 forward, K5 + K6 backward, dq/dk/dv
   written into one fused-qkv gradient) against torch autograd of the
   plain forward, fp32, 1e-5 of scale.
+
+The forward and backward cases run at Dh 64, at DiT-XL's 72 and at 32 under
+the same tolerances: where Dh^-1/2 is not a power of two both packages
+round the scale to the input type before q is scaled, and dQ takes the
+fp32 scale. In bf16 at most 1% of O, dQ and dV may differ at all
+(``FLIP_SHARE``, summation order; a q scaled by the fp32 scale moves
+23-74% of them at Dh 32 and 72). dK is left out of that count: on the CPU
+XLA takes the bf16 scale out of the interpreted kernel's dS^T (q * scale)
+and applies it to the fp32 product, one ulp on ~41% of dK there.
 """
 
 import jax.numpy as jnp
@@ -40,12 +49,13 @@ from jpdvt_mt_ntnu_tpu_torch.ops import flash_attention as port
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 BWD_TOL = {"float32": 1e-5, "bfloat16": 2 ** -6}
+FLIP_SHARE = 0.01  # bf16: the largest share of O, dQ, dV that may differ at all
 BLOCK_Q, BLOCK_K = 64, 128
 
 
-def _inputs(n, seed, count=4):
+def _inputs(n, seed, count=4, d=64):
     rng = np.random.default_rng(seed)
-    return [rng.standard_normal((1, 2, n, 64)).astype(np.float32) for _ in range(count)]
+    return [rng.standard_normal((1, 2, n, d)).astype(np.float32) for _ in range(count)]
 
 
 def _torch(a, dtype):
@@ -72,17 +82,25 @@ def _pallas_fwd(q, k, v, block_q=BLOCK_Q, block_k=BLOCK_K):
 # tile (``port.BLOCK_K``): the tiling sets where exp(S - m) is rounded, so
 # this ties the Pallas kernel, at the tiling the card runs, to the plain
 # version that the card holds K4 against.
-_FWD_CASES = ([(n, dtype, BLOCK_K) for n in (9, 77, 144, 400)
+_FWD_CASES = ([(n, dtype, BLOCK_K, 64) for n in (9, 77, 144, 400)
                for dtype in ("float32", "bfloat16")]
-              + [(n, dtype, port.BLOCK_K) for n in (77, 400)
+              + [(n, dtype, port.BLOCK_K, 64) for n in (77, 400)
+                 for dtype in ("float32", "bfloat16")]
+              + [(n, dtype, block_k, d) for n, block_k, d in
+                 ((144, BLOCK_K, 72), (77, port.BLOCK_K, 72), (77, BLOCK_K, 32))
                  for dtype in ("float32", "bfloat16")])
 
 
-@pytest.mark.parametrize("n,dtype,block_k", _FWD_CASES, ids=[
-    f"{n}-{dtype}" + ("" if block_k == BLOCK_K else f"-bk{block_k}")
-    for n, dtype, block_k in _FWD_CASES])
-def test_k4_plain_matches_pallas_interpret(n, dtype, block_k):
-    q, k, v = _inputs(n, seed=n, count=3)
+def _case_id(n, dtype, tiles, default_tiles, d):
+    tile = "" if tiles == default_tiles else (
+        f"-bk{tiles}" if isinstance(tiles, int) else f"-{tiles[0]}x{tiles[1]}")
+    return f"{n}-{dtype}{tile}" + ("" if d == 64 else f"-d{d}")
+
+
+@pytest.mark.parametrize("n,dtype,block_k,d", _FWD_CASES, ids=[
+    _case_id(n, dtype, block_k, BLOCK_K, d) for n, dtype, block_k, d in _FWD_CASES])
+def test_k4_plain_matches_pallas_interpret(n, dtype, block_k, d):
+    q, k, v = _inputs(n, seed=n, count=3, d=d)
     o, lse, bk = _pallas_fwd(*(_jax(a, dtype) for a in (q, k, v)), block_k=block_k)
     assert bk == block_k or n <= block_k  # one tile when N fits in it
     mine_o, mine_lse = port.flash_attention_fwd_reference(
@@ -90,6 +108,8 @@ def test_k4_plain_matches_pallas_interpret(n, dtype, block_k):
     assert mine_o.dtype == getattr(torch, dtype) and mine_lse.dtype == torch.float32
     np.testing.assert_allclose(_np(mine_o), _np(o), atol=TOL[dtype], rtol=0)
     np.testing.assert_allclose(mine_lse.numpy(), np.asarray(lse), atol=1e-5, rtol=0)
+    if dtype == "bfloat16":
+        assert (_np(mine_o) != _np(o)).mean() <= FLIP_SHARE
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -108,16 +128,18 @@ def test_k4_plain_over_the_whole_row_matches_tiled_pallas(dtype):
 # 16 x 16: its result does not depend on the tiling (P comes from the saved
 # row LSE, so nothing rounded does), which lets the CUDA kernels pick
 # their own tiles.
-_BWD_CASES = ([(n, dtype, (BLOCK_Q, BLOCK_K)) for n in (9, 77, 144, 400)
+_BWD_CASES = ([(n, dtype, (BLOCK_Q, BLOCK_K), 64) for n in (9, 77, 144, 400)
                for dtype in ("float32", "bfloat16")]
-              + [(n, dtype, (16, 16)) for n in (77, 400) for dtype in ("float32", "bfloat16")])
+              + [(n, dtype, (16, 16), 64) for n in (77, 400) for dtype in ("float32", "bfloat16")]
+              + [(n, dtype, tiles, d) for n, tiles, d in
+                 ((144, (BLOCK_Q, BLOCK_K), 72), (77, (16, 16), 32))
+                 for dtype in ("float32", "bfloat16")])
 
 
-@pytest.mark.parametrize("n,dtype,tiles", _BWD_CASES, ids=[
-    f"{n}-{dtype}" + ("" if tiles == (BLOCK_Q, BLOCK_K) else f"-{tiles[0]}x{tiles[1]}")
-    for n, dtype, tiles in _BWD_CASES])
-def test_k5_k6_plain_match_pallas_interpret(n, dtype, tiles):
-    q, k, v, do = _inputs(n, seed=n + 1)
+@pytest.mark.parametrize("n,dtype,tiles,d", _BWD_CASES, ids=[
+    _case_id(n, dtype, tiles, (BLOCK_Q, BLOCK_K), d) for n, dtype, tiles, d in _BWD_CASES])
+def test_k5_k6_plain_match_pallas_interpret(n, dtype, tiles, d):
+    q, k, v, do = _inputs(n, seed=n + 1, d=d)
     jq, jk, jv, jdo = (_jax(a, dtype) for a in (q, k, v, do))
     o, lse, _ = _pallas_fwd(jq, jk, jv)
     bq, bk = (_pick_block(n, t, jq.dtype) for t in tiles)
@@ -130,6 +152,8 @@ def test_k5_k6_plain_match_pallas_interpret(n, dtype, tiles):
         w = _np(w)
         np.testing.assert_allclose(_np(m), w, rtol=0,
                                    atol=BWD_TOL[dtype] * np.abs(w).max(), err_msg=name)
+        if dtype == "bfloat16" and name != "dk":
+            assert (_np(m) != w).mean() <= FLIP_SHARE, name
 
 
 def test_flash_autograd_matches_torch_autograd_of_the_plain_forward():

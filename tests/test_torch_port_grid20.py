@@ -2,7 +2,10 @@
 
 - The attention route table (``ops.attention.attention_route``) as the
   card applies it, and ``run_train.check_supported``'s refusals, both
-  without a card.
+  without a card; at DiT-XL's head dim, 72, too (K1 and K4-K6 only: the
+  route with grad is flash at every N, ``"pallas"`` with grad and
+  ``"block"`` are refused by name), and ``check_supported`` of
+  ``run_train`` and ``run_eval`` taking DiT-XL/2, /4 and /8 on the card.
 - A 2-block, full-width DiT at 320 px against the JAX package's
   ``DiT.apply`` in fp32, ``attn_impl`` None on both sides: XLA's softmax in
   JAX, the flash route's plain version in the port (K1 takes no fp32
@@ -30,6 +33,7 @@ from jpdvt_mt_ntnu_tpu_torch.data import SyntheticPuzzles
 from jpdvt_mt_ntnu_tpu_torch.eval.solver import PuzzleSolver
 from jpdvt_mt_ntnu_tpu_torch.models import DiT, DiTConfig, create_model, dit
 from jpdvt_mt_ntnu_tpu_torch.ops import jigsaw
+from jpdvt_mt_ntnu_tpu_torch.eval import run_eval
 from jpdvt_mt_ntnu_tpu_torch.ops.attention import (HOPPER_MAX_SMEM, attention_route,
                                                   k1_smem_bytes, k2_smem_bytes)
 from jpdvt_mt_ntnu_tpu_torch.tools import weights
@@ -58,14 +62,20 @@ def test_auto_route_takes_the_whole_row_kernels_where_they_fit(n, dtype, grad, r
     assert attention_route(n, dtype, grad, "flash") == "flash"
 
 
-@pytest.mark.parametrize("n", [9, 144, 400, 1024])
-def test_k1_smem_bytes_is_the_kernels_design(n):
-    """bf16: two stages of 64-key K and V chunks, rows of Dh + 8 (144 B),
-    the same at every N; fp32: the scalar kernel's K and V whole (rows of
-    Dh + 2), a 32-row fp32 query tile and its fp32 score rows."""
-    assert k1_smem_bytes(n, 2) == 2 * 2 * 64 * 72 * 2 == 36864
-    assert k1_smem_bytes(n, 4) == 2 * n * 66 * 4 + 32 * 66 * 4 + 32 * (n + 1) * 4
-    assert (k1_smem_bytes(n, 4) <= HOPPER_MAX_SMEM) == (n <= 341)
+@pytest.mark.parametrize("n,d", [(9, 64), (144, 64), (400, 64), (1024, 64), (9, 72),
+                                 (309, 72), (310, 72), (576, 72)],
+                         ids=["9", "144", "400", "1024", "9-d72", "309-d72", "310-d72",
+                              "576-d72"])
+def test_k1_smem_bytes_is_the_kernels_design(n, d):
+    """bf16: two stages of 64-key K and V chunks, rows of Dh + 8 (144 B) at
+    Dh 64 and Dh + 16 (176 B, an odd count of 16-byte units) at 72, the
+    same at every N; fp32: the scalar kernel's K and V whole (rows of Dh +
+    2), a 32-row fp32 query tile and its fp32 score rows."""
+    row = {64: 72, 72: 88}[d]
+    assert k1_smem_bytes(n, 2, d) == 2 * 2 * 64 * row * 2 == {64: 36864, 72: 45056}[d]
+    assert k1_smem_bytes(n, 4, d) == (2 * n * (d + 2) * 4 + 32 * (d + 2) * 4
+                                      + 32 * (n + 1) * 4)
+    assert (k1_smem_bytes(n, 4, d) <= HOPPER_MAX_SMEM) == (n <= {64: 341, 72: 309}[d])
 
 
 @pytest.mark.parametrize("n", [9, 144, 205, 206, 400, 1024])
@@ -99,8 +109,53 @@ def test_route_refusals():
     assert attention_route(144, BF16, False, "block") == "block"  # K3, asked for
 
 
+@pytest.mark.parametrize("n", [16, 144, 205, 206, 400, 576, 1024, 9216])
+def test_auto_route_at_head_dim_72(n):
+    """K2 takes Dh 64 alone, so at 72 the route with grad is flash at every
+    N (a rule, not a fallback); without grad bf16 takes K1 at every N and
+    fp32 up to N = 309, where its shared memory ends."""
+    assert attention_route(n, BF16, True, head_dim=72) == "flash"
+    assert attention_route(n, FP32, True, head_dim=72) == "flash"
+    assert attention_route(n, BF16, False, head_dim=72) == "whole_row"
+    assert attention_route(n, BF16, False, "pallas", head_dim=72) == "whole_row"
+    assert attention_route(n, FP32, False, head_dim=72) == ("whole_row" if n <= 309 else "flash")
+    for grad in (False, True):
+        assert attention_route(n, BF16, grad, "flash", head_dim=72) == "flash"
+
+
+def test_route_refusals_at_head_dim_72():
+    with pytest.raises(ValueError, match=r"K2 \(attn_impl='pallas' with grad\) takes Dh 64"):
+        attention_route(576, BF16, True, "pallas", head_dim=72)
+    for grad in (False, True):
+        with pytest.raises(ValueError, match=r"K3 \(attn_impl='block'\) takes Dh 64"):
+            attention_route(144, BF16, grad, "block", head_dim=72)
+    for d in (16, 128):
+        with pytest.raises(ValueError, match=f"head dim {d} .*Dh 64 or 72"):
+            attention_route(144, BF16, False, head_dim=d)
+    # The CPU's plain versions take every head dim and these impls.
+    assert attention_route(576, BF16, True, "pallas", head_dim=72, on_card=False) == "whole_row"
+    assert attention_route(144, BF16, True, "block", head_dim=72, on_card=False) == "block"
+    assert attention_route(144, BF16, True, head_dim=128, on_card=False) == "whole_row"
+
+
 def _cfg(*overrides):
     return apply_overrides(Config(), ["data.synthetic_cues=waves", *overrides])
+
+
+@pytest.mark.parametrize("name", ["DiT-XL/2", "DiT-XL/4", "DiT-XL/8"])
+def test_check_supported_takes_dit_xl_on_the_card(name):
+    """DiT-XL (16 heads of 72) at 192 px trains and solves on the card,
+    bf16 and fp32: 9,216, 2,304 or 576 tokens."""
+    for dtype in ("bfloat16", "float32"):
+        cfg = _cfg(f"model.name={name}", f"model.compute_dtype={dtype}")
+        run_train.check_supported(cfg, on_card=True)
+        run_eval.check_supported(cfg, on_card=True)
+    run_eval.check_supported(_cfg(f"model.name={name}", "model.attn_impl=pallas"))
+    with pytest.raises(NotImplementedError, match="K2 .* takes Dh 64 alone, not 72"):
+        run_train.check_supported(_cfg(f"model.name={name}", "model.attn_impl=pallas"))
+    for check in (run_train.check_supported, run_eval.check_supported):
+        with pytest.raises(NotImplementedError, match="K3 .* takes Dh 64 alone, not 72"):
+            check(_cfg(f"model.name={name}", "model.attn_impl=block"))
 
 
 @pytest.mark.parametrize("impl", ["xla", "xla2", "xla_split", "interpret", "block",
