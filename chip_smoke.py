@@ -7,12 +7,12 @@ card and ``nvcc``; it exits non-zero, printing no result, without them.
 Phases, each of which raises on failure:
 
 1. build the CUDA kernels, one ``nvcc`` per unit started together
-   (``.cu`` -> ``.so`` -> ``ctypes``; K1, K4 and K5/K6 twice, at Dh 64 and
-   at DiT-XL's 72), print the card's name and power limit, check that the
-   bf16 kernels of K1, K2, K3, K4, K5 and K6 (and of K1, K4, K5, K6 at Dh
-   72) hold ``HMMA`` (tensor-core) instructions in their SASS, and that the
-   route table's shared-memory sums are the kernels' (K1's at both head
-   dims);
+   (``.cu`` -> ``.so`` -> ``ctypes``; K1-K6 each twice, at Dh 64 and at
+   DiT-XL's 72), print the card's name and power limit, check that the
+   bf16 kernels of K1, K2, K3, K4, K5 and K6 (at both head dims) hold
+   ``HMMA`` (tensor-core) instructions in their SASS, and that the route
+   table's shared-memory sums are the kernels' (K1's, K2's and K3's at
+   both head dims);
 2. hold kernel K1 (whole-row attention) against its plain PyTorch version
    on the card at the solve's shapes (B=16, 32 at N = 144 and 400), the
    train step's (B=96) and ragged ones (N = 9, 77, 200), two calls
@@ -310,6 +310,21 @@ then DiT-XL's head dim (run under ``--grid20-artifact`` too):
     row a permutation (untrained weights: accuracy is not a gate); the
     full-width bf16 forward with open gates on the kernels against the
     plain attention, within 2^-4 of each output's largest magnitude.
+24. DiT-XL/8 on K2 and K3 at Dh 72: K2 against its plain version at
+    (8, 16, 576, 72) in bf16, (2, 16, 144, 72) in fp32 and a ragged N = 77
+    with rows off 16 bytes, K3 at DiT-XL's width (D = 1,152, 16 heads) at
+    B = 32, N = 144 in bf16, B = 4 in fp32 and a ragged N = 77, random
+    weights; two calls bit-equal, timed beside their bound, plain version
+    and library call (SDPA's backward; ``F.linear -> SDPA -> F.linear``
+    and the default route); ``run_train`` at 192 px on
+    ``model.attn_impl=pallas`` with phase 23's overrides, 28 K1 + 28 K2 and
+    no K3-K6 a step, its per-step losses within 2% of phase 23's flash
+    run; at 96 px (12 x 12 = 144 tokens, where the JAX package runs its
+    own Pallas K3) ``run_train`` on ``model.attn_impl=block``, 28 K3 a
+    step, then on its EMA a fast solve of 64 puzzles (28 K3 a microbatch of
+    32), one faithful-250 microbatch of 8 (7,000 K3) and an fp32 fast
+    solve of 8 (28 K3), every row a permutation; and that model's
+    full-width bf16 forward on K3 against its plain sublayer, within 2^-4.
 
 The last three lines are the ``kernels`` JSON (each kernel with the
 launches of its own path and its shape: K1 for the solve (and phase 22's
@@ -321,8 +336,10 @@ for the train step, the 2-rank one (each with phase 22's as K1), the MoE
 one, the TP and FSDP ones, the pipeline's, the ep ranks' and TP of the
 MoE's, the composed pipelines', K3 on the eval path and the training
 route, K4, K5, K6, and the Dh-72 rows of K1, K4, K5 and K6: phase 23's
-solves and validation, train step and fp32 solve), the card's name and
-power limit, and the device JSON.
+solves and validation, train step and fp32 solve, with phase 24's
+``pallas`` train step in K1's row; and K2 and K3 at Dh 72: phase 24's
+``pallas`` train step and its ``block`` train step and solves), the
+card's name and power limit, and the device JSON.
 """
 
 from __future__ import annotations
@@ -631,25 +648,25 @@ def check_k1(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
 
 def check_k2(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
              timed: bool, offset: int = 0, heads: int = HEADS,
-             device_time: bool = True) -> dict:
+             device_time: bool = True, d: int = HEAD_DIM) -> dict:
     """K2 on q/k/v views of a fused qkv (``offset`` elements into its
     buffer) and dO of a (B, N, H*Dh) gradient, writing into one fused
     gradient buffer, as the train step calls it. Two calls give the same
     bits; with an offset, so do aligned copies of q, k, v."""
-    q, k, v = qkv_views(b, n, dtype, gen, offset, heads)
-    do = torch.randn((b, n, heads * HEAD_DIM), generator=gen, device="cuda").to(dtype)
-    do = do.view(b, n, heads, HEAD_DIM).transpose(1, 2)
-    out = fused_grads(b, n, dtype, heads)
+    q, k, v = qkv_views(b, n, dtype, gen, offset, heads, d)
+    do = torch.randn((b, n, heads * d), generator=gen, device="cuda").to(dtype)
+    do = do.view(b, n, heads, d).transpose(1, 2)
+    out = fused_grads(b, n, dtype, heads, d)
     attn_ops.attention_bwd(q, k, v, do, out=out)
-    again = attn_ops.attention_bwd(q, k, v, do, out=fused_grads(b, n, dtype, heads))
+    again = attn_ops.attention_bwd(q, k, v, do, out=fused_grads(b, n, dtype, heads, d))
     torch.cuda.synchronize()
     if not all(torch.equal(x, y) for x, y in zip(out, again)):
-        raise AssertionError(f"K2 {(b, heads, n, HEAD_DIM)} {dtype}: two calls differ")
+        raise AssertionError(f"K2 {(b, heads, n, d)} {dtype}: two calls differ")
     if offset:
         copies = attn_ops.attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), do,
-                                        out=fused_grads(b, n, dtype, heads))
+                                        out=fused_grads(b, n, dtype, heads, d))
         if not all(torch.equal(x, y) for x, y in zip(out, copies)):
-            raise AssertionError(f"K2 {(b, heads, n, HEAD_DIM)} {dtype}: views off 16-byte "
+            raise AssertionError(f"K2 {(b, heads, n, d)} {dtype}: views off 16-byte "
                                  f"alignment differ from aligned copies")
     errs = {}
     for name, got, want in zip(("dq", "dk", "dv"), out,
@@ -657,10 +674,10 @@ def check_k2(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
         scale = want.float().abs().max().item()
         err = (got.float() - want.float()).abs().max().item()
         if not err <= K2_TOL[dtype] * scale:
-            raise AssertionError(f"K2 {name} {(b, heads, n, HEAD_DIM)} {dtype}: max abs "
+            raise AssertionError(f"K2 {name} {(b, heads, n, d)} {dtype}: max abs "
                                  f"err {err} > {K2_TOL[dtype]} x {scale}")
         errs[name] = [err, scale]
-    row = {"shape": [b, heads, n, HEAD_DIM], "dtype": str(dtype).split(".")[-1],
+    row = {"shape": [b, heads, n, d], "dtype": str(dtype).split(".")[-1],
            "max_abs_err": max(e for e, _ in errs.values()), "err_and_scale": errs,
            "rel_tol": K2_TOL[dtype], "bit_equal": True, "q_offset_elements": offset,
            "q_aligned_16": q.data_ptr() % 16 == 0}
@@ -672,7 +689,7 @@ def check_k2(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
         row["plain_ms"] = cuda_ms(lambda: attn_ops.attention_bwd_reference(q, k, v, do), 10)
         (row["library_ms"], row["library_backend"], row["library_ms_by_backend"],
          row["library_kernel_ms_by_backend"]) = sdpa_bwd_ms(q, k, v, do, 50, device_time)
-        row["bound_ms"], row["bound_by"] = bound_ms(b, heads, n, HEAD_DIM, dtype,
+        row["bound_ms"], row["bound_by"] = bound_ms(b, heads, n, d, dtype,
                                                     tensors=7, products=5)
     log("K2 " + json.dumps(row))
     return row
@@ -832,15 +849,17 @@ def randomize(model: torch.nn.Module, seed: int) -> None:
 
 
 def check_gradients(size: int = 192, grid: int = 3, b: int = 8,
-                    expected: dict | None = None, attn_impl: str | None = None) -> dict:
+                    expected: dict | None = None, attn_impl: str | None = None,
+                    model_name: str = "JPDVT") -> dict:
     """Every parameter's gradient of one training-loss backward of the
-    full-width DiT in fp32, through the kernels and through the plain
-    attention (torch autograd), on identical injected draws. Phase 6: 192
-    px, grid 3, batch 8, 12 K1 + 12 K2 launches; phase 10: 320 px, grid 20,
-    batch 4, 12 K4 + 12 K5 + 12 K6; phase 16: 192 px, batch 4 on the
-    ``block`` route, 12 K3 (its backward is autograd of the plain version)."""
+    full-width DiT ``model_name`` in fp32, through the kernels and through the
+    plain attention (torch autograd), on identical injected draws. Phase 6:
+    192 px, grid 3, batch 8, 12 K1 + 12 K2 launches; phase 10: 320 px, grid
+    20, batch 4, 12 K4 + 12 K5 + 12 K6; phase 16: 192 px, batch 4 on the
+    ``block`` route, 12 K3 (its backward is autograd of the plain version);
+    phase 24: DiT-XL/8 at 96 px on ``pallas``, batch 4, 28 K1 + 28 K2."""
     expected = expected or {"k1": 12, "k2": 12}
-    model, cfg = create_model("JPDVT", size, seed=0, attn_impl=attn_impl)
+    model, cfg = create_model(model_name, size, seed=0, attn_impl=attn_impl)
     randomize(model, 1)
     diff = create_diffusion("")
     rng = np.random.default_rng(2)
@@ -854,7 +873,7 @@ def check_gradients(size: int = 192, grid: int = 3, b: int = 8,
     def grads():
         model.zero_grad(set_to_none=True)
         out = diff.training_losses(model, x, t, code, block_size=size // grid,
-                                   patch_size=16, grid_size=grid, _inject=inject)
+                                   patch_size=cfg.patch_size, grid_size=grid, _inject=inject)
         out["loss"].mean().backward()
         return out["loss"].mean().item(), {k: p.grad.clone() for k, p in
                                            model.named_parameters()}
@@ -878,7 +897,8 @@ def check_gradients(size: int = 192, grid: int = 3, b: int = 8,
     qkv = [mine[f"blocks.{i}.attn.qkv.weight"].abs().max().item() for i in range(cfg.depth)]
     if min(qkv) == 0:
         raise AssertionError(f"a qkv.weight gradient is zero: {qkv}")
-    row = {"size": size, "grid": grid, "batch": b, "attn_impl": attn_impl, "launches": launched,
+    row = {"model": model_name, "size": size, "grid": grid, "batch": b, "attn_impl": attn_impl,
+           "launches": launched,
            "loss_kernels": loss, "loss_plain": loss_plain, "params": len(plain),
            "worst_rel_err": worst, "worst_param": worst_name, "rel_tol": GRAD_TOL,
            "min_qkv_weight_grad_max": min(qkv)}
@@ -1320,14 +1340,15 @@ def train_grid3(g3: dict, card: str) -> tuple:
     return launches_train
 
 
-def k3_bound_ms(b: int, n: int, dtype: torch.dtype, hidden: int = HEADS * HEAD_DIM
+def k3_bound_ms(b: int, n: int, dtype: torch.dtype, heads: int = HEADS, d: int = HEAD_DIM
                 ) -> tuple[float, str]:
     """Least time for K3's work: x read and the output written once, the
     weights read once, against the products 2 B N D 4D + 4 B H N^2 Dh."""
     elem = torch.empty((), dtype=dtype).element_size()
+    hidden = heads * d
     t_bytes = (2 * b * n * hidden + 4 * hidden * hidden) * elem / HBM_BYTES_PER_S
     t_ops = (2 * b * n * hidden * 4 * hidden
-             + 4 * b * HEADS * n * n * HEAD_DIM) / PEAK_FLOPS[dtype]
+             + 4 * b * heads * n * n * d) / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1338,42 +1359,47 @@ def first_block(sd) -> tuple:
 
 
 def check_k3(b: int, n: int, dtype: torch.dtype, weights: tuple, gen: torch.Generator,
-             timed: bool) -> dict:
-    """K3 on one DiT block's weights, in ``dtype`` with the biases rounded
-    through it and kept fp32 (as the solver hands them over), against its
-    plain version; relative to the output's largest magnitude."""
+             timed: bool, heads: int = HEADS) -> dict:
+    """K3 on one DiT block's weights (``heads`` heads; the head dim from
+    their shapes), in ``dtype`` with the biases rounded through it and kept
+    fp32 (as the solver hands them over), against its plain version;
+    relative to the output's largest magnitude."""
     wq, bq, wp, bp = (w.to(dtype) for w in weights)
-    ops = attn_ops.dense_to_block_weights(wq, bq.float(), wp, bp.float(), HEADS)
+    hidden = wq.shape[1]
+    d = hidden // heads
+    ops = attn_ops.dense_to_block_weights(wq, bq.float(), wp, bp.float(), heads)
     if dtype == torch.float32:  # the fp32 kernel reads contiguous weights: time no copy
         ops = tuple(t.contiguous() for t in ops)
-    x = torch.randn((b, n, HEADS * HEAD_DIM), generator=gen, device="cuda").to(dtype)
-    out = attn_ops.fused_attention_block(x, *ops, HEADS)
-    if not torch.equal(out, attn_ops.fused_attention_block(x, *ops, HEADS)):
-        raise AssertionError(f"K3 {(b, n)} {dtype}: two calls on one input differ")
+    x = torch.randn((b, n, hidden), generator=gen, device="cuda").to(dtype)
+    out = attn_ops.fused_attention_block(x, *ops, heads)
+    if not torch.equal(out, attn_ops.fused_attention_block(x, *ops, heads)):
+        raise AssertionError(f"K3 {(b, n, hidden)} {dtype}: two calls on one input differ")
     torch.cuda.synchronize()
-    ref = attn_ops.fused_attention_block_plain(x, *ops, HEADS).float()
+    ref = attn_ops.fused_attention_block_plain(x, *ops, heads).float()
     scale = ref.abs().max().item()
     err = (out.float() - ref).abs().max().item()
     if not err <= TOL[dtype] * scale:
-        raise AssertionError(f"K3 {(b, n)} {dtype}: max abs err {err} > {TOL[dtype]} x {scale}")
-    row = {"shape": [b, n, HEADS * HEAD_DIM], "dtype": str(dtype).split(".")[-1],
-           "max_abs_err": err, "scale": scale, "rel_tol": TOL[dtype]}
+        raise AssertionError(f"K3 {(b, n, hidden)} {dtype}: max abs err {err} > {TOL[dtype]} "
+                             f"x {scale}")
+    row = {"shape": [b, n, hidden], "heads": heads, "head_dim": d,
+           "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "scale": scale,
+           "rel_tol": TOL[dtype]}
     if timed:
         def library():
-            qkv = F.linear(x, wq, bq).view(b, n, 3, HEADS, HEAD_DIM).permute(2, 0, 3, 1, 4)
+            qkv = F.linear(x, wq, bq).view(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
             o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])
             return F.linear(o.transpose(1, 2).reshape(b, n, -1), wp, bp)
 
         def default_route():
-            return F.linear(attn_ops.fused_qkv_attention(F.linear(x, wq, bq), HEADS), wp, bp)
+            return F.linear(attn_ops.fused_qkv_attention(F.linear(x, wq, bq), heads), wp, bp)
 
-        row["ms"] = cuda_ms(lambda: attn_ops.fused_attention_block(x, *ops, HEADS), 20)
+        row["ms"] = cuda_ms(lambda: attn_ops.fused_attention_block(x, *ops, heads), 20)
         row["plain_ms"] = cuda_ms(
-            lambda: attn_ops.fused_attention_block_plain(x, *ops, HEADS), 5)
+            lambda: attn_ops.fused_attention_block_plain(x, *ops, heads), 5)
         row["library_ms"] = cuda_ms(library, 50)
         row["library_covers"] = "F.linear -> scaled_dot_product_attention -> F.linear"
         row["default_route_ms"] = cuda_ms(default_route, 50)
-        row["bound_ms"], row["bound_by"] = k3_bound_ms(b, n, dtype)
+        row["bound_ms"], row["bound_by"] = k3_bound_ms(b, n, dtype, heads, d)
     log("K3 " + json.dumps(row))
     return row
 
@@ -3988,11 +4014,37 @@ XL_FAST_PUZZLES, XL_FAITHFUL_PUZZLES = 64, 8
 XL_FORWARD_REL = 2 ** -4
 
 
-def xl_solve(model, cfg, mode: str, n: int) -> dict:
-    """``mode`` solve of ``n`` wave puzzles, its launches counted from 0
-    (its time includes the solver's cast of the weights); every row a
-    permutation."""
-    x, perms = wave_puzzles(n, 23)
+def xl_train_args(exp: str, *extra: str) -> list[str]:
+    """Phases 23's and 24's run_train overrides (DiT-XL/8, 4 steps at batch
+    8, bf16) and ``extra``."""
+    return [f"model.name={XL_NAME}", "data.synthetic_cues=waves", "data.device_stream=true",
+            f"data.global_batch_size={XL_BATCH}", f"data.synthetic_n={XL_BATCH * XL_STEPS}",
+            "train.epochs=1", "train.log_every=1", "train.ckpt_every=1000000",
+            "diffusion.sampler_mode=fast", f"train.exp_dir={exp}", *extra]
+
+
+def xl_run_train(name: str, extra: tuple, expected: dict) -> tuple[dict, dict]:
+    """``counted_run_train`` of DiT-XL/8 with ``extra`` overrides, its
+    checkpoint kept in memory: (the run's row, its final EMA)."""
+    writer = CheckpointManager._write
+    CheckpointManager._write = keep_checkpoint
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            exp = os.path.join(tmp, "xl")
+            row = counted_run_train(xl_train_args(exp, *extra), name, expected)
+            kept = KEPT.pop(exp, {})
+    finally:
+        CheckpointManager._write = writer
+    if sorted(kept) != [XL_STEPS] or row["steps"] != XL_STEPS:
+        raise AssertionError(f"{name}: checkpoints at steps {sorted(kept)}, {row['steps']} steps")
+    return row, kept[XL_STEPS]["ema"]
+
+
+def xl_solve(model, cfg, mode: str, n: int, size: int = 192) -> dict:
+    """``mode`` solve of ``n`` wave puzzles at ``size`` px, its launches
+    counted from 0 (its time includes the solver's cast of the weights);
+    every row a permutation."""
+    x, perms = wave_puzzles(n, 23, size)
     solver = PuzzleSolver(model, cfg, create_diffusion("250"), grid_size=3, mode=mode)
     zero_counts()
     torch.cuda.synchronize()
@@ -4008,23 +4060,26 @@ def xl_solve(model, cfg, mode: str, n: int) -> dict:
             "launches": launches}
 
 
-def check_xl_forward(gen: torch.Generator) -> dict:
-    """The full-width DiT-XL/8 forward in bf16 on the kernels (K1: no grad)
-    against the same model with the plain attention."""
-    model, cfg = create_model(XL_NAME, 192, dtype=torch.bfloat16)
+def check_xl_forward(gen: torch.Generator, size: int = 192, attn_impl: str | None = None,
+                     kernel: str = "k1") -> dict:
+    """The full-width DiT-XL/8 forward in bf16 at ``size`` px on the kernels
+    (no grad: K1, or K3 on the ``block`` route) against the same model with
+    the plain attention (K3's plain sublayer on that route)."""
+    model, cfg = create_model(XL_NAME, size, dtype=torch.bfloat16, attn_impl=attn_impl)
     randomize(model, 7)
-    x, _ = wave_puzzles(XL_BATCH, 29)
+    x, _ = wave_puzzles(XL_BATCH, 29, size)
     x = torch.from_numpy(x).cuda()
     t = torch.randint(0, 1000, (XL_BATCH,), generator=gen, device="cuda")
-    code = torch.randn((XL_BATCH, XL_TOKENS, 8), generator=gen, device="cuda")
+    code = torch.randn((XL_BATCH, cfg.num_tokens, 8), generator=gen, device="cuda")
     with torch.no_grad():
         zero_counts()
         mine = model(x, t, code)
         launched = counts()
         with plain_attention():
             plain = model(x, t, code)
-    if launched["k1"] != cfg.depth:
-        raise AssertionError(f"{XL_NAME} forward: K1 {launched['k1']}, expected {cfg.depth}")
+    if launched[kernel] != cfg.depth or sum(launched.values()) != cfg.depth:
+        raise AssertionError(f"{XL_NAME} forward: launches {launched}, expected {cfg.depth} "
+                             f"{kernel}")
     row = {"launches": launched, "rel_tol": XL_FORWARD_REL}
     for name, a, b in zip(("img", "code"), mine, plain):
         a, b = a.float(), b.float()
@@ -4062,25 +4117,8 @@ def dit_xl_grid3(card: str, gen: torch.Generator) -> dict:
     # 2. run_train from a seeded init; its checkpoint kept in memory, as
     # phase 20's (a DiT-XL state is 10.7 GB: params, EMA, mu and nu).
     t0 = time.perf_counter()
-    writer = CheckpointManager._write
-    CheckpointManager._write = keep_checkpoint
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            exp = os.path.join(tmp, "xl")
-            out["train"] = counted_run_train(
-                [f"model.name={XL_NAME}", "data.synthetic_cues=waves", "data.device_stream=true",
-                 f"data.global_batch_size={XL_BATCH}", f"data.synthetic_n={XL_BATCH * XL_STEPS}",
-                 "train.epochs=1", "train.log_every=1", "train.ckpt_every=1000000",
-                 "diffusion.sampler_mode=fast", f"train.exp_dir={exp}"],
-                f"{XL_NAME}, {XL_STEPS} steps at batch {XL_BATCH}",
-                {"k1": 0, "k2": 0, "k3": 0, "k4": 28, "k5": 28, "k6": 28})
-            kept = KEPT.pop(exp, {})
-    finally:
-        CheckpointManager._write = writer
-    if sorted(kept) != [XL_STEPS] or out["train"]["steps"] != XL_STEPS:
-        raise AssertionError(f"{XL_NAME}: checkpoints at steps {sorted(kept)}, "
-                             f"{out['train']['steps']} steps")
-    ema = kept[XL_STEPS]["ema"]
+    out["train"], ema = xl_run_train(f"{XL_NAME}, {XL_STEPS} steps at batch {XL_BATCH}", (),
+                                     {"k1": 0, "k2": 0, "k3": 0, "k4": 28, "k5": 28, "k6": 28})
     n_params = sum(v.numel() for v in ema.values())
     log(f"  phase 23 run_train: {time.perf_counter() - t0:.2f} s; {n_params / 1e6:.1f}M "
         f"parameters, one checkpoint (step {XL_STEPS})")
@@ -4100,7 +4138,7 @@ def dit_xl_grid3(card: str, gen: torch.Generator) -> dict:
                                  f"{res['launches']}, expected {want} {key}")
         out["solve"][f"{str(dtype).split('.')[-1]}_{mode}"] = res
         del model
-    del ema, kept
+    del ema
     log(f"  {XL_NAME} solves on {card}: " + json.dumps(out["solve"]))
     log(f"  phase 23 solves: {time.perf_counter() - t0:.2f} s")
     # 4. The whole model at full width, on the kernels against the plain versions.
@@ -4110,6 +4148,104 @@ def dit_xl_grid3(card: str, gen: torch.Generator) -> dict:
     log(f"  phase 23 forward: {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
     log(f"phase dit-xl: {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+# ------------------------------------------------------------------ phase 24
+
+# DiT-XL/8 on K2 and K3 at Dh 72: training on attn_impl="pallas" at 192 px
+# (K1 forward, K2 backward), and at 96 px (grid 3, 12 x 12 = 144 tokens,
+# where the JAX package runs its own Pallas K3) training and solving on
+# attn_impl="block". Stated before the first run: the pallas run's per-step
+# losses within 2% of phase 23's flash run on the same init and batches
+# (the two routes differ by bf16 rounding points in attention only).
+# Observed on an H100: within 2.5e-7, since adaLN-Zero's zero gates leave
+# the first steps' losses nearly independent of attention (at step 1 dO is
+# 0); so this gate catches a run that breaks, and K2's checks above (and
+# phase 6's and the card tests' gradients through K1 + K2) hold its values.
+XL_SMALL, XL_SMALL_TOKENS = 96, 144
+XL_ROUTE_LOSS_RTOL = 0.02
+XL_K3_FP32_BATCH = 4
+
+
+def dit_xl_k2_k3(card: str, gen: torch.Generator, flash_losses: list) -> dict:
+    """Phase 24: DiT-XL/8 on K2 (``pallas``, 192 px) and K3 (``block``, 96 px)
+    at Dh 72; ``flash_losses`` are phase 23's per-step losses."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    bf16, fp32 = torch.bfloat16, torch.float32
+    out = {}
+    # 1. K2 and K3 alone at the paths' shapes, ragged, off 16 bytes.
+    t0 = time.perf_counter()
+    out["k2"] = [check_k2(XL_BATCH, XL_TOKENS, bf16, gen, timed=True, heads=XL_HEADS,
+                          device_time=False, d=XL_DH),
+                 check_k2(XL_FP32_BATCH, XL_SMALL_TOKENS, fp32, gen, timed=True,
+                          heads=XL_HEADS, device_time=False, d=XL_DH),
+                 check_k2(3, 77, bf16, gen, timed=False, offset=2, heads=XL_HEADS, d=XL_DH)]
+    hidden = XL_HEADS * XL_DH
+    wgen = torch.Generator("cuda").manual_seed(24)
+    weights = ((torch.randn((3 * hidden, hidden), generator=wgen, device="cuda")
+                * hidden ** -0.5),
+               0.1 * torch.randn(3 * hidden, generator=wgen, device="cuda"),
+               torch.randn((hidden, hidden), generator=wgen, device="cuda") * hidden ** -0.5,
+               0.1 * torch.randn(hidden, generator=wgen, device="cuda"))
+    out["k3"] = [check_k3(32, XL_SMALL_TOKENS, bf16, weights, gen, timed=True, heads=XL_HEADS),
+                 check_k3(XL_K3_FP32_BATCH, XL_SMALL_TOKENS, fp32, weights, gen, timed=True,
+                          heads=XL_HEADS),
+                 check_k3(3, 77, bf16, weights, gen, timed=False, heads=XL_HEADS)]
+    del weights
+    log(f"  phase 24 kernels at Dh {XL_DH}: {time.perf_counter() - t0:.2f} s")
+    # 2. Path (a): run_train at 192 px on attn_impl=pallas, K1 + K2 a block.
+    t0 = time.perf_counter()
+    out["train_pallas"], ema = xl_run_train(
+        f"{XL_NAME} on attn_impl=pallas, {XL_STEPS} steps at batch {XL_BATCH}",
+        ("model.attn_impl=pallas",), {"k1": 28, "k2": 28, "k3": 0, "k4": 0, "k5": 0, "k6": 0})
+    del ema
+    losses = out["train_pallas"]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, flash_losses)]
+    out["train_pallas"]["loss_rel_to_flash"] = rel
+    if len(losses) != len(flash_losses) or not max(rel) <= XL_ROUTE_LOSS_RTOL:
+        raise AssertionError(f"{XL_NAME} pallas losses {losses} against the flash run's "
+                             f"{flash_losses}: {rel} > {XL_ROUTE_LOSS_RTOL}")
+    log(f"  phase 24 run_train on pallas: {time.perf_counter() - t0:.2f} s; per-step losses "
+        f"within {max(rel):.5f} of the flash run's")
+    # Every parameter's fp32 gradient of the full-width model at 96 px (N =
+    # 144, in K2's fp32 range) through K1 + K2 against plain autograd.
+    t0 = time.perf_counter()
+    out["gradients_pallas"] = check_gradients(XL_SMALL, 3, 4, {"k1": 28, "k2": 28}, "pallas",
+                                              XL_NAME)
+    log(f"  phase 24 gradients through K1 + K2: {time.perf_counter() - t0:.2f} s")
+    # 3. Path (b): run_train at 96 px on attn_impl=block, then solves on its EMA.
+    t0 = time.perf_counter()
+    small = (f"model.image_size={XL_SMALL}", "model.attn_impl=block")
+    out["train_block"], ema = xl_run_train(
+        f"{XL_NAME} at {XL_SMALL} px on attn_impl=block, {XL_STEPS} steps at batch {XL_BATCH}",
+        small, {"k1": 0, "k2": 0, "k3": 28, "k4": 0, "k5": 0, "k6": 0})
+    out["solve_block"] = {}
+    for dtype, mode, n in ((bf16, "fast", XL_FAST_PUZZLES),
+                           (bf16, "faithful", XL_FAITHFUL_PUZZLES),
+                           (fp32, "fast", XL_FAITHFUL_PUZZLES)):
+        model, cfg = create_model(XL_NAME, XL_SMALL, dtype=dtype, attn_impl="block")
+        model.load_state_dict(ema)
+        res = xl_solve(model, cfg, mode, n, XL_SMALL)
+        want = cfg.depth * (STEPS if mode == "faithful" else 1) * -(-n // 32)
+        if res["launches"]["k3"] != want or sum(res["launches"].values()) != want:
+            raise AssertionError(f"{XL_NAME} at {XL_SMALL} px, block, {mode} solve in {dtype}: "
+                                 f"launches {res['launches']}, expected {want} k3")
+        out["solve_block"][f"{str(dtype).split('.')[-1]}_{mode}"] = res
+        del model
+    del ema
+    log(f"  {XL_NAME} at {XL_SMALL} px, block, solves on {card}: "
+        + json.dumps(out["solve_block"]))
+    log(f"  phase 24 block run_train and solves: {time.perf_counter() - t0:.2f} s")
+    # 4. The whole model at 96 px on K3 against its plain sublayer.
+    t0 = time.perf_counter()
+    out["forward_block"] = check_xl_forward(gen, XL_SMALL, "block", "k3")
+    log(f"  {XL_NAME} at {XL_SMALL} px forward on K3, against plain, bf16: "
+        + json.dumps(out["forward_block"]))
+    log(f"  phase 24 forward: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+    log(f"phase dit-xl k2 k3: {time.perf_counter() - t_phase:.2f} s")
     return out
 
 
@@ -4139,13 +4275,14 @@ def main(argv=None) -> int:
     lib_paths = _build.build_all("attention", "attention_bwd", "attention_block", "flash_fwd",
                                  "flash_bwd", "assignment", "decode",
                                  *(_build.unit(name, XL_DH)
-                                   for name in ("attention", "flash_fwd", "flash_bwd")))
+                                   for name in ("attention", "flash_fwd", "flash_bwd",
+                                                "attention_bwd", "attention_block")))
     for d in attn_ops.HEAD_DIMS:
         attn_ops._kernel(d)
         flash_ops._fwd_kernel(d)
         flash_ops._bwd_kernel(d)
-    attn_ops._bwd_kernel()
-    attn_ops._block_kernel()
+        attn_ops._bwd_kernel(d)
+        attn_ops._block_kernel(d)
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.2f} s -> {[os.path.relpath(p, REPO) for p in lib_paths]}; "
         f"per source {json.dumps({k: round(v, 2) for k, v in _build.BUILD_SECONDS.items()})}")
@@ -4158,7 +4295,7 @@ def main(argv=None) -> int:
             if any(w in line for w in ("registers", "Compiling entry", "spill")):
                 log(f"  ptxas: {line.strip()}")
     # The bf16 kernels of K1-K6 run on the tensor cores: HMMA in their SASS,
-    # K1 and K4-K6 at Dh 64 and 72.
+    # at Dh 64 and 72.
     for name, lib_path, bf16_kernels in (
             ("K1", lib_paths[0], ("attention_fwd_mma_kernel",)),
             ("K2", lib_paths[1], ("attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel")),
@@ -4168,27 +4305,33 @@ def main(argv=None) -> int:
             (f"K1 at Dh {XL_DH}", lib_paths[7], ("attention_fwd_mma_kernel",)),
             (f"K4 at Dh {XL_DH}", lib_paths[8], ("flash_fwd_mma_kernel",)),
             (f"K5/K6 at Dh {XL_DH}", lib_paths[9],
-             ("flash_dq_mma_kernel", "flash_dkv_mma_kernel"))):
+             ("flash_dq_mma_kernel", "flash_dkv_mma_kernel")),
+            (f"K2 at Dh {XL_DH}", lib_paths[10],
+             ("attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel")),
+            (f"K3 at Dh {XL_DH}", lib_paths[11],
+             ("block_attention_mma_kernel", "out_proj_mma_kernel"))):
         hmma = sass_count(lib_path, "HMMA")
         log(f"{name} SASS HMMA per kernel: {json.dumps(hmma)}")
         for kernel in bf16_kernels:
             if not sum(c for f, c in hmma.items() if kernel in f):
                 raise AssertionError(f"{name}'s {kernel} has no HMMA in its SASS")
     # The route table's shared-memory sums (ops/attention.py) are the kernels',
-    # K1's at both head dims.
-    for n in (9, 144, 164, 165, 205, 206, 309, 310, 341, 342, 400, 571, 572, 576, 1024):
+    # K1's, K2's and K3's at both head dims.
+    for n in (9, 144, 148, 149, 164, 165, 205, 206, 309, 310, 341, 342, 400, 571, 572, 576,
+              1024):
         for elem in (2, 4):
-            if (any(attn_ops.k1_smem_bytes(n, elem, d)
-                    != attn_ops._kernel(d).k1_attention_smem_bytes(n, elem)
-                    for d in attn_ops.HEAD_DIMS)
-                    or attn_ops.k2_smem_bytes(n, elem)
-                    != attn_ops._bwd_kernel().k2_attention_bwd_smem_bytes(n, elem)):
+            if any(attn_ops.k1_smem_bytes(n, elem, d)
+                   != attn_ops._kernel(d).k1_attention_smem_bytes(n, elem)
+                   or attn_ops.k2_smem_bytes(n, elem, d)
+                   != attn_ops._bwd_kernel(d).k2_attention_bwd_smem_bytes(n, elem)
+                   for d in attn_ops.HEAD_DIMS):
                 raise AssertionError(f"the route table's shared memory at N={n}, "
                                      f"{elem} B differs from the kernels'")
-    for n in (9, 77, 144, 252, 253, 400, 401, 416, 417):
+    for n in (9, 77, 144, 223, 224, 252, 253, 336, 337, 400, 401, 416, 417):
         for elem in (2, 4):
-            if (attn_ops.k3_smem_bytes(n, elem)
-                    != attn_ops._block_kernel().k3_attention_block_smem_bytes(n, elem)):
+            if any(attn_ops.k3_smem_bytes(n, elem, d)
+                   != attn_ops._block_kernel(d).k3_attention_block_smem_bytes(n, elem)
+                   for d in attn_ops.HEAD_DIMS):
                 raise AssertionError(f"the route table's K3 shared memory at N={n}, "
                                      f"{elem} B differs from the kernel's")
 
@@ -4358,6 +4501,10 @@ def main(argv=None) -> int:
     # 23. DiT-XL/8 (Dh 72) on K1 and K4-K6: the kernels, run_train, the solves.
     xl23 = dit_xl_grid3(card, gen)
 
+    # 24. DiT-XL/8 on K2 (attn_impl=pallas, 192 px) and K3 (attn_impl=block,
+    # 96 px): the kernels, run_train on both routes, the block route's solves.
+    xl24 = dit_xl_k2_k3(card, gen, xl23["train"]["losses"])
+
     def kernel_row(name, source, replaces, launches, rows, timed):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "shape": timed["shape"],
@@ -4471,12 +4618,26 @@ def main(argv=None) -> int:
     # Phase 23, Dh 72: K1 for the bf16 solves and the run's validation, K4
     # for the train step and the fp32 solve, K5 and K6 for the train step;
     # each timed at (8, 16, 576, 72) in bf16, its errors over bf16 and fp32.
+    # Phase 24 adds its pallas run's K1 launches to the K1 row, and rows of
+    # K2 (that run's backward; timed at (8, 16, 576, 72)) and K3 (the 96 px
+    # block run and its solves; timed at B = 32, N = 144) at Dh 72.
     xl_train, xl_solve_ = xl23["train"]["launches"], xl23["solve"]
+    pallas24, block24 = xl24["train_pallas"]["launches"], xl24["train_block"]["launches"]
     kernels += [
         kernel_row("k1_whole_row_attention_fwd_dh72", *k1,
                    xl_train["k1"] + sum(xl_solve_[f"bfloat16_{m}"]["launches"]["k1"]
-                                        for m in ("fast", "faithful")),
+                                        for m in ("fast", "faithful")) + pallas24["k1"],
                    xl23["k1"], xl23["k1"][0]),
+        kernel_row("k2_whole_row_attention_bwd_dh72",
+                   "jpdvt_mt_ntnu_tpu_torch/ops/csrc/attention_bwd.cu",
+                   "jpdvt_mt_ntnu_tpu/ops/attention.py:44", pallas24["k2"], xl24["k2"],
+                   xl24["k2"][0]),
+        kernel_row("k3_fused_attention_block_dh72",
+                   "jpdvt_mt_ntnu_tpu_torch/ops/csrc/attention_block.cu",
+                   "jpdvt_mt_ntnu_tpu/ops/attention.py:242",
+                   block24["k3"] + sum(r["launches"]["k3"]
+                                       for r in xl24["solve_block"].values()),
+                   xl24["k3"], xl24["k3"][0]),
         kernel_row("k4_flash_attention_fwd_dh72", *flash_fwd,
                    xl_train["k4"] + xl_solve_["float32_fast"]["launches"]["k4"],
                    xl23["k4"], xl23["k4"][0]),

@@ -31,7 +31,7 @@ plain version only for tensors on the CPU.
 :func:`attention_route` picks the DiT's route, the counterpart of
 ``default_impl`` (``:168``), whose TPU thresholds do not carry over: the
 whole-row kernels where their shared memory fits (K1; K1 + K2 with grad
-on, in bf16 up to ``WHOLE_ROW_GRAD_MAX_N``), the flash kernels K4-K6
+on, up to ``WHOLE_ROW_GRAD_MAX_N`` of the head dim), the flash kernels K4-K6
 (``ops/flash_attention.py``) beyond, and K3
 only when ``attn_impl="block"`` asks for it (``default_impl`` never picks
 it either).
@@ -46,9 +46,9 @@ import torch
 
 from . import _build
 
-# Head dims the kernels take: K1 and the flash kernels K4-K6 are built once
-# per head dim in HEAD_DIMS (``csrc/*.cu`` compiled with ``-DHEAD_DIM=<Dh>``,
-# ``_build.unit``); K2 and K3 take HEAD_DIM alone.
+# Head dims the kernels take: K1-K6 are each built once per head dim in
+# HEAD_DIMS (``csrc/*.cu`` compiled with ``-DHEAD_DIM=<Dh>``,
+# ``_build.unit``); HEAD_DIM is the sources' default, the JPDVT flagship's.
 HEAD_DIM = 64
 HEAD_DIMS = (64, 72)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,13 +59,16 @@ HOPPER_MAX_SMEM = 232448
 # whole-row kernels K1/K2, as the JAX name), "flash" (K4-K6), "block" (K3,
 # the whole sublayer; its backward is autograd of the plain version).
 ATTN_IMPLS = (None, "pallas", "flash", "block")
-# With grad, the default route takes the whole-row kernels (K1 + K2) in a
-# 2-byte type up to this N and the flash kernels beyond: the route the
+# With grad, the default route takes the whole-row kernels (K1 + K2) up to
+# this N, by head dim, and the flash kernels beyond. Dh 64: the route the
 # train step ran while K2 kept fp32 dK and dV accumulators in shared
-# memory, which fit a Hopper block only up to N = 205. K2's bf16 kernels
-# now fit at every N; ROADMAP §2 re-decides the route from measurements
-# (tools/bench_attention_routes.py).
-WHOLE_ROW_GRAD_MAX_N = 205
+# memory, which fit a Hopper block only up to N = 205; K2's bf16 kernels
+# now fit at every N, and ROADMAP §2 re-decides the route from
+# measurements (tools/bench_attention_routes.py). Dh 72: 0, flash at every
+# N: on an H100, K4 + K5 + K6 was faster than K1 + K2 at batch 32 and 96
+# for every N measured (144, 196, 256, 324, 576), or within 1% (N = 144,
+# batch 32); K1 + K2 was faster only at batch 8 and N <= 196 (PERF.md §6).
+WHOLE_ROW_GRAD_MAX_N = {64: 205, 72: 0}
 
 
 def smem_row(head_dim: int) -> int:
@@ -86,34 +89,36 @@ def k1_smem_bytes(n: int, elem: int, head_dim: int = HEAD_DIM) -> int:
     return 2 * n * (head_dim + 2) * elem + 32 * (head_dim + 2) * 4 + 32 * (n + 1) * 4
 
 
-def k2_smem_bytes(n: int, elem: int) -> int:
+def k2_smem_bytes(n: int, elem: int, head_dim: int = HEAD_DIM) -> int:
     """K2's shared memory per block (``csrc/attention_bwd.cu``
     ``k2_attention_bwd_smem_bytes``). bf16: the larger of its two kernels',
     the same at every N: the row kernel's two stages of 64-key K and V
-    chunks with rows of Dh + 8 (36,864 B), the column kernel's two stages of
-    64-row q and dO chunks with each row's three fp32 statistics (38,400 B).
-    fp32: the scalar kernel's K, V, fp32 dK/dV accumulators, the q and dO
-    tiles, fp32 P and dP rows."""
+    chunks with rows of :func:`smem_row` (36,864 B at Dh 64, 45,056 B at
+    72), the column kernel's two stages of 64-row q and dO chunks with each
+    row's three fp32 statistics (38,400 B, 46,592 B). fp32: the scalar
+    kernel's K, V, fp32 dK/dV accumulators, the q and dO tiles, fp32 P and
+    dP rows, all rows of Dh + 2 (N <= 164 at Dh 64, 148 at 72)."""
     if elem == 2:
-        stage = 64 * (HEAD_DIM + 8) * elem
+        stage = 64 * smem_row(head_dim) * elem
         return max(2 * 2 * stage, 2 * (2 * stage + 3 * 64 * 4))
-    row = HEAD_DIM + 2
+    row = head_dim + 2
     return 2 * n * row * elem + 2 * n * row * 4 + 2 * 32 * row * 4 + 2 * 32 * (n + 1) * 4
 
 
-def k3_smem_bytes(n: int, elem: int) -> int:
+def k3_smem_bytes(n: int, elem: int, head_dim: int = HEAD_DIM) -> int:
     """K3's shared memory per block of its first launch
     (``csrc/attention_block.cu`` ``smem_bytes``). bf16: q, k, v of one
-    (item, head), N padded to 16, with rows of Dh + 8, then the staged
-    chunks of x (144 rows) and of the head's q|k|v weights (192 rows), 64
-    wide in rows of 72. fp32: q, k, v with rows of Dh + 2, rounded up to
-    16 B, then the larger of the projection's staged chunks (48 x 33 and
-    32 x 192 fp32) and a 32-row query tile's fp32 score rows."""
+    (item, head), N padded to 16, with rows of :func:`smem_row`, then the
+    staged chunks of x (144 rows) and of the head's q|k|v weights (3 Dh
+    rows), 64 wide in rows of 72 (N <= 416 at Dh 64, 336 at 72). fp32: q,
+    k, v with rows of Dh + 2, rounded up to 16 B, then the larger of the
+    projection's staged chunks (48 x 33 and 32 x 3 Dh fp32) and a 32-row
+    query tile's fp32 score rows (N <= 252 at Dh 64, 223 at 72)."""
     if elem == 2:
-        row = (HEAD_DIM + 8) * elem
-        return 3 * -(-n // 16) * 16 * row + (144 + 3 * HEAD_DIM) * row
-    qkv = -(-3 * n * (HEAD_DIM + 2) * elem // 16) * 16
-    return qkv + max((48 * 33 + 32 * 3 * HEAD_DIM) * 4, 32 * (n + 1) * 4)
+        row = smem_row(head_dim) * elem
+        return 3 * -(-n // 16) * 16 * row + (144 + 3 * head_dim) * 72 * elem
+    qkv = -(-3 * n * (head_dim + 2) * elem // 16) * 16
+    return qkv + max((48 * 33 + 32 * 3 * head_dim) * 4, 32 * (n + 1) * 4)
 
 
 @functools.cache
@@ -122,57 +127,47 @@ def attention_route(n: int, dtype: torch.dtype, grad: bool, attn_impl=None, *,
     """The DiT attention's route for N tokens: ``"whole_row"`` (K1, and K2
     as its backward when ``grad``), ``"flash"`` (K4, and K5 + K6) or
     ``"block"`` (K3, the whole sublayer, only when ``attn_impl`` is
-    ``"block"``; bf16 N <= 416, fp32 N <= 252 on the card).
+    ``"block"``; on the card bf16 N <= 416 at Dh 64 and 336 at 72, fp32
+    N <= 252 and 223, where K3's shared memory ends: so at Dh 72
+    DiT-XL/8 takes it at 96 px, N = 144, and not at 192 px, N = 576).
 
     ``attn_impl`` None takes the whole-row kernels where their shared
     memory fits a Hopper block (bf16: every N; fp32 at Dh 64: 341 without
-    grad and 164 with it, at Dh 72: 309 without grad), with grad in bf16 up
-    to ``WHOLE_ROW_GRAD_MAX_N`` (205), and flash beyond; ``"pallas"``
-    insists on the whole-row kernels (bf16: every N, with grad too) and
-    ``"flash"`` on the flash ones. K2 and K3 take Dh 64 alone: at Dh 72 the
-    route with grad is flash at every N (a rule of the route, until K2
-    takes 72), and ``"pallas"`` with grad and ``"block"`` are refused on
-    the card. The CPU takes the same route through the plain versions,
-    which hold no limit of Dh or dtype (a Dh outside ``HEAD_DIMS`` routes
-    by the Dh-64 table); ``on_card`` adds the kernels' limits (Dh 64 or 72,
-    fp32 or bf16). Raises ``ValueError`` naming the reason where no kernel
-    takes the geometry."""
+    grad and 164 with it, at Dh 72: 309 and 148), with grad up to
+    ``WHOLE_ROW_GRAD_MAX_N`` of the head dim (205 at Dh 64, past fp32's
+    164; 0 at 72, flash at every N, by measurement), and flash beyond;
+    ``"pallas"`` insists on the whole-row kernels (bf16: every N, with grad
+    too) and ``"flash"`` on the flash ones. The CPU takes the same route
+    through the plain versions, which hold no limit of Dh or dtype (a Dh
+    outside ``HEAD_DIMS`` routes by the Dh-64 table); ``on_card`` adds the
+    kernels' limits (Dh 64 or 72, fp32 or bf16). Raises ``ValueError``
+    naming the reason where no kernel takes the geometry."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl={attn_impl!r} is not ported; the port runs "
                          f"{ATTN_IMPLS}")
     if on_card and (head_dim not in HEAD_DIMS or dtype not in _DTYPE_CODES):
         raise ValueError(f"no attention kernel takes head dim {head_dim} in {dtype}; "
                          f"the kernels take Dh 64 or 72, float32 or bfloat16")
-    whole_row_bwd = head_dim == HEAD_DIM or head_dim not in HEAD_DIMS
-    if on_card and not whole_row_bwd and (attn_impl == "block" or
-                                          attn_impl == "pallas" and grad):
-        kernel = "K3 (attn_impl='block')" if attn_impl == "block" else (
-            "K2 (attn_impl='pallas' with grad)")
-        raise ValueError(f"{kernel} takes Dh {HEAD_DIM} alone, not {head_dim}; at Dh "
-                         f"{head_dim} the kernels are K1 and the flash K4-K6 "
-                         f"(attn_impl None or 'flash')")
     if attn_impl == "flash":
         return "flash"
+    d = head_dim if head_dim in HEAD_DIMS else HEAD_DIM
     elem = torch.empty((), dtype=dtype).element_size()
     if attn_impl == "block":
-        if on_card and k3_smem_bytes(n, elem) > HOPPER_MAX_SMEM:
-            raise ValueError(f"attn_impl='block' at N={n} in {dtype}: K3 keeps one "
-                             f"(item, head)'s q, k, v in {k3_smem_bytes(n, elem)} B of "
-                             f"shared memory per block, more than the "
+        if on_card and k3_smem_bytes(n, elem, d) > HOPPER_MAX_SMEM:
+            raise ValueError(f"attn_impl='block' at N={n}, Dh {d} in {dtype}: K3 keeps "
+                             f"one (item, head)'s q, k, v in {k3_smem_bytes(n, elem, d)} B "
+                             f"of shared memory per block, more than the "
                              f"{HOPPER_MAX_SMEM} B a Hopper block has")
         return "block"
-    if grad and attn_impl is None and not whole_row_bwd:
-        return "flash"
-    d = head_dim if head_dim in HEAD_DIMS else HEAD_DIM
-    need = max(k1_smem_bytes(n, elem, d), k2_smem_bytes(n, elem) if grad else 0)
+    need = max(k1_smem_bytes(n, elem, d), k2_smem_bytes(n, elem, d) if grad else 0)
     if need > HOPPER_MAX_SMEM:
         if attn_impl == "pallas":
-            raise ValueError(f"attn_impl='pallas' at N={n} in {dtype}"
+            raise ValueError(f"attn_impl='pallas' at N={n}, Dh {d} in {dtype}"
                              f"{' with grad' if grad else ''}: the whole-row kernels "
                              f"need {need} B of shared memory per block, more than "
                              f"the {HOPPER_MAX_SMEM} B a Hopper block has")
         return "flash"
-    if attn_impl is None and grad and elem == 2 and n > WHOLE_ROW_GRAD_MAX_N:
+    if attn_impl is None and grad and n > WHOLE_ROW_GRAD_MAX_N[d]:
         return "flash"
     return "whole_row"
 
@@ -249,12 +244,15 @@ def _kernel(head_dim: int = HEAD_DIM):
 
 
 @functools.cache
-def _bwd_kernel():
-    lib = _build.load("attention_bwd")
+def _bwd_kernel(head_dim: int = HEAD_DIM):
+    lib = _build.load(_build.unit("attention_bwd", head_dim))
+    if lib.k2_attention_bwd_head_dim() != head_dim:
+        raise RuntimeError(f"the K2 library for Dh {head_dim} was built for Dh "
+                           f"{lib.k2_attention_bwd_head_dim()}")
     fn = lib.k2_attention_bwd
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                    + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.k2_attention_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.k2_attention_bwd_smem_bytes.restype = ctypes.c_size_t
@@ -266,11 +264,10 @@ def _max_smem(device_index: int, head_dim: int) -> int:
     return _kernel(head_dim).k1_attention_max_smem(device_index)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           smem_bytes=None, head_dims: tuple = HEAD_DIMS) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, smem_bytes=None) -> None:
     """Raise on q, k, v that the kernels cannot take. ``smem_bytes(n,
-    elem)`` is the kernel's shared memory per block (default: K1's at q's
-    head dim); ``head_dims`` the head dims the kernel is built for."""
+    elem)`` is the kernel's shared memory per block at q's head dim
+    (default: K1's), called once the head dim is known to be built."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"attention kernel needs q, k, v on one CUDA device; "
                          f"got {q.device}, {k.device}, {v.device}")
@@ -280,8 +277,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (B, H, N, Dh) shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if q.shape[-1] not in head_dims or q.shape[2] < 1:
-        raise ValueError(f"attention kernel needs Dh in {head_dims} and N >= 1; "
+    if q.shape[-1] not in HEAD_DIMS or q.shape[2] < 1:
+        raise ValueError(f"attention kernel needs Dh in {HEAD_DIMS} and N >= 1; "
                          f"got shape {tuple(q.shape)}")
     if k.stride() != q.stride() or v.stride() != q.stride():
         raise ValueError("q, k and v must share strides")
@@ -343,10 +340,11 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K2: writes (dq, dk, dv) of :func:`attention` for the output gradient
     ``do`` into ``out`` and returns it.
 
-    q, k, v share (B, H, N, 64) strides; ``do`` has its own; ``out`` is
-    three (B, H, N, 64) views sharing one set of strides (in the train step,
-    slots of the fused-qkv gradient buffer). In bf16 the call is two
-    kernels joined by a float32 (3, B, H, N) workspace of the rows'
+    q, k, v share (B, H, N, Dh) strides, Dh 64 or 72; ``do`` has its own;
+    ``out`` is three (B, H, N, Dh) views sharing one set of strides (in the
+    train step, slots of the fused-qkv gradient buffer). The kernels scale
+    q by :func:`q_scale` and dQ by the fp32 Dh^-1/2. In bf16 the call is
+    two kernels joined by a float32 (3, B, H, N) workspace of the rows'
     softmax statistics, allocated here on q's device. Each call adds one to
     ``attention_bwd.launches``."""
     if all(t.device.type == "cpu" for t in (q, k, v, do)):
@@ -354,7 +352,8 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dst.copy_(src)
         return out
     dq, dk, dv = out
-    _check(q, k, v, _bwd_kernel().k2_attention_bwd_smem_bytes, (HEAD_DIM,))
+    _check(q, k, v, lambda n, elem: _bwd_kernel(q.shape[-1]).k2_attention_bwd_smem_bytes(
+        n, elem))
     _check_like(q, do, dq, dk, dv)
     if dk.stride() != dq.stride() or dv.stride() != dq.stride():
         raise ValueError("dq, dk and dv must share strides")
@@ -363,11 +362,11 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # the fp32 kernel takes none.
     ws = (torch.empty((3, b, h, n), dtype=torch.float32, device=q.device)
           if q.dtype == torch.bfloat16 else None)
-    err = _bwd_kernel().k2_attention_bwd(
+    err = _bwd_kernel(d).k2_attention_bwd(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         ws if ws is None else ws.data_ptr(), *q.stride()[:3], *do.stride()[:3],
-        *dq.stride()[:3], b, h, n, d ** -0.5,
+        *dq.stride()[:3], b, h, n, q_scale(d, q.dtype), d ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"attention backward kernel launch failed: cudaError {err}")
@@ -475,8 +474,11 @@ def fused_attention_block_plain(x: torch.Tensor, w_qkv: torch.Tensor,
 
 
 @functools.cache
-def _block_kernel():
-    lib = _build.load("attention_block")
+def _block_kernel(head_dim: int = HEAD_DIM):
+    lib = _build.load(_build.unit("attention_block", head_dim))
+    if lib.k3_attention_block_head_dim() != head_dim:
+        raise RuntimeError(f"the K3 library for Dh {head_dim} was built for Dh "
+                           f"{lib.k3_attention_block_head_dim()}")
     fn = lib.k3_attention_block
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                    + [ctypes.c_float, ctypes.c_void_p])
@@ -499,15 +501,19 @@ def _check_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int) -> None:
                          f"{x.dtype}, {w_qkv.dtype}, {w_proj.dtype}")
     if b_qkv.dtype != torch.float32 or b_proj.dtype != torch.float32:
         raise ValueError(f"K3 takes float32 biases; got {b_qkv.dtype}, {b_proj.dtype}")
-    if x.dim() != 3 or x.shape[1] < 1:
-        raise ValueError(f"K3 takes x of shape (B, N, D), N >= 1; got {tuple(x.shape)}")
+    if x.dim() != 3 or x.shape[1] < 1 or w_qkv.dim() != 3:
+        raise ValueError(f"K3 takes x of shape (B, N, D), N >= 1, and w_qkv of shape "
+                         f"(3H, D, Dh); got {tuple(x.shape)}, {tuple(w_qkv.shape)}")
     b, n, hidden = x.shape
-    h, d = num_heads, HEAD_DIM
+    h, d = num_heads, w_qkv.shape[-1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"K3 needs Dh in {HEAD_DIMS}; got w_qkv of shape "
+                         f"{tuple(w_qkv.shape)}")
     want = {"w_qkv": (3 * h, hidden, d), "b_qkv": (3 * h, 1, d),
             "w_proj": (h, d, hidden), "b_proj": (1, hidden)}
     for name, t in zip(want, tensors[1:]):
         if tuple(t.shape) != want[name]:
-            raise ValueError(f"K3 needs Dh == {HEAD_DIM}: {name} of shape "
+            raise ValueError(f"K3 at Dh {d}, {h} heads: {name} of shape "
                              f"{tuple(t.shape)}, expected {want[name]}")
     if hidden % 64:
         raise ValueError(f"K3 needs a hidden size that is a multiple of 64; got {hidden}")
@@ -515,9 +521,9 @@ def _check_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int) -> None:
         raise ValueError("K3 takes contiguous x and biases")
     if x.data_ptr() % 16:
         raise ValueError("K3 takes x at a 16-byte aligned address")
-    need = _block_kernel().k3_attention_block_smem_bytes(n, x.element_size())
+    need = _block_kernel(d).k3_attention_block_smem_bytes(n, x.element_size())
     dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    have = _block_kernel().k3_attention_block_max_smem(dev)
+    have = _block_kernel(d).k3_attention_block_max_smem(dev)
     if need > have:
         raise ValueError(f"K3 at N={n} needs {need} B of shared memory per block; "
                          f"this device allows {have} B")
@@ -545,12 +551,13 @@ def _launch_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int) -> torch.Tens
     qkv_strides, proj_strides = _weight_strides(w_qkv, w_proj)
     w_qkv, w_proj = _as_laid_out(w_qkv, qkv_strides), _as_laid_out(w_proj, proj_strides)
     b, n, hidden = x.shape
-    o = torch.empty((b, n, num_heads * HEAD_DIM), dtype=x.dtype, device=x.device)
+    d = w_qkv.shape[-1]
+    o = torch.empty((b, n, num_heads * d), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    err = _block_kernel().k3_attention_block(
+    err = _block_kernel(d).k3_attention_block(
         _DTYPE_CODES[x.dtype], x.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(),
         w_proj.data_ptr(), b_proj.data_ptr(), o.data_ptr(), out.data_ptr(), b, n,
-        num_heads, hidden, HEAD_DIM ** -0.5,
+        num_heads, hidden, q_scale(d, x.dtype),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"attention block kernel launch failed: cudaError {err}")
@@ -583,9 +590,10 @@ def fused_attention_block(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Ten
                           w_proj: torch.Tensor, b_proj: torch.Tensor,
                           num_heads: int) -> torch.Tensor:
     """K3: the whole attention sublayer. x (B, N, D) -> (B, N, D); weights of
-    :func:`dense_to_block_weights`' shapes, in x's type, any strides (the
-    kernel reads its own layout, :func:`_weight_strides`; others are
-    copied into it first), biases float32.
+    :func:`dense_to_block_weights`' shapes (Dh 64 or 72, from ``w_qkv``), in
+    x's type, any strides (the kernel reads its own layout,
+    :func:`_weight_strides`; others are copied into it first), biases
+    float32. The kernel scales q by :func:`q_scale`.
 
     On the card each call launches the pair of kernels once and adds one to
     ``fused_attention_block.launches``; with grad on, the result's backward

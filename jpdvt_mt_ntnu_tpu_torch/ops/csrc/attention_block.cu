@@ -4,7 +4,10 @@
 // Replaces jpdvt_mt_ntnu_tpu/ops/attention.py:_attn_block_kernel, the Pallas
 // kernel behind fused_attention_block (model.attn_impl="block"). Same
 // arithmetic and rounding points, per (item, head h):
-//   q = T(x Wq_h + bq_h) * Dh^-1/2 (the scale applied in T; exact for Dh = 64),
+//   q = T(T(x Wq_h + bq_h) * s_q), s_q being Dh^-1/2 rounded to T first, as
+//     JAX rounds its weakly typed Python float (the wrapper passes s_q as
+//     `scale`; a bf16 q times a bf16 s_q is exact in fp32, so the one
+//     rounding is JAX's; at Dh 64 s_q is 2^-3 and nothing rounds),
 //   k = T(x Wk_h + bk_h), v = T(x Wv_h + bv_h), products in fp32, fp32 biases;
 //   S = q k^T in fp32, P = exp(S - rowmax) / rowsum in fp32, o_h = T(T(P) v);
 //   out = T(sum_h o_h Wp_h + bp), the sum over heads in fp32, in head order.
@@ -71,6 +74,26 @@
 // 989 TFLOP/s; x and out once plus the weights once are 18.9 MB, 5.6 us at
 // 3.35 TB/s. So the bound is the operations. The fast solve launches this
 // pair once per DiT block (12 per microbatch), faithful-250 3,000 times.
+// At DiT-XL/8's 96 px solve (B = 32, N = 144, D = 1152, H = 16, Dh = 72):
+// 52.0 GFLOP, 52.6 us, against 31.9 MB, 9.5 us: the operations again; 28
+// launches a fast microbatch, 7,000 a faithful-250 one.
+//
+// The head dim is a compile-time constant, HEAD_DIM (64 by default; the build
+// compiles this file again with -DHEAD_DIM=72 for DiT-XL, a library of its
+// own). At Dh 72, bf16: q|k|v is 216 columns, 27 n8 tiles, which 4 warp
+// columns cannot split evenly, so the warp columns take 7, 7, 7 and 6 tiles
+// (56 columns; three pairs by ldmatrix.x4 and a seventh by ldmatrix.x2, which
+// the last column skips); the weight chunks staged are 144 + 216 rows; q, k, v
+// take rows of 88 elements (176 B, an odd count of 16-byte units); S = q k^T
+// takes five k16 steps, the fifth over dims 64-79 with dims 72-79 of q and k
+// zero in shared memory (written once, before the projection), and P v nine n8
+// tiles, in pairs over a loop of constant trip count and the ninth by
+// ldmatrix.x2.trans. A.2's K-chunks stay one head wide, in head order: a
+// head's 72 dims are five k16 steps, dims 72-79 of the staged rows zero.
+// Shared memory caps bf16 N at 336 (416 at Dh 64). fp32: 32 column groups x 7
+// cover the 216 projection columns (the seventh only for groups below 24),
+// lanes 0-3 own a second column pair of o, and A.2's K-chunks are 36 wide (a
+// head is two); fp32 N <= 223 (252 at Dh 64).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,27 +101,44 @@
 #include <math.h>
 #include <stddef.h>
 
+#ifndef HEAD_DIM
+#define HEAD_DIM 64
+#endif
+
 namespace {
 
-constexpr int kD = 64;          // head dim; the Python wrapper checks it
+constexpr int kD = HEAD_DIM;    // head dim (64 or 72); the Python wrapper checks it
+static_assert(kD % 8 == 0, "rows are staged in 16-byte pieces");
 constexpr int kThreads = 256;
 constexpr int kS = kD + 2;      // smem row stride of q, k, v (elements)
-// A.1, the projections: 48 rows of x (8 row groups x 6) by q|k|v (192
-// columns, 32 column groups x 6), over K-chunks of 32.
+// A.1, the projections: 48 rows of x (8 row groups x 6) by q|k|v (3 Dh
+// columns, 32 column groups x kPJ: 6 at Dh 64, 7 at 72), over K-chunks of
+// 32.
 constexpr int kPR = 48;
 constexpr int kKC = 32;
 constexpr int kXS = kKC + 1;    // smem row stride of the x chunk (floats)
 constexpr int kPC = 3 * kD;
+constexpr int kPJ = (kPC + 31) / 32;
+// Whether column group cg owns its j-th projection column (cg + 32 j).
+__device__ __forceinline__ bool owns_col(int cg, int j) {
+  return kPC % 32 == 0 || cg + 32 * j < kPC;
+}
 // A.1, attention: 32 query rows (8 row groups x 4), key columns in chunks of
 // 64 (32 column groups x 2).
 constexpr int kTQ = 32;
 constexpr int kCT = 2;
 constexpr int kChunk = 32 * kCT;
+constexpr int kOP = (kD / 2 + 31) / 32;  // column pairs of o a lane owns
+// Whether lane cg owns its p-th column pair of o (dims 2 (cg + 32 p)).
+__device__ __forceinline__ bool owns_o_pair(int cg, int p) {
+  return kD / 2 % 32 == 0 || cg + 32 * p < kD / 2;
+}
 // A.2, the output projection: 64 x 64 output tiles (16 row groups x 4 rows,
-// 16 column groups x 4 columns), K-chunks of 32.
+// 16 column groups x 4 columns), K-chunks of half a head (32 at Dh 64, 36
+// at 72), so that H Dh is a multiple of them.
 constexpr int kOM = 64;
 constexpr int kON = 64;
-constexpr int kOK = 32;
+constexpr int kOK = kD / 2;
 
 // The scalar kernels below are templates of the element type T as they
 // were written; since the bf16 design moved to the tensor cores (namespace
@@ -136,13 +176,22 @@ namespace tc {
 using bf16 = __nv_bfloat16;
 constexpr int kA1Threads = 384;  // A.1: 12 warps
 constexpr int kA1Warps = kA1Threads / 32;
-constexpr int kRow = kD + 8;   // row stride (elements) of q, k, v and A.2's chunks: 144 B
-// A.1, the projection: 144 rows of x by q|k|v (192 columns) over K-chunks
-// of 64; warp tiles of 48 rows x 48 columns (3 x 4 warps).
+// Row stride (elements) of q, k, v and A.2's chunks, an odd count of
+// 16-byte units: 144 B at Dh 64, 176 B at 72.
+constexpr int kRow = kD / 8 % 2 == 0 ? kD + 8 : kD + 16;
+// k16 steps over Dh (S = q k^T, A.2's head chunk); the last one's dims
+// past kD are zero.
+constexpr int kK16 = (kD + 15) / 16;
+static_assert(kK16 * 16 - kD <= 8 && kK16 * 16 <= kRow, "one zero piece a row pads Dh");
+// A.1, the projection: 144 rows of x by q|k|v (3 Dh columns, kNT n8 tiles)
+// over K-chunks of 64; warp tiles of 48 rows x kWT n8 tiles (3 x 4 warps;
+// Dh 64: 48 x 48; Dh 72: 48 x 56, the last warp column 48 x 48).
 constexpr int kPR = 144;
 constexpr int kKC = 64;
 constexpr int kCRow = kKC + 8; // row stride of the staged chunks: 144 B
 constexpr int kPC = 3 * kD;
+constexpr int kNT = kPC / 8;
+constexpr int kWT = (kNT + 3) / 4;
 // A.1, attention: keys 32 at a time; a warp takes up to kQT (a template
 // parameter: 1 where the query tiles are no more than the warps, else 2)
 // 16-row query tiles at once.
@@ -166,6 +215,18 @@ __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
 __device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+// Two 8 x 8 b16 matrices (.trans: transposed); lanes 8i..8i+7 (i < 2)
+// give matrix i's row addresses.
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p)));
 }
 
@@ -201,12 +262,23 @@ __device__ __forceinline__ void load_b(unsigned (&r)[4], const bf16* base, int n
                                        int lane) {
   ldsm_x4(r, base + (n0 + lane % 8 + (lane / 16) * 8) * kStride + k0 + ((lane / 8) % 2) * 8);
 }
+// The B operand of one n-tile (n0..) x k16 alone, from B^T as [n][kStride].
+template <int kStride>
+__device__ __forceinline__ void load_b1(unsigned (&r)[2], const bf16* base, int n0, int k0,
+                                        int lane) {
+  ldsm_x2(r, base + (n0 + lane % 8) * kStride + k0 + ((lane / 8) % 2) * 8);
+}
 
-// 16-byte pieces of a chunk, kC8 to a row, spread over kBlock threads.
+// Rounds of 16-byte pieces of a chunk, kC8 to a row, spread over kBlock
+// threads; where they do not split evenly (Dh 72) the last round takes
+// some of the threads (has_piece).
 template <int kRows, int kC8, int kBlock>
 __host__ __device__ constexpr int per_thread() {
-  static_assert(kRows * kC8 % kBlock == 0, "the chunk must split evenly");
-  return kRows * kC8 / kBlock;
+  return (kRows * kC8 + kBlock - 1) / kBlock;
+}
+template <int kRows, int kC8, int kBlock>
+__device__ __forceinline__ bool has_piece(int i) {
+  return kRows * kC8 % kBlock == 0 || i < kRows * kC8;
 }
 
 // q, k, v (rows padded to 16), then the projection's staged chunks.
@@ -235,13 +307,20 @@ block_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ 
   const int h = blockIdx.x;
   const long long b = blockIdx.y;
   const bf16* xg = x + b * n * hidden;
-  const int wr = warp / 4, wc = warp % 4;       // projection tile: 48 rows x 48 columns
+  const int wr = warp / 4, wc = warp % 4;       // projection tile: 48 rows x kWT n8 tiles
+  if (kK16 * 16 > kD) {
+    // Dims kD.. of q's and k's rows, read by the last k16 step of S: zero
+    // (the projection never writes them; its first barrier orders these).
+    for (int i = tid; i < 2 * np; i += kA1Threads)
+      *reinterpret_cast<uint4*>(qs + i * kRow + kD) = make_uint4(0u, 0u, 0u, 0u);
+  }
 
-  // q|k|v (np x 192) = x W_h^T, kPR rows at a time, over K-chunks; step s
+  // q|k|v (np x 3 Dh) = x W_h^T, kPR rows at a time, over K-chunks; step s
   // is (row chunk s / nk, K-chunk s % nk). Each thread holds its share of
   // the next step's chunks in registers while the warps multiply this one.
   constexpr int kC8 = kKC / 8;
   constexpr int kXU = per_thread<kPR, kC8, kA1Threads>();
+  static_assert(kPR * kC8 % kA1Threads == 0, "x's chunk splits evenly");
   constexpr int kWU = per_thread<kPC, kC8, kA1Threads>();
   const int nk = hidden / kKC, steps = (np + kPR - 1) / kPR * nk;
   uint4 xr[kXU], wreg[kWU];
@@ -258,19 +337,20 @@ block_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ 
     for (int u = 0; u < kWU; ++u) {
       const int i = tid + u * kA1Threads, r = i / kC8, c = i % kC8 * 8;
       const int which = r / kD, d = r % kD;  // 0 q, 1 k, 2 v
-      wreg[u] = *reinterpret_cast<const uint4*>(
-          wqkv + ((long long)(which * heads + h) * kD + d) * hidden + k0 + c);
+      if (has_piece<kPC, kC8, kA1Threads>(i))
+        wreg[u] = *reinterpret_cast<const uint4*>(
+            wqkv + ((long long)(which * heads + h) * kD + d) * hidden + k0 + c);
     }
   };
   fetch(0);
-  float acc[3][6][4];
+  float acc[3][kWT][4];
   for (int step = 0; step < steps; ++step) {
     const int r0 = step / nk * kPR, k0 = step % nk * kKC;
     if (k0 == 0) {
 #pragma unroll
       for (int i = 0; i < 3; ++i)
 #pragma unroll
-        for (int j = 0; j < 6; ++j)
+        for (int j = 0; j < kWT; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
     }
@@ -283,10 +363,14 @@ block_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ 
 #pragma unroll
     for (int u = 0; u < kWU; ++u) {
       const int i = tid + u * kA1Threads;
-      *reinterpret_cast<uint4*>(ws + i / kC8 * kCRow + i % kC8 * 8) = wreg[u];
+      if (has_piece<kPC, kC8, kA1Threads>(i))
+        *reinterpret_cast<uint4*>(ws + i / kC8 * kCRow + i % kC8 * 8) = wreg[u];
     }
     __syncthreads();
     if (step + 1 < steps) fetch(step + 1);
+    // Whether this warp's last n8 tile lies inside q|k|v (at Dh 72 the
+    // last warp column has one tile fewer); warp-uniform.
+    const bool last_tile = kNT % 4 == 0 || wc * kWT + kWT - 1 < kNT;
 #pragma unroll
     for (int kk = 0; kk < kKC; kk += 16) {
       unsigned a[3][4];
@@ -294,9 +378,10 @@ block_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ 
       for (int i = 0; i < 3; ++i)  // m-tiles past the padded rows: skipped, warp-uniform
         if (r0 + wr * 48 + i * 16 < np) load_a<kCRow>(a[i], xs, wr * 48 + i * 16, kk, lane);
 #pragma unroll
-      for (int j = 0; j < 6; j += 2) {
+      for (int jp = 0; jp < kWT / 2; ++jp) {
+        const int j = 2 * jp;
         unsigned wb[4];
-        load_b<kCRow>(wb, ws, wc * 48 + j * 8, kk, lane);
+        load_b<kCRow>(wb, ws, wc * (kWT * 8) + j * 8, kk, lane);
 #pragma unroll
         for (int i = 0; i < 3; ++i)
           if (r0 + wr * 48 + i * 16 < np) {
@@ -304,12 +389,20 @@ block_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ 
             mma(acc[i][j + 1], a[i], wb[2], wb[3]);
           }
       }
+      if (kWT % 2 && last_tile) {  // an odd count of n8 tiles a warp (Dh 72): the last alone
+        unsigned wb[2];
+        load_b1<kCRow>(wb, ws, wc * (kWT * 8) + (kWT - 1) * 8, kk, lane);
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          if (r0 + wr * 48 + i * 16 < np) mma(acc[i][kWT - 1], a[i], wb[0], wb[1]);
+      }
     }
     if (k0 + kKC < hidden) continue;
     // The fp32 bias, then bf16; q scaled in bf16; zero rows past n.
 #pragma unroll
-    for (int j = 0; j < 6; ++j) {
-      const int col = wc * 48 + j * 8 + t2;
+    for (int j = 0; j < kWT; ++j) {
+      if (j == kWT - 1 && !last_tile) continue;
+      const int col = wc * (kWT * 8) + j * 8 + t2;
       const int which = col / kD, d = col % kD;
       const float* bias = bqkv + (which * heads + h) * kD + d;
       bf16* dst = (which == 0 ? qs : which == 1 ? ks : vs) + d;
@@ -341,12 +434,13 @@ block_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ 
   const int t_end = min((warp + 1) * per, tiles);
   for (int t0 = warp * per; t0 < t_end; t0 += kQT) {
     const int q0 = 16 * t0, nq = min(kQT, t_end - t0);  // warp-uniform
-    unsigned qa[kQT][4][4];
+    unsigned qa[kQT][kK16][4];
 #pragma unroll
     for (int q = 0; q < kQT; ++q)
       if (q < nq)
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) load_a<kRow>(qa[q][kk], qs, q0 + 16 * q, kk * 16, lane);
+        for (int kk = 0; kk < kK16; ++kk)
+          load_a<kRow>(qa[q][kk], qs, q0 + 16 * q, kk * 16, lane);
 
     // S (tiles x kKB keys from j0) = q k^T, n-tile t holding keys j0 + 8 t..;
     // 16-key groups at or past np are skipped (left at 0, masked below).
@@ -359,7 +453,7 @@ block_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ 
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[q][t][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < kK16; ++kk)
 #pragma unroll
         for (int u = 0; u < kKB / 16; ++u) {
           if (j0 + 16 * u >= np) break;
@@ -425,11 +519,11 @@ block_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ 
       }
 
     // Pass 2: P in fp32, rounded to bf16; o += P v.
-    float oacc[kQT][8][4];
+    float oacc[kQT][kD / 8][4];
 #pragma unroll
     for (int q = 0; q < kQT; ++q)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < kD / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) oacc[q][j][e] = 0.f;
     for (int j0 = 0; j0 < np; j0 += kKB) {
@@ -454,8 +548,10 @@ block_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ 
                            : 0.f;
               pa[q][2 * t + half] = pack(p[0], p[1]);
             }
+        // Pairs of n8 tiles over Dh, a constant trip count: a loop on
+        // j + 1 < kD / 8 put K1's accumulators in local memory at Dh 72.
 #pragma unroll
-        for (int j = 0; j < 8; j += 2) {
+        for (int j = 0; j < kD / 16 * 2; j += 2) {
           unsigned vb[4];  // v as [key][dim]: B (k = key, n = dim) through .trans
           ldsm_x4_trans(vb, vs + (j0 + 16 * u + lane % 8 + ((lane / 8) % 2) * 8) * kRow +
                                 j * 8 + (lane / 16) * 8);
@@ -466,6 +562,13 @@ block_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ 
               mma(oacc[q][j + 1], pa[q], vb[2], vb[3]);
             }
         }
+        if (kD / 8 % 2) {  // an odd count of n8 tiles (Dh 72): the last alone
+          unsigned vb[2];
+          ldsm_x2_trans(vb, vs + (j0 + 16 * u + lane % 8 + ((lane / 8) % 2) * 8) * kRow + kD - 8);
+#pragma unroll
+          for (int q = 0; q < kQT; ++q)
+            if (q < nq) mma(oacc[q][kD / 8 - 1], pa[q], vb[0], vb[1]);
+        }
       }
     }
 #pragma unroll
@@ -475,7 +578,7 @@ block_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ 
         const int r = q0 + 16 * q + g + half * 8;
         if (q >= nq || r >= n) continue;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < kD / 8; ++j)
           *reinterpret_cast<__nv_bfloat162*>(og + (long long)r * heads * kD + j * 8 + t2) =
               __floats2bfloat162_rn(oacc[q][j][2 * half], oacc[q][j][2 * half + 1]);
       }
@@ -494,6 +597,14 @@ out_proj_mma_kernel(const bf16* __restrict__ o, const bf16* __restrict__ wproj,
   const int wr = warp / 2, wc = warp % 2;  // warp tile: 32 rows x kWN columns
   const long long m0 = (long long)blockIdx.x * kOM;
   const int n0 = blockIdx.y * kON;
+  if (kK16 * 16 > kD) {
+    // Dims kD.. of a head's chunk, read by its last k16 step: zero (the
+    // staging never writes them; the loop's first barrier orders these).
+    for (int i = tid; i < kOM; i += kThreads)
+      *reinterpret_cast<uint4*>(os + i * kRow + kOK) = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = tid; i < kON; i += kThreads)
+      *reinterpret_cast<uint4*>(ws + i * kRow + kOK) = make_uint4(0u, 0u, 0u, 0u);
+  }
   float acc[2][kWN / 8][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -510,13 +621,15 @@ out_proj_mma_kernel(const bf16* __restrict__ o, const bf16* __restrict__ wproj,
 #pragma unroll
     for (int u = 0; u < kAU; ++u) {
       const int i = tid + u * kThreads, r = i / kC8, c = i % kC8 * 8;
-      ar[u] = m0 + r < m ? *reinterpret_cast<const uint4*>(o + (m0 + r) * inner + k0 + c)
-                         : make_uint4(0u, 0u, 0u, 0u);
+      if (has_piece<kOM, kC8, kThreads>(i))
+        ar[u] = m0 + r < m ? *reinterpret_cast<const uint4*>(o + (m0 + r) * inner + k0 + c)
+                           : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
     for (int u = 0; u < kBU; ++u) {
       const int i = tid + u * kThreads, r = i / kC8, c = i % kC8 * 8;
-      br[u] = *reinterpret_cast<const uint4*>(wproj + (long long)(n0 + r) * inner + k0 + c);
+      if (has_piece<kON, kC8, kThreads>(i))
+        br[u] = *reinterpret_cast<const uint4*>(wproj + (long long)(n0 + r) * inner + k0 + c);
     }
   };
   fetch(0);
@@ -525,17 +638,19 @@ out_proj_mma_kernel(const bf16* __restrict__ o, const bf16* __restrict__ wproj,
 #pragma unroll
     for (int u = 0; u < kAU; ++u) {
       const int i = tid + u * kThreads;
-      *reinterpret_cast<uint4*>(os + i / kC8 * kRow + i % kC8 * 8) = ar[u];
+      if (has_piece<kOM, kC8, kThreads>(i))
+        *reinterpret_cast<uint4*>(os + i / kC8 * kRow + i % kC8 * 8) = ar[u];
     }
 #pragma unroll
     for (int u = 0; u < kBU; ++u) {
       const int i = tid + u * kThreads;
-      *reinterpret_cast<uint4*>(ws + i / kC8 * kRow + i % kC8 * 8) = br[u];
+      if (has_piece<kON, kC8, kThreads>(i))
+        *reinterpret_cast<uint4*>(ws + i / kC8 * kRow + i % kC8 * 8) = br[u];
     }
     __syncthreads();
     if (k0 + kOK < inner) fetch(k0 + kOK);
 #pragma unroll
-    for (int kk = 0; kk < kOK; kk += 16) {
+    for (int kk = 0; kk < kK16 * 16; kk += 16) {
       unsigned a[2][4];
       load_a<kRow>(a[0], os, wr * 32, kk, lane);
       load_a<kRow>(a[1], os, wr * 32 + 16, kk, lane);
@@ -632,13 +747,14 @@ block_attention_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
   const int rg = tid / 32;  // the warp: its rows
   const int cg = tid % 32;  // the lane: its columns
 
-  // q|k|v (n x 192) = x (n x hidden) [Wq_h | Wk_h | Wv_h], 48 rows at a time.
+  // q|k|v (n x 3 Dh) = x (n x hidden) [Wq_h | Wk_h | Wv_h], 48 rows at a
+  // time; this thread's columns cg + 32 j, j < kPJ, inside 3 Dh.
   for (int r0 = 0; r0 < n; r0 += kPR) {
-    float acc[6][6];
+    float acc[6][kPJ];
 #pragma unroll
     for (int i = 0; i < 6; ++i)
 #pragma unroll
-      for (int j = 0; j < 6; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < kPJ; ++j) acc[i][j] = 0.f;
     for (int k0 = 0; k0 < hidden; k0 += kKC) {
       __syncthreads();  // the previous chunk is consumed
       for (int i = tid; i < kPR * (kKC / 2); i += kThreads) {
@@ -660,15 +776,16 @@ block_attention_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
       __syncthreads();
 #pragma unroll 4
       for (int kk = 0; kk < kKC; ++kk) {
-        float xv[6], wv[6];
+        float xv[6], wv[kPJ];
 #pragma unroll
         for (int i = 0; i < 6; ++i) xv[i] = xs[(rg * 6 + i) * kXS + kk];
 #pragma unroll
-        for (int j = 0; j < 6; ++j) wv[j] = ws[kk * kPC + cg + 32 * j];
+        for (int j = 0; j < kPJ; ++j)
+          wv[j] = owns_col(cg, j) ? ws[kk * kPC + cg + 32 * j] : 0.f;
 #pragma unroll
         for (int i = 0; i < 6; ++i)
 #pragma unroll
-          for (int j = 0; j < 6; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
+          for (int j = 0; j < kPJ; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
       }
     }
     // The fp32 bias, then T; q scaled in T.
@@ -677,8 +794,9 @@ block_attention_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
       const int r = r0 + rg * 6 + i;
       if (r < n) {
 #pragma unroll
-        for (int j = 0; j < 6; ++j) {
-          const int which = j / 2, cc = cg + 32 * (j % 2);
+        for (int j = 0; j < kPJ; ++j) {
+          if (!owns_col(cg, j)) continue;
+          const int which = (cg + 32 * j) / kD, cc = (cg + 32 * j) % kD;
           float y = round_as(acc[i][j] + bqkv[(which * heads + h) * kD + cc], x);
           if (which == 0) y = round_as(y * scale, x);
           store_one((which == 0 ? qs : which == 1 ? ks : vs) + r * kS + cc, y);
@@ -748,24 +866,41 @@ block_attention_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
     }
     __syncwarp();
 
-    // o = P v in fp32: this thread's four rows, columns 2 cg and 2 cg + 1.
+    // o = P v in fp32: this thread's four rows, the column pairs
+    // 2 (cg + 32 p), p < kOP, inside Dh (Dh 64: columns 2 cg, 2 cg + 1).
     // A warp reads only the score rows it normalised.
-    float oacc[4][2];
+    float oacc[4][2 * kOP];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) oacc[i][0] = oacc[i][1] = 0.f;
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 2 * kOP; ++c) oacc[i][c] = 0.f;
     for (int j = 0; j < n; ++j) {
-      const float2 vv = to_float2(*reinterpret_cast<const T2*>(vs + j * kS + 2 * cg));
+      float2 vv[kOP];
+#pragma unroll
+      for (int p = 0; p < kOP; ++p)
+        vv[p] = owns_o_pair(cg, p)
+                    ? to_float2(*reinterpret_cast<const T2*>(vs + j * kS + 2 * (cg + 32 * p)))
+                    : make_float2(0.f, 0.f);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = ss[(rg * 4 + i) * sst + j];
-        oacc[i][0] = fmaf(p, vv.x, oacc[i][0]);
-        oacc[i][1] = fmaf(p, vv.y, oacc[i][1]);
+#pragma unroll
+        for (int c = 0; c < kOP; ++c) {
+          oacc[i][2 * c] = fmaf(p, vv[c].x, oacc[i][2 * c]);
+          oacc[i][2 * c + 1] = fmaf(p, vv[c].y, oacc[i][2 * c + 1]);
+        }
       }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = q0 + rg * 4 + i;
-      if (r < n) store_pair(og + (long long)r * heads * kD + 2 * cg, oacc[i][0], oacc[i][1]);
+      if (r < n) {
+#pragma unroll
+        for (int p = 0; p < kOP; ++p)
+          if (owns_o_pair(cg, p))
+            store_pair(og + (long long)r * heads * kD + 2 * (cg + 32 * p), oacc[i][2 * p],
+                       oacc[i][2 * p + 1]);
+      }
     }
     __syncthreads();  // the next tile overwrites the score rows
   }
@@ -860,6 +995,9 @@ int launch(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
 
 extern "C" {
 
+// The head dim this library was built for (HEAD_DIM).
+int k3_attention_block_head_dim() { return kD; }
+
 // A.1's shared memory per block for sequence length n and element size.
 size_t k3_attention_block_smem_bytes(int n, int elem_bytes) {
   return smem_bytes(n, (size_t)elem_bytes);
@@ -875,7 +1013,8 @@ int k3_attention_block_max_smem(int device) {
 }
 
 // x (b, n, hidden); bqkv (3 heads, kD) fp32; bproj (hidden) fp32; o (b, n,
-// heads kD) scratch; out (b, n, hidden); all contiguous. The weights: fp32,
+// heads kD) scratch; out (b, n, hidden); all contiguous. scale is q's
+// factor s_q, Dh^-1/2 rounded to the input type. The weights: fp32,
 // wqkv (3 heads, hidden, kD) and wproj (heads kD, hidden), contiguous;
 // bf16, the Linear weights as they lie, wqkv (3 heads kD, hidden) and
 // wproj (hidden, heads kD) rows, with x and both 16-byte aligned. hidden is

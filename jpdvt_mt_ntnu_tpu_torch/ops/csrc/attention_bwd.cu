@@ -2,10 +2,13 @@
 //
 // Replaces jpdvt_mt_ntnu_tpu/ops/attention.py:_attn_bwd_kernel, the Pallas
 // kernel behind the custom VJP of _attention_pallas. Same arithmetic:
-// q * Dh^-1/2 rounded to the input type; S = Q K^T and the softmax P in
-// fp32 (recomputed, nothing saved from the forward but q, k, v);
+// qs = q * s_q rounded to the input type, s_q being Dh^-1/2 rounded to the
+// input type first, as JAX rounds its weakly typed Python float (the
+// wrapper passes s_q as `scale`); S = qs K^T and the softmax P in fp32
+// (recomputed, nothing saved from the forward but q, k, v);
 // dV = round(P)^T dO; dP = dO V^T; dS = P * (dP - rowsum(dP * P)) with the
-// fp32 P; dS rounded to the q type; dQ = dS K * scale; dK = dS^T (q * scale).
+// fp32 P; dS rounded to the q type; dQ = dS K * dq_scale, the fp32 Dh^-1/2
+// (the JAX kernel multiplies an fp32 product by it); dK = dS^T qs.
 // Every product accumulates in fp32; the outputs are stored in the input
 // type. No masking, no dropout. K2 is given no O, so delta = rowsum(dP * P)
 // (the JAX kernel's rule), not the flash backward's rowsum(dO * O).
@@ -15,7 +18,10 @@
 // is 7 * B * H * N * Dh * 2 B = 148.6 MB, 44.4 us at 3.35 TB/s; the five
 // products are 10 * B * H * N^2 * Dh = 15.3 GFLOP, 15.5 us at 989 TFLOP/s
 // bf16. So the bound is the memory traffic. The train step launches K2
-// once per DiT block: 12 calls per step, each two kernels in bf16.
+// once per DiT block: 12 calls per step, each two kernels in bf16. At
+// DiT-XL/8's step on attn_impl="pallas" (B = 8, H = 16, N = 576, Dh = 72)
+// the bytes are 74.3 MB, 22.2 us, and the products 30.6 GFLOP, 30.9 us:
+// bound by the operations; 28 calls per step.
 //
 // bf16 (the train step's type) runs on the tensor cores (namespace tc), in
 // the flash backward's design (flash_bwd.cu): mma.sync m16n8k16, bf16 in,
@@ -35,17 +41,20 @@
 //   delta = t / l = rowsum(dP * P). Pass B: S and dP again, P = exp(S - m)
 //   (1 / l) exact since m and l are final, dS = P (dP - delta) rounded to
 //   bf16 and repacked as A, dQ += dS K (K by ldmatrix.trans); dQ is
-//   multiplied by scale (2^-3, exact) once, at the store.
+//   multiplied by the fp32 dq_scale once, at the store (at Dh 64, 2^-3, the
+//   JAX kernel's numbers; elsewhere they differ by summation order only).
 // - Column kernel (dK, dV): one block per (batch, head, 64 keys). Each warp
 //   loads its 16 K and V rows once into A fragments. q, dO and each row's
 //   three statistics stream through the ring. It works in the transposed
 //   form, so P and dS never leave registers: S^T = K q^T, P^T = exp(S^T -
 //   m) (1 / l), dP^T = V dO^T, dS^T = P^T (dP^T - delta) rounded to bf16;
 //   dV += round(P^T) dO and dK += dS^T q, B from the ring by
-//   ldmatrix.trans. The ring takes q as it is: scale is 2^-3 for the only
-//   Dh the kernel takes (64), so q * scale is exact in bf16 and S^T =
-//   scale (K q^T), dK = scale (sum dS^T q) are the same fp32 numbers. Both
-//   kernels form P from the same stored m and 1 / l.
+//   ldmatrix.trans. At Dh 64 the ring takes q as it is: s_q is 2^-3, so
+//   q * s_q is exact in bf16 and S^T = s_q (K q^T), dK = s_q (sum dS^T q)
+//   are the same fp32 numbers. At any other Dh (72) q * s_q rounds, so
+//   each q chunk is scaled and rounded in place once it has landed (K6's
+//   rule, flash_bwd.cu), and S^T and dK take qs as they are. Both kernels
+//   form P from the same stored m and 1 / l.
 // exp is exp2 of one FFMA on the special-function unit (2 ulp): P moves by
 // a few fp32 ulp, far below its bf16 rounding. Rows past N are zero in
 // shared memory and in the fragments (0 times a stale NaN would not be 0);
@@ -79,6 +88,21 @@
 // (B, N, 3*H*Dh) projection, dO out of the (B, N, H*Dh) upstream gradient,
 // and dq/dk/dv are written into one (B, N, 3, H, Dh) gradient buffer: no
 // transposes and no concatenation around the call.
+//
+// The head dim is a compile-time constant, HEAD_DIM (64 by default; the build
+// compiles this file again with -DHEAD_DIM=72 for DiT-XL, a library of its
+// own), laid out as in attention.cu (K1) and flash_bwd.cu (K5, K6): at Dh 72
+// the products over Dh (S = q K^T and dP = dO V^T in the row kernel, S^T = K
+// q^T and dP^T = V dO^T in the column kernel) take five k16 steps, the fifth
+// over dims 64-79 with dims 72-79 zero in the fragments and in the ring's rows
+// of the operands read over Dh (row kernel: K and V; column kernel: q and dO);
+// the products into Dh (dQ, dK, dV) take nine n8 tiles, in pairs by
+// ldmatrix.x4.trans over a loop of constant trip count and the ninth alone by
+// ldmatrix.x2.trans. Rows of 88 elements (176 B, an odd count of 16-byte
+// units): 45,056 B a row-kernel block, 46,592 B a column-kernel block. The
+// fp32 kernel's threads own three column pairs of dK and dV (two at 64) and
+// lanes 0-3 a second pair of dQ, each only inside Dh; its rows of Dh + 2 cap
+// fp32 N at 148 (164 at Dh 64).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,9 +111,17 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#ifndef HEAD_DIM
+#define HEAD_DIM 64
+#endif
+
 namespace {
 
-constexpr int kD = 64;           // head dim; the Python wrapper checks it
+constexpr int kD = HEAD_DIM;     // head dim (64 or 72); the Python wrapper checks it
+static_assert(kD % 8 == 0, "rows are staged in 16-byte pieces");
+// Dh^-1/2 is 2^-3: q * s_q is exact in bf16, and the column kernel may
+// scale S^T and dK instead of q.
+constexpr bool kPow2Scale = kD == 64;
 // The scalar fp32 kernel.
 constexpr int kTQ = 32;          // query rows per tile
 constexpr int kThreads = 256;
@@ -99,6 +131,18 @@ constexpr int kAS = kD + 2;      // smem row stride of the fp32 rows of
 constexpr int kCT = 3;           // key columns per thread in one chunk
 constexpr int kChunk = 16 * kCT; // key columns per chunk (two chunks at once)
 constexpr int kJR = 4;           // key rows per thread in the dK/dV update
+constexpr int kCP = (kD / 2 + 15) / 16;  // column pairs of dK (dV) a thread owns
+constexpr int kQP = (kD / 2 + 31) / 32;  // column pairs of dQ a lane owns
+
+// Whether column-pair group cg owns its p-th pair of dK and dV (dims
+// 2 (cg + 16 p)).
+__device__ __forceinline__ bool owns_pair(int cg, int p) {
+  return kD / 2 % 16 == 0 || cg + 16 * p < kD / 2;
+}
+// Whether lane l owns its p-th pair of dQ (dims 2 (l + 32 p)).
+__device__ __forceinline__ bool owns_dq_pair(int lane, int p) {
+  return kD / 2 % 32 == 0 || lane + 32 * p < kD / 2;
+}
 
 // The scalar kernel below is a template of the element type T as it was
 // written; since the bf16 design moved to the tensor cores (namespace tc)
@@ -140,7 +184,7 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      long long in_sb, long long in_sh, long long in_sn,
                      long long do_sb, long long do_sh, long long do_sn,
                      long long out_sb, long long out_sh, long long out_sn,
-                     int n, float scale) {
+                     int n, float scale, float dq_scale) {
   using T2 = typename Pair<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);                          // [n][kKS]
@@ -177,7 +221,8 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int half = tid / 128;
   const int rg = (tid % 128) / 16, cg = tid % 16;
   // dK/dV phase: a thread owns key rows jg + 16r (r < kJR) of a 64-row
-  // chunk and head-dim columns 2dg, 2dg+1, 2dg+32, 2dg+33.
+  // chunk and the head-dim column pairs 2 (dg + 16 p), p < kCP, inside Dh
+  // (Dh 64: 2dg, 2dg+1, 2dg+32, 2dg+33).
   const int jg = tid / 16, dg = tid % 16;
 
   for (int q0 = 0; q0 < n; q0 += kTQ) {
@@ -273,75 +318,92 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    // dQ = dS K * scale for the tile's rows; warp w owns rows 4w.. and
-    // lane l columns 2l, 2l+1.
+    // dQ = dS K * dq_scale for the tile's rows; warp w owns rows 4w.. and
+    // lane l the column pairs 2 (l + 32 p), p < kQP, inside Dh (Dh 64:
+    // columns 2l, 2l+1).
     {
-      float acc[4][2];
+      float acc[4][2 * kQP];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = 0.f;
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 2 * kQP; ++c) acc[i][c] = 0.f;
       for (int j = 0; j < n; ++j) {
-        const float2 kv = to_float2(*reinterpret_cast<const T2*>(ks + j * kKS + 2 * lane));
+        float2 kv[kQP];
+#pragma unroll
+        for (int p = 0; p < kQP; ++p)
+          kv[p] = owns_dq_pair(lane, p)
+                      ? to_float2(*reinterpret_cast<const T2*>(ks + j * kKS + 2 * (lane + 32 * p)))
+                      : make_float2(0.f, 0.f);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float s = dss[(warp * 4 + i) * sst + j];
-          acc[i][0] = fmaf(s, kv.x, acc[i][0]);
-          acc[i][1] = fmaf(s, kv.y, acc[i][1]);
+#pragma unroll
+          for (int p = 0; p < kQP; ++p) {
+            acc[i][2 * p] = fmaf(s, kv[p].x, acc[i][2 * p]);
+            acc[i][2 * p + 1] = fmaf(s, kv[p].y, acc[i][2 * p + 1]);
+          }
         }
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = warp * 4 + i;
-        if (r < rows)
-          store_pair(dq + out_base + (q0 + r) * out_sn + 2 * lane,
-                     acc[i][0] * scale, acc[i][1] * scale);
+        if (r < rows) {
+#pragma unroll
+          for (int p = 0; p < kQP; ++p)
+            if (owns_dq_pair(lane, p))
+              store_pair(dq + out_base + (q0 + r) * out_sn + 2 * (lane + 32 * p),
+                         acc[i][2 * p] * dq_scale, acc[i][2 * p + 1] * dq_scale);
+        }
       }
     }
 
     // dV += round(P)^T dO and dK += dS^T (q * scale) over the tile's rows.
     for (int j0 = 0; j0 < n; j0 += 16 * kJR) {
-      float av[kJR][4], ak[kJR][4];
+      float av[kJR][2 * kCP], ak[kJR][2 * kCP];
       int jr[kJR];
 #pragma unroll
       for (int r = 0; r < kJR; ++r) {
         jr[r] = min(j0 + jg + 16 * r, n - 1);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) av[r][c] = ak[r][c] = 0.f;
+        for (int c = 0; c < 2 * kCP; ++c) av[r][c] = ak[r][c] = 0.f;
       }
       for (int i = 0; i < rows; ++i) {
-        const float2 g0 = *reinterpret_cast<const float2*>(dos + i * kAS + 2 * dg);
-        const float2 g1 =
-            *reinterpret_cast<const float2*>(dos + i * kAS + 2 * dg + kD / 2);
-        const float2 x0 = *reinterpret_cast<const float2*>(qs + i * kAS + 2 * dg);
-        const float2 x1 =
-            *reinterpret_cast<const float2*>(qs + i * kAS + 2 * dg + kD / 2);
+        float2 gv[kCP], xv[kCP];
+#pragma unroll
+        for (int p = 0; p < kCP; ++p) {
+          const int c = 2 * (dg + 16 * p);
+          gv[p] = owns_pair(dg, p) ? *reinterpret_cast<const float2*>(dos + i * kAS + c)
+                                   : make_float2(0.f, 0.f);
+          xv[p] = owns_pair(dg, p) ? *reinterpret_cast<const float2*>(qs + i * kAS + c)
+                                   : make_float2(0.f, 0.f);
+        }
 #pragma unroll
         for (int r = 0; r < kJR; ++r) {
           const float p = round_as(ps[i * sst + jr[r]], v);
           const float s = dss[i * sst + jr[r]];
-          av[r][0] = fmaf(p, g0.x, av[r][0]);
-          av[r][1] = fmaf(p, g0.y, av[r][1]);
-          av[r][2] = fmaf(p, g1.x, av[r][2]);
-          av[r][3] = fmaf(p, g1.y, av[r][3]);
-          ak[r][0] = fmaf(s, x0.x, ak[r][0]);
-          ak[r][1] = fmaf(s, x0.y, ak[r][1]);
-          ak[r][2] = fmaf(s, x1.x, ak[r][2]);
-          ak[r][3] = fmaf(s, x1.y, ak[r][3]);
+#pragma unroll
+          for (int c = 0; c < kCP; ++c) {
+            av[r][2 * c] = fmaf(p, gv[c].x, av[r][2 * c]);
+            av[r][2 * c + 1] = fmaf(p, gv[c].y, av[r][2 * c + 1]);
+            ak[r][2 * c] = fmaf(s, xv[c].x, ak[r][2 * c]);
+            ak[r][2 * c + 1] = fmaf(s, xv[c].y, ak[r][2 * c + 1]);
+          }
         }
       }
 #pragma unroll
       for (int r = 0; r < kJR; ++r) {
         const int j = j0 + jg + 16 * r;
         if (j < n) {
-          float* a = dvs + j * kAS + 2 * dg;
-          a[0] += av[r][0];
-          a[1] += av[r][1];
-          a[kD / 2] += av[r][2];
-          a[kD / 2 + 1] += av[r][3];
-          float* b = dks + j * kAS + 2 * dg;
-          b[0] += ak[r][0];
-          b[1] += ak[r][1];
-          b[kD / 2] += ak[r][2];
-          b[kD / 2 + 1] += ak[r][3];
+#pragma unroll
+          for (int p = 0; p < kCP; ++p)
+            if (owns_pair(dg, p)) {
+              float* a = dvs + j * kAS + 2 * (dg + 16 * p);
+              a[0] += av[r][2 * p];
+              a[1] += av[r][2 * p + 1];
+              float* b = dks + j * kAS + 2 * (dg + 16 * p);
+              b[0] += ak[r][2 * p];
+              b[1] += ak[r][2 * p + 1];
+            }
         }
       }
     }
@@ -362,7 +424,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            long long in_sb, long long in_sh, long long in_sn,
            long long do_sb, long long do_sh, long long do_sn,
            long long out_sb, long long out_sh, long long out_sn,
-           int b, int h, int n, float scale, cudaStream_t stream) {
+           int b, int h, int n, float scale, float dq_scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(n, sizeof(T));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -376,7 +438,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
       in_sb, in_sh, in_sn, do_sb, do_sh, do_sn, out_sb, out_sh, out_sn, n,
-      scale);
+      scale, dq_scale);
   return (int)cudaGetLastError();
 }
 
@@ -385,20 +447,29 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 constexpr int kRows = 64;             // rows of a chunk in the ring
-constexpr int kRow = kD + 8;          // smem row stride (elements): 144 B
+// smem row stride (elements), an odd count of 16-byte units: 144 B at Dh
+// 64, 176 B at 72.
+constexpr int kRow = kD / 8 % 2 == 0 ? kD + 8 : kD + 16;
 constexpr int kStage = kRows * kRow;  // elements of one chunk of one tensor
 constexpr int kC8 = kD / 8;           // 16-byte pieces of a row
+// k16 steps over Dh (S and dP); the last one's dims past kD are zero.
+constexpr int kK16 = (kD + 15) / 16;
+static_assert(kK16 * 16 - kD <= 8 && kK16 * 16 <= kRow, "one zero piece a row pads Dh");
 constexpr int kRowWarps = 4;          // row kernel: 16 query rows each
 constexpr int kColWarps = 4;          // column kernel: 16 key rows each
 constexpr int kRowBlock = 32 * kRowWarps;
 constexpr int kColBlock = 32 * kColWarps;
 constexpr float kLog2e = 1.4426950408889634f;
-// Row kernel: K and V, two stages each: 36,864 B at every N.
+// Row kernel: K and V, two stages each: 36,864 B at every N (Dh 64),
+// 45,056 B (72).
 constexpr size_t kRowSmemBytes = 4 * (size_t)kStage * sizeof(bf16);
 // Column kernel: q and dO, two stages each, and each stage's rows' m
-// log2(e), 1 / l and delta (fp32): 38,400 B at every N.
+// log2(e), 1 / l and delta (fp32): 38,400 B at every N (Dh 64), 46,592 B
+// (72).
 constexpr size_t kColSmemBytes =
     2 * (2 * (size_t)kStage * sizeof(bf16) + 3 * (size_t)kRows * sizeof(float));
+static_assert(kRowSmemBytes <= 48 * 1024 && kColSmemBytes <= 48 * 1024,
+              "launched without opting into more shared memory");
 // Blocks an SM: the flash backward's bounds (flash_bwd.cu), whose
 // spill-free alternatives were slower on an H100 (PERF.md §6).
 constexpr int kRowMinBlocks = 4;
@@ -424,6 +495,13 @@ __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
 __device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+// Two 8 x 8 b16 matrices, transposed; lanes 8i..8i+7 (i < 2) give matrix
+// i's row addresses.
+__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p)));
 }
 
@@ -456,22 +534,38 @@ __device__ __forceinline__ void load_b_trans(unsigned (&r)[4], const bf16* base,
                                              int j0, int lane) {
   ldsm_x4_trans(r, base + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * kRow + j0 + (lane / 16) * 8);
 }
+// The B operand of the last n-tile over Dh alone (columns kD - 8..) x k16,
+// for an odd count of n8 tiles (Dh 72).
+__device__ __forceinline__ void load_b_trans_last(unsigned (&r)[2], const bf16* base, int k0,
+                                                  int lane) {
+  ldsm_x2_trans(r, base + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * kRow + kD - 8);
+}
 
-// The A operands (16 rows x 4 slices of 16 dims) of rows r0.. of a (N, Dh)
-// slice with row stride sn, times mul, rounded to bf16; zero rows past n.
-__device__ __forceinline__ void load_a(unsigned (&a)[4][4], const bf16* g, long long sn, int r0,
-                                       int n, float mul, int lane) {
+// The A operands (16 rows x kK16 slices of 16 dims) of rows r0.. of a
+// (N, Dh) slice with row stride sn, times mul, rounded to bf16; zero rows
+// past n and dims past kD.
+__device__ __forceinline__ void load_a(unsigned (&a)[kK16][4], const bf16* g, long long sn,
+                                       int r0, int n, float mul, int lane) {
   const int gr = lane / 4, t2 = 2 * (lane % 4);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < kK16; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = r0 + gr + (e % 2) * 8, col = kk * 16 + t2 + (e / 2) * 8;
-      const float2 x = row < n ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                                     g + row * sn + col))
-                               : make_float2(0.f, 0.f);
+      const float2 x = row < n && (kK16 * 16 == kD || col < kD)
+                           ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                                 g + row * sn + col))
+                           : make_float2(0.f, 0.f);
       a[kk][e] = pack(x.x * mul, x.y * mul);
     }
+}
+
+// Dims kD.. of the last k16 step in `rows` rows of stride kRow from p:
+// zero (the ring's copies never write them).
+__device__ __forceinline__ void zero_pad(bf16* p, int rows) {
+  if (kK16 * 16 > kD)
+    for (int i = threadIdx.x; i < rows; i += blockDim.x)
+      *reinterpret_cast<uint4*>(p + i * kRow + kD) = make_uint4(0u, 0u, 0u, 0u);
 }
 
 __device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src) {
@@ -530,10 +624,11 @@ __global__ void __launch_bounds__(kRowBlock, kRowMinBlocks)
 attention_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
                             bf16* __restrict__ dq, float* __restrict__ ws, Strides st, int h,
-                            int n, float scale, int aligned) {
+                            int n, float scale, int aligned, float dq_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);  // [2][kRows][kRow]
   bf16* vs = ks + 2 * kStage;                // [2][kRows][kRow]
+  zero_pad(ks, 4 * kRows);                   // K and V: both are read over Dh
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t2 = 2 * (lane % 4);  // accumulator row, column pair
@@ -545,7 +640,7 @@ attention_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   const bool active = q0 < n;  // warp-uniform; idle warps still stage K and V
 
   // q * scale (rounded) and dO as A operands.
-  unsigned qa[4][4], da[4][4];
+  unsigned qa[kK16][4], da[kK16][4];
   load_a(qa, q + in_base, st.in_sn, q0, n, scale, lane);
   load_a(da, dout + blockIdx.z * st.do_sb + blockIdx.y * st.do_sh, st.do_sn, q0, n, 1.f, lane);
 
@@ -576,7 +671,7 @@ attention_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < kK16; ++kk) {
       unsigned b[4];
       load_b(b, kst, 16 * u, kk * 16, lane);
       mma(s[0], qa[kk], b[0], b[1]);
@@ -605,7 +700,7 @@ attention_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < kK16; ++kk)
 #pragma unroll
         for (int u = 0; u < kRows / 16; ++u)
           if (u < groups) {
@@ -644,7 +739,7 @@ attention_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 #pragma unroll
           for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < kK16; ++kk) {
           unsigned b[4];
           load_b(b, vst, 16 * u, kk * 16, lane);
           mma(dp[0], da[kk], b[0], b[1]);
@@ -686,7 +781,7 @@ attention_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   }
 
   // Pass B: dQ += dS K, dS = P (dP - delta) rounded, P = exp(S - m) (1 / l).
-  float acc[kD / 8][4];  // dQ / scale: n-tile j holds dims 8 j..
+  float acc[kD / 8][4];  // dQ / dq_scale: n-tile j holds dims 8 j..
 #pragma unroll
   for (int j = 0; j < kD / 8; ++j)
 #pragma unroll
@@ -721,12 +816,19 @@ attention_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
             dsa[2 * j + half] = pack(x[0], x[1]);
           }
         // dQ += dS K: K as [key][dim] is B (k = key, n = dim) through .trans.
+        // Pairs of n8 tiles over Dh, a constant trip count: a loop on
+        // j + 1 < kD / 8 put K1's accumulators in local memory at Dh 72.
 #pragma unroll
-        for (int j = 0; j < kD / 8; j += 2) {
+        for (int j = 0; j < kD / 16 * 2; j += 2) {
           unsigned b[4];
           load_b_trans(b, kst, 16 * u, j * 8, lane);
           mma(acc[j], dsa, b[0], b[1]);
           mma(acc[j + 1], dsa, b[2], b[3]);
+        }
+        if (kD / 8 % 2) {  // an odd count of n8 tiles (Dh 72): the last alone
+          unsigned b[2];
+          load_b_trans_last(b, kst, 16 * u, lane);
+          mma(acc[kD / 8 - 1], dsa, b[0], b[1]);
         }
       }
     }
@@ -734,6 +836,8 @@ attention_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   }
 
   bf16* dqg = dq + blockIdx.z * st.out_sb + blockIdx.y * st.out_sh;
+  // At Dh 64 s_q and the fp32 Dh^-1/2 are both 2^-3.
+  const float dqs = kPow2Scale ? scale : dq_scale;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = q0 + g + half * 8;
@@ -741,7 +845,7 @@ attention_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 #pragma unroll
     for (int j = 0; j < kD / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dqg + r * st.out_sn + j * 8 + t2) =
-          __floats2bfloat162_rn(acc[j][2 * half] * scale, acc[j][2 * half + 1] * scale);
+          __floats2bfloat162_rn(acc[j][2 * half] * dqs, acc[j][2 * half + 1] * dqs);
   }
 }
 
@@ -757,6 +861,7 @@ attention_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   bf16* qs = reinterpret_cast<bf16*>(smem);                   // [2][kRows][kRow]
   bf16* dos = qs + 2 * kStage;                                // [2][kRows][kRow]
   float* stats = reinterpret_cast<float*>(dos + 2 * kStage);  // [2][3][kRows]
+  zero_pad(qs, 4 * kRows);                                    // q and dO: read over Dh
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t2 = 2 * (lane % 4);  // accumulator row (key), column pair
@@ -769,10 +874,12 @@ attention_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   const int k0 = (blockIdx.x * kColWarps + warp) * 16;
   const bool active = k0 < n;  // warp-uniform; idle warps still stage the ring
 
-  unsigned ka[4][4], va[4][4];
+  unsigned ka[kK16][4], va[kK16][4];
   load_a(ka, k + in_base, st.in_sn, k0, n, 1.f, lane);
   load_a(va, v + in_base, st.in_sn, k0, n, 1.f, lane);
-  const float sl2e = scale * kLog2e;  // S^T = scale (K q^T): exact, scale = 2^-3
+  // S^T = scale (K q^T), exact where scale = 2^-3; else S^T = K qs^T, the
+  // ring's q scaled in place.
+  const float sl2e = kPow2Scale ? scale * kLog2e : kLog2e;
 
   // Chunk c of q, dO and the rows' three statistics into stage c % 2 of the
   // ring; rows past n get m = +inf and 1 / l = delta = 0 (P = 0 there).
@@ -793,7 +900,8 @@ attention_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     cp_async_commit();
   };
 
-  float dka[kD / 8][4], dva[kD / 8][4];  // dK / scale and dV: n-tile j holds dims 8 j..
+  // dK (at Dh 64 dK / scale) and dV: n-tile j holds dims 8 j..
+  float dka[kD / 8][4], dva[kD / 8][4];
 #pragma unroll
   for (int j = 0; j < kD / 8; ++j)
 #pragma unroll
@@ -809,6 +917,17 @@ attention_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     cp_async_wait_one();
     __syncthreads();
     const int stg = c % 2, c0 = c * kRows;
+    if (!kPow2Scale) {
+      // qs = q * scale rounded to bf16, in place (rows past n stay 0).
+      bf16* qw = qs + stg * kStage;
+      for (int i = tid; i < kRows * kD / 2; i += kColBlock) {
+        __nv_bfloat162* x =
+            reinterpret_cast<__nv_bfloat162*>(qw + i / (kD / 2) * kRow + i % (kD / 2) * 2);
+        const float2 f = __bfloat1622float2(*x);
+        *x = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+      }
+      __syncthreads();
+    }
     const bf16* qst = qs + stg * kStage;
     const bf16* dost = dos + stg * kStage;
     const float* ms = stats + stg * 3 * kRows;  // m log2(e), then 1 / l, then delta
@@ -824,7 +943,7 @@ attention_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < kK16; ++kk) {
           unsigned b[4];
           load_b(b, qst, 16 * u, kk * 16, lane);
           mma(s[0], ka[kk], b[0], b[1]);
@@ -852,9 +971,10 @@ attention_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
           }
         }
         // dV += round(P^T) dO, dK += dS^T q: dO and q as [query][dim] are B
-        // (k = query, n = dim) through .trans.
+        // (k = query, n = dim) through .trans. Pairs of n8 tiles over Dh, a
+        // constant trip count (see the row kernel).
 #pragma unroll
-        for (int j = 0; j < kD / 8; j += 2) {
+        for (int j = 0; j < kD / 16 * 2; j += 2) {
           unsigned b[4];
           load_b_trans(b, dost, 16 * u, j * 8, lane);
           mma(dva[j], pa, b[0], b[1]);
@@ -863,12 +983,20 @@ attention_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
           mma(dka[j], dsa, b[0], b[1]);
           mma(dka[j + 1], dsa, b[2], b[3]);
         }
+        if (kD / 8 % 2) {  // an odd count of n8 tiles (Dh 72): the last alone
+          unsigned b[2];
+          load_b_trans_last(b, dost, 16 * u, lane);
+          mma(dva[kD / 8 - 1], pa, b[0], b[1]);
+          load_b_trans_last(b, qst, 16 * u, lane);
+          mma(dka[kD / 8 - 1], dsa, b[0], b[1]);
+        }
       }
     }
     __syncthreads();  // the next chunk's copies overwrite this stage
   }
 
   const long long out_base = blockIdx.z * st.out_sb + blockIdx.y * st.out_sh;
+  const float dk_mul = kPow2Scale ? scale : 1.f;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = k0 + g + half * 8;
@@ -878,7 +1006,7 @@ attention_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 #pragma unroll
     for (int j = 0; j < kD / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(kr + j * 8 + t2) =
-          __floats2bfloat162_rn(dka[j][2 * half] * scale, dka[j][2 * half + 1] * scale);
+          __floats2bfloat162_rn(dka[j][2 * half] * dk_mul, dka[j][2 * half + 1] * dk_mul);
       *reinterpret_cast<__nv_bfloat162*>(vr + j * 8 + t2) =
           __floats2bfloat162_rn(dva[j][2 * half], dva[j][2 * half + 1]);
     }
@@ -897,7 +1025,7 @@ bool aligned16(const void* q, const void* k, const void* v, const void* dout,
 // The row kernel, then the column kernel, on one stream.
 int launch(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
            void* dv, float* ws, const Strides& st, int b, int h, int n, float scale,
-           cudaStream_t stream) {
+           float dq_scale, cudaStream_t stream) {
   const int al = aligned16(q, k, v, dout, st) ? 1 : 0;
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
@@ -905,7 +1033,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout, void* 
   const bf16* dob = static_cast<const bf16*>(dout);
   const dim3 rows((n + 16 * kRowWarps - 1) / (16 * kRowWarps), h, b);
   attention_bwd_dq_mma_kernel<<<rows, kRowBlock, kRowSmemBytes, stream>>>(
-      qb, kb, vb, dob, static_cast<bf16*>(dq), ws, st, h, n, scale, al);
+      qb, kb, vb, dob, static_cast<bf16*>(dq), ws, st, h, n, scale, al, dq_scale);
   if (const cudaError_t err = cudaGetLastError()) return (int)err;
   const dim3 cols((n + 16 * kColWarps - 1) / (16 * kColWarps), h, b);
   attention_bwd_dkv_mma_kernel<<<cols, kColBlock, kColSmemBytes, stream>>>(
@@ -920,6 +1048,9 @@ int launch(const void* q, const void* k, const void* v, const void* dout, void* 
 
 extern "C" {
 
+// The head dim this library was built for (HEAD_DIM).
+int k2_attention_bwd_head_dim() { return kD; }
+
 // Shared memory one block needs for sequence length n and element size.
 // bf16: the larger of the two tensor-core kernels' rings (any N); fp32:
 // the scalar kernel's.
@@ -932,23 +1063,25 @@ size_t k2_attention_bwd_smem_bytes(int n, int elem_bytes) {
 // q, k, v share the element strides (in_sb, in_sh, in_sn), dout has its
 // own (do_*), dq, dk, dv share (out_*); every last dim is contiguous and kD
 // long. ws: bf16 only, a contiguous float32 (3, b, h, n) workspace the
-// call overwrites (the fp32 kernel takes none). dtype: 0 = float32, 1 =
-// bfloat16. Returns the cudaError_t of the launches (0 on success).
+// call overwrites (the fp32 kernel takes none). scale is q's factor s_q
+// (Dh^-1/2 rounded to the input type), dq_scale dQ's, the fp32 Dh^-1/2.
+// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the
+// launches (0 on success).
 int k2_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                      const void* dout, void* dq, void* dk, void* dv, void* ws,
                      long long in_sb, long long in_sh, long long in_sn,
                      long long do_sb, long long do_sh, long long do_sn,
                      long long out_sb, long long out_sh, long long out_sn,
-                     int b, int h, int n, float scale, void* stream) {
+                     int b, int h, int n, float scale, float dq_scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, dout, dq, dk, dv, in_sb, in_sh, in_sn,
                          do_sb, do_sh, do_sn, out_sb, out_sh, out_sn, b, h, n,
-                         scale, s);
+                         scale, dq_scale, s);
   if (dtype == 1) {
     const tc::Strides st{in_sb, in_sh, in_sn, do_sb, do_sh, do_sn, out_sb, out_sh, out_sn};
     return tc::launch(q, k, v, dout, dq, dk, dv, static_cast<float*>(ws), st, b, h, n, scale,
-                      s);
+                      dq_scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

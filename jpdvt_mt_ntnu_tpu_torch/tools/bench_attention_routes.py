@@ -1,17 +1,17 @@
 """The whole-row kernels against the flash kernels on the card, by sequence length.
 
-For each N and batch, bf16, H = 12, Dh = 64, q/k/v as strided views of a
-fused (B, N, 3*H*Dh) projection (the DiT's layout): microseconds per call
-by CUDA events of K1 against K4 (the no-grad forward), and of K1 + K2
+For each N and batch, bf16, the JPDVT flagship's H = 12, Dh = 64 (or,
+with ``--head-dim 72``, DiT-XL's H = 16, Dh = 72), q/k/v as strided views
+of a fused (B, N, 3*H*Dh) projection (the DiT's layout): microseconds per
+call by CUDA events of K1 against K4 (the no-grad forward), and of K1 + K2
 against K4 + K5 + K6 (forward and backward, the train step's attention).
 A route whose shared memory does not fit a block at that N is "n/a". The
 table ``ops.attention.attention_route`` applies is printed beside each
-row. Prints one JSON line per (N, batch). The head dim is fixed at 64:
-the comparison needs K2, which takes Dh 64 alone (at DiT-XL's Dh 72 the
-route with grad is flash at every N, by rule).
+row; ``WHOLE_ROW_GRAD_MAX_N`` of the head dim is set from these rows.
+Prints one JSON line per (N, batch).
 
     python -m jpdvt_mt_ntnu_tpu_torch.tools.bench_attention_routes \\
-        [--n 144 205 324 400 576] [--batch 32 96]
+        [--n 144 205 324 400 576] [--batch 32 96] [--head-dim 64|72]
 
 Needs a CUDA card; it fails without one.
 """
@@ -26,7 +26,7 @@ import torch
 from ..ops import attention as attn_ops
 from ..ops import flash_attention as flash_ops
 
-HEADS, HEAD_DIM = 12, 64  # the JPDVT flagship's; K2 takes Dh 64 alone
+HEADS = {64: 12, 72: 16}  # the JPDVT flagship's heads; DiT-XL's at Dh 72
 
 
 def _us(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -42,20 +42,20 @@ def _us(fn, reps: int = 20, warmup: int = 3) -> float:
     return 1e3 * start.elapsed_time(stop) / reps
 
 
-def bench(n: int, b: int, gen: torch.Generator) -> dict:
-    dtype = torch.bfloat16
-    shape = (b, n, 3, HEADS, HEAD_DIM)
-    qkv = torch.randn((b, n, 3 * HEADS * HEAD_DIM), generator=gen, device="cuda").to(dtype)
+def bench(n: int, b: int, gen: torch.Generator, d: int = 64) -> dict:
+    dtype, h = torch.bfloat16, HEADS[d]
+    shape = (b, n, 3, h, d)
+    qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda").to(dtype)
     q, k, v = qkv.view(shape).permute(2, 0, 3, 1, 4).unbind(0)
-    do = torch.randn((b, n, HEADS * HEAD_DIM), generator=gen, device="cuda").to(dtype)
-    do = do.view(b, n, HEADS, HEAD_DIM).transpose(1, 2)
+    do = torch.randn((b, n, h * d), generator=gen, device="cuda").to(dtype)
+    do = do.view(b, n, h, d).transpose(1, 2)
     grads = torch.empty_like(qkv).view(shape).permute(2, 0, 3, 1, 4).unbind(0)
     elem = qkv.element_size()
-    fits_k1 = attn_ops.k1_smem_bytes(n, elem) <= attn_ops.HOPPER_MAX_SMEM
-    fits_k2 = attn_ops.k2_smem_bytes(n, elem) <= attn_ops.HOPPER_MAX_SMEM
-    row = {"n": n, "batch": b, "dtype": "bfloat16",
-           "route_no_grad": attn_ops.attention_route(n, dtype, False),
-           "route_grad": attn_ops.attention_route(n, dtype, True)}
+    fits_k1 = attn_ops.k1_smem_bytes(n, elem, d) <= attn_ops.HOPPER_MAX_SMEM
+    fits_k2 = attn_ops.k2_smem_bytes(n, elem, d) <= attn_ops.HOPPER_MAX_SMEM
+    row = {"n": n, "batch": b, "heads": h, "head_dim": d, "dtype": "bfloat16",
+           "route_no_grad": attn_ops.attention_route(n, dtype, False, head_dim=d),
+           "route_grad": attn_ops.attention_route(n, dtype, True, head_dim=d)}
     o, lse = flash_ops.flash_attention_fwd(q, k, v)
     row["k4_us"] = _us(lambda: flash_ops.flash_attention_fwd(q, k, v))
     row["k5_us"] = _us(lambda: flash_ops.flash_dq(q, k, v, o, lse, do, grads[0]))
@@ -73,14 +73,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, nargs="+", default=[144, 205, 324, 400, 576])
     ap.add_argument("--batch", type=int, nargs="+", default=[32, 96])
+    ap.add_argument("--head-dim", type=int, choices=attn_ops.HEAD_DIMS, default=64)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_attention_routes needs a CUDA card")
     gen = torch.Generator("cuda").manual_seed(0)
     for n in args.n:
         for b in args.batch:
-            print(json.dumps({"device": torch.cuda.get_device_name(0), **bench(n, b, gen)}),
-                  flush=True)
+            print(json.dumps({"device": torch.cuda.get_device_name(0),
+                              **bench(n, b, gen, args.head_dim)}), flush=True)
     return 0
 
 

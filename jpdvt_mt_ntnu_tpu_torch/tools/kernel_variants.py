@@ -30,8 +30,9 @@ one SM ran.
         [--rounds 3] [--clocks] [--head-dim 64|72]
 
 The calls take the JPDVT flagship's attention, 12 heads of 64, by default;
-``--head-dim 72`` (K1, K4, K5 and K6, the kernels built for it) takes
-DiT-XL's, 16 heads of 72, each variant compiled with ``-DHEAD_DIM=72``.
+``--head-dim 72`` takes DiT-XL's, 16 heads of 72 (K3: D = 1152), each
+variant compiled with ``-DHEAD_DIM=72``. K2's ``three_pass`` variant is
+written for Dh 64 (four k16 steps).
 
 Needs a CUDA card and ``nvcc``; it fails without them. Variants are a tool
 for finding a bottleneck, never a route: the port runs only the source.
@@ -348,7 +349,7 @@ def _build_all(kernel: str, sources: dict, head_dim: int = 64) -> dict:
         elif kernel == "k2":
             lib.k2_attention_bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                                              + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
-                                             + [ctypes.c_float, ctypes.c_void_p])
+                                             + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         else:
             lib.k5_flash_dq.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                                         + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
@@ -372,7 +373,8 @@ def _k3_case(b: int, n: int, gen: torch.Generator, weights: tuple):
     def call(lib):
         err = lib.k3_attention_block(1, x.data_ptr(), wq.data_ptr(), bq.data_ptr(),
                                      wp.data_ptr(), bp.data_ptr(), o.data_ptr(),
-                                     out.data_ptr(), b, n, HEADS, d, HEAD_DIM ** -0.5, stream)
+                                     out.data_ptr(), b, n, HEADS, d,
+                                     attn_ops.q_scale(HEAD_DIM, torch.bfloat16), stream)
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
 
@@ -421,7 +423,8 @@ def _k2_case(b: int, n: int, gen: torch.Generator):
         err = lib.k2_attention_bwd(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                                    *(t.data_ptr() for t in out), ws.data_ptr(),
                                    *q.stride()[:3], *do.stride()[:3], *out[0].stride()[:3],
-                                   b, HEADS, n, HEAD_DIM ** -0.5, stream)
+                                   b, HEADS, n, attn_ops.q_scale(HEAD_DIM, torch.bfloat16),
+                                   HEAD_DIM ** -0.5, stream)
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
 
@@ -504,12 +507,10 @@ def main() -> int:
     ap.add_argument("--ablations", action="store_true", help="add the built-in ABLATIONS")
     ap.add_argument("--clocks", action="store_true", help="per-block phase cycles (K3)")
     ap.add_argument("--head-dim", type=int, choices=attn_ops.HEAD_DIMS, default=HEAD_DIM,
-                    help="72: DiT-XL's 16 heads of 72 (K1, K4, K5, K6)")
+                    help="72: DiT-XL's 16 heads of 72")
     args = ap.parse_args()
     if args.kernel != "k3" and args.clocks:
         raise SystemExit("--clocks takes K3's source only")
-    if args.head_dim != HEAD_DIM and args.kernel in ("k2", "k3"):
-        raise SystemExit(f"{args.kernel} is built for Dh {HEAD_DIM} alone")
     if args.head_dim == 72:
         HEADS, HEAD_DIM = 16, 72
     if not torch.cuda.is_available():

@@ -5,7 +5,7 @@ The port's plain version (``fused_attention_block_plain``, the path its
 wrapper takes for CPU tensors) is held against the Pallas kernel
 ``_attn_block_kernel`` run in interpret mode and against the XLA reference
 ``fused_attention_block_xla``, on the same numpy inputs, at small widths
-(H = 4, Dh = 16 and 64). The CUDA kernel itself runs only on a card:
+(H = 4, Dh = 16, 64 and DiT-XL's 72). The CUDA kernel itself runs only on a card:
 ``tests/test_torch_port_cuda.py``.
 
 Tolerances, relative to the output's largest magnitude: fp32 1e-5
@@ -18,7 +18,8 @@ autograd of the plain version) is held to ``jax.vjp`` of the JAX function
 in fp32, 1e-5 of each gradient's scale; ``dense_to_block_weights`` to the
 JAX layout exactly. Also the tiny trained DiT on the block route against
 JAX's ``"block_interpret"`` (fp32, 1e-4 absolute on codes of ~1), the
-route table and the training refusal.
+route table (K3's shared-memory limits at Dh 64 and 72) and the training
+refusal.
 """
 
 import jax
@@ -74,7 +75,7 @@ def _f32(a) -> np.ndarray:
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,d", [(9, 16), (77, 16), (144, 64), (77, 64)])
+@pytest.mark.parametrize("n,d", [(9, 16), (77, 16), (144, 64), (77, 64), (144, 72), (77, 72)])
 def test_k3_plain_matches_pallas_interpret_and_xla(n, d, dtype):
     jops, tops = _both(_dense(n + d, 2, n, 4, d), 4, dtype)
     interp = _f32(jattn.fused_attention_block(*jops, 4, True))
@@ -182,17 +183,29 @@ def test_dit_block_route_matches_jax_block_interpret():
     np.testing.assert_allclose(img.numpy(), np.asarray(j_img), atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("n,dtype,ok", [(144, torch.bfloat16, True), (400, torch.bfloat16, True),
-                                        (416, torch.bfloat16, True), (417, torch.bfloat16, False),
-                                        (252, torch.float32, True), (253, torch.float32, False)])
-def test_block_route_table(n, dtype, ok):
-    if ok:
-        assert port.attention_route(n, dtype, False, "block") == "block"
-    else:
-        with pytest.raises(ValueError, match="attn_impl='block'.*shared memory"):
-            port.attention_route(n, dtype, False, "block")
-    assert port.attention_route(n, dtype, False, "block", on_card=False) == "block"
-    assert port.attention_route(n, dtype, False) != "block"  # never picked unasked
+@pytest.mark.parametrize("n,dtype,ok,d", [
+    (144, torch.bfloat16, True, 64), (400, torch.bfloat16, True, 64),
+    (416, torch.bfloat16, True, 64), (417, torch.bfloat16, False, 64),
+    (252, torch.float32, True, 64), (253, torch.float32, False, 64),
+    (144, torch.bfloat16, True, 72), (336, torch.bfloat16, True, 72),
+    (337, torch.bfloat16, False, 72), (576, torch.bfloat16, False, 72),
+    (223, torch.float32, True, 72), (224, torch.float32, False, 72)])
+def test_block_route_table(n, dtype, ok, d):
+    """K3's shared memory caps N: bf16 416 at Dh 64 and 336 at 72 (DiT-XL/8
+    at 96 px, N = 144, takes it; at 192 px, N = 576, it does not), fp32
+    252 and 223."""
+    for grad in (False, True):
+        if ok:
+            assert port.attention_route(n, dtype, grad, "block", head_dim=d) == "block"
+        else:
+            with pytest.raises(ValueError, match=f"attn_impl='block' at N={n}, Dh {d}.*shared "
+                                                 f"memory"):
+                port.attention_route(n, dtype, grad, "block", head_dim=d)
+        assert port.attention_route(n, dtype, grad, "block", head_dim=d, on_card=False) == \
+            "block"
+    assert (port.k3_smem_bytes(n, torch.empty((), dtype=dtype).element_size(), d)
+            <= port.HOPPER_MAX_SMEM) == ok
+    assert port.attention_route(n, dtype, False, head_dim=d) != "block"  # never picked unasked
     with pytest.raises(ValueError, match="head dim 16"):
         port.attention_route(n, dtype, False, "block", head_dim=16)
 

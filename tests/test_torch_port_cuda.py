@@ -27,9 +27,11 @@ and views off 16-byte alignment bit-equal to aligned copies. K5 and K6 as K2
 bit-equal, and views off 16-byte alignment bit-equal to aligned copies. The
 DiT's gradients through K4-K6 as through K1/K2.
 
-K1, K4, K5 and K6 also run at DiT-XL's head dim, 72 (16 heads), under the
-same tolerances: the kernels built with ``-DHEAD_DIM=72``, held to the
-plain versions, which scale q by Dh^-1/2 rounded to the input type.
+K1-K6 also run at DiT-XL's head dim, 72 (16 heads), under the same
+tolerances: the kernels built with ``-DHEAD_DIM=72``, held to the plain
+versions, which scale q by Dh^-1/2 rounded to the input type. The DiT's
+gradients at Dh 72 run through K4-K6 (the default route) and through K1
+and K2 (``attn_impl="pallas"``).
 
 K3 against its plain version, relative to the output's largest magnitude:
 bf16 2e-2 (both round q, k, v, P, o and the output at the same points;
@@ -142,26 +144,34 @@ def test_k1_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
                 port._kernel(d).k1_attention_smem_bytes(n, elem)
 
 
-@pytest.mark.parametrize("b,n,dtype", [(32, 144, torch.bfloat16),
-                                       (3, 77, torch.bfloat16),
-                                       (2, 200, torch.bfloat16),
-                                       (2, 144, torch.float32),
-                                       (2, 9, torch.bfloat16),
-                                       (2, 64, torch.bfloat16),
-                                       (2, 65, torch.bfloat16),
-                                       (2, 205, torch.bfloat16),
-                                       (2, 400, torch.bfloat16)])
-def test_k2_cuda_kernel_matches_plain(cuda, b, n, dtype):
+@pytest.mark.parametrize("b,n,dtype,d", [(32, 144, torch.bfloat16, 64),
+                                         (3, 77, torch.bfloat16, 64),
+                                         (2, 200, torch.bfloat16, 64),
+                                         (2, 144, torch.float32, 64),
+                                         (2, 9, torch.bfloat16, 64),
+                                         (2, 64, torch.bfloat16, 64),
+                                         (2, 65, torch.bfloat16, 64),
+                                         (2, 205, torch.bfloat16, 64),
+                                         (2, 400, torch.bfloat16, 64),
+                                         (8, 576, torch.bfloat16, 72),
+                                         (3, 77, torch.bfloat16, 72),
+                                         (2, 9, torch.bfloat16, 72),
+                                         (2, 65, torch.bfloat16, 72),
+                                         (2, 144, torch.float32, 72),
+                                         (2, 148, torch.float32, 72)])
+def test_k2_cuda_kernel_matches_plain(cuda, b, n, dtype, d):
     """N = 9, 65, 77, 144, 200 and 205 leave the last 64-row chunk and the
     last 64-row tile ragged; 64 is one whole tile; 400 is past the old
-    shared-memory limit of 205."""
+    shared-memory limit of 205; 576 is DiT-XL/8's at 192 px (Dh 72); 148
+    the most fp32 takes at Dh 72."""
     gen = torch.Generator("cuda").manual_seed(n + 1)
-    qkv = torch.randn((b, n, 3 * 12 * 64), generator=gen, device="cuda").to(dtype)
-    do = torch.randn((b, n, 12 * 64), generator=gen, device="cuda").to(dtype)
-    heads = qkv.reshape(b, n, 3, 12, 64).permute(2, 0, 3, 1, 4).unbind(0)
-    dov = do.view(b, n, 12, 64).transpose(1, 2)
+    h = HEADS[d]
+    qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((b, n, h * d), generator=gen, device="cuda").to(dtype)
+    heads = qkv.reshape(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    dov = do.view(b, n, h, d).transpose(1, 2)
     buf = torch.empty_like(qkv)
-    out = buf.view(b, n, 3, 12, 64).permute(2, 0, 3, 1, 4).unbind(0)
+    out = buf.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
     before = port.attention_bwd.launches
     port.attention_bwd(*heads, dov, out=out)
     torch.cuda.synchronize()
@@ -172,37 +182,43 @@ def test_k2_cuda_kernel_matches_plain(cuda, b, n, dtype):
         assert err <= K2_TOL[dtype] * scale, (err, scale)
 
 
-def _k2_inputs(b, n, dtype, gen, offset=0):
+def _k2_inputs(b, n, dtype, gen, offset=0, d=64):
     """q, k, v as strided views of a fused qkv ``offset`` elements into its
     buffer, dO as a view of a (B, N, H*Dh) gradient."""
-    q, k, v = _k1_views(b, n, dtype, gen, offset)
-    do = torch.randn((b, n, 12 * 64), generator=gen, device="cuda").to(dtype)
-    return q, k, v, do.view(b, n, 12, 64).transpose(1, 2)
+    q, k, v = _k1_views(b, n, dtype, gen, offset, d)
+    h = HEADS[d]
+    do = torch.randn((b, n, h * d), generator=gen, device="cuda").to(dtype)
+    return q, k, v, do.view(b, n, h, d).transpose(1, 2)
 
 
-@pytest.mark.parametrize("b,n,dtype", [(32, 144, torch.bfloat16), (3, 77, torch.bfloat16),
-                                       (2, 400, torch.bfloat16), (2, 144, torch.float32)])
-def test_k2_cuda_kernel_is_bit_equal_across_calls(cuda, b, n, dtype):
+@pytest.mark.parametrize("b,n,dtype,d", [(32, 144, torch.bfloat16, 64),
+                                         (3, 77, torch.bfloat16, 64),
+                                         (2, 400, torch.bfloat16, 64),
+                                         (2, 144, torch.float32, 64),
+                                         (8, 576, torch.bfloat16, 72),
+                                         (2, 144, torch.float32, 72)])
+def test_k2_cuda_kernel_is_bit_equal_across_calls(cuda, b, n, dtype, d):
     """One owning accumulator per output, chunks in a fixed order, no
     atomics: a resumed train run repeats the uninterrupted one."""
-    args = _k2_inputs(b, n, dtype, torch.Generator("cuda").manual_seed(n + 9))
-    first = port.attention_bwd(*args, out=_fused_grads(b, n, dtype))
-    second = port.attention_bwd(*args, out=_fused_grads(b, n, dtype))
+    args = _k2_inputs(b, n, dtype, torch.Generator("cuda").manual_seed(n + 9), d=d)
+    first = port.attention_bwd(*args, out=_fused_grads(b, n, dtype, d))
+    second = port.attention_bwd(*args, out=_fused_grads(b, n, dtype, d))
     for a, c in zip(first, second):
         assert torch.equal(a, c)
 
 
-@pytest.mark.parametrize("b,n", [(3, 77), (2, 144), (2, 400)])
-def test_k2_cuda_kernel_reads_views_off_16_byte_alignment(cuda, b, n):
+@pytest.mark.parametrize("b,n,d", [(3, 77, 64), (2, 144, 64), (2, 400, 64), (3, 77, 72)])
+def test_k2_cuda_kernel_reads_views_off_16_byte_alignment(cuda, b, n, d):
     """q, k, v rows that do not start on 16 bytes (pair-aligned views the
     wrapper admits) are staged without cp.async: the same bits as from
     aligned copies, and within the tolerance of the plain version."""
     q, k, v, do = _k2_inputs(b, n, torch.bfloat16, torch.Generator("cuda").manual_seed(n + 10),
-                             2)
-    assert q.data_ptr() % 16 and q.stride()[:3] == (n * 3 * 12 * 64, 64, 3 * 12 * 64)
-    got = port.attention_bwd(q, k, v, do, out=_fused_grads(b, n, q.dtype))
+                             2, d)
+    f = 3 * HEADS[d] * d
+    assert q.data_ptr() % 16 and q.stride()[:3] == (n * f, d, f)
+    got = port.attention_bwd(q, k, v, do, out=_fused_grads(b, n, q.dtype, d))
     aligned = [t.contiguous() for t in (q, k, v)]
-    want = port.attention_bwd(*aligned, do, out=_fused_grads(b, n, q.dtype))
+    want = port.attention_bwd(*aligned, do, out=_fused_grads(b, n, q.dtype, d))
     for g, w, ref in zip(got, want, port.attention_bwd_reference(q, k, v, do)):
         assert torch.equal(g, w)
         scale = ref.float().abs().max().item()
@@ -260,9 +276,9 @@ def test_k2_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
             out[2] = torch.empty((1, 2, n, 64), device="cuda", dtype=dtype)
         port.attention_bwd(*heads, do, out=out)
 
-    q72 = torch.zeros((1, 2, 9, 72), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match=r"Dh in \(64,\)"):
-        port.attention_bwd(q72, q72, q72, q72, out=(q72, q72, q72))
+    q96 = torch.zeros((1, 2, 9, 96), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"Dh in \(64, 72\)"):
+        port.attention_bwd(q96, q96, q96, q96, out=(q96, q96, q96))
     with pytest.raises(ValueError, match="dtype"):
         call(do_dtype=torch.float32)
     with pytest.raises(ValueError, match="share strides"):
@@ -272,9 +288,13 @@ def test_k2_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     call(n=164, dtype=torch.float32)
     call(n=206)  # bf16 streams through fixed rings: no limit of N
     call(n=400)
-    for n, elem in ((9, 2), (400, 2), (164, 4), (165, 4)):
-        assert port.k2_smem_bytes(n, elem) == \
-            port._bwd_kernel().k2_attention_bwd_smem_bytes(n, elem)
+    q = torch.zeros((1, 2, 149, 72), device="cuda", dtype=torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        port.attention_bwd(q, q, q, q, out=(q.clone(), q.clone(), q.clone()))  # Dh 72: N <= 148
+    for d in port.HEAD_DIMS:
+        for n, elem in ((9, 2), (400, 2), (148, 4), (149, 4), (164, 4), (165, 4)):
+            assert port.k2_smem_bytes(n, elem, d) == \
+                port._bwd_kernel(d).k2_attention_bwd_smem_bytes(n, elem)
 
 
 def _fused(b, n, dtype, gen, d=64):
@@ -433,10 +453,12 @@ def test_flash_cuda_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     assert o.shape == long.shape and lse.shape == (1, 2, 4096)
 
 
-@pytest.mark.parametrize("hidden,attn_impl", [(128, "flash"), (144, None)],
-                         ids=["dh64-flash", "dh72-auto"])
+@pytest.mark.parametrize("hidden,attn_impl", [(128, "flash"), (144, None), (144, "pallas")],
+                         ids=["dh64-flash", "dh72-auto", "dh72-pallas"])
 def test_dit_gradients_through_k4_k5_k6_match_plain_autograd(cuda, hidden, attn_impl):
-    """At Dh 72 the route with grad is flash by rule (K2 takes Dh 64 alone)."""
+    """At Dh 72 the default route with grad is flash
+    (``WHOLE_ROW_GRAD_MAX_N[72]``); ``"pallas"`` takes K1 forward and K2
+    backward instead, held to the same plain autograd."""
     model, cfg = create_model("JPDVT", 96, seed=0, depth=2, hidden_size=hidden,
                               num_heads=2, attn_impl=attn_impl)
     rng = np.random.default_rng(1)
@@ -458,17 +480,19 @@ def test_dit_gradients_through_k4_k5_k6_match_plain_autograd(cuda, hidden, attn_
         out["loss"].mean().backward()
         return {k: p.grad.clone() for k, p in model.named_parameters()}
 
-    launches = (flash.flash_attention_fwd.launches, flash.flash_dq.launches,
-                flash.flash_dkv.launches)
+    pallas = attn_impl == "pallas"
+    counters = ((port.attention, port.attention_bwd) if pallas else
+                (flash.flash_attention_fwd, flash.flash_dq, flash.flash_dkv))
+    launches = tuple(fn.launches for fn in counters)
     mine = grads()
-    assert (flash.flash_attention_fwd.launches, flash.flash_dq.launches,
-            flash.flash_dkv.launches) == tuple(x + cfg.depth for x in launches)
-    kernel_route = dit.fused_qkv_flash_attention
-    dit.fused_qkv_flash_attention = port.fused_qkv_attention_reference
+    assert tuple(fn.launches for fn in counters) == tuple(x + cfg.depth for x in launches)
+    route = "fused_qkv_attention" if pallas else "fused_qkv_flash_attention"
+    kernel_route = getattr(dit, route)
+    setattr(dit, route, port.fused_qkv_attention_reference)
     try:
         plain = grads()
     finally:
-        dit.fused_qkv_flash_attention = kernel_route
+        setattr(dit, route, kernel_route)
     assert mine["blocks.0.attn.qkv.weight"].abs().max() > 0
     for k, want in plain.items():
         scale = want.abs().max().item()
@@ -476,62 +500,76 @@ def test_dit_gradients_through_k4_k5_k6_match_plain_autograd(cuda, hidden, attn_
         assert err <= 1e-4 * scale + 1e-12, (k, err, scale)
 
 
-def _block_operands(b, n, dtype, gen, heads=12, hidden=768):
+def _block_operands(b, n, dtype, gen, heads=12, hidden=768, d=64):
     x = torch.randn((b, n, hidden), generator=gen, device="cuda").to(dtype)
-    w_qkv = (torch.randn((3 * heads, hidden, 64), generator=gen, device="cuda")
+    w_qkv = (torch.randn((3 * heads, hidden, d), generator=gen, device="cuda")
              * hidden ** -0.5).to(dtype)
-    b_qkv = 0.1 * torch.randn((3 * heads, 1, 64), generator=gen, device="cuda")
-    w_proj = (torch.randn((heads, 64, hidden), generator=gen, device="cuda")
-              * (heads * 64) ** -0.5).to(dtype)
+    b_qkv = 0.1 * torch.randn((3 * heads, 1, d), generator=gen, device="cuda")
+    w_proj = (torch.randn((heads, d, hidden), generator=gen, device="cuda")
+              * (heads * d) ** -0.5).to(dtype)
     b_proj = 0.1 * torch.randn((1, hidden), generator=gen, device="cuda")
     return x, w_qkv, b_qkv, w_proj, b_proj
 
 
-@pytest.mark.parametrize("b,n,dtype", [(4, 144, torch.bfloat16),
-                                       (2, 400, torch.bfloat16),
-                                       (3, 77, torch.bfloat16),
-                                       (2, 401, torch.bfloat16),
-                                       (3, 17, torch.bfloat16),
-                                       (5, 17, torch.bfloat16),
-                                       (2, 416, torch.bfloat16),
-                                       (2, 144, torch.float32),
-                                       (2, 200, torch.float32)])
-def test_k3_cuda_kernel_matches_plain(cuda, b, n, dtype):
+@pytest.mark.parametrize("b,n,dtype,d", [(4, 144, torch.bfloat16, 64),
+                                         (2, 400, torch.bfloat16, 64),
+                                         (3, 77, torch.bfloat16, 64),
+                                         (2, 401, torch.bfloat16, 64),
+                                         (3, 17, torch.bfloat16, 64),
+                                         (5, 17, torch.bfloat16, 64),
+                                         (2, 416, torch.bfloat16, 64),
+                                         (2, 144, torch.float32, 64),
+                                         (2, 200, torch.float32, 64),
+                                         (32, 144, torch.bfloat16, 72),
+                                         (3, 77, torch.bfloat16, 72),
+                                         (5, 17, torch.bfloat16, 72),
+                                         (2, 336, torch.bfloat16, 72),
+                                         (2, 144, torch.float32, 72),
+                                         (2, 223, torch.float32, 72)])
+def test_k3_cuda_kernel_matches_plain(cuda, b, n, dtype, d):
     """N not a multiple of the 16-row tiles (17, 77, 401); B N not a
-    multiple of A.2's 128-row tile (85, 231, 802); the bf16 limit (416)."""
+    multiple of A.2's 128-row tile (85, 231, 802); the bf16 limit (416 at
+    Dh 64, 336 at 72) and fp32's at 72 (223); at Dh 72 DiT-XL's width (16
+    heads, D = 1152), its 96 px solve at B = 32, N = 144."""
     gen = torch.Generator("cuda").manual_seed(n + 4)
-    ops = _block_operands(b, n, dtype, gen)
+    heads, hidden = (12, 768) if d == 64 else (16, 1152)
+    ops = _block_operands(b, n, dtype, gen, heads, hidden, d)
     before = port.fused_attention_block.launches
-    out = port.fused_attention_block(*ops, 12)
+    out = port.fused_attention_block(*ops, heads)
     torch.cuda.synchronize()
     assert port.fused_attention_block.launches == before + 1
-    want = port.fused_attention_block_plain(*ops, 12).float()
+    want = port.fused_attention_block_plain(*ops, heads).float()
     scale = want.abs().max().item()
     err = (out.float() - want).abs().max().item()
     assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-5) * scale, (err, scale)
-    again = port.fused_attention_block(*ops, 12)
+    again = port.fused_attention_block(*ops, heads)
     assert torch.equal(out, again)  # deterministic: no atomics
 
 
-@pytest.mark.parametrize("b,n,dtype", [(2, 144, torch.bfloat16), (3, 77, torch.bfloat16),
-                                       (2, 77, torch.float32)])
-def test_k3_cuda_kernel_takes_the_linear_weights_as_views(cuda, b, n, dtype):
+@pytest.mark.parametrize("b,n,dtype,heads,hidden", [(2, 144, torch.bfloat16, 12, 768),
+                                                    (3, 77, torch.bfloat16, 12, 768),
+                                                    (2, 77, torch.float32, 12, 768),
+                                                    (2, 144, torch.bfloat16, 16, 1152),
+                                                    (2, 77, torch.float32, 16, 1152)])
+def test_k3_cuda_kernel_takes_the_linear_weights_as_views(cuda, b, n, dtype, heads, hidden):
     """The DiT's operands: dense_to_block_weights' views of (out, in) Linear
-    weights. The same result, bit for bit, as from contiguous copies of
-    them, and two calls bit-equal."""
+    weights (the flagship's heads of 64, DiT-XL's of 72). The same result,
+    bit for bit, as from contiguous copies of them, and two calls
+    bit-equal."""
     gen = torch.Generator("cuda").manual_seed(n + 7)
-    x = torch.randn((b, n, 768), generator=gen, device="cuda").to(dtype)
-    wq = (torch.randn((3 * 768, 768), generator=gen, device="cuda") * 768 ** -0.5).to(dtype)
-    wp = (torch.randn((768, 768), generator=gen, device="cuda") * 768 ** -0.5).to(dtype)
-    bq = 0.1 * torch.randn(3 * 768, generator=gen, device="cuda")
-    bp = 0.1 * torch.randn(768, generator=gen, device="cuda")
-    views = port.dense_to_block_weights(wq, bq, wp, bp, 12)
+    x = torch.randn((b, n, hidden), generator=gen, device="cuda").to(dtype)
+    wq = (torch.randn((3 * hidden, hidden), generator=gen, device="cuda")
+          * hidden ** -0.5).to(dtype)
+    wp = (torch.randn((hidden, hidden), generator=gen, device="cuda") * hidden ** -0.5).to(dtype)
+    bq = 0.1 * torch.randn(3 * hidden, generator=gen, device="cuda")
+    bp = 0.1 * torch.randn(hidden, generator=gen, device="cuda")
+    views = port.dense_to_block_weights(wq, bq, wp, bp, heads)
     assert views[0].data_ptr() == wq.data_ptr() and views[2].data_ptr() == wp.data_ptr()
     copies = [t.contiguous() for t in views]
-    out = port.fused_attention_block(x, *views, 12)
-    assert torch.equal(out, port.fused_attention_block(x, *views, 12))
-    assert torch.equal(out, port.fused_attention_block(x, *copies, 12))
-    want = port.fused_attention_block_plain(x, *views, 12).float()
+    out = port.fused_attention_block(x, *views, heads)
+    assert torch.equal(out, port.fused_attention_block(x, *views, heads))
+    assert torch.equal(out, port.fused_attention_block(x, *copies, heads))
+    want = port.fused_attention_block_plain(x, *views, heads).float()
     scale = want.abs().max().item()
     err = (out.float() - want).abs().max().item()
     assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-5) * scale, (err, scale)
@@ -562,16 +600,26 @@ def test_k3_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
                                                       hidden=128)
     with pytest.raises(ValueError, match="float32 biases"):
         port.fused_attention_block(x, w_qkv, b_qkv.bfloat16(), w_proj, b_proj, 2)
-    with pytest.raises(ValueError, match="Dh == 64"):
+    with pytest.raises(ValueError, match=r"Dh in \(64, 72\)"):
         port.fused_attention_block(x, w_qkv[:, :, :32].contiguous(), b_qkv, w_proj, b_proj, 2)
+    with pytest.raises(ValueError, match="w_proj of shape"):
+        port.fused_attention_block(*_block_operands(1, 9, torch.bfloat16, gen, heads=2,
+                                                    hidden=128, d=72)[:3], w_proj, b_proj, 2)
     ops = _block_operands(1, 417, torch.bfloat16, gen, heads=2, hidden=128)
     with pytest.raises(ValueError, match="shared memory"):
         port.fused_attention_block(*ops, 2)
-    for n, dtype in ((416, torch.bfloat16), (417, torch.bfloat16), (252, torch.float32),
-                     (253, torch.float32)):
-        elem = torch.empty((), dtype=dtype).element_size()
-        assert port.k3_smem_bytes(n, elem) == \
-            port._block_kernel().k3_attention_block_smem_bytes(n, elem)
+    ops = _block_operands(1, 337, torch.bfloat16, gen, heads=2, hidden=128, d=72)
+    with pytest.raises(ValueError, match="shared memory"):
+        port.fused_attention_block(*ops, 2)  # Dh 72: bf16 N <= 336
+    ops = _block_operands(1, 224, torch.float32, gen, heads=2, hidden=128, d=72)
+    with pytest.raises(ValueError, match="shared memory"):
+        port.fused_attention_block(*ops, 2)  # Dh 72: fp32 N <= 223
+    for d, limits in ((64, (416, 252)), (72, (336, 223))):
+        for n, dtype in ((limits[0], torch.bfloat16), (limits[0] + 1, torch.bfloat16),
+                         (limits[1], torch.float32), (limits[1] + 1, torch.float32)):
+            elem = torch.empty((), dtype=dtype).element_size()
+            assert port.k3_smem_bytes(n, elem, d) == \
+                port._block_kernel(d).k3_attention_block_smem_bytes(n, elem)
 
 
 def test_dit_block_route_launches_k3_and_matches_the_default_route(cuda):

@@ -2,10 +2,11 @@
 
 - The attention route table (``ops.attention.attention_route``) as the
   card applies it, and ``run_train.check_supported``'s refusals, both
-  without a card; at DiT-XL's head dim, 72, too (K1 and K4-K6 only: the
-  route with grad is flash at every N, ``"pallas"`` with grad and
-  ``"block"`` are refused by name), and ``check_supported`` of
-  ``run_train`` and ``run_eval`` taking DiT-XL/2, /4 and /8 on the card.
+  without a card; at DiT-XL's head dim, 72, too (the default route with
+  grad is flash at every N, by measurement; ``"pallas"`` takes K1 + K2
+  with grad, ``"block"`` takes K3 where its shared memory fits: DiT-XL/8
+  at 96 px, not at 192 px), and ``check_supported`` of ``run_train`` and
+  ``run_eval`` taking DiT-XL/2, /4 and /8 on the card.
 - A 2-block, full-width DiT at 320 px against the JAX package's
   ``DiT.apply`` in fp32, ``attn_impl`` None on both sides: XLA's softmax in
   JAX, the flash route's plain version in the port (K1 takes no fp32
@@ -78,18 +79,24 @@ def test_k1_smem_bytes_is_the_kernels_design(n, d):
     assert (k1_smem_bytes(n, 4, d) <= HOPPER_MAX_SMEM) == (n <= {64: 341, 72: 309}[d])
 
 
-@pytest.mark.parametrize("n", [9, 144, 205, 206, 400, 1024])
-def test_k2_smem_bytes_is_the_kernels_design(n):
+@pytest.mark.parametrize("n,d", [(9, 64), (144, 64), (205, 64), (206, 64), (400, 64),
+                                 (1024, 64), (9, 72), (148, 72), (149, 72), (576, 72)],
+                         ids=["9", "144", "205", "206", "400", "1024", "9-d72", "148-d72",
+                              "149-d72", "576-d72"])
+def test_k2_smem_bytes_is_the_kernels_design(n, d):
     """bf16: the larger of the row kernel's ring (two stages of 64-key K and
-    V chunks, rows of Dh + 8) and the column kernel's (two stages of 64-row
-    q and dO chunks and each row's three fp32 statistics), the same at every
-    N; fp32: the scalar kernel's K, V, fp32 dK/dV accumulators, 32-row q and
-    dO tiles and fp32 P/dP rows."""
-    assert k2_smem_bytes(n, 2) == max(2 * 2 * 64 * 72 * 2, 2 * (2 * 64 * 72 * 2 + 3 * 64 * 4))
-    assert k2_smem_bytes(n, 2) == 38400
-    assert k2_smem_bytes(n, 4) == (2 * n * 66 * 4 + 2 * n * 66 * 4 + 2 * 32 * 66 * 4
-                                   + 2 * 32 * (n + 1) * 4)
-    assert (k2_smem_bytes(n, 4) <= HOPPER_MAX_SMEM) == (n <= 164)
+    V chunks, rows of Dh + 8 at Dh 64, Dh + 16 at 72) and the column
+    kernel's (two stages of 64-row q and dO chunks and each row's three
+    fp32 statistics), the same at every N; fp32: the scalar kernel's K, V,
+    fp32 dK/dV accumulators, 32-row q and dO tiles and fp32 P/dP rows, rows
+    of Dh + 2."""
+    row = {64: 72, 72: 88}[d]
+    assert k2_smem_bytes(n, 2, d) == max(2 * 2 * 64 * row * 2,
+                                         2 * (2 * 64 * row * 2 + 3 * 64 * 4))
+    assert k2_smem_bytes(n, 2, d) == {64: 38400, 72: 46592}[d]
+    assert k2_smem_bytes(n, 4, d) == (2 * n * (d + 2) * 4 + 2 * n * (d + 2) * 4
+                                      + 2 * 32 * (d + 2) * 4 + 2 * 32 * (n + 1) * 4)
+    assert (k2_smem_bytes(n, 4, d) <= HOPPER_MAX_SMEM) == (n <= {64: 164, 72: 148}[d])
 
 
 def test_route_refusals():
@@ -111,9 +118,11 @@ def test_route_refusals():
 
 @pytest.mark.parametrize("n", [16, 144, 205, 206, 400, 576, 1024, 9216])
 def test_auto_route_at_head_dim_72(n):
-    """K2 takes Dh 64 alone, so at 72 the route with grad is flash at every
-    N (a rule, not a fallback); without grad bf16 takes K1 at every N and
-    fp32 up to N = 309, where its shared memory ends."""
+    """At 72 the default route with grad is flash at every N
+    (``WHOLE_ROW_GRAD_MAX_N[72]`` is 0: on an H100 K4 + K5 + K6 measured
+    faster than K1 + K2 at batch 32 and 96 for N from 144 to 576, within 1%
+    at N = 144 and batch 32); without grad bf16 takes K1 at every N and fp32
+    up to N = 309, where its shared memory ends."""
     assert attention_route(n, BF16, True, head_dim=72) == "flash"
     assert attention_route(n, FP32, True, head_dim=72) == "flash"
     assert attention_route(n, BF16, False, head_dim=72) == "whole_row"
@@ -124,17 +133,31 @@ def test_auto_route_at_head_dim_72(n):
 
 
 def test_route_refusals_at_head_dim_72():
-    with pytest.raises(ValueError, match=r"K2 \(attn_impl='pallas' with grad\) takes Dh 64"):
-        attention_route(576, BF16, True, "pallas", head_dim=72)
+    """K2 and K3 take Dh 72: ``"pallas"`` with grad is K1 + K2 at every bf16
+    N (fp32 up to K2's N = 148), and ``"block"`` is K3 where its shared
+    memory fits (DiT-XL/8 at 96 px, N = 144) and refused by name where it
+    does not (at 192 px, N = 576). Head dims other than 64 and 72 stay
+    refused by name on the card."""
+    for n in (144, 576, 9216):
+        assert attention_route(n, BF16, True, "pallas", head_dim=72) == "whole_row"
+    assert attention_route(148, FP32, True, "pallas", head_dim=72) == "whole_row"
+    with pytest.raises(ValueError, match="attn_impl='pallas' at N=149, Dh 72.*shared memory"):
+        attention_route(149, FP32, True, "pallas", head_dim=72)
     for grad in (False, True):
-        with pytest.raises(ValueError, match=r"K3 \(attn_impl='block'\) takes Dh 64"):
-            attention_route(144, BF16, grad, "block", head_dim=72)
+        assert attention_route(144, BF16, grad, "block", head_dim=72) == "block"
+        assert attention_route(144, FP32, grad, "block", head_dim=72) == "block"
+        with pytest.raises(ValueError, match="attn_impl='block' at N=576, Dh 72.*shared memory"):
+            attention_route(576, BF16, grad, "block", head_dim=72)
     for d in (16, 128):
         with pytest.raises(ValueError, match=f"head dim {d} .*Dh 64 or 72"):
             attention_route(144, BF16, False, head_dim=d)
+        with pytest.raises(ValueError, match=f"head dim {d} .*Dh 64 or 72"):
+            attention_route(144, BF16, True, "pallas", head_dim=d)
+        with pytest.raises(ValueError, match=f"head dim {d} .*Dh 64 or 72"):
+            attention_route(144, BF16, False, "block", head_dim=d)
     # The CPU's plain versions take every head dim and these impls.
     assert attention_route(576, BF16, True, "pallas", head_dim=72, on_card=False) == "whole_row"
-    assert attention_route(144, BF16, True, "block", head_dim=72, on_card=False) == "block"
+    assert attention_route(576, BF16, True, "block", head_dim=72, on_card=False) == "block"
     assert attention_route(144, BF16, True, head_dim=128, on_card=False) == "whole_row"
 
 
@@ -145,17 +168,27 @@ def _cfg(*overrides):
 @pytest.mark.parametrize("name", ["DiT-XL/2", "DiT-XL/4", "DiT-XL/8"])
 def test_check_supported_takes_dit_xl_on_the_card(name):
     """DiT-XL (16 heads of 72) at 192 px trains and solves on the card,
-    bf16 and fp32: 9,216, 2,304 or 576 tokens."""
+    bf16 and fp32: 9,216, 2,304 or 576 tokens; with ``attn_impl=pallas``
+    in bf16 too (K1 + K2). ``attn_impl=block`` (K3) trains and solves
+    DiT-XL/8 at 96 px (144 tokens) and is refused by name for its shared
+    memory at 192 px, and for /2 and /4 at 96 px (2,304 and 576 tokens)."""
     for dtype in ("bfloat16", "float32"):
         cfg = _cfg(f"model.name={name}", f"model.compute_dtype={dtype}")
         run_train.check_supported(cfg, on_card=True)
         run_eval.check_supported(cfg, on_card=True)
-    run_eval.check_supported(_cfg(f"model.name={name}", "model.attn_impl=pallas"))
-    with pytest.raises(NotImplementedError, match="K2 .* takes Dh 64 alone, not 72"):
-        run_train.check_supported(_cfg(f"model.name={name}", "model.attn_impl=pallas"))
     for check in (run_train.check_supported, run_eval.check_supported):
-        with pytest.raises(NotImplementedError, match="K3 .* takes Dh 64 alone, not 72"):
+        check(_cfg(f"model.name={name}", "model.attn_impl=pallas"))
+        with pytest.raises(NotImplementedError, match="attn_impl='block' at N=.*shared memory"):
             check(_cfg(f"model.name={name}", "model.attn_impl=block"))
+        small = _cfg(f"model.name={name}", "model.attn_impl=block", "model.image_size=96")
+        if name == "DiT-XL/8":
+            check(small)
+        else:
+            with pytest.raises(NotImplementedError, match="attn_impl='block'.*shared memory"):
+                check(small)
+    with pytest.raises(NotImplementedError, match="attn_impl='pallas' at N=.*shared memory"):
+        run_train.check_supported(_cfg(f"model.name={name}", "model.attn_impl=pallas",
+                                       "model.compute_dtype=float32"))
 
 
 @pytest.mark.parametrize("impl", ["xla", "xla2", "xla_split", "interpret", "block",
