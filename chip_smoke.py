@@ -135,7 +135,7 @@ under ``--grid20-artifact``):
 
 16. ``run_train`` (its CLI, each rank a subprocess of this script with
     torchrun's environment: ``--ddp-child``) warm-started from the waves3
-    artifact, 4 steps at global batch 96, bf16, on 2 ranks sharing the card
+    artifact, 3 steps at global batch 96, bf16, on 2 ranks sharing the card
     over gloo, on 1 process, and on 1 rank over nccl, the three at once: 12
     K1 + 12 K2 launches per rank per step, one checkpoint each, the
     per-step losses and final EMA of 2 ranks and of 1 nccl rank against 1
@@ -196,11 +196,12 @@ decode.cpp``; no libjpeg on this machine or in the port), skipped under
 then tensor parallelism and FSDP in the trainer (``parallel/sharding.py``),
 skipped under ``--grid20-artifact``:
 
-19. ``run_train`` warm-started from the waves3 artifact, 4 steps at global
+19. ``run_train`` warm-started from the waves3 artifact, 3 steps at global
     batch 96 in bf16 (phase 16's settings) on ``mesh.model=2`` and on
     ``mesh.fsdp=2``, 2 ranks sharing the card over gloo, and on one process
-    (each a subprocess, the three at once, then the fp32 pair at once;
-    their rates read while they share the card): 12 K1 + 12 K2 launches per rank per step at the
+    (each a subprocess, the three at once with the grid-20 step below,
+    then the fp32 pair at once; their rates read while they share the
+    card): 12 K1 + 12 K2 launches per rank per step at the
     layout's shapes ((96, 6, 144, 64) under TP, (48, 12, 144, 64) under
     FSDP), the per-step losses within 2% and every final EMA element within
     20 lr of one process's; ``mesh.model=2`` against one process again in
@@ -217,15 +218,14 @@ then the last three axes of the trainer, skipped under ``--grid20-artifact``:
 
 20. on 2 ranks sharing the card over gloo, each process set one child
     (``--runs-child``) beside one process, the EP set and the pipeline and
-    ring set at once (their rates read while they share the card), the
-    compositions' set after them with the ring's eval beside it: expert
-    parallelism on
-    JPDVT-MoE (4 of its 12 blocks, 8 experts, random init, 4 steps at
-    batch 96
-    in bf16 on ``mesh.ep=2``; 3 each on ``mesh.model=2`` and
-    ``mesh.fsdp=2`` with the MoE; 3 on ``mesh.ep=2`` in fp32 beside one
-    fp32 process), the GPipe pipeline (``mesh.pipe=2``, 4 microbatches, 4
-    steps warm-started from the waves3 artifact; 24 K1 + 24 K2 a rank a
+    ring set and the compositions' set below at once (their rates read
+    while they share the card), the ring's eval once the ring set has
+    ended: expert parallelism on JPDVT-MoE (4 of its 12 blocks, 8
+    experts, random init, 3 steps at batch 96 in bf16 on ``mesh.ep=2``; 3
+    each on ``mesh.model=2`` and ``mesh.fsdp=2`` with the MoE; 3 on
+    ``mesh.ep=2`` in fp32 beside one fp32 process), the GPipe pipeline
+    (``mesh.pipe=2``, 4 microbatches, 3 steps warm-started from the
+    waves3 artifact; 24 K1 + 24 K2 a rank a
     step at (24, 12, 144, 64); 3 in fp32) and the ring (``mesh.seq=2``, 72
     tokens a rank, no attention kernel; one grid-20 step, 200 tokens a
     rank): the losses within 2% and the EMA within 20 lr of one
@@ -236,14 +236,14 @@ then the last three axes of the trainer, skipped under ``--grid20-artifact``:
     ``mesh.seq=2`` over the 16 export-smoke puzzles, fast and
     faithful-25, its journal the one-process ``run_eval``'s, 1.00; K1 and
     K2 at the pipeline's microbatch shape beside their bound, plain
-    version and SDPA. Then the four compositions of axes on 4 ranks sharing
-    the card (one ``--runs-child`` set of 4), 3 steps at batch 96 in bf16:
+    version and SDPA. The four compositions of axes on 4 ranks sharing
+    the card (one ``--runs-child`` set of 4), 2 steps at batch 96 in bf16:
     ``mesh.pipe=2 mesh.model=2`` and ``mesh.pipe=2 mesh.fsdp=2`` (4
     microbatches; 24 K1 + 24 K2 a rank a step at (24, 6, 144, 64) and
     (12, 12, 144, 64)) and ``mesh.seq=2 mesh.model=2`` warm-started from
     the waves3 artifact, held to the pipeline set's one process, and
     ``mesh.seq=2 mesh.ep=2`` on the 4-block JPDVT-MoE, held to the EP set's
-    (those references keep their EMA after step 3 on disk for it): the
+    (those references keep their EMA after step 2 on disk for it): the
     same gates, bit-equal restores, peak GiB a rank beside the layout's
     bytes; K1 and K2 at the two new shapes beside their bound, plain
     version and SDPA.
@@ -326,6 +326,29 @@ then DiT-XL's head dim (run under ``--grid20-artifact`` too):
     solve of 8 (28 K3), every row a permutation; and that model's
     full-width bf16 forward on K3 against its plain sublayer, within 2^-4.
 
+then ``model.attn_impl=block`` at every geometry the JAX package runs it
+(run under ``--grid20-artifact`` too):
+
+25. K3's long-row instance (any N; q, k, v through a global scratch)
+    against its plain version at the JAX rule's ends: (8, 576) at D 768 and
+    (4, 855) at D 384 in bf16, (2, 750) at D 384 in fp32, and at (32, 576),
+    the grid-24 solve's shape, timed beside its bound, its plain version,
+    ``F.linear -> SDPA -> F.linear`` and the default route (cuBLAS + K1 +
+    cuBLAS); bit-equal to the short-row instance at N = 144 and 400; K1 at
+    (32, 12, 576, 64), timed; ``block``'s XLA composition (cuBLAS + K1 +
+    cuBLAS) against its plain version at DiT-XL's width, (2, 576). The
+    flagship JPDVT at 384 px, grid 24 (N = 576, the grid ladder's rung after
+    grid 20), warm-started from ``waves20_hard_step32700`` under
+    ``--grid20-artifact`` and from the waves3 artifact otherwise (the
+    default copy holds no other): ``run_train`` 3 steps at batch 8 in bf16
+    on the default route (12 K4 + 12 K5 + 12 K6 a step) and on ``block``
+    (12 K3 a step, no other kernel), the block run's per-step losses within
+    2% of the default route's; on the block run's EMA a fast solve of 32
+    puzzles (12 K3 or 12 K1) and a faithful-250 solve of 4 (3,000 K3 or
+    3,000 K1) on both routes, every row a permutation, the routes'
+    agreement printed; DiT-XL/8 at 192 px on ``block`` (the JAX rule
+    composes there): a fast solve of 8, 28 K1 and no K3.
+
 The last three lines are the ``kernels`` JSON (each kernel with the
 launches of its own path and its shape: K1 for the solve (and phase 22's
 demos), the train step (and phase 22's one-process and relaunched runs),
@@ -338,8 +361,10 @@ MoE's, the composed pipelines', K3 on the eval path and the training
 route, K4, K5, K6, and the Dh-72 rows of K1, K4, K5 and K6: phase 23's
 solves and validation, train step and fp32 solve, with phase 24's
 ``pallas`` train step in K1's row; and K2 and K3 at Dh 72: phase 24's
-``pallas`` train step and its ``block`` train step and solves), the
-card's name and power limit, and the device JSON.
+``pallas`` train step and its ``block`` train step and solves; phase 25's
+K3 long-row instance on the grid-24 block run and solves, K1 on that
+geometry's default-route solves, and at Dh 72 under DiT-XL/8's
+composition), the card's name and power limit, and the device JSON.
 """
 
 from __future__ import annotations
@@ -805,13 +830,14 @@ def check_k5_k6(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
 @contextlib.contextmanager
 def plain_attention():
     """Route the DiT's attention, every route, to the plain versions (torch
-    autograd of the whole-row softmax, or of K3's plain version on the
-    ``block`` route) for a comparison."""
+    autograd of the whole-row softmax; on the ``block`` route the plain
+    version of what the JAX rule computes there, K3's or the XLA
+    composition's) for a comparison."""
     kernel_routes = (dit.fused_qkv_attention, dit.fused_qkv_flash_attention,
                      dit.fused_attention_block)
     dit.fused_qkv_attention = attn_ops.fused_qkv_attention_reference
     dit.fused_qkv_flash_attention = attn_ops.fused_qkv_attention_reference
-    dit.fused_attention_block = attn_ops.fused_attention_block_plain
+    dit.fused_attention_block = attn_ops.fused_attention_block_reference
     try:
         yield
     finally:
@@ -820,7 +846,7 @@ def plain_attention():
 
 
 COUNTERS = {"k1": attn_ops.attention, "k2": attn_ops.attention_bwd,
-            "k3": attn_ops.fused_attention_block,
+            "k3": attn_ops.fused_attention_block_k3,
             "k4": flash_ops.flash_attention_fwd, "k5": flash_ops.flash_dq,
             "k6": flash_ops.flash_dkv}
 
@@ -1363,7 +1389,8 @@ def check_k3(b: int, n: int, dtype: torch.dtype, weights: tuple, gen: torch.Gene
     """K3 on one DiT block's weights (``heads`` heads; the head dim from
     their shapes), in ``dtype`` with the biases rounded through it and kept
     fp32 (as the solver hands them over), against its plain version;
-    relative to the output's largest magnitude."""
+    relative to the output's largest magnitude, on the instance
+    ``k3_instance`` names."""
     wq, bq, wp, bp = (w.to(dtype) for w in weights)
     hidden = wq.shape[1]
     d = hidden // heads
@@ -1371,8 +1398,8 @@ def check_k3(b: int, n: int, dtype: torch.dtype, weights: tuple, gen: torch.Gene
     if dtype == torch.float32:  # the fp32 kernel reads contiguous weights: time no copy
         ops = tuple(t.contiguous() for t in ops)
     x = torch.randn((b, n, hidden), generator=gen, device="cuda").to(dtype)
-    out = attn_ops.fused_attention_block(x, *ops, heads)
-    if not torch.equal(out, attn_ops.fused_attention_block(x, *ops, heads)):
+    out = attn_ops.fused_attention_block_k3(x, *ops, heads)
+    if not torch.equal(out, attn_ops.fused_attention_block_k3(x, *ops, heads)):
         raise AssertionError(f"K3 {(b, n, hidden)} {dtype}: two calls on one input differ")
     torch.cuda.synchronize()
     ref = attn_ops.fused_attention_block_plain(x, *ops, heads).float()
@@ -1382,8 +1409,8 @@ def check_k3(b: int, n: int, dtype: torch.dtype, weights: tuple, gen: torch.Gene
         raise AssertionError(f"K3 {(b, n, hidden)} {dtype}: max abs err {err} > {TOL[dtype]} "
                              f"x {scale}")
     row = {"shape": [b, n, hidden], "heads": heads, "head_dim": d,
-           "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "scale": scale,
-           "rel_tol": TOL[dtype]}
+           "dtype": str(dtype).split(".")[-1], "instance": attn_ops.k3_instance(n, dtype, d),
+           "max_abs_err": err, "scale": scale, "rel_tol": TOL[dtype]}
     if timed:
         def library():
             qkv = F.linear(x, wq, bq).view(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
@@ -1393,7 +1420,7 @@ def check_k3(b: int, n: int, dtype: torch.dtype, weights: tuple, gen: torch.Gene
         def default_route():
             return F.linear(attn_ops.fused_qkv_attention(F.linear(x, wq, bq), heads), wp, bp)
 
-        row["ms"] = cuda_ms(lambda: attn_ops.fused_attention_block(x, *ops, heads), 20)
+        row["ms"] = cuda_ms(lambda: attn_ops.fused_attention_block_k3(x, *ops, heads), 20)
         row["plain_ms"] = cuda_ms(
             lambda: attn_ops.fused_attention_block_plain(x, *ops, heads), 5)
         row["library_ms"] = cuda_ms(library, 50)
@@ -1902,8 +1929,8 @@ def host_us(fn, reps: int = 20) -> float:
 # 96 x 144, which moves bf16 roundings. The per-step loss (a mean of 96
 # samples) stays within 2% of one process's; every EMA element within 20
 # lr, set for six AdamW updates a run, each at most ~1.4 lr an element, two
-# runs. 4 steps a run since PR 21 (6 before), to keep the script in its time.
-DDP_STEPS, DDP_LOSS_RTOL, DDP_EMA_ATOL = 4, 2e-2, 20 * LR
+# runs. 3 steps a run, to keep the script in its time.
+DDP_STEPS, DDP_LOSS_RTOL, DDP_EMA_ATOL = 3, 2e-2, 20 * LR
 DDP_STEP_LAUNCHES = {"k1": 12, "k2": 12}  # a train step of the 12-block DiT
 K3_TRAIN_STEPS = 12
 
@@ -2039,6 +2066,14 @@ def wait_ranks(procs, timeout: float = 300, codes=(0,)) -> list[dict]:
         raise AssertionError(f"rank exits {exits}, expected {codes}:\n"
                              + "\n".join(tail(b + ".log") for _, b in procs))
     return [json.load(open(b + ".json")) for _, b in procs if os.path.exists(b + ".json")]
+
+
+def stop_ranks(procs) -> None:
+    """Kill every rank of ``procs`` still running."""
+    for p, _ in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
 
 
 def ddp_train_args(exp: str) -> list[str]:
@@ -2911,7 +2946,7 @@ def jpeg_grid3(card: str) -> dict:
 # ------------------------------------------------------------------ phase 19
 
 # The JPDVT flagship at full width on 2 ranks sharing the card over gloo,
-# warm-started from the waves3 artifact, 4 steps at global batch 96 in bf16,
+# warm-started from the waves3 artifact, 3 steps at global batch 96 in bf16,
 # against one process. mesh.fsdp=2 cuts the batch as phase 16's DDP does, so
 # phase 16's bounds hold: 2% of the loss, 20 lr on every EMA element.
 # mesh.model=2 keeps the whole batch on each rank and sums the partial
@@ -3062,17 +3097,24 @@ def check_mesh_train(tmp: str, card: str) -> dict:
     return out
 
 
-def check_mesh_grid20(tmp: str) -> dict:
-    """One grid-20 train step (320 px, N = 400, batch 96, bf16, random
-    weights) on ``mesh.model=2``, 2 ranks sharing the card: 12 K4 + 12 K5 +
-    12 K6 a rank at (96, 6, 400, 64), a finite loss."""
+def start_mesh_grid20(tmp: str) -> list:
+    """The ranks of :func:`check_mesh_grid20`'s step, started. Its wall time
+    is not read: the ranks are waited for after the runs they share the card
+    with."""
     args = [f"model.image_size={SIZE20}", f"task.grid_size={GRID20}",
             "data.synthetic_cues=waves", "data.device_stream=true",
             f"data.global_batch_size={TRAIN_BATCH}", f"data.synthetic_n={TRAIN_BATCH}",
             "train.epochs=1", "train.log_every=1", "train.ckpt_every=1000000",
             "diffusion.sampler_mode=fast", "mesh.model=2", f"train.exp_dir={tmp}/tp20"]
-    t0 = time.perf_counter()
-    ranks = wait_ranks(spawn_ranks(tmp, "tp20", "train", args), 900)
+    return spawn_ranks(tmp, "tp20", "train", args)
+
+
+def check_mesh_grid20(tmp: str, procs: list) -> dict:
+    """One grid-20 train step (320 px, N = 400, batch 96, bf16, random
+    weights) on ``mesh.model=2``, 2 ranks sharing the card, started by
+    :func:`start_mesh_grid20`: 12 K4 + 12 K5 + 12 K6 a rank at (96, 6, 400,
+    64), a finite loss."""
+    ranks = wait_ranks(procs, 900)
     shape = f"{TRAIN_BATCH}x{HEADS // 2}x{TOKENS20}x{HEAD_DIM}"
     want = {name: 0 for name in COUNTERS} | {"k4": 12, "k5": 12, "k6": 12}
     for r in ranks:
@@ -3083,7 +3125,7 @@ def check_mesh_grid20(tmp: str) -> dict:
     losses, _, summary = run_metrics(f"{tmp}/tp20")
     if len(losses) != 1 or not np.isfinite(losses).all():
         raise AssertionError(f"grid-20 TP: losses {losses}")
-    out = {"loss": losses[0], "wall_s": time.perf_counter() - t0, "shape": shape,
+    out = {"loss": losses[0], "shape": shape,
            "launches": {k: sum(r["launches"][k] for r in ranks) for k in ("k4", "k5", "k6")},
            "peak_gib": [r["peak_gib"] for r in ranks], "loop_s": summary["loop_s"]}
     log("  grid-20 step on mesh.model=2: " + json.dumps(out))
@@ -3096,8 +3138,17 @@ def mesh_grid3(card: str, gen: torch.Generator) -> dict:
     torch.cuda.empty_cache()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        out["train"] = check_mesh_train(tmp, card)
-        out["grid20"] = check_mesh_grid20(tmp)
+        # The grid-20 TP step's ranks share the card with the first group's,
+        # for the script's time (their peak allocations are 55 GiB together;
+        # the card's memory in use peaked at 72,986 of 81,559 MiB on an H100
+        # 80GB HBM3).
+        tp20 = start_mesh_grid20(tmp)
+        try:
+            out["train"] = check_mesh_train(tmp, card)
+        except BaseException:
+            stop_ranks(tp20)
+            raise
+        out["grid20"] = check_mesh_grid20(tmp, tp20)
     # K1 and K2 at the layout's shapes, against their plain versions, timed
     # by CUDA events only: at this point of the whole script, after the
     # earlier phases' profiler sessions, torch.profiler has returned no
@@ -3128,8 +3179,9 @@ def mesh_grid3(card: str, gen: torch.Generator) -> dict:
 # comparisons and the restores into one process are made. A 2-rank rate
 # says nothing of scaling: the ranks share one card and pass every
 # collective and transfer through the host (gloo).
-# 4 steps a run, so that the 4-rank set after them fits the script's limit.
-AXES_STEPS, MOE_ONE_CKPT = 4, 3
+# 3 steps a run, so that the 4-rank set beside them fits the script's
+# limit.
+AXES_STEPS = 3
 # The EP set's JPDVT-MoE keeps 4 of its 12 blocks, so that the whole script
 # stays well inside its time limit: every expert rule, gate and restore is
 # per block, so 4 blocks hold what 12 would at a third of the time.
@@ -3137,11 +3189,11 @@ MOE_DEPTH = 4
 PIPE_MICRO = 4
 PIPE_SHAPE = f"{TRAIN_BATCH // PIPE_MICRO}x{HEADS}x{TOKENS}x{HEAD_DIM}"
 NO_LAUNCH = {name: 0 for name in COUNTERS}
-# The four compositions on 4 ranks: 3 steps each, held to the step-3 EMA of
-# the one-process references of the sets above. The pipeline's K1/K2 shapes:
-# a microbatch of the whole batch on 6 heads under TP, of half of it under
-# FSDP.
-COMPOSE_STEPS = 3
+# The four compositions on 4 ranks: 2 steps each (for the script's time),
+# held to the step-2 EMA of the one-process references of the sets above.
+# The pipeline's K1/K2 shapes: a microbatch of the whole batch on 6 heads
+# under TP, of half of it under FSDP.
+COMPOSE_STEPS = MOE_ONE_CKPT = 2
 PIPE_TP_SHAPE = f"{TRAIN_BATCH // PIPE_MICRO}x{HEADS // 2}x{TOKENS}x{HEAD_DIM}"
 PIPE_FSDP_SHAPE = f"{TRAIN_BATCH // 2 // PIPE_MICRO}x{HEADS}x{TOKENS}x{HEAD_DIM}"
 
@@ -3196,8 +3248,8 @@ def axes_plans(tmp: str) -> dict:
     fp32 = FP32[:2] + [f"data.synthetic_n={TRAIN_BATCH * FP32_STEPS}"]
     fp32_gate = dict(loss_rtol=FP32_LOSS_RTOL, ema_atol=FP32_EMA_ATOL)
     pipe_args = ["mesh.pipe=2", f"mesh.pipe_microbatches={PIPE_MICRO}"]
-    # The compositions' runs: phase 16's settings for 3 steps (the JPDVT
-    # ones) and the EP set's MoE, held to those sets' one process.
+    # The compositions' runs: phase 16's settings for COMPOSE_STEPS steps
+    # (the JPDVT ones) and the EP set's MoE, held to those sets' one process.
     three = [f"data.synthetic_n={TRAIN_BATCH * COMPOSE_STEPS}"]
     four = [f"data.synthetic_n={TRAIN_BATCH * AXES_STEPS}"]
     held = dict(ref="one", ref_dir=f"{tmp}/one", restore=True)
@@ -3218,8 +3270,8 @@ def axes_plans(tmp: str) -> dict:
                                          *FP32[:2]), kmoe, one_shape, FP32_STEPS,
                                 ref="moe_one_fp32", **fp32_gate)}),
         "pipe_seq": (2, {
-            # Its EMA 3 steps past the artifact's step 10,000 is the
-            # compositions' reference too.
+            # Its EMA COMPOSE_STEPS steps past the artifact's step 10,000 is
+            # the compositions' reference too.
             "one": AxesRun(ddp_train_args(f"{tmp}/one") + four + [
                 f"train.ckpt_every={10000 + COMPOSE_STEPS}", "train.val_every=1000000"],
                 k12, one_shape, AXES_STEPS, solo=True, share=True),
@@ -3344,9 +3396,12 @@ def runs_child(out: str, plan_path: str) -> int:
                 end = max(kept)
                 row["ckpt_step"] = end
                 if run["ref"] is not None and run["ema_atol"] is not None:
-                    if run["ref_dir"] is not None:  # a reference of an earlier set
-                        ema_ref = torch.load(os.path.join(run["ref_dir"], f"ema{end}.pt"),
-                                             weights_only=True)
+                    if run["ref_dir"] is not None:  # a reference of another set
+                        path = os.path.join(run["ref_dir"], f"ema{end}.pt")
+                        deadline = time.time() + 900
+                        while not os.path.exists(path) and time.time() < deadline:
+                            time.sleep(1)
+                        ema_ref = torch.load(path, weights_only=True)
                     else:
                         ref_exp = next(a.split("=", 1)[1] for n, r in plan
                                        if n == run["ref"] for a in r["argv"]
@@ -3364,8 +3419,10 @@ def runs_child(out: str, plan_path: str) -> int:
                     torch.cuda.empty_cache()
                 for step in list(kept):  # the references' EMA is all a later run reads
                     kept[step] = {"ema": kept[step]["ema"]} if run["solo"] else {}
-                    if run["share"]:
-                        torch.save(kept[step]["ema"], os.path.join(exp, f"ema{step}.pt"))
+                    if run["share"]:  # whole, or not there, for a set that reads it
+                        path = os.path.join(exp, f"ema{step}.pt")
+                        torch.save(kept[step]["ema"], path + ".part")
+                        os.replace(path + ".part", path)
             results.append(row)
             dp.barrier()
     finally:
@@ -3380,11 +3437,14 @@ def mesh_axes(argv: list[str]) -> dict:
             if a.split("=")[0] in ("mesh.model", "mesh.fsdp", "mesh.ep", "mesh.pipe")}
 
 
-# Phase 20's process sets in waves (since PR 21, for the script's time):
-# the ep and pipe_seq sets are independent and start together; the compose
-# set reads their references' EMA and starts after them, with the ring's
-# eval beside it. The sets' rates are read while they share the card.
-AXES_WAVES = (("ep", "pipe_seq"), ("compose",))
+# Phase 20's process sets, all started at once for the script's time (the
+# card's memory in use then peaked at 52,397 and 56,250 of 81,559 MiB on an
+# H100 80GB HBM3), waited for in this order; the ring's eval runs once the pipe_seq
+# set has ended. The compose set's rank 0 reads the EMA of the other sets'
+# references, which they write early on (it waits for them). The sets'
+# rates are read while they share the card; each set's seconds run from its
+# start to its end.
+AXES_SETS, AXES_BESIDE_AFTER = ("ep", "pipe_seq", "compose"), "pipe_seq"
 
 
 def start_axes_set(tmp: str, group: str, world: int, runs: dict) -> tuple:
@@ -3411,20 +3471,20 @@ def check_axes_train(tmp: str, card: str, beside=None) -> tuple[dict, object]:
     """Phase 20's training runs: every process set of :func:`axes_plans`,
     the launches a step at their shapes, the losses against each run's
     reference, the EMA and restore results of rank 0; and what ``beside()``
-    returns, called once the last wave has started."""
+    returns, called once the ``AXES_BESIDE_AFTER`` set has ended."""
     out: dict = {}
     plans = axes_plans(tmp)
     beside_out = None
-    for w, wave in enumerate(AXES_WAVES):
-        started = {group: start_axes_set(tmp, group, *plans[group]) for group in wave}
-        if beside is not None and w == len(AXES_WAVES) - 1:
-            beside_out = beside()
-        for group in wave:
+    started = {group: start_axes_set(tmp, group, *plans[group]) for group in AXES_SETS}
+    try:
+        for group in AXES_SETS:
             world, runs = plans[group]
             t0, procs = started[group]
             ranks = wait_ranks(procs, 900)
             out[f"{group}_s"] = time.perf_counter() - t0
             log(f"  phase 20 {group} ({world} ranks): {out[f'{group}_s']:.2f} s")
+            if group == AXES_BESIDE_AFTER and beside is not None:
+                beside_out = beside()
             for i, (name, run) in enumerate(runs.items()):
                 want = NO_LAUNCH | run.launches
                 rows = [r["runs"][i] for r in ranks if "exit" in r["runs"][i]]
@@ -3484,6 +3544,10 @@ def check_axes_train(tmp: str, card: str, beside=None) -> tuple[dict, object]:
                                          f"(limit {run.loss_rtol}), EMA {ema} (limit "
                                          f"{run.ema_atol}), restored bit-equal "
                                          f"{out[name].get('restored_bit_equal')}")
+    except BaseException:
+        for _, procs in started.values():
+            stop_ranks(procs)
+        raise
     runs = {k: v for k, v in out.items() if isinstance(v, dict)}
     for name, row in runs.items():
         log(f"  {name} on {card}: losses {row['losses']}, peak GiB per rank {row['peak_gib']} "
@@ -4023,21 +4087,29 @@ def xl_train_args(exp: str, *extra: str) -> list[str]:
             "diffusion.sampler_mode=fast", f"train.exp_dir={exp}", *extra]
 
 
-def xl_run_train(name: str, extra: tuple, expected: dict) -> tuple[dict, dict]:
-    """``counted_run_train`` of DiT-XL/8 with ``extra`` overrides, its
-    checkpoint kept in memory: (the run's row, its final EMA)."""
+def kept_run_train(args_for, name: str, expected: dict, steps: int,
+                   last_step: int) -> tuple[dict, dict]:
+    """``counted_run_train`` of ``args_for(exp)``, its checkpoint kept in
+    memory: (the run's row, its EMA at ``last_step``, its only checkpoint)."""
     writer = CheckpointManager._write
     CheckpointManager._write = keep_checkpoint
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            exp = os.path.join(tmp, "xl")
-            row = counted_run_train(xl_train_args(exp, *extra), name, expected)
+            exp = os.path.join(tmp, "exp")
+            row = counted_run_train(args_for(exp), name, expected)
             kept = KEPT.pop(exp, {})
     finally:
         CheckpointManager._write = writer
-    if sorted(kept) != [XL_STEPS] or row["steps"] != XL_STEPS:
+    if sorted(kept) != [last_step] or row["steps"] != steps:
         raise AssertionError(f"{name}: checkpoints at steps {sorted(kept)}, {row['steps']} steps")
-    return row, kept[XL_STEPS]["ema"]
+    return row, kept[last_step]["ema"]
+
+
+def xl_run_train(name: str, extra: tuple, expected: dict) -> tuple[dict, dict]:
+    """``counted_run_train`` of DiT-XL/8 with ``extra`` overrides, its
+    checkpoint kept in memory: (the run's row, its final EMA)."""
+    return kept_run_train(lambda exp: xl_train_args(exp, *extra), name, expected, XL_STEPS,
+                          XL_STEPS)
 
 
 def xl_solve(model, cfg, mode: str, n: int, size: int = 192) -> dict:
@@ -4168,6 +4240,17 @@ XL_ROUTE_LOSS_RTOL = 0.02
 XL_K3_FP32_BATCH = 4
 
 
+def linear_weights(hidden: int, seed: int) -> tuple:
+    """Random qkv and proj ``Linear`` weights and biases of width ``hidden``
+    on the card: N(0, 1/hidden) matrices, N(0, 0.01) biases, fp32."""
+    wgen = torch.Generator("cuda").manual_seed(seed)
+    return ((torch.randn((3 * hidden, hidden), generator=wgen, device="cuda")
+             * hidden ** -0.5),
+            0.1 * torch.randn(3 * hidden, generator=wgen, device="cuda"),
+            torch.randn((hidden, hidden), generator=wgen, device="cuda") * hidden ** -0.5,
+            0.1 * torch.randn(hidden, generator=wgen, device="cuda"))
+
+
 def dit_xl_k2_k3(card: str, gen: torch.Generator, flash_losses: list) -> dict:
     """Phase 24: DiT-XL/8 on K2 (``pallas``, 192 px) and K3 (``block``, 96 px)
     at Dh 72; ``flash_losses`` are phase 23's per-step losses."""
@@ -4182,13 +4265,7 @@ def dit_xl_k2_k3(card: str, gen: torch.Generator, flash_losses: list) -> dict:
                  check_k2(XL_FP32_BATCH, XL_SMALL_TOKENS, fp32, gen, timed=True,
                           heads=XL_HEADS, device_time=False, d=XL_DH),
                  check_k2(3, 77, bf16, gen, timed=False, offset=2, heads=XL_HEADS, d=XL_DH)]
-    hidden = XL_HEADS * XL_DH
-    wgen = torch.Generator("cuda").manual_seed(24)
-    weights = ((torch.randn((3 * hidden, hidden), generator=wgen, device="cuda")
-                * hidden ** -0.5),
-               0.1 * torch.randn(3 * hidden, generator=wgen, device="cuda"),
-               torch.randn((hidden, hidden), generator=wgen, device="cuda") * hidden ** -0.5,
-               0.1 * torch.randn(hidden, generator=wgen, device="cuda"))
+    weights = linear_weights(XL_HEADS * XL_DH, 24)
     out["k3"] = [check_k3(32, XL_SMALL_TOKENS, bf16, weights, gen, timed=True, heads=XL_HEADS),
                  check_k3(XL_K3_FP32_BATCH, XL_SMALL_TOKENS, fp32, weights, gen, timed=True,
                           heads=XL_HEADS),
@@ -4229,9 +4306,12 @@ def dit_xl_k2_k3(card: str, gen: torch.Generator, flash_losses: list) -> dict:
         model.load_state_dict(ema)
         res = xl_solve(model, cfg, mode, n, XL_SMALL)
         want = cfg.depth * (STEPS if mode == "faithful" else 1) * -(-n // 32)
-        if res["launches"]["k3"] != want or sum(res["launches"].values()) != want:
+        # bf16: K3 (the JAX rule runs its kernel at D 1152 up to N = 173);
+        # fp32: the XLA composition, whose attention core is K1 here.
+        key = "k3" if dtype == bf16 else "k1"
+        if res["launches"][key] != want or sum(res["launches"].values()) != want:
             raise AssertionError(f"{XL_NAME} at {XL_SMALL} px, block, {mode} solve in {dtype}: "
-                                 f"launches {res['launches']}, expected {want} k3")
+                                 f"launches {res['launches']}, expected {want} {key}")
         out["solve_block"][f"{str(dtype).split('.')[-1]}_{mode}"] = res
         del model
     del ema
@@ -4246,6 +4326,183 @@ def dit_xl_k2_k3(card: str, gen: torch.Generator, flash_losses: list) -> dict:
     log(f"  phase 24 forward: {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
     log(f"phase dit-xl k2 k3: {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+# ------------------------------------------------------------------ phase 25
+
+# attn_impl=block at every geometry the JAX package runs it. The flagship
+# JPDVT at 384 px, grid 24 (N = 576, the grid ladder's rung after grid 20):
+# the JAX package runs its Pallas K3 there (D 768, bf16: up to N = 593), so
+# the port runs K3's long-row instance. DiT-XL/8 at 192 px (N = 576): the JAX
+# rule composes (D 1152, bf16: K3 only up to N = 173), so the port runs the
+# XLA composition, cuBLAS + K1 + cuBLAS. Stated before the first run: the
+# block run's per-step losses within 2% of the default route's on the same
+# warm start and batches (XL_ROUTE_LOSS_RTOL: the routes differ by bf16
+# rounding points in attention, forward and backward).
+SIZE24, GRID24, TOKENS24 = 384, 24, 576
+G24_BATCH, G24_STEPS = 8, 3
+G24_FAST_PUZZLES, G24_FAITHFUL_PUZZLES, XL_BLOCK_PUZZLES = 32, 4, 8
+# K3's long-row instance at the JAX rule's ends: (B, N, dtype, hidden, heads).
+K3_LONG_CHECKS = ((8, TOKENS24, torch.bfloat16, 768, 12), (4, 855, torch.bfloat16, 384, 6),
+                  (2, 750, torch.float32, 384, 6))
+
+
+def artifact_step(path: str) -> int:
+    """The training step an artifact's manifest records."""
+    with open(path) as f:
+        return int(json.load(f)["step"])
+
+
+def grid24_args(artifact: str, exp: str, *extra: str) -> list[str]:
+    """Phase 25's run_train overrides: JPDVT at 384 px, grid 24, warm-started
+    from ``artifact``, 3 steps at batch 8 in bf16, and ``extra``."""
+    return [f"model.image_size={SIZE24}", f"task.grid_size={GRID24}",
+            "data.synthetic_cues=waves", "data.device_stream=true",
+            f"data.global_batch_size={G24_BATCH}", f"data.synthetic_n={G24_BATCH * G24_STEPS}",
+            "train.epochs=1", "train.log_every=1", "train.ckpt_every=1000000",
+            "diffusion.sampler_mode=fast", f"train.warm_start={artifact}",
+            f"train.exp_dir={exp}", *extra]
+
+
+def check_k3_long_bits(b: int, n: int, weights: tuple, heads: int,
+                       gen: torch.Generator) -> None:
+    """K3's long-row instance gives the short-row one's bits where both fit."""
+    wq, bq, wp, bp = (w.bfloat16() for w in weights)
+    ops = attn_ops.dense_to_block_weights(wq, bq.float(), wp, bp.float(), heads)
+    x = torch.randn((b, n, wq.shape[1]), generator=gen, device="cuda").bfloat16()
+    short = attn_ops.fused_attention_block_k3(x, *ops, heads, instance="short")
+    long = attn_ops.fused_attention_block_k3(x, *ops, heads, instance="long")
+    if not torch.equal(short, long):
+        raise AssertionError(f"K3 at {(b, n)}: the long-row instance differs from the "
+                             f"short-row one by {(short.float() - long.float()).abs().max()}")
+    log(f"  K3 long-row instance at {(b, n, wq.shape[1])} bf16: bit-equal to the short-row one")
+
+
+def check_block_xla(b: int, n: int, dtype: torch.dtype, weights: tuple, heads: int,
+                    gen: torch.Generator) -> dict:
+    """``block``'s XLA composition on the card (cuBLAS + K1 or K4 + cuBLAS)
+    against its plain version, as K1 against its own."""
+    wq, bq, wp, bp = (w.to(dtype) for w in weights)
+    ops = attn_ops.dense_to_block_weights(wq, bq.float(), wp, bp.float(), heads)
+    x = torch.randn((b, n, wq.shape[1]), generator=gen, device="cuda").to(dtype)
+    if attn_ops.block_takes_k3(x, ops[0], heads):
+        raise AssertionError(f"the JAX rule runs K3 at {(b, n)}; no composition to check")
+    before = counts()
+    out = attn_ops.fused_attention_block(x, *ops, heads)
+    launched = launched_since(before)
+    ref = attn_ops.fused_attention_block_xla_plain(x, *ops, heads).float()
+    scale = ref.abs().max().item()
+    err = (out.float() - ref).abs().max().item()
+    row = {"shape": [b, n, wq.shape[1]], "heads": heads, "dtype": str(dtype).split(".")[-1],
+           "launches": launched, "max_abs_err": err, "scale": scale, "rel_tol": TOL[dtype]}
+    log("  block's XLA composition " + json.dumps(row))
+    if launched["k3"] or launched["k1"] + launched["k4"] != 1 or not err <= TOL[dtype] * scale:
+        raise AssertionError(f"the XLA composition at {(b, n)}: {row}")
+    return row
+
+
+def grid24_solves(ema: dict, card: str) -> dict:
+    """Fast on 32 and faithful-250 on 4 grid-24 wave puzzles with ``ema``,
+    on the default route (K1) and on ``block`` (K3's long-row instance):
+    the launches of each, every row a permutation, the routes' agreement."""
+    x, perms = wave_puzzles(G24_FAST_PUZZLES, 31, SIZE24, GRID24)
+    out, preds = {}, {}
+    for impl in (None, "block"):
+        model, cfg = create_model("JPDVT", SIZE24, dtype=torch.bfloat16, attn_impl=impl)
+        model.load_state_dict(ema)
+        for mode, n in (("fast", G24_FAST_PUZZLES), ("faithful", G24_FAITHFUL_PUZZLES)):
+            solver = PuzzleSolver(model, cfg, create_diffusion("250"), grid_size=GRID24,
+                                  mode=mode)
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = solver.evaluate(x[:n], perms[:n])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = counts()
+            key = "k3" if impl else "k1"
+            want = cfg.depth * (STEPS if mode == "faithful" else 1)
+            name = f"{impl or 'default'}_{mode}"
+            if launches[key] != want or sum(launches.values()) != want:
+                raise AssertionError(f"grid 24, {name}: launches {launches}, expected {want} "
+                                     f"{key}")
+            pred = res.pred.cpu().numpy() if torch.is_tensor(res.pred) else np.asarray(res.pred)
+            if not all(sorted(row) == list(range(GRID24 ** 2)) for row in pred.tolist()):
+                raise AssertionError(f"grid 24, {name}: a row is not a permutation")
+            preds[name] = pred
+            out[name] = {"puzzles": n, "s": dt, "puzzles_per_s": n / dt, "launches": launches,
+                         "puzzle_acc": res.puzzle_accuracy, "patch_acc": res.patch_accuracy}
+        del model
+    for mode in ("fast", "faithful"):
+        a, b = preds[f"default_{mode}"], preds[f"block_{mode}"]
+        out[f"agreement_{mode}"] = {"puzzles": float((a == b).all(axis=1).mean()),
+                                    "patches": float((a == b).mean())}
+    log(f"  grid-24 solves on {card}: " + json.dumps(out))
+    return out
+
+
+def grid24_block(card: str, gen: torch.Generator, artifact: str) -> dict:
+    """Phase 25: K3's long-row instance, the flagship at grid 24 on ``block``
+    (warm-started from ``artifact``) beside the default route, and DiT-XL/8
+    at 192 px on ``block``'s XLA composition."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    bf16 = torch.bfloat16
+    out = {}
+    # 1. K3's long-row instance against its plain version, bit-equal to the
+    # short-row one where both fit, timed at the grid-24 solve's (32, 576).
+    t0 = time.perf_counter()
+    widths = {768: linear_weights(768, 25), 384: linear_weights(384, 26)}
+    out["k3_long"] = [check_k3(32, TOKENS24, bf16, widths[768], gen, timed=True, heads=12),
+                      *(check_k3(b, n, dtype, widths[hidden], gen, timed=False, heads=heads)
+                        for b, n, dtype, hidden, heads in K3_LONG_CHECKS)]
+    if any(r["instance"] != "long" for r in out["k3_long"]):
+        raise AssertionError("phase 25's K3 checks did not run the long-row instance")
+    for b, n in ((4, TOKENS), (2, TOKENS20)):
+        check_k3_long_bits(b, n, widths[768], 12, gen)
+    out["k1"] = check_k1(32, TOKENS24, bf16, gen, timed=True)
+    out["block_xla"] = check_block_xla(2, XL_TOKENS, bf16, linear_weights(XL_HEADS * XL_DH, 27),
+                                       XL_HEADS, gen)
+    log(f"  phase 25 kernels: {time.perf_counter() - t0:.2f} s")
+    # 2. run_train at grid 24, 3 steps at batch 8: on block (12 K3 a step) and
+    # on the default route (flash at N = 576 with grad: 12 K4 + K5 + K6).
+    t0 = time.perf_counter()
+    src = os.path.relpath(artifact, REPO)
+    out["train_default"], _ = kept_run_train(
+        lambda exp: grid24_args(artifact, exp), f"JPDVT at grid 24 from {src}, default route",
+        {"k1": 0, "k2": 0, "k3": 0, "k4": 12, "k5": 12, "k6": 12}, G24_STEPS,
+        artifact_step(artifact) + G24_STEPS)
+    out["train_block"], ema = kept_run_train(
+        lambda exp: grid24_args(artifact, exp, "model.attn_impl=block"),
+        f"JPDVT at grid 24 from {src}, block",
+        {"k1": 0, "k2": 0, "k3": 12, "k4": 0, "k5": 0, "k6": 0}, G24_STEPS,
+        artifact_step(artifact) + G24_STEPS)
+    losses, ref = out["train_block"]["losses"], out["train_default"]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    out["train_block"]["loss_rel_to_default"] = rel
+    if len(losses) != len(ref) or not max(rel) <= XL_ROUTE_LOSS_RTOL:
+        raise AssertionError(f"grid 24: block losses {losses} against the default route's "
+                             f"{ref}: {rel} > {XL_ROUTE_LOSS_RTOL}")
+    log(f"  phase 25 run_train: {time.perf_counter() - t0:.2f} s; block's per-step losses "
+        f"{losses}, within {max(rel):.5f} of the default route's {ref}")
+    # 3. Solves on the block run's EMA, both routes.
+    t0 = time.perf_counter()
+    out["solves"] = grid24_solves(ema, card)
+    del ema
+    log(f"  phase 25 solves: {time.perf_counter() - t0:.2f} s")
+    # 4. DiT-XL/8 at 192 px on block: the XLA composition, 28 K1 and no K3.
+    t0 = time.perf_counter()
+    model, cfg = create_model(XL_NAME, 192, dtype=bf16, attn_impl="block")
+    out["xl_block"] = xl_solve(model, cfg, "fast", XL_BLOCK_PUZZLES)
+    del model
+    if out["xl_block"]["launches"] != {**{k: 0 for k in COUNTERS}, "k1": cfg.depth}:
+        raise AssertionError(f"{XL_NAME} at 192 px on block: launches "
+                             f"{out['xl_block']['launches']}, expected {cfg.depth} K1")
+    log(f"  {XL_NAME} at 192 px on block (the XLA composition): " + json.dumps(out["xl_block"]))
+    log(f"  phase 25 DiT-XL/8 on block: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+    log(f"phase grid-24 block: {time.perf_counter() - t_phase:.2f} s")
     return out
 
 
@@ -4299,7 +4556,9 @@ def main(argv=None) -> int:
     for name, lib_path, bf16_kernels in (
             ("K1", lib_paths[0], ("attention_fwd_mma_kernel",)),
             ("K2", lib_paths[1], ("attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel")),
-            ("K3", lib_paths[2], ("block_attention_mma_kernel", "out_proj_mma_kernel")),
+            ("K3", lib_paths[2], ("block_attention_mma_kernel", "out_proj_mma_kernel",
+                                  "block_project_mma_kernel",
+                                  "block_attention_long_mma_kernel")),
             ("K4", lib_paths[3], ("flash_fwd_mma_kernel",)),
             ("K5/K6", lib_paths[4], ("flash_dq_mma_kernel", "flash_dkv_mma_kernel")),
             (f"K1 at Dh {XL_DH}", lib_paths[7], ("attention_fwd_mma_kernel",)),
@@ -4309,7 +4568,8 @@ def main(argv=None) -> int:
             (f"K2 at Dh {XL_DH}", lib_paths[10],
              ("attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel")),
             (f"K3 at Dh {XL_DH}", lib_paths[11],
-             ("block_attention_mma_kernel", "out_proj_mma_kernel"))):
+             ("block_attention_mma_kernel", "out_proj_mma_kernel", "block_project_mma_kernel",
+              "block_attention_long_mma_kernel"))):
         hmma = sass_count(lib_path, "HMMA")
         log(f"{name} SASS HMMA per kernel: {json.dumps(hmma)}")
         for kernel in bf16_kernels:
@@ -4505,6 +4765,11 @@ def main(argv=None) -> int:
     # 96 px): the kernels, run_train on both routes, the block route's solves.
     xl24 = dit_xl_k2_k3(card, gen, xl23["train"]["losses"])
 
+    # 25. attn_impl=block at every geometry the JAX package runs it: K3's
+    # long-row instance, the flagship at grid 24 (N = 576) on block beside the
+    # default route, DiT-XL/8 at 192 px on block's XLA composition.
+    g24 = grid24_block(card, gen, ARTIFACT20 if args.grid20_artifact else ARTIFACT)
+
     def kernel_row(name, source, replaces, launches, rows, timed):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "shape": timed["shape"],
@@ -4647,6 +4912,23 @@ def main(argv=None) -> int:
         kernel_row("k6_flash_attention_dkv_dh72", flash_bwd,
                    "jpdvt_mt_ntnu_tpu/ops/flash_attention.py:194", xl_train["k6"],
                    [r[1] for r in xl23["k56"]], xl23["k56"][0][1])]
+    # Phase 25: K3's long-row instance on the grid-24 block run (its train
+    # steps and validation) and solves, timed at (32, 576); K1 under the
+    # grid-24 default route's solves and, at Dh 72, under DiT-XL/8's XLA
+    # composition on block (timed at phase 23's shape).
+    solves24 = g24["solves"]
+    kernels += [
+        kernel_row("k3_fused_attention_block_long",
+                   "jpdvt_mt_ntnu_tpu_torch/ops/csrc/attention_block.cu",
+                   "jpdvt_mt_ntnu_tpu/ops/attention.py:242",
+                   g24["train_block"]["launches"]["k3"]
+                   + sum(solves24[f"block_{m}"]["launches"]["k3"] for m in ("fast", "faithful")),
+                   g24["k3_long"], g24["k3_long"][0]),
+        kernel_row("k1_whole_row_attention_fwd_grid24", *k1,
+                   sum(solves24[f"default_{m}"]["launches"]["k1"] for m in ("fast", "faithful")),
+                   [g24["k1"]], g24["k1"]),
+        kernel_row("k1_whole_row_attention_fwd_dh72_block_xla", *k1,
+                   g24["xl_block"]["launches"]["k1"], xl23["k1"], xl23["k1"][0])]
     log(f"total: {time.perf_counter() - t_start:.2f} s (build {build_s:.2f} s)")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -16,13 +16,24 @@ grad on, a ``torch.autograd.Function`` runs K1 forward and K2 backward,
 saving only the fused qkv, as the JAX package's custom VJP saves only
 q, k, v (``:120-136``).
 
-:func:`fused_attention_block` wraps K3 (``csrc/attention_block.cu``), the
-whole attention sublayer (qkv projection, attention, output projection),
-which replaces ``_attn_block_kernel`` (``:242``);
+The attention sublayer of ``model.attn_impl="block"`` (qkv projection,
+attention, output projection) is :func:`fused_attention_block`, which
+computes what the JAX package's ``fused_attention_block`` (``:299-327``)
+computes: by the JAX rule :func:`_block_bb` (a copy of ``:272-296``), the
+Pallas kernel ``_attn_block_kernel`` (``:242``) where one program fits a
+TPU core's VMEM budget, else ``fused_attention_block_xla`` (``:330``),
+which rounds elsewhere. The first is K3, wrapped by
+:func:`fused_attention_block_k3` (``csrc/attention_block.cu``: a
+short-row instance keeping q, k, v of one (item, head) in shared memory,
+and a long-row one streaming k and v from a global scratch, for any N,
+the faster of the two where both run, :func:`k3_instance`);
 :func:`fused_attention_block_plain` is its plain version with the
-kernel's rounding points, and :func:`dense_to_block_weights` views the
-port's ``Linear`` parameters in its shapes, with no copy. Its backward is
-torch autograd of the plain version, as the JAX package's ``_fab_bwd``
+kernel's rounding points. The second is :func:`fused_attention_block_xla`
+(on the card, cuBLAS projections around K1 or K4) with its plain version
+:func:`fused_attention_block_xla_plain`. :func:`dense_to_block_weights`
+views the port's ``Linear`` parameters in their shapes, with no copy. The
+backward, at every geometry, is torch autograd of
+:func:`fused_attention_block_xla_plain`, as the JAX package's ``_fab_bwd``
 (``:365-372``) differentiates ``fused_attention_block_xla``.
 
 On a CUDA tensor the wrapper launches the kernel or raises; it takes the
@@ -32,9 +43,9 @@ plain version only for tensors on the CPU.
 ``default_impl`` (``:168``), whose TPU thresholds do not carry over: the
 whole-row kernels where their shared memory fits (K1; K1 + K2 with grad
 on, up to ``WHOLE_ROW_GRAD_MAX_N`` of the head dim), the flash kernels K4-K6
-(``ops/flash_attention.py``) beyond, and K3
-only when ``attn_impl="block"`` asks for it (``default_impl`` never picks
-it either).
+(``ops/flash_attention.py``) beyond, and the sublayer of
+:func:`fused_attention_block` only when ``attn_impl="block"`` asks for it
+(``default_impl`` never picks it either).
 """
 
 from __future__ import annotations
@@ -56,8 +67,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # only target the kernels are built for (sm_90a).
 HOPPER_MAX_SMEM = 232448
 # model.attn_impl values the port runs: None (auto), "pallas" (the
-# whole-row kernels K1/K2, as the JAX name), "flash" (K4-K6), "block" (K3,
-# the whole sublayer; its backward is autograd of the plain version).
+# whole-row kernels K1/K2, as the JAX name), "flash" (K4-K6), "block" (the
+# whole sublayer: K3 or the XLA composition by the JAX rule, its backward
+# autograd of the composition's plain version).
 ATTN_IMPLS = (None, "pallas", "flash", "block")
 # With grad, the default route takes the whole-row kernels (K1 + K2) up to
 # this N, by head dim, and the flash kernels beyond. Dh 64: the route the
@@ -106,14 +118,15 @@ def k2_smem_bytes(n: int, elem: int, head_dim: int = HEAD_DIM) -> int:
 
 
 def k3_smem_bytes(n: int, elem: int, head_dim: int = HEAD_DIM) -> int:
-    """K3's shared memory per block of its first launch
+    """Shared memory per block of K3's short-row instance, first launch
     (``csrc/attention_block.cu`` ``smem_bytes``). bf16: q, k, v of one
     (item, head), N padded to 16, with rows of :func:`smem_row`, then the
     staged chunks of x (144 rows) and of the head's q|k|v weights (3 Dh
     rows), 64 wide in rows of 72 (N <= 416 at Dh 64, 336 at 72). fp32: q,
     k, v with rows of Dh + 2, rounded up to 16 B, then the larger of the
     projection's staged chunks (48 x 33 and 32 x 3 Dh fp32) and a 32-row
-    query tile's fp32 score rows (N <= 252 at Dh 64, 223 at 72)."""
+    query tile's fp32 score rows (N <= 252 at Dh 64, 223 at 72). Past these
+    only the long-row instance runs (:func:`k3_instance`)."""
     if elem == 2:
         row = smem_row(head_dim) * elem
         return 3 * -(-n // 16) * 16 * row + (144 + 3 * head_dim) * 72 * elem
@@ -121,15 +134,68 @@ def k3_smem_bytes(n: int, elem: int, head_dim: int = HEAD_DIM) -> int:
     return qkv + max((48 * 33 + 32 * 3 * head_dim) * 4, 32 * (n + 1) * 4)
 
 
+
+# The largest N at which K3 launches its short-row instance, by head dim and
+# dtype (0: never); past it the long-row one, which gives the same bits. Set
+# from the rows of ``tools/bench_attention_routes --k3`` on an H100 (192 rows:
+# the registry's four widths, batches 8, 32 and 96, N up to the short-row
+# instance's shared memory): in bf16 at Dh 64 the short-row instance is the
+# faster at N <= 144 (by 9-14% at the flagship's width), the long-row one
+# past it but for a few rows at N 289-361; at Dh 72 and in fp32 the long-row
+# one is the faster at nearly every row (up to 35% and 58%).
+K3_SHORT_MAX_N = {(64, torch.bfloat16): 144, (72, torch.bfloat16): 0,
+                  (64, torch.float32): 0, (72, torch.float32): 0}
+
+
+def k3_instance(n: int, dtype: torch.dtype, head_dim: int = HEAD_DIM) -> str:
+    """Which of K3's two instances :func:`fused_attention_block_k3` launches
+    at N: ``"short"`` (q, k and v of one item and head whole in shared
+    memory) or ``"long"`` (projected into a global scratch, k and v
+    streamed)."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    fits = k3_smem_bytes(n, elem, head_dim) <= HOPPER_MAX_SMEM
+    return "short" if fits and n <= K3_SHORT_MAX_N[(head_dim, dtype)] else "long"
+
+# The JAX package's rule for what its ``block`` computes, copied from
+# jpdvt_mt_ntnu_tpu/ops/attention.py:272-296: the Pallas K3 where one
+# program (``bb`` items) fits a 12 MiB budget of a TPU core's VMEM, else
+# ``fused_attention_block_xla``. A TPU budget, kept because it decides which
+# function ``block`` computes (they round at other points), so the port
+# computes the same one.
+_VMEM_BUDGET = 12 * 1024 * 1024  # leave headroom of the ~16 MB per core
+
+
+def _block_vmem(bb, n, heads, d, hidden, itemsize) -> int:
+    weights = (3 * heads * hidden * d + heads * d * hidden) * itemsize
+    blocks = 2 * bb * n * hidden * itemsize        # x + out
+    work = n * hidden * 4 + 3 * n * n * 4          # fp32 acc + score temps
+    return weights + blocks + work
+
+
+def _block_bb(b: int, n: int, heads: int, d: int, hidden: int,
+              itemsize: int, bb: int | None = None) -> int | None:
+    """Batch items per program: amortize launch overhead under a VMEM
+    budget (weights are grid-invariant, fetched once)."""
+    if bb is None:
+        bb = 8 if n <= 160 else (4 if n <= 384 else 1)
+    while b % bb:
+        bb //= 2
+    bb = max(bb, 1)
+    while bb > 1 and _block_vmem(bb, n, heads, d, hidden, itemsize) > _VMEM_BUDGET:
+        bb //= 2
+    if _block_vmem(bb, n, heads, d, hidden, itemsize) > _VMEM_BUDGET:
+        return None
+    return bb
+
+
 @functools.cache
 def attention_route(n: int, dtype: torch.dtype, grad: bool, attn_impl=None, *,
                     head_dim: int = HEAD_DIM, on_card: bool = True) -> str:
     """The DiT attention's route for N tokens: ``"whole_row"`` (K1, and K2
     as its backward when ``grad``), ``"flash"`` (K4, and K5 + K6) or
-    ``"block"`` (K3, the whole sublayer, only when ``attn_impl`` is
-    ``"block"``; on the card bf16 N <= 416 at Dh 64 and 336 at 72, fp32
-    N <= 252 and 223, where K3's shared memory ends: so at Dh 72
-    DiT-XL/8 takes it at 96 px, N = 144, and not at 192 px, N = 576).
+    ``"block"`` (the whole sublayer, :func:`fused_attention_block`, only
+    when ``attn_impl`` is ``"block"``, at every N: K3 where the JAX rule
+    runs its kernel, else the XLA composition on K1 or K4).
 
     ``attn_impl`` None takes the whole-row kernels where their shared
     memory fits a Hopper block (bf16: every N; fp32 at Dh 64: 341 without
@@ -148,17 +214,10 @@ def attention_route(n: int, dtype: torch.dtype, grad: bool, attn_impl=None, *,
     if on_card and (head_dim not in HEAD_DIMS or dtype not in _DTYPE_CODES):
         raise ValueError(f"no attention kernel takes head dim {head_dim} in {dtype}; "
                          f"the kernels take Dh 64 or 72, float32 or bfloat16")
-    if attn_impl == "flash":
-        return "flash"
+    if attn_impl in ("flash", "block"):
+        return attn_impl
     d = head_dim if head_dim in HEAD_DIMS else HEAD_DIM
     elem = torch.empty((), dtype=dtype).element_size()
-    if attn_impl == "block":
-        if on_card and k3_smem_bytes(n, elem, d) > HOPPER_MAX_SMEM:
-            raise ValueError(f"attn_impl='block' at N={n}, Dh {d} in {dtype}: K3 keeps "
-                             f"one (item, head)'s q, k, v in {k3_smem_bytes(n, elem, d)} B "
-                             f"of shared memory per block, more than the "
-                             f"{HOPPER_MAX_SMEM} B a Hopper block has")
-        return "block"
     need = max(k1_smem_bytes(n, elem, d), k2_smem_bytes(n, elem, d) if grad else 0)
     if need > HOPPER_MAX_SMEM:
         if attn_impl == "pallas":
@@ -455,7 +514,7 @@ def fused_attention_block_plain(x: torch.Tensor, w_qkv: torch.Tensor,
     (:func:`scaled_q`), k and v alike unscaled, products in fp32 and the
     biases added in fp32; S = q k^T and the softmax in fp32; o_h = T(T(P)
     v); out = T(sum_h o_h Wp_h + bp), summed over the heads in order in
-    fp32. x: (B, N, D) -> (B, N, D). Differentiable by torch autograd."""
+    fp32. x: (B, N, D) -> (B, N, D)."""
     dt, h = x.dtype, num_heads
     xf = x.float()
 
@@ -473,6 +532,52 @@ def fused_attention_block_plain(x: torch.Tensor, w_qkv: torch.Tensor,
     return (acc + b_proj.float()).to(dt)
 
 
+def fused_attention_block_xla_plain(x: torch.Tensor, w_qkv: torch.Tensor,
+                                    b_qkv: torch.Tensor, w_proj: torch.Tensor,
+                                    b_proj: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of ``fused_attention_block_xla`` (``:330``),
+    with its rounding points (T is ``x.dtype``): q, k, v = T(T(x W_h) +
+    b_h), the product in T with a T result, then the fp32 bias; the
+    attention :func:`attention_reference` (``_attention_xla``'s function: q
+    scaled in T, S and the softmax in fp32, P rounded to T, o in T); out =
+    T(T(sum_h o_h Wp_h) + bp), one product over the heads and their dims.
+    Operands as :func:`fused_attention_block`'s. Differentiable by torch
+    autograd: it is the backward of every ``block`` call."""
+    h = num_heads
+    q, k, v = ((torch.einsum("bnk,hkd->bhnd", x, w_qkv[i * h:(i + 1) * h])
+                + b_qkv[i * h:(i + 1) * h][None]).to(x.dtype) for i in range(3))
+    o = attention_reference(q, k, v)
+    return (torch.einsum("bhnk,hkd->bnd", o, w_proj) + b_proj).to(x.dtype)
+
+
+def fused_attention_block_xla(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
+                              w_proj: torch.Tensor, b_proj: torch.Tensor,
+                              num_heads: int) -> torch.Tensor:
+    """``fused_attention_block_xla``'s function, computed as the JAX package
+    computes it outside any Pallas kernel: on the card the projections are
+    ``torch.matmul`` (cuBLAS) with :func:`fused_attention_block_xla_plain`'s
+    rounding points, and the attention core is the kernel that the default
+    route takes without grad for ``_attention_xla``'s function (K1 where
+    its shared memory fits, else K4), reading q, k, v as strided views of
+    the fused projection. On the CPU, the plain version. Not
+    differentiable on the card (:func:`fused_attention_block` is)."""
+    tensors = (x, w_qkv, b_qkv, w_proj, b_proj)
+    if all(t.device.type == "cpu" for t in tensors):
+        return fused_attention_block_xla_plain(*tensors, num_heads)
+    b, n, hidden = x.shape
+    h, d, dt = num_heads, w_qkv.shape[-1], x.dtype
+    # (3H Dh, D) in [q|k|v][head][dim] rows: the Linear weight, viewed back.
+    w = w_qkv.transpose(1, 2).reshape(3 * h * d, hidden)
+    qkv = (torch.matmul(x, w.t()) + b_qkv.reshape(-1)).to(dt)
+    if attention_route(n, dt, False, head_dim=d) == "whole_row":
+        o = attention(*_heads(qkv, h))
+    else:
+        from .flash_attention import flash_attention_fwd
+        o, _ = flash_attention_fwd(*_heads(qkv, h))
+    o = o.transpose(1, 2).reshape(b, n, h * d)
+    return (torch.matmul(o, w_proj.reshape(h * d, hidden)) + b_proj).to(dt)
+
+
 @functools.cache
 def _block_kernel(head_dim: int = HEAD_DIM):
     lib = _build.load(_build.unit("attention_block", head_dim))
@@ -483,15 +588,21 @@ def _block_kernel(head_dim: int = HEAD_DIM):
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.k3_attention_block_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.k3_attention_block_smem_bytes.restype = ctypes.c_size_t
+    fn = lib.k3_attention_block_long
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    for fn in (lib.k3_attention_block_smem_bytes, lib.k3_attention_block_long_smem_bytes):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_size_t
     lib.k3_attention_block_max_smem.argtypes = [ctypes.c_int]
     lib.k3_attention_block_max_smem.restype = ctypes.c_int
     return lib
 
 
-def _check_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int) -> None:
-    """Raise on operands that K3 cannot take."""
+def _check_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int) -> bool:
+    """Raise on operands that K3 cannot take; return whether the
+    short-row instance's shared memory takes N."""
     tensors = (x, w_qkv, b_qkv, w_proj, b_proj)
     if any(t.device != x.device for t in tensors) or x.device.type != "cuda":
         raise ValueError("K3 needs x and the weights on one CUDA device; got "
@@ -521,12 +632,14 @@ def _check_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int) -> None:
         raise ValueError("K3 takes contiguous x and biases")
     if x.data_ptr() % 16:
         raise ValueError("K3 takes x at a 16-byte aligned address")
-    need = _block_kernel(d).k3_attention_block_smem_bytes(n, x.element_size())
-    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    have = _block_kernel(d).k3_attention_block_max_smem(dev)
+    lib, elem = _block_kernel(d), x.element_size()
+    have = lib.k3_attention_block_max_smem(
+        x.device.index if x.device.index is not None else torch.cuda.current_device())
+    need = lib.k3_attention_block_long_smem_bytes(n, elem)
     if need > have:
-        raise ValueError(f"K3 at N={n} needs {need} B of shared memory per block; "
-                         f"this device allows {have} B")
+        raise ValueError(f"K3's long-row instance at N={n} needs {need} B of shared memory "
+                         f"per block; this device allows {have} B")
+    return lib.k3_attention_block_smem_bytes(n, elem) <= have
 
 
 def _weight_strides(w_qkv: torch.Tensor, w_proj: torch.Tensor) -> tuple:
@@ -546,65 +659,125 @@ def _as_laid_out(t: torch.Tensor, strides: tuple) -> torch.Tensor:
     return torch.empty_strided(t.shape, strides, dtype=t.dtype, device=t.device).copy_(t)
 
 
-def _launch_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int) -> torch.Tensor:
-    _check_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads)
+def _launch_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int,
+                  instance: str | None = None) -> torch.Tensor:
+    fits = _check_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads)
+    if instance is None:
+        instance = k3_instance(x.shape[1], x.dtype, w_qkv.shape[-1])
+    if instance not in ("short", "long") or (instance == "short" and not fits):
+        raise ValueError(f"K3's {instance!r} instance at N={x.shape[1]}: expected 'long', "
+                         f"or 'short' where its shared memory takes N")
+    short = instance == "short"
     qkv_strides, proj_strides = _weight_strides(w_qkv, w_proj)
     w_qkv, w_proj = _as_laid_out(w_qkv, qkv_strides), _as_laid_out(w_proj, proj_strides)
     b, n, hidden = x.shape
     d = w_qkv.shape[-1]
     o = torch.empty((b, n, num_heads * d), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    err = _block_kernel(d).k3_attention_block(
-        _DTYPE_CODES[x.dtype], x.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(),
-        w_proj.data_ptr(), b_proj.data_ptr(), o.data_ptr(), out.data_ptr(), b, n,
-        num_heads, hidden, q_scale(d, x.dtype),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = (x.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), w_proj.data_ptr(),
+            b_proj.data_ptr())
+    if short:
+        err = _block_kernel(d).k3_attention_block(
+            _DTYPE_CODES[x.dtype], *ptrs, o.data_ptr(), out.data_ptr(), b, n, num_heads,
+            hidden, q_scale(d, x.dtype), stream)
+    else:
+        # q, k, v of every (item, head), rows padded to 16, alive until queued.
+        scratch = torch.empty((3, b, num_heads, -(-n // 16) * 16, d), dtype=x.dtype,
+                              device=x.device)
+        err = _block_kernel(d).k3_attention_block_long(
+            _DTYPE_CODES[x.dtype], *ptrs, scratch.data_ptr(), o.data_ptr(), out.data_ptr(),
+            b, n, num_heads, hidden, q_scale(d, x.dtype), stream)
     if err:
         raise RuntimeError(f"attention block kernel launch failed: cudaError {err}")
-    fused_attention_block.launches += 1
+    fused_attention_block_k3.launches += 1
     return out
 
 
+def fused_attention_block_k3(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
+                             w_proj: torch.Tensor, b_proj: torch.Tensor, num_heads: int,
+                             instance: str | None = None) -> torch.Tensor:
+    """K3, at any N: x (B, N, D) -> (B, N, D); weights of
+    :func:`dense_to_block_weights`' shapes (Dh 64 or 72, from ``w_qkv``), in
+    x's type, any strides (the kernel reads its own layout,
+    :func:`_weight_strides`; others are copied into it first), biases
+    float32. The kernel scales q by :func:`q_scale`.
+
+    On the card each call launches the instance :func:`k3_instance` names
+    (``instance="short"`` or ``"long"`` takes that one where it runs, to
+    hold the two to each other and to time them), and adds one to
+    ``fused_attention_block_k3.launches``. On the CPU it is
+    the plain version. Not differentiable (:func:`fused_attention_block`
+    is)."""
+    tensors = (x, w_qkv, b_qkv, w_proj, b_proj)
+    if all(t.device.type == "cpu" for t in tensors):
+        return fused_attention_block_plain(*tensors, num_heads)
+    return _launch_block(*tensors, num_heads, instance)
+
+
+fused_attention_block_k3.launches = 0
+
+
+def block_takes_k3(x: torch.Tensor, w_qkv: torch.Tensor, num_heads: int) -> bool:
+    """Whether the JAX package's ``block`` runs its Pallas K3 on these
+    operands (:func:`_block_bb` is not None), not
+    ``fused_attention_block_xla``."""
+    b, n, hidden = x.shape
+    return _block_bb(b, n, num_heads, w_qkv.shape[-1], hidden, x.element_size()) is not None
+
+
 class _FusedAttentionBlock(torch.autograd.Function):
-    """K3 forward; backward by torch autograd of the plain version (the
-    JAX package's rule: its custom VJP differentiates the XLA reference)."""
+    """``forward`` (K3 or the XLA composition) forward; backward by torch
+    autograd of :func:`fused_attention_block_xla_plain`, as the JAX
+    package's custom VJP differentiates ``fused_attention_block_xla`` at
+    every geometry."""
 
     @staticmethod
-    def forward(ctx, x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int):
+    def forward(ctx, x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int, forward):
         ctx.save_for_backward(x, w_qkv, b_qkv, w_proj, b_proj)
         ctx.num_heads = num_heads
-        return _launch_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads)
+        return forward(x, w_qkv, b_qkv, w_proj, b_proj, num_heads)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         inputs = [t.detach().requires_grad_(need) for t, need in
                   zip(ctx.saved_tensors, ctx.needs_input_grad)]
         with torch.enable_grad():
-            out = fused_attention_block_plain(*inputs, ctx.num_heads)
+            out = fused_attention_block_xla_plain(*inputs, ctx.num_heads)
             wanted = [t for t in inputs if t.requires_grad]
             grads = iter(torch.autograd.grad(out, wanted, grad))
-        return (*(next(grads) if t.requires_grad else None for t in inputs), None)
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None)
+
+
+def _with_xla_backward(forward, tensors: tuple, num_heads: int) -> torch.Tensor:
+    """``forward(*tensors, num_heads)``; with grad on, through
+    :class:`_FusedAttentionBlock`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _FusedAttentionBlock.apply(*tensors, num_heads, forward)
+    return forward(*tensors, num_heads)
 
 
 def fused_attention_block(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
                           w_proj: torch.Tensor, b_proj: torch.Tensor,
                           num_heads: int) -> torch.Tensor:
-    """K3: the whole attention sublayer. x (B, N, D) -> (B, N, D); weights of
-    :func:`dense_to_block_weights`' shapes (Dh 64 or 72, from ``w_qkv``), in
-    x's type, any strides (the kernel reads its own layout,
-    :func:`_weight_strides`; others are copied into it first), biases
-    float32. The kernel scales q by :func:`q_scale`.
-
-    On the card each call launches the pair of kernels once and adds one to
-    ``fused_attention_block.launches``; with grad on, the result's backward
-    is autograd of :func:`fused_attention_block_plain`. On the CPU it is
-    the plain version."""
-    tensors = (x, w_qkv, b_qkv, w_proj, b_proj)
-    if all(t.device.type == "cpu" for t in tensors):
-        return fused_attention_block_plain(x, w_qkv, b_qkv, w_proj, b_proj, num_heads)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        return _FusedAttentionBlock.apply(x, w_qkv, b_qkv, w_proj, b_proj, num_heads)
-    return _launch_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads)
+    """The whole attention sublayer of ``attn_impl="block"``, the JAX
+    package's ``fused_attention_block``: where the JAX rule runs its Pallas
+    kernel (:func:`block_takes_k3`), K3 (:func:`fused_attention_block_k3`),
+    else :func:`fused_attention_block_xla`; on the CPU their plain versions.
+    Operands as :func:`fused_attention_block_k3`'s. With grad on, the
+    result's backward is autograd of :func:`fused_attention_block_xla_plain`
+    at every geometry."""
+    forward = (fused_attention_block_k3 if block_takes_k3(x, w_qkv, num_heads)
+               else fused_attention_block_xla)
+    return _with_xla_backward(forward, (x, w_qkv, b_qkv, w_proj, b_proj), num_heads)
 
 
-fused_attention_block.launches = 0
+def fused_attention_block_reference(x: torch.Tensor, w_qkv: torch.Tensor,
+                                    b_qkv: torch.Tensor, w_proj: torch.Tensor,
+                                    b_proj: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Plain version of :func:`fused_attention_block` on any device: the
+    function the JAX rule picks, through plain torch ops, with the same
+    backward."""
+    forward = (fused_attention_block_plain if block_takes_k3(x, w_qkv, num_heads)
+               else fused_attention_block_xla_plain)
+    return _with_xla_backward(forward, (x, w_qkv, b_qkv, w_proj, b_proj), num_heads)

@@ -713,6 +713,405 @@ int launch(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
   return (int)cudaGetLastError();
 }
 
+
+// ---- The long-row instance (any N): q, k, v through a global scratch ----
+//
+// L.1, grid (row tiles of kPR, H, B), 12 warps: A.1's projection of one
+// 144-row tile, the same code and K-chunk order, so q (scaled), k and v
+// are A.1's bit for bit; they go to a (3, B, H, np, Dh) scratch in bf16,
+// rows n..np-1 zero. L.2, grid (query tiles / 8, H, B), 4 warps of two
+// 16-row query tiles each: A.1's two attention passes, the same
+// arithmetic in the same order (32-key groups from key 0, the same lane
+// owning the same columns), with k (pass 1) and k and v (pass 2) streamed
+// from L2 in 64-key chunks through a two-stage cp.async ring. A.2 follows
+// unchanged. So the long-row instance is bit-equal to the short-row one
+// wherever both fit.
+constexpr int kLWarps = 4;
+constexpr int kLThreads = 32 * kLWarps;
+constexpr int kLTiles = 2 * kLWarps;  // 16-row query tiles a block
+constexpr int kLChunk = 64;           // keys a ring stage
+
+__host__ __device__ constexpr size_t long_proj_smem_bytes() {
+  return (size_t)(kPR + kPC) * kCRow * sizeof(bf16);
+}
+// Two stages of k and v chunks; the block's query rows pass through them first.
+__host__ __device__ constexpr size_t long_smem_bytes() {
+  return 4 * (size_t)kLChunk * kRow * sizeof(bf16);
+}
+static_assert(kLTiles * 16 <= 4 * kLChunk, "the query rows fit the ring");
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+__global__ void __launch_bounds__(kA1Threads)
+block_project_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
+                         const float* __restrict__ bqkv, bf16* __restrict__ qkv, int n,
+                         int heads, int hidden, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int np = (n + 15) / 16 * 16;
+  bf16* xs = reinterpret_cast<bf16*>(smem);  // [kPR][kCRow]
+  bf16* ws = xs + kPR * kCRow;               // [kPC][kCRow]: W_h rows, K contiguous
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t2 = 2 * (lane % 4);
+  const int r0 = blockIdx.x * kPR, h = blockIdx.y;
+  const long long b = blockIdx.z, batch = gridDim.z;
+  const bf16* xg = x + b * n * hidden;
+  const int wr = warp / 4, wc = warp % 4;
+
+  constexpr int kC8 = kKC / 8;
+  constexpr int kXU = per_thread<kPR, kC8, kA1Threads>();
+  constexpr int kWU = per_thread<kPC, kC8, kA1Threads>();
+  const int nk = hidden / kKC;
+  uint4 xr[kXU], wreg[kWU];
+  auto fetch = [&](int step) {
+    const int k0 = step * kKC;
+#pragma unroll
+    for (int u = 0; u < kXU; ++u) {
+      const int i = tid + u * kA1Threads, r = i / kC8, c = i % kC8 * 8;
+      xr[u] = r0 + r < n ? *reinterpret_cast<const uint4*>(
+                               xg + (long long)(r0 + r) * hidden + k0 + c)
+                         : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < kWU; ++u) {
+      const int i = tid + u * kA1Threads, r = i / kC8, c = i % kC8 * 8;
+      const int which = r / kD, d = r % kD;
+      if (has_piece<kPC, kC8, kA1Threads>(i))
+        wreg[u] = *reinterpret_cast<const uint4*>(
+            wqkv + ((long long)(which * heads + h) * kD + d) * hidden + k0 + c);
+    }
+  };
+  fetch(0);
+  float acc[3][kWT][4];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < kWT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const bool last_tile = kNT % 4 == 0 || wc * kWT + kWT - 1 < kNT;
+  for (int step = 0; step < nk; ++step) {
+    __syncthreads();  // the previous chunk is consumed
+#pragma unroll
+    for (int u = 0; u < kXU; ++u) {
+      const int i = tid + u * kA1Threads;
+      *reinterpret_cast<uint4*>(xs + i / kC8 * kCRow + i % kC8 * 8) = xr[u];
+    }
+#pragma unroll
+    for (int u = 0; u < kWU; ++u) {
+      const int i = tid + u * kA1Threads;
+      if (has_piece<kPC, kC8, kA1Threads>(i))
+        *reinterpret_cast<uint4*>(ws + i / kC8 * kCRow + i % kC8 * 8) = wreg[u];
+    }
+    __syncthreads();
+    if (step + 1 < nk) fetch(step + 1);
+#pragma unroll
+    for (int kk = 0; kk < kKC; kk += 16) {
+      unsigned a[3][4];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        if (r0 + wr * 48 + i * 16 < np) load_a<kCRow>(a[i], xs, wr * 48 + i * 16, kk, lane);
+#pragma unroll
+      for (int jp = 0; jp < kWT / 2; ++jp) {
+        const int j = 2 * jp;
+        unsigned wb[4];
+        load_b<kCRow>(wb, ws, wc * (kWT * 8) + j * 8, kk, lane);
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          if (r0 + wr * 48 + i * 16 < np) {
+            mma(acc[i][j], a[i], wb[0], wb[1]);
+            mma(acc[i][j + 1], a[i], wb[2], wb[3]);
+          }
+      }
+      if (kWT % 2 && last_tile) {
+        unsigned wb[2];
+        load_b1<kCRow>(wb, ws, wc * (kWT * 8) + (kWT - 1) * 8, kk, lane);
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          if (r0 + wr * 48 + i * 16 < np) mma(acc[i][kWT - 1], a[i], wb[0], wb[1]);
+      }
+    }
+  }
+  // The fp32 bias, then bf16; q scaled in bf16; zero rows past n.
+#pragma unroll
+  for (int j = 0; j < kWT; ++j) {
+    if (j == kWT - 1 && !last_tile) continue;
+    const int col = wc * (kWT * 8) + j * 8 + t2;
+    const int which = col / kD, d = col % kD;
+    const float* bias = bqkv + (which * heads + h) * kD + d;
+    bf16* dst = qkv + ((which * batch + b) * heads + h) * (long long)np * kD + d;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + wr * 48 + i * 16 + g + half * 8;
+        if (r >= np) continue;
+        float y0 = bf16_round(acc[i][j][2 * half] + bias[0]);
+        float y1 = bf16_round(acc[i][j][2 * half + 1] + bias[1]);
+        if (which == 0) {
+          y0 = bf16_round(y0 * scale);
+          y1 = bf16_round(y1 * scale);
+        }
+        if (r >= n) y0 = y1 = 0.f;
+        *reinterpret_cast<__nv_bfloat162*>(dst + (long long)r * kD) =
+            __floats2bfloat162_rn(y0, y1);
+      }
+  }
+}
+
+__global__ void __launch_bounds__(kLThreads)
+block_attention_long_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o, int n,
+                                int heads) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);  // [stage][k, v][kLChunk][kRow]
+  const int np = (n + 15) / 16 * 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t2 = 2 * (lane % 4);
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z, batch = gridDim.z, head = (long long)np * kD;
+  const bf16* qg = qkv + (b * heads + h) * head;
+  const bf16* kg = qkv + ((batch + b) * heads + h) * head;
+  const bf16* vg = qkv + ((2 * batch + b) * heads + h) * head;
+  constexpr int kC8 = kD / 8;  // 16-byte pieces of a row
+  if (kK16 * 16 > kD) {
+    // Dims kD.. of every ring row, read by the last k16 step of S (q's rows
+    // pass through the ring too): zero, never written after.
+    for (int i = tid; i < 4 * kLChunk; i += kLThreads)
+      *reinterpret_cast<uint4*>(ring + i * kRow + kD) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  // This block's query rows, through the ring into each warp's fragments.
+  const int tiles = np / 16, row0 = blockIdx.x * kLTiles * 16;
+  const int rows = min(kLTiles * 16, np - row0);
+  for (int i = tid; i < rows * kC8; i += kLThreads) {
+    const int r = i / kC8, c = i % kC8 * 8;
+    *reinterpret_cast<uint4*>(ring + r * kRow + c) =
+        *reinterpret_cast<const uint4*>(qg + (long long)(row0 + r) * kD + c);
+  }
+  __syncthreads();
+  const int t0 = blockIdx.x * kLTiles + 2 * warp;
+  const int q0 = 16 * t0, nq = max(0, min(2, tiles - t0));  // warp-uniform
+  unsigned qa[2][kK16][4];
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+    if (q < nq)
+#pragma unroll
+      for (int kk = 0; kk < kK16; ++kk)
+        load_a<kRow>(qa[q][kk], ring, 32 * warp + 16 * q, kk * 16, lane);
+  __syncthreads();  // the ring is free for the keys
+
+  const int chunks = (np + kLChunk - 1) / kLChunk;
+  // Chunk c of k (and v) into ring stage c % 2, as one cp.async group.
+  auto load_chunk = [&](int c, bool with_v) {
+    bf16* st = ring + (c % 2) * 2 * kLChunk * kRow;
+    const int j0 = c * kLChunk, count = min(kLChunk, np - j0) * kC8;
+    for (int i = tid; i < count; i += kLThreads) {
+      const int r = i / kC8, col = i % kC8 * 8;
+      cp_async16(st + r * kRow + col, kg + (long long)(j0 + r) * kD + col);
+      if (with_v)
+        cp_async16(st + (kLChunk + r) * kRow + col, vg + (long long)(j0 + r) * kD + col);
+    }
+    cp_async_commit();
+  };
+
+  // S (tiles x kKB keys from j0; ks holds them from row jl) = q k^T, as A.1's.
+  float s[2][kKB / 8][4];
+  auto scores = [&](const bf16* ks, int jl, int j0) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int t = 0; t < kKB / 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[q][t][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kK16; ++kk)
+#pragma unroll
+      for (int u = 0; u < kKB / 16; ++u) {
+        if (j0 + 16 * u >= np) break;
+        unsigned kb[4];
+        load_b<kRow>(kb, ks, jl + 16 * u, kk * 16, lane);
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          if (q < nq) {
+            mma(s[q][2 * u], qa[q][kk], kb[0], kb[1]);
+            mma(s[q][2 * u + 1], qa[q][kk], kb[2], kb[3]);
+          }
+      }
+  };
+
+  constexpr float kLog2e = 1.4426950408889634f;
+  // Pass 1: each row's max and sum of exp(S - max), in fp32.
+  float m[2][2], l[2][2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) m[q][half] = -INFINITY, l[q][half] = 0.f;
+  load_chunk(0, false);
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      load_chunk(c + 1, false);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* ks = ring + (c % 2) * 2 * kLChunk * kRow;
+    for (int jl = 0; jl < kLChunk && nq > 0; jl += kKB) {
+      const int j0 = c * kLChunk + jl;
+      if (j0 >= np) break;
+      scores(ks, jl, j0);
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          if (q >= nq) continue;
+          float bm = -INFINITY;
+#pragma unroll
+          for (int t = 0; t < kKB / 8; ++t)
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc) {
+              float& v = s[q][t][2 * half + cc];
+              if (j0 + kKB > n && j0 + t * 8 + t2 + cc >= n) v = -INFINITY;
+              bm = fmaxf(bm, v);
+            }
+          bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 1));
+          bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 2));
+          const float mn = fmaxf(m[q][half], bm), ml = mn * kLog2e;
+          float sum = l[q][half] * exp2f(fmaf(m[q][half], kLog2e, -ml));
+#pragma unroll
+          for (int t = 0; t < kKB / 8; ++t)
+            sum += exp2f(fmaf(s[q][t][2 * half], kLog2e, -ml)) +
+                   exp2f(fmaf(s[q][t][2 * half + 1], kLog2e, -ml));
+          l[q][half] = sum;
+          m[q][half] = mn;
+        }
+    }
+    __syncthreads();  // stage c % 2 is consumed before chunk c + 2 fills it
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float v = l[q][half];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      l[q][half] = 1.f / v;
+      m[q][half] *= kLog2e;
+    }
+
+  // Pass 2: P in fp32, rounded to bf16; o += P v.
+  float oacc[2][kD / 8][4];
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[q][j][e] = 0.f;
+  load_chunk(0, true);
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      load_chunk(c + 1, true);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* ks = ring + (c % 2) * 2 * kLChunk * kRow;
+    const bf16* vs = ks + kLChunk * kRow;
+    for (int jl = 0; jl < kLChunk && nq > 0; jl += kKB) {
+      const int j0 = c * kLChunk + jl;
+      if (j0 >= np) break;
+      scores(ks, jl, j0);
+#pragma unroll
+      for (int u = 0; u < kKB / 16; ++u) {
+        if (j0 + 16 * u >= np) break;
+        unsigned pa[2][4];
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int t = 0; t < 2; ++t)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              if (q >= nq) continue;
+              float p[2];
+#pragma unroll
+              for (int cc = 0; cc < 2; ++cc)
+                p[cc] = j0 + 16 * u + 8 * t + t2 + cc < n
+                            ? exp2f(fmaf(s[q][2 * u + t][2 * half + cc], kLog2e,
+                                         -m[q][half])) *
+                                  l[q][half]
+                            : 0.f;
+              pa[q][2 * t + half] = pack(p[0], p[1]);
+            }
+        const bf16* vrow = vs + (jl + 16 * u + lane % 8 + ((lane / 8) % 2) * 8) * kRow;
+#pragma unroll
+        for (int j = 0; j < kD / 16 * 2; j += 2) {
+          unsigned vb[4];
+          ldsm_x4_trans(vb, vrow + j * 8 + (lane / 16) * 8);
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            if (q < nq) {
+              mma(oacc[q][j], pa[q], vb[0], vb[1]);
+              mma(oacc[q][j + 1], pa[q], vb[2], vb[3]);
+            }
+        }
+        if (kD / 8 % 2) {
+          unsigned vb[2];
+          ldsm_x2_trans(vb, vrow + kD - 8);
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            if (q < nq) mma(oacc[q][kD / 8 - 1], pa[q], vb[0], vb[1]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  bf16* og = o + b * n * (long long)(heads * kD) + h * kD;
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = q0 + 16 * q + g + half * 8;
+      if (q >= nq || r >= n) continue;
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(og + (long long)r * heads * kD + j * 8 + t2) =
+            __floats2bfloat162_rn(oacc[q][j][2 * half], oacc[q][j][2 * half + 1]);
+    }
+}
+
+int launch_long(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
+                const void* bproj, void* qkv, void* o, void* out, int b, int n, int heads,
+                int hidden, float scale, cudaStream_t stream) {
+  const int np = (n + 15) / 16 * 16;
+  cudaError_t err = cudaFuncSetAttribute(block_project_mma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)long_proj_smem_bytes());
+  if (err != cudaSuccess) return (int)err;
+  block_project_mma_kernel<<<dim3((np + kPR - 1) / kPR, heads, b), kA1Threads,
+                             long_proj_smem_bytes(), stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<bf16*>(qkv), n, heads, hidden, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  block_attention_long_mma_kernel<<<dim3((np / 16 + kLTiles - 1) / kLTiles, heads, b),
+                                    kLThreads, long_smem_bytes(), stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(o), n, heads);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int m = b * n;
+  out_proj_mma_kernel<<<dim3((m + kOM - 1) / kOM, hidden / kON), kThreads, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(wproj),
+      static_cast<const float*>(bproj), static_cast<bf16*>(out), m, heads * kD, hidden);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tc
 
 // A.1's shared memory. bf16: tc::smem_bytes. fp32: q, k, v, then one area
@@ -991,6 +1390,234 @@ int launch(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
   return (int)cudaGetLastError();
 }
 
+
+// The long-row instance in fp32: the projection of one 48-row tile (the
+// same code and K-chunk order as block_attention_kernel's) into a (3, B,
+// H, np, Dh) scratch, then one block per 32-row query tile: the tile's q
+// and 64-row chunks of k, then of v, staged in shared memory in turn, S
+// into the tile's whole fp32 score rows, the softmax and P v as
+// block_attention_kernel computes them, element for element.
+size_t long_smem_bytes(int n, size_t elem) {
+  if (elem == sizeof(__nv_bfloat16)) return tc::long_smem_bytes();
+  return (size_t)(kTQ + kChunk) * kS * sizeof(float) + (size_t)kTQ * (n + 1) * sizeof(float);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+block_project_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
+                     const float* __restrict__ bqkv, T* __restrict__ qkv, int n, int heads,
+                     int hidden, float scale) {
+  using T2 = typename Pair<T>::type;
+  __shared__ float xs[kPR * kXS];
+  __shared__ float ws[kKC * kPC];
+  const int np = (n + 15) / 16 * 16;
+  const int tid = threadIdx.x, rg = tid / 32, cg = tid % 32;
+  const int r0 = blockIdx.x * kPR, h = blockIdx.y;
+  const long long b = blockIdx.z, batch = gridDim.z;
+  const T* xg = x + b * n * hidden;
+  float acc[6][kPJ];
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int j = 0; j < kPJ; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < hidden; k0 += kKC) {
+    __syncthreads();
+    for (int i = tid; i < kPR * (kKC / 2); i += kThreads) {
+      const int r = i / (kKC / 2), c = (i % (kKC / 2)) * 2;
+      float2 v = make_float2(0.f, 0.f);
+      if (r0 + r < n)
+        v = to_float2(*reinterpret_cast<const T2*>(xg + (long long)(r0 + r) * hidden + k0 + c));
+      xs[r * kXS + c] = v.x;
+      xs[r * kXS + c + 1] = v.y;
+    }
+    for (int i = tid; i < kKC * (kPC / 2); i += kThreads) {
+      const int kk = i / (kPC / 2), c = (i % (kPC / 2)) * 2;
+      const int which = c / kD, cc = c % kD;
+      const T* wg = wqkv + ((long long)(which * heads + h) * hidden + k0 + kk) * kD + cc;
+      const float2 v = to_float2(*reinterpret_cast<const T2*>(wg));
+      ws[kk * kPC + c] = v.x;
+      ws[kk * kPC + c + 1] = v.y;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kKC; ++kk) {
+      float xv[6], wv[kPJ];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) xv[i] = xs[(rg * 6 + i) * kXS + kk];
+#pragma unroll
+      for (int j = 0; j < kPJ; ++j) wv[j] = owns_col(cg, j) ? ws[kk * kPC + cg + 32 * j] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 6; ++i)
+#pragma unroll
+        for (int j = 0; j < kPJ; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const int r = r0 + rg * 6 + i;
+    if (r < n) {
+#pragma unroll
+      for (int j = 0; j < kPJ; ++j) {
+        if (!owns_col(cg, j)) continue;
+        const int which = (cg + 32 * j) / kD, cc = (cg + 32 * j) % kD;
+        float y = round_as(acc[i][j] + bqkv[(which * heads + h) * kD + cc], x);
+        if (which == 0) y = round_as(y * scale, x);
+        store_one(qkv + ((which * batch + b) * heads + h) * (long long)np * kD +
+                      (long long)r * kD + cc,
+                  y);
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+block_attention_long_kernel(const T* __restrict__ qkv, T* __restrict__ o, int n, int heads) {
+  using T2 = typename Pair<T>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qt = reinterpret_cast<T*>(smem);  // [kTQ][kS]: rows q0.. (clamped to n - 1)
+  T* cs = qt + kTQ * kS;               // [kChunk][kS]: k, then v rows c0..
+  float* ss = reinterpret_cast<float*>(cs + kChunk * kS);  // [kTQ][n + 1]
+  const int sst = n + 1;
+  const int np = (n + 15) / 16 * 16;
+  const int tid = threadIdx.x, rg = tid / 32, cg = tid % 32;
+  const int q0 = blockIdx.x * kTQ, h = blockIdx.y;
+  const long long b = blockIdx.z, batch = gridDim.z, head = (long long)np * kD;
+  const T* qg = qkv + (b * heads + h) * head;
+  const T* kg = qkv + ((batch + b) * heads + h) * head;
+  const T* vg = qkv + ((2 * batch + b) * heads + h) * head;
+  for (int i = tid; i < kTQ * (kD / 2); i += kThreads) {
+    const int r = i / (kD / 2), c = (i % (kD / 2)) * 2;
+    *reinterpret_cast<T2*>(qt + r * kS + c) =
+        *reinterpret_cast<const T2*>(qg + (long long)min(q0 + r, n - 1) * kD + c);
+  }
+  for (int c0 = 0; c0 < n; c0 += kChunk) {
+    __syncthreads();  // the chunk before is consumed
+    for (int i = tid; i < kChunk * (kD / 2); i += kThreads) {
+      const int r = i / (kD / 2), c = (i % (kD / 2)) * 2;
+      *reinterpret_cast<T2*>(cs + r * kS + c) =
+          *reinterpret_cast<const T2*>(kg + (long long)min(c0 + r, n - 1) * kD + c);
+    }
+    __syncthreads();
+    float acc[4][kCT];
+#pragma unroll
+    for (int c = 0; c < kCT; ++c)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < kD; d += 2) {
+      float2 kv[kCT];
+#pragma unroll
+      for (int c = 0; c < kCT; ++c)
+        kv[c] = to_float2(*reinterpret_cast<const T2*>(cs + (cg + 32 * c) * kS + d));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 qv = to_float2(*reinterpret_cast<const T2*>(qt + (rg * 4 + i) * kS + d));
+#pragma unroll
+        for (int c = 0; c < kCT; ++c) {
+          acc[i][c] = fmaf(qv.x, kv[c].x, acc[i][c]);
+          acc[i][c] = fmaf(qv.y, kv[c].y, acc[i][c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kCT; ++c) {
+      const int j = c0 + cg + 32 * c;
+      if (j < n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ss[(rg * 4 + i) * sst + j] = acc[i][c];
+      }
+    }
+  }
+  __syncthreads();
+  for (int r = rg * 4; r < rg * 4 + 4; ++r) {
+    float* row = ss + r * sst;
+    float m = -INFINITY;
+    for (int j = cg; j < n; j += 32) m = fmaxf(m, row[j]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int j = cg; j < n; j += 32) {
+      const float e = expf(row[j] - m);
+      row[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int j = cg; j < n; j += 32) row[j] = round_as(row[j] / sum, qkv);
+  }
+  float oacc[4][2 * kOP];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 2 * kOP; ++c) oacc[i][c] = 0.f;
+  for (int c0 = 0; c0 < n; c0 += kChunk) {
+    __syncthreads();  // the softmax, or the chunk before, is done
+    const int rows = min(kChunk, n - c0);
+    for (int i = tid; i < rows * (kD / 2); i += kThreads) {
+      const int r = i / (kD / 2), c = (i % (kD / 2)) * 2;
+      *reinterpret_cast<T2*>(cs + r * kS + c) =
+          *reinterpret_cast<const T2*>(vg + (long long)(c0 + r) * kD + c);
+    }
+    __syncthreads();
+    for (int j = 0; j < rows; ++j) {
+      float2 vv[kOP];
+#pragma unroll
+      for (int p = 0; p < kOP; ++p)
+        vv[p] = owns_o_pair(cg, p)
+                    ? to_float2(*reinterpret_cast<const T2*>(cs + j * kS + 2 * (cg + 32 * p)))
+                    : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = ss[(rg * 4 + i) * sst + c0 + j];
+#pragma unroll
+        for (int c = 0; c < kOP; ++c) {
+          oacc[i][2 * c] = fmaf(p, vv[c].x, oacc[i][2 * c]);
+          oacc[i][2 * c + 1] = fmaf(p, vv[c].y, oacc[i][2 * c + 1]);
+        }
+      }
+    }
+  }
+  T* og = o + b * n * (long long)(heads * kD) + h * kD;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + rg * 4 + i;
+    if (r < n) {
+#pragma unroll
+      for (int p = 0; p < kOP; ++p)
+        if (owns_o_pair(cg, p))
+          store_pair(og + (long long)r * heads * kD + 2 * (cg + 32 * p), oacc[i][2 * p],
+                     oacc[i][2 * p + 1]);
+    }
+  }
+}
+
+template <typename T>
+int launch_long(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
+                const void* bproj, void* qkv, void* o, void* out, int b, int n, int heads,
+                int hidden, float scale, cudaStream_t stream) {
+  const int np = (n + 15) / 16 * 16;
+  block_project_kernel<T><<<dim3((np + kPR - 1) / kPR, heads, b), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const float*>(bqkv),
+      static_cast<T*>(qkv), n, heads, hidden, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = long_smem_bytes(n, sizeof(T));
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(block_attention_long_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  block_attention_long_kernel<T><<<dim3((n + kTQ - 1) / kTQ, heads, b), kThreads, smem,
+                                   stream>>>(static_cast<const T*>(qkv), static_cast<T*>(o), n,
+                                             heads);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int m = b * n;
+  out_proj_kernel<T><<<dim3((m + kOM - 1) / kOM, hidden / kON), kThreads, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(wproj),
+      static_cast<const float*>(bproj), static_cast<T*>(out), m, heads * kD, hidden);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1031,6 +1658,29 @@ int k3_attention_block(int dtype, const void* x, const void* wqkv,
   if (dtype == 1)
     return tc::launch(x, wqkv, bqkv, wproj, bproj, o, out, b, n, heads, hidden,
                       scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The long-row instance's attention launch: shared memory per block for
+// sequence length n and element size (fp32 grows with n; bf16 does not).
+size_t k3_attention_block_long_smem_bytes(int n, int elem_bytes) {
+  return long_smem_bytes(n, (size_t)elem_bytes);
+}
+
+// K3 at any n: as k3_attention_block, with qkv a scratch of 3 b heads np
+// kD elements of the input type (np = n rounded up to 16), 16-byte
+// aligned, that it overwrites.
+int k3_attention_block_long(int dtype, const void* x, const void* wqkv, const void* bqkv,
+                            const void* wproj, const void* bproj, void* qkv, void* o,
+                            void* out, int b, int n, int heads, int hidden, float scale,
+                            void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_long<float>(x, wqkv, bqkv, wproj, bproj, qkv, o, out, b, n, heads, hidden,
+                              scale, s);
+  if (dtype == 1)
+    return tc::launch_long(x, wqkv, bqkv, wproj, bproj, qkv, o, out, b, n, heads, hidden,
+                           scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,8 +10,18 @@ table ``ops.attention.attention_route`` applies is printed beside each
 row; ``WHOLE_ROW_GRAD_MAX_N`` of the head dim is set from these rows.
 Prints one JSON line per (N, batch).
 
+``--k3`` times K3's two instances instead (``ops.attention.
+fused_attention_block_k3``: the short-row one where its shared memory
+takes N, and the long-row one), on random weights at each registry width
+(``--widths``: D 384, 768, 1024 with heads of 64, D 1152 with heads of 72),
+in bf16 and fp32, the instances alternating over three rounds (the least
+of each), with the instance ``ops.attention.k3_instance`` takes beside
+them; ``K3_SHORT_MAX_N`` is set from these rows. Its ``--n`` defaults run
+from 64 to the short-row instance's last N.
+
     python -m jpdvt_mt_ntnu_tpu_torch.tools.bench_attention_routes \\
         [--n 144 205 324 400 576] [--batch 32 96] [--head-dim 64|72]
+        [--k3 [--widths 384 768 1024 1152]]
 
 Needs a CUDA card; it fails without one.
 """
@@ -27,6 +37,9 @@ from ..ops import attention as attn_ops
 from ..ops import flash_attention as flash_ops
 
 HEADS = {64: 12, 72: 16}  # the JPDVT flagship's heads; DiT-XL's at Dh 72
+# The registry's widths: DiT-S, DiT-B and the JPDVT flagship, DiT-L, DiT-XL.
+K3_WIDTHS = {384: 6, 768: 12, 1024: 16, 1152: 16}
+K3_N = (64, 100, 144, 196, 223, 252, 289, 336, 361, 400, 416)
 
 
 def _us(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -69,16 +82,59 @@ def bench(n: int, b: int, gen: torch.Generator, d: int = 64) -> dict:
     return row
 
 
+def bench_k3(n: int, b: int, hidden: int, dtype: torch.dtype, gen: torch.Generator) -> dict:
+    """K3's instances at (b, n, hidden) in ``dtype``: µs per call of each
+    that runs there."""
+    heads = K3_WIDTHS[hidden]
+    d = hidden // heads
+    x = torch.randn((b, n, hidden), generator=gen, device="cuda").to(dtype)
+    wq = (torch.randn((3 * hidden, hidden), generator=gen, device="cuda")
+          * hidden ** -0.5).to(dtype)
+    wp = (torch.randn((hidden, hidden), generator=gen, device="cuda") * hidden ** -0.5).to(dtype)
+    bq, bp = (0.1 * torch.randn(m, generator=gen, device="cuda") for m in (3 * hidden, hidden))
+    ops = attn_ops.dense_to_block_weights(wq, bq, wp, bp, heads)
+    if dtype == torch.float32:  # the fp32 kernel reads contiguous weights: time no copy
+        ops = tuple(t.contiguous() for t in ops)
+    elem = x.element_size()
+    names = ["long"]
+    if attn_ops.k3_smem_bytes(n, elem, d) <= attn_ops.HOPPER_MAX_SMEM:
+        names.insert(0, "short")
+    us: dict = {name: [] for name in names}
+    for _ in range(3):
+        for name in [*names, *reversed(names)]:
+            us[name].append(_us(lambda: attn_ops.fused_attention_block_k3(
+                x, *ops, heads, instance=name)))
+    return {"n": n, "batch": b, "hidden": hidden, "heads": heads, "head_dim": d,
+            "dtype": str(dtype).split(".")[-1],
+            **{f"{name}_us": min(v) for name, v in us.items()},
+            "takes": attn_ops.k3_instance(n, dtype, d)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--n", type=int, nargs="+", default=[144, 205, 324, 400, 576])
+    ap.add_argument("--n", type=int, nargs="+")
     ap.add_argument("--batch", type=int, nargs="+", default=[32, 96])
     ap.add_argument("--head-dim", type=int, choices=attn_ops.HEAD_DIMS, default=64)
+    ap.add_argument("--k3", action="store_true", help="time K3's two instances instead")
+    ap.add_argument("--widths", type=int, nargs="+", choices=sorted(K3_WIDTHS),
+                    default=sorted(K3_WIDTHS))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_attention_routes needs a CUDA card")
     gen = torch.Generator("cuda").manual_seed(0)
-    for n in args.n:
+    if args.k3:
+        for hidden in args.widths:
+            d = hidden // K3_WIDTHS[hidden]
+            for dtype in (torch.bfloat16, torch.float32):
+                elem = torch.empty((), dtype=dtype).element_size()
+                last = max(m for m in range(1, 1024)
+                           if attn_ops.k3_smem_bytes(m, elem, d) <= attn_ops.HOPPER_MAX_SMEM)
+                for n in args.n or [m for m in K3_N if m < last] + [last]:
+                    for b in args.batch:
+                        print(json.dumps({"device": torch.cuda.get_device_name(0),
+                                          **bench_k3(n, b, hidden, dtype, gen)}), flush=True)
+        return 0
+    for n in args.n or [144, 205, 324, 400, 576]:
         for b in args.batch:
             print(json.dumps({"device": torch.cuda.get_device_name(0),
                               **bench(n, b, gen, args.head_dim)}), flush=True)

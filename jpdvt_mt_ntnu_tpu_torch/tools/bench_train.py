@@ -36,7 +36,7 @@ from ..utils.pos_embed import grid_code
 
 # The kernels a train step may launch, by the launch counter of their wrapper.
 COUNTERS = {"k1": attn_ops.attention, "k2": attn_ops.attention_bwd,
-            "k3": attn_ops.fused_attention_block, "k4": flash_ops.flash_attention_fwd,
+            "k3": attn_ops.fused_attention_block_k3, "k4": flash_ops.flash_attention_fwd,
             "k5": flash_ops.flash_dq, "k6": flash_ops.flash_dkv}
 
 

@@ -27,6 +27,10 @@ import torch
 def _group(name: str) -> str:
     if "attention_fwd_kernel" in name or "attention_fwd_mma_kernel" in name:
         return "k1_attention"  # attention_fwd_mma_kernel in bf16
+    if "block_project" in name:  # K3's long-row L.1 (block_project_mma_kernel in bf16)
+        return "k3_l1_projection"
+    if "block_attention_long" in name:  # its L.2 (block_attention_long_mma_kernel in bf16)
+        return "k3_l2_attention"
     if "block_attention" in name:  # K3's A.1 (block_attention_mma_kernel in bf16)
         return "k3_a1_projection_attention"
     if "out_proj" in name:  # K3's A.2 (out_proj_mma_kernel in bf16)

@@ -64,6 +64,10 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from torch_native_build import jax_native as jax_native_built
+
+jax_native_built(required=False)  # before any test reaches make (torch_native_build)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "golden", "torch_jpeg")
 DECODES = os.path.join(FIXTURES, "decodes.npz")
@@ -424,8 +428,7 @@ def test_colour_space_rule_follows_libjpeg(native):
 
 @pytest.mark.parametrize("size", [48, 192, 288])
 def test_center_crop_bit_equal_to_the_jax_decoder(native, size):
-    from jpdvt_mt_ntnu_tpu.ops import native as jax_native
-
+    jax_native = jax_native_built()
     assert jax_native.available()  # libjpeg through the JAX package's decoder
     for name in ("q75_420_333x500", "progressive_420_333x500", "q95_444_61x77",
                  "s411_61x77", "grey_61x77"):
@@ -452,8 +455,7 @@ def test_threads_decode_in_parallel(native):
 def _jax_native_crop(data: bytes, size: int):
     """The JAX package's decoder on the bytes themselves (this box's
     libjpeg), or None where it hands them to PIL."""
-    from jpdvt_mt_ntnu_tpu.ops import native as jax_native
-
+    jax_native = jax_native_built()
     out = np.empty((size, size, 3), np.float32)
     return out if jax_native._load().jn_decode_center_crop(data, len(data), size, out) == 0 \
         else None
@@ -472,8 +474,7 @@ def test_libjpeg_features_decode_bit_equal(native, decodes, name):
     """CMYK/YCCK, Motion-JPEG, arithmetic coding, block smoothing and
     lossless: the RGB is PIL's (the JAX datasets' decode) and the committed
     decode, and the ADM crop the JAX package's ``decode_center_crop``."""
-    from jpdvt_mt_ntnu_tpu.ops import native as jax_native
-
+    jax_native = jax_native_built()
     data = read(name)
     got = native.decode_rgb(data)
     want = pil_rgb(data)

@@ -18,8 +18,8 @@ autograd of the plain version) is held to ``jax.vjp`` of the JAX function
 in fp32, 1e-5 of each gradient's scale; ``dense_to_block_weights`` to the
 JAX layout exactly. Also the tiny trained DiT on the block route against
 JAX's ``"block_interpret"`` (fp32, 1e-4 absolute on codes of ~1), the
-route table (K3's shared-memory limits at Dh 64 and 72) and the training
-refusal.
+route table (K3's short-row limits at Dh 64 and 72, and what the JAX
+rule computes there) and the training route at every geometry.
 """
 
 import jax
@@ -80,9 +80,9 @@ def test_k3_plain_matches_pallas_interpret_and_xla(n, d, dtype):
     jops, tops = _both(_dense(n + d, 2, n, 4, d), 4, dtype)
     interp = _f32(jattn.fused_attention_block(*jops, 4, True))
     xla = _f32(jattn.fused_attention_block_xla(*jops, 4))
-    before = port.fused_attention_block.launches
+    before = port.fused_attention_block_k3.launches
     mine = _f32(port.fused_attention_block(*tops, 4))
-    assert port.fused_attention_block.launches == before  # the CPU counts no launch
+    assert port.fused_attention_block_k3.launches == before  # the CPU counts no launch
     scale = np.abs(interp).max()
     assert scale > 0.1
     assert np.abs(mine - interp).max() <= INTERPRET_TOL[dtype] * scale
@@ -183,40 +183,50 @@ def test_dit_block_route_matches_jax_block_interpret():
     np.testing.assert_allclose(img.numpy(), np.asarray(j_img), atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("n,dtype,ok,d", [
-    (144, torch.bfloat16, True, 64), (400, torch.bfloat16, True, 64),
-    (416, torch.bfloat16, True, 64), (417, torch.bfloat16, False, 64),
-    (252, torch.float32, True, 64), (253, torch.float32, False, 64),
-    (144, torch.bfloat16, True, 72), (336, torch.bfloat16, True, 72),
-    (337, torch.bfloat16, False, 72), (576, torch.bfloat16, False, 72),
-    (223, torch.float32, True, 72), (224, torch.float32, False, 72)])
-def test_block_route_table(n, dtype, ok, d):
-    """K3's shared memory caps N: bf16 416 at Dh 64 and 336 at 72 (DiT-XL/8
-    at 96 px, N = 144, takes it; at 192 px, N = 576, it does not), fp32
-    252 and 223."""
+# (N, dtype, Dh, fits, takes): whether K3's short-row instance fits a
+# Hopper block, and what ``block`` computes at the width of Dh's registry
+# model (the JPDVT flagship, D 768, at 64; DiT-XL, D 1152, at 72) by the
+# JAX rule: "k3" (the short- or long-row instance) or "xla".
+@pytest.mark.parametrize("n,dtype,ok,d,takes", [
+    (144, torch.bfloat16, True, 64, "k3"), (400, torch.bfloat16, True, 64, "k3"),
+    (416, torch.bfloat16, True, 64, "k3"), (417, torch.bfloat16, False, 64, "k3"),
+    (252, torch.float32, True, 64, "k3"), (253, torch.float32, False, 64, "k3"),
+    (144, torch.bfloat16, True, 72, "k3"), (336, torch.bfloat16, True, 72, "xla"),
+    (337, torch.bfloat16, False, 72, "xla"), (576, torch.bfloat16, False, 72, "xla"),
+    (223, torch.float32, True, 72, "xla"), (224, torch.float32, False, 72, "xla")])
+def test_block_route_table(n, dtype, ok, d, takes):
+    """``block`` is taken at every N, on the card too. K3's short-row
+    instance holds q, k, v in shared memory up to bf16 N = 416 at Dh 64 and
+    336 at 72, fp32 252 and 223; past them the long-row one runs. Which of
+    K3 and the XLA composition runs is the JAX rule's: DiT-XL (D 1152) takes
+    K3 in bf16 up to N = 173 and never in fp32; the flagship up to 593 and
+    256."""
     for grad in (False, True):
-        if ok:
-            assert port.attention_route(n, dtype, grad, "block", head_dim=d) == "block"
-        else:
-            with pytest.raises(ValueError, match=f"attn_impl='block' at N={n}, Dh {d}.*shared "
-                                                 f"memory"):
-                port.attention_route(n, dtype, grad, "block", head_dim=d)
-        assert port.attention_route(n, dtype, grad, "block", head_dim=d, on_card=False) == \
-            "block"
+        for on_card in (True, False):
+            assert port.attention_route(n, dtype, grad, "block", head_dim=d,
+                                        on_card=on_card) == "block"
     assert (port.k3_smem_bytes(n, torch.empty((), dtype=dtype).element_size(), d)
             <= port.HOPPER_MAX_SMEM) == ok
+    heads = 12 if d == 64 else 16
+    x = torch.empty((1, n, heads * d), dtype=dtype)
+    assert port.block_takes_k3(x, torch.empty((3 * heads, heads * d, d), dtype=dtype),
+                               heads) == (takes == "k3")
     assert port.attention_route(n, dtype, False, head_dim=d) != "block"  # never picked unasked
     with pytest.raises(ValueError, match="head dim 16"):
         port.attention_route(n, dtype, False, "block", head_dim=16)
 
 
 def test_training_refuses_the_block_route_by_name():
-    """Training takes the block route where K3 takes the geometry (192 px
-    in bf16, the flagship's) and refuses it by name where K3 does not
-    (fp32 at 320 px, N = 400)."""
-    cfg = apply_overrides(Config(), ["data.synthetic_cues=waves", "model.attn_impl=block"])
-    run_train.check_supported(cfg)
-    cfg = apply_overrides(Config(), ["data.synthetic_cues=waves", "model.attn_impl=block",
-                                     "model.image_size=320", "model.compute_dtype=float32"])
-    with pytest.raises(NotImplementedError, match="attn_impl='block'.*shared memory"):
+    """Training takes the block route at every geometry: at 192 px in bf16
+    (the flagship's, K3), at 320 px in fp32 (N = 400: the XLA composition,
+    as the JAX rule computes there) and at 384 px, grid 24 (N = 576, K3's
+    long-row instance)."""
+    for extra in ([], ["model.image_size=320", "model.compute_dtype=float32"],
+                  ["model.image_size=384", "task.grid_size=24"]):
+        cfg = apply_overrides(Config(), ["data.synthetic_cues=waves", "model.attn_impl=block",
+                                         *extra])
         run_train.check_supported(cfg)
+    x = torch.empty((1, 400, 768))
+    assert not port.block_takes_k3(x, torch.empty((36, 768, 64)), 12)
+    assert port.block_takes_k3(x.bfloat16(), torch.empty((36, 768, 64), dtype=torch.bfloat16),
+                               12)

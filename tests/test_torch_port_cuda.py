@@ -37,7 +37,11 @@ K3 against its plain version, relative to the output's largest magnitude:
 bf16 2e-2 (both round q, k, v, P, o and the output at the same points;
 exp, the reciprocal of the row sum or summation order can flip one
 rounding by one bf16 ulp), fp32 1e-5 (summation order); two calls
-bit-equal, also with the weights as views of Linear weights.
+bit-equal, also with the weights as views of Linear weights. Its
+long-row instance (any N) under the same tolerances, and bit-equal to the
+short-row one wherever both fit. ``block``'s XLA composition (cuBLAS
+projections around K1 or K4) against its plain version as K1 against its
+own: 2e-2 and 1e-4 of the output's largest magnitude.
 """
 
 import numpy as np
@@ -534,16 +538,82 @@ def test_k3_cuda_kernel_matches_plain(cuda, b, n, dtype, d):
     gen = torch.Generator("cuda").manual_seed(n + 4)
     heads, hidden = (12, 768) if d == 64 else (16, 1152)
     ops = _block_operands(b, n, dtype, gen, heads, hidden, d)
-    before = port.fused_attention_block.launches
-    out = port.fused_attention_block(*ops, heads)
+    before = port.fused_attention_block_k3.launches
+    out = port.fused_attention_block_k3(*ops, heads)
     torch.cuda.synchronize()
-    assert port.fused_attention_block.launches == before + 1
+    assert port.fused_attention_block_k3.launches == before + 1
     want = port.fused_attention_block_plain(*ops, heads).float()
     scale = want.abs().max().item()
     err = (out.float() - want).abs().max().item()
     assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-5) * scale, (err, scale)
-    again = port.fused_attention_block(*ops, heads)
+    again = port.fused_attention_block_k3(*ops, heads)
     assert torch.equal(out, again)  # deterministic: no atomics
+
+
+# (B, N, dtype, Dh, heads, hidden): past the short-row instance's shared
+# memory, where the JAX rule runs its kernel (the flagship's grid 24, N =
+# 576; DiT-S and DiT-B to their rule's ends, 855 and 593; fp32 750 and 256),
+# ragged N, and DiT-XL's width past 336.
+@pytest.mark.parametrize("b,n,dtype,d,heads,hidden", [
+    (8, 576, torch.bfloat16, 64, 12, 768), (4, 855, torch.bfloat16, 64, 6, 384),
+    (2, 593, torch.bfloat16, 64, 12, 768), (3, 417, torch.bfloat16, 64, 12, 768),
+    (2, 750, torch.float32, 64, 6, 384), (2, 256, torch.float32, 64, 12, 768),
+    (2, 337, torch.bfloat16, 72, 16, 1152), (2, 577, torch.bfloat16, 72, 16, 1152),
+    (2, 300, torch.float32, 72, 16, 1152)])
+def test_k3_long_cuda_kernel_matches_plain(cuda, b, n, dtype, d, heads, hidden):
+    gen = torch.Generator("cuda").manual_seed(n + 5)
+    ops = _block_operands(b, n, dtype, gen, heads, hidden, d)
+    elem = torch.empty((), dtype=dtype).element_size()
+    assert port.k3_smem_bytes(n, elem, d) > port.HOPPER_MAX_SMEM  # the long-row instance
+    before = port.fused_attention_block_k3.launches
+    out = port.fused_attention_block_k3(*ops, heads)
+    assert port.fused_attention_block_k3.launches == before + 1
+    want = port.fused_attention_block_plain(*ops, heads).float()
+    scale = want.abs().max().item()
+    err = (out.float() - want).abs().max().item()
+    assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-5) * scale, (err, scale)
+    assert torch.equal(out, port.fused_attention_block_k3(*ops, heads))
+
+
+@pytest.mark.parametrize("b,n,dtype,d", [(4, 144, torch.bfloat16, 64),
+                                         (2, 400, torch.bfloat16, 64),
+                                         (3, 77, torch.bfloat16, 64),
+                                         (2, 416, torch.bfloat16, 64),
+                                         (5, 17, torch.bfloat16, 72),
+                                         (2, 144, torch.bfloat16, 72),
+                                         (2, 336, torch.bfloat16, 72),
+                                         (2, 144, torch.float32, 64),
+                                         (2, 252, torch.float32, 64),
+                                         (2, 223, torch.float32, 72)])
+def test_k3_long_instance_is_bit_equal_to_the_short_one(cuda, b, n, dtype, d):
+    """Where both fit: the same arithmetic in the same order."""
+    gen = torch.Generator("cuda").manual_seed(n + 6)
+    heads, hidden = (12, 768) if d == 64 else (16, 1152)
+    ops = _block_operands(b, n, dtype, gen, heads, hidden, d)
+    short = port.fused_attention_block_k3(*ops, heads, instance="short")
+    long = port.fused_attention_block_k3(*ops, heads, instance="long")
+    assert torch.equal(short, long)
+
+
+@pytest.mark.parametrize("b,n,dtype,heads,hidden,core", [
+    (2, 576, torch.bfloat16, 16, 1152, "k1"), (2, 600, torch.bfloat16, 12, 768, "k1"),
+    (2, 300, torch.float32, 16, 1152, "k1"), (2, 400, torch.float32, 12, 768, "k4")])
+def test_block_composition_cuda_matches_plain(cuda, b, n, dtype, heads, hidden, core):
+    """Where the JAX rule composes: cuBLAS projections around K1 (K4 where
+    K1's fp32 shared memory ends), no K3."""
+    gen = torch.Generator("cuda").manual_seed(n + 9)
+    ops = _block_operands(b, n, dtype, gen, heads, hidden, hidden // heads)
+    assert not port.block_takes_k3(ops[0], ops[1], heads)
+    counters = {"k1": port.attention, "k3": port.fused_attention_block_k3,
+                "k4": flash.flash_attention_fwd}
+    before = {k: f.launches for k, f in counters.items()}
+    out = port.fused_attention_block(*ops, heads)
+    launched = {k: f.launches - before[k] for k, f in counters.items()}
+    assert launched == {"k1": 0, "k3": 0, "k4": 0, core: 1}, launched
+    want = port.fused_attention_block_xla_plain(*ops, heads).float()
+    scale = want.abs().max().item()
+    err = (out.float() - want).abs().max().item()
+    assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-4) * scale, (err, scale)
 
 
 @pytest.mark.parametrize("b,n,dtype,heads,hidden", [(2, 144, torch.bfloat16, 12, 768),
@@ -566,9 +636,9 @@ def test_k3_cuda_kernel_takes_the_linear_weights_as_views(cuda, b, n, dtype, hea
     views = port.dense_to_block_weights(wq, bq, wp, bp, heads)
     assert views[0].data_ptr() == wq.data_ptr() and views[2].data_ptr() == wp.data_ptr()
     copies = [t.contiguous() for t in views]
-    out = port.fused_attention_block(x, *views, heads)
-    assert torch.equal(out, port.fused_attention_block(x, *views, heads))
-    assert torch.equal(out, port.fused_attention_block(x, *copies, heads))
+    out = port.fused_attention_block_k3(x, *views, heads)
+    assert torch.equal(out, port.fused_attention_block_k3(x, *views, heads))
+    assert torch.equal(out, port.fused_attention_block_k3(x, *copies, heads))
     want = port.fused_attention_block_plain(x, *views, heads).float()
     scale = want.abs().max().item()
     err = (out.float() - want).abs().max().item()
@@ -580,40 +650,37 @@ def test_k3_gradient_is_autograd_of_the_plain_version(cuda):
     ops = [t.requires_grad_(True) for t in _block_operands(2, 77, torch.float32, gen,
                                                            heads=2, hidden=128)]
     g = torch.randn((2, 77, 128), generator=gen, device="cuda")
-    before = port.fused_attention_block.launches
+    before = port.fused_attention_block_k3.launches
     mine = torch.autograd.grad(port.fused_attention_block(*ops, 2), ops, g)
-    assert port.fused_attention_block.launches == before + 1
-    want = torch.autograd.grad(port.fused_attention_block_plain(*ops, 2), ops, g)
+    assert port.fused_attention_block_k3.launches == before + 1
+    want = torch.autograd.grad(port.fused_attention_block_xla_plain(*ops, 2), ops, g)
     for got, ref in zip(mine, want):
         scale = ref.abs().max().item()
         assert (got - ref).abs().max().item() <= 1e-5 * scale
 
 
 def test_k3_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    """Past the short-row instance's shared memory the long-row one takes N
+    (bf16 at any N; fp32 while a query tile's score rows fit)."""
     gen = torch.Generator("cuda").manual_seed(6)
-    ops = _block_operands(1, 253, torch.float32, gen, heads=2, hidden=128)
-    with pytest.raises(ValueError, match="shared memory"):
-        port.fused_attention_block(*ops, 2)
-    ops = _block_operands(1, 252, torch.float32, gen, heads=2, hidden=128)
-    port.fused_attention_block(*ops, 2)
+    for n, dtype, d in ((253, torch.float32, 64), (252, torch.float32, 64),
+                        (417, torch.bfloat16, 64), (337, torch.bfloat16, 72),
+                        (224, torch.float32, 72), (4000, torch.bfloat16, 64)):
+        port.fused_attention_block_k3(*_block_operands(1, n, dtype, gen, heads=2, hidden=128,
+                                                       d=d), 2)
+    with pytest.raises(ValueError, match="long-row instance at N=1618 .*shared memory"):
+        port.fused_attention_block_k3(*_block_operands(1, 1618, torch.float32, gen, heads=2,
+                                                       hidden=128), 2)
     x, w_qkv, b_qkv, w_proj, b_proj = _block_operands(1, 9, torch.bfloat16, gen, heads=2,
                                                       hidden=128)
     with pytest.raises(ValueError, match="float32 biases"):
-        port.fused_attention_block(x, w_qkv, b_qkv.bfloat16(), w_proj, b_proj, 2)
+        port.fused_attention_block_k3(x, w_qkv, b_qkv.bfloat16(), w_proj, b_proj, 2)
     with pytest.raises(ValueError, match=r"Dh in \(64, 72\)"):
-        port.fused_attention_block(x, w_qkv[:, :, :32].contiguous(), b_qkv, w_proj, b_proj, 2)
+        port.fused_attention_block_k3(x, w_qkv[:, :, :32].contiguous(), b_qkv, w_proj, b_proj,
+                                      2)
     with pytest.raises(ValueError, match="w_proj of shape"):
-        port.fused_attention_block(*_block_operands(1, 9, torch.bfloat16, gen, heads=2,
-                                                    hidden=128, d=72)[:3], w_proj, b_proj, 2)
-    ops = _block_operands(1, 417, torch.bfloat16, gen, heads=2, hidden=128)
-    with pytest.raises(ValueError, match="shared memory"):
-        port.fused_attention_block(*ops, 2)
-    ops = _block_operands(1, 337, torch.bfloat16, gen, heads=2, hidden=128, d=72)
-    with pytest.raises(ValueError, match="shared memory"):
-        port.fused_attention_block(*ops, 2)  # Dh 72: bf16 N <= 336
-    ops = _block_operands(1, 224, torch.float32, gen, heads=2, hidden=128, d=72)
-    with pytest.raises(ValueError, match="shared memory"):
-        port.fused_attention_block(*ops, 2)  # Dh 72: fp32 N <= 223
+        port.fused_attention_block_k3(*_block_operands(1, 9, torch.bfloat16, gen, heads=2,
+                                                       hidden=128, d=72)[:3], w_proj, b_proj, 2)
     for d, limits in ((64, (416, 252)), (72, (336, 223))):
         for n, dtype in ((limits[0], torch.bfloat16), (limits[0] + 1, torch.bfloat16),
                          (limits[1], torch.float32), (limits[1] + 1, torch.float32)):
@@ -639,9 +706,9 @@ def test_dit_block_route_launches_k3_and_matches_the_default_route(cuda):
     with torch.no_grad():
         k1 = port.attention.launches
         _, want = model(x, t, code)
-        launches = port.fused_attention_block.launches
+        launches = port.fused_attention_block_k3.launches
         _, got = block(x, t, code)
-    assert port.fused_attention_block.launches == launches + cfg.depth
+    assert port.fused_attention_block_k3.launches == launches + cfg.depth
     assert port.attention.launches == k1 + cfg.depth
     scale = want.abs().max().item()
     assert (got - want).abs().max().item() <= 3e-2 * scale

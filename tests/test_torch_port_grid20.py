@@ -4,8 +4,9 @@
   card applies it, and ``run_train.check_supported``'s refusals, both
   without a card; at DiT-XL's head dim, 72, too (the default route with
   grad is flash at every N, by measurement; ``"pallas"`` takes K1 + K2
-  with grad, ``"block"`` takes K3 where its shared memory fits: DiT-XL/8
-  at 96 px, not at 192 px), and ``check_supported`` of ``run_train`` and
+  with grad, ``"block"`` is taken at every N: K3 where the JAX rule runs
+  its kernel, DiT-XL/8 at 96 px, the XLA composition at 192 px), and
+  ``check_supported`` of ``run_train`` and
   ``run_eval`` taking DiT-XL/2, /4 and /8 on the card.
 - A 2-block, full-width DiT at 320 px against the JAX package's
   ``DiT.apply`` in fp32, ``attn_impl`` None on both sides: XLA's softmax in
@@ -36,7 +37,8 @@ from jpdvt_mt_ntnu_tpu_torch.models import DiT, DiTConfig, create_model, dit
 from jpdvt_mt_ntnu_tpu_torch.ops import jigsaw
 from jpdvt_mt_ntnu_tpu_torch.eval import run_eval
 from jpdvt_mt_ntnu_tpu_torch.ops.attention import (HOPPER_MAX_SMEM, attention_route,
-                                                  k1_smem_bytes, k2_smem_bytes)
+                                                  block_takes_k3, k1_smem_bytes,
+                                                  k2_smem_bytes)
 from jpdvt_mt_ntnu_tpu_torch.tools import weights
 from jpdvt_mt_ntnu_tpu_torch.train import run_train
 from jpdvt_mt_ntnu_tpu_torch.utils.config import Config, apply_overrides
@@ -134,10 +136,10 @@ def test_auto_route_at_head_dim_72(n):
 
 def test_route_refusals_at_head_dim_72():
     """K2 and K3 take Dh 72: ``"pallas"`` with grad is K1 + K2 at every bf16
-    N (fp32 up to K2's N = 148), and ``"block"`` is K3 where its shared
-    memory fits (DiT-XL/8 at 96 px, N = 144) and refused by name where it
-    does not (at 192 px, N = 576). Head dims other than 64 and 72 stay
-    refused by name on the card."""
+    N (fp32 up to K2's N = 148), and ``"block"`` is taken at every N: K3
+    at DiT-XL/8's 96 px (N = 144, where the JAX rule runs its kernel), the
+    XLA composition at 192 px (N = 576, where it does not). Head dims other
+    than 64 and 72 stay refused by name on the card."""
     for n in (144, 576, 9216):
         assert attention_route(n, BF16, True, "pallas", head_dim=72) == "whole_row"
     assert attention_route(148, FP32, True, "pallas", head_dim=72) == "whole_row"
@@ -146,8 +148,10 @@ def test_route_refusals_at_head_dim_72():
     for grad in (False, True):
         assert attention_route(144, BF16, grad, "block", head_dim=72) == "block"
         assert attention_route(144, FP32, grad, "block", head_dim=72) == "block"
-        with pytest.raises(ValueError, match="attn_impl='block' at N=576, Dh 72.*shared memory"):
-            attention_route(576, BF16, grad, "block", head_dim=72)
+        assert attention_route(576, BF16, grad, "block", head_dim=72) == "block"
+    w = torch.empty((48, 1152, 72), dtype=BF16)
+    assert block_takes_k3(torch.empty((32, 144, 1152), dtype=BF16), w, 16)
+    assert not block_takes_k3(torch.empty((32, 576, 1152), dtype=BF16), w, 16)
     for d in (16, 128):
         with pytest.raises(ValueError, match=f"head dim {d} .*Dh 64 or 72"):
             attention_route(144, BF16, False, head_dim=d)
@@ -169,23 +173,17 @@ def _cfg(*overrides):
 def test_check_supported_takes_dit_xl_on_the_card(name):
     """DiT-XL (16 heads of 72) at 192 px trains and solves on the card,
     bf16 and fp32: 9,216, 2,304 or 576 tokens; with ``attn_impl=pallas``
-    in bf16 too (K1 + K2). ``attn_impl=block`` (K3) trains and solves
-    DiT-XL/8 at 96 px (144 tokens) and is refused by name for its shared
-    memory at 192 px, and for /2 and /4 at 96 px (2,304 and 576 tokens)."""
+    in bf16 too (K1 + K2). ``attn_impl=block`` trains and solves every
+    DiT-XL at 192 px and at 96 px (144, 576, 2,304 tokens): K3 where the
+    JAX rule runs its kernel (/8 at 96 px), else the XLA composition."""
     for dtype in ("bfloat16", "float32"):
         cfg = _cfg(f"model.name={name}", f"model.compute_dtype={dtype}")
         run_train.check_supported(cfg, on_card=True)
         run_eval.check_supported(cfg, on_card=True)
     for check in (run_train.check_supported, run_eval.check_supported):
         check(_cfg(f"model.name={name}", "model.attn_impl=pallas"))
-        with pytest.raises(NotImplementedError, match="attn_impl='block' at N=.*shared memory"):
-            check(_cfg(f"model.name={name}", "model.attn_impl=block"))
-        small = _cfg(f"model.name={name}", "model.attn_impl=block", "model.image_size=96")
-        if name == "DiT-XL/8":
-            check(small)
-        else:
-            with pytest.raises(NotImplementedError, match="attn_impl='block'.*shared memory"):
-                check(small)
+        check(_cfg(f"model.name={name}", "model.attn_impl=block"))
+        check(_cfg(f"model.name={name}", "model.attn_impl=block", "model.image_size=96"))
     with pytest.raises(NotImplementedError, match="attn_impl='pallas' at N=.*shared memory"):
         run_train.check_supported(_cfg(f"model.name={name}", "model.attn_impl=pallas",
                                        "model.compute_dtype=float32"))
@@ -194,11 +192,10 @@ def test_check_supported_takes_dit_xl_on_the_card(name):
 @pytest.mark.parametrize("impl", ["xla", "xla2", "xla_split", "interpret", "block",
                                   "block_interpret", "ring"])
 def test_check_supported_refuses_attention_routes_by_name(impl):
-    if impl == "block":  # K3 trains where it takes the geometry; beyond, refused by name
+    if impl == "block":  # ported: K3 or the XLA composition, at every geometry
         run_train.check_supported(_cfg("model.attn_impl=block"))
-        with pytest.raises(NotImplementedError, match="attn_impl='block' at N=400"):
-            run_train.check_supported(_cfg("model.attn_impl=block", "model.image_size=320",
-                                           "model.compute_dtype=float32"))
+        run_train.check_supported(_cfg("model.attn_impl=block", "model.image_size=320",
+                                       "model.compute_dtype=float32"))
         return
     with pytest.raises(NotImplementedError, match=f"model.attn_impl='{impl}'"):
         run_train.check_supported(_cfg(f"model.attn_impl={impl}"))

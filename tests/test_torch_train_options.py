@@ -5,8 +5,9 @@
   numpy weights, injected draws) through the port's plain K3 against the
   JAX package's ``fused_attention_block`` custom VJP with the Pallas
   forward in interpret mode (``block_interpret``); the ``autograd.Function``
-  the card uses (K3 forward, autograd of the plain version backward) with
-  its launch stood in by the plain forward; and ``run_train`` on the
+  the card uses (K3 or the composition forward, autograd of the
+  composition's plain version backward, as the JAX package's ``_fab_bwd``)
+  with its forward stood in by K3's plain version; and ``run_train`` on the
   route, every train step's attention through the block.
 - ``task.multi_grid``: 6 steps cycling grids 2, 3 and 6 at 96 px with
   injected draws, the per-step losses and grad norms against the JAX
@@ -132,15 +133,17 @@ def test_block_route_gradients_match_jax_custom_vjp(add_mask):
     assert dict(model.named_parameters())["blocks.1.attn.qkv.weight"].grad.abs().max() > 0
 
 
-def test_block_autograd_function_differentiates_the_plain_version(monkeypatch):
-    """The card's route: ``_FusedAttentionBlock`` (K3 forward, autograd of
-    the plain version backward), its launch stood in by the plain forward."""
-    monkeypatch.setattr(attention, "_launch_block", attention.fused_attention_block_plain)
+def test_block_autograd_function_differentiates_the_plain_version():
+    """The card's route: ``_FusedAttentionBlock`` (K3 or the composition
+    forward, autograd of the composition's plain version backward), its
+    forward stood in by K3's plain version."""
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(3, 9, 128, generator=gen)
     w = [torch.randn(s, generator=gen) * 0.1 for s in ((384, 128), (384,), (128, 128), (128,))]
     grads = []
-    for fn in (attention._FusedAttentionBlock.apply, attention.fused_attention_block_plain):
+    for fn in (lambda *a: attention._FusedAttentionBlock.apply(
+                   *a, attention.fused_attention_block_plain),
+               attention.fused_attention_block_xla_plain):
         leaves = [t.clone().requires_grad_(True) for t in [x, *w]]
         blocks = attention.dense_to_block_weights(*leaves[1:], num_heads=2)
         out = fn(leaves[0], *blocks, 2)
