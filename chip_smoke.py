@@ -10,9 +10,10 @@ Phases, each of which raises on failure:
    (``.cu`` -> ``.so`` -> ``ctypes``; K1-K6 each twice, at Dh 64 and at
    DiT-XL's 72), print the card's name and power limit, check that the
    bf16 kernels of K1, K2, K3, K4, K5 and K6 (at both head dims) hold
-   ``HMMA`` (tensor-core) instructions in their SASS, and that the route
-   table's shared-memory sums are the kernels' (K1's, K2's and K3's at
-   both head dims);
+   tensor-core instructions in their SASS (``HMMA``, or ``HGMMA`` for the
+   ``wgmma`` of K3's long-row instance), and that the route table's
+   shared-memory sums are the kernels' (K1's, K2's, K3's and K3's
+   long-row instance's at both head dims);
 2. hold kernel K1 (whole-row attention) against its plain PyTorch version
    on the card at the solve's shapes (B=16, 32 at N = 144 and 400), the
    train step's (B=96) and ragged ones (N = 9, 77, 200), two calls
@@ -334,7 +335,8 @@ then ``model.attn_impl=block`` at every geometry the JAX package runs it
     (4, 855) at D 384 in bf16, (2, 750) at D 384 in fp32, and at (32, 576),
     the grid-24 solve's shape, timed beside its bound, its plain version,
     ``F.linear -> SDPA -> F.linear`` and the default route (cuBLAS + K1 +
-    cuBLAS); bit-equal to the short-row instance at N = 144 and 400; K1 at
+    cuBLAS), with its three launches (L.1, L.2, A.2) timed alone there;
+    bit-equal to the short-row instance at N = 144 and 400; K1 at
     (32, 12, 576, 64), timed; ``block``'s XLA composition (cuBLAS + K1 +
     cuBLAS) against its plain version at DiT-XL's width, (2, 576). The
     flagship JPDVT at 384 px, grid 24 (N = 576, the grid ladder's rung after
@@ -1385,12 +1387,12 @@ def first_block(sd) -> tuple:
 
 
 def check_k3(b: int, n: int, dtype: torch.dtype, weights: tuple, gen: torch.Generator,
-             timed: bool, heads: int = HEADS) -> dict:
+             timed: bool, heads: int = HEADS, instance: str | None = None) -> dict:
     """K3 on one DiT block's weights (``heads`` heads; the head dim from
     their shapes), in ``dtype`` with the biases rounded through it and kept
     fp32 (as the solver hands them over), against its plain version;
-    relative to the output's largest magnitude, on the instance
-    ``k3_instance`` names."""
+    relative to the output's largest magnitude, on ``instance``, else on the
+    instance ``k3_instance`` names."""
     wq, bq, wp, bp = (w.to(dtype) for w in weights)
     hidden = wq.shape[1]
     d = hidden // heads
@@ -1398,8 +1400,8 @@ def check_k3(b: int, n: int, dtype: torch.dtype, weights: tuple, gen: torch.Gene
     if dtype == torch.float32:  # the fp32 kernel reads contiguous weights: time no copy
         ops = tuple(t.contiguous() for t in ops)
     x = torch.randn((b, n, hidden), generator=gen, device="cuda").to(dtype)
-    out = attn_ops.fused_attention_block_k3(x, *ops, heads)
-    if not torch.equal(out, attn_ops.fused_attention_block_k3(x, *ops, heads)):
+    out = attn_ops.fused_attention_block_k3(x, *ops, heads, instance)
+    if not torch.equal(out, attn_ops.fused_attention_block_k3(x, *ops, heads, instance)):
         raise AssertionError(f"K3 {(b, n, hidden)} {dtype}: two calls on one input differ")
     torch.cuda.synchronize()
     ref = attn_ops.fused_attention_block_plain(x, *ops, heads).float()
@@ -1409,7 +1411,8 @@ def check_k3(b: int, n: int, dtype: torch.dtype, weights: tuple, gen: torch.Gene
         raise AssertionError(f"K3 {(b, n, hidden)} {dtype}: max abs err {err} > {TOL[dtype]} "
                              f"x {scale}")
     row = {"shape": [b, n, hidden], "heads": heads, "head_dim": d,
-           "dtype": str(dtype).split(".")[-1], "instance": attn_ops.k3_instance(n, dtype, d),
+           "dtype": str(dtype).split(".")[-1],
+           "instance": instance or attn_ops.k3_instance(n, dtype, d),
            "max_abs_err": err, "scale": scale, "rel_tol": TOL[dtype]}
     if timed:
         def library():
@@ -1420,7 +1423,8 @@ def check_k3(b: int, n: int, dtype: torch.dtype, weights: tuple, gen: torch.Gene
         def default_route():
             return F.linear(attn_ops.fused_qkv_attention(F.linear(x, wq, bq), heads), wp, bp)
 
-        row["ms"] = cuda_ms(lambda: attn_ops.fused_attention_block_k3(x, *ops, heads), 20)
+        row["ms"] = cuda_ms(
+            lambda: attn_ops.fused_attention_block_k3(x, *ops, heads, instance), 20)
         row["plain_ms"] = cuda_ms(
             lambda: attn_ops.fused_attention_block_plain(x, *ops, heads), 5)
         row["library_ms"] = cuda_ms(library, 50)
@@ -4269,7 +4273,9 @@ def dit_xl_k2_k3(card: str, gen: torch.Generator, flash_losses: list) -> dict:
     out["k3"] = [check_k3(32, XL_SMALL_TOKENS, bf16, weights, gen, timed=True, heads=XL_HEADS),
                  check_k3(XL_K3_FP32_BATCH, XL_SMALL_TOKENS, fp32, weights, gen, timed=True,
                           heads=XL_HEADS),
-                 check_k3(3, 77, bf16, weights, gen, timed=False, heads=XL_HEADS)]
+                 check_k3(3, 77, bf16, weights, gen, timed=False, heads=XL_HEADS),
+                 check_k3(3, 77, bf16, weights, gen, timed=False, heads=XL_HEADS,
+                          instance="short")]
     del weights
     log(f"  phase 24 kernels at Dh {XL_DH}: {time.perf_counter() - t0:.2f} s")
     # 2. Path (a): run_train at 192 px on attn_impl=pallas, K1 + K2 a block.
@@ -4367,7 +4373,8 @@ def grid24_args(artifact: str, exp: str, *extra: str) -> list[str]:
 
 def check_k3_long_bits(b: int, n: int, weights: tuple, heads: int,
                        gen: torch.Generator) -> None:
-    """K3's long-row instance gives the short-row one's bits where both fit."""
+    """K3's long-row instance gives the short-row one's bits where both fit,
+    and both are within TOL of the plain version."""
     wq, bq, wp, bp = (w.bfloat16() for w in weights)
     ops = attn_ops.dense_to_block_weights(wq, bq.float(), wp, bp.float(), heads)
     x = torch.randn((b, n, wq.shape[1]), generator=gen, device="cuda").bfloat16()
@@ -4376,7 +4383,32 @@ def check_k3_long_bits(b: int, n: int, weights: tuple, heads: int,
     if not torch.equal(short, long):
         raise AssertionError(f"K3 at {(b, n)}: the long-row instance differs from the "
                              f"short-row one by {(short.float() - long.float()).abs().max()}")
-    log(f"  K3 long-row instance at {(b, n, wq.shape[1])} bf16: bit-equal to the short-row one")
+    ref = attn_ops.fused_attention_block_plain(x, *ops, heads).float()
+    scale = ref.abs().max().item()
+    err = (short.float() - ref).abs().max().item()
+    if not err <= TOL[torch.bfloat16] * scale:
+        raise AssertionError(f"K3's short-row instance at {(b, n)}: max abs err {err} > "
+                             f"{TOL[torch.bfloat16]} x {scale}")
+    log(f"  K3 long-row instance at {(b, n, wq.shape[1])} bf16: bit-equal to the short-row "
+        f"one, both {err} off the plain version (scale {scale})")
+
+
+def k3_long_split(b: int, n: int, weights: tuple, heads: int, gen: torch.Generator) -> dict:
+    """The bf16 long-row instance's three launches (L.1 projection, L.2
+    attention, A.2 output projection) timed alone, ms each by CUDA events;
+    the three in turn give fused_attention_block_k3's bits."""
+    wq, bq, wp, bp = (w.bfloat16() for w in weights)
+    ops = attn_ops.dense_to_block_weights(wq, bq.float(), wp, bp.float(), heads)
+    x = torch.randn((b, n, wq.shape[1]), generator=gen, device="cuda").bfloat16()
+    run = attn_ops.k3_long_stages(x, *ops, heads)
+    for i in range(3):
+        out = run(i)
+    if not torch.equal(out, attn_ops.fused_attention_block_k3(x, *ops, heads, instance="long")):
+        raise AssertionError(f"K3's long-row launches at {(b, n)} alone differ from the call")
+    split = {name: cuda_ms(lambda: run(i), 20) for i, name in enumerate(("L.1", "L.2", "A.2"))}
+    log(f"  K3 long-row instance at {(b, n, wq.shape[1])} bf16, ms by launch: "
+        + json.dumps(split))
+    return split
 
 
 def check_block_xla(b: int, n: int, dtype: torch.dtype, weights: tuple, heads: int,
@@ -4459,6 +4491,7 @@ def grid24_block(card: str, gen: torch.Generator, artifact: str) -> dict:
                         for b, n, dtype, hidden, heads in K3_LONG_CHECKS)]
     if any(r["instance"] != "long" for r in out["k3_long"]):
         raise AssertionError("phase 25's K3 checks did not run the long-row instance")
+    out["k3_long"][0]["split_ms"] = k3_long_split(32, TOKENS24, widths[768], 12, gen)
     for b, n in ((4, TOKENS), (2, TOKENS20)):
         check_k3_long_bits(b, n, widths[768], 12, gen)
     out["k1"] = check_k1(32, TOKENS24, bf16, gen, timed=True)
@@ -4557,8 +4590,8 @@ def main(argv=None) -> int:
             ("K1", lib_paths[0], ("attention_fwd_mma_kernel",)),
             ("K2", lib_paths[1], ("attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel")),
             ("K3", lib_paths[2], ("block_attention_mma_kernel", "out_proj_mma_kernel",
-                                  "block_project_mma_kernel",
-                                  "block_attention_long_mma_kernel")),
+                                  "block_project_wgmma_kernel",
+                                  "block_attention_long_wgmma_kernel")),
             ("K4", lib_paths[3], ("flash_fwd_mma_kernel",)),
             ("K5/K6", lib_paths[4], ("flash_dq_mma_kernel", "flash_dkv_mma_kernel")),
             (f"K1 at Dh {XL_DH}", lib_paths[7], ("attention_fwd_mma_kernel",)),
@@ -4568,13 +4601,14 @@ def main(argv=None) -> int:
             (f"K2 at Dh {XL_DH}", lib_paths[10],
              ("attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel")),
             (f"K3 at Dh {XL_DH}", lib_paths[11],
-             ("block_attention_mma_kernel", "out_proj_mma_kernel", "block_project_mma_kernel",
-              "block_attention_long_mma_kernel"))):
-        hmma = sass_count(lib_path, "HMMA")
-        log(f"{name} SASS HMMA per kernel: {json.dumps(hmma)}")
+             ("block_attention_mma_kernel", "out_proj_mma_kernel", "block_project_wgmma_kernel",
+              "block_attention_long_wgmma_kernel"))):
+        hmma, hgmma = sass_count(lib_path, "HMMA"), sass_count(lib_path, "HGMMA")
+        log(f"{name} SASS HMMA per kernel: {json.dumps(hmma)}; HGMMA (wgmma): "
+            f"{json.dumps({k: c for k, c in hgmma.items() if c})}")
         for kernel in bf16_kernels:
-            if not sum(c for f, c in hmma.items() if kernel in f):
-                raise AssertionError(f"{name}'s {kernel} has no HMMA in its SASS")
+            if not sum(c for f, c in (*hmma.items(), *hgmma.items()) if kernel in f):
+                raise AssertionError(f"{name}'s {kernel} has no HMMA or HGMMA in its SASS")
     # The route table's shared-memory sums (ops/attention.py) are the kernels',
     # K1's, K2's and K3's at both head dims.
     for n in (9, 144, 148, 149, 164, 165, 205, 206, 309, 310, 341, 342, 400, 571, 572, 576,
@@ -4594,6 +4628,17 @@ def main(argv=None) -> int:
                    for d in attn_ops.HEAD_DIMS):
                 raise AssertionError(f"the route table's K3 shared memory at N={n}, "
                                      f"{elem} B differs from the kernel's")
+    # Its long-row instance's: the most a block takes, and where L.2 stops
+    # taking one head's k and v whole.
+    for n in (9, 144, 576, 703, 704, 705, 855, 895, 896, 897, 1593, 1617, 4000):
+        for d in attn_ops.HEAD_DIMS:
+            lib = attn_ops._block_kernel(d)
+            if (attn_ops.k3_long_kv_whole(n, d) != bool(lib.k3_attention_block_long_kv_whole(n))
+                    or any(attn_ops.k3_long_smem_bytes(n, elem, d)
+                           != lib.k3_attention_block_long_smem_bytes(n, elem)
+                           for elem in (2, 4))):
+                raise AssertionError(f"the route table's K3 long-row shared memory at N={n}, "
+                                     f"Dh {d} differs from the kernel's")
 
     # 2. K1 against its plain version.
     t0 = time.perf_counter()
@@ -4719,7 +4764,12 @@ def main(argv=None) -> int:
                check_k3(4, TOKENS, torch.float32, weights, gen, timed=True),
                check_k3(3, 77, torch.bfloat16, weights, gen, timed=False),
                check_k3(2, 200, torch.bfloat16, weights, gen, timed=False),
-               check_k3(2, 401, torch.bfloat16, weights, gen, timed=False)]
+               check_k3(2, 401, torch.bfloat16, weights, gen, timed=False),
+               # the short-row instance, on no path since the long-row one is
+               # the faster at every N, held to its plain version too
+               check_k3(16, TOKENS, torch.bfloat16, weights, gen, timed=False,
+                        instance="short"),
+               check_k3(4, TOKENS, torch.float32, weights, gen, timed=False, instance="short")]
     log(f"phase k3: {time.perf_counter() - t0:.2f} s")
 
     # 14. The eval path: waves3 on both routes, or waves20 against the JAX journals.

@@ -25,8 +25,10 @@ TPU core's VMEM budget, else ``fused_attention_block_xla`` (``:330``),
 which rounds elsewhere. The first is K3, wrapped by
 :func:`fused_attention_block_k3` (``csrc/attention_block.cu``: a
 short-row instance keeping q, k, v of one (item, head) in shared memory,
-and a long-row one streaming k and v from a global scratch, for any N,
-the faster of the two where both run, :func:`k3_instance`);
+and a long-row one, for any N, its projection and attention on Hopper's
+``wgmma`` through a global q, k, v scratch, which :func:`k3_instance`
+takes at every N, the short-row one its bit-for-bit reference;
+:func:`k3_long_stages` times its three launches apart);
 :func:`fused_attention_block_plain` is its plain version with the
 kernel's rounding points. The second is :func:`fused_attention_block_xla`
 (on the card, cuBLAS projections around K1 or K4) with its plain version
@@ -126,7 +128,7 @@ def k3_smem_bytes(n: int, elem: int, head_dim: int = HEAD_DIM) -> int:
     k, v with rows of Dh + 2, rounded up to 16 B, then the larger of the
     projection's staged chunks (48 x 33 and 32 x 3 Dh fp32) and a 32-row
     query tile's fp32 score rows (N <= 252 at Dh 64, 223 at 72). Past these
-    only the long-row instance runs (:func:`k3_instance`)."""
+    ``instance="short"`` is refused."""
     if elem == 2:
         row = smem_row(head_dim) * elem
         return 3 * -(-n // 16) * 16 * row + (144 + 3 * head_dim) * 72 * elem
@@ -134,27 +136,71 @@ def k3_smem_bytes(n: int, elem: int, head_dim: int = HEAD_DIM) -> int:
     return qkv + max((48 * 33 + 32 * 3 * head_dim) * 4, 32 * (n + 1) * 4)
 
 
+def k3_padded_dims(head_dim: int) -> int:
+    """Dims of a q or k row in the bf16 long-row instance's scratch
+    (``kDP``): the head dim rounded up to the 16 of a k16 step (72: 80, dims
+    72-79 zero)."""
+    return -(-head_dim // 16) * 16
 
-# The largest N at which K3 launches its short-row instance, by head dim and
-# dtype (0: never); past it the long-row one, which gives the same bits. Set
-# from the rows of ``tools/bench_attention_routes --k3`` on an H100 (192 rows:
-# the registry's four widths, batches 8, 32 and 96, N up to the short-row
-# instance's shared memory): in bf16 at Dh 64 the short-row instance is the
-# faster at N <= 144 (by 9-14% at the flagship's width), the long-row one
-# past it but for a few rows at N 289-361; at Dh 72 and in fp32 the long-row
-# one is the faster at nearly every row (up to 35% and 58%).
-K3_SHORT_MAX_N = {(64, torch.bfloat16): 144, (72, torch.bfloat16): 0,
-                  (64, torch.float32): 0, (72, torch.float32): 0}
+
+# Rows of x a block of the long-row instance's projection (L.1) takes, by head
+# dim (``kP1Rows``): 3 warpgroups of 64 at Dh 64, 2 at Dh 72, whose 108
+# accumulators a thread need the registers of a smaller block.
+K3_LONG_PROJECT_ROWS = {64: 192, 72: 128}
+
+
+def k3_long_kv_whole(n: int, head_dim: int = HEAD_DIM) -> bool:
+    """Whether the bf16 long-row instance's attention launch (L.2) takes one
+    head's k and v whole into shared memory (``long_kv_whole``): 64-key
+    chunks of k (rows of :func:`k3_padded_dims`) and of v, and two mbarriers
+    a chunk, within a Hopper block's 232,448 B (N <= 896 at Dh 64, 704 at
+    72); past that they stream through a ring of four chunks."""
+    chunk = 64 * (k3_padded_dims(head_dim) + head_dim) * 2 + 16  # k, v and 2 mbarriers
+    return -(-n // 64) * chunk <= HOPPER_MAX_SMEM
+
+
+def k3_long_smem_bytes(n: int, elem: int, head_dim: int = HEAD_DIM) -> int:
+    """The most shared memory one block of K3's long-row instance takes
+    (``csrc/attention_block.cu`` ``long_smem_bytes``). bf16: the larger of
+    L.1's (a ring of four 64-wide K-chunks of ``K3_LONG_PROJECT_ROWS`` rows
+    of x and of the head's 3 Dh weight rows, two mbarriers a stage, 1,024 B
+    of alignment) and L.2's (:func:`k3_long_kv_whole`: the head's k and v
+    whole, else four 64-key chunks of each). fp32: a 32-row query tile and a 64-row chunk
+    with rows of Dh + 2, and the tile's fp32 score rows (N <= 1,617 at Dh
+    64, 1,593 at 72)."""
+    if elem == 2:
+        stage = 64 * (k3_padded_dims(head_dim) + head_dim) * 2 + 16
+        attend = -(-n // 64) * stage if k3_long_kv_whole(n, head_dim) else 4 * stage
+        rows = K3_LONG_PROJECT_ROWS[head_dim]
+        project = 4 * (rows + 3 * head_dim) * 128 + 4 * 2 * 8 + 1024
+        return max(project, attend)
+    return (32 + 64) * (head_dim + 2) * 4 + 32 * (n + 1) * 4
+
+
+def k3_long_scratch_elems(b: int, n: int, heads: int, elem: int,
+                          head_dim: int = HEAD_DIM) -> int:
+    """Elements of the long-row instance's q, k, v scratch: three (B, H)
+    slots of N rounded up to 16 rows of Dh elements (fp32), or to 32 rows
+    (a 32-key group) of :func:`k3_padded_dims` (bf16)."""
+    if elem == 2:
+        return 3 * b * heads * -(-n // 32) * 32 * k3_padded_dims(head_dim)
+    return 3 * b * heads * -(-n // 16) * 16 * head_dim
 
 
 def k3_instance(n: int, dtype: torch.dtype, head_dim: int = HEAD_DIM) -> str:
     """Which of K3's two instances :func:`fused_attention_block_k3` launches
-    at N: ``"short"`` (q, k and v of one item and head whole in shared
-    memory) or ``"long"`` (projected into a global scratch, k and v
-    streamed)."""
-    elem = torch.empty((), dtype=dtype).element_size()
-    fits = k3_smem_bytes(n, elem, head_dim) <= HOPPER_MAX_SMEM
-    return "short" if fits and n <= K3_SHORT_MAX_N[(head_dim, dtype)] else "long"
+    at (N, Dh, dtype): the long-row one (projected into a global scratch)
+    at every one. With its projection and attention on ``wgmma`` it is the
+    faster at 182 of the 192 rows of ``tools/bench_attention_routes --k3
+    --batch 8 32 96`` on an H100 (the registry's four widths, bf16 and
+    fp32, N up to the short-row instance's shared memory); the short-row
+    one (q, k and v of one item and head whole in shared memory) only at
+    batch 8 or DiT-S's width, where host time per call is most of a call,
+    by up to 18%. Taking the long-row one everywhere is within 0.4% of the per-row
+    best (PERF.md section 6). The short-row instance stays its bit-for-bit
+    reference, behind ``instance="short"``."""
+    return "long"
+
 
 # The JAX package's rule for what its ``block`` computes, copied from
 # jpdvt_mt_ntnu_tpu/ops/attention.py:272-296: the Pallas K3 where one
@@ -592,6 +638,14 @@ def _block_kernel(head_dim: int = HEAD_DIM):
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.k3_attention_block_long_stage
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.k3_attention_block_long_kv_whole.argtypes = [ctypes.c_int]
+    lib.k3_attention_block_long_kv_whole.restype = ctypes.c_int
+    lib.k3_attention_block_long_scratch_elems.argtypes = [ctypes.c_int] * 4
+    lib.k3_attention_block_long_scratch_elems.restype = ctypes.c_size_t
     for fn in (lib.k3_attention_block_smem_bytes, lib.k3_attention_block_long_smem_bytes):
         fn.argtypes = [ctypes.c_int, ctypes.c_int]
         fn.restype = ctypes.c_size_t
@@ -632,14 +686,20 @@ def _check_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int) -> bool:
         raise ValueError("K3 takes contiguous x and biases")
     if x.data_ptr() % 16:
         raise ValueError("K3 takes x at a 16-byte aligned address")
-    lib, elem = _block_kernel(d), x.element_size()
-    have = lib.k3_attention_block_max_smem(
-        x.device.index if x.device.index is not None else torch.cuda.current_device())
-    need = lib.k3_attention_block_long_smem_bytes(n, elem)
+    elem = x.element_size()
+    have = _max_smem(x.device.index if x.device.index is not None
+                     else torch.cuda.current_device(), d)
+    need = k3_long_smem_bytes(n, elem, d)
     if need > have:
         raise ValueError(f"K3's long-row instance at N={n} needs {need} B of shared memory "
                          f"per block; this device allows {have} B")
-    return lib.k3_attention_block_smem_bytes(n, elem) <= have
+    return k3_smem_bytes(n, elem, d) <= have
+
+
+@functools.cache
+def _max_smem(device: int, head_dim: int) -> int:
+    """The dynamic shared memory one block may opt into on ``device``."""
+    return _block_kernel(head_dim).k3_attention_block_max_smem(device)
 
 
 def _weight_strides(w_qkv: torch.Tensor, w_proj: torch.Tensor) -> tuple:
@@ -659,6 +719,26 @@ def _as_laid_out(t: torch.Tensor, strides: tuple) -> torch.Tensor:
     return torch.empty_strided(t.shape, strides, dtype=t.dtype, device=t.device).copy_(t)
 
 
+def _block_launch_args(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int) -> tuple:
+    """Weights in K3's layout, the outputs (o, out) and the pointers K3's C
+    functions take, in order, before the scratch."""
+    qkv_strides, proj_strides = _weight_strides(w_qkv, w_proj)
+    w_qkv, w_proj = _as_laid_out(w_qkv, qkv_strides), _as_laid_out(w_proj, proj_strides)
+    b, n, _ = x.shape
+    o = torch.empty((b, n, num_heads * w_qkv.shape[-1]), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    ptrs = (x.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), w_proj.data_ptr(),
+            b_proj.data_ptr())
+    return (w_qkv, w_proj), o, out, ptrs
+
+
+def _long_scratch(x, d: int, num_heads: int) -> torch.Tensor:
+    """The long-row instance's q, k, v scratch for x, alive until queued."""
+    b, n, _ = x.shape
+    return torch.empty(k3_long_scratch_elems(b, n, num_heads, x.element_size(), d),
+                       dtype=x.dtype, device=x.device)
+
+
 def _launch_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int,
                   instance: str | None = None) -> torch.Tensor:
     fits = _check_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads)
@@ -667,24 +747,16 @@ def _launch_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int,
     if instance not in ("short", "long") or (instance == "short" and not fits):
         raise ValueError(f"K3's {instance!r} instance at N={x.shape[1]}: expected 'long', "
                          f"or 'short' where its shared memory takes N")
-    short = instance == "short"
-    qkv_strides, proj_strides = _weight_strides(w_qkv, w_proj)
-    w_qkv, w_proj = _as_laid_out(w_qkv, qkv_strides), _as_laid_out(w_proj, proj_strides)
+    _, o, out, ptrs = _block_launch_args(x, w_qkv, b_qkv, w_proj, b_proj, num_heads)
     b, n, hidden = x.shape
     d = w_qkv.shape[-1]
-    o = torch.empty((b, n, num_heads * d), dtype=x.dtype, device=x.device)
-    out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    ptrs = (x.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), w_proj.data_ptr(),
-            b_proj.data_ptr())
-    if short:
+    if instance == "short":
         err = _block_kernel(d).k3_attention_block(
             _DTYPE_CODES[x.dtype], *ptrs, o.data_ptr(), out.data_ptr(), b, n, num_heads,
             hidden, q_scale(d, x.dtype), stream)
     else:
-        # q, k, v of every (item, head), rows padded to 16, alive until queued.
-        scratch = torch.empty((3, b, num_heads, -(-n // 16) * 16, d), dtype=x.dtype,
-                              device=x.device)
+        scratch = _long_scratch(x, d, num_heads)
         err = _block_kernel(d).k3_attention_block_long(
             _DTYPE_CODES[x.dtype], *ptrs, scratch.data_ptr(), o.data_ptr(), out.data_ptr(),
             b, n, num_heads, hidden, q_scale(d, x.dtype), stream)
@@ -692,6 +764,34 @@ def _launch_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int,
         raise RuntimeError(f"attention block kernel launch failed: cudaError {err}")
     fused_attention_block_k3.launches += 1
     return out
+
+
+def k3_long_stages(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int):
+    """The bf16 long-row instance's three launches apart, to time each:
+    ``run(stage)`` launches L.1 (0: x to the scratch), L.2 (1: the scratch
+    to o) or A.2 (2: o to the output) on buffers made here, and returns the
+    output. Launch L.1 before L.2 and L.2 before A.2 once; then any stage
+    again. Not counted in ``fused_attention_block_k3.launches``."""
+    _check_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads)
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"k3_long_stages times the bf16 instance; got {x.dtype}")
+    weights, o, out, ptrs = _block_launch_args(x, w_qkv, b_qkv, w_proj, b_proj, num_heads)
+    b, n, hidden = x.shape
+    d = w_qkv.shape[-1]
+    scratch = _long_scratch(x, d, num_heads)
+    lib = _block_kernel(d)
+
+    def run(stage: int) -> torch.Tensor:
+        err = lib.k3_attention_block_long_stage(
+            stage, _DTYPE_CODES[x.dtype], *ptrs, scratch.data_ptr(), o.data_ptr(),
+            out.data_ptr(), b, n, num_heads, hidden, q_scale(d, x.dtype),
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"K3 long-row stage {stage} launch failed: cudaError {err}")
+        return out
+
+    run.buffers = (weights, scratch, o, out)  # alive as long as run
+    return run
 
 
 def fused_attention_block_k3(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,

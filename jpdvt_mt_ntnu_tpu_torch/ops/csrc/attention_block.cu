@@ -63,11 +63,12 @@
 // tiles with whole fp32 score rows; A.2 is a scalar product on 64 x 64
 // tiles over the heads in order. It is launched only for fp32.
 //
-// Not done: wgmma, TMA (multicast of W_h to the blocks of a head), and a
-// cluster of H blocks that reduces over heads in distributed shared memory
-// (no bf16 o round trip). A cp.async double buffer of 32-wide chunks (the
-// room two stages leave) was slower than the register prefetch of 64-wide
-// ones: one chunk in flight did not hide the copies' latency.
+// Not done in the short-row instance: wgmma, TMA (the long-row instance
+// below has both), multicast of W_h to the blocks of a head, and a cluster
+// of H blocks that reduces over heads in distributed shared memory (no bf16
+// o round trip). A cp.async double buffer of 32-wide chunks (the room two
+// stages leave) was slower than the register prefetch of 64-wide ones: one
+// chunk in flight did not hide the copies' latency.
 //
 // Bound on an H100 SXM at the solve's B = 32, N = 144, D = 768, H = 12, Dh =
 // 64, bf16: the products are 2 B N D 4D + 4 B H N^2 Dh = 23.8 GFLOP, 24 us at
@@ -95,11 +96,16 @@
 // lanes 0-3 own a second column pair of o, and A.2's K-chunks are 36 wide (a
 // head is two); fp32 N <= 223 (252 at Dh 64).
 
+#include <cuda.h>  // CUtensorMap and its enums only: the driver is reached through cudart
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
 #include <stddef.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 #ifndef HEAD_DIM
 #define HEAD_DIM 64
@@ -716,400 +722,838 @@ int launch(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
 
 // ---- The long-row instance (any N): q, k, v through a global scratch ----
 //
-// L.1, grid (row tiles of kPR, H, B), 12 warps: A.1's projection of one
-// 144-row tile, the same code and K-chunk order, so q (scaled), k and v
-// are A.1's bit for bit; they go to a (3, B, H, np, Dh) scratch in bf16,
-// rows n..np-1 zero. L.2, grid (query tiles / 8, H, B), 4 warps of two
-// 16-row query tiles each: A.1's two attention passes, the same
-// arithmetic in the same order (32-key groups from key 0, the same lane
-// owning the same columns), with k (pass 1) and k and v (pass 2) streamed
-// from L2 in 64-key chunks through a two-stage cp.async ring. A.2 follows
-// unchanged. So the long-row instance is bit-equal to the short-row one
-// wherever both fit.
-constexpr int kLWarps = 4;
-constexpr int kLThreads = 32 * kLWarps;
-constexpr int kLTiles = 2 * kLWarps;  // 16-row query tiles a block
-constexpr int kLChunk = 64;           // keys a ring stage
+// Three launches, bf16 on Hopper's warpgroup products (wgmma.mma_async,
+// fp32 accumulators), the same arithmetic in the same order as the
+// short-row instance, so the two give the same bits wherever both run
+// (wgmma's k16 step gives mma.sync m16n8k16's bits, tools/wgmma_probe.py):
+//   L.1, grid (B N / kP1Rows, H): kP1Groups consumer warpgroups of 64 rows
+//     of x (3 at Dh 64, 2 at Dh 72) and a producer warp: q|k|v of one head
+//     (192 columns at Dh 64, 216 at 72: one wgmma m64n192k16 / m64n216k16 a
+//     k16 step, both operands from shared memory) for rows taken across
+//     items (x viewed as (B N, D)). x and the head's three weight slices
+//     arrive by TMA (tensor maps with the 128-byte swizzle, encoded through
+//     the runtime's driver entry point and cached) in 64-wide K-chunks
+//     through a ring of kP1Stages stages under mbarriers. The K-chunks and
+//     their k16 steps run in A.1's order, and the epilogue is A.1's (the
+//     fp32 bias, q times `scale`, rounding to bf16), so q, k and v are
+//     A.1's bit for bit. They go to a (3, B, H) scratch of np x kDP slots
+//     (np = long_rows(n), N rounded up to a 32-key group; kDP = 16 kK16, Dh
+//     72 padded to 80 with zero dims) in the order L.2's descriptors read:
+//     q and k in 8 x 8 core matrices, 8-row groups outermost ([j / 8][d /
+//     8][j % 8][d % 8]); v transposed per 8-key group ([j / 8][d][j % 8]),
+//     the K-major B operand of P v. So 64 keys of k or v are one contiguous
+//     run that one cp.async.bulk brings in. Rows n..np-1 are zero.
+//   L.2, grid (np / (64 l2_groups), H, B): consumer warpgroups of 64 query
+//     rows, 2 a block where two blocks fit an SM's shared memory, else 3.
+//     Up to N = 896 at Dh 64 (704 at 72) the head's k and v come in whole,
+//     one bulk copy and one mbarrier per 64-key chunk, all issued by thread
+//     0 at the start, so each block reads them once and pass 1 starts on
+//     the first chunk; past that a producer warp streams them through a
+//     ring of kL2Ring chunks of k and v. A warpgroup keeps its q as
+//     mma.sync A fragments in registers. Pass 1: S = q k^T by wgmma
+//     m64n32k16 (A from registers, k from shared memory), one 32-key group
+//     at a time from key 0, then the rows' max and sum of exp(S - max) over
+//     the group, each lane owning the columns it owns in mma.sync's layout
+//     (wgmma's accumulator layout per warp), so max, sum and 1 / sum are the
+//     short-row instance's. Pass 2: S again, P in fp32 rounded to bf16 in
+//     registers as the A operand, o += P v by wgmma m64n64k16 / m64n72k16
+//     (v^T from shared memory), 16 keys a step in key order. In both passes
+//     the next group's products run while this group's softmax does; every
+//     wgmma is issued on every path and no accumulator is touched between
+//     its issue and its wait, so ptxas keeps them asynchronous.
+//   A.2 as the short-row instance's.
+// No step splits a sum or adds with atomics: an output element's arithmetic
+// does not depend on B or on the block that computes it.
+//
+// Bound at (B, N, D, H) = (32, 576, 768, 12): L.1 65.2 GFLOP (66 us at 989
+// TFLOP/s), whose blocks take x and W_h from L2 at 96 FLOP a byte: the
+// SMs' intake (~3.4 TB/s measured) bounds it first; L.2 6 B H N^2 Dh = 48.9
+// GFLOP (49 us) and 2 B H N^2 exp2 on the special-function units (16 a
+// clock an SM: 68 us at 1.755 GHz). Tried and dropped (PERF.md section 6):
+// 256 rows a block (192 accumulators a thread spill), a cluster multicasting
+// W_h (slower), S of 64 keys a wgmma with no overlap.
 
-__host__ __device__ constexpr size_t long_proj_smem_bytes() {
-  return (size_t)(kPR + kPC) * kCRow * sizeof(bf16);
-}
-// Two stages of k and v chunks; the block's query rows pass through them first.
-__host__ __device__ constexpr size_t long_smem_bytes() {
-  return 4 * (size_t)kLChunk * kRow * sizeof(bf16);
-}
-static_assert(kLTiles * 16 <= 4 * kLChunk, "the query rows fit the ring");
+// ---- Hopper primitives (tools/wgmma_probe.py builds this part into its
+// probe kernel). ----
+// >>> wgmma helpers
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+// A shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (bytes, multiples of 16), and the 128-byte swizzle or none.
+__device__ __forceinline__ unsigned long long smem_desc(unsigned addr, unsigned lbo, unsigned sbo,
+                                                        bool swizzle128) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) |
+         (unsigned long long)((lbo & 0x3FFFF) >> 4) << 16 |
+         (unsigned long long)((sbo & 0x3FFFF) >> 4) << 32 |
+         (unsigned long long)(swizzle128 ? 1 : 0) << 62;
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// K-major tiles of 64-element (128-byte) rows written by TMA with the
+// 128-byte swizzle, 1024-byte aligned: the k16 step kk starts 32 kk bytes in.
+__device__ __forceinline__ unsigned long long sw128_desc(unsigned addr) {
+  return smem_desc(addr, 16, 1024, true);
+}
+// K-major 8 x 8 core matrices, no swizzle: `lbo` between neighbours along
+// K, `sbo` between 8-row groups.
+__device__ __forceinline__ unsigned long long core_desc(unsigned addr, unsigned lbo,
+                                                        unsigned sbo) {
+  return smem_desc(addr, lbo, sbo, false);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// The wgmma wrappers below add a b to d, or (accumulate false, the first
+// k16 step of a product) write it: a fresh sum, with no instruction
+// writing d first while other products are in flight.
+// Until at most kPending of this warpgroup's committed groups are in flight.
 template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__global__ void __launch_bounds__(kA1Threads)
-block_project_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
-                         const float* __restrict__ bqkv, bf16* __restrict__ qkv, int n,
-                         int heads, int hidden, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int np = (n + 15) / 16 * 16;
-  bf16* xs = reinterpret_cast<bf16*>(smem);  // [kPR][kCRow]
-  bf16* ws = xs + kPR * kCRow;               // [kPC][kCRow]: W_h rows, K contiguous
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// `bytes` (a multiple of 16) from global to shared memory, counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[96], unsigned long long da,
+                                         unsigned long long db, bool accumulate = true) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"((int)accumulate));
+}
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t2 = 2 * (lane % 4);
-  const int r0 = blockIdx.x * kPR, h = blockIdx.y;
-  const long long b = blockIdx.z, batch = gridDim.z;
-  const bf16* xg = x + b * n * hidden;
-  const int wr = warp / 4, wc = warp % 4;
+__device__ __forceinline__ void wgmma_ss(float (&d)[108], unsigned long long da,
+                                         unsigned long long db, bool accumulate = true) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %110, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n216k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107}, "
+      "%108, %109, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107])
+      : "l"(da), "l"(db), "r"((int)accumulate));
+}
 
-  constexpr int kC8 = kKC / 8;
-  constexpr int kXU = per_thread<kPR, kC8, kA1Threads>();
-  constexpr int kWU = per_thread<kPC, kC8, kA1Threads>();
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const unsigned (&a)[4],
+                                         unsigned long long db, bool accumulate = true) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"((int)accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const unsigned (&a)[4],
+                                         unsigned long long db, bool accumulate = true) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"((int)accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[36], const unsigned (&a)[4],
+                                         unsigned long long db, bool accumulate = true) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35}, "
+      "{%36, %37, %38, %39}, %40, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"((int)accumulate));
+}
+
+// <<< wgmma helpers
+
+constexpr int kDP = kK16 * 16;        // dims of a q or k row in the scratch (Dh 72: 80)
+constexpr int kCM = 64;               // elements of an 8 x 8 core matrix
+// L.1: kP1Groups consumer warpgroups of 64 rows of x each (Dh 64: 3; Dh 72:
+// 2, whose 108 accumulators a thread need the registers of a smaller block)
+// and a producer warp; a ring of kP1Stages 64-wide K-chunks of x (kP1Rows
+// rows) and of W_h (3 Dh rows), 128-byte rows.
+constexpr int kP1Groups = kD == 64 ? 3 : 2;
+constexpr int kP1Rows = 64 * kP1Groups;
+constexpr int kP1Threads = kP1Groups * 128 + 32;
+constexpr int kP1Stages = 4;
+constexpr int kP1XBytes = kP1Rows * 128;
+constexpr int kP1Stage = kP1XBytes + kPC * 128;  // 1024-byte multiples at Dh 64 and 72
+static_assert(kP1Stage % 1024 == 0 && kD * 128 % 1024 == 0, "swizzled tiles stay aligned");
+__host__ __device__ constexpr size_t project_smem_bytes() {
+  return (size_t)kP1Stages * kP1Stage + 2 * kP1Stages * 8 + 1024;  // + alignment slack
+}
+// L.2: consumer warpgroups of 64 query rows, three a block, or two where
+// two blocks' k and v fit one SM's shared memory (l2_groups); k and v in
+// 64-key chunks (k rows of kDP, v^T per 8 keys), whole (thread 0 issues
+// every copy at the start) or in a ring that a producer warp refills.
+__host__ __device__ constexpr int l2_threads(bool whole, int groups) {
+  return groups * 128 + (whole ? 0 : 32);
+}
+constexpr int kKeys = 64;
+constexpr int kKChunk = kKeys * kDP * 2;
+constexpr int kVChunk = kKeys * kD * 2;
+constexpr int kL2Ring = 4;
+
+// Rows of each (item, head) slot of the scratch: n rounded up to a 32-key
+// group, rows n.. zero (their P is 0 and their v rows 0, so o is the
+// short-row instance's, whose last 16-key step stops at n rounded to 16).
+__host__ __device__ constexpr int long_rows(int n) { return (n + 31) / 32 * 32; }
+__host__ __device__ constexpr size_t long_whole_bytes(int np) {
+  return (size_t)(np + kKeys - 1) / kKeys * (kKChunk + kVChunk + 16);
+}
+// Whether L.2 takes the head's k and v whole (else through the ring).
+__host__ __device__ constexpr bool long_kv_whole(int n) {
+  return long_whole_bytes(long_rows(n)) <= 232448;
+}
+__host__ __device__ constexpr size_t long_smem_bytes(int n) {
+  return long_kv_whole(n) ? long_whole_bytes(long_rows(n))
+                          : (size_t)kL2Ring * (kKChunk + kVChunk + 16);
+}
+// L.2's warpgroups a block at n: two while two blocks fit an SM's 228 KB of
+// shared memory (each with its 1 KB the system keeps), so that one block's
+// loads and softmax overlap the other's products (Dh 64: N <= 448; Dh 72: N
+// <= 320); else three, one block an SM.
+__host__ __device__ constexpr int l2_groups(int n) {
+  return long_kv_whole(n) && 2 * (long_smem_bytes(n) + 1024) <= 233472 ? 2 : 3;
+}
+// Elements of the scratch: q, k, v slots of np x kDP a (item, head).
+__host__ __device__ constexpr size_t long_scratch_elems(int b, int n, int heads) {
+  return 3 * (size_t)b * heads * (long_rows(n)) * kDP;
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// q|k|v of head h for rows m0.. of x (m = B n rows), into the scratch.
+__global__ void __launch_bounds__(kP1Threads, 1)
+block_project_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                           const __grid_constant__ CUtensorMap wmap,
+                           const float* __restrict__ bqkv, bf16* __restrict__ qkv, int m, int n,
+                           int heads, int hidden, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem + kP1Stages * kP1Stage);
+  unsigned long long* empty = full + kP1Stages;
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int m0 = blockIdx.x * kP1Rows, h = blockIdx.y;
   const int nk = hidden / kKC;
-  uint4 xr[kXU], wreg[kWU];
-  auto fetch = [&](int step) {
-    const int k0 = step * kKC;
-#pragma unroll
-    for (int u = 0; u < kXU; ++u) {
-      const int i = tid + u * kA1Threads, r = i / kC8, c = i % kC8 * 8;
-      xr[u] = r0 + r < n ? *reinterpret_cast<const uint4*>(
-                               xg + (long long)(r0 + r) * hidden + k0 + c)
-                         : make_uint4(0u, 0u, 0u, 0u);
+  constexpr int kConsumers = kP1Groups * 128;
+  if (tid == 0) {
+    for (int s = 0; s < kP1Stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kP1Groups);  // one arrival a consumer warp
     }
-#pragma unroll
-    for (int u = 0; u < kWU; ++u) {
-      const int i = tid + u * kA1Threads, r = i / kC8, c = i % kC8 * 8;
-      const int which = r / kD, d = r % kD;
-      if (has_piece<kPC, kC8, kA1Threads>(i))
-        wreg[u] = *reinterpret_cast<const uint4*>(
-            wqkv + ((long long)(which * heads + h) * kD + d) * hidden + k0 + c);
-    }
-  };
-  fetch(0);
-  float acc[3][kWT][4];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < kWT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  const bool last_tile = kNT % 4 == 0 || wc * kWT + kWT - 1 < kNT;
-  for (int step = 0; step < nk; ++step) {
-    __syncthreads();  // the previous chunk is consumed
-#pragma unroll
-    for (int u = 0; u < kXU; ++u) {
-      const int i = tid + u * kA1Threads;
-      *reinterpret_cast<uint4*>(xs + i / kC8 * kCRow + i % kC8 * 8) = xr[u];
-    }
-#pragma unroll
-    for (int u = 0; u < kWU; ++u) {
-      const int i = tid + u * kA1Threads;
-      if (has_piece<kPC, kC8, kA1Threads>(i))
-        *reinterpret_cast<uint4*>(ws + i / kC8 * kCRow + i % kC8 * 8) = wreg[u];
-    }
-    __syncthreads();
-    if (step + 1 < nk) fetch(step + 1);
-#pragma unroll
-    for (int kk = 0; kk < kKC; kk += 16) {
-      unsigned a[3][4];
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-        if (r0 + wr * 48 + i * 16 < np) load_a<kCRow>(a[i], xs, wr * 48 + i * 16, kk, lane);
-#pragma unroll
-      for (int jp = 0; jp < kWT / 2; ++jp) {
-        const int j = 2 * jp;
-        unsigned wb[4];
-        load_b<kCRow>(wb, ws, wc * (kWT * 8) + j * 8, kk, lane);
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-          if (r0 + wr * 48 + i * 16 < np) {
-            mma(acc[i][j], a[i], wb[0], wb[1]);
-            mma(acc[i][j + 1], a[i], wb[2], wb[3]);
-          }
-      }
-      if (kWT % 2 && last_tile) {
-        unsigned wb[2];
-        load_b1<kCRow>(wb, ws, wc * (kWT * 8) + (kWT - 1) * 8, kk, lane);
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-          if (r0 + wr * 48 + i * 16 < np) mma(acc[i][kWT - 1], a[i], wb[0], wb[1]);
-      }
-    }
+    mbar_init_fence();
   }
-  // The fp32 bias, then bf16; q scaled in bf16; zero rows past n.
+  __syncthreads();
+  if (wg == kP1Groups) {  // the producer warp: one thread drives the TMA
+    if (tid == kConsumers) {
+      for (int s = 0; s < nk; ++s) {
+        const int st = s % kP1Stages;
+        if (s >= kP1Stages) mbar_wait(&empty[st], (s / kP1Stages - 1) & 1);
+        unsigned char* xs = smem + st * kP1Stage;
+        mbar_expect_tx(&full[st], kP1Stage);
+        tma_load_2d(xs, &xmap, s * kKC, m0, &full[st]);
 #pragma unroll
-  for (int j = 0; j < kWT; ++j) {
-    if (j == kWT - 1 && !last_tile) continue;
-    const int col = wc * (kWT * 8) + j * 8 + t2;
-    const int which = col / kD, d = col % kD;
-    const float* bias = bqkv + (which * heads + h) * kD + d;
-    bf16* dst = qkv + ((which * batch + b) * heads + h) * (long long)np * kD + d;
+        for (int w = 0; w < 3; ++w)
+          tma_load_2d(xs + kP1XBytes + w * kD * 128, &wmap, s * kKC, (w * heads + h) * kD,
+                      &full[st]);
+      }
+    }
+  } else {
+    auto release = [&](int st) {  // this warp is done with stage st
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    };
+    float acc[kPC / 2];
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
+    for (int e = 0; e < kPC / 2; ++e) acc[e] = 0.f;
+    for (int s = 0; s < nk; ++s) {
+      const int st = s % kP1Stages;
+      mbar_wait(&full[st], (s / kP1Stages) & 1);
+      const unsigned xa = smem_addr(smem + st * kP1Stage) + wg * 64 * 128;
+      const unsigned wa = smem_addr(smem + st * kP1Stage + kP1XBytes);
+      fence_regs(acc);
+      wgmma_fence();
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = r0 + wr * 48 + i * 16 + g + half * 8;
-        if (r >= np) continue;
-        float y0 = bf16_round(acc[i][j][2 * half] + bias[0]);
-        float y1 = bf16_round(acc[i][j][2 * half + 1] + bias[1]);
+      for (int kk = 0; kk < kKC / 16; ++kk)
+        wgmma_ss(acc, sw128_desc(xa + 32 * kk), sw128_desc(wa + 32 * kk));
+      wgmma_commit();
+      wgmma_wait<0>();  // the other warpgroups' products fill the tensor cores meanwhile
+      fence_regs(acc);
+      release(st);
+    }
+
+    // A.1's epilogue: the fp32 bias, then bf16; q scaled in bf16.
+    const int g = lane / 4, t2 = 2 * (lane % 4);
+    const int np = long_rows(n);
+    const long long batch = m / n, slot = (long long)np * kDP;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = m0 + wg * 64 + (tid % 128) / 32 * 16 + g + 8 * half;
+      if (r >= m) continue;
+      const int b = r / n, j = r % n;
+#pragma unroll
+      for (int t = 0; t < kPC / 8; ++t) {
+        const int col = 8 * t + t2, which = col / kD, d = col % kD;
+        const float* bias = bqkv + (which * heads + h) * kD + d;
+        float y0 = bf16_round(acc[4 * t + 2 * half] + bias[0]);
+        float y1 = bf16_round(acc[4 * t + 2 * half + 1] + bias[1]);
+        bf16* base = qkv + ((which * batch + b) * heads + h) * slot;
+        if (which == 2) {  // v^T: [j / 8][d][j % 8]
+          bf16* p = base + ((long long)(j / 8) * kD + d) * 8 + j % 8;
+          p[0] = __float2bfloat16_rn(y0);
+          p[8] = __float2bfloat16_rn(y1);
+          continue;
+        }
         if (which == 0) {
           y0 = bf16_round(y0 * scale);
           y1 = bf16_round(y1 * scale);
         }
-        if (r >= n) y0 = y1 = 0.f;
-        *reinterpret_cast<__nv_bfloat162*>(dst + (long long)r * kD) =
+        *reinterpret_cast<__nv_bfloat162*>(
+            base + ((long long)(j / 8) * (kDP / 8) + d / 8) * kCM + (j % 8) * 8 + d % 8) =
             __floats2bfloat162_rn(y0, y1);
       }
+    }
+    // Zeros: dims kD..kDP-1 of this block's q and k rows, and rows n..np-1 of
+    // q, k and v of each item whose last row is in this block.
+    if (kDP > kD) {
+      for (int i = tid; i < 2 * kP1Rows; i += kConsumers) {
+        const int r = m0 + i / 2;
+        if (r >= m) continue;
+        const int b = r / n, j = r % n;
+        *reinterpret_cast<uint4*>(qkv + (((i % 2) * batch + b) * heads + h) * slot +
+                                  ((long long)(j / 8) * (kDP / 8) + kD / 8) * kCM + (j % 8) * 8) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    if (np > n) {
+      const int last = min(m0 + kP1Rows, m) - 1;
+      for (int b = m0 / n; b <= last / n; ++b) {
+        if (b * n + n - 1 < m0 || b * n + n - 1 > last) continue;
+        const int pad = np - n;
+        // q and k: 16-byte pieces of rows n.., kDP / 8 a row.
+        for (int i = tid; i < 2 * pad * (kDP / 8); i += kConsumers) {
+          const int which = i / (pad * (kDP / 8)), rest = i % (pad * (kDP / 8));
+          const int j = n + rest / (kDP / 8), c = rest % (kDP / 8);
+          *reinterpret_cast<uint4*>(qkv + ((which * batch + b) * heads + h) * slot +
+                                    ((long long)(j / 8) * (kDP / 8) + c) * kCM + (j % 8) * 8) =
+              make_uint4(0u, 0u, 0u, 0u);
+        }
+        // v^T: single elements.
+        for (int i = tid; i < pad * kD; i += kConsumers) {
+          const int j = n + i / kD, d = i % kD;
+          qkv[((2 * batch + b) * heads + h) * slot + ((long long)(j / 8) * kD + d) * 8 + j % 8] =
+              __float2bfloat16_rn(0.f);
+        }
+      }
+    }
   }
 }
 
-__global__ void __launch_bounds__(kLThreads)
-block_attention_long_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o, int n,
-                                int heads) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);  // [stage][k, v][kLChunk][kRow]
-  const int np = (n + 15) / 16 * 16;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t2 = 2 * (lane % 4);
-  const int h = blockIdx.y;
-  const long long b = blockIdx.z, batch = gridDim.z, head = (long long)np * kD;
-  const bf16* qg = qkv + (b * heads + h) * head;
-  const bf16* kg = qkv + ((batch + b) * heads + h) * head;
-  const bf16* vg = qkv + ((2 * batch + b) * heads + h) * head;
-  constexpr int kC8 = kD / 8;  // 16-byte pieces of a row
-  if (kK16 * 16 > kD) {
-    // Dims kD.. of every ring row, read by the last k16 step of S (q's rows
-    // pass through the ring too): zero, never written after.
-    for (int i = tid; i < 4 * kLChunk; i += kLThreads)
-      *reinterpret_cast<uint4*>(ring + i * kRow + kD) = make_uint4(0u, 0u, 0u, 0u);
+constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x log2(e))
+
+// Pass 1 of L.2 on one 32-key group from key j0 (S in s, as the
+// accumulators of mma.sync's n8 tiles): each of the lane's two rows' max m
+// and sum l of exp(S - max), A.1's arithmetic. kMasked: the group holds
+// keys at or past n, which count as -inf.
+template <bool kMasked>
+__device__ __forceinline__ void group_stats(const float (&s)[16], int j0, int n, int t2,
+                                            float (&m)[2], float (&l)[2]) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float bm = -INFINITY, v[8];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        v[2 * t + cc] = kMasked && j0 + t * 8 + t2 + cc >= n ? -INFINITY
+                                                              : s[4 * t + 2 * half + cc];
+        bm = fmaxf(bm, v[2 * t + cc]);
+      }
+    bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 1));
+    bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 2));
+    const float mn = fmaxf(m[half], bm), ml = mn * kLog2e;
+    float sum = l[half] * exp2f(fmaf(m[half], kLog2e, -ml));
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      sum += exp2f(fmaf(v[2 * t], kLog2e, -ml)) + exp2f(fmaf(v[2 * t + 1], kLog2e, -ml));
+    l[half] = sum;
+    m[half] = mn;
   }
-  // This block's query rows, through the ring into each warp's fragments.
-  const int tiles = np / 16, row0 = blockIdx.x * kLTiles * 16;
-  const int rows = min(kLTiles * 16, np - row0);
-  for (int i = tid; i < rows * kC8; i += kLThreads) {
-    const int r = i / kC8, c = i % kC8 * 8;
-    *reinterpret_cast<uint4*>(ring + r * kRow + c) =
-        *reinterpret_cast<const uint4*>(qg + (long long)(row0 + r) * kD + c);
+}
+
+// Pass 2 of L.2 on one 32-key group from key j0: P = exp(S - max) (1 / sum)
+// in fp32 (m = max log2(e), l = 1 / sum), 0 at keys at or past n (kMasked).
+// p[8 u + 4 t + 2 half + c]: 16-key step u, its n8 tile t, row half, column c.
+template <bool kMasked>
+__device__ __forceinline__ void group_probabilities(const float (&s)[16], int j0, int n, int t2,
+                                                    const float (&m)[2], const float (&l)[2],
+                                                    float (&p)[16]) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc)
+          p[8 * u + 4 * t + 2 * half + cc] =
+              !kMasked || j0 + 16 * u + 8 * t + t2 + cc < n
+                  ? exp2f(fmaf(s[4 * (2 * u + t) + 2 * half + cc], kLog2e, -m[half])) * l[half]
+                  : 0.f;
+}
+
+// o for query rows 64 kGroups blockIdx.x.. of (item, head) (blockIdx.z,
+// blockIdx.y); whole: long_kv_whole(n).
+template <bool whole, int kGroups>
+__global__ void __launch_bounds__(l2_threads(whole, kGroups), kGroups == 2 ? 2 : 1)
+block_attention_long_wgmma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o, int n,
+                                  int heads) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int np = long_rows(n), chunks = (np + kKeys - 1) / kKeys;
+  const int stages = whole ? chunks : kL2Ring;
+  unsigned char* kbuf = smem;                                  // [stage][kKChunk]
+  unsigned char* vbuf = smem + (size_t)stages * kKChunk;       // [stage][kVChunk]
+  // whole: chunk c's k on bar[c], its v on bar[chunks + c]; ring: full, empty.
+  unsigned long long* bar =
+      reinterpret_cast<unsigned long long*>(vbuf + (size_t)stages * kVChunk);
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z, batch = gridDim.z, slot = (long long)np * kDP;
+  const bf16* qg = qkv + (b * heads + h) * slot;
+  const bf16* kg = qkv + ((batch + b) * heads + h) * slot;
+  const bf16* vg = qkv + ((2 * batch + b) * heads + h) * slot;
+  const int tile0 = blockIdx.x * kGroups;  // 64-row query tiles of this block
+  const int active = min(kGroups, (np - 64 * tile0 + 63) / 64);
+  if (tid == 0) {
+    if (whole) {
+      for (int i = 0; i < 2 * chunks; ++i) mbar_init(&bar[i], 1);
+    } else {
+      for (int s = 0; s < kL2Ring; ++s) {
+        mbar_init(&bar[s], 1);
+        mbar_init(&bar[kL2Ring + s], 4 * active);  // one arrival a consumer warp
+      }
+    }
+    mbar_init_fence();
   }
   __syncthreads();
-  const int t0 = blockIdx.x * kLTiles + 2 * warp;
-  const int q0 = 16 * t0, nq = max(0, min(2, tiles - t0));  // warp-uniform
-  unsigned qa[2][kK16][4];
-#pragma unroll
-  for (int q = 0; q < 2; ++q)
-    if (q < nq)
-#pragma unroll
-      for (int kk = 0; kk < kK16; ++kk)
-        load_a<kRow>(qa[q][kk], ring, 32 * warp + 16 * q, kk * 16, lane);
-  __syncthreads();  // the ring is free for the keys
-
-  const int chunks = (np + kLChunk - 1) / kLChunk;
-  // Chunk c of k (and v) into ring stage c % 2, as one cp.async group.
-  auto load_chunk = [&](int c, bool with_v) {
-    bf16* st = ring + (c % 2) * 2 * kLChunk * kRow;
-    const int j0 = c * kLChunk, count = min(kLChunk, np - j0) * kC8;
-    for (int i = tid; i < count; i += kLThreads) {
-      const int r = i / kC8, col = i % kC8 * 8;
-      cp_async16(st + r * kRow + col, kg + (long long)(j0 + r) * kD + col);
-      if (with_v)
-        cp_async16(st + (kLChunk + r) * kRow + col, vg + (long long)(j0 + r) * kD + col);
+  auto kbytes = [&](int c) { return (unsigned)(min(kKeys, np - c * kKeys) * kDP * 2); };
+  auto vbytes = [&](int c) { return (unsigned)(min(kKeys, np - c * kKeys) * kD * 2); };
+  if (whole && tid == 0) {  // every copy, in the order the passes read them
+    for (int c = 0; c < chunks; ++c) {
+      mbar_expect_tx(&bar[c], kbytes(c));
+      bulk_load(kbuf + (size_t)c * kKChunk, kg + (long long)c * kKeys * kDP, kbytes(c), &bar[c]);
     }
-    cp_async_commit();
-  };
+    for (int c = 0; c < chunks; ++c) {
+      mbar_expect_tx(&bar[chunks + c], vbytes(c));
+      bulk_load(vbuf + (size_t)c * kVChunk, vg + (long long)c * kKeys * kD, vbytes(c),
+                &bar[chunks + c]);
+    }
+  }
+  if (!whole && wg == kGroups) {  // the producer warp: one thread refills the ring
+    if (tid == kGroups * 128) {
+      {  // items 0..chunks-1: k chunks (pass 1); then k and v chunks (pass 2)
+        for (int i = 0; i < 2 * chunks; ++i) {
+          const int s = i % kL2Ring, c = i < chunks ? i : i - chunks;
+          if (i >= kL2Ring) mbar_wait(&bar[kL2Ring + s], (i / kL2Ring - 1) & 1);
+          mbar_expect_tx(&bar[s], kbytes(c) + (i < chunks ? 0 : vbytes(c)));
+          bulk_load(kbuf + (size_t)s * kKChunk, kg + (long long)c * kKeys * kDP, kbytes(c),
+                    &bar[s]);
+          if (i >= chunks)
+            bulk_load(vbuf + (size_t)s * kVChunk, vg + (long long)c * kKeys * kD, vbytes(c),
+                      &bar[s]);
+        }
+      }
+    }
+    return;
+  }
+  if (wg >= active) return;
 
-  // S (tiles x kKB keys from j0; ks holds them from row jl) = q k^T, as A.1's.
-  float s[2][kKB / 8][4];
-  auto scores = [&](const bf16* ks, int jl, int j0) {
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t2 = 2 * (lane % 4);
+  const int r0 = 64 * (tile0 + wg) + 16 * warp;  // this warp's 16 query rows
+  // q as mma.sync A fragments: [j / 8][d / 8][j % 8][d % 8], 128 contiguous
+  // bytes a fragment register across the warp.
+  unsigned qa[kK16][4];
 #pragma unroll
-    for (int q = 0; q < 2; ++q)
+  for (int kk = 0; kk < kK16; ++kk) {
+    const bf16* q0 = qg + ((long long)(r0 / 8) * (kDP / 8) + 2 * kk) * kCM + g * 8 + t2;
+    const bf16* q1 = q0 + (kDP / 8) * kCM;  // rows + 8
 #pragma unroll
-      for (int t = 0; t < kKB / 8; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[q][t][e] = 0.f;
+    for (int e = 0; e < 4; ++e)
+      qa[kk][e] = r0 < np ? *reinterpret_cast<const unsigned*>((e % 2 ? q1 : q0) +
+                                                                (e / 2) * kCM)
+                          : 0u;
+  }
+  // Item i (pass 1: k chunk i; pass 2: k and v chunk i - chunks): its stage,
+  // and the wait for it.
+  auto stage_of = [&](int i) {
+    return whole ? (i < chunks ? i : i - chunks) : i % kL2Ring;
+  };
+  auto wait_item = [&](int i) {
+    if (!whole) {
+      mbar_wait(&bar[i % kL2Ring], (i / kL2Ring) & 1);
+    } else if (i < chunks) {
+      mbar_wait(&bar[i], 0);
+    } else {
+      mbar_wait(&bar[i], 0);             // v of chunk i - chunks
+      mbar_wait(&bar[i - chunks], 0);    // its k, long since arrived
+    }
+  };
+  auto release = [&](int i) {
+    if (whole) return;
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&bar[kL2Ring + i % kL2Ring]);
+  };
+  // S (64 rows x the 32 keys of group gi, from item i's stage) = q k^T,
+  // issued and committed: n8 tile t holds keys 32 gi + 8 t...
+  auto issue_scores = [&](float (&s)[16], int i, int gi) {
+    const unsigned ka = smem_addr(kbuf + (size_t)stage_of(i) * kKChunk) + gi % 2 * 64 * kDP;
+    fence_regs(s);
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kK16; ++kk)
-#pragma unroll
-      for (int u = 0; u < kKB / 16; ++u) {
-        if (j0 + 16 * u >= np) break;
-        unsigned kb[4];
-        load_b<kRow>(kb, ks, jl + 16 * u, kk * 16, lane);
-#pragma unroll
-        for (int q = 0; q < 2; ++q)
-          if (q < nq) {
-            mma(s[q][2 * u], qa[q][kk], kb[0], kb[1]);
-            mma(s[q][2 * u + 1], qa[q][kk], kb[2], kb[3]);
-          }
-      }
+      wgmma_rs(s, qa[kk], core_desc(ka + 256 * kk, 128, kDP * 16), kk > 0);
+    wgmma_commit();
   };
+  const int groups = np / kKB;
+  // Every wgmma below is issued on every path, the softmax reading only
+  // products already waited for: so ptxas keeps them asynchronous.
 
-  constexpr float kLog2e = 1.4426950408889634f;
-  // Pass 1: each row's max and sum of exp(S - max), in fp32.
-  float m[2][2], l[2][2];
+  // Pass 1: each row's max and sum of exp(S - max), in fp32, 32 keys at a
+  // time from key 0, as the short-row instance (group_stats); the next
+  // group's S is in the tensor cores meanwhile (the last group's is issued
+  // again, unread).
+  float m[2], l[2];
 #pragma unroll
-  for (int q = 0; q < 2; ++q)
+  for (int half = 0; half < 2; ++half) m[half] = -INFINITY, l[half] = 0.f;
+  float s[16], cur[16];
+  wait_item(0);
+  issue_scores(s, 0, 0);
+  wgmma_wait<0>();
+  fence_regs(s);
+  for (int gi = 0; gi < groups; ++gi) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) m[q][half] = -INFINITY, l[q][half] = 0.f;
-  load_chunk(0, false);
-  for (int c = 0; c < chunks; ++c) {
-    if (c + 1 < chunks) {
-      load_chunk(c + 1, false);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* ks = ring + (c % 2) * 2 * kLChunk * kRow;
-    for (int jl = 0; jl < kLChunk && nq > 0; jl += kKB) {
-      const int j0 = c * kLChunk + jl;
-      if (j0 >= np) break;
-      scores(ks, jl, j0);
-#pragma unroll
-      for (int q = 0; q < 2; ++q)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          if (q >= nq) continue;
-          float bm = -INFINITY;
-#pragma unroll
-          for (int t = 0; t < kKB / 8; ++t)
-#pragma unroll
-            for (int cc = 0; cc < 2; ++cc) {
-              float& v = s[q][t][2 * half + cc];
-              if (j0 + kKB > n && j0 + t * 8 + t2 + cc >= n) v = -INFINITY;
-              bm = fmaxf(bm, v);
-            }
-          bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 1));
-          bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 2));
-          const float mn = fmaxf(m[q][half], bm), ml = mn * kLog2e;
-          float sum = l[q][half] * exp2f(fmaf(m[q][half], kLog2e, -ml));
-#pragma unroll
-          for (int t = 0; t < kKB / 8; ++t)
-            sum += exp2f(fmaf(s[q][t][2 * half], kLog2e, -ml)) +
-                   exp2f(fmaf(s[q][t][2 * half + 1], kLog2e, -ml));
-          l[q][half] = sum;
-          m[q][half] = mn;
-        }
-    }
-    __syncthreads();  // stage c % 2 is consumed before chunk c + 2 fills it
+    for (int e = 0; e < 16; ++e) cur[e] = s[e];
+    const int next = min(gi + 1, groups - 1);
+    if (next % 2 == 0 && next != gi) wait_item(next / 2);
+    issue_scores(s, next / 2, next);
+    if (kKB * gi + kKB <= n)
+      group_stats<false>(cur, kKB * gi, n, t2, m, l);
+    else
+      group_stats<true>(cur, kKB * gi, n, t2, m, l);
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (gi % 2 == 1) release(gi / 2);
   }
+  if (groups % 2) release(groups / 2);  // a last chunk of one group
 #pragma unroll
-  for (int q = 0; q < 2; ++q)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float v = l[q][half];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      l[q][half] = 1.f / v;
-      m[q][half] *= kLog2e;
-    }
+  for (int half = 0; half < 2; ++half) {
+    float v = l[half];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    l[half] = 1.f / v;
+    m[half] *= kLog2e;
+  }
 
-  // Pass 2: P in fp32, rounded to bf16; o += P v.
-  float oacc[2][kD / 8][4];
+  // Pass 2: P in fp32, rounded to bf16; o += P v, 16 keys a wgmma in key
+  // order (rows np.. of v are zero, P there too). Group gi's S is issued
+  // beside group gi - 1's P v, and its P computed while that runs.
+  float oacc[kD / 2];
 #pragma unroll
-  for (int q = 0; q < 2; ++q)
+  for (int i = 0; i < kD / 2; ++i) oacc[i] = 0.f;
+  // Group gi's P from its S, in fp32 (p), then as the A operand of its two
+  // 16-key steps u (two accumulator n8 tiles each), rounded to bf16.
+  float p[16];
+  unsigned pa[2][4];
+  auto probabilities = [&](int gi) {
+    if (kKB * gi + kKB <= n)
+      group_probabilities<false>(s, kKB * gi, n, t2, m, l, p);
+    else
+      group_probabilities<true>(s, kKB * gi, n, t2, m, l, p);
+  };
+  auto to_operand = [&]() {
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j)
+    for (int u = 0; u < 2; ++u)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) oacc[q][j][e] = 0.f;
-  load_chunk(0, true);
-  for (int c = 0; c < chunks; ++c) {
-    if (c + 1 < chunks) {
-      load_chunk(c + 1, true);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* ks = ring + (c % 2) * 2 * kLChunk * kRow;
-    const bf16* vs = ks + kLChunk * kRow;
-    for (int jl = 0; jl < kLChunk && nq > 0; jl += kKB) {
-      const int j0 = c * kLChunk + jl;
-      if (j0 >= np) break;
-      scores(ks, jl, j0);
+      for (int e = 0; e < 4; ++e) pa[u][e] = pack(p[8 * u + 2 * e], p[8 * u + 2 * e + 1]);
+  };
+  auto issue_pv = [&](int gi) {
+    const unsigned va =
+        smem_addr(vbuf + (size_t)stage_of(chunks + gi / 2) * kVChunk) + gi % 2 * 64 * kD;
+    fence_regs(oacc);
+    wgmma_fence();
 #pragma unroll
-      for (int u = 0; u < kKB / 16; ++u) {
-        if (j0 + 16 * u >= np) break;
-        unsigned pa[2][4];
-#pragma unroll
-        for (int q = 0; q < 2; ++q)
-#pragma unroll
-          for (int t = 0; t < 2; ++t)
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              if (q >= nq) continue;
-              float p[2];
-#pragma unroll
-              for (int cc = 0; cc < 2; ++cc)
-                p[cc] = j0 + 16 * u + 8 * t + t2 + cc < n
-                            ? exp2f(fmaf(s[q][2 * u + t][2 * half + cc], kLog2e,
-                                         -m[q][half])) *
-                                  l[q][half]
-                            : 0.f;
-              pa[q][2 * t + half] = pack(p[0], p[1]);
-            }
-        const bf16* vrow = vs + (jl + 16 * u + lane % 8 + ((lane / 8) % 2) * 8) * kRow;
-#pragma unroll
-        for (int j = 0; j < kD / 16 * 2; j += 2) {
-          unsigned vb[4];
-          ldsm_x4_trans(vb, vrow + j * 8 + (lane / 16) * 8);
-#pragma unroll
-          for (int q = 0; q < 2; ++q)
-            if (q < nq) {
-              mma(oacc[q][j], pa[q], vb[0], vb[1]);
-              mma(oacc[q][j + 1], pa[q], vb[2], vb[3]);
-            }
-        }
-        if (kD / 8 % 2) {
-          unsigned vb[2];
-          ldsm_x2_trans(vb, vrow + kD - 8);
-#pragma unroll
-          for (int q = 0; q < 2; ++q)
-            if (q < nq) mma(oacc[q][kD / 8 - 1], pa[q], vb[0], vb[1]);
-        }
-      }
-    }
-    __syncthreads();
+    for (int u = 0; u < 2; ++u)
+      wgmma_rs(oacc, pa[u], core_desc(va + 2 * u * kD * 16, kD * 16, 128));
+    wgmma_commit();
+  };
+  wait_item(chunks);
+  issue_scores(s, chunks, 0);
+  wgmma_wait<0>();
+  fence_regs(s);
+  probabilities(0);
+  to_operand();
+  for (int gi = 1; gi < groups; ++gi) {
+    if (gi % 2 == 0) wait_item(chunks + gi / 2);
+    issue_scores(s, chunks + gi / 2, gi);
+    issue_pv(gi - 1);
+    wgmma_wait<1>();  // this group's S
+    fence_regs(s);
+    probabilities(gi);
+    wgmma_wait<0>();  // the group before's P v: its P registers and its stage are free
+    fence_regs(oacc);
+    if (gi % 2 == 0) release(chunks + gi / 2 - 1);
+    to_operand();
   }
+  issue_pv(groups - 1);
+  wgmma_wait<0>();
+  fence_regs(oacc);
+  release(chunks + (groups - 1) / 2);
   bf16* og = o + b * n * (long long)(heads * kD) + h * kD;
 #pragma unroll
-  for (int q = 0; q < 2; ++q)
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + half * 8;
+    if (r >= n) continue;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = q0 + 16 * q + g + half * 8;
-      if (q >= nq || r >= n) continue;
-#pragma unroll
-      for (int j = 0; j < kD / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(og + (long long)r * heads * kD + j * 8 + t2) =
-            __floats2bfloat162_rn(oacc[q][j][2 * half], oacc[q][j][2 * half + 1]);
-    }
+    for (int j = 0; j < kD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(og + (long long)r * heads * kD + j * 8 + t2) =
+          __floats2bfloat162_rn(oacc[4 * j + 2 * half], oacc[4 * j + 2 * half + 1]);
+  }
 }
 
+// cuTensorMapEncodeTiled through the runtime's driver entry point (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                    cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (rows, cols) bf16 row-major matrix read in boxes of (box_rows, 64) with
+// the 128-byte swizzle; rows past the end read as zeros.
+bool bf16_tensor_map(CUtensorMap* map, const void* ptr, long long rows, int cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// bf16_tensor_map through a per-thread cache of the last kMapCache maps,
+// keyed by what they encode: a layer's weights are encoded once, not on each
+// call, since encoding costs host time the launch waits for.
+constexpr int kMapCache = 64;
+bool cached_tensor_map(CUtensorMap* map, const void* ptr, long long rows, int cols,
+                       int box_rows) {
+  struct Entry {
+    CUtensorMap map;
+    const void* ptr;
+    long long rows;
+    int cols, box_rows;
+  };
+  thread_local Entry cache[kMapCache] = {};
+  thread_local int next = 0;
+  for (const Entry& e : cache)
+    if (e.ptr == ptr && e.rows == rows && e.cols == cols && e.box_rows == box_rows) {
+      *map = e.map;
+      return true;
+    }
+  if (!bf16_tensor_map(map, ptr, rows, cols, box_rows)) return false;
+  cache[next] = {*map, ptr, rows, cols, box_rows};
+  next = (next + 1) % kMapCache;
+  return true;
+}
+
+// cudaFuncSetAttribute for a kernel's dynamic shared memory, called only when
+// a launch on the current device needs more than the kernel was given there
+// before (the call costs host time on every launch otherwise).
+cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, size_t> given;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> lock(mu);
+  size_t& have = given[{kernel, device}];
+  if (have >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) have = bytes;
+  return err;
+}
+
+// stage -1: L.1, L.2 and A.2; 0, 1, 2: that launch alone (for timing).
 int launch_long(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
                 const void* bproj, void* qkv, void* o, void* out, int b, int n, int heads,
-                int hidden, float scale, cudaStream_t stream) {
-  const int np = (n + 15) / 16 * 16;
-  cudaError_t err = cudaFuncSetAttribute(block_project_mma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)long_proj_smem_bytes());
-  if (err != cudaSuccess) return (int)err;
-  block_project_mma_kernel<<<dim3((np + kPR - 1) / kPR, heads, b), kA1Threads,
-                             long_proj_smem_bytes(), stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
-      static_cast<const float*>(bqkv), static_cast<bf16*>(qkv), n, heads, hidden, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  block_attention_long_mma_kernel<<<dim3((np / 16 + kLTiles - 1) / kLTiles, heads, b),
-                                    kLThreads, long_smem_bytes(), stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(o), n, heads);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int m = b * n;
-  out_proj_mma_kernel<<<dim3((m + kOM - 1) / kOM, hidden / kON), kThreads, 0, stream>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(wproj),
-      static_cast<const float*>(bproj), static_cast<bf16*>(out), m, heads * kD, hidden);
-  return (int)cudaGetLastError();
+                int hidden, float scale, cudaStream_t stream, int stage) {
+  const int np = long_rows(n), m = b * n;
+  cudaError_t err;
+  if (stage < 0 || stage == 0) {
+    CUtensorMap xmap, wmap;
+    if (!cached_tensor_map(&xmap, x, m, hidden, kP1Rows) ||
+        !cached_tensor_map(&wmap, wqkv, 3LL * heads * kD, hidden, kD))
+      return (int)cudaErrorInvalidValue;
+    err = allow_smem(reinterpret_cast<const void*>(block_project_wgmma_kernel),
+                     project_smem_bytes());
+    if (err != cudaSuccess) return (int)err;
+    block_project_wgmma_kernel<<<dim3((m + kP1Rows - 1) / kP1Rows, heads), kP1Threads,
+                                 project_smem_bytes(), stream>>>(
+        xmap, wmap, static_cast<const float*>(bqkv), static_cast<bf16*>(qkv), m, n, heads,
+        hidden, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (stage < 0 || stage == 1) {
+    const bool whole = long_kv_whole(n);
+    const int groups = l2_groups(n);
+    const auto kernel = !whole       ? block_attention_long_wgmma_kernel<false, 3>
+                        : groups == 2 ? block_attention_long_wgmma_kernel<true, 2>
+                                      : block_attention_long_wgmma_kernel<true, 3>;
+    err = allow_smem(reinterpret_cast<const void*>(kernel), long_smem_bytes(n));
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3(((np + 63) / 64 + groups - 1) / groups, heads, b), l2_threads(whole, groups),
+             long_smem_bytes(n), stream>>>(static_cast<const bf16*>(qkv), static_cast<bf16*>(o),
+                                           n, heads);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (stage < 0 || stage == 2) {
+    out_proj_mma_kernel<<<dim3((m + kOM - 1) / kOM, hidden / kON), kThreads, 0, stream>>>(
+        static_cast<const bf16*>(o), static_cast<const bf16*>(wproj),
+        static_cast<const float*>(bproj), static_cast<bf16*>(out), m, heads * kD, hidden);
+    return (int)cudaGetLastError();
+  }
+  return 0;
 }
 
 }  // namespace tc
@@ -1398,7 +1842,9 @@ int launch(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
 // into the tile's whole fp32 score rows, the softmax and P v as
 // block_attention_kernel computes them, element for element.
 size_t long_smem_bytes(int n, size_t elem) {
-  if (elem == sizeof(__nv_bfloat16)) return tc::long_smem_bytes();
+  if (elem == sizeof(__nv_bfloat16))
+    return tc::long_smem_bytes(n) > tc::project_smem_bytes() ? tc::long_smem_bytes(n)
+                                                             : tc::project_smem_bytes();
   return (size_t)(kTQ + kChunk) * kS * sizeof(float) + (size_t)kTQ * (n + 1) * sizeof(float);
 }
 
@@ -1661,14 +2107,27 @@ int k3_attention_block(int dtype, const void* x, const void* wqkv,
   return (int)cudaErrorInvalidValue;
 }
 
-// The long-row instance's attention launch: shared memory per block for
-// sequence length n and element size (fp32 grows with n; bf16 does not).
+// The long-row instance: the most shared memory one of its blocks takes at
+// sequence length n and element size (fp32: the attention launch's, growing
+// with n; bf16: the larger of L.1's ring and L.2's k and v, whole or in a
+// ring).
 size_t k3_attention_block_long_smem_bytes(int n, int elem_bytes) {
   return long_smem_bytes(n, (size_t)elem_bytes);
 }
 
-// K3 at any n: as k3_attention_block, with qkv a scratch of 3 b heads np
-// kD elements of the input type (np = n rounded up to 16), 16-byte
+// Whether the bf16 L.2 takes one head's k and v whole at n (else a ring).
+int k3_attention_block_long_kv_whole(int n) { return tc::long_kv_whole(n) ? 1 : 0; }
+
+// Elements of the long-row instance's scratch: 3 b heads np kD in fp32
+// (np: n rounded up to 16), 3 b heads np kDP in bf16 (np: n rounded up to
+// 32; kDP: Dh, or 80 at Dh 72).
+size_t k3_attention_block_long_scratch_elems(int b, int n, int heads, int elem_bytes) {
+  if (elem_bytes == (int)sizeof(__nv_bfloat16)) return tc::long_scratch_elems(b, n, heads);
+  return 3 * (size_t)b * heads * ((n + 15) / 16 * 16) * kD;
+}
+
+// K3 at any n: as k3_attention_block, with qkv a scratch of
+// k3_attention_block_long_scratch_elems elements of the input type, 16-byte
 // aligned, that it overwrites.
 int k3_attention_block_long(int dtype, const void* x, const void* wqkv, const void* bqkv,
                             const void* wproj, const void* bproj, void* qkv, void* o,
@@ -1680,8 +2139,20 @@ int k3_attention_block_long(int dtype, const void* x, const void* wqkv, const vo
                               scale, s);
   if (dtype == 1)
     return tc::launch_long(x, wqkv, bqkv, wproj, bproj, qkv, o, out, b, n, heads, hidden,
-                           scale, s);
+                           scale, s, -1);
   return (int)cudaErrorInvalidValue;
+}
+
+// One launch of the bf16 long-row instance, to time it alone: stage 0 L.1
+// (x to the scratch), 1 L.2 (the scratch to o), 2 A.2 (o to out). Arguments
+// as k3_attention_block_long's (dtype 1 only).
+int k3_attention_block_long_stage(int stage, int dtype, const void* x, const void* wqkv,
+                                  const void* bqkv, const void* wproj, const void* bproj,
+                                  void* qkv, void* o, void* out, int b, int n, int heads,
+                                  int hidden, float scale, void* stream) {
+  if (dtype != 1 || stage < 0 || stage > 2) return (int)cudaErrorInvalidValue;
+  return tc::launch_long(x, wqkv, bqkv, wproj, bproj, qkv, o, out, b, n, heads, hidden, scale,
+                         static_cast<cudaStream_t>(stream), stage);
 }
 
 }  // extern "C"

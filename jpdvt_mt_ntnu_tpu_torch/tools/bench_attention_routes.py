@@ -16,7 +16,7 @@ takes N, and the long-row one), on random weights at each registry width
 (``--widths``: D 384, 768, 1024 with heads of 64, D 1152 with heads of 72),
 in bf16 and fp32, the instances alternating over three rounds (the least
 of each), with the instance ``ops.attention.k3_instance`` takes beside
-them; ``K3_SHORT_MAX_N`` is set from these rows. Its ``--n`` defaults run
+them; ``k3_instance``'s rule is set from these rows. Its ``--n`` defaults run
 from 64 to the short-row instance's last N.
 
     python -m jpdvt_mt_ntnu_tpu_torch.tools.bench_attention_routes \\

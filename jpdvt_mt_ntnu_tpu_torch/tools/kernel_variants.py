@@ -1,7 +1,9 @@
 """Where a kernel's bf16 time goes: text variants of its source, timed side by side.
 
-``--kernel k3`` (the default) varies ``ops/csrc/attention_block.cu``,
-``--kernel k1`` ``ops/csrc/attention.cu``, ``--kernel k2``
+``--kernel k3`` (the default) varies ``ops/csrc/attention_block.cu``
+(its short-row instance; ``--kernel k3l`` its bf16 long-row instance, each
+variant's L.1 and L.2 also timed alone and its output held bit for bit to
+``base``'s), ``--kernel k1`` ``ops/csrc/attention.cu``, ``--kernel k2``
 ``ops/csrc/attention_bwd.cu`` (dq, dk and dv: its row and column kernels as
 one call), ``--kernel k4`` ``ops/csrc/flash_fwd.cu`` (O and the LSE),
 ``--kernel k5`` and ``--kernel k6`` ``ops/csrc/flash_bwd.cu`` (K5's dQ,
@@ -20,10 +22,11 @@ largest difference from the plain version beside it (a variant that drops
 work is wrong by design). ``--ablations`` adds variants that each drop
 one part of the kernel (``ABLATIONS``). ``--variants`` takes a JSON file
 of ``{name: substitutions}`` or names of the built-in design variants
-(``VARIANTS``, comma-separated). For K3, ``--clocks`` also builds ``base`` with
-``clock64`` stamps at A.1's start, after its projection and at its end,
-and prints the median cycles of each phase per block and the most blocks
-one SM ran.
+(``VARIANTS``, comma-separated); a variant that does not build is left out
+of the timing and named under ``build_failed`` with its compiler's errors.
+For K3, ``--clocks`` also builds ``base`` with ``clock64`` stamps at A.1's
+start, after its projection and at its end, and prints the median cycles
+of each phase per block and the most blocks one SM ran.
 
     python -m jpdvt_mt_ntnu_tpu_torch.tools.kernel_variants [--kernel k3|k1|k2|k4|k5|k6]
         [--ablations] [--variants FILE.json|NAME,...] [--shapes 32x144,32x400]
@@ -53,7 +56,8 @@ from ..ops import _build
 from ..ops import attention as attn_ops
 from ..ops import flash_attention as flash_ops
 
-SOURCES = {"k3": "attention_block.cu", "k1": "attention.cu", "k2": "attention_bwd.cu",
+SOURCES = {"k3": "attention_block.cu", "k3l": "attention_block.cu", "k1": "attention.cu",
+           "k2": "attention_bwd.cu",
            "k4": "flash_fwd.cu", "k5": "flash_bwd.cu", "k6": "flash_bwd.cu"}
 HEADS, HEAD_DIM = 12, 64  # the default; --head-dim 72 sets 16, 72 (DiT-XL)
 # --ablations: each drops one part of the kernel (its output is then wrong).
@@ -81,6 +85,7 @@ ABLATIONS = {
             ["    for (int kk = 0; kk < kKC; kk += 16) {\n      unsigned a[3][4];",
              "    for (int kk = 0; kk < 0; kk += 16) {\n      unsigned a[3][4];"]],
     },
+    "k3l": {},
     "k1": {
         "no_loads": _NO_LOADS,
         "no_pass1": [["    if (active && step < nc) {", "    if (false) {"],
@@ -232,9 +237,94 @@ _K2_THREE_PASSES = """  // Pass 1: the row max m and l = sum exp(S - m), this th
   }
 
 """
+# K3l's cluster2: L.1 in clusters of two row tiles of one head, each
+# K-chunk of W_h read from L2 once for both (by the CTA of rank chunk % 2)
+# and multicast; a stage is refilled once both CTAs' consumers released it.
+# Its launch fails where B N takes an odd number of row tiles (it runs at
+# (32, 576) at Dh 64 and (32, 144) at 72).
+_K3L_CLUSTER_HELPERS = r"""__device__ __forceinline__ void tma_load_2d_multicast(
+    void* dst, const CUtensorMap* map, int c0, int c1, unsigned long long* bar,
+    unsigned short mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1),
+      "h"(mask)
+      : "memory");
+}
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// An arrival on the mbarrier at `bar`'s offset in CTA `cta` of this cluster.
+__device__ __forceinline__ void mbar_arrive_cta(unsigned long long* bar, unsigned cta) {
+  asm volatile("{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+               "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}\n"
+               ::"r"(smem_addr(bar)), "r"(cta) : "memory");
+}
+
+"""
+_K3L_CLUSTER2 = [
+    ["// q|k|v of head h for rows m0.. of x (m = B n rows), into the scratch.",
+     _K3L_CLUSTER_HELPERS + "// q|k|v of head h for rows m0.. of x (m = B n rows), into the scratch."],
+    ["__global__ void __launch_bounds__(kP1Threads, 1)\nblock_project_wgmma_kernel(",
+     "__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kP1Threads, 1)\n"
+     "block_project_wgmma_kernel("],
+    ["      mbar_init(&empty[s], 4 * kP1Groups);", "      mbar_init(&empty[s], 8 * kP1Groups);"],
+    ["  __syncthreads();\n  if (wg == kP1Groups) {",
+     "  cluster_sync();\n  const unsigned rank = cluster_rank();\n  if (wg == kP1Groups) {"],
+    ["#pragma unroll\n        for (int w = 0; w < 3; ++w)\n"
+     "          tma_load_2d(xs + kP1XBytes + w * kD * 128, &wmap, s * kKC, (w * heads + h) * kD,\n"
+     "                      &full[st]);\n      }\n    }\n",
+     "        if (s % 2 == (int)rank) {\n#pragma unroll\n          for (int w = 0; w < 3; ++w)\n"
+     "            tma_load_2d_multicast(xs + kP1XBytes + w * kD * 128, &wmap, s * kKC,\n"
+     "                                  (w * heads + h) * kD, &full[st], 3);\n        }\n"
+     "      }\n    }\n"
+     "    __syncwarp();\n"],
+    ["      if (lane == 0) mbar_arrive(&empty[st]);",
+     "      if (lane == 0) {\n        mbar_arrive_cta(&empty[st], 0);\n"
+     "        mbar_arrive_cta(&empty[st], 1);\n      }"],
+    ["      }\n    }\n  }\n}\n\nconstexpr float kLog2e",
+     "      }\n    }\n  }\n  cluster_sync();  // no CTA leaves while the other may signal it\n}\n"
+     "\nconstexpr float kLog2e"],
+]
+_K3L_GROUPS = "  return long_kv_whole(n) && 2 * (long_smem_bytes(n) + 1024) <= 233472 ? 2 : 3;"
 # Built-in design variants (``--variants NAME,...``), each timed against
 # the source before it is adopted.
 VARIANTS = {
+    # K3's bf16 long-row instance: the designs tried before its source's.
+    "k3l": {
+        # L.1's rows of x a block: 128 (2 consumer warpgroups), 256 (4 at Dh
+        # 64: 544 threads, at most 120 registers a thread for 96
+        # accumulators), against the source's 192 at Dh 64 (128 at 72).
+        "m128": [["constexpr int kP1Groups = kD == 64 ? 3 : 2;", "constexpr int kP1Groups = 2;"]],
+        "m256": [["constexpr int kP1Groups = kD == 64 ? 3 : 2;",
+                  "constexpr int kP1Groups = kD == 64 ? 4 : 2;"]],
+        # L.1's ring of 3 stages (the source's: 4).
+        "stages3": [["constexpr int kP1Stages = 4;", "constexpr int kP1Stages = 3;"]],
+        # L.1 with one wgmma group in flight: a stage released a chunk later
+        # (the source waits for each chunk's products).
+        "pending1": [["      wgmma_wait<0>();  // the other warpgroups' products fill the "
+                      "tensor cores meanwhile\n      fence_regs(acc);\n      release(st);\n    }\n",
+                      "      wgmma_wait<1>();\n      fence_regs(acc);\n"
+                      "      if (s > 0) release((s - 1) % kP1Stages);\n    }\n"
+                      "    wgmma_wait<0>();\n    fence_regs(acc);\n"
+                      "    release((nk - 1) % kP1Stages);\n"]],
+        "cluster2": _K3L_CLUSTER2,
+        # L.2's consumer warpgroups a block where k and v are whole: 2, 3 or
+        # 4 at every such N (the source: 2 where two blocks fit an SM, else 3).
+        "l2_groups2": [[_K3L_GROUPS, "  return long_kv_whole(n) ? 2 : 3;"]],
+        "l2_groups3": [[_K3L_GROUPS, "  return 3;"]],
+        "l2_groups4": [[_K3L_GROUPS, "  return long_kv_whole(n) ? 4 : 3;"],
+                       ["                        : groups == 2 ? block_attention_long_wgmma_kernel<true, 2>",
+                        "                        : groups == 4 ? block_attention_long_wgmma_kernel<true, 4>\n"
+                        "                        : groups == 2 ? block_attention_long_wgmma_kernel<true, 2>"]],
+    },
     "k2": {
         # Three passes over K in the row kernel (pass 1 stages K alone).
         "three_pass": [
@@ -315,7 +405,8 @@ def _with_clocks(src: str) -> str:
 
 def _build_all(kernel: str, sources: dict, head_dim: int = 64) -> dict:
     """name -> source text; returns name -> ctypes library (each built for
-    ``head_dim``)."""
+    ``head_dim``), or None for a variant other than ``base`` that does not
+    build (its compiler's messages are in its ``.log``)."""
     out = _build.BUILD_DIR / f"{kernel}_variants"
     out.mkdir(parents=True, exist_ok=True)
 
@@ -327,17 +418,23 @@ def _build_all(kernel: str, sources: dict, head_dim: int = 64) -> dict:
                               capture_output=True, text=True, stdin=subprocess.DEVNULL,
                               timeout=_build.NVCC_TIMEOUT_S)
         (out / f"{name}.log").write_text(proc.stdout + proc.stderr)  # ptxas -v: registers, spills
-        if proc.returncode:
+        if proc.returncode and name.startswith("base"):
             raise RuntimeError(f"variant {name} failed to build:\n{proc.stdout}{proc.stderr}")
-        return name, ctypes.CDLL(str(so))
+        return name, None if proc.returncode else ctypes.CDLL(str(so))
 
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         libs = dict(pool.map(build, sources))
-    for lib in libs.values():
+    for lib in filter(None, libs.values()):
         if kernel == "k3":
             lib.k3_attention_block.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                                                + [ctypes.c_int] * 4
                                                + [ctypes.c_float, ctypes.c_void_p])
+        elif kernel == "k3l":
+            lib.k3_attention_block_long_stage.argtypes = (
+                [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                + [ctypes.c_float, ctypes.c_void_p])
+            lib.k3_attention_block_long_scratch_elems.argtypes = [ctypes.c_int] * 4
+            lib.k3_attention_block_long_scratch_elems.restype = ctypes.c_size_t
         elif kernel == "k4":
             lib.k4_flash_fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
                                          + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3
@@ -358,6 +455,12 @@ def _build_all(kernel: str, sources: dict, head_dim: int = 64) -> dict:
                                          + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
                                          + [ctypes.c_float, ctypes.c_void_p])
     return libs
+
+
+def _build_errors(kernel: str, name: str) -> list:
+    """The first error lines of a variant's build log."""
+    log = _build.BUILD_DIR / f"{kernel}_variants" / f"{name}.log"
+    return [line for line in log.read_text().splitlines() if "error" in line][:3]
 
 
 def _k3_case(b: int, n: int, gen: torch.Generator, weights: tuple):
@@ -382,6 +485,41 @@ def _k3_case(b: int, n: int, gen: torch.Generator, weights: tuple):
         o.zero_()  # a variant that skips a phase reads no earlier variant's o
 
     return call, (out,), (want,), reset
+
+
+def _k3l_case(b: int, n: int, gen: torch.Generator, weights: tuple):
+    """(call(lib), outputs, plain outputs, reset(), stage(lib, i)) for K3's
+    bf16 long-row instance at (b, n): ``call`` launches L.1, L.2 and A.2,
+    ``stage`` one of them (0, 1, 2) on the buffers the last call left."""
+    wq, bq, wp, bp, ops = weights
+    d = wq.shape[1]
+    x = torch.randn((b, n, d), generator=gen, device="cuda").bfloat16()
+    want = attn_ops.fused_attention_block_plain(x, *ops, HEADS).float()
+    o = torch.empty((b, n, d), dtype=torch.bfloat16, device="cuda")
+    out = torch.empty_like(x)
+    scratch = {}
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def stage(lib, i):
+        if id(lib) not in scratch:
+            scratch[id(lib)] = torch.empty(
+                lib.k3_attention_block_long_scratch_elems(b, n, HEADS, 2),
+                dtype=torch.bfloat16, device="cuda")
+        err = lib.k3_attention_block_long_stage(
+            i, 1, x.data_ptr(), wq.data_ptr(), bq.data_ptr(), wp.data_ptr(), bp.data_ptr(),
+            scratch[id(lib)].data_ptr(), o.data_ptr(), out.data_ptr(), b, n, HEADS, d,
+            attn_ops.q_scale(HEAD_DIM, torch.bfloat16), stream)
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+
+    def call(lib):
+        for i in range(3):
+            stage(lib, i)
+
+    def reset():
+        o.zero_()
+
+    return call, (out,), (want,), reset, stage
 
 
 def _k1_case(b: int, n: int, gen: torch.Generator):
@@ -527,8 +665,10 @@ def main() -> int:
     if args.clocks:
         sources["base_clocks"] = _with_clocks(src)
     libs = _build_all(args.kernel, sources, HEAD_DIM)
+    failed = sorted(name for name, lib in libs.items() if lib is None)
+    variants = {name: subs for name, subs in variants.items() if name not in failed}
     gen = torch.Generator("cuda").manual_seed(0)
-    if args.kernel == "k3":
+    if args.kernel in ("k3", "k3l"):
         d = HEADS * HEAD_DIM
         wq = (torch.randn(3 * d, d, generator=gen, device="cuda") * d ** -0.5).bfloat16()
         bq = 0.1 * torch.randn(3 * d, generator=gen, device="cuda")
@@ -536,11 +676,15 @@ def main() -> int:
         bp = 0.1 * torch.randn(d, generator=gen, device="cuda")
         weights = (wq, bq, wp, bp, attn_ops.dense_to_block_weights(wq, bq, wp, bp, HEADS))
     result = {"device": torch.cuda.get_device_name(0), "kernel": args.kernel,
-              "heads": HEADS, "head_dim": HEAD_DIM}
+              "heads": HEADS, "head_dim": HEAD_DIM,
+              "build_failed": {name: _build_errors(args.kernel, name) for name in failed}}
     for shape in args.shapes.split(","):
         b, n = (int(v) for v in shape.split("x"))
+        stage = None
         if args.kernel == "k3":
             call, outs, wants, reset = _k3_case(b, n, gen, weights)
+        elif args.kernel == "k3l":
+            call, outs, wants, reset, stage = _k3l_case(b, n, gen, weights)
         elif args.kernel == "k1":
             call, outs, wants, reset = _k1_case(b, n, gen)
         elif args.kernel == "k2":
@@ -550,20 +694,34 @@ def main() -> int:
         else:
             call, outs, wants, reset = _flash_bwd_case(args.kernel, b, n, gen)
         row = {name: {"us": []} for name in variants}
+        base_outs = None
+
+        def timed(fn):
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for _ in range(args.reps):
+                fn()
+            stop.record()
+            torch.cuda.synchronize()
+            return 1e3 * start.elapsed_time(stop) / args.reps
+
         for rnd in range(args.rounds):
             for name in variants:
                 reset()
                 call(libs[name])
-                start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                start.record()
-                for _ in range(args.reps):
-                    call(libs[name])
-                stop.record()
-                torch.cuda.synchronize()
-                row[name]["us"].append(1e3 * start.elapsed_time(stop) / args.reps)
+                row[name]["us"].append(timed(lambda: call(libs[name])))
+                if stage is not None:  # K3's long-row launches alone
+                    for i, part in ((0, "L.1"), (1, "L.2")):
+                        row[name].setdefault(f"{part}_us", []).append(
+                            timed(lambda: stage(libs[name], i)))
                 if rnd == 0:
                     row[name]["max_abs_err"] = max((out.float() - want).abs().max().item()
                                                    for out, want in zip(outs, wants))
+                    if stage is not None:
+                        if name == "base":
+                            base_outs = [out.clone() for out in outs]
+                        row[name]["bit_equal_to_base"] = all(
+                            torch.equal(out, ref) for out, ref in zip(outs, base_outs))
         if args.clocks:
             lib = libs["base_clocks"]
             call(lib)

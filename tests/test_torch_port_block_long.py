@@ -25,9 +25,13 @@ port's ``fused_attention_block`` follows the same rule (its copy of
   15% of the elements differ, none by more than 2^-7 of that gradient's
   largest magnitude; the biases' (fp32 sums) within 1e-3 of theirs. Torch
   autograd of K3's plain version differs on about 70%;
-- K3's instance (``k3_instance``): the short-row one up to its measured
-  crossover (``K3_SHORT_MAX_N``, which its shared memory takes), the
-  long-row one past it, at both head dims and dtypes, N = 1-2000;
+- K3's instance (``k3_instance``): the long-row one, the faster as
+  measured, at every N (its crossover with the short-row one is at N = 0),
+  at both head dims and dtypes, N = 1-2000;
+- the mirrors of the long-row instance's shared memory and of its switch
+  from k and v whole to a ring (``k3_long_smem_bytes``,
+  ``k3_long_kv_whole``) at their boundaries, and that it takes every bf16
+  N up to 4096;
 - a 1-block DiT at the flagship's width at 384 px, grid 24 (N = 576, the
   grid ladder's rung after grid 20) on ``block`` against JAX's
   ``block_interpret``: bf16 (K3 on both sides: JAX's kernel, the port's
@@ -104,11 +108,32 @@ def test_block_rule_is_the_jax_packages(hidden, heads, itemsize):
 @pytest.mark.parametrize("d", [64, 72])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 def test_k3_instance_is_short_up_to_its_crossover(d, dtype):
-    last = port.K3_SHORT_MAX_N[(d, dtype)]
-    elem = torch.empty((), dtype=dtype).element_size()
-    assert last == 0 or port.k3_smem_bytes(last, elem, d) <= port.HOPPER_MAX_SMEM
     for n in range(1, 2001):
-        assert port.k3_instance(n, dtype, d) == ("short" if n <= last else "long"), n
+        assert port.k3_instance(n, dtype, d) == "long", n
+
+
+# (N, element bytes, Dh, k and v whole in L.2, the long-row instance's most
+# shared memory a block): bf16 L.1's ring is 197,696 B at Dh 64 and 177,216
+# at 72; L.2's whole k and v 16,400 and 19,472 B a 64-key chunk (896 and 704
+# the last N that fits), its ring four chunks past that; fp32 1,617 and
+# 1,593 the last N that fits a Hopper block.
+@pytest.mark.parametrize("n,elem,d,whole,need", [
+    (1, 2, 64, True, 197696), (576, 2, 64, True, 197696), (770, 2, 64, True, 213200),
+    (896, 2, 64, True, 229600), (897, 2, 64, False, 197696), (144, 2, 72, True, 177216),
+    (704, 2, 72, True, 214192), (705, 2, 72, False, 177216), (1617, 4, 64, None, 232448),
+    (1618, 4, 64, None, 232576), (1593, 4, 72, None, 232448)])
+def test_k3_long_smem_mirror_at_its_boundaries(n, elem, d, whole, need):
+    if whole is not None:
+        assert port.k3_long_kv_whole(n, d) == whole
+    assert port.k3_long_smem_bytes(n, elem, d) == need
+
+
+def test_k3_long_instance_takes_every_bf16_n():
+    for d in (64, 72):
+        assert all(port.k3_long_smem_bytes(n, 2, d) <= port.HOPPER_MAX_SMEM
+                   for n in range(1, 4097))
+        assert [n for n in range(1, 4097) if port.k3_long_kv_whole(n, d)][-1] == \
+            {64: 896, 72: 704}[d]
 
 
 @pytest.mark.parametrize("b,n,heads,d,takes", [

@@ -39,7 +39,10 @@ exp, the reciprocal of the row sum or summation order can flip one
 rounding by one bf16 ulp), fp32 1e-5 (summation order); two calls
 bit-equal, also with the weights as views of Linear weights. Its
 long-row instance (any N) under the same tolerances, and bit-equal to the
-short-row one wherever both fit. ``block``'s XLA composition (cuBLAS
+short-row one wherever both fit; on both sides of its switch from k and
+v whole in shared memory to a ring, an item alone bit-equal to the
+item inside a batch of 32, and each call's output its own operands' where
+the instance's tensor-map cache holds another call's. ``block``'s XLA composition (cuBLAS
 projections around K1 or K4) against its plain version as K1 against its
 own: 2e-2 and 1e-4 of the output's largest magnitude.
 """
@@ -532,22 +535,26 @@ def _block_operands(b, n, dtype, gen, heads=12, hidden=768, d=64):
                                          (2, 223, torch.float32, 72)])
 def test_k3_cuda_kernel_matches_plain(cuda, b, n, dtype, d):
     """N not a multiple of the 16-row tiles (17, 77, 401); B N not a
-    multiple of A.2's 128-row tile (85, 231, 802); the bf16 limit (416 at
-    Dh 64, 336 at 72) and fp32's at 72 (223); at Dh 72 DiT-XL's width (16
-    heads, D = 1152), its 96 px solve at B = 32, N = 144."""
+    multiple of A.2's 128-row tile (85, 231, 802); the short-row instance's
+    bf16 limit (416 at Dh 64, 336 at 72) and fp32's at 72 (223); at Dh 72
+    DiT-XL's width (16 heads, D = 1152), its 96 px solve at B = 32, N =
+    144. The instance ``k3_instance`` takes (the long-row one at every N
+    since its ``wgmma`` design), and the short-row one, which takes each N
+    here."""
     gen = torch.Generator("cuda").manual_seed(n + 4)
     heads, hidden = (12, 768) if d == 64 else (16, 1152)
     ops = _block_operands(b, n, dtype, gen, heads, hidden, d)
-    before = port.fused_attention_block_k3.launches
-    out = port.fused_attention_block_k3(*ops, heads)
-    torch.cuda.synchronize()
-    assert port.fused_attention_block_k3.launches == before + 1
     want = port.fused_attention_block_plain(*ops, heads).float()
     scale = want.abs().max().item()
-    err = (out.float() - want).abs().max().item()
-    assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-5) * scale, (err, scale)
-    again = port.fused_attention_block_k3(*ops, heads)
-    assert torch.equal(out, again)  # deterministic: no atomics
+    for instance in (None, "short"):
+        before = port.fused_attention_block_k3.launches
+        out = port.fused_attention_block_k3(*ops, heads, instance=instance)
+        torch.cuda.synchronize()
+        assert port.fused_attention_block_k3.launches == before + 1
+        err = (out.float() - want).abs().max().item()
+        assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-5) * scale, (instance, err, scale)
+        again = port.fused_attention_block_k3(*ops, heads, instance=instance)
+        assert torch.equal(out, again)  # deterministic: no atomics
 
 
 # (B, N, dtype, Dh, heads, hidden): past the short-row instance's shared
@@ -595,6 +602,80 @@ def test_k3_long_instance_is_bit_equal_to_the_short_one(cuda, b, n, dtype, d):
     assert torch.equal(short, long)
 
 
+# Both sides of the bf16 long-row instance's switch from k and v whole in
+# shared memory to k and v streamed through a ring (N 896 | 897 at Dh 64,
+# 704 | 705 at Dh 72).
+@pytest.mark.parametrize("b,n,d,heads,hidden", [
+    (2, 896, 64, 6, 384), (2, 897, 64, 6, 384), (2, 704, 72, 16, 1152),
+    (2, 705, 72, 16, 1152)])
+def test_k3_long_cuda_kernel_matches_plain_across_its_kv_switch(cuda, b, n, d, heads, hidden):
+    assert port.k3_long_kv_whole(n, d) == (n in (896, 704))
+    gen = torch.Generator("cuda").manual_seed(n + 8)
+    ops = _block_operands(b, n, torch.bfloat16, gen, heads, hidden, d)
+    out = port.fused_attention_block_k3(*ops, heads)
+    assert port.k3_instance(n, torch.bfloat16, d) == "long"
+    want = port.fused_attention_block_plain(*ops, heads).float()
+    scale = want.abs().max().item()
+    err = (out.float() - want).abs().max().item()
+    assert err <= 2e-2 * scale, (err, scale)
+    assert torch.equal(out, port.fused_attention_block_k3(*ops, heads))
+
+
+@pytest.mark.parametrize("n,d,heads,hidden", [(576, 64, 12, 768), (144, 72, 16, 1152)])
+def test_k3_long_item_alone_equals_the_item_in_a_batch(cuda, n, d, heads, hidden):
+    """No step's arithmetic depends on B or on the block that computes it:
+    an item alone gives the bits it gets inside a batch of 32 (L.1 takes
+    rows across items)."""
+    gen = torch.Generator("cuda").manual_seed(n + 10)
+    x, *weights = _block_operands(32, n, torch.bfloat16, gen, heads, hidden, d)
+    batch = port.fused_attention_block_k3(x, *weights, heads, instance="long")
+    for i in (0, 13, 31):
+        alone = port.fused_attention_block_k3(x[i:i + 1].contiguous(), *weights, heads,
+                                              instance="long")
+        assert torch.equal(alone[0], batch[i]), i
+
+
+def test_k3_long_operands_are_never_taken_from_its_caches(cuda):
+    """The long-row instance keeps its tensor maps by address and shape: two
+    layers' weights taken in turn, fewer rows of x at x's address, and new
+    weights written over a layer's give each call its own operands' output."""
+    gen = torch.Generator("cuda").manual_seed(11)
+
+    def laid_out(w_qkv, b_qkv, w_proj, b_proj):  # K3's layout: no copy a call
+        qkv_strides, proj_strides = port._weight_strides(w_qkv, w_proj)
+        return (port._as_laid_out(w_qkv, qkv_strides), b_qkv,
+                port._as_laid_out(w_proj, proj_strides), b_proj)
+
+    x, *first = _block_operands(4, 576, torch.bfloat16, gen, 12, 768, 64)
+    first = laid_out(*first)
+    second = laid_out(*_block_operands(4, 576, torch.bfloat16, gen, 12, 768, 64)[1:])
+    a = port.fused_attention_block_k3(x, *first, 12)
+    b = port.fused_attention_block_k3(x, *second, 12)
+    assert not torch.equal(a, b)
+    assert torch.equal(port.fused_attention_block_k3(x, *first, 12), a)
+    assert torch.equal(port.fused_attention_block_k3(x, *second, 12), b)
+    assert torch.equal(port.fused_attention_block_k3(x[:2], *first, 12), a[:2])
+    for mine, theirs in zip(first, second):
+        mine.copy_(theirs)
+    assert torch.equal(port.fused_attention_block_k3(x, *first, 12), b)
+
+
+def test_k3_long_smem_mirror_is_the_kernels(cuda):
+    """The route table's mirrors of the long-row instance's shared memory,
+    of its k-and-v switch and of its scratch, at their boundaries, against
+    the C functions."""
+    for d, last_whole in ((64, 896), (72, 704)):
+        lib = port._block_kernel(d)
+        for n in (1, 16, 17, 144, 576, last_whole - 16, last_whole - 1, last_whole,
+                  last_whole + 1, last_whole + 16, 1593, 1617, 4000):
+            assert port.k3_long_kv_whole(n, d) == bool(lib.k3_attention_block_long_kv_whole(n))
+            for elem in (2, 4):
+                assert port.k3_long_smem_bytes(n, elem, d) == \
+                    lib.k3_attention_block_long_smem_bytes(n, elem), (d, n, elem)
+                assert port.k3_long_scratch_elems(3, n, 5, elem, d) == \
+                    lib.k3_attention_block_long_scratch_elems(3, n, 5, elem)
+
+
 @pytest.mark.parametrize("b,n,dtype,heads,hidden,core", [
     (2, 576, torch.bfloat16, 16, 1152, "k1"), (2, 600, torch.bfloat16, 12, 768, "k1"),
     (2, 300, torch.float32, 16, 1152, "k1"), (2, 400, torch.float32, 12, 768, "k4")])
@@ -636,13 +717,15 @@ def test_k3_cuda_kernel_takes_the_linear_weights_as_views(cuda, b, n, dtype, hea
     views = port.dense_to_block_weights(wq, bq, wp, bp, heads)
     assert views[0].data_ptr() == wq.data_ptr() and views[2].data_ptr() == wp.data_ptr()
     copies = [t.contiguous() for t in views]
-    out = port.fused_attention_block_k3(x, *views, heads)
-    assert torch.equal(out, port.fused_attention_block_k3(x, *views, heads))
-    assert torch.equal(out, port.fused_attention_block_k3(x, *copies, heads))
     want = port.fused_attention_block_plain(x, *views, heads).float()
     scale = want.abs().max().item()
-    err = (out.float() - want).abs().max().item()
-    assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-5) * scale, (err, scale)
+    for instance in ("short", "long"):
+        out = port.fused_attention_block_k3(x, *views, heads, instance=instance)
+        assert torch.equal(out, port.fused_attention_block_k3(x, *views, heads, instance=instance))
+        assert torch.equal(out, port.fused_attention_block_k3(x, *copies, heads,
+                                                              instance=instance))
+        err = (out.float() - want).abs().max().item()
+        assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-5) * scale, (instance, err, scale)
 
 
 def test_k3_gradient_is_autograd_of_the_plain_version(cuda):
