@@ -351,6 +351,31 @@ then ``model.attn_impl=block`` at every geometry the JAX package runs it
     agreement printed; DiT-XL/8 at 192 px on ``block`` (the JAX rule
     composes there): a fast solve of 8, 28 K1 and no K3.
 
+then the attention settings the port took last (run under
+``--grid20-artifact`` too, without the waves3 parts):
+
+26. K1's and K2's fp32 streaming instances (any N) against their plain
+    versions at Dh 64 and 72 (K1 at N = 342, 400, 576, 1,296; K2 at 165,
+    400, 576; 1e-4 and 1e-5 of scale), two calls bit-equal, timed at (32,
+    12, 400, 64) and (8, 16, 576, 72) beside their bounds, plain versions
+    and SDPA's fp32 forward and backward, and beside the whole-row
+    instances at (32, 12, 144, 64); the ``xla`` backward's bf16 gradient on
+    the card against the CPU's under ``matmul_precision=high`` (no TF32:
+    1% of elements, 2^-6 of scale). On the waves3 artifact: a fast solve of
+    the 16 on ``xla``, ``xla_split`` and ``xla2``, 12 K1 each, the default
+    route's permutations; ``run_train`` 3 steps at batch 96 from the
+    recorded run's settings on the default route, ``xla`` and ``xla_split``
+    (12 K1 and no K2 a step), their losses within 2% of the default
+    route's, ms a step side by side. In fp32 on ``pallas`` past the
+    whole-row shared memory: JPDVT at 320 px, grid 20, on the waves3
+    artifact's weights (the grid-20 artifact's under ``--grid20-artifact``),
+    a fast solve of 8 (12 K1 streaming) against the flash route's (12 K4),
+    piece distances within 1e-4 (with the grid-20 artifact, the same
+    permutations); ``run_train`` 3 steps at batch 8 warm-started from the
+    same artifact on flash (K4-K6) and on ``pallas`` (12 K1 + 12 K2
+    streaming a step), losses within 1e-4; DiT-XL/8 at 192 px (N = 576)
+    with random open-gated weights, a fast solve of 4, 28 K1 streaming.
+
 The last three lines are the ``kernels`` JSON (each kernel with the
 launches of its own path and its shape: K1 for the solve (and phase 22's
 demos), the train step (and phase 22's one-process and relaunched runs),
@@ -366,10 +391,21 @@ solves and validation, train step and fp32 solve, with phase 24's
 ``pallas`` train step and its ``block`` train step and solves; phase 25's
 K3 long-row instance on the grid-24 block run and solves, K1 on that
 geometry's default-route solves, and at Dh 72 under DiT-XL/8's
-composition), the card's name and power limit, and the device JSON.
+composition; phase 26's K1 and K2 fp32 streaming instances on its grid-20
+solve and run and DiT-XL/8's solve, and K1 under the ``xla*`` settings'
+runs and solves), the card's name and power limit, and the device JSON.
+Each child process of phases 16, 19 and 20 logs its stages' seconds
+(``stages of``: the interpreter's start, the imports, the process group,
+each run's warm start, validations and whole run).
 """
 
 from __future__ import annotations
+
+import time
+
+# When this interpreter began to import the script: a child process of
+# phases 16, 19 and 20 reports its start-up from it (``stage_seconds``).
+T_START = time.time()
 
 import argparse
 import base64
@@ -384,7 +420,6 @@ import subprocess
 import sys
 import tempfile
 import threading
-import time
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -650,21 +685,27 @@ def sdpa_bwd_ms(q, k, v, do, reps: int, device_time: bool = True) -> tuple:
 
 
 def check_k1(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
-             timed: bool, heads: int = HEADS, d: int = HEAD_DIM) -> dict:
+             timed: bool, heads: int = HEADS, d: int = HEAD_DIM,
+             instance: str | None = None) -> dict:
+    """K1 (its fp32 ``instance`` where given) against its plain version;
+    two calls bit-equal; with ``timed``, its ms beside the plain version's,
+    SDPA's and the bound."""
     q, k, v = qkv_views(b, n, dtype, gen, heads=heads, d=d)
-    out = attn_ops.attention(q, k, v)
+    out = attn_ops.attention(q, k, v, instance=instance)
     torch.cuda.synchronize()
     ref = attn_ops.attention_reference(q, k, v)
     err = (out.float() - ref.float()).abs().max().item()
     if not err <= TOL[dtype]:
-        raise AssertionError(f"K1 {(b, heads, n, d)} {dtype}: max abs err "
+        raise AssertionError(f"K1 {(b, heads, n, d)} {dtype} {instance}: max abs err "
                              f"{err} > {TOL[dtype]}")
-    if not torch.equal(out, attn_ops.attention(q, k, v)):
-        raise AssertionError(f"K1 {(b, heads, n, d)} {dtype}: two calls differ")
+    if not torch.equal(out, attn_ops.attention(q, k, v, instance=instance)):
+        raise AssertionError(f"K1 {(b, heads, n, d)} {dtype} {instance}: two calls differ")
     row = {"shape": [b, heads, n, d], "dtype": str(dtype).split(".")[-1],
            "max_abs_err": err, "tol": TOL[dtype], "bit_equal": True}
+    if instance:
+        row["instance"] = instance
     if timed:
-        row["ms"] = cuda_ms(lambda: attn_ops.attention(q, k, v), 200)
+        row["ms"] = cuda_ms(lambda: attn_ops.attention(q, k, v, instance=instance), 200)
         row["plain_ms"] = cuda_ms(lambda: attn_ops.attention_reference(q, k, v), 50)
         row["library_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(q, k, v), 200)
@@ -675,23 +716,26 @@ def check_k1(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
 
 def check_k2(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
              timed: bool, offset: int = 0, heads: int = HEADS,
-             device_time: bool = True, d: int = HEAD_DIM) -> dict:
-    """K2 on q/k/v views of a fused qkv (``offset`` elements into its
-    buffer) and dO of a (B, N, H*Dh) gradient, writing into one fused
-    gradient buffer, as the train step calls it. Two calls give the same
-    bits; with an offset, so do aligned copies of q, k, v."""
+             device_time: bool = True, d: int = HEAD_DIM, instance: str | None = None) -> dict:
+    """K2 (its fp32 ``instance`` where given) on q/k/v views of a fused qkv
+    (``offset`` elements into its buffer) and dO of a (B, N, H*Dh)
+    gradient, writing into one fused gradient buffer, as the train step
+    calls it. Two calls give the same bits; with an offset, so do aligned
+    copies of q, k, v."""
     q, k, v = qkv_views(b, n, dtype, gen, offset, heads, d)
     do = torch.randn((b, n, heads * d), generator=gen, device="cuda").to(dtype)
     do = do.view(b, n, heads, d).transpose(1, 2)
     out = fused_grads(b, n, dtype, heads, d)
-    attn_ops.attention_bwd(q, k, v, do, out=out)
-    again = attn_ops.attention_bwd(q, k, v, do, out=fused_grads(b, n, dtype, heads, d))
+    attn_ops.attention_bwd(q, k, v, do, out=out, instance=instance)
+    again = attn_ops.attention_bwd(q, k, v, do, out=fused_grads(b, n, dtype, heads, d),
+                                   instance=instance)
     torch.cuda.synchronize()
     if not all(torch.equal(x, y) for x, y in zip(out, again)):
         raise AssertionError(f"K2 {(b, heads, n, d)} {dtype}: two calls differ")
     if offset:
         copies = attn_ops.attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), do,
-                                        out=fused_grads(b, n, dtype, heads, d))
+                                        out=fused_grads(b, n, dtype, heads, d),
+                                        instance=instance)
         if not all(torch.equal(x, y) for x, y in zip(out, copies)):
             raise AssertionError(f"K2 {(b, heads, n, d)} {dtype}: views off 16-byte "
                                  f"alignment differ from aligned copies")
@@ -708,11 +752,14 @@ def check_k2(b: int, n: int, dtype: torch.dtype, gen: torch.Generator,
            "max_abs_err": max(e for e, _ in errs.values()), "err_and_scale": errs,
            "rel_tol": K2_TOL[dtype], "bit_equal": True, "q_offset_elements": offset,
            "q_aligned_16": q.data_ptr() % 16 == 0}
+    if instance:
+        row["instance"] = instance
     if timed:
-        row["ms"] = cuda_ms(lambda: attn_ops.attention_bwd(q, k, v, do, out=out), 50)
+        row["ms"] = cuda_ms(lambda: attn_ops.attention_bwd(q, k, v, do, out=out,
+                                                           instance=instance), 50)
         if device_time:
             row["kernel_device_ms"] = kernel_ms(
-                lambda: attn_ops.attention_bwd(q, k, v, do, out=out), 20)
+                lambda: attn_ops.attention_bwd(q, k, v, do, out=out, instance=instance), 20)
         row["plain_ms"] = cuda_ms(lambda: attn_ops.attention_bwd_reference(q, k, v, do), 10)
         (row["library_ms"], row["library_backend"], row["library_ms_by_backend"],
          row["library_kernel_ms_by_backend"]) = sdpa_bwd_ms(q, k, v, do, 50, device_time)
@@ -834,23 +881,27 @@ def plain_attention():
     """Route the DiT's attention, every route, to the plain versions (torch
     autograd of the whole-row softmax; on the ``block`` route the plain
     version of what the JAX rule computes there, K3's or the XLA
-    composition's) for a comparison."""
+    composition's; on ``xla*`` the XLA attention's) for a comparison."""
     kernel_routes = (dit.fused_qkv_attention, dit.fused_qkv_flash_attention,
-                     dit.fused_attention_block)
+                     dit.fused_attention_block, dit.fused_qkv_attention_xla)
     dit.fused_qkv_attention = attn_ops.fused_qkv_attention_reference
     dit.fused_qkv_flash_attention = attn_ops.fused_qkv_attention_reference
     dit.fused_attention_block = attn_ops.fused_attention_block_reference
+    dit.fused_qkv_attention_xla = attn_ops.fused_qkv_attention_xla_plain
     try:
         yield
     finally:
         (dit.fused_qkv_attention, dit.fused_qkv_flash_attention,
-         dit.fused_attention_block) = kernel_routes
+         dit.fused_attention_block, dit.fused_qkv_attention_xla) = kernel_routes
 
 
+# k1s and k2s: K1's and K2's fp32 streaming instances (phase 26), counted
+# apart from the other instances of K1 and K2.
 COUNTERS = {"k1": attn_ops.attention, "k2": attn_ops.attention_bwd,
             "k3": attn_ops.fused_attention_block_k3,
             "k4": flash_ops.flash_attention_fwd, "k5": flash_ops.flash_dq,
-            "k6": flash_ops.flash_dkv}
+            "k6": flash_ops.flash_dkv, "k1s": attn_ops.attention.streaming,
+            "k2s": attn_ops.attention_bwd.streaming}
 
 
 def zero_counts() -> None:
@@ -1157,7 +1208,7 @@ def check_training20(sd, start: int) -> dict:
         log(f"  grid-20 train step {state.step}: loss {losses[-1]:.6f}, grad_norm "
             f"{metrics['grad_norm'].item():.4f}, launches {per_step[-1]}")
     launches = counts()
-    want = {"k1": 0, "k2": 0, "k3": 0, "k4": cfg.depth, "k5": cfg.depth, "k6": cfg.depth}
+    want = {name: 0 for name in COUNTERS} | {"k4": cfg.depth, "k5": cfg.depth, "k6": cfg.depth}
     if any(ls != want for ls in per_step):
         raise AssertionError(f"launches per step {per_step}, expected {want}")
     if not all(np.isfinite(losses)):
@@ -2006,18 +2057,60 @@ def launch_shapes():
             setattr(mod, fn, originals[name])
 
 
+@contextlib.contextmanager
+def stage_seconds():
+    """The fixed costs of the ``run_train`` runs while the context is open:
+    yields a dict of seconds in ``warm_start`` (the artifact read and
+    loaded) and in validation (every ``Validator`` call, the final one
+    included), and on leaving, ``run_s`` (the whole context)."""
+    from jpdvt_mt_ntnu_tpu_torch.train import validate
+
+    out = {"warm_start_s": 0.0, "validate_s": 0.0}
+    warm, call = run_train.warm_start, validate.Validator.__call__
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                out[key] += time.perf_counter() - t0
+        return wrapper
+
+    run_train.warm_start = timed(warm, "warm_start_s")
+    validate.Validator.__call__ = timed(call, "validate_s")
+    t0 = time.perf_counter()
+    try:
+        yield out
+    finally:
+        out["run_s"] = time.perf_counter() - t0
+        run_train.warm_start, validate.Validator.__call__ = warm, call
+
+
+def process_start() -> dict:
+    """A child's start-up: seconds from its parent's ``Popen`` to this
+    script's first line (the interpreter), and from there to now (the
+    imports)."""
+    spawned = float(os.environ.get("CHIP_SMOKE_SPAWNED", T_START))
+    return {"interpreter_s": T_START - spawned, "imports_s": time.time() - T_START}
+
+
 def ddp_child(out: str, argv: list[str]) -> int:
     """One process of phases 16 and 19 (``chip_smoke.py --ddp-child
     <out.json> train|eval <overrides>``): ``run_train.main`` or
     ``run_eval.main`` as a rank of its launch (torchrun's environment),
-    each train step's kernel launches and the attention kernels' launch
-    shapes recorded, written to ``out`` with the exit code."""
+    each train step's kernel launches, the attention kernels' launch
+    shapes and the stages' seconds recorded, written to ``out`` with the
+    exit code."""
+    start = process_start()
     zero_counts()
-    with counting_steps() as per_step, launch_shapes() as shapes:
+    with counting_steps() as per_step, launch_shapes() as shapes, stage_seconds() as stages:
         code = (run_eval.main if argv[0] == "eval" else run_train.main)(argv[1:])
     with open(out, "w") as f:
         json.dump({"exit": code, "rank": int(os.environ.get("RANK", 0)), "per_step": per_step,
-                   "launches": counts(), "shapes": shapes,
+                   "launches": counts(), "shapes": shapes, "stages": start | stages,
                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30
                    if torch.cuda.is_available() else 0.0}, f)
     return code
@@ -2037,7 +2130,8 @@ def spawn_ranks(tmp: str, name: str, kind: str, args: list[str], world: int = 2)
     port, procs = free_port(), []
     for r in range(world):
         env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
-                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   CHIP_SMOKE_SPAWNED=repr(time.time()))
         base = os.path.join(tmp, f"{name}.{r}")
         with open(base + ".log", "w") as f:
             procs.append((subprocess.Popen(
@@ -2069,7 +2163,16 @@ def wait_ranks(procs, timeout: float = 300, codes=(0,)) -> list[dict]:
     if any(e not in codes for e in exits):
         raise AssertionError(f"rank exits {exits}, expected {codes}:\n"
                              + "\n".join(tail(b + ".log") for _, b in procs))
-    return [json.load(open(b + ".json")) for _, b in procs if os.path.exists(b + ".json")]
+    rows = [json.load(open(b + ".json")) for _, b in procs if os.path.exists(b + ".json")]
+    log_stages(procs, rows)
+    return rows
+
+
+def log_stages(procs, rows: list[dict]) -> None:
+    """Each child's start-up and its runs' fixed costs, in seconds."""
+    for (_, base), row in zip(procs, rows):
+        stages = row.get("stages") or [r.get("stages") for r in row.get("runs", [])]
+        log(f"  stages of {os.path.basename(base)}: {json.dumps(stages)}")
 
 
 def stop_ranks(procs) -> None:
@@ -3349,9 +3452,11 @@ def runs_child(out: str, plan_path: str) -> int:
                                                   maybe_initialize_distributed)
     from jpdvt_mt_ntnu_tpu_torch.parallel import sharding
 
+    start = process_start()
     with open(plan_path) as f:
         plan = json.load(f)
     dp = maybe_initialize_distributed(device="cuda")
+    start["process_group_s"] = time.time() - T_START - start["imports_s"]
     CheckpointManager._write = keep_checkpoint
     results = []
     try:
@@ -3385,12 +3490,14 @@ def runs_child(out: str, plan_path: str) -> int:
                 t0 = time.perf_counter()
                 run_train.make_train_step = timed_make
                 try:
-                    with counting_steps() as per_step, launch_shapes() as shapes:
+                    with (counting_steps() as per_step, launch_shapes() as shapes,
+                          stage_seconds() as stages):
                         code = run_train.train(cfg, run_dp, precision)
                 finally:
                     run_train.make_train_step = make_step
                 torch.cuda.synchronize()
                 row |= {"exit": code, "wall_s": time.perf_counter() - t0, "per_step": per_step,
+                        "stages": stages,
                         "transport": moved, "shapes": shapes, "launches": counts(),
                         "peak_gib": torch.cuda.max_memory_allocated() / GIB}
                 del cfg
@@ -3431,7 +3538,7 @@ def runs_child(out: str, plan_path: str) -> int:
             dp.barrier()
     finally:
         with open(out, "w") as f:
-            json.dump({"rank": dp.rank, "runs": results}, f)
+            json.dump({"rank": dp.rank, "runs": results, "stages": start}, f)
         dp.close()
     return 0
 
@@ -3461,7 +3568,7 @@ def start_axes_set(tmp: str, group: str, world: int, runs: dict) -> tuple:
     for r in range(world):
         env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
                    LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(port))
+                   MASTER_PORT=str(port), CHIP_SMOKE_SPAWNED=repr(time.time()))
         base = os.path.join(tmp, f"{group}.{r}")
         with open(base + ".log", "w") as f:
             procs.append((subprocess.Popen(
@@ -4539,6 +4646,261 @@ def grid24_block(card: str, gen: torch.Generator, artifact: str) -> dict:
     return out
 
 
+# Phase 26: the attention settings the JAX package runs that the port took
+# last, model.attn_impl = xla, xla_split and xla2 (a K1 forward, autograd of
+# the plain XLA attention backward), and pallas in fp32 past the whole-row
+# kernels' shared memory (K1's and K2's streaming instances). Bounds, stated
+# before the first run: the xla* runs' per-step bf16 losses within 2% of the
+# default route's (XL_ROUTE_LOSS_RTOL: the same forward, the backward
+# rounding at other points through 12 blocks and 3 AdamW steps); the fp32
+# pallas run's within 1e-4 of the flash route's (summation order only);
+# the xla backward's bf16 gradient on the card within 1% of elements and
+# 2^-6 of scale of the CPU's under matmul_precision=high (TF32 would round
+# dS to 10 bits and move about a tenth of them).
+XLA_IMPLS = ("xla", "xla_split", "xla2")
+XLA_STEPS = 3
+PALLAS32_LOSS_RTOL = 1e-4
+PALLAS32_BATCH, PALLAS32_PUZZLES, XL_PALLAS32_PUZZLES = 8, 8, 4
+# The fp32 grid-20 solve's piece distances on pallas (K1's streaming
+# instance) against the flash route's (K4), relative to the largest: fp32
+# summation order through 12 blocks (phase 12's bf16 bound is 2e-2).
+PALLAS32_CODE_TOL = 1e-4
+STREAM_K1_TOKENS, STREAM_K2_TOKENS = (342, 400, 576, 1296), (165, 400, 576)
+
+
+def xla_train_args(exp: str, steps_: int, *extra: str) -> list[str]:
+    """Phase 26's grid-3 run_train: the recorded run's settings
+    (logs/waves3_r5_train/run_config.json: batch 96, bf16, t_bias,
+    hard_frac, EMA warmup) warm-started from the waves3 artifact, ``steps_``
+    steps logged each, and ``extra``."""
+    return ["data.synthetic_cues=waves", "data.device_stream=true",
+            f"data.synthetic_hard_frac={HARD_FRAC}", f"data.global_batch_size={TRAIN_BATCH}",
+            f"data.synthetic_n={TRAIN_BATCH * steps_}", "train.epochs=1",
+            f"train.t_bias={T_BIAS}", "train.ema_warmup=true", "train.log_every=1",
+            "train.ckpt_every=1000000", "diffusion.sampler_mode=fast",
+            f"train.warm_start={ARTIFACT}", f"train.exp_dir={exp}", *extra]
+
+
+def pallas32_train_args(exp: str, artifact: str, *extra: str) -> list[str]:
+    """Phase 26's grid-20 fp32 run_train: 320 px, 3 steps at batch 8,
+    warm-started from ``artifact`` (trained weights: a seeded init's closed
+    adaLN gates would hide attention from the loss and its gradient), and
+    ``extra``."""
+    return [f"model.image_size={SIZE20}", f"task.grid_size={GRID20}",
+            "model.compute_dtype=float32", "data.synthetic_cues=waves",
+            "data.device_stream=true", f"data.global_batch_size={PALLAS32_BATCH}",
+            f"data.synthetic_n={PALLAS32_BATCH * XLA_STEPS}", "train.epochs=1",
+            "train.log_every=1", "train.ckpt_every=1000000", "diffusion.sampler_mode=fast",
+            f"train.exp_dir={exp}", f"train.warm_start={artifact}", *extra]
+
+
+def losses_within(name: str, row: dict, ref: dict, rtol: float) -> list[float]:
+    """``row``'s per-step losses against ``ref``'s, relative; raises past
+    ``rtol``."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(row["losses"], ref["losses"])]
+    if len(row["losses"]) != len(ref["losses"]) or not max(rel) <= rtol:
+        raise AssertionError(f"{name}: losses {row['losses']} against {ref['losses']}: "
+                             f"{rel} > {rtol}")
+    return rel
+
+
+def check_xla_backward_tf32(sd: dict, gen: torch.Generator) -> dict:
+    """The first DiT block's attention core (its qkv projection of random x,
+    bf16) on ``xla``: the gradient on the card under
+    ``matmul_precision=high`` against the CPU's."""
+    w = sd["blocks.0.attn.qkv.weight"].to("cuda", torch.bfloat16)
+    b = sd["blocks.0.attn.qkv.bias"].to("cuda", torch.bfloat16)
+    x = torch.randn((4, TOKENS, w.shape[1]), generator=gen, device="cuda").bfloat16()
+    qkv = F.linear(x, w, b)
+    g = torch.randn((4, TOKENS, w.shape[1]), generator=gen, device="cuda").bfloat16()
+    grads = []
+    before = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    apply_matmul_precision("high")
+    try:
+        for device in ("cpu", "cuda"):
+            leaf = qkv.detach().to(device).requires_grad_(True)
+            attn_ops.fused_qkv_attention_xla(leaf, HEADS).backward(g.to(device))
+            grads.append(leaf.grad.float().cpu())
+    finally:
+        torch.set_float32_matmul_precision(before[0])
+        torch.backends.cudnn.allow_tf32 = before[1]
+    cpu, card = grads
+    row = {"share_differing": (cpu != card).float().mean().item(),
+           "max_abs_diff": (cpu - card).abs().max().item(), "scale": cpu.abs().max().item(),
+           "matmul_precision": "high", "precision_after": torch.get_float32_matmul_precision()}
+    log("  xla backward on the card against the CPU under TF32 settings: " + json.dumps(row))
+    if not (row["share_differing"] <= 0.01 and row["max_abs_diff"] <= 2 ** -6 * row["scale"]
+            and row["precision_after"] == before[0]):
+        raise AssertionError(f"the xla backward on the card is not the CPU's: {row}")
+    return row
+
+
+def xla_grid3(g3: dict, card: str) -> dict:
+    """Phase 26 at grid 3 on the waves3 artifact: the fast solve of the 16 on
+    each xla* setting against the default route's permutations, and
+    run_train 3 steps at batch 96 on xla and xla_split beside the default
+    route (12 K1 a step and no K2 on xla*)."""
+    out = {}
+    t0 = time.perf_counter()
+    preds = {}
+    x_scr = jigsaw.scramble(torch.as_tensor(g3["x16"], device="cuda"),
+                            torch.as_tensor(g3["perms16"], device="cuda"), 3)
+    for impl in (None, *XLA_IMPLS):
+        model, cfg = create_model("JPDVT", 192, dtype=torch.bfloat16, attn_impl=impl)
+        model.load_state_dict(g3["sd"])
+        solver = PuzzleSolver(model, cfg, create_diffusion("250"), grid_size=3, mode="fast",
+                              noise_template=g3["template"])
+        zero_counts()
+        pred, _ = solver.solve_codes(x_scr)
+        launches = counts()
+        preds[impl] = pred
+        name = impl or "default"
+        if launches != {**{k: 0 for k in COUNTERS}, "k1": cfg.depth}:
+            raise AssertionError(f"grid-3 fast solve on {name}: launches {launches}")
+        out[f"solve_{name}"] = {"launches": launches,
+                                "permutations_equal_default": torch.equal(pred, preds[None])}
+        del model, solver
+    log(f"  grid-3 fast solves of the 16 on {card}: " + json.dumps(out))
+    if not all(out[f"solve_{i}"]["permutations_equal_default"] for i in XLA_IMPLS):
+        raise AssertionError("an xla* setting's permutations differ from the default route's")
+    log(f"  phase 26 grid-3 solves: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    last = artifact_step(ARTIFACT) + XLA_STEPS
+    runs = {}
+    for impl, expected in ((None, {"k1": 12, "k2": 12}), ("xla", {"k1": 12, "k2": 0}),
+                           ("xla_split", {"k1": 12, "k2": 0})):
+        extra = (f"model.attn_impl={impl}",) if impl else ()
+        runs[impl or "default"], _ = kept_run_train(
+            lambda exp: xla_train_args(exp, XLA_STEPS, *extra),
+            f"JPDVT at grid 3 on {impl or 'the default route'}, batch {TRAIN_BATCH}",
+            {**{k: 0 for k in COUNTERS}, **expected}, XLA_STEPS, last)
+    for impl in ("xla", "xla_split"):
+        runs[impl]["loss_rel_to_default"] = losses_within(
+            f"grid 3 on {impl}", runs[impl], runs["default"], XL_ROUTE_LOSS_RTOL)
+    out["train"] = runs
+    log(f"  phase 26 grid-3 run_train: {time.perf_counter() - t0:.2f} s; per-step ms "
+        + json.dumps({k: r["ms_per_step"] for k, r in runs.items()}) + "; losses "
+        + json.dumps({k: r["losses"] for k, r in runs.items()}))
+    return out
+
+
+def pallas_fp32(card: str, gen: torch.Generator, sd: dict, artifact: str) -> dict:
+    """Phase 26 in fp32 on ``pallas`` past the whole-row kernels' shared
+    memory: the grid-20 fast solve of 8 (K1's streaming instance) against
+    the flash route's, run_train at grid 20 (K1 + K2's streaming instances)
+    beside the flash route, both on ``artifact``'s weights ``sd`` (the DiT's
+    parameters do not depend on the grid: the waves3 artifact's where the
+    copy holds no other, as in phase 25), and DiT-XL/8's fp32 fast solve of
+    4 (N = 576) on random weights with every adaLN gate open."""
+    out = {}
+    t0 = time.perf_counter()
+    x8, perms8 = wave_puzzles(PALLAS32_PUZZLES, 26, SIZE20, GRID20)
+    x_scr = jigsaw.scramble(torch.as_tensor(x8, device="cuda"),
+                            torch.as_tensor(perms8, device="cuda"), GRID20)
+    template = np.load(NOISE_TEMPLATE20)
+    codes = {}
+    for impl, key in (("flash", "k4"), ("pallas", "k1s")):
+        model, cfg = create_model("JPDVT", SIZE20, dtype=torch.float32, attn_impl=impl)
+        model.load_state_dict(sd)
+        solver = PuzzleSolver(model, cfg, create_diffusion("250"), grid_size=GRID20,
+                              mode="fast", noise_template=template)
+        zero_counts()
+        codes[impl] = solver.solve_codes(x_scr)
+        launches = counts()
+        if launches != {**{k: 0 for k in COUNTERS}, key: cfg.depth}:
+            raise AssertionError(f"grid-20 fp32 fast solve on {impl}: launches {launches}")
+        out[f"solve20_{impl}"] = {"launches": launches}
+        del model, solver
+    (p_flash, d_flash), (p_pallas, d_pallas) = codes["flash"], codes["pallas"]
+    rel = ((d_pallas - d_flash).abs().max() / d_flash.abs().max()).item()
+    same = float((p_pallas == p_flash).all(dim=1).float().mean())
+    grid20 = artifact == ARTIFACT20
+    out["solve20_agreement"] = {"distances_rel": rel, "puzzles_equal": same,
+                                "pieces_equal": float((p_pallas == p_flash).float().mean()),
+                                "weights": os.path.relpath(artifact, REPO)}
+    log(f"  grid-20 fp32 fast solve of {PALLAS32_PUZZLES}, pallas (K1 streaming) against "
+        f"flash (K4): " + json.dumps(out["solve20_agreement"]))
+    # The grid-20 artifact places its pieces with clear margins: there the
+    # permutations must be equal. The waves3 artifact at grid 20 leaves near
+    # ties, so there the gate is the piece distances.
+    if not rel <= PALLAS32_CODE_TOL or (grid20 and same != 1.0):
+        raise AssertionError(f"grid-20 fp32 solve on pallas against flash: {out}")
+    log(f"  phase 26 grid-20 solves: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    last = artifact_step(artifact) + XLA_STEPS
+    runs = {}
+    for impl, expected in (("flash", {"k4": 12, "k5": 12, "k6": 12}),
+                           ("pallas", {"k1s": 12, "k2s": 12})):
+        runs[impl], _ = kept_run_train(
+            lambda exp: pallas32_train_args(exp, artifact, f"model.attn_impl={impl}"),
+            f"JPDVT at grid 20 in fp32 on {impl}, batch {PALLAS32_BATCH}",
+            {**{k: 0 for k in COUNTERS}, **expected}, XLA_STEPS, last)
+    runs["pallas"]["loss_rel_to_flash"] = losses_within(
+        "grid 20 fp32 on pallas", runs["pallas"], runs["flash"], PALLAS32_LOSS_RTOL)
+    out["train20"] = runs
+    log(f"  phase 26 grid-20 fp32 run_train: {time.perf_counter() - t0:.2f} s; per-step ms "
+        + json.dumps({k: r["ms_per_step"] for k, r in runs.items()}) + "; losses "
+        + json.dumps({k: r["losses"] for k, r in runs.items()}))
+    t0 = time.perf_counter()
+    model, cfg = create_model(XL_NAME, 192, dtype=torch.float32, attn_impl="pallas")
+    randomize(model, 26)
+    out["xl_pallas32"] = xl_solve(model, cfg, "fast", XL_PALLAS32_PUZZLES)
+    del model
+    if out["xl_pallas32"]["launches"] != {**{k: 0 for k in COUNTERS}, "k1s": cfg.depth}:
+        raise AssertionError(f"{XL_NAME} fp32 on pallas: launches "
+                             f"{out['xl_pallas32']['launches']}, expected {cfg.depth} k1s")
+    log(f"  {XL_NAME} at 192 px in fp32 on pallas (K1 streaming): "
+        + json.dumps(out["xl_pallas32"]) + f"; {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def streaming_kernels(gen: torch.Generator) -> dict:
+    """Phase 26's kernel checks: K1's and K2's fp32 streaming instances
+    against their plain versions at both head dims, timed at (32, 12, 400,
+    64) and (8, 16, 576, 72) beside their bounds, plain versions and SDPA;
+    each instance beside the whole-row one where both fit (N = 144)."""
+    fp32 = torch.float32
+    out = {"k1": [], "k2": []}
+    for d, heads in ((HEAD_DIM, HEADS), (XL_DH, XL_HEADS)):
+        dims = {"heads": heads, "d": d, "instance": "streaming"}
+        out["k1"] += [check_k1(2, n, fp32, gen, timed=False, **dims) for n in STREAM_K1_TOKENS]
+        out["k2"] += [check_k2(2, n, fp32, gen, timed=False, **dims) for n in STREAM_K2_TOKENS]
+    out["k1_timed"] = [check_k1(32, TOKENS20, fp32, gen, timed=True, instance="streaming"),
+                       check_k1(XL_BATCH, XL_TOKENS, fp32, gen, timed=True, heads=XL_HEADS,
+                                d=XL_DH, instance="streaming")]
+    out["k2_timed"] = [check_k2(32, TOKENS20, fp32, gen, timed=True, device_time=False,
+                                instance="streaming"),
+                       check_k2(XL_BATCH, XL_TOKENS, fp32, gen, timed=True, device_time=False,
+                                heads=XL_HEADS, d=XL_DH, instance="streaming")]
+    out["beside_whole"] = {
+        f"{kernel}_{inst}": check(32, TOKENS, fp32, gen, timed=True, instance=inst)["ms"]
+        for kernel, check in (("k1", check_k1),
+                              ("k2", lambda *a, **k: check_k2(*a, device_time=False, **k)))
+        for inst in ("whole", "streaming")}
+    log("  fp32 at (32, 12, 144, 64), ms of each instance: " + json.dumps(out["beside_whole"]))
+    return out
+
+
+def attn_settings_grid3(card: str, gen: torch.Generator, g3: dict | None,
+                        sd20: dict | None) -> dict:
+    """Phase 26: the streaming instances' kernel checks, the xla* settings at
+    grid 3 (on the waves3 artifact; skipped without it) and pallas in fp32
+    at grid 20 and at DiT-XL/8's N = 576."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {"kernels": streaming_kernels(gen)}
+    log(f"  phase 26 kernels: {time.perf_counter() - t0:.2f} s")
+    if g3 is not None:
+        out["tf32"] = check_xla_backward_tf32(g3["sd"], gen)
+        out["grid3"] = xla_grid3(g3, card)
+    out["fp32"] = (pallas_fp32(card, gen, sd20, ARTIFACT20) if sd20 is not None
+                   else pallas_fp32(card, gen, g3["sd"], ARTIFACT))
+    torch.cuda.empty_cache()
+    log(f"phase xla and fp32 pallas: {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--ddp-child"]:  # one rank of phase 16's runs
@@ -4777,7 +5139,8 @@ def main(argv=None) -> int:
         _, k3_launches = eval_grid20(card)
         k3_timed = k3_rows[1]
     else:
-        g3.pop("sd")
+        # held on the host for phase 26, off the card the multi-process phases share
+        g3["sd"] = {k: v.cpu() for k, v in g3["sd"].items()}
         k3_launches = eval_grid3(card)["eval_launches"]
         k3_timed = k3_rows[0]
 
@@ -4819,6 +5182,15 @@ def main(argv=None) -> int:
     # long-row instance, the flagship at grid 24 (N = 576) on block beside the
     # default route, DiT-XL/8 at 192 px on block's XLA composition.
     g24 = grid24_block(card, gen, ARTIFACT20 if args.grid20_artifact else ARTIFACT)
+
+    # 26. model.attn_impl = xla, xla_split, xla2 on the waves3 artifact, and
+    # pallas in fp32 past the whole-row kernels' shared memory: K1's and K2's
+    # streaming instances.
+    sd20 = load_artifact(ARTIFACT20)[0] if args.grid20_artifact else None
+    a26 = attn_settings_grid3(card, gen, g3, sd20)
+    del sd20
+    if g3 is not None:
+        g3.pop("sd")
 
     def kernel_row(name, source, replaces, launches, rows, timed):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4979,6 +5351,30 @@ def main(argv=None) -> int:
                    [g24["k1"]], g24["k1"]),
         kernel_row("k1_whole_row_attention_fwd_dh72_block_xla", *k1,
                    g24["xl_block"]["launches"]["k1"], xl23["k1"], xl23["k1"][0])]
+    # Phase 26: K1's fp32 streaming instance under the grid-20 solve, train
+    # run (its validation too) and DiT-XL/8's solve on pallas, timed at (32,
+    # 12, 400, 64); K2's under that train run, timed alike; and K1 (the bf16
+    # instance) under the xla* settings' grid-3 runs and solves, timed at
+    # the train step's (96, 12, 144, 64).
+    f26, k26 = a26["fp32"], a26["kernels"]
+    kernels += [
+        kernel_row("k1_streaming_attention_fwd_fp32", *k1,
+                   f26["solve20_pallas"]["launches"]["k1s"]
+                   + f26["train20"]["pallas"]["launches"]["k1s"]
+                   + f26["xl_pallas32"]["launches"]["k1s"], k26["k1"] + k26["k1_timed"],
+                   k26["k1_timed"][0]),
+        kernel_row("k2_streaming_attention_bwd_fp32",
+                   "jpdvt_mt_ntnu_tpu_torch/ops/csrc/attention_bwd.cu",
+                   "jpdvt_mt_ntnu_tpu/ops/attention.py:44",
+                   f26["train20"]["pallas"]["launches"]["k2s"], k26["k2"] + k26["k2_timed"],
+                   k26["k2_timed"][0])]
+    if "grid3" in a26:
+        g26 = a26["grid3"]
+        kernels.append(kernel_row(
+            "k1_whole_row_attention_fwd_xla", *k1,
+            sum(g26["train"][i]["launches"]["k1"] for i in ("xla", "xla_split"))
+            + sum(g26[f"solve_{i}"]["launches"]["k1"] for i in XLA_IMPLS),
+            [k1_rows[2]], k1_rows[2]))
     log(f"total: {time.perf_counter() - t_start:.2f} s (build {build_s:.2f} s)")
     log(json.dumps({"kernels": kernels}))
     log(card)

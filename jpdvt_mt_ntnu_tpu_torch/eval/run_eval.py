@@ -13,8 +13,10 @@ flattened-params ``.npz`` or a checkpoint directory of this package
 (``eval.use_ema`` picks the EMA or the raw weights); empty means random
 weights. ``eval.assignment`` (greedy | hungarian), ``eval.votes``,
 ``diffusion.sampler_mode`` (faithful | fast | iterative | ddim),
-``model.attn_impl`` (None | pallas | flash | block, the last putting the
-whole attention sublayer on kernel K3) and ``model.quant`` (int8 | int8:K,
+``model.attn_impl`` (None | pallas | flash | block | xla | xla_split and
+the JAX aliases xla2, interpret, block_interpret: ``ops.attention.ATTN_IMPLS``;
+block puts the whole attention sublayer on kernel K3; ring is a setting of
+``mesh.seq``) and ``model.quant`` (int8 | int8:K,
 w8a8 products in the DiT's blocks, ``ops/quant.py``) are the solver's
 options.
 ``eval.jax_draws=<npz>`` and ``eval.jax_noise=<npy>`` solve the JAX
@@ -63,7 +65,7 @@ from ..core.diffusion import create_diffusion
 from ..data import ImageFolderDataset, METDataset, SyntheticPuzzles, TEXMETDataset
 from ..data.synthetic import CUES
 from ..models import DIT_CONFIGS, create_model
-from ..ops.attention import ATTN_IMPLS, attention_route
+from ..ops.attention import attention_route, attn_impl_refusal
 from ..ops.quant import parse_quant_spec
 from ..parallel import MeshSpec, maybe_initialize_distributed
 from ..parallel.sharding import Mesh, MeshRanks, use_ring
@@ -174,8 +176,8 @@ def check_supported(cfg: Config, texrec: bool = False, on_card: bool = True) -> 
         parse_quant_spec(m.quant)
     except ValueError as e:
         refused.append(f"model.quant={m.quant!r} ({e})")
-    if m.attn_impl not in ATTN_IMPLS:
-        refused.append(f"model.attn_impl={m.attn_impl!r} (the port runs {ATTN_IMPLS})")
+    if attn_impl_refusal(m.attn_impl):
+        refused.append(attn_impl_refusal(m.attn_impl))
     elif m.name in DIT_CONFIGS:
         arch = {**DIT_CONFIGS[m.name], **m.overrides()}
         dtype = torch.bfloat16 if m.compute_dtype == "bfloat16" else torch.float32

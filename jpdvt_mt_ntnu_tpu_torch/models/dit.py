@@ -11,7 +11,13 @@ the JAX parameters carry over one to one (``tools/weights.py``):
   (``ops/attention.py``), the flash kernels K4-K6
   (``ops/flash_attention.py``), or with ``attn_impl="block"`` the whole
   sublayer as K3 (``ops/attention.py:fused_attention_block``), its biases
-  in fp32 as in the JAX package (``models/dit.py:211-218``);
+  in fp32 as in the JAX package (``models/dit.py:211-218``), or with
+  ``attn_impl="xla"`` / ``"xla2"`` / ``"xla_split"`` the JAX package's
+  plain-XLA attention (``fused_qkv_attention_xla``, and for ``xla_split``
+  the qkv projection's product rounded before its bias is added,
+  ``split_qkv_attention_xla``), its backward autograd of the plain version
+  (``models/dit.py:227-245``); the weights keep their layout on every
+  setting, so checkpoints carry over;
 - the MLP's GELU is the tanh approximation, LayerNorms have eps 1e-6, no
   affine, and compute their statistics in fp32 as Flax's do in bf16;
 - two heads: the unpatchified image and an 8-dim positional code per token,
@@ -44,7 +50,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import (attention_route, dense_to_block_weights,
-                             fused_attention_block, fused_qkv_attention)
+                             fused_attention_block, fused_qkv_attention,
+                             fused_qkv_attention_xla, split_qkv_projection)
 from ..ops.flash_attention import fused_qkv_flash_attention
 from ..ops.quant import int8_dense, parse_quant_spec, quantize_channelwise
 from ..utils.device import default_device
@@ -64,7 +71,7 @@ class DiTConfig:
     code_dim: int = 8
     code_head_hidden: int = 64
     dtype: torch.dtype = torch.float32  # compute type
-    attn_impl: str | None = None  # None (auto), "pallas" (K1/K2), "flash" (K4-K6), "block" (K3)
+    attn_impl: str | None = None  # ops.attention.ATTN_IMPLS: None (auto), "pallas", "block", ...
     quant: str | None = None  # None, "int8" (every block) or "int8:K" (the first K)
     moe_experts: int = 0  # > 0: each block's MLP is an ExpertChoiceMoE of this many experts
     moe_capacity: float = 2.0
@@ -132,6 +139,21 @@ class Linear(nn.Linear):
             x = self.tp.copy_to(x, self.tp.model)
         return self._linear(x, self.bias.to(x.dtype))
 
+    def split_qkv(self, x: torch.Tensor) -> torch.Tensor:
+        """The qkv Linear as the JAX package's ``split_qkv_attention_xla``
+        projects (:func:`split_qkv_projection`): q's, k's and v's products
+        each rounded to x's type, then the bias added in it (``forward``
+        adds the bias before its one rounding). A column-cut Linear takes x
+        as ``forward`` does (its thirds are its heads' q, k and v); an FSDP
+        one gathers its weight whole (its gradient reduce-scattered)."""
+        if self.tp_mode == "column":
+            x = self.tp.copy_to(x, self.tp.model)
+        w = self.weight
+        if self.fsdp is not None:
+            mesh, dim = self.fsdp
+            w = mesh.gathered(w, dim)
+        return split_qkv_projection(x, w, self.bias)
+
     def _linear(self, x: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
         if self.fsdp is not None:
             mesh, dim = self.fsdp
@@ -169,9 +191,12 @@ class Mlp(nn.Module):
 class Attention(nn.Module):
     """timm-compatible MHA: fused qkv projection, attention on the route
     :func:`attention_route` picks, output projection; on the ``"block"``
-    route all three in one K3 call. A quantized block ignores
-    ``attn_impl`` (as in the JAX package) and takes the default route
-    between its int8 projections."""
+    route all three in one K3 call; on ``"xla_split"`` the qkv projection
+    rounded as ``split_qkv_attention_xla``'s (:meth:`Linear.split_qkv`). A
+    quantized block ignores ``attn_impl`` (as in the JAX package) and
+    takes the default route between its int8 projections. Under a mesh
+    the ``xla*`` settings run as the default route does, on this rank's
+    heads through the Linears' own cuts."""
 
     def __init__(self, hidden_size: int, num_heads: int, attn_impl: str | None = None,
                  quant: str | None = None):
@@ -198,7 +223,11 @@ class Attention(nn.Module):
                 self.qkv.weight.to(dt), self.qkv.bias.float(), self.proj.weight.to(dt),
                 self.proj.bias.float(), self.num_heads)
             return fused_attention_block(x, *weights, self.num_heads)
-        attend = fused_qkv_flash_attention if route == "flash" else fused_qkv_attention
+        if route == "xla_split":
+            # split_qkv_attention_xla, with the Linear's cut of the weights
+            return self.proj(fused_qkv_attention_xla(self.qkv.split_qkv(x), self.num_heads))
+        attend = {"flash": fused_qkv_flash_attention, "xla": fused_qkv_attention_xla}.get(
+            route, fused_qkv_attention)
         return self.proj(attend(self.qkv(x), self.num_heads))
 
 

@@ -38,20 +38,40 @@ backward, at every geometry, is torch autograd of
 :func:`fused_attention_block_xla_plain`, as the JAX package's ``_fab_bwd``
 (``:365-372``) differentiates ``fused_attention_block_xla``.
 
+K1 and K2 have two fp32 instances each: a whole-row one keeping K and V
+of an (item, head) in shared memory (K1 N <= 341, K2 N <= 164 at Dh 64;
+309 and 148 at 72), and a streaming one taking K and V in 64-key chunks at
+every N (:func:`fp32_instance` picks; their plain versions are the same
+:func:`attention_reference` and :func:`attention_bwd_reference`). bf16 has
+one instance, on the tensor cores, which streams too.
+
+The ``xla``, ``xla2`` and ``xla_split`` settings compute the JAX package's
+plain-XLA attention (``fused_qkv_attention_xla``, ``:388``; ``xla2`` is
+the same function, ``:401``; ``split_qkv_attention_xla``, ``:428``), whose
+backward is JAX's autodiff: :func:`fused_qkv_attention_xla` and
+:func:`split_qkv_attention_xla` run the forward on the kernel the default
+route takes without grad (K1, or K4 where K1's fp32 whole-row instance
+ends) and differentiate their plain versions (:func:`attention_xla_plain`:
+``_attention_xla``'s rounding points, read off its jaxpr) by torch
+autograd, with exact fp32 products.
+
 On a CUDA tensor the wrapper launches the kernel or raises; it takes the
 plain version only for tensors on the CPU.
 
 :func:`attention_route` picks the DiT's route, the counterpart of
 ``default_impl`` (``:168``), whose TPU thresholds do not carry over: the
-whole-row kernels where their shared memory fits (K1; K1 + K2 with grad
-on, up to ``WHOLE_ROW_GRAD_MAX_N`` of the head dim), the flash kernels K4-K6
-(``ops/flash_attention.py``) beyond, and the sublayer of
-:func:`fused_attention_block` only when ``attn_impl="block"`` asks for it
-(``default_impl`` never picks it either).
+whole-row kernels where their whole-row fp32 instances' shared memory fits
+(K1; K1 + K2 with grad on, up to ``WHOLE_ROW_GRAD_MAX_N`` of the head dim),
+the flash kernels K4-K6 (``ops/flash_attention.py``) beyond, and the
+settings that ask for a function by name: the sublayer of
+:func:`fused_attention_block` (``block``), the XLA attention (``xla*``),
+the whole-row kernels at every N (``pallas``) or the flash ones
+(``flash``) (``default_impl`` never picks ``block`` either).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -69,20 +89,32 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # only target the kernels are built for (sm_90a).
 HOPPER_MAX_SMEM = 232448
 # model.attn_impl values the port runs: None (auto), "pallas" (the
-# whole-row kernels K1/K2, as the JAX name), "flash" (K4-K6), "block" (the
-# whole sublayer: K3 or the XLA composition by the JAX rule, its backward
-# autograd of the composition's plain version).
-ATTN_IMPLS = (None, "pallas", "flash", "block")
+# whole-row kernels K1/K2, as the JAX name, at every N), "flash" (K4-K6),
+# "block" (the whole sublayer: K3 or the XLA composition by the JAX rule,
+# its backward autograd of the composition's plain version), "xla" and
+# "xla_split" (the JAX package's plain-XLA attention and its per-head
+# projections: a kernel forward, autograd of the plain version backward),
+# and the JAX names of the same functions (ATTN_ALIASES).
+ATTN_IMPLS = (None, "pallas", "flash", "block", "xla", "xla2", "xla_split", "interpret",
+              "block_interpret")
+# JAX names for one function twice: "xla2" is "xla" without the transposes
+# ("identical math"), "interpret" and "block_interpret" run the Pallas
+# kernels of "pallas" and "block" in interpret mode, a TPU debugging switch.
+ATTN_ALIASES = {"xla2": "xla", "interpret": "pallas", "block_interpret": "block"}
 # With grad, the default route takes the whole-row kernels (K1 + K2) up to
-# this N, by head dim, and the flash kernels beyond. Dh 64: the route the
-# train step ran while K2 kept fp32 dK and dV accumulators in shared
-# memory, which fit a Hopper block only up to N = 205; K2's bf16 kernels
-# now fit at every N, and ROADMAP §2 re-decides the route from
+# this N, by head dim, and the flash kernels beyond; fp32 stops sooner,
+# where K1's and K2's whole-row fp32 instances stop fitting (their
+# streaming instances, which take every N, are for ``pallas``). Dh 64:
+# the route the train step ran while K2 kept fp32 dK and dV accumulators
+# in shared memory, which fit a Hopper block only up to N = 205; K2's bf16
+# kernels now fit at every N, and ROADMAP §2 re-decides the route from
 # measurements (tools/bench_attention_routes.py). Dh 72: 0, flash at every
 # N: on an H100, K4 + K5 + K6 was faster than K1 + K2 at batch 32 and 96
 # for every N measured (144, 196, 256, 324, 576), or within 1% (N = 144,
 # batch 32); K1 + K2 was faster only at batch 8 and N <= 196 (PERF.md §6).
 WHOLE_ROW_GRAD_MAX_N = {64: 205, 72: 0}
+# The fp32 instances of K1 and K2 (:func:`fp32_instance`).
+FP32_INSTANCES = ("whole", "streaming")
 
 
 def smem_row(head_dim: int) -> int:
@@ -96,11 +128,21 @@ def smem_row(head_dim: int) -> int:
 def k1_smem_bytes(n: int, elem: int, head_dim: int = HEAD_DIM) -> int:
     """K1's shared memory per block (``csrc/attention.cu`` ``smem_bytes``).
     bf16: two stages of 64-key chunks of K and V with rows of
-    :func:`smem_row`, the same at every N. fp32: K and V whole with rows of
-    Dh + 2, a 32-row fp32 query tile and its fp32 score rows."""
+    :func:`smem_row`, the same at every N. fp32, the whole-row instance: K
+    and V whole with rows of Dh + 2, a 32-row fp32 query tile and its fp32
+    score rows (the streaming instance takes a fixed 50,560 B at Dh 64)."""
     if elem == 2:
         return 2 * 2 * 64 * smem_row(head_dim) * elem
     return 2 * n * (head_dim + 2) * elem + 32 * (head_dim + 2) * 4 + 32 * (n + 1) * 4
+
+
+def fp32_instance(n: int, head_dim: int = HEAD_DIM, grad: bool = False) -> str:
+    """Which fp32 instance :func:`attention` (K1) or, with ``grad``,
+    :func:`attention_bwd` (K2) launches at N: ``"whole"`` where its shared
+    memory (:func:`k1_smem_bytes`, :func:`k2_smem_bytes`) fits a Hopper
+    block, else ``"streaming"``, which takes every N."""
+    fits = (k2_smem_bytes if grad else k1_smem_bytes)(n, 4, head_dim) <= HOPPER_MAX_SMEM
+    return "whole" if fits else "streaming"
 
 
 def k2_smem_bytes(n: int, elem: int, head_dim: int = HEAD_DIM) -> int:
@@ -111,7 +153,8 @@ def k2_smem_bytes(n: int, elem: int, head_dim: int = HEAD_DIM) -> int:
     72), the column kernel's two stages of 64-row q and dO chunks with each
     row's three fp32 statistics (38,400 B, 46,592 B). fp32: the scalar
     kernel's K, V, fp32 dK/dV accumulators, the q and dO tiles, fp32 P and
-    dP rows, all rows of Dh + 2 (N <= 164 at Dh 64, 148 at 72)."""
+    dP rows, all rows of Dh + 2 (N <= 164 at Dh 64, 148 at 72), the
+    whole-row instance (the streaming one takes a fixed 59,008 B)."""
     if elem == 2:
         stage = 64 * smem_row(head_dim) * elem
         return max(2 * 2 * stage, 2 * (2 * stage + 3 * 64 * 4))
@@ -234,45 +277,60 @@ def _block_bb(b: int, n: int, heads: int, d: int, hidden: int,
     return bb
 
 
+def attn_impl_refusal(attn_impl) -> str | None:
+    """Why the port refuses ``model.attn_impl=attn_impl``, or None where it
+    runs it. ``ring`` is not a setting: the JAX package builds it only under
+    a seq mesh (``models/dit.py:220-226``), and so does the port, through
+    ``mesh.seq``."""
+    if attn_impl in ATTN_IMPLS:
+        return None
+    if attn_impl == "ring":
+        return ("model.attn_impl='ring' (ring attention runs under a seq mesh: set "
+                "mesh.seq, which gives each block the ring)")
+    return f"model.attn_impl={attn_impl!r} (the port runs {ATTN_IMPLS})"
+
+
 @functools.cache
 def attention_route(n: int, dtype: torch.dtype, grad: bool, attn_impl=None, *,
                     head_dim: int = HEAD_DIM, on_card: bool = True) -> str:
     """The DiT attention's route for N tokens: ``"whole_row"`` (K1, and K2
-    as its backward when ``grad``), ``"flash"`` (K4, and K5 + K6) or
+    as its backward when ``grad``), ``"flash"`` (K4, and K5 + K6),
     ``"block"`` (the whole sublayer, :func:`fused_attention_block`, only
     when ``attn_impl`` is ``"block"``, at every N: K3 where the JAX rule
-    runs its kernel, else the XLA composition on K1 or K4).
+    runs its kernel, else the XLA composition on K1 or K4), ``"xla"``
+    (:func:`fused_qkv_attention_xla`) or ``"xla_split"`` (its per-head
+    projections, :func:`split_qkv_attention_xla`), the last two only when
+    ``attn_impl`` names them. ``attn_impl`` may be a JAX alias
+    (``ATTN_ALIASES``: ``xla2``, ``interpret``, ``block_interpret``).
 
-    ``attn_impl`` None takes the whole-row kernels where their shared
-    memory fits a Hopper block (bf16: every N; fp32 at Dh 64: 341 without
-    grad and 164 with it, at Dh 72: 309 and 148), with grad up to
-    ``WHOLE_ROW_GRAD_MAX_N`` of the head dim (205 at Dh 64, past fp32's
-    164; 0 at 72, flash at every N, by measurement), and flash beyond;
-    ``"pallas"`` insists on the whole-row kernels (bf16: every N, with grad
-    too) and ``"flash"`` on the flash ones. The CPU takes the same route
+    ``attn_impl`` None takes the whole-row kernels where their whole-row
+    instances' shared memory fits a Hopper block (bf16: every N; fp32 at Dh
+    64: 341 without grad and 164 with it, at Dh 72: 309 and 148), with
+    grad up to ``WHOLE_ROW_GRAD_MAX_N`` of the head dim (205 at Dh 64, past
+    fp32's 164; 0 at 72, flash at every N, by measurement), and flash
+    beyond. ``"pallas"`` takes the whole-row kernels at every N, with grad
+    too: past those limits on K1's and K2's fp32 streaming instances.
+    ``"flash"`` insists on the flash kernels. The CPU takes the same route
     through the plain versions, which hold no limit of Dh or dtype (a Dh
     outside ``HEAD_DIMS`` routes by the Dh-64 table); ``on_card`` adds the
-    kernels' limits (Dh 64 or 72, fp32 or bf16). Raises ``ValueError``
-    naming the reason where no kernel takes the geometry."""
-    if attn_impl not in ATTN_IMPLS:
-        raise ValueError(f"attn_impl={attn_impl!r} is not ported; the port runs "
-                         f"{ATTN_IMPLS}")
+    kernels' limits (Dh 64 or 72, fp32 or bf16) for every route. Raises
+    ``ValueError`` naming the reason where no kernel takes the geometry or
+    the setting is not one the port runs (:func:`attn_impl_refusal`)."""
+    refusal = attn_impl_refusal(attn_impl)
+    if refusal:
+        raise ValueError(f"{refusal} is not ported")
     if on_card and (head_dim not in HEAD_DIMS or dtype not in _DTYPE_CODES):
         raise ValueError(f"no attention kernel takes head dim {head_dim} in {dtype}; "
                          f"the kernels take Dh 64 or 72, float32 or bfloat16")
-    if attn_impl in ("flash", "block"):
+    attn_impl = ATTN_ALIASES.get(attn_impl, attn_impl)
+    if attn_impl in ("flash", "block", "xla", "xla_split"):
         return attn_impl
+    if attn_impl == "pallas":
+        return "whole_row"
     d = head_dim if head_dim in HEAD_DIMS else HEAD_DIM
     elem = torch.empty((), dtype=dtype).element_size()
     need = max(k1_smem_bytes(n, elem, d), k2_smem_bytes(n, elem, d) if grad else 0)
-    if need > HOPPER_MAX_SMEM:
-        if attn_impl == "pallas":
-            raise ValueError(f"attn_impl='pallas' at N={n}, Dh {d} in {dtype}"
-                             f"{' with grad' if grad else ''}: the whole-row kernels "
-                             f"need {need} B of shared memory per block, more than "
-                             f"the {HOPPER_MAX_SMEM} B a Hopper block has")
-        return "flash"
-    if attn_impl is None and grad and n > WHOLE_ROW_GRAD_MAX_N[d]:
+    if need > HOPPER_MAX_SMEM or (grad and n > WHOLE_ROW_GRAD_MAX_N[d]):
         return "flash"
     return "whole_row"
 
@@ -298,7 +356,8 @@ def scaled_q(q: torch.Tensor) -> torch.Tensor:
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K1. q, k, v: (B, H, N, Dh) -> (B, H, N, Dh)."""
+    """Plain PyTorch version of K1, each of its instances (bf16; fp32 whole
+    row and streaming). q, k, v: (B, H, N, Dh) -> (B, H, N, Dh)."""
     s = torch.matmul(scaled_q(q).float(), k.float().transpose(-1, -2))
     p = torch.softmax(s, dim=-1)
     o = torch.matmul(p.to(v.dtype).float(), v.float())
@@ -307,8 +366,9 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             do: torch.Tensor):
-    """Plain PyTorch version of K2: (dq, dk, dv) of :func:`attention` for
-    the output gradient ``do``, all (B, H, N, Dh).
+    """Plain PyTorch version of K2, each of its instances (bf16; fp32 whole
+    row and streaming): (dq, dk, dv) of :func:`attention` for the output
+    gradient ``do``, all (B, H, N, Dh).
 
     Mirrors ``_attn_bwd_kernel`` step by step, with its rounding points
     (not torch autograd of :func:`attention_reference`, which rounds
@@ -336,11 +396,13 @@ def _kernel(head_dim: int = HEAD_DIM):
     if lib.k1_attention_head_dim() != head_dim:
         raise RuntimeError(f"the K1 library for Dh {head_dim} was built for Dh "
                            f"{lib.k1_attention_head_dim()}")
-    fn = lib.k1_attention_fwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    for fn in (lib.k1_attention_fwd, lib.k1_attention_fwd_streaming):
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                       + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.k1_attention_streaming_smem_bytes.argtypes = []
+    lib.k1_attention_streaming_smem_bytes.restype = ctypes.c_size_t
     lib.k1_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.k1_attention_smem_bytes.restype = ctypes.c_size_t
     lib.k1_attention_max_smem.argtypes = [ctypes.c_int]
@@ -354,25 +416,38 @@ def _bwd_kernel(head_dim: int = HEAD_DIM):
     if lib.k2_attention_bwd_head_dim() != head_dim:
         raise RuntimeError(f"the K2 library for Dh {head_dim} was built for Dh "
                            f"{lib.k2_attention_bwd_head_dim()}")
-    fn = lib.k2_attention_bwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    for fn in (lib.k2_attention_bwd, lib.k2_attention_bwd_streaming):
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                       + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
+                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.k2_attention_bwd_streaming_smem_bytes.argtypes = []
+    lib.k2_attention_bwd_streaming_smem_bytes.restype = ctypes.c_size_t
     lib.k2_attention_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.k2_attention_bwd_smem_bytes.restype = ctypes.c_size_t
     return lib
-
-
-@functools.cache
-def _max_smem(device_index: int, head_dim: int) -> int:
-    return _kernel(head_dim).k1_attention_max_smem(device_index)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, smem_bytes=None) -> None:
     """Raise on q, k, v that the kernels cannot take. ``smem_bytes(n,
     elem)`` is the kernel's shared memory per block at q's head dim
     (default: K1's), called once the head dim is known to be built."""
+    _check_operands(q, k, v)
+    _check_smem(q, smem_bytes or _kernel(q.shape[-1]).k1_attention_smem_bytes)
+
+
+def _check_smem(q: torch.Tensor, smem_bytes) -> None:
+    """Raise where ``smem_bytes(n, elem)`` exceeds the device's block."""
+    need = smem_bytes(q.shape[2], q.element_size())
+    have = _max_smem(q.device.index if q.device.index is not None
+                     else torch.cuda.current_device(), q.shape[-1])
+    if need > have:
+        raise ValueError(f"N={q.shape[2]} needs {need} B of shared memory per "
+                         f"block; this device allows {have} B")
+
+
+def _check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """:func:`_check` but for the shared memory."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"attention kernel needs q, k, v on one CUDA device; "
                          f"got {q.device}, {k.device}, {v.device}")
@@ -392,12 +467,30 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, smem_bytes=None) -
             t.data_ptr() % (2 * elem) for t in (q, k, v)):
         raise ValueError("the head dim must be contiguous, with even strides "
                          "and pair-aligned pointers")
-    need = (smem_bytes or _kernel(q.shape[-1]).k1_attention_smem_bytes)(q.shape[2], elem)
-    have = _max_smem(q.device.index if q.device.index is not None
-                     else torch.cuda.current_device(), q.shape[-1])
-    if need > have:
-        raise ValueError(f"N={q.shape[2]} needs {need} B of shared memory per "
-                         f"block; this device allows {have} B")
+
+
+def _instance(q: torch.Tensor, instance: str | None, grad: bool) -> str:
+    """The instance a K1 (K2 with ``grad``) call on q launches: in fp32
+    ``instance``, or :func:`fp32_instance`'s where it is None; in bf16 the
+    one instance, ``"whole"``."""
+    if q.dtype != torch.float32:
+        if instance not in (None, "whole"):
+            raise ValueError(f"K1 and K2 have one {q.dtype} instance; got instance="
+                             f"{instance!r}")
+        return "whole"
+    if instance is None:
+        return fp32_instance(q.shape[2], q.shape[-1], grad)
+    if instance not in FP32_INSTANCES:
+        raise ValueError(f"instance={instance!r}: one of {FP32_INSTANCES} or None")
+    return instance
+
+
+class LaunchCount:
+    """The launches of one kernel instance, counted in ``launches`` as a
+    wrapper counts its kernel's (``attention.streaming.launches``)."""
+
+    def __init__(self):
+        self.launches = 0
 
 
 def _check_like(q: torch.Tensor, *tensors: torch.Tensor) -> None:
@@ -414,60 +507,79 @@ def _check_like(q: torch.Tensor, *tensors: torch.Tensor) -> None:
                              "and pair-aligned pointers")
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              instance: str | None = None) -> torch.Tensor:
     """K1. q, k, v: (B, H, N, Dh), Dh 64 or 72, any batch/head/token strides
     -> (B, H, N, Dh).
 
     On the card the output is a (B, H, N, Dh) view of a (B, N, H, Dh)
     buffer, so ``.transpose(1, 2).reshape(B, N, H * Dh)`` is free. The
-    kernel scales q by :func:`q_scale`. Each launch adds one to
-    ``attention.launches``."""
+    kernel scales q by :func:`q_scale`. In fp32 the call launches the
+    instance :func:`fp32_instance` names (``instance="whole"`` or
+    ``"streaming"`` takes that one, to hold the two to each other and time
+    them). Each launch adds one to ``attention.launches``, or on the fp32
+    streaming instance to ``attention.streaming.launches``."""
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return attention_reference(q, k, v)
-    _check(q, k, v)
+    _check_operands(q, k, v)
     b, h, n, d = q.shape
+    streaming = _instance(q, instance, False) == "streaming"
+    lib = _kernel(d)
+    _check_smem(q, (lambda n, elem: lib.k1_attention_streaming_smem_bytes())
+                if streaming else lib.k1_attention_smem_bytes)
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    err = _kernel(d).k1_attention_fwd(
+    launch = lib.k1_attention_fwd_streaming if streaming else lib.k1_attention_fwd
+    err = launch(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), *q.stride()[:3], *out.stride()[:3], b, h, n,
         q_scale(d, q.dtype), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
-    attention.launches += 1
+    (attention.streaming if streaming else attention).launches += 1
     return out
 
 
 attention.launches = 0
+attention.streaming = LaunchCount()
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  do: torch.Tensor, out) -> tuple:
+                  do: torch.Tensor, out, instance: str | None = None) -> tuple:
     """K2: writes (dq, dk, dv) of :func:`attention` for the output gradient
     ``do`` into ``out`` and returns it.
 
     q, k, v share (B, H, N, Dh) strides, Dh 64 or 72; ``do`` has its own;
     ``out`` is three (B, H, N, Dh) views sharing one set of strides (in the
     train step, slots of the fused-qkv gradient buffer). The kernels scale
-    q by :func:`q_scale` and dQ by the fp32 Dh^-1/2. In bf16 the call is
-    two kernels joined by a float32 (3, B, H, N) workspace of the rows'
-    softmax statistics, allocated here on q's device. Each call adds one to
-    ``attention_bwd.launches``."""
+    q by :func:`q_scale` and dQ by the fp32 Dh^-1/2. In bf16, and on the
+    fp32 streaming instance, the call is two kernels joined by a float32
+    (3, B, H, N) workspace of the rows' softmax statistics, allocated here
+    on q's device. In fp32 the call launches the instance
+    :func:`fp32_instance` names with grad (``instance`` as
+    :func:`attention`'s). Each call adds one to ``attention_bwd.launches``,
+    or on the fp32 streaming instance to
+    ``attention_bwd.streaming.launches``."""
     if all(t.device.type == "cpu" for t in (q, k, v, do)):
         for dst, src in zip(out, attention_bwd_reference(q, k, v, do)):
             dst.copy_(src)
         return out
     dq, dk, dv = out
-    _check(q, k, v, lambda n, elem: _bwd_kernel(q.shape[-1]).k2_attention_bwd_smem_bytes(
-        n, elem))
+    _check_operands(q, k, v)
+    streaming = _instance(q, instance, True) == "streaming"
+    lib = _bwd_kernel(q.shape[-1])
+    _check_smem(q, (lambda n, elem: lib.k2_attention_bwd_streaming_smem_bytes())
+                if streaming else lib.k2_attention_bwd_smem_bytes)
     _check_like(q, do, dq, dk, dv)
     if dk.stride() != dq.stride() or dv.stride() != dq.stride():
         raise ValueError("dq, dk and dv must share strides")
     b, h, n, d = q.shape
-    # The bf16 kernels' row statistics, alive until the launches are queued;
-    # the fp32 kernel takes none.
+    # The row statistics of the bf16 kernels and the fp32 streaming ones,
+    # alive until the launches are queued; the fp32 whole-row kernel takes
+    # none.
     ws = (torch.empty((3, b, h, n), dtype=torch.float32, device=q.device)
-          if q.dtype == torch.bfloat16 else None)
-    err = _bwd_kernel(d).k2_attention_bwd(
+          if q.dtype == torch.bfloat16 or streaming else None)
+    launch = lib.k2_attention_bwd_streaming if streaming else lib.k2_attention_bwd
+    err = launch(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         ws if ws is None else ws.data_ptr(), *q.stride()[:3], *do.stride()[:3],
@@ -475,11 +587,12 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"attention backward kernel launch failed: cudaError {err}")
-    attention_bwd.launches += 1
+    (attention_bwd.streaming if streaming else attention_bwd).launches += 1
     return out
 
 
 attention_bwd.launches = 0
+attention_bwd.streaming = LaunchCount()
 
 
 def _heads(qkv: torch.Tensor, num_heads: int):
@@ -532,6 +645,90 @@ def fused_qkv_attention_reference(qkv: torch.Tensor,
     differentiated by torch autograd."""
     b, n, _ = qkv.shape
     return attention_reference(*_heads(qkv, num_heads)).transpose(1, 2).reshape(b, n, -1)
+
+
+def attention_xla_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``_attention_xla`` (``:139``) with its rounding points, as its jaxpr
+    has them, for torch autograd to differentiate as JAX's autodiff does:
+    qs = T(q s_q) (:func:`scaled_q`); S = qs k^T in fp32; the softmax
+    written out as ``jax.nn.softmax`` is, e = exp(S - max) with the max
+    held constant, P = e / sum(e); o = T(T(P) v), the product in fp32. So
+    the backward rounds dP = dO v^T to T (the transpose of a product of T
+    operands), takes dS = e (dP / sum - sum(dP e / sum^2)) in fp32, and
+    rounds dK = dS^T qs, dQ = T(dS k) s_q and dV = T(P)^T dO to T. q, k, v:
+    (B, H, N, Dh) -> (B, H, N, Dh)."""
+    s = torch.matmul(scaled_q(q).float(), k.float().transpose(-1, -2))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True).detach())
+    p = e / e.sum(dim=-1, keepdim=True)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def fused_qkv_attention_xla_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Plain version of :func:`fused_qkv_attention_xla`: the JAX package's
+    ``fused_qkv_attention_xla`` (``:388``), :func:`attention_xla_plain` on
+    the heads of the fused qkv. Differentiable by torch autograd."""
+    b, n, _ = qkv.shape
+    return attention_xla_plain(*_heads(qkv, num_heads)).transpose(1, 2).reshape(b, n, -1)
+
+
+def _attend(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The attention core on the kernel the default route takes without
+    grad (K1 where its shared memory fits, else K4), reading q, k, v as
+    strided views of ``qkv``: (B, N, 3 H Dh) on the card -> (B, N, H Dh)."""
+    b, n, f = qkv.shape
+    d = f // (3 * num_heads)
+    if attention_route(n, qkv.dtype, False, head_dim=d) == "whole_row":
+        o = attention(*_heads(qkv, num_heads))
+    else:
+        from .flash_attention import flash_attention_fwd
+        o, _ = flash_attention_fwd(*_heads(qkv, num_heads))
+    return o.transpose(1, 2).reshape(b, n, num_heads * d)
+
+
+def _xla_forward(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    if qkv.device.type == "cpu":
+        return fused_qkv_attention_xla_plain(qkv, num_heads)
+    return _attend(qkv, num_heads)
+
+
+def fused_qkv_attention_xla(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """``model.attn_impl="xla"`` (and ``"xla2"``): the JAX package's
+    ``fused_qkv_attention_xla`` and ``fused_qkv_attention_xla2``, one
+    function, differentiated by JAX's autodiff. qkv: (B, N, 3 H Dh) in
+    timm's order -> (B, N, H Dh). On the card the forward is the kernel the
+    default route takes without grad (:func:`_attend`: K1, or K4 where
+    K1's fp32 whole-row instance ends); on the CPU the plain version. With
+    grad on, the backward is torch autograd of
+    :func:`fused_qkv_attention_xla_plain`, recomputed from the saved qkv
+    with exact fp32 products."""
+    return _with_plain_backward(_xla_forward, fused_qkv_attention_xla_plain, (qkv,),
+                                num_heads)
+
+
+def split_qkv_projection(x: torch.Tensor, weight: torch.Tensor,
+                         bias: torch.Tensor) -> torch.Tensor:
+    """The qkv projection of ``split_qkv_attention_xla`` (``:428``) with
+    its rounding points (T is ``x.dtype``): q, k and v (thirds of the
+    output features, as the ``Linear``'s rows lie) each its own product
+    with an fp32 accumulator rounded to T (each one einsum over every head
+    in JAX), then the bias, cast to T, added in T; not the fused
+    ``Linear``'s one rounding. So the backward, too, rounds x's gradient
+    from each of the three products to T before they are summed in T.
+    On the card the products are cuBLAS's. weight: the ``Linear``'s (3 H
+    Dh, D), bias (3 H Dh,) -> (B, N, 3 H Dh)."""
+    w, b = weight.to(x.dtype), bias.to(x.dtype)
+    return torch.cat([torch.matmul(x, wi.t()) + bi
+                      for wi, bi in zip(w.chunk(3), b.chunk(3))], dim=-1)
+
+
+def split_qkv_attention_xla(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                            num_heads: int) -> torch.Tensor:
+    """``model.attn_impl="xla_split"``: the JAX package's
+    ``split_qkv_attention_xla``, x (B, N, D) -> (B, N, H Dh) with the
+    ``Linear``'s qkv weight and bias (the checkpoint's layout, as in JAX).
+    :func:`split_qkv_projection` (torch ops, differentiated by autograd),
+    then :func:`fused_qkv_attention_xla` for the core."""
+    return fused_qkv_attention_xla(split_qkv_projection(x, weight, bias), num_heads)
 
 
 def dense_to_block_weights(qkv_weight: torch.Tensor, qkv_bias: torch.Tensor,
@@ -615,12 +812,7 @@ def fused_attention_block_xla(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch
     # (3H Dh, D) in [q|k|v][head][dim] rows: the Linear weight, viewed back.
     w = w_qkv.transpose(1, 2).reshape(3 * h * d, hidden)
     qkv = (torch.matmul(x, w.t()) + b_qkv.reshape(-1)).to(dt)
-    if attention_route(n, dt, False, head_dim=d) == "whole_row":
-        o = attention(*_heads(qkv, h))
-    else:
-        from .flash_attention import flash_attention_fwd
-        o, _ = flash_attention_fwd(*_heads(qkv, h))
-    o = o.transpose(1, 2).reshape(b, n, h * d)
+    o = _attend(qkv, h)
     return (torch.matmul(o, w_proj.reshape(h * d, hidden)) + b_proj).to(dt)
 
 
@@ -826,34 +1018,49 @@ def block_takes_k3(x: torch.Tensor, w_qkv: torch.Tensor, num_heads: int) -> bool
     return _block_bb(b, n, num_heads, w_qkv.shape[-1], hidden, x.element_size()) is not None
 
 
-class _FusedAttentionBlock(torch.autograd.Function):
-    """``forward`` (K3 or the XLA composition) forward; backward by torch
-    autograd of :func:`fused_attention_block_xla_plain`, as the JAX
-    package's custom VJP differentiates ``fused_attention_block_xla`` at
-    every geometry."""
+@contextlib.contextmanager
+def _exact_fp32_products():
+    """fp32 matrix products in fp32, not TF32, whatever
+    ``model.matmul_precision`` set (the plain backwards are held to the
+    CPU's numbers)."""
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(before)
+
+
+class _PlainBackward(torch.autograd.Function):
+    """``forward(*tensors, num_heads)`` forward (a kernel on the card);
+    backward by torch autograd of ``plain(*tensors, num_heads)``, recomputed
+    from the saved inputs with exact fp32 products. So the JAX package's
+    custom VJP of ``block`` (``fused_attention_block_xla`` differentiated at
+    every geometry) and its autodiff of the ``xla*`` attention; saves only
+    the inputs."""
 
     @staticmethod
-    def forward(ctx, x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int, forward):
-        ctx.save_for_backward(x, w_qkv, b_qkv, w_proj, b_proj)
-        ctx.num_heads = num_heads
-        return forward(x, w_qkv, b_qkv, w_proj, b_proj, num_heads)
+    def forward(ctx, forward, plain, num_heads: int, *tensors):
+        ctx.save_for_backward(*tensors)
+        ctx.plain, ctx.num_heads = plain, num_heads
+        return forward(*tensors, num_heads)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         inputs = [t.detach().requires_grad_(need) for t, need in
-                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        with torch.enable_grad():
-            out = fused_attention_block_xla_plain(*inputs, ctx.num_heads)
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[3:])]
+        with torch.enable_grad(), _exact_fp32_products():
+            out = ctx.plain(*inputs, ctx.num_heads)
             wanted = [t for t in inputs if t.requires_grad]
             grads = iter(torch.autograd.grad(out, wanted, grad))
-        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None)
+        return (None, None, None, *(next(grads) if t.requires_grad else None for t in inputs))
 
 
-def _with_xla_backward(forward, tensors: tuple, num_heads: int) -> torch.Tensor:
+def _with_plain_backward(forward, plain, tensors: tuple, num_heads: int) -> torch.Tensor:
     """``forward(*tensors, num_heads)``; with grad on, through
-    :class:`_FusedAttentionBlock`."""
+    :class:`_PlainBackward` with ``plain``."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        return _FusedAttentionBlock.apply(*tensors, num_heads, forward)
+        return _PlainBackward.apply(forward, plain, num_heads, *tensors)
     return forward(*tensors, num_heads)
 
 
@@ -869,7 +1076,8 @@ def fused_attention_block(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Ten
     at every geometry."""
     forward = (fused_attention_block_k3 if block_takes_k3(x, w_qkv, num_heads)
                else fused_attention_block_xla)
-    return _with_xla_backward(forward, (x, w_qkv, b_qkv, w_proj, b_proj), num_heads)
+    return _with_plain_backward(forward, fused_attention_block_xla_plain,
+                                (x, w_qkv, b_qkv, w_proj, b_proj), num_heads)
 
 
 def fused_attention_block_reference(x: torch.Tensor, w_qkv: torch.Tensor,
@@ -880,4 +1088,5 @@ def fused_attention_block_reference(x: torch.Tensor, w_qkv: torch.Tensor,
     backward."""
     forward = (fused_attention_block_plain if block_takes_k3(x, w_qkv, num_heads)
                else fused_attention_block_xla_plain)
-    return _with_xla_backward(forward, (x, w_qkv, b_qkv, w_proj, b_proj), num_heads)
+    return _with_plain_backward(forward, fused_attention_block_xla_plain,
+                                (x, w_qkv, b_qkv, w_proj, b_proj), num_heads)

@@ -65,7 +65,8 @@
 // tile of 32 query rows), K and V of that (batch, head) staged whole in
 // shared memory with rows of Dh + 2, the tile's fp32 score rows too, so
 // the softmax sees whole rows; the products are scalar fp32 FMAs on 4 x 3
-// and 4 x 4 register tiles. Its shared memory caps fp32 N at 341.
+// and 4 x 4 register tiles. Its shared memory caps fp32 N at 341 (309 at Dh
+// 72); past that the fp32 streaming instance (namespace stream) takes over.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -594,6 +595,195 @@ int launch(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// The fp32 streaming instance (namespace stream): what the scalar kernel
+// computes, at every N. One block per (batch, head, tile of 32 query rows),
+// 128 threads; the tile's q * scale sits in shared memory, K and V stream
+// through it in chunks of 64 keys (rows of Dh + 2 floats), and nothing in
+// shared memory grows with N (50,560 B a block at Dh 64, 55,680 B at 72).
+// Pass 1 streams K: each row's max m and l = sum exp(S - m), kept online (l
+// rescaled by exp(m_old - m_new) as m grows). Pass 2 streams K and V: S
+// again (the same FMAs in the same order, so the same bits), P = exp(S - m)
+// / l, exact since m and l are final, through a 32 x 64 chunk of shared
+// memory, and O += P V in registers. A thread owns 4 rows x 4 keys of each
+// S chunk (keys cg + 16 c) and the rows' column pairs of O as the scalar
+// kernel's threads do. The products are scalar fp32 FMAs (mma.sync takes
+// fp32 only as TF32). exp is expf, the division a division, as in the
+// scalar kernel; the sum is rescaled online, which moves l by fp32 ulps.
+// Keys past N are -inf in pass 1 and P = 0 in pass 2; K and V rows past N
+// are zero. Rows of q past N are zero and not stored.
+namespace stream {
+
+constexpr int kTQ = 32;             // query rows per block
+constexpr int kKB = 64;             // keys per chunk
+constexpr int kThreads = 128;       // 8 row groups x 16 column groups
+constexpr int kS = kD + 2;          // smem row stride (floats) of q, K and V
+constexpr int kPS = kKB + 1;        // smem row stride of the P chunk
+constexpr int kCols = kKB / 16;     // keys of a chunk a thread owns: cg + 16 c
+constexpr size_t kSmemBytes =
+    ((size_t)kTQ * kS + 2 * (size_t)kKB * kS + (size_t)kTQ * kPS) * sizeof(float);
+
+// Rows r0.. of src (row stride sn, kD contiguous floats), `rows` of them,
+// into dst (stride kS), times `mul`; rows past n are zero.
+__device__ __forceinline__ void stage(float* dst, const float* src, long long sn, int r0,
+                                      int rows, int n, float mul) {
+  for (int i = threadIdx.x; i < rows * (kD / 2); i += kThreads) {
+    const int r = i / (kD / 2), c = i % (kD / 2) * 2;
+    float2 x = make_float2(0.f, 0.f);
+    if (r0 + r < n) {
+      x = *reinterpret_cast<const float2*>(src + (r0 + r) * sn + c);
+      x.x *= mul;
+      x.y *= mul;
+    }
+    *reinterpret_cast<float2*>(dst + r * kS + c) = x;
+  }
+}
+
+// s[i][c] = q_(rg 4 + i) . k_(cg + 16 c) over Dh, in pairs of dims.
+__device__ __forceinline__ void scores(float (&s)[4][kCols], const float* qs,
+                                       const float* ks, int rg, int cg) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) s[i][c] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < kD; d += 2) {
+    float2 kv[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      kv[c] = *reinterpret_cast<const float2*>(ks + (cg + 16 * c) * kS + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 qv = *reinterpret_cast<const float2*>(qs + (rg * 4 + i) * kS + d);
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        s[i][c] = fmaf(qv.x, kv[c].x, s[i][c]);
+        s[i][c] = fmaf(qv.y, kv[c].y, s[i][c]);
+      }
+    }
+  }
+}
+
+// Over the 16 lanes of a half warp (one row group).
+__device__ __forceinline__ float group_max(float v) {
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float group_sum(float v) {
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+attention_fwd_streaming_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, float* __restrict__ o,
+                               long long in_sb, long long in_sh, long long in_sn,
+                               long long out_sb, long long out_sh, long long out_sn,
+                               int n, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // [kTQ][kS]
+  float* ks = qs + kTQ * kS;                   // [kKB][kS]
+  float* vs = ks + kKB * kS;                   // [kKB][kS]
+  float* ps = vs + kKB * kS;                   // [kTQ][kPS]
+
+  const int tid = threadIdx.x, rg = tid / 16, cg = tid % 16;
+  const int q0 = blockIdx.x * kTQ;
+  const long long in_base = blockIdx.z * in_sb + blockIdx.y * in_sh;
+  stage(qs, q + in_base, in_sn, q0, kTQ, n, scale);
+
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
+  float s[4][kCols];
+  // Pass 1: each row's max and sum of exp(S - max).
+  for (int j0 = 0; j0 < n; j0 += kKB) {
+    __syncthreads();  // q staged; the previous chunk's readers done
+    stage(ks, k + in_base, in_sn, j0, kKB, n, 1.f);
+    __syncthreads();
+    scores(s, qs, ks, rg, cg);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float bm = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        if (j0 + cg + 16 * c >= n) s[i][c] = -INFINITY;
+        bm = fmaxf(bm, s[i][c]);
+      }
+      const float mn = fmaxf(m[i], group_max(bm));
+      float part = 0.f;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) part += expf(s[i][c] - mn);
+      l[i] = l[i] * expf(m[i] - mn) + group_sum(part);
+      m[i] = mn;
+    }
+  }
+
+  // Pass 2: P = exp(S - m) / l and O += P V.
+  float acc[4][2 * kCP];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 2 * kCP; ++c) acc[i][c] = 0.f;
+  for (int j0 = 0; j0 < n; j0 += kKB) {
+    __syncthreads();
+    stage(ks, k + in_base, in_sn, j0, kKB, n, 1.f);
+    stage(vs, v + in_base, in_sn, j0, kKB, n, 1.f);
+    __syncthreads();
+    scores(s, qs, ks, rg, cg);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        ps[(rg * 4 + i) * kPS + cg + 16 * c] =
+            j0 + cg + 16 * c < n ? expf(s[i][c] - m[i]) / l[i] : 0.f;
+    __syncthreads();
+    const int keys = min(kKB, n - j0);
+    for (int j = 0; j < keys; ++j) {
+      float2 vv[kCP];
+#pragma unroll
+      for (int p = 0; p < kCP; ++p)
+        vv[p] = owns_pair(cg, p)
+                    ? *reinterpret_cast<const float2*>(vs + j * kS + 2 * (cg + 16 * p))
+                    : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float pr = ps[(rg * 4 + i) * kPS + j];
+#pragma unroll
+        for (int p = 0; p < kCP; ++p) {
+          acc[i][2 * p] = fmaf(pr, vv[p].x, acc[i][2 * p]);
+          acc[i][2 * p + 1] = fmaf(pr, vv[p].y, acc[i][2 * p + 1]);
+        }
+      }
+    }
+  }
+  float* og = o + blockIdx.z * out_sb + blockIdx.y * out_sh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + rg * 4 + i;
+    if (r < n) {
+#pragma unroll
+      for (int p = 0; p < kCP; ++p)
+        if (owns_pair(cg, p))
+          store_pair(og + r * out_sn + 2 * (cg + 16 * p), acc[i][2 * p], acc[i][2 * p + 1]);
+    }
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, long long in_sb,
+           long long in_sh, long long in_sn, long long out_sb, long long out_sh,
+           long long out_sn, int b, int h, int n, float scale, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      attention_fwd_streaming_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + kTQ - 1) / kTQ, h, b);
+  attention_fwd_streaming_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), in_sb, in_sh, in_sn, out_sb, out_sh, out_sn, n, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace stream
+
 }  // namespace
 
 extern "C" {
@@ -631,6 +821,20 @@ int k1_attention_fwd(int dtype, const void* q, const void* k, const void* v,
     return tc::launch(q, k, v, o, in_sb, in_sh, in_sn, out_sb, out_sh, out_sn,
                       b, h, n, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The fp32 streaming instance's shared memory per block (any N).
+size_t k1_attention_streaming_smem_bytes() { return stream::kSmemBytes; }
+
+// As k1_attention_fwd, on the fp32 streaming instance, which takes every N;
+// dtype must be 0 (float32).
+int k1_attention_fwd_streaming(int dtype, const void* q, const void* k, const void* v,
+                               void* o, long long in_sb, long long in_sh, long long in_sn,
+                               long long out_sb, long long out_sh, long long out_sn,
+                               int b, int h, int n, float scale, void* stream) {
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return stream::launch(q, k, v, o, in_sb, in_sh, in_sn, out_sb, out_sh, out_sn, b, h, n,
+                        scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -102,7 +102,8 @@
 // units): 45,056 B a row-kernel block, 46,592 B a column-kernel block. The
 // fp32 kernel's threads own three column pairs of dK and dV (two at 64) and
 // lanes 0-3 a second pair of dQ, each only inside Dh; its rows of Dh + 2 cap
-// fp32 N at 148 (164 at Dh 64).
+// fp32 N at 148 (164 at Dh 64). Past that the fp32 streaming instance
+// (namespace stream, after tc) takes over.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1044,6 +1045,359 @@ int launch(const void* q, const void* k, const void* v, const void* dout, void* 
 
 }  // namespace tc
 
+// The fp32 streaming instance (namespace stream): what the scalar kernel
+// computes, at every N, split as the bf16 design is split, with scalar fp32
+// FMAs (mma.sync takes fp32 only as TF32) and nothing in shared memory that
+// grows with N. One call is two kernels joined by the same fp32 (3, B, H,
+// N) workspace, here each row's m, l and delta.
+// - Row kernel: one block per (batch, head, 32 queries), 128 threads. The
+//   tile's q * scale and dO sit in shared memory; K and V stream through in
+//   chunks of 64 keys (rows of Dh + 2 floats). Pass A: S = qs K^T (keys past
+//   N at -inf) and dP = dO V^T; the row max m, l = sum exp(S - m) and t =
+//   sum exp(S - m) dP online (l and t rescaled by exp(m_old - m_new)), so
+//   delta = t / l = rowsum(dP * P). Pass B: S and dP again, P = exp(S - m) /
+//   l, dS = P (dP - delta) through a 32 x 64 chunk of shared memory, dQ +=
+//   dS K in registers, times the fp32 dq_scale at the store. 59,008 B a
+//   block at Dh 64, 65,152 B at 72.
+// - Column kernel: one block per (batch, head, 32 keys), 128 threads, its K
+//   and V rows staged once. q * scale, dO and the rows' statistics stream
+//   through in chunks of 32 queries: S^T and dP^T (the row kernel's FMAs in
+//   its order, so P has its bits), P and dS through two 32 x 32 chunks of
+//   shared memory, and dV += P^T dO, dK += dS^T qs in registers. 42,624 B a
+//   block at Dh 64, 46,720 B at 72.
+// A thread owns 4 rows (keys) x 4 (2) columns of each product chunk and
+// its rows' column pairs of the outputs, as the scalar kernel's threads do.
+// Each output element has one owning accumulator and the chunks run in a
+// fixed order: two calls are bit-equal.
+namespace stream {
+
+constexpr int kTQ = 32;             // query rows a row-kernel block, a column-kernel chunk
+constexpr int kKB = 64;             // keys a row-kernel chunk
+constexpr int kTK = 32;             // keys a column-kernel block
+constexpr int kThreads = 128;       // 8 row groups x 16 column groups
+constexpr int kS = kD + 2;          // smem row stride (floats) of q, dO, K and V
+constexpr int kPS = kKB + 1;        // row kernel: row stride of the dS chunk
+constexpr int kCS = kTQ + 1;        // column kernel: row stride of the P and dS chunks
+constexpr int kCols = kKB / 16;     // row kernel: keys of a chunk a thread owns
+constexpr int kQCols = kTQ / 16;    // column kernel: queries of a chunk a thread owns
+constexpr size_t kRowSmemBytes =
+    (2 * (size_t)kTQ * kS + 2 * (size_t)kKB * kS + (size_t)kTQ * kPS) * sizeof(float);
+constexpr size_t kColSmemBytes =
+    (2 * (size_t)kTK * kS + 2 * (size_t)kTQ * kS + 3 * kTQ + 2 * (size_t)kTK * kCS) *
+    sizeof(float);
+
+// Rows r0.. of src (row stride sn, kD contiguous floats), `rows` of them,
+// into dst (stride kS), times `mul`; rows past n are zero.
+__device__ __forceinline__ void stage(float* dst, const float* src, long long sn, int r0,
+                                      int rows, int n, float mul) {
+  for (int i = threadIdx.x; i < rows * (kD / 2); i += kThreads) {
+    const int r = i / (kD / 2), c = i % (kD / 2) * 2;
+    float2 x = make_float2(0.f, 0.f);
+    if (r0 + r < n) {
+      x = *reinterpret_cast<const float2*>(src + (r0 + r) * sn + c);
+      x.x *= mul;
+      x.y *= mul;
+    }
+    *reinterpret_cast<float2*>(dst + r * kS + c) = x;
+  }
+}
+
+// a . b over Dh, in pairs of dims: the one order both kernels use.
+__device__ __forceinline__ float dot_pairs(const float* a, const float* b, float acc,
+                                           int d) {
+  const float2 x = *reinterpret_cast<const float2*>(a + d);
+  const float2 y = *reinterpret_cast<const float2*>(b + d);
+  return fmaf(x.y, y.y, fmaf(x.x, y.x, acc));
+}
+
+// Over the 16 lanes of a half warp (one row group).
+__device__ __forceinline__ float group_max(float v) {
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float group_sum(float v) {
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// s = qs K^T and dp = dO V^T for rows rg 4 + i and keys cg + 16 c of a chunk.
+__device__ __forceinline__ void row_products(float (&s)[4][kCols], float (&dp)[4][kCols],
+                                             const float* qs, const float* dos,
+                                             const float* ks, const float* vs, int rg,
+                                             int cg) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) s[i][c] = dp[i][c] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < kD; d += 2)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int j = cg + 16 * c;
+        s[i][c] = dot_pairs(qs + (rg * 4 + i) * kS, ks + j * kS, s[i][c], d);
+        dp[i][c] = dot_pairs(dos + (rg * 4 + i) * kS, vs + j * kS, dp[i][c], d);
+      }
+}
+
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_dq_streaming_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v, const float* __restrict__ dout,
+                                  float* __restrict__ dq, float* __restrict__ ws,
+                                  long long in_sb, long long in_sh, long long in_sn,
+                                  long long do_sb, long long do_sh, long long do_sn,
+                                  long long out_sb, long long out_sh, long long out_sn,
+                                  int hn, int n, float scale, float dq_scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // [kTQ][kS]
+  float* dos = qs + kTQ * kS;                  // [kTQ][kS]
+  float* ks = dos + kTQ * kS;                  // [kKB][kS]
+  float* vs = ks + kKB * kS;                   // [kKB][kS]
+  float* dss = vs + kKB * kS;                  // [kTQ][kPS]
+
+  const int tid = threadIdx.x, rg = tid / 16, cg = tid % 16;
+  const int q0 = blockIdx.x * kTQ;
+  const long long in_base = blockIdx.z * in_sb + blockIdx.y * in_sh;
+  stage(qs, q + in_base, in_sn, q0, kTQ, n, scale);
+  stage(dos, dout + blockIdx.z * do_sb + blockIdx.y * do_sh, do_sn, q0, kTQ, n, 1.f);
+
+  float m[4], l[4], t[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = t[i] = 0.f;
+  float s[4][kCols], dp[4][kCols];
+  // Pass A: m, l and t, online.
+  for (int j0 = 0; j0 < n; j0 += kKB) {
+    __syncthreads();
+    stage(ks, k + in_base, in_sn, j0, kKB, n, 1.f);
+    stage(vs, v + in_base, in_sn, j0, kKB, n, 1.f);
+    __syncthreads();
+    row_products(s, dp, qs, dos, ks, vs, rg, cg);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float bm = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        if (j0 + cg + 16 * c >= n) s[i][c] = -INFINITY, dp[i][c] = 0.f;
+        bm = fmaxf(bm, s[i][c]);
+      }
+      const float mn = fmaxf(m[i], group_max(bm));
+      float pl = 0.f, pt = 0.f;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const float e = expf(s[i][c] - mn);
+        pl += e;
+        pt = fmaf(e, dp[i][c], pt);
+      }
+      const float r = expf(m[i] - mn);
+      l[i] = l[i] * r + group_sum(pl);
+      t[i] = t[i] * r + group_sum(pt);
+      m[i] = mn;
+    }
+  }
+  float delta[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) delta[i] = t[i] / l[i];
+
+  // Pass B: dS = P (dP - delta) and dQ += dS K.
+  float acc[4][2 * kCP];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 2 * kCP; ++c) acc[i][c] = 0.f;
+  for (int j0 = 0; j0 < n; j0 += kKB) {
+    __syncthreads();
+    stage(ks, k + in_base, in_sn, j0, kKB, n, 1.f);
+    stage(vs, v + in_base, in_sn, j0, kKB, n, 1.f);
+    __syncthreads();
+    row_products(s, dp, qs, dos, ks, vs, rg, cg);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        dss[(rg * 4 + i) * kPS + cg + 16 * c] =
+            j0 + cg + 16 * c < n ? expf(s[i][c] - m[i]) / l[i] * (dp[i][c] - delta[i]) : 0.f;
+    __syncthreads();
+    const int keys = min(kKB, n - j0);
+    for (int j = 0; j < keys; ++j) {
+      float2 kv[kCP];
+#pragma unroll
+      for (int p = 0; p < kCP; ++p)
+        kv[p] = owns_pair(cg, p)
+                    ? *reinterpret_cast<const float2*>(ks + j * kS + 2 * (cg + 16 * p))
+                    : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float ds = dss[(rg * 4 + i) * kPS + j];
+#pragma unroll
+        for (int p = 0; p < kCP; ++p) {
+          acc[i][2 * p] = fmaf(ds, kv[p].x, acc[i][2 * p]);
+          acc[i][2 * p + 1] = fmaf(ds, kv[p].y, acc[i][2 * p + 1]);
+        }
+      }
+    }
+  }
+  const long long out_base = blockIdx.z * out_sb + blockIdx.y * out_sh;
+  const long long plane = (long long)gridDim.z * hn;  // B H N
+  const long long row0 = ((long long)blockIdx.z * gridDim.y + blockIdx.y) * n;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + rg * 4 + i;
+    if (r < n) {
+#pragma unroll
+      for (int p = 0; p < kCP; ++p)
+        if (owns_pair(cg, p))
+          store_pair(dq + out_base + r * out_sn + 2 * (cg + 16 * p), acc[i][2 * p] * dq_scale,
+                     acc[i][2 * p + 1] * dq_scale);
+      if (cg == 0) {
+        ws[row0 + r] = m[i];
+        ws[plane + row0 + r] = l[i];
+        ws[2 * plane + row0 + r] = delta[i];
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_dkv_streaming_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                   const float* __restrict__ v,
+                                   const float* __restrict__ dout,
+                                   const float* __restrict__ ws, float* __restrict__ dk,
+                                   float* __restrict__ dv, long long in_sb, long long in_sh,
+                                   long long in_sn, long long do_sb, long long do_sh,
+                                   long long do_sn, long long out_sb, long long out_sh,
+                                   long long out_sn, int hn, int n, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ks = reinterpret_cast<float*>(smem);  // [kTK][kS]
+  float* vs = ks + kTK * kS;                   // [kTK][kS]
+  float* qs = vs + kTK * kS;                   // [kTQ][kS]
+  float* dos = qs + kTQ * kS;                  // [kTQ][kS]
+  float* st = dos + kTQ * kS;                  // [3][kTQ]: m, l, delta
+  float* ps = st + 3 * kTQ;                    // [kTK][kCS]
+  float* dss = ps + kTK * kCS;                 // [kTK][kCS]
+
+  const int tid = threadIdx.x, rg = tid / 16, cg = tid % 16;
+  const int j0 = blockIdx.x * kTK;
+  const long long in_base = blockIdx.z * in_sb + blockIdx.y * in_sh;
+  const float* dog = dout + blockIdx.z * do_sb + blockIdx.y * do_sh;
+  const long long plane = (long long)gridDim.z * hn;
+  const float* wsr = ws + ((long long)blockIdx.z * gridDim.y + blockIdx.y) * n;
+  stage(ks, k + in_base, in_sn, j0, kTK, n, 1.f);
+  stage(vs, v + in_base, in_sn, j0, kTK, n, 1.f);
+
+  float av[4][2 * kCP], ak[4][2 * kCP];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 2 * kCP; ++c) av[r][c] = ak[r][c] = 0.f;
+  for (int q0 = 0; q0 < n; q0 += kTQ) {
+    __syncthreads();  // K, V staged; the previous chunk's readers done
+    stage(qs, q + in_base, in_sn, q0, kTQ, n, scale);
+    stage(dos, dog, do_sn, q0, kTQ, n, 1.f);
+    if (tid < kTQ) {
+      const bool in = q0 + tid < n;
+      st[tid] = in ? wsr[q0 + tid] : 0.f;
+      st[kTQ + tid] = in ? wsr[plane + q0 + tid] : 1.f;
+      st[2 * kTQ + tid] = in ? wsr[2 * plane + q0 + tid] : 0.f;
+    }
+    __syncthreads();
+    // S^T and dP^T for keys rg 4 + r and queries cg + 16 c, each dot in the
+    // row kernel's order (q, dO first).
+    float s[4][kQCols], dp[4][kQCols];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < kQCols; ++c) s[r][c] = dp[r][c] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < kD; d += 2)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < kQCols; ++c) {
+          const int i = cg + 16 * c;
+          s[r][c] = dot_pairs(qs + i * kS, ks + (rg * 4 + r) * kS, s[r][c], d);
+          dp[r][c] = dot_pairs(dos + i * kS, vs + (rg * 4 + r) * kS, dp[r][c], d);
+        }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < kQCols; ++c) {
+        const int i = cg + 16 * c;
+        const float p = q0 + i < n ? expf(s[r][c] - st[i]) / st[kTQ + i] : 0.f;
+        ps[(rg * 4 + r) * kCS + i] = p;
+        dss[(rg * 4 + r) * kCS + i] = p * (dp[r][c] - st[2 * kTQ + i]);
+      }
+    __syncthreads();
+    const int rows = min(kTQ, n - q0);
+    for (int i = 0; i < rows; ++i) {
+      float2 gv[kCP], xv[kCP];
+#pragma unroll
+      for (int p = 0; p < kCP; ++p) {
+        const int c = 2 * (cg + 16 * p);
+        gv[p] = owns_pair(cg, p) ? *reinterpret_cast<const float2*>(dos + i * kS + c)
+                                 : make_float2(0.f, 0.f);
+        xv[p] = owns_pair(cg, p) ? *reinterpret_cast<const float2*>(qs + i * kS + c)
+                                 : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float p = ps[(rg * 4 + r) * kCS + i], ds = dss[(rg * 4 + r) * kCS + i];
+#pragma unroll
+        for (int c = 0; c < kCP; ++c) {
+          av[r][2 * c] = fmaf(p, gv[c].x, av[r][2 * c]);
+          av[r][2 * c + 1] = fmaf(p, gv[c].y, av[r][2 * c + 1]);
+          ak[r][2 * c] = fmaf(ds, xv[c].x, ak[r][2 * c]);
+          ak[r][2 * c + 1] = fmaf(ds, xv[c].y, ak[r][2 * c + 1]);
+        }
+      }
+    }
+  }
+  const long long out_base = blockIdx.z * out_sb + blockIdx.y * out_sh;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = j0 + rg * 4 + r;
+    if (j < n) {
+#pragma unroll
+      for (int p = 0; p < kCP; ++p)
+        if (owns_pair(cg, p)) {
+          const int c = 2 * (cg + 16 * p);
+          store_pair(dv + out_base + j * out_sn + c, av[r][2 * p], av[r][2 * p + 1]);
+          store_pair(dk + out_base + j * out_sn + c, ak[r][2 * p], ak[r][2 * p + 1]);
+        }
+    }
+  }
+}
+
+// The row kernel, then the column kernel, on one stream.
+int launch(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
+           void* dv, float* ws, long long in_sb, long long in_sh, long long in_sn,
+           long long do_sb, long long do_sh, long long do_sn, long long out_sb,
+           long long out_sh, long long out_sn, int b, int h, int n, float scale,
+           float dq_scale, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      attention_bwd_dq_streaming_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kRowSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* dof = static_cast<const float*>(dout);
+  const dim3 rows((n + kTQ - 1) / kTQ, h, b);
+  attention_bwd_dq_streaming_kernel<<<rows, kThreads, kRowSmemBytes, stream>>>(
+      qf, kf, vf, dof, static_cast<float*>(dq), ws, in_sb, in_sh, in_sn, do_sb, do_sh, do_sn,
+      out_sb, out_sh, out_sn, h * n, n, scale, dq_scale);
+  if (const cudaError_t e = cudaGetLastError()) return (int)e;
+  const dim3 cols((n + kTK - 1) / kTK, h, b);
+  attention_bwd_dkv_streaming_kernel<<<cols, kThreads, kColSmemBytes, stream>>>(
+      qf, kf, vf, dof, ws, static_cast<float*>(dk), static_cast<float*>(dv), in_sb, in_sh,
+      in_sn, do_sb, do_sh, do_sn, out_sb, out_sh, out_sn, h * n, n, scale);
+  return (int)cudaGetLastError();
+}
+
+static_assert(kColSmemBytes <= 48 * 1024, "the column kernel opts into no more shared memory");
+
+}  // namespace stream
+
 }  // namespace
 
 extern "C" {
@@ -1084,6 +1438,29 @@ int k2_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                       dq_scale, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The fp32 streaming instance's shared memory per block, the larger of its
+// two kernels' (any N).
+size_t k2_attention_bwd_streaming_smem_bytes() {
+  return stream::kRowSmemBytes > stream::kColSmemBytes ? stream::kRowSmemBytes
+                                                       : stream::kColSmemBytes;
+}
+
+// As k2_attention_bwd, on the fp32 streaming instance, which takes every N:
+// dtype must be 0 (float32), and ws is a contiguous float32 (3, b, h, n)
+// workspace the call overwrites.
+int k2_attention_bwd_streaming(int dtype, const void* q, const void* k, const void* v,
+                               const void* dout, void* dq, void* dk, void* dv, void* ws,
+                               long long in_sb, long long in_sh, long long in_sn,
+                               long long do_sb, long long do_sh, long long do_sn,
+                               long long out_sb, long long out_sh, long long out_sn,
+                               int b, int h, int n, float scale, float dq_scale,
+                               void* stream) {
+  if (dtype != 0 || ws == nullptr) return (int)cudaErrorInvalidValue;
+  return stream::launch(q, k, v, dout, dq, dk, dv, static_cast<float*>(ws), in_sb, in_sh,
+                        in_sn, do_sb, do_sh, do_sn, out_sb, out_sh, out_sn, b, h, n, scale,
+                        dq_scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -68,6 +68,7 @@ from torch import nn
 
 from ..models.dit import DiT, DiTBlock, Linear
 from ..models.moe import ExpertChoiceMoE
+from ..ops.attention import ATTN_ALIASES
 from .mesh import AXES, BUCKET_ELEMS, DataParallel, MeshSpec
 from . import sequence
 from .pipeline import Pipeline
@@ -645,7 +646,8 @@ class Layout:
         blocks = [b for b in model.blocks if isinstance(b, DiTBlock)]
         for block in blocks:
             attn = block.attn
-            if attn.attn_impl == "block" and (ranks.model > 1 or ranks.fsdp > 1 or ranks.seq > 1):
+            if (ATTN_ALIASES.get(attn.attn_impl, attn.attn_impl) == "block"
+                    and (ranks.model > 1 or ranks.fsdp > 1 or ranks.seq > 1)):
                 # K3 reads qkv's and proj's weights whole, under TP would need
                 # proj's bias after the reduce, and attends to every token.
                 log.warning("mesh.model=%d, mesh.fsdp=%d, mesh.seq=%d: model.attn_impl=block "

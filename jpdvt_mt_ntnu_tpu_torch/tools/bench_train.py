@@ -84,7 +84,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--grid", type=int, default=3)
     p.add_argument("--only", choices=["fused", "optax"], default=None)
     # None = the automatic route (ops/attention.attention_route).
-    p.add_argument("--attn", default=None, choices=[None, "pallas", "flash", "block"])
+    p.add_argument("--attn", default=None, choices=[i for i in attn_ops.ATTN_IMPLS if i])
     p.add_argument("--device", default=None, help="default: the card")
     return p
 

@@ -23,9 +23,11 @@ import time
 
 import torch
 
+from ..ops.attention import ATTN_IMPLS
+
 
 def _group(name: str) -> str:
-    if "attention_fwd_kernel" in name or "attention_fwd_mma_kernel" in name:
+    if any(f"attention_fwd_{k}" in name for k in ("kernel", "mma_kernel", "streaming_kernel")):
         return "k1_attention"  # attention_fwd_mma_kernel in bf16
     if "block_project" in name:  # K3's long-row L.1 (block_project_mma_kernel in bf16)
         return "k3_l1_projection"
@@ -79,7 +81,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--attn-impl", default=None, choices=["pallas", "flash", "block"],
+    ap.add_argument("--attn-impl", default=None, choices=[i for i in ATTN_IMPLS if i],
                     help="model.attn_impl (default: the automatic route, K1 here)")
     ap.add_argument("--quant", default=None, help="model.quant: int8 or int8:K")
     args = ap.parse_args()

@@ -53,9 +53,14 @@ A fresh start, ``train.resume=<checkpoint dir>`` and ``train.warm_start=``
 (an artifact manifest/npz, or a checkpoint directory of this package) are
 supported. The run runs on the card; ``device=cpu`` (an argument without a
 section) runs it on the CPU instead. ``model.attn_impl`` takes None
-(auto), ``pallas`` (the whole-row kernels K1/K2), ``flash`` (K4-K6) or
-``block`` (K3 forward, its backward by autograd of the plain version, as
-the JAX package leaves it to XLA). ``task.multi_grid=3,4,6`` cycles one
+(auto), ``pallas`` (the whole-row kernels K1/K2, at every N: in fp32 past
+their whole-row instances' shared memory, their streaming ones), ``flash``
+(K4-K6), ``block`` (K3 forward, its backward by autograd of the plain
+version, as the JAX package leaves it to XLA), ``xla`` and ``xla_split``
+(K1 forward, autograd of the JAX package's plain XLA attention backward),
+and the JAX aliases ``xla2``, ``interpret`` and ``block_interpret``
+(``ops.attention.ATTN_ALIASES``); ``ring`` is ``mesh.seq``'s, refused by
+name as a setting. ``task.multi_grid=3,4,6`` cycles one
 step per grid; ``data.device_cache`` keeps the whole set on the card (on
 each rank's card, one host only), ``device_cache_augment`` rolls and flips
 its batches;
@@ -95,7 +100,7 @@ from ..core.diffusion import create_diffusion
 from ..data import ImageFolderDataset, Loader, METDataset, SyntheticPuzzles, TEXMETDataset
 from ..data.synthetic import CUES
 from ..models import DIT_CONFIGS, create_model
-from ..ops.attention import ATTN_IMPLS, attention_route
+from ..ops.attention import attention_route, attn_impl_refusal
 from ..parallel import DataParallel, MeshSpec, maybe_initialize_distributed, rank_rows
 from ..parallel.sharding import MeshRanks, make_layout
 from ..tools.weights import load_artifact
@@ -171,8 +176,8 @@ def check_supported(cfg: Config, on_card: bool = True) -> None:
                        "generation is waves-only, as in the JAX package)")
     if m.quant:
         refused.append("model.quant (the JAX trainer does not read it and trains dense)")
-    if m.attn_impl not in ATTN_IMPLS:
-        refused.append(f"model.attn_impl={m.attn_impl!r} (the port runs {ATTN_IMPLS})")
+    if attn_impl_refusal(m.attn_impl):
+        refused.append(attn_impl_refusal(m.attn_impl))
     elif m.name in DIT_CONFIGS:
         arch = {**DIT_CONFIGS[m.name], **m.overrides()}
         dtype = torch.bfloat16 if m.compute_dtype == "bfloat16" else torch.float32

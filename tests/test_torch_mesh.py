@@ -64,6 +64,7 @@ from jpdvt_mt_ntnu_tpu_torch.parallel.sharding import (LeafSpec, MeshRanks, leaf
                                                        tp_slice)
 from jpdvt_mt_ntnu_tpu_torch.tools.weights import params_to_state_dict
 from jpdvt_mt_ntnu_tpu_torch.train import CheckpointManager, create_train_state, run_train
+from torch_tools_common import one_torch_thread  # noqa: F401  (autouse)
 
 # (data, fsdp, model) of each mesh the workers run
 MESHES = {"tp2": (1, 1, 2), "fsdp2": (1, 2, 1), "fsdp2_tp2": (1, 2, 2)}

@@ -50,6 +50,7 @@ from jpdvt_mt_ntnu_tpu_torch.models import create_model
 from jpdvt_mt_ntnu_tpu_torch.parallel import MeshSpec
 from jpdvt_mt_ntnu_tpu_torch.parallel.sharding import MeshRanks, leaf_specs
 from jpdvt_mt_ntnu_tpu_torch.train import CheckpointManager, create_train_state, run_train
+from torch_tools_common import one_torch_thread  # noqa: F401  (autouse)
 
 EP_MESHES = ("ep2", "moe_tp2", "moe_fsdp2", "ep2_data2", "ep2_tp2", "ep2_fsdp2")
 JAX_MESHES = {"ep2": dict(data=1, ep=2)}

@@ -74,6 +74,7 @@ from jpdvt_mt_ntnu_tpu_torch.tools.weights import params_to_state_dict
 from jpdvt_mt_ntnu_tpu_torch.train import CheckpointManager, run_train
 from jpdvt_mt_ntnu_tpu_torch.utils.config import Config, apply_overrides
 from jpdvt_mt_ntnu_tpu_torch.utils.device import rank_device
+from torch_tools_common import one_torch_thread  # noqa: F401  (autouse)
 
 WORKER = worker.__file__
 

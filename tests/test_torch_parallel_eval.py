@@ -41,6 +41,7 @@ from jpdvt_mt_ntnu_tpu_torch.eval.harness import EvalHarness
 from jpdvt_mt_ntnu_tpu_torch.eval.solver import PuzzleSolver
 from jpdvt_mt_ntnu_tpu_torch.models import create_model
 from jpdvt_mt_ntnu_tpu_torch.tools.weights import load_artifact
+from torch_tools_common import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "tiny_jpdvt_48px.npz")

@@ -60,6 +60,7 @@ from jpdvt_mt_ntnu_tpu_torch.models import create_model
 from jpdvt_mt_ntnu_tpu_torch.parallel.pipeline import Pipeline
 from jpdvt_mt_ntnu_tpu_torch.parallel.sharding import Group
 from jpdvt_mt_ntnu_tpu_torch.train import CheckpointManager, create_train_state, run_train
+from torch_tools_common import one_torch_thread  # noqa: F401  (autouse)
 
 PIPE_MESHES = ("pipe2", "pipe2_data2", "pipe2_tp2", "pipe2_fsdp2")
 COMPOSED = ("pipe2_tp2", "pipe2_fsdp2")  # the pipeline with TP, with FSDP

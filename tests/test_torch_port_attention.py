@@ -36,6 +36,7 @@ from jpdvt_mt_ntnu_tpu.ops.attention import (
     _attention_pallas_bwd, _attention_pallas_fwd_only, _attention_xla,
     fused_qkv_attention, fused_qkv_attention_xla)
 from jpdvt_mt_ntnu_tpu_torch.ops import attention as port
+from torch_tools_common import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 BWD_TOL = {"float32": 1e-5, "bfloat16": 2 ** -6}

@@ -36,6 +36,7 @@ from jpdvt_mt_ntnu_tpu_torch.ops import attention as port
 from jpdvt_mt_ntnu_tpu_torch.tools.weights import load_artifact
 from jpdvt_mt_ntnu_tpu_torch.train import run_train
 from jpdvt_mt_ntnu_tpu_torch.utils.config import Config, apply_overrides
+from torch_tools_common import one_torch_thread  # noqa: F401  (autouse)
 
 FIXTURE = "tests/fixtures/tiny_jpdvt_48px.npz"
 TINY = dict(depth=2, hidden_size=64, num_heads=4)

@@ -51,6 +51,7 @@ from jpdvt_mt_ntnu_tpu.ops import attention as jattn
 from jpdvt_mt_ntnu_tpu_torch.models import create_model, dit
 from jpdvt_mt_ntnu_tpu_torch.ops import attention as port
 from jpdvt_mt_ntnu_tpu_torch.tools.weights import params_to_state_dict
+from torch_tools_common import one_torch_thread  # noqa: F401  (autouse)
 
 # (hidden, heads) of the registry: DiT-S, JPDVT / DiT-B, DiT-L, DiT-XL.
 WIDTHS = [(384, 6), (768, 12), (1024, 16), (1152, 16)]

@@ -141,10 +141,14 @@ def test_k1_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
         port.attention(q, q, q)
     q = torch.zeros((1, 2, 342, 64), device="cuda", dtype=torch.float32)
     with pytest.raises(ValueError, match="shared memory"):
-        port.attention(q, q, q)  # fp32 keeps whole score rows: N <= 341
+        port.attention(q, q, q, instance="whole")  # fp32 whole score rows: N <= 341
+    port.attention(q, q, q)  # the streaming instance takes it
     q = torch.zeros((1, 2, 310, 72), device="cuda", dtype=torch.float32)
     with pytest.raises(ValueError, match="shared memory"):
-        port.attention(q, q, q)  # at Dh 72: N <= 309
+        port.attention(q, q, q, instance="whole")  # at Dh 72: N <= 309
+    q = torch.zeros((1, 2, 9, 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="one .* instance"):
+        port.attention(q, q, q, instance="streaming")
     for d in port.HEAD_DIMS:
         for n, elem in ((9, 2), (4096, 2), (309, 4), (310, 4), (341, 4), (342, 4)):
             assert port.k1_smem_bytes(n, elem, d) == \
@@ -273,7 +277,8 @@ def test_dit_gradients_through_k1_k2_match_plain_autograd(cuda):
 
 
 def test_k2_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
-    def call(n=9, dtype=torch.bfloat16, do_dtype=None, out_stride_mismatch=False):
+    def call(n=9, dtype=torch.bfloat16, do_dtype=None, out_stride_mismatch=False,
+             instance=None):
         qkv = torch.zeros((1, n, 3 * 2 * 64), device="cuda", dtype=dtype)
         heads = qkv.reshape(1, n, 3, 2, 64).permute(2, 0, 3, 1, 4).unbind(0)
         do = torch.zeros((1, 2, n, 64), device="cuda", dtype=do_dtype or dtype)
@@ -281,7 +286,7 @@ def test_k2_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
                for i in range(3)]
         if out_stride_mismatch:
             out[2] = torch.empty((1, 2, n, 64), device="cuda", dtype=dtype)
-        port.attention_bwd(*heads, do, out=out)
+        port.attention_bwd(*heads, do, out=out, instance=instance)
 
     q96 = torch.zeros((1, 2, 9, 96), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match=r"Dh in \(64, 72\)"):
@@ -291,13 +296,16 @@ def test_k2_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     with pytest.raises(ValueError, match="share strides"):
         call(out_stride_mismatch=True)
     with pytest.raises(ValueError, match="shared memory"):
-        call(n=165, dtype=torch.float32)  # fp32 keeps dK, dV in shared memory: N <= 164
+        # the fp32 whole-row instance keeps dK, dV in shared memory: N <= 164
+        call(n=165, dtype=torch.float32, instance="whole")
+    call(n=165, dtype=torch.float32)  # the streaming instance takes it
     call(n=164, dtype=torch.float32)
     call(n=206)  # bf16 streams through fixed rings: no limit of N
     call(n=400)
     q = torch.zeros((1, 2, 149, 72), device="cuda", dtype=torch.float32)
     with pytest.raises(ValueError, match="shared memory"):
-        port.attention_bwd(q, q, q, q, out=(q.clone(), q.clone(), q.clone()))  # Dh 72: N <= 148
+        port.attention_bwd(q, q, q, q, out=(q.clone(), q.clone(), q.clone()),
+                           instance="whole")  # Dh 72: N <= 148
     for d in port.HEAD_DIMS:
         for n, elem in ((9, 2), (400, 2), (148, 4), (149, 4), (164, 4), (165, 4)):
             assert port.k2_smem_bytes(n, elem, d) == \
@@ -795,3 +803,155 @@ def test_dit_block_route_launches_k3_and_matches_the_default_route(cuda):
     assert port.attention.launches == k1 + cfg.depth
     scale = want.abs().max().item()
     assert (got - want).abs().max().item() <= 3e-2 * scale
+
+
+# --------------------------------------------- K1 and K2's fp32 streaming instances
+
+@pytest.mark.parametrize("b,n,d", [(2, 342, 64), (2, 400, 64), (2, 576, 64), (1, 1296, 64),
+                                   (3, 77, 64), (2, 9, 64), (2, 310, 72), (2, 576, 72),
+                                   (3, 77, 72)])
+def test_k1_streaming_instance_matches_plain(cuda, b, n, d):
+    """fp32 past the whole-row instance's shared memory (342 at Dh 64, 310
+    at 72) up to N = 1,296, and forced at N = 9 and 77 (ragged last chunk
+    and tile): 1e-4 of the plain version, two calls bit-equal, each launch
+    counted as the streaming instance's."""
+    q, k, v = _k1_views(b, n, torch.float32, torch.Generator("cuda").manual_seed(n + 20), d=d)
+    before = port.attention.streaming.launches, port.attention.launches
+    out = port.attention(q, k, v, instance="streaming")
+    torch.cuda.synchronize()
+    assert (port.attention.streaming.launches, port.attention.launches) == (
+        before[0] + 1, before[1])
+    assert (out.float() - port.attention_reference(q, k, v)).abs().max().item() <= 1e-4
+    assert torch.equal(out, port.attention(q, k, v, instance="streaming"))
+    if port.fp32_instance(n, d) == "streaming":
+        assert torch.equal(out, port.attention(q, k, v))
+
+
+@pytest.mark.parametrize("n,d", [(144, 64), (341, 64), (144, 72), (309, 72)])
+def test_k1_streaming_instance_matches_the_whole_row_one(cuda, n, d):
+    """Where both fit: the same function, 1e-4 apart (the streaming
+    instance rescales its row sums online)."""
+    q, k, v = _k1_views(2, n, torch.float32, torch.Generator("cuda").manual_seed(n + 21), d=d)
+    whole = port.attention(q, k, v, instance="whole")
+    stream = port.attention(q, k, v, instance="streaming")
+    assert (whole - stream).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("b,n,d", [(2, 165, 64), (2, 400, 64), (2, 576, 64), (3, 77, 64),
+                                   (2, 9, 64), (2, 149, 72), (2, 576, 72), (3, 77, 72)])
+def test_k2_streaming_instance_matches_plain(cuda, b, n, d):
+    """fp32 past the whole-row instance's shared memory (165 at Dh 64, 149
+    at 72), and forced at N = 9 and 77: 1e-5 of each gradient's largest
+    magnitude, two calls bit-equal, views off nothing (fp32 pairs), each
+    call counted as the streaming instance's."""
+    args = _k2_inputs(b, n, torch.float32, torch.Generator("cuda").manual_seed(n + 22), d=d)
+    before = port.attention_bwd.streaming.launches, port.attention_bwd.launches
+    got = port.attention_bwd(*args, out=_fused_grads(b, n, torch.float32, d),
+                             instance="streaming")
+    torch.cuda.synchronize()
+    assert (port.attention_bwd.streaming.launches, port.attention_bwd.launches) == (
+        before[0] + 1, before[1])
+    for g, want in zip(got, port.attention_bwd_reference(*args)):
+        scale = want.abs().max().item()
+        assert (g - want).abs().max().item() <= K2_TOL[torch.float32] * scale
+    again = port.attention_bwd(*args, out=_fused_grads(b, n, torch.float32, d),
+                               instance="streaming")
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("n,d", [(144, 64), (164, 64), (148, 72)])
+def test_k2_streaming_instance_matches_the_whole_row_one(cuda, n, d):
+    args = _k2_inputs(2, n, torch.float32, torch.Generator("cuda").manual_seed(n + 23), d=d)
+    whole = port.attention_bwd(*args, out=_fused_grads(2, n, torch.float32, d), instance="whole")
+    stream = port.attention_bwd(*args, out=_fused_grads(2, n, torch.float32, d),
+                                instance="streaming")
+    for w, s_ in zip(whole, stream):
+        assert (w - s_).abs().max().item() <= K2_TOL[torch.float32] * w.abs().max().item()
+
+
+def test_dit_gradients_on_pallas_in_fp32_at_n400_take_the_streaming_instances(cuda):
+    """A 2-block DiT at 320 px (N = 400) in fp32 on ``pallas``: K1 and K2's
+    streaming instances, 2 launches of each, its gradients within 1e-4 of
+    plain autograd's (summation order through two blocks)."""
+    model, cfg = create_model("JPDVT", 320, seed=0, depth=2, hidden_size=128, num_heads=2,
+                              attn_impl="pallas")
+    gen = torch.Generator("cuda").manual_seed(5)
+    x = torch.rand((2, 320, 320, 3), generator=gen, device="cuda") * 2 - 1
+    t = torch.tensor([3, 900], device="cuda")
+    code = torch.randn((2, 400, 8), generator=gen, device="cuda")
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        img, c = model(x, t, code)
+        (img.square().mean() + c.square().mean()).backward()
+        return {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    before = port.attention.streaming.launches, port.attention_bwd.streaming.launches
+    mine = grads()
+    assert (port.attention.streaming.launches - before[0],
+            port.attention_bwd.streaming.launches - before[1]) == (cfg.depth, cfg.depth)
+    kernel_route = dit.fused_qkv_attention
+    dit.fused_qkv_attention = port.fused_qkv_attention_reference
+    try:
+        plain = grads()
+    finally:
+        dit.fused_qkv_attention = kernel_route
+    for k, want in plain.items():
+        assert (mine[k] - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-12, k
+
+
+@pytest.mark.parametrize("impl", ["xla", "xla_split"])
+def test_xla_settings_forward_on_k1_and_backward_on_plain_autograd(cuda, impl):
+    """``xla`` and ``xla_split`` on the card in bf16: 2 K1 a forward of a
+    2-block DiT and no K2; its gradients those of the same model on the CPU
+    within 2^-4 of each gradient's largest magnitude (K1 and the plain
+    forward round P at other points, and bf16 activations carry that
+    through two blocks and the backward)."""
+    model, cfg = create_model("JPDVT", 48, seed=0, depth=2, hidden_size=128, num_heads=2,
+                              attn_impl=impl, dtype=torch.bfloat16, device="cpu")
+    gen = torch.Generator().manual_seed(6)
+    x = torch.rand((2, 48, 48, 3), generator=gen) * 2 - 1
+    t = torch.tensor([3, 900])
+    code = torch.randn((2, 9, 8), generator=gen)
+
+    def grads(m, device):
+        m.zero_grad(set_to_none=True)
+        img, c = m(x.to(device), t.to(device), code.to(device))
+        (img.float().square().mean() + c.float().square().mean()).backward()
+        # copies: moving the model moves its gradients' storage in place
+        return {k: p.grad.float().cpu().clone() for k, p in m.named_parameters()}
+
+    cpu = grads(model, "cpu")
+    model.cuda()
+    before = port.attention.launches, port.attention_bwd.launches
+    card = grads(model, "cuda")
+    assert (port.attention.launches - before[0], port.attention_bwd.launches - before[1]) == (
+        cfg.depth, 0)
+    for k, want in cpu.items():
+        assert (card[k] - want).abs().max().item() <= 2 ** -4 * want.abs().max().item() + 1e-12, k
+
+
+@pytest.mark.parametrize("d", [64, 72])
+def test_xla_backward_runs_no_tf32(cuda, d):
+    """The ``xla`` backward recomputes its plain version from qkv, so on the
+    card under ``matmul_precision=high`` (TF32 for fp32 products) its bf16
+    gradient is the CPU's but for summation order: at most 1% of elements
+    differ, by at most 2^-6 of scale. TF32 would round dS to 10 bits before
+    dS K and dS^T q and move about a tenth of them."""
+    gen = torch.Generator().manual_seed(d)
+    qkv = torch.randn((2, 144, 3 * 2 * d), generator=gen).bfloat16()
+    g = torch.randn((2, 144, 2 * d), generator=gen).bfloat16()
+    grads = []
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        for device in ("cpu", "cuda"):
+            leaf = qkv.to(device).detach().requires_grad_(True)
+            port.fused_qkv_attention_xla(leaf, 2).backward(g.to(device))
+            grads.append(leaf.grad.float().cpu())
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    assert torch.get_float32_matmul_precision() == precision
+    cpu, card = grads
+    assert (cpu != card).float().mean().item() <= 0.01
+    assert (cpu - card).abs().max().item() <= 2 ** -6 * cpu.abs().max().item()

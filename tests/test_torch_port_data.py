@@ -50,6 +50,7 @@ from jpdvt_mt_ntnu_tpu_torch.eval import run_eval
 from jpdvt_mt_ntnu_tpu_torch.core import diffusion as port_diffusion
 from jpdvt_mt_ntnu_tpu_torch.ops import native
 from jpdvt_mt_ntnu_tpu_torch.train import run_train, steps
+from torch_tools_common import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "tiny_jpdvt_48px.npz")

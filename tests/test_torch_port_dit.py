@@ -47,6 +47,7 @@ from jpdvt_mt_ntnu_tpu_torch.models.dit import DIT_CONFIGS, patchify
 from jpdvt_mt_ntnu_tpu_torch.ops import attention as port_attention
 from jpdvt_mt_ntnu_tpu_torch.tools.weights import _flatten, params_to_state_dict
 from jpdvt_mt_ntnu_tpu_torch.train import run_train, steps
+from torch_tools_common import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = RTOL = 2e-5
 SIZE = dict(depth=2, hidden_size=128, num_heads=2)

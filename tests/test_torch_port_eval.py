@@ -57,6 +57,7 @@ from jpdvt_mt_ntnu_tpu_torch.models import create_model
 from jpdvt_mt_ntnu_tpu_torch.ops import assignment, native
 from jpdvt_mt_ntnu_tpu_torch.tools.weights import load_artifact
 from torch_native_build import jax_native as jax_native_built
+from torch_tools_common import one_torch_thread  # noqa: F401  (autouse)
 
 jax_native_built(required=False)  # before any test reaches make (torch_native_build)
 
@@ -183,21 +184,26 @@ def large_pngs(tmp_path_factory):
 @pytest.mark.parametrize("data,extra", [
     ("waves", []), ("waves", ["eval.votes=2"]), ("folder", []),
     ("folder", ["eval.assignment=hungarian"]), ("folder", ["eval.votes=2"]),
-    ("folder_large", []), ("coords", [])],
+    ("folder_large", []), ("coords", []), ("waves", ["model.attn_impl=xla"]),
+    ("waves", ["model.attn_impl=xla_split"])],
     ids=["waves-greedy", "waves-votes2", "folder-greedy", "folder-hungarian",
-         "folder-votes2", "folder-large-greedy", "coords-greedy"])
+         "folder-votes2", "folder-large-greedy", "coords-greedy", "waves-xla",
+         "waves-xla_split"])
 def test_run_eval_journal_equals_jax_row_by_row(tmp_path, tiny_draws, coords_pngs, large_pngs,
                                                 data, extra, monkeypatch):
+    """On ``block`` (JAX: ``block_interpret``) unless the case names its
+    ``model.attn_impl``, which both packages then run."""
     monkeypatch.chdir(tmp_path)
     draws, noise = tiny_draws
     folder = {"folder": coords_pngs, "folder_large": large_pngs}.get(data)
+    impl = next((a.split("=", 1)[1] for a in extra if a.startswith("model.attn_impl=")), None)
     args = TINY_ARGS + extra + ([f"data.data_path={folder}"] if folder else [])
     if data == "coords":  # the synthetic set of the regime, made by each package
         args = [a for a in args if not a.startswith("data.synthetic_cues")]
-    assert jax_run_eval.main(args + ["model.attn_impl=block_interpret",
+    assert jax_run_eval.main(args + [f"model.attn_impl={impl or 'block_interpret'}",
                                      f"eval.logs_dir={tmp_path}/jax"]) == 0
     assert run_eval.main(args + [
-        "device=cpu", "model.attn_impl=block", f"eval.jax_draws={draws}",
+        "device=cpu", f"model.attn_impl={impl or 'block'}", f"eval.jax_draws={draws}",
         f"eval.jax_noise={noise}", f"eval.logs_dir={tmp_path}/port"]) == 0
     theirs, mine = _journal(tmp_path / "jax"), _journal(tmp_path / "port")
     names = {"folder": [f"coords_{i:02d}.png" for i in range(16)],
@@ -352,7 +358,11 @@ def test_synthetic_set_names_and_whole_set_synthesis():
 @pytest.mark.parametrize("args,match", [
     (["mesh.ep=2"], None),
     (["mesh.pipe=2", "mesh.pipe_microbatches=4"], None),
-    (["model.attn_impl=ring"], "attn_impl='ring'"),
+    (["model.attn_impl=ring"], "attn_impl='ring'.*mesh.seq"),
+    (["model.attn_impl=xla"], None), (["model.attn_impl=xla_split"], None),
+    (["model.attn_impl=block_interpret"], None),
+    (["model.image_size=320", "model.attn_impl=pallas", "model.compute_dtype=float32"],
+     None),
     (["mesh.seq=2"], None),
     (["model.quant=int4"], "model.quant"),
     (["model.image_size=320", "model.attn_impl=block", "model.compute_dtype=float32"],
@@ -361,7 +371,10 @@ def test_run_eval_refuses_what_is_not_ported(args, match):
     """``mesh.seq`` is ported (ring attention, tests/test_torch_sequence.py);
     ``mesh.ep`` and ``mesh.pipe`` are not read, as the JAX eval reads
     neither; ``block`` in fp32 at 320 px (N = 400) runs the XLA composition,
-    as the JAX package does there: all four pass (``match`` None)."""
+    as the JAX package does there; ``xla``, ``xla_split`` and
+    ``block_interpret`` run, as does ``pallas`` in fp32 at 320 px (K1's
+    streaming instance): these pass (``match`` None). ``ring`` is refused,
+    naming ``mesh.seq``, which sets it."""
     cfg = run_eval.apply_overrides(run_eval.Config(), ["data.synthetic_cues=waves", *args])
     if match is None:
         run_eval.check_supported(cfg)

@@ -46,6 +46,7 @@ from jpdvt_mt_ntnu_tpu.ops.flash_attention import (_flash_bwd, _flash_fwd, _pick
                                                    fused_qkv_flash_attention)
 from jpdvt_mt_ntnu_tpu_torch.ops import attention as port_attention
 from jpdvt_mt_ntnu_tpu_torch.ops import flash_attention as port
+from torch_tools_common import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 BWD_TOL = {"float32": 1e-5, "bfloat16": 2 ** -6}

@@ -36,6 +36,7 @@ from jpdvt_mt_ntnu_tpu_torch.models.dit import Mlp
 from jpdvt_mt_ntnu_tpu_torch.models.moe import ExpertChoiceMoE
 from jpdvt_mt_ntnu_tpu_torch.tools.weights import params_to_state_dict
 from jpdvt_mt_ntnu_tpu_torch.train import run_train
+from torch_tools_common import one_torch_thread  # noqa: F401  (autouse)
 
 SMALL = dict(depth=2, hidden_size=64, num_heads=4, moe_experts=4)
 

@@ -41,6 +41,7 @@ from jpdvt_mt_ntnu_tpu_torch.ops import quant
 from jpdvt_mt_ntnu_tpu_torch.tools.weights import load_artifact
 
 from test_torch_port_eval import FIXTURE, _journal, jax_eval_draws, jax_noise
+from torch_tools_common import one_torch_thread  # noqa: F401  (autouse)
 
 TINY = dict(depth=2, hidden_size=64, num_heads=4)
 # Matrices (d_in, d_out) of the JAX kernel layout; the port's weight is the transpose.

@@ -54,6 +54,7 @@ from jpdvt_mt_ntnu_tpu_torch.data import SyntheticPuzzles
 from jpdvt_mt_ntnu_tpu_torch.ops import native
 from jpdvt_mt_ntnu_tpu_torch.serve import app, gate, plugins, png, quant_gate, service
 from jpdvt_mt_ntnu_tpu_torch.serve.service import PuzzleService, ServiceConfig
+from torch_tools_common import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden")

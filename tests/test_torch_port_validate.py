@@ -30,6 +30,7 @@ from jpdvt_mt_ntnu_tpu_torch.data import SyntheticPuzzles
 from jpdvt_mt_ntnu_tpu_torch.models import create_model
 from jpdvt_mt_ntnu_tpu_torch.tools import weights
 from jpdvt_mt_ntnu_tpu_torch.train import validate
+from torch_tools_common import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NOISE_400 = os.path.join(REPO, "tests", "golden", "jax_noise_seed0_1x400x8.npy")

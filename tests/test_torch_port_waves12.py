@@ -25,6 +25,7 @@ from jpdvt_mt_ntnu_tpu_torch.eval.solver import PuzzleSolver
 from jpdvt_mt_ntnu_tpu_torch.models import DiT, DiTConfig, create_model
 from jpdvt_mt_ntnu_tpu_torch.ops import jigsaw
 from jpdvt_mt_ntnu_tpu_torch.tools import weights
+from torch_tools_common import one_torch_thread  # noqa: F401  (autouse)
 
 ARTIFACT = "artifacts/waves12_r5_step25000.manifest.json"
 NOISE_TEMPLATE = "tests/golden/jax_noise_seed0_1x144x8.npy"

@@ -120,3 +120,26 @@ def test_loader_rejects_bad_manifests(tmp_path):
                                         "params/mystery/scale": np.ones(3)})
     with pytest.raises(ValueError, match="no counterpart"), pytest.warns(UserWarning):
         weights.load_artifact(str(tmp_path / "extra.npz"), device="cpu")
+
+
+def test_read_artifact_reads_a_manifest_again_from_its_decoded_copy(tmp_path):
+    """The last manifest artifact read stays decoded for the process: a
+    second read returns equal arrays that are copies (writing one leaves
+    the next read unchanged); a part rewritten on disk is read, and
+    checked, again."""
+    shutil.copy("tests/fixtures/tiny_jpdvt_48px.npz", tmp_path / "tiny.npz")
+    blob = (tmp_path / "tiny.npz").read_bytes()
+    sha = hashlib.sha256(blob).hexdigest()
+    manifest = {**json.load(open(ARTIFACT)), "step": 3, "npz_sha256": sha,
+                "parts": [{"file": "tiny.npz", "bytes": len(blob), "sha256": sha}]}
+    path = tmp_path / "tiny.manifest.json"
+    path.write_text(json.dumps(manifest))
+    first, step = weights.read_artifact(str(path))
+    key = next(iter(first))
+    first[key][...] = 0
+    again, step_again = weights.read_artifact(str(path))
+    assert step == step_again == 3 and sorted(again) == sorted(first)
+    assert again[key] is not first[key] and np.any(again[key] != 0)
+    (tmp_path / "tiny.npz").write_bytes(blob + b"\0")
+    with pytest.raises(ValueError, match="integrity"):
+        weights.read_artifact(str(path))

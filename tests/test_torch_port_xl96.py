@@ -33,6 +33,7 @@ from jpdvt_mt_ntnu_tpu_torch.models import create_model
 from jpdvt_mt_ntnu_tpu_torch.models import dit as port_dit
 from jpdvt_mt_ntnu_tpu_torch.ops import attention as port_attention
 from jpdvt_mt_ntnu_tpu_torch.tools.weights import params_to_state_dict
+from torch_tools_common import one_torch_thread  # noqa: F401  (autouse)
 
 XL = dict(depth=2, hidden_size=144, num_heads=2)  # DiT-XL's heads of 72, two of them
 SIZE, TOKENS = 96, 144  # DiT-XL/8 at 96 px: a 12 x 12 token grid

@@ -48,6 +48,7 @@ from torch_parallel_worker import launch, logs, wait_all
 from jpdvt_mt_ntnu_tpu_torch.eval import run_eval
 from jpdvt_mt_ntnu_tpu_torch.models import create_model
 from jpdvt_mt_ntnu_tpu_torch.train import CheckpointManager, create_train_state, run_train
+from torch_tools_common import one_torch_thread  # noqa: F401  (autouse)
 
 SEQ_MESHES = ("seq2", "seq2_moe", "seq2_data2", "seq2_fsdp2", "seq2_tp2", "seq2_ep2")
 COMPOSED = ("seq2_tp2", "seq2_ep2")  # the ring with TP's heads, with EP's experts (the MoE)

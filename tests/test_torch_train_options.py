@@ -50,6 +50,7 @@ from jpdvt_mt_ntnu_tpu_torch.tools.weights import params_to_state_dict
 from jpdvt_mt_ntnu_tpu_torch.train import (CheckpointManager, TrainTask, create_train_state,
                                            make_optimizer, make_train_step, run_train)
 from jpdvt_mt_ntnu_tpu_torch.utils.device import MATMUL_PRECISION, apply_matmul_precision
+from torch_tools_common import one_torch_thread  # noqa: F401  (autouse)
 
 SIZE = dict(depth=2, hidden_size=128, num_heads=2)
 TINY = ["device=cpu", "data.synthetic_cues=waves", "data.global_batch_size=8",
@@ -134,15 +135,16 @@ def test_block_route_gradients_match_jax_custom_vjp(add_mask):
 
 
 def test_block_autograd_function_differentiates_the_plain_version():
-    """The card's route: ``_FusedAttentionBlock`` (K3 or the composition
-    forward, autograd of the composition's plain version backward), its
-    forward stood in by K3's plain version."""
+    """The card's route: ``_PlainBackward`` (K3 or the composition forward,
+    autograd of the composition's plain version backward), its forward
+    stood in by K3's plain version."""
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(3, 9, 128, generator=gen)
     w = [torch.randn(s, generator=gen) * 0.1 for s in ((384, 128), (384,), (128, 128), (128,))]
     grads = []
-    for fn in (lambda *a: attention._FusedAttentionBlock.apply(
-                   *a, attention.fused_attention_block_plain),
+    for fn in (lambda *a: attention._PlainBackward.apply(
+                   attention.fused_attention_block_plain,
+                   attention.fused_attention_block_xla_plain, a[-1], *a[:-1]),
                attention.fused_attention_block_xla_plain):
         leaves = [t.clone().requires_grad_(True) for t in [x, *w]]
         blocks = attention.dense_to_block_weights(*leaves[1:], num_heads=2)

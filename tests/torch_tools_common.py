@@ -1,9 +1,11 @@
-"""Shared by ``tests/test_torch_tools_*.py``.
+"""Shared by ``tests/test_torch_tools_*.py`` and the port's other torch
+test modules.
 
 The tools' tests run a small DiT through hundreds of tiny ops (250-step
-samplers). On torch's default of one intra-op thread per core, six test
-workers on one box spin-wait on each other's threads and run many times
-slower than alone; one thread is as fast alone and does not contend.
+samplers); the port's other tests train and solve small DiTs. On torch's
+default of one intra-op thread per core, six test workers on one box
+spin-wait on each other's threads and run many times slower than alone;
+one thread is as fast alone and does not contend.
 """
 
 import pytest
